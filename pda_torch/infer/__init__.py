@@ -1,0 +1,12 @@
+from .predict import (  # noqa: F401
+    full_punet_pseudo,
+    punet_prediction,
+    punet_pseudo_prediction,
+    tiled_punet_probs,
+)
+from .tiling import (  # noqa: F401
+    extract_tiles,
+    pad_to_divisible,
+    stitch_tiles,
+    tile_standardize,
+)
