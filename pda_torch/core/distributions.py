@@ -62,3 +62,8 @@ def kl_divergence(q: DiagGaussian, p: DiagGaussian) -> torch.Tensor:
     var_ratio = torch.exp(2.0 * (q.log_sigma - p.log_sigma))
     t1 = torch.square((q.mu - p.mu) / torch.exp(p.log_sigma))
     return 0.5 * torch.sum(var_ratio + t1 - 1.0 - torch.log(var_ratio), dim=-1)
+
+
+def mc_kl_divergence(q: DiagGaussian, p: DiagGaussian, z: torch.Tensor) -> torch.Tensor:
+    """Monte-Carlo KL estimate log q(z) - log p(z) at the draw ``z``."""
+    return q.log_prob(z) - p.log_prob(z)

@@ -1,11 +1,11 @@
 """Build and load the hand-written CUDA kernels (``csrc/*.cu``).
 
-All sources compile with ``nvcc`` into one shared library with a plain C
-interface, loaded with ``ctypes`` (no PyTorch headers, so a build takes
-seconds). The library lands in ``build/pda_torch/`` at the repository root,
-named by a hash of the sources and flags, and is built at first use: nothing
-here runs at import time, so the CPU-only test runs import this module
-freely.
+Each source compiles with its own ``nvcc``, all started together, and the
+objects link into one shared library with a plain C interface, loaded with
+``ctypes`` (no PyTorch headers, so a build takes seconds). The library lands
+in ``build/pda_torch/`` at the repository root, named by a hash of the
+sources, headers and flags, and is built at first use: nothing here runs at
+import time, so the CPU-only test runs import this module freely.
 
 Every C entry takes device pointers and the CUDA stream as ``void*``, and
 returns ``cudaGetLastError()`` after its launches; :func:`check` raises on a
@@ -29,7 +29,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "pda_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 )
 
 _lock = threading.Lock()
@@ -51,7 +51,7 @@ def _sources() -> List[Path]:
 def _library_path() -> Path:
     """Where the library for the current sources lives (built or not)."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+    for src in sorted(CSRC.glob("*.cu*")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"libpda_torch_{h.hexdigest()[:16]}.so"
@@ -67,16 +67,35 @@ def build() -> Path:
         return out
     out.parent.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".so.tmp{os.getpid()}")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-            f"{proc.stdout}\n{proc.stderr}"
-        )
-    os.replace(tmp, out)
+    nvcc = _nvcc()
+    objs, compiles = [], []
+    try:
+        for src in _sources():
+            obj = out.parent / f"{src.stem}.{os.getpid()}.o"
+            cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+            objs.append(obj)
+            compiles.append((cmd, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+        for cmd, proc in compiles:
+            stdout, stderr = proc.communicate()
+            _check_nvcc(cmd, proc.returncode, stdout, stderr)
+        link = [nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)]
+        proc = subprocess.run(link, capture_output=True, text=True)
+        _check_nvcc(link, proc.returncode, proc.stdout, proc.stderr)
+        os.replace(tmp, out)
+    finally:
+        for _, proc in compiles:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        for f in (*objs, tmp):
+            f.unlink(missing_ok=True)
     return out
+
+
+def _check_nvcc(cmd, returncode: int, stdout: str, stderr: str) -> None:
+    if returncode != 0:
+        raise RuntimeError(f"nvcc failed ({returncode}):\n{' '.join(cmd)}\n{stdout}\n{stderr}")
 
 
 def library() -> ctypes.CDLL:
@@ -88,12 +107,12 @@ def library() -> ctypes.CDLL:
         return _lib
 
 
-def entry(name: str, argtypes) -> ctypes._CFuncPtr:
+def entry(name: str, argtypes, restype=ctypes.c_int) -> ctypes._CFuncPtr:
     """A C entry of the library with its argument types declared (every
     pointer and the stream as ``c_void_p``, so none is cut to 32 bits)."""
     fn = getattr(library(), name)
     fn.argtypes = list(argtypes)
-    fn.restype = ctypes.c_int
+    fn.restype = restype
     return fn
 
 
@@ -115,7 +134,7 @@ def check_tensor(name: str, t: torch.Tensor, shape, device: torch.device) -> Non
 
 
 def check_forward_only(what: str, *tensors) -> None:
-    """The kernels have no backward yet: refuse to silently cut a graph."""
+    """A kernel without a backward refuses to silently cut a graph."""
     if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors):
         raise RuntimeError(
             f"{what} is a forward-only kernel: call it under torch.no_grad() "

@@ -6,7 +6,8 @@ modules at their reference indices), so ``state_dict()`` carries the names
 that ``pda.models.convert`` documents. The compute never calls those
 Sequentials: a ConvBlock runs as one call of the fused ConvBlock kernel
 (:mod:`pda_torch.kernels.conv_block`), the plain PyTorch version on CPU
-tensors.
+tensors, and its gradient as one call of the fused backward. The pool and
+the upsample are PyTorch ops that autograd differentiates.
 
 Initialization follows ``pda`` (reference my_models/utils.py:17-28), each
 draw from an explicit ``torch.Generator``:

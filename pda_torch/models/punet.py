@@ -69,20 +69,20 @@ class Fcomb(nn.Module):
         self.layers = nn.Sequential(*mods)
         self.last_layer = ConvParams(c0, num_classes, 1, init="orthogonal")
 
-    def _convs(self) -> list:
+    def convs(self) -> list:
         return [m for m in self.layers if isinstance(m, ConvParams)]
 
     def mid_layers(self) -> list:
         """(kernel (in, out), bias) of the mid layers, in layer order."""
-        return [(m.dense(), m.bias) for m in self._convs()[1:]]
+        return [(m.dense(), m.bias) for m in self.convs()[1:]]
 
     def feature_term(self, features: torch.Tensor) -> torch.Tensor:
         """The z-independent half of the first 1x1 conv (no bias)."""
-        return features @ self._convs()[0].dense()[: self.num_filters0]
+        return features @ self.convs()[0].dense()[: self.num_filters0]
 
     def z_term(self, z: torch.Tensor) -> torch.Tensor:
         """The latent half of the first 1x1 conv, with its bias: (..., C0)."""
-        first = self._convs()[0]
+        first = self.convs()[0]
         return z @ first.dense()[self.num_filters0:] + first.bias
 
     def decode_from_term(self, feat_term: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
@@ -99,16 +99,25 @@ class ProbabilisticUnet(nn.Module):
     """Probabilistic U-Net (https://arxiv.org/abs/1806.05034), float32.
 
     Defaults mirror ``pda``'s; the experiments use ``num_filters=(64, 128,
-    256, 512), no_convs_fcomb=3`` (:func:`livecell_punet`). Parameters are
-    drawn from ``generator`` (default: a CPU generator seeded 0) on the CPU;
-    move the module with ``.to(device)``."""
+    256, 512), no_convs_fcomb=3, beta=1, rl_swap=True``
+    (:func:`livecell_punet`). ``beta``, ``rl_swap``, ``consensus_masking``
+    and ``analytic_kl`` are loss settings the module carries, as in ``pda``;
+    :func:`pda_torch.core.losses.neg_elbo` reads them. Parameters are drawn
+    from ``generator`` (default: a CPU generator seeded 0) on the CPU; move
+    the module with ``.to(device)``."""
 
     def __init__(self, input_channels: int = 1, num_classes: int = 1,
                  num_filters: Sequence[int] = (32, 64, 128, 192), latent_dim: int = 6,
-                 no_convs_fcomb: int = 4, generator: Optional[torch.Generator] = None):
+                 no_convs_fcomb: int = 4, beta: float = 10.0,
+                 consensus_masking: bool = False, rl_swap: bool = False,
+                 analytic_kl: bool = True, generator: Optional[torch.Generator] = None):
         super().__init__()
         nf = tuple(num_filters)
         self.latent_dim = latent_dim
+        self.beta = beta
+        self.consensus_masking = consensus_masking
+        self.rl_swap = rl_swap
+        self.analytic_kl = analytic_kl
         self.unet = PUNetBackbone(input_channels, nf)
         self.prior = GaussianEncoder(input_channels, nf, latent_dim)
         self.posterior = GaussianEncoder(input_channels + num_classes, nf, latent_dim)
@@ -137,11 +146,13 @@ class ProbabilisticUnet(nn.Module):
         return self.encode(x, segm)
 
 
-def livecell_punet(generator: Optional[torch.Generator] = None) -> ProbabilisticUnet:
+def livecell_punet(consensus_masking: bool = False,
+                   generator: Optional[torch.Generator] = None) -> ProbabilisticUnet:
     """The flagship PUNet every LIVECell/MitoEM/Lung experiment builds
     (``pda/experiments/common.py`` ``livecell_punet``), float32."""
     return ProbabilisticUnet(input_channels=1, num_classes=1, num_filters=(64, 128, 256, 512),
-                             latent_dim=6, no_convs_fcomb=3, generator=generator)
+                             latent_dim=6, no_convs_fcomb=3, beta=1.0, rl_swap=True,
+                             consensus_masking=consensus_masking, generator=generator)
 
 
 def tail_weights(model: ProbabilisticUnet):

@@ -56,7 +56,7 @@ def test_port_init_matches_pda_tree():
 def test_port_imports_no_jax():
     code = (
         "import sys, pda_torch, pda_torch.core, pda_torch.models, pda_torch.kernels, "
-        "pda_torch.infer\n"
+        "pda_torch.infer, pda_torch.train\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'pda'))\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"

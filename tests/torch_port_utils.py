@@ -18,8 +18,9 @@ LATENT = 6
 
 
 @functools.lru_cache(maxsize=None)
-def pda_punet(no_convs_fcomb: int = 3, seed: int = 0):
-    """(flax module, params) of a small pda PUNet, posterior included.
+def pda_punet(no_convs_fcomb: int = 3, seed: int = 0, consensus_masking: bool = False):
+    """(flax module, params) of a small pda PUNet, posterior included, with
+    the flagship's loss settings (beta 1, rl_swap).
 
     The tree's structure and shapes are pda's own (``jax.eval_shape`` of
     ``model.init``, which traces without compiling the initializers); the
@@ -28,7 +29,8 @@ def pda_punet(no_convs_fcomb: int = 3, seed: int = 0):
     from pda.models import ProbabilisticUnet
 
     model = ProbabilisticUnet(num_filters=FILTERS, latent_dim=LATENT,
-                              no_convs_fcomb=no_convs_fcomb, beta=1.0, rl_swap=True)
+                              no_convs_fcomb=no_convs_fcomb, beta=1.0, rl_swap=True,
+                              consensus_masking=consensus_masking)
     x = jnp.zeros((1, 16, 16, 1))
     shapes = jax.eval_shape(model.init, jax.random.PRNGKey(0), x, x)["params"]
     rng = np.random.default_rng(seed)
@@ -44,12 +46,14 @@ def pda_punet(no_convs_fcomb: int = 3, seed: int = 0):
     return model, jax.tree_util.tree_map(draw, shapes)
 
 
-def port_punet(params, no_convs_fcomb: int = 3):
-    """The port's PUNet carrying ``params`` (a pda tree)."""
+def port_punet(params, no_convs_fcomb: int = 3, consensus_masking: bool = False):
+    """The port's PUNet carrying ``params`` (a pda tree), with the loss
+    settings of :func:`pda_punet`."""
     from pda_torch.models import ProbabilisticUnet, state_dict_from_pda
 
     model = ProbabilisticUnet(num_filters=FILTERS, latent_dim=LATENT,
-                              no_convs_fcomb=no_convs_fcomb)
+                              no_convs_fcomb=no_convs_fcomb, beta=1.0, rl_swap=True,
+                              consensus_masking=consensus_masking)
     model.load_state_dict(state_dict_from_pda(params))
     return model.eval()
 
