@@ -13,9 +13,10 @@ Both are differentiable. Each is a ``torch.autograd.Function`` whose forward
 keeps h1, h2 and the output h3 (``pda``'s ``save_intermediates=True``) and
 whose backward is :func:`conv_block_bwd` / :func:`conv_block_bwd_dual`, the
 fused ConvBlock backward of ``csrc/conv_block_bwd.cu`` (``pda``'s
-``conv_block_bwd*.py`` and ``conv_block_packed_bwd*.py``). dx is computed
-only when autograd asks for it: an entry block, whose input is the image,
-takes none (``pda``'s ``need_dx=False``).
+``conv_block_bwd*.py`` and ``conv_block_packed_bwd*.py``): its wgrad and
+dgrad run on the tensor cores in 3xTF32 (:mod:`.tf32x3`), float32-accurate.
+dx is computed only when autograd asks for it: an entry block, whose input
+is the image, takes none (``pda``'s ``need_dx=False``).
 
 Tensors are NHWC float32, weights HWIO ``(3, 3, Cin, C)`` as in ``pda``,
 biases ``(C,)``. On a CPU tensor the wrappers run the plain PyTorch
@@ -37,10 +38,10 @@ _VP = ctypes.c_void_p
 _I = ctypes.c_int
 _FWD_ARGTYPES = (_VP, _VP, _I, _I, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP,
                  _I, _I, _I, _I, _VP)
-# x, Cin, w1..w3, h1..h3, g, dx, dw1, db1, .., db3, dh2, dh1, wt, work, B, H, W, C, need_dx
-_BWD_ARGTYPES = (_VP, _I, *[_VP] * 18, *[_I] * 5, _VP)
-# xa, xb, Ca, Cb, w1..w3, h1..h3, g, dxa, dxb, dw1, .., db3, dh2, dh1, wt, work, B, H, W, C
-_BWD_DUAL_ARGTYPES = (_VP, _VP, _I, _I, *[_VP] * 19, *[_I] * 4, _VP)
+# x, Cin, w1..w3, h1..h3, g, dx, dw1, db1, .., db3, da1, da2, work, B, H, W, C, need_dx
+_BWD_ARGTYPES = (_VP, _I, *[_VP] * 17, *[_I] * 5, _VP)
+# xa, xb, Ca, Cb, w1..w3, h1..h3, g, dxa, dxb, dw1, .., db3, da1, da2, work, B, H, W, C
+_BWD_DUAL_ARGTYPES = (_VP, _VP, _I, _I, *[_VP] * 18, *[_I] * 4, _VP)
 
 
 def _conv_relu(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -160,14 +161,14 @@ def _launch_bwd(g, xa, xb, h1, h2, h3, w1, w2, w3, need_dx: bool):
              torch.empty_like(w3), w1.new_empty(c)]
     if g.numel() == 0:
         return tuple(None if t is None else t.zero_() for t in (dxa, dxb, *grads))
-    n_work = _build.entry("pda_conv_block_bwd_work", (_I,) * 5, ctypes.c_longlong)(
-        bsz, h, w, ca + cb, c)
-    work = w1.new_empty(n_work)
-    wt = w1.new_empty(9 * max(ca + cb, c) * c)
-    dh2, dh1 = torch.empty_like(h1), torch.empty_like(h1)
+    # the chunk count of the wgrad, so the workspace, depends on the card
+    n_work = _build.entry("pda_conv_block_bwd_work", (_I,) * 5, ctypes.c_longlong)
+    # da_3, da_2, da_1 (each layer's masked output cotangent) in two buffers
+    da1, da2 = torch.empty_like(h1), torch.empty_like(h1)
     tail = [t.data_ptr() for t in (w1, w2, w3, h1, h2, h3, g)]
-    outs = [t.data_ptr() for t in (*grads, dh2, dh1, wt, work)]
     with torch.cuda.device(dev):
+        work = w1.new_empty(n_work(bsz, h, w, ca + cb, c))
+        outs = [t.data_ptr() for t in (*grads, da1, da2, work)]
         stream = torch.cuda.current_stream(dev).cuda_stream
         if xb is None:
             fn = _build.entry("pda_conv_block_bwd", _BWD_ARGTYPES)

@@ -1,18 +1,10 @@
-// One 3x3 SAME conv layer (zero padding), float32, NHWC activations, HWIO
-// weights: the layer kernel that the fused ConvBlock forward
-// (conv_block_fwd.cu) and the ConvBlock backward's dgrad (conv_block_bwd.cu)
-// both launch.
-//
-//   forward (kDgrad = false): y = relu(conv(x) + bias)
-//   dgrad   (kDgrad = true):  y = conv(x * [m > 0]), no bias, no ReLU; x is the
-//                             cotangent of a layer's output, m that output
-//                             (its ReLU mask), and w the layer's kernel flipped
-//                             in space with input and output swapped.
+// One 3x3 SAME conv layer (zero padding) + bias + ReLU, float32, NHWC
+// activations, HWIO weights: the layer kernel of the fused ConvBlock forward
+// (conv_block_fwd.cu), y = relu(conv(x) + bias).
 //
 // The input's channels may come from two tensors, [0, Ca) from xa and
 // [Ca, Ca+Cb) from xb (the decoder's [upsample | skip], never concatenated in
-// device memory); the output's channels likewise go to ya ([0, Coa)) and yb
-// ([Coa, Coa+Cob)), which is how the dual block's dgrad writes dxa and dxb.
+// device memory).
 //
 // What bounds it: at 64..512 channels a layer does 18*Cin FLOPs per output
 // value and is compute-bound on the float32 FMA pipes (no tensor cores in f32
@@ -42,19 +34,15 @@ constexpr int IW = TW + 2;   // input tile columns, with the halo
 // 32+cg*4+{0..3} of the block's 64 (two float4 weight reads that a quarter
 // warp takes from 8 distinct 16-byte words, free of bank conflicts);
 // pg = tid / 8 owns the 4 pixels (row pg/4, columns (pg%4)*4 + {0..3}).
-// In dgrad mode Cb must be 0: the mask m has xa's layout.
-template <bool kDgrad>
 __global__ void __launch_bounds__(THREADS)
 conv3x3_layer(const float* __restrict__ xa, const float* __restrict__ xb,
-              const float* __restrict__ m, const float* __restrict__ w,
-              const float* __restrict__ bias, float* __restrict__ ya,
-              float* __restrict__ yb, int H, int W, int Ca, int Cb, int Coa,
-              int Cob, int tiles_x) {
+              const float* __restrict__ w, const float* __restrict__ bias,
+              float* __restrict__ y, int H, int W, int Ca, int Cb, int cout,
+              int tiles_x) {
   __shared__ __align__(16) float s_in[CK][IH][IW];
   __shared__ __align__(16) float s_w[CK][9][TCO];
 
   const int cin = Ca + Cb;
-  const int cout = Coa + Cob;
   const int tid = threadIdx.x;
   const int cg = tid & 7;
   const int pg = tid >> 3;
@@ -84,12 +72,7 @@ conv3x3_layer(const float* __restrict__ xa, const float* __restrict__ xb,
       float v = 0.f;
       if (gy >= 0 && gy < H && gx >= 0 && gx < W && c < cin) {
         const size_t p = img + static_cast<size_t>(gy) * W + gx;
-        if (kDgrad) {
-          const size_t q = p * Ca + c;
-          v = m[q] > 0.f ? xa[q] : 0.f;
-        } else {
-          v = c < Ca ? xa[p * Ca + c] : xb[p * Cb + (c - Ca)];
-        }
+        v = c < Ca ? xa[p * Ca + c] : xb[p * Cb + (c - Ca)];
       }
       s_in[ci][iy][ix] = v;
     }
@@ -149,27 +132,20 @@ conv3x3_layer(const float* __restrict__ xa, const float* __restrict__ xb,
     for (int k = 0; k < 8; ++k) {
       const int o = co0 + (k < 4 ? cg * 4 + k : 32 + cg * 4 + (k - 4));
       if (o >= cout) continue;
-      const float v = kDgrad ? acc[j][k] : fmaxf(acc[j][k] + bias[o], 0.f);
-      if (o < Coa) {
-        ya[p * Coa + o] = v;
-      } else {
-        yb[p * Cob + (o - Coa)] = v;
-      }
+      y[p * cout + o] = fmaxf(acc[j][k] + bias[o], 0.f);
     }
   }
 }
 
 // Launch one layer over a (B, H, W, *) batch on ``stream``.
-template <bool kDgrad>
-cudaError_t conv3x3(const float* xa, const float* xb, const float* m, int Ca,
-                    int Cb, const float* w, const float* b, float* ya,
-                    float* yb, int Coa, int Cob, int B, int H, int W,
-                    cudaStream_t stream) {
+cudaError_t conv3x3(const float* xa, const float* xb, int Ca, int Cb,
+                    const float* w, const float* b, float* y, int Cout, int B,
+                    int H, int W, cudaStream_t stream) {
   const int tiles_x = (W + TW - 1) / TW;
   const int tiles_y = (H + TH - 1) / TH;
-  const dim3 grid(tiles_x * tiles_y, (Coa + Cob + TCO - 1) / TCO, B);
-  conv3x3_layer<kDgrad><<<grid, THREADS, 0, stream>>>(
-      xa, xb, m, w, b, ya, yb, H, W, Ca, Cb, Coa, Cob, tiles_x);
+  const dim3 grid(tiles_x * tiles_y, (Cout + TCO - 1) / TCO, B);
+  conv3x3_layer<<<grid, THREADS, 0, stream>>>(xa, xb, w, b, y, H, W, Ca, Cb,
+                                               Cout, tiles_x);
   return cudaGetLastError();
 }
 

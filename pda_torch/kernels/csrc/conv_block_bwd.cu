@@ -19,183 +19,221 @@
 // pda_conv_block_bwd_dual (input [xa | xb], dxa and dxb written apart, so
 // neither the concat nor its cotangent exists).
 //
-// For layer k = 3, 2, 1, with da_k = dh_k * [h_k > 0] formed while loading:
-//   wgrad  dW_k[ky,kx,ci,co] = sum_{b,y,x} in_k[b,y+ky-1,x+kx-1,ci] da_k[b,y,x,co]
-//          db_k[co]          = sum_{b,y,x} da_k[b,y,x,co]
-//   dgrad  dh_{k-1} = conv3x3(da_k, W_k flipped in space, in/out swapped):
-//          the forward's layer kernel (conv3x3.cuh) in its dgrad mode.
+// With da_3 = g * [h3 > 0] (one elementwise pass), for layer k = 3, 2, 1:
+//   wgrad  dW_k[tap, ci, co] = sum_p in_k[p + tap, ci] * da_k[p, co]
+//          db_k[co]          = sum_p da_k[p, co]
+//          a GEMM with M = 9 * Cin (taps x input channels), N = Cout and
+//          K = B * H * W pixels;
+//   dgrad  da_{k-1}[p, ci] = [h_{k-1}[p, ci] > 0] *
+//                            sum_{tap, co} da_k[p + tap, co] * W_k[8 - tap, ci, co]
+//          an implicit GEMM with M = pixels, N = Cin, K = 9 * Cout; the ReLU
+//          mask of the layer below is applied as it is stored (none for dx).
 // in_1 = x, whose border loads are zero-filled (the dense-image entry).
 //
-// What bounds it: both halves are float32 FMA work of the forward's size
-// (18*Cin*C FLOPs per pixel each). The wgrad is a reduction over B*H*W
-// (524,288 pixels at level 0), which on the TPU a sequential grid carries in
-// VMEM. Here it is split into a fixed number of pixel chunks: one block owns a
-// 9 x 32-input-channel x 64-output-channel slice of dW for one chunk, walks
-// the chunk's 4x16-pixel tiles in order with the input tile (plus halo) and
-// da in shared memory, and keeps 9x8 accumulators per thread (one input
-// channel, 8 output channels, all nine taps), so one shared-memory load feeds
-// about 8 FMAs. Each chunk writes its partial sums to a workspace, and a
-// second pass adds the chunks in order: no float atomics, so the gradients are
-// bit-equal from run to run.
+// What bounds it: both halves are 18 * Cin * Cout FLOPs a pixel (1.7 TFLOP
+// each per MT step). The card's float32 FMA pipes top out at 67 TFLOP/s; the
+// tensor cores reach 495 TFLOP/s in TF32, but one TF32 product keeps ~3
+// decimal digits, which would move the gradients against pda's float32
+// reference (and bf16 waits for a numerics decision). So both halves run
+// 3xTF32 on mma.sync (tf32x3.cuh): three TF32 products a multiply-add, at a
+// third of the TF32 rate but still above the FMA pipes, with float32
+// accuracy. The tensor cores accumulate with round-toward-zero, so each
+// warp runs short mma chains (8 k-steps in the wgrad, 18 in the dgrad) into
+// zeroed fragments and adds them into float32 sums kept in shared memory
+// (tf32x3.cuh), which also keeps them out of the registers. Per k-step a
+// warp issues 24 mma and splits 16 values (4 integer/float ops each); on an
+// H100 that runs at about 0.3 mma a cycle an SM, well under both the issue
+// rate and the mma rate, so latency (4-5 warps a scheduler, each waiting on
+// its loads, splits and 3-deep mma chains) is the likely bound (stall
+// reasons not measured). wgmma would take TF32 only
+// K-major from shared memory, which neither operand of the wgrad is in NHWC;
+// mma.sync gathers its fragments from [pixel][channel] tiles, with the
+// fragments' rows, columns or k-slots mapped to channels so that a lane's
+// values are 4 adjacent channels: one 16-byte load, free of bank conflicts.
 //
-// Not done yet (later work): tensor cores (TF32/bf16 with wgmma), keeping da
-// on chip between wgrad and dgrad, and fusing the 2x2 pool's transpose.
+// wgrad: a block owns a 9-tap x 32-input x 64-output-channel tile of dW and
+// one chunk of 8x8-pixel tiles; 18 warps, one a tap and 32 output channels,
+// each a 32 x 32 tile of dW (2 x 4 fragments). The halo input tile and the
+// da tile stream through a 3-stage cp.async ring in dynamic shared memory
+// (177,024 bytes with the sums). The input tile is shared by the nine tap
+// warps (each reads it shifted), da by all. Each chunk writes its partial dW
+// and db to a workspace and a second pass adds the chunks in order: no float
+// atomics, so repeats are bit-equal. db is a plain float32 sum of da (no
+// split). The number of chunks fills the card's block slots (occupancy
+// query). The entry layer (Cin 1 or 2) runs the same path and skips the
+// second m-fragment, which holds none of its channels; a SIMT path for it
+// is later work.
+// dgrad: a block owns 16x16 pixels x 64 channels of da_{k-1}; 16 warps of
+// 32 pixels x 32 channels. Each stage holds 16 channels of da_k's halo tile
+// and the matching 9 x 64 x 16 slice of W_k, read from its HWIO layout with
+// the tap flipped at the fragment load (no flipped copy of W); 2 stages of
+// cp.async and the sums, 180,736 bytes.
+//
+// Not done yet (later work): TMA and warp-specialised producers, keeping da
+// on chip between the wgrad and the dgrad, the 2x2 pool's transpose.
 
-#include "conv3x3.cuh"
+#include <algorithm>
+
+#include "tf32x3.cuh"
 
 namespace {
 
-constexpr int WG_TH = 4;              // pixel tile rows
-constexpr int WG_TW = 16;             // pixel tile columns
-constexpr int WG_PIX = WG_TH * WG_TW;
-constexpr int WG_CI = 32;             // input channels per block
-constexpr int WG_CO = 64;             // output channels per block
-constexpr int WG_IH = WG_TH + 2;
-constexpr int WG_IW = WG_TW + 2;
-constexpr int WG_THREADS = 256;       // = WG_CI * (WG_CO / 8)
-constexpr int TARGET_BLOCKS = 264;    // two blocks for each of the 132 SMs
-
 __host__ __device__ inline int cdiv(int a, int b) { return (a + b - 1) / b; }
 
-int pixel_tiles(int B, int H, int W) {
-  return B * cdiv(H, WG_TH) * cdiv(W, WG_TW);
-}
-
-// Pixel tiles per chunk for a block with C output channels (the layers'
-// width); one count serves all three layers of a call.
-int tiles_per_chunk(int B, int H, int W, int C) {
-  const int slices = cdiv(C, WG_CI) * cdiv(C, WG_CO);
-  const int chunks = cdiv(TARGET_BLOCKS, slices);
-  return cdiv(pixel_tiles(B, H, W), chunks);
-}
+// ---- wgrad -----------------------------------------------------------------
+constexpr int WG_T = 8;                    // pixel tile: 8 x 8, one row a k-step
+constexpr int WG_PIX = WG_T * WG_T;
+constexpr int WG_I = WG_T + 2;             // halo tile side
+constexpr int WG_HALO = WG_I * WG_I;
+constexpr int WG_CI = 32;                  // input channels a block
+constexpr int WG_CO = 64;                  // output channels a block
+constexpr int WG_WARPS = 9 * (WG_CO / 32); // a tap and 32 output channels each
+constexpr int WG_THREADS = 32 * WG_WARPS;
+constexpr int WG_LDI = WG_CI + 8;          // s_in row stride, 8 * odd (mod 32)
+constexpr int WG_LDD = WG_CO + 8;          // s_da row stride, 8 * odd (mod 32)
+constexpr int WG_STAGES = 3;
+constexpr int WG_STAGE = WG_HALO * WG_LDI + WG_PIX * WG_LDD;  // floats
+constexpr int WG_ACC = 8 * 4 * WG_THREADS;  // the float32 sums, 8 fragments a thread
+constexpr int WG_SMEM = (WG_STAGES * WG_STAGE + WG_ACC) * 4;  // bytes
 
 // Partial dW and db of one layer over one chunk of pixel tiles.
 // grid = (input-channel slices, output-channel slices, chunks).
 // ws_w: [chunk][9][Cin][Cout]; ws_b: [chunk][Cout] (written by the blocks of
-// input-channel slice 0).
-__global__ void __launch_bounds__(WG_THREADS)
-wgrad_partial(const float* __restrict__ xa, const float* __restrict__ xb,
-              int Ca, int Cb, const float* __restrict__ dh,
-              const float* __restrict__ h, float* __restrict__ ws_w,
-              float* __restrict__ ws_b, int B, int H, int W, int Cout,
-              int tiles_per_chunk) {
-  __shared__ __align__(16) float s_in[WG_CI][WG_IH][WG_IW];
-  __shared__ __align__(16) float s_da[WG_PIX][WG_CO];
-
+// input-channel slice 0). V = 4: 16-byte copies (every channel count a
+// multiple of 4, pointers 16-byte aligned); V = 1: 4-byte copies.
+//
+// A warp's 32 x 32 tile of dW is 2 x 4 fragments. Row r of m-fragment mf is
+// channel 4 (r % 8) + 2 mf + r / 8 and column n of n-fragment nf is channel
+// 4 n + nf, so that a lane's A values of both m-fragments are 4 adjacent
+// channels of one pixel, and its B values of all four n-fragments too: one
+// 16-byte load each (conflict-free: row strides 8 * odd floats).
+template <int V>
+__global__ void __launch_bounds__(WG_THREADS, 1)
+wgrad_tc(const float* __restrict__ xa, const float* __restrict__ xb, int Ca,
+         int Cb, const float* __restrict__ da, float* __restrict__ ws_w,
+         float* __restrict__ ws_b, int B, int H, int W, int Cout,
+         int tiles_per_chunk) {
+  extern __shared__ __align__(16) float smem[];
+  float4* s_acc = reinterpret_cast<float4*>(smem + WG_STAGES * WG_STAGE);
   const int cin = Ca + Cb;
   const int tid = threadIdx.x;
-  const int cg = tid & 7;
-  const int ci_l = tid >> 3;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int grp = lane >> 2, quad = lane & 3;
+  const int tap = warp % 9, ky = tap / 3, kx = tap % 3;
+  const int co_w = (warp / 9) * 32;
   const int ci0 = blockIdx.x * WG_CI;
   const int co0 = blockIdx.y * WG_CO;
   const int chunk = blockIdx.z;
-  const bool has_ci = ci0 + ci_l < cin;
-  const bool sums_bias = blockIdx.x == 0 && ci_l == 0;
+  const bool two_rows = ci0 + 2 < cin;  // m-fragment 1 (channels 2, 3 mod 4) has channels
+  const bool sums_bias = blockIdx.x == 0;
 
-  const int tiles_x = cdiv(W, WG_TW);
-  const int tiles_img = cdiv(H, WG_TH) * tiles_x;
+  const int tiles_x = cdiv(W, WG_T);
+  const int tiles_img = cdiv(H, WG_T) * tiles_x;
   const int t_begin = chunk * tiles_per_chunk;
-  const int t_end = min(B * tiles_img, t_begin + tiles_per_chunk);
+  const int n_tiles = min(B * tiles_img, t_begin + tiles_per_chunk) - t_begin;
 
-  float acc[9][8];
-  float bacc[8];
-#pragma unroll
-  for (int k = 0; k < 8; ++k) {
-    bacc[k] = 0.f;
-#pragma unroll
-    for (int tap = 0; tap < 9; ++tap) acc[tap][k] = 0.f;
-  }
-
-  for (int t = t_begin; t < t_end; ++t) {
-    const int b = t / tiles_img;
-    const int r = t % tiles_img;
-    const int y0 = (r / tiles_x) * WG_TH;
-    const int x0 = (r % tiles_x) * WG_TW;
+  // Tile t_begin + i into stage i % WG_STAGES.
+  auto load = [&](int i) {
+    float* s_in = smem + (i % WG_STAGES) * WG_STAGE;
+    float* s_da = s_in + WG_HALO * WG_LDI;
+    const int t = t_begin + i;
+    const int b = t / tiles_img, r = t % tiles_img;
+    const int y0 = (r / tiles_x) * WG_T, x0 = (r % tiles_x) * WG_T;
     const size_t img = static_cast<size_t>(b) * H * W;
-
-    for (int e = tid; e < WG_CI * WG_IH * WG_IW; e += WG_THREADS) {
-      const int ci = e % WG_CI;
-      const int pix = e / WG_CI;
-      const int iy = pix / WG_IW;
-      const int ix = pix % WG_IW;
-      const int gy = y0 - 1 + iy;
-      const int gx = x0 - 1 + ix;
-      const int c = ci0 + ci;
-      float v = 0.f;
-      if (gy >= 0 && gy < H && gx >= 0 && gx < W && c < cin) {
+    for (int e = tid; e < WG_HALO * WG_CI / V; e += WG_THREADS) {
+      const int c = (e % (WG_CI / V)) * V;
+      const int pix = e / (WG_CI / V);
+      const int gy = y0 - 1 + pix / WG_I, gx = x0 - 1 + pix % WG_I;
+      const int ch = ci0 + c;
+      const bool in = gy >= 0 && gy < H && gx >= 0 && gx < W && ch < cin;
+      const float* src = xa;
+      if (in) {
         const size_t p = img + static_cast<size_t>(gy) * W + gx;
-        v = c < Ca ? xa[p * Ca + c] : xb[p * Cb + (c - Ca)];
+        src = ch < Ca ? xa + p * Ca + ch : xb + p * Cb + (ch - Ca);
       }
-      s_in[ci][iy][ix] = v;
+      tc::cp_async<V>(s_in + pix * WG_LDI + c, src, in);
     }
-    for (int e = tid; e < WG_PIX * WG_CO; e += WG_THREADS) {
-      const int co = e % WG_CO;
-      const int pix = e / WG_CO;
-      const int gy = y0 + pix / WG_TW;
-      const int gx = x0 + pix % WG_TW;
-      const int o = co0 + co;
-      float v = 0.f;
-      if (gy < H && gx < W && o < Cout) {
-        const size_t q = (img + static_cast<size_t>(gy) * W + gx) * Cout + o;
-        v = h[q] > 0.f ? dh[q] : 0.f;
-      }
-      s_da[pix][co] = v;
+    for (int e = tid; e < WG_PIX * WG_CO / V; e += WG_THREADS) {
+      const int c = (e % (WG_CO / V)) * V;
+      const int pix = e / (WG_CO / V);
+      const int gy = y0 + pix / WG_T, gx = x0 + pix % WG_T;
+      const bool in = gy < H && gx < W && co0 + c < Cout;
+      const float* src =
+          in ? da + (img + static_cast<size_t>(gy) * W + gx) * Cout + co0 + c
+             : da;
+      tc::cp_async<V>(s_da + pix * WG_LDD + c, src, in);
     }
-    __syncthreads();
+  };
 
-    if (has_ci) {
-#pragma unroll 1
-      for (int row = 0; row < WG_TH; ++row) {
+  float chain[8][4] = {};  // fragment mf * 4 + nf
 #pragma unroll
-        for (int ky = 0; ky < 3; ++ky) {
-          float in[WG_IW];
+  for (int f = 0; f < 8; ++f) s_acc[f * WG_THREADS + tid] = make_float4(0.f, 0.f, 0.f, 0.f);
+  float bsum = 0.f;  // db: channel tid % 64 over pixels tid / 64 + 9j
+  const int b_co = tid % WG_CO, b_pix = tid / WG_CO;
+
 #pragma unroll
-          for (int q = 0; q < WG_IW; ++q) in[q] = s_in[ci_l][row + ky][q];
-#pragma unroll
-          for (int x = 0; x < WG_TW; ++x) {
-            const float* d = s_da[row * WG_TW + x];
-            const float4 da = *reinterpret_cast<const float4*>(d + cg * 4);
-            const float4 db = *reinterpret_cast<const float4*>(d + 32 + cg * 4);
-#pragma unroll
-            for (int kx = 0; kx < 3; ++kx) {
-              const float a = in[x + kx];
-              float* s = acc[ky * 3 + kx];
-              s[0] = fmaf(a, da.x, s[0]);
-              s[1] = fmaf(a, da.y, s[1]);
-              s[2] = fmaf(a, da.z, s[2]);
-              s[3] = fmaf(a, da.w, s[3]);
-              s[4] = fmaf(a, db.x, s[4]);
-              s[5] = fmaf(a, db.y, s[5]);
-              s[6] = fmaf(a, db.z, s[6]);
-              s[7] = fmaf(a, db.w, s[7]);
-            }
-          }
-        }
-      }
-    }
-    if (sums_bias) {
-      for (int p = 0; p < WG_PIX; ++p) {
-#pragma unroll
-        for (int k = 0; k < 8; ++k)
-          bacc[k] += s_da[p][k < 4 ? cg * 4 + k : 32 + cg * 4 + (k - 4)];
-      }
-    }
-    __syncthreads();
+  for (int s = 0; s < WG_STAGES - 1; ++s) {
+    if (s < n_tiles) load(s);
+    tc::cp_async_commit();
   }
+  for (int i = 0; i < n_tiles; ++i) {
+    tc::cp_async_wait<WG_STAGES - 2>();
+    __syncthreads();
+    if (i + WG_STAGES - 1 < n_tiles) load(i + WG_STAGES - 1);
+    tc::cp_async_commit();
 
+    const float* s_in = smem + (i % WG_STAGES) * WG_STAGE;
+    const float* s_da = s_in + WG_HALO * WG_LDI;
+    const float* a_ptr = s_in + (ky * WG_I + kx + quad) * WG_LDI + 4 * grp;
+    const float* b_ptr = s_da + quad * WG_LDD + co_w + 4 * grp;
 #pragma unroll
-  for (int k = 0; k < 8; ++k) {
-    const int o = co0 + (k < 4 ? cg * 4 + k : 32 + cg * 4 + (k - 4));
-    if (o >= Cout) continue;
-    if (has_ci) {
+    for (int row = 0; row < WG_T; ++row) {  // k-step: 8 pixels of one row
+      const float4 x0 = *reinterpret_cast<const float4*>(a_ptr + row * WG_I * WG_LDI);
+      const float4 x4 = *reinterpret_cast<const float4*>(a_ptr + (row * WG_I + 4) * WG_LDI);
+      const float4 y0 = *reinterpret_cast<const float4*>(b_ptr + row * WG_T * WG_LDD);
+      const float4 y4 = *reinterpret_cast<const float4*>(b_ptr + (row * WG_T + 4) * WG_LDD);
+      tc::FragA a0, a1;
+      tc::split(x0.x, x0.y, x4.x, x4.y, a0);
+      tc::split(x0.z, x0.w, x4.z, x4.w, a1);
+      const float b0[4] = {y0.x, y0.y, y0.z, y0.w}, b1[4] = {y4.x, y4.y, y4.z, y4.w};
 #pragma unroll
-      for (int tap = 0; tap < 9; ++tap) {
-        const size_t m =
-            (static_cast<size_t>(chunk) * 9 + tap) * cin + ci0 + ci_l;
-        ws_w[m * Cout + o] = acc[tap][k];
+      for (int nf = 0; nf < 4; ++nf) {
+        tc::FragB bf;
+        tc::split(b0[nf], b1[nf], bf);
+        tc::mma3(chain[nf], a0, bf);
+        if (two_rows) tc::mma3(chain[4 + nf], a1, bf);
       }
     }
-    if (sums_bias) ws_b[static_cast<size_t>(chunk) * Cout + o] = bacc[k];
+    tc::flush(s_acc + tid, WG_THREADS, chain);
+    if (sums_bias) {
+      for (int p = b_pix; p < WG_PIX; p += WG_WARPS * 32 / WG_CO)
+        bsum += s_da[p * WG_LDD + b_co];
+    }
+  }
+  tc::cp_async_wait<0>();
+  __syncthreads();
+
+#pragma unroll
+  for (int f = 0; f < 8; ++f) {
+    const float4 v = s_acc[f * WG_THREADS + tid];
+    const float c[4] = {v.x, v.y, v.z, v.w};
+    const int ci = ci0 + 4 * grp + 2 * (f / 4);
+    const int co = co0 + co_w + 8 * quad + f % 4;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {  // c[j]: row grp (+8 for j >= 2), column 2 quad + j % 2
+      const int c_i = ci + j / 2, c_o = co + 4 * (j % 2);
+      if (c_i < cin && c_o < Cout)
+        ws_w[((static_cast<size_t>(chunk) * 9 + tap) * cin + c_i) * Cout + c_o] = c[j];
+    }
+  }
+  if (sums_bias) {  // the 9 partial sums of each channel, in a fixed order
+    smem[tid] = bsum;
+    __syncthreads();
+    if (tid < WG_CO && co0 + tid < Cout) {
+      float s = 0.f;
+      for (int k = 0; k < WG_THREADS / WG_CO; ++k) s += smem[k * WG_CO + tid];
+      ws_b[static_cast<size_t>(chunk) * Cout + co0 + tid] = s;
+    }
   }
 }
 
@@ -210,83 +248,284 @@ __global__ void sum_chunks(const float* __restrict__ ws, float* __restrict__ out
   }
 }
 
-// wt[ky][kx][co][ci] = w[2-ky][2-kx][ci][co]: the dgrad's kernel.
-__global__ void flip_swap(const float* __restrict__ w, float* __restrict__ wt,
-                          int Cin, int Cout) {
-  const int n = 9 * Cin * Cout;
-  for (int e = blockIdx.x * blockDim.x + threadIdx.x; e < n;
-       e += gridDim.x * blockDim.x) {
-    const int ci = e % Cin;
-    const int co = (e / Cin) % Cout;
-    const int tap = e / (Cin * Cout);
-    wt[e] = w[(static_cast<size_t>(8 - tap) * Cin + ci) * Cout + co];
+// da = g * [h > 0]
+__global__ void relu_mask(const float* __restrict__ g, const float* __restrict__ h,
+                          float* __restrict__ da, long long n) {
+  for (long long i = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x;
+       i < n; i += static_cast<long long>(gridDim.x) * blockDim.x)
+    da[i] = h[i] > 0.f ? g[i] : 0.f;
+}
+
+// ---- dgrad -----------------------------------------------------------------
+constexpr int DG_T = 16;                   // pixel tile: 16 x 16
+constexpr int DG_I = DG_T + 2;             // halo tile side
+constexpr int DG_HALO = DG_I * DG_I;
+constexpr int DG_CI = 64;                  // output (input-of-layer) channels a block
+constexpr int DG_CK = 16;                  // reduction channels a stage
+constexpr int DG_LD = DG_CK;               // s_da, s_w row stride: 16 * odd (mod 32)
+constexpr int DG_WARPS = 16;               // 8 (2 pixel rows) x 2 (32 channels)
+constexpr int DG_THREADS = 32 * DG_WARPS;
+constexpr int DG_STAGES = 2;
+constexpr int DG_STAGE = DG_HALO * DG_LD + 9 * DG_CI * DG_LD;  // floats
+constexpr int DG_ACC = 8 * 4 * DG_THREADS;  // the float32 sums, 8 fragments a thread
+constexpr int DG_SMEM = (DG_STAGES * DG_STAGE + DG_ACC) * 4;  // bytes
+
+// y[p, ci] = mask * sum_{tap, co} da[p + tap, co] * w[8 - tap, ci, co], with
+// y's channels split into ya ([0, Coa)) and yb ([Coa, Coa + Cob)); mask is
+// [m[p, ci] > 0] (m has Coa channels, Cob = 0) or 1 when m is null.
+// grid = (pixel tiles of an image, channel slices, B).
+//
+// A stage's two k-steps of a tap take its 16 channels so that k-slot q of
+// k-step ks is channel 4 q + 2 ks and k-slot q + 4 is channel 4 q + 2 ks + 1:
+// a lane's A values of both k-steps are 4 adjacent channels of one pixel and
+// its B values 4 adjacent channels of one weight row, one 16-byte load each
+// (conflict-free: rows of 16 floats).
+template <int V>
+__global__ void __launch_bounds__(DG_THREADS, 1)
+dgrad_tc(const float* __restrict__ da, const float* __restrict__ w,
+         const float* __restrict__ m, float* __restrict__ ya,
+         float* __restrict__ yb, int Coa, int Cob, int H, int W, int C,
+         int tiles_x) {
+  extern __shared__ __align__(16) float smem[];
+  float4* s_acc = reinterpret_cast<float4*>(smem + DG_STAGES * DG_STAGE);
+  const int cin = Coa + Cob;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int grp = lane >> 2, quad = lane & 3;
+  const int wm = warp & 7, wn = warp >> 3;
+  const int y0 = (blockIdx.x / tiles_x) * DG_T;
+  const int x0 = (blockIdx.x % tiles_x) * DG_T;
+  const int ci0 = blockIdx.y * DG_CI;
+  const size_t img = static_cast<size_t>(blockIdx.z) * H * W;
+  const int n_stages = cdiv(C, DG_CK);
+
+  // Channels [s * DG_CK, (s + 1) * DG_CK) of da's halo tile and of w into
+  // stage s % DG_STAGES.
+  auto load = [&](int s) {
+    float* s_da = smem + (s % DG_STAGES) * DG_STAGE;
+    float* s_w = s_da + DG_HALO * DG_LD;
+    const int c0 = s * DG_CK;
+    for (int e = tid; e < DG_HALO * DG_CK / V; e += DG_THREADS) {
+      const int c = (e % (DG_CK / V)) * V;
+      const int pix = e / (DG_CK / V);
+      const int gy = y0 - 1 + pix / DG_I, gx = x0 - 1 + pix % DG_I;
+      const bool in = gy >= 0 && gy < H && gx >= 0 && gx < W && c0 + c < C;
+      const float* src =
+          in ? da + (img + static_cast<size_t>(gy) * W + gx) * C + c0 + c : da;
+      tc::cp_async<V>(s_da + pix * DG_LD + c, src, in);
+    }
+    for (int e = tid; e < 9 * DG_CI * DG_CK / V; e += DG_THREADS) {
+      const int c = (e % (DG_CK / V)) * V;
+      const int r = e / (DG_CK / V);  // tap * DG_CI + ci
+      const int ci = ci0 + r % DG_CI, tap = r / DG_CI;
+      const bool in = ci < cin && c0 + c < C;
+      const float* src =
+          in ? w + (static_cast<size_t>(tap) * cin + ci) * C + c0 + c : w;
+      tc::cp_async<V>(s_w + r * DG_LD + c, src, in);
+    }
+  };
+
+  float chain[8][4] = {};  // fragment mf * 4 + nf
+#pragma unroll
+  for (int f = 0; f < 8; ++f) s_acc[f * DG_THREADS + tid] = make_float4(0.f, 0.f, 0.f, 0.f);
+
+#pragma unroll
+  for (int s = 0; s < DG_STAGES - 1; ++s) {
+    if (s < n_stages) load(s);
+    tc::cp_async_commit();
+  }
+  for (int s = 0; s < n_stages; ++s) {
+    tc::cp_async_wait<DG_STAGES - 2>();
+    __syncthreads();
+    if (s + DG_STAGES - 1 < n_stages) load(s + DG_STAGES - 1);
+    tc::cp_async_commit();
+
+    const float* s_da = smem + (s % DG_STAGES) * DG_STAGE;
+    const float* s_w = s_da + DG_HALO * DG_LD;
+    const float* a_ptr = s_da + (2 * wm * DG_I + grp) * DG_LD + 4 * quad;
+    const float* b_ptr = s_w + (wn * 32 + grp) * DG_LD + 4 * quad;
+#pragma unroll
+    for (int tap = 0; tap < 9; ++tap) {
+      const int ky = tap / 3, kx = tap % 3;
+      float4 wv[4];  // channels 4 quad .. 4 quad + 3 of weight rows nf * 8 + grp
+#pragma unroll
+      for (int nf = 0; nf < 4; ++nf)
+        wv[nf] = *reinterpret_cast<const float4*>(b_ptr + ((8 - tap) * DG_CI + nf * 8) * DG_LD);
+      float4 xv[2][2];  // [mf][pixel grp, grp + 8]
+#pragma unroll
+      for (int mf = 0; mf < 2; ++mf) {
+        const float* p = a_ptr + ((mf + ky) * DG_I + kx) * DG_LD;
+        xv[mf][0] = *reinterpret_cast<const float4*>(p);
+        xv[mf][1] = *reinterpret_cast<const float4*>(p + 8 * DG_LD);
+      }
+#pragma unroll
+      for (int ks = 0; ks < 2; ++ks) {
+        tc::FragB bf[4];
+#pragma unroll
+        for (int nf = 0; nf < 4; ++nf)
+          tc::split(ks ? wv[nf].z : wv[nf].x, ks ? wv[nf].w : wv[nf].y, bf[nf]);
+#pragma unroll
+        for (int mf = 0; mf < 2; ++mf) {
+          const float4& u = xv[mf][0];
+          const float4& v = xv[mf][1];
+          tc::FragA a;
+          tc::split(ks ? u.z : u.x, ks ? v.z : v.x, ks ? u.w : u.y, ks ? v.w : v.y, a);
+#pragma unroll
+          for (int nf = 0; nf < 4; ++nf) tc::mma3(chain[mf * 4 + nf], a, bf[nf]);
+        }
+      }
+    }
+    tc::flush(s_acc + tid, DG_THREADS, chain);
+  }
+  tc::cp_async_wait<0>();
+
+#pragma unroll
+  for (int f = 0; f < 8; ++f) {
+    const float4 sum = s_acc[f * DG_THREADS + tid];
+    const float acc[4] = {sum.x, sum.y, sum.z, sum.w};
+    const int gy = y0 + 2 * wm + f / 4;
+    const int ci = ci0 + wn * 32 + (f % 4) * 8 + 2 * quad;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int gx = x0 + grp + (j >= 2 ? 8 : 0), c = ci + (j & 1);
+      if (gy >= H || gx >= W || c >= cin) continue;
+      const size_t p = img + static_cast<size_t>(gy) * W + gx;
+      float v = acc[j];
+      if (m != nullptr && !(m[p * cin + c] > 0.f)) v = 0.f;
+      if (c < Coa) {
+        ya[p * Coa + c] = v;
+      } else {
+        yb[p * Cob + (c - Coa)] = v;
+      }
+    }
   }
 }
 
-int grid_1d(int n) { return cdiv(n, 256) < 4096 ? cdiv(n, 256) : 4096; }
+// ---- host ------------------------------------------------------------------
+int grid_1d(long long n) {
+  const long long blocks = (n + 255) / 256;
+  return blocks < 4096 ? static_cast<int>(blocks) : 4096;
+}
 
-// dW, db of one layer (input [xa | xb], output cotangent dh, output h).
+bool aligned16(const void* p) {
+  return p == nullptr || reinterpret_cast<uintptr_t>(p) % 16 == 0;
+}
+
+// Blocks of wgrad_tc the card runs at once (SMs x blocks an SM).
+int wgrad_slots() {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaFuncSetAttribute(&wgrad_tc<4>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       WG_SMEM);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, &wgrad_tc<4>,
+                                                WG_THREADS, WG_SMEM);
+  return sms * (per_sm > 0 ? per_sm : 1);
+}
+
+int wgrad_tiles(int B, int H, int W) {
+  return B * cdiv(H, WG_T) * cdiv(W, WG_T);
+}
+
+// Pixel tiles a chunk for one layer: the chunk count that fills the card's
+// block slots best (the fewest chunks among the best), each chunk >= 1 tile.
+int wgrad_tiles_per_chunk(int cin, int cout, int tiles, int slots) {
+  const int slices = cdiv(cin, WG_CI) * cdiv(cout, WG_CO);
+  const int most = std::min(tiles, std::max(1, cdiv(4 * slots, slices)));
+  int best = 1;
+  long long best_num = 0, best_den = 1;  // fill = blocks / (waves * slots)
+  for (int c = 1; c <= most; ++c) {
+    const long long blocks = static_cast<long long>(slices) * c;
+    const long long den = (blocks + slots - 1) / slots * slots;
+    if (blocks * best_den > best_num * den) {
+      best = c;
+      best_num = blocks;
+      best_den = den;
+    }
+  }
+  return cdiv(tiles, best);
+}
+
+long long wgrad_work(int cin, int cout, int tiles, int slots) {
+  const int chunks = cdiv(tiles, wgrad_tiles_per_chunk(cin, cout, tiles, slots));
+  return static_cast<long long>(chunks) * (9LL * cin * cout + cout);
+}
+
+// dW, db of one layer (input [xa | xb], output cotangent da = dh * [h > 0]).
 cudaError_t wgrad(const float* xa, const float* xb, int Ca, int Cb,
-                  const float* dh, const float* h, float* dw, float* db,
-                  float* work, int B, int H, int W, int Cout, int tpc,
-                  cudaStream_t s) {
+                  const float* da, float* dw, float* db, float* work, int B,
+                  int H, int W, int Cout, int slots, cudaStream_t s) {
   const int cin = Ca + Cb;
-  const int chunks = cdiv(pixel_tiles(B, H, W), tpc);
+  const int tiles = wgrad_tiles(B, H, W);
+  const int tpc = wgrad_tiles_per_chunk(cin, Cout, tiles, slots);
+  const int chunks = cdiv(tiles, tpc);
   float* ws_w = work;
   float* ws_b = work + static_cast<size_t>(chunks) * 9 * cin * Cout;
   const dim3 grid(cdiv(cin, WG_CI), cdiv(Cout, WG_CO), chunks);
-  wgrad_partial<<<grid, WG_THREADS, 0, s>>>(xa, xb, Ca, Cb, dh, h, ws_w, ws_b,
-                                             B, H, W, Cout, tpc);
-  cudaError_t err = cudaGetLastError();
+  const bool vec = Ca % 4 == 0 && Cb % 4 == 0 && Cout % 4 == 0 && aligned16(xa) &&
+                   aligned16(xb) && aligned16(da);
+  const auto kernel = vec ? &wgrad_tc<4> : &wgrad_tc<1>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, WG_SMEM);
   if (err != cudaSuccess) return err;
+  kernel<<<grid, WG_THREADS, WG_SMEM, s>>>(xa, xb, Ca, Cb, da, ws_w, ws_b, B, H,
+                                           W, Cout, tpc);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
   const int n = 9 * cin * Cout;
   sum_chunks<<<grid_1d(n), 256, 0, s>>>(ws_w, dw, n, chunks);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
   sum_chunks<<<grid_1d(Cout), 256, 0, s>>>(ws_b, db, Cout, chunks);
   return cudaGetLastError();
 }
 
-// dh_{k-1} (split into ya: Coa channels, yb: Cob) of one layer with kernel w
-// (3, 3, Coa+Cob, Cout); wt is a workspace for the flipped kernel.
-cudaError_t dgrad(const float* dh, const float* h, const float* w, float* wt,
-                  float* ya, float* yb, int Coa, int Cob, int B, int H, int W,
-                  int Cout, cudaStream_t s) {
-  const int cin = Coa + Cob;
-  flip_swap<<<grid_1d(9 * cin * Cout), 256, 0, s>>>(w, wt, cin, Cout);
-  cudaError_t err = cudaGetLastError();
+// da_{k-1} (or dx, split into ya: Coa channels, yb: Cob) of one layer with
+// kernel w (3, 3, Coa+Cob, C), masked by [m > 0] unless m is null.
+cudaError_t dgrad(const float* da, const float* w, const float* m, float* ya,
+                  float* yb, int Coa, int Cob, int B, int H, int W, int C,
+                  cudaStream_t s) {
+  const int tiles_x = cdiv(W, DG_T);
+  const dim3 grid(tiles_x * cdiv(H, DG_T), cdiv(Coa + Cob, DG_CI), B);
+  const bool vec = C % 4 == 0 && aligned16(da) && aligned16(w);
+  const auto kernel = vec ? &dgrad_tc<4> : &dgrad_tc<1>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, DG_SMEM);
   if (err != cudaSuccess) return err;
-  return conv3x3<true>(dh, nullptr, h, Cout, 0, wt, nullptr, ya, yb, Coa, Cob,
-                       B, H, W, s);
+  kernel<<<grid, DG_THREADS, DG_SMEM, s>>>(da, w, m, ya, yb, Coa, Cob, H, W, C,
+                                           tiles_x);
+  return cudaGetLastError();
 }
 
+// da1 and da2 are (B, H, W, C) workspaces: da_3 goes to da1, da_2 to da2,
+// da_1 to da1 again (da_3 is spent by then).
 cudaError_t block_bwd(const float* xa, const float* xb, int Ca, int Cb,
                       const float* w1, const float* w2, const float* w3,
                       const float* h1, const float* h2, const float* h3,
                       const float* g, float* dxa, float* dxb, float* dw1,
                       float* db1, float* dw2, float* db2, float* dw3,
-                      float* db3, float* dh2, float* dh1, float* wt,
-                      float* work, int B, int H, int W, int C, bool need_dx,
-                      cudaStream_t s) {
-  const int tpc = tiles_per_chunk(B, H, W, C);
-  cudaError_t err;
-  if ((err = wgrad(h2, nullptr, C, 0, g, h3, dw3, db3, work, B, H, W, C, tpc,
+                      float* db3, float* da1, float* da2, float* work, int B,
+                      int H, int W, int C, bool need_dx, cudaStream_t s) {
+  const int slots = wgrad_slots();
+  const long long n = static_cast<long long>(B) * H * W * C;
+  relu_mask<<<grid_1d(n), 256, 0, s>>>(g, h3, da1, n);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  if ((err = wgrad(h2, nullptr, C, 0, da1, dw3, db3, work, B, H, W, C, slots,
                    s)) != cudaSuccess)
     return err;
-  if ((err = dgrad(g, h3, w3, wt, dh2, nullptr, C, 0, B, H, W, C, s)) !=
+  if ((err = dgrad(da1, w3, h2, da2, nullptr, C, 0, B, H, W, C, s)) !=
       cudaSuccess)
     return err;
-  if ((err = wgrad(h1, nullptr, C, 0, dh2, h2, dw2, db2, work, B, H, W, C, tpc,
+  if ((err = wgrad(h1, nullptr, C, 0, da2, dw2, db2, work, B, H, W, C, slots,
                    s)) != cudaSuccess)
     return err;
-  if ((err = dgrad(dh2, h2, w2, wt, dh1, nullptr, C, 0, B, H, W, C, s)) !=
+  if ((err = dgrad(da2, w2, h1, da1, nullptr, C, 0, B, H, W, C, s)) !=
       cudaSuccess)
     return err;
-  if ((err = wgrad(xa, xb, Ca, Cb, dh1, h1, dw1, db1, work, B, H, W, C, tpc,
+  if ((err = wgrad(xa, xb, Ca, Cb, da1, dw1, db1, work, B, H, W, C, slots,
                    s)) != cudaSuccess)
     return err;
   if (!need_dx) return cudaSuccess;
-  return dgrad(dh1, h1, w1, wt, dxa, dxb, Ca, Cb, B, H, W, C, s);
+  return dgrad(da1, w1, nullptr, dxa, dxb, Ca, Cb, B, H, W, C, s);
 }
 
 const float* cf(const void* p) { return static_cast<const float*>(p); }
@@ -295,29 +534,30 @@ float* mf(void* p) { return static_cast<float*>(p); }
 }  // namespace
 
 // Floats of the `work` buffer the two entries need for a block with input
-// channels Cin (= Ca + Cb) and width C at (B, H, W).
+// channels Cin (= Ca + Cb) and width C at (B, H, W) on the current device.
 extern "C" long long pda_conv_block_bwd_work(int B, int H, int W, int Cin,
                                              int C) {
-  const long long chunks = cdiv(pixel_tiles(B, H, W), tiles_per_chunk(B, H, W, C));
-  const long long cmax = Cin > C ? Cin : C;
-  return chunks * (9 * cmax * C + C);
+  const int slots = wgrad_slots();
+  const int tiles = wgrad_tiles(B, H, W);
+  const long long inner = wgrad_work(C, C, tiles, slots);
+  const long long first = wgrad_work(Cin, C, tiles, slots);
+  return inner > first ? inner : first;
 }
 
 // Single-input block. x: (B, H, W, Cin); w1: (3, 3, Cin, C); w2, w3:
 // (3, 3, C, C); h1, h2, h3, g: (B, H, W, C). Writes dW (HWIO) and db of the
 // three layers and, with need_dx, dx (B, H, W, Cin) (dx may be null without).
-// Workspaces: dh2, dh1 (B, H, W, C); wt (9 * max(Cin, C) * C floats); work
-// (pda_conv_block_bwd_work floats).
+// Workspaces: da1, da2 (B, H, W, C); work (pda_conv_block_bwd_work floats).
 extern "C" int pda_conv_block_bwd(
     const void* x, int Cin, const void* w1, const void* w2, const void* w3,
     const void* h1, const void* h2, const void* h3, const void* g, void* dx,
     void* dw1, void* db1, void* dw2, void* db2, void* dw3, void* db3,
-    void* dh2, void* dh1, void* wt, void* work, int B, int H, int W, int C,
-    int need_dx, void* stream) {
+    void* da1, void* da2, void* work, int B, int H, int W, int C, int need_dx,
+    void* stream) {
   return block_bwd(cf(x), nullptr, Cin, 0, cf(w1), cf(w2), cf(w3), cf(h1),
                    cf(h2), cf(h3), cf(g), mf(dx), nullptr, mf(dw1), mf(db1),
-                   mf(dw2), mf(db2), mf(dw3), mf(db3), mf(dh2), mf(dh1),
-                   mf(wt), mf(work), B, H, W, C, need_dx != 0,
+                   mf(dw2), mf(db2), mf(dw3), mf(db3), mf(da1), mf(da2),
+                   mf(work), B, H, W, C, need_dx != 0,
                    static_cast<cudaStream_t>(stream));
 }
 
@@ -327,11 +567,11 @@ extern "C" int pda_conv_block_bwd_dual(
     const void* xa, const void* xb, int Ca, int Cb, const void* w1,
     const void* w2, const void* w3, const void* h1, const void* h2,
     const void* h3, const void* g, void* dxa, void* dxb, void* dw1, void* db1,
-    void* dw2, void* db2, void* dw3, void* db3, void* dh2, void* dh1, void* wt,
+    void* dw2, void* db2, void* dw3, void* db3, void* da1, void* da2,
     void* work, int B, int H, int W, int C, void* stream) {
   return block_bwd(cf(xa), cf(xb), Ca, Cb, cf(w1), cf(w2), cf(w3), cf(h1),
                    cf(h2), cf(h3), cf(g), mf(dxa), mf(dxb), mf(dw1), mf(db1),
-                   mf(dw2), mf(db2), mf(dw3), mf(db3), mf(dh2), mf(dh1),
-                   mf(wt), mf(work), B, H, W, C, true,
+                   mf(dw2), mf(db2), mf(dw3), mf(db3), mf(da1), mf(da2),
+                   mf(work), B, H, W, C, true,
                    static_cast<cudaStream_t>(stream));
 }

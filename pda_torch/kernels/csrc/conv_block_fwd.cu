@@ -35,12 +35,10 @@ extern "C" int pda_conv_block_fwd(const void* xa, const void* xb, int Ca,
   const auto s = static_cast<cudaStream_t>(stream);
   const auto f = [](const void* p) { return static_cast<const float*>(p); };
   const auto o = [](void* p) { return static_cast<float*>(p); };
-  cudaError_t err = conv3x3<false>(f(xa), f(xb), nullptr, Ca, Cb, f(w1), f(b1),
-                                   o(h1), nullptr, C, 0, B, H, W, s);
+  cudaError_t err =
+      conv3x3(f(xa), f(xb), Ca, Cb, f(w1), f(b1), o(h1), C, B, H, W, s);
   if (err != cudaSuccess) return err;
-  err = conv3x3<false>(f(h1), nullptr, nullptr, C, 0, f(w2), f(b2), o(h2),
-                       nullptr, C, 0, B, H, W, s);
+  err = conv3x3(f(h1), nullptr, C, 0, f(w2), f(b2), o(h2), C, B, H, W, s);
   if (err != cudaSuccess) return err;
-  return conv3x3<false>(f(h2), nullptr, nullptr, C, 0, f(w3), f(b3), o(y),
-                        nullptr, C, 0, B, H, W, s);
+  return conv3x3(f(h2), nullptr, C, 0, f(w3), f(b3), o(y), C, B, H, W, s);
 }

@@ -134,6 +134,12 @@ def _assert_all_rel(outs, refs, rel=1e-4):
 @pytest.mark.parametrize("b,h,w,cin,c,need_dx", [
     (2, 9, 13, 1, 64, False), (1, 17, 33, 2, 40, False), (2, 8, 16, 3, 64, True),
     (1, 5, 3, 5, 8, True), (2, 12, 20, 70, 128, True),
+    # where the tensor-core tiles are ragged
+    (1, 17, 23, 16, 32, True),  # H = 16 + 1 (dgrad tile), W = 2 * 8 + 7 (wgrad tile)
+    (2, 8, 16, 33, 48, True),   # Cin = 32 + 1: a wgrad block of one channel
+    (1, 16, 16, 64, 72, True),  # C = 64 + 8: ragged wgrad co slice and dgrad stage
+    (1, 9, 9, 6, 10, True),     # C % 4 != 0: the 4-byte cp.async path of both halves
+    (2, 7, 5, 1, 16, False),    # entry layer smaller than one tile, no dx
 ])
 def test_conv_block_bwd_kernel_matches_plain(dev, b, h, w, cin, c, need_dx):
     saved = _saved(torch.Generator().manual_seed(cin + h), b, h, w, cin, c, dev)
@@ -148,7 +154,8 @@ def test_conv_block_bwd_kernel_matches_plain(dev, b, h, w, cin, c, need_dx):
 
 
 @pytest.mark.parametrize("b,h,w,ca,cb,c", [(2, 10, 12, 13, 7, 24), (1, 9, 17, 3, 5, 64),
-                                           (1, 16, 16, 64, 32, 64)])
+                                           (1, 16, 16, 64, 32, 64),
+                                           (1, 12, 18, 30, 34, 66)])  # Ca % 4 != 0, dx split at 30
 def test_conv_block_bwd_dual_kernel_matches_plain(dev, b, h, w, ca, cb, c):
     g, x, *rest = _saved(torch.Generator().manual_seed(ca), b, h, w, ca + cb, c, dev)
     xa, xb = x[..., :ca].contiguous(), x[..., ca:].contiguous()
@@ -159,6 +166,18 @@ def test_conv_block_bwd_dual_kernel_matches_plain(dev, b, h, w, ca, cb, c):
     assert kconv.conv_block_bwd_dual.launches == before + 2
     _assert_all_rel(out, kconv.conv_block_bwd_dual_plain(g, xa, xb, *rest))
     assert all(torch.equal(a, a2) for a, a2 in zip(out, again))
+
+
+def test_conv_block_bwd_kernel_matches_float64(dev):
+    """At 2x64x64, 64->128, every output within 1e-5 of the largest of the
+    plain version computed in float64: float32 accuracy, which the 3xTF32
+    split keeps (~1e-6) and one TF32 product (~1e-3) would not."""
+    saved = _saved(torch.Generator().manual_seed(64), 2, 64, 64, 64, 128, dev)
+    out = kconv.conv_block_bwd(*saved)
+    ref64 = kconv.conv_block_bwd_plain(*(t.double() for t in saved))
+    torch.cuda.synchronize()
+    for a, r in zip(out, ref64):
+        assert float((a.double() - r).abs().max()) <= 1e-5 * float(r.abs().max())
 
 
 def test_mean_teacher_step_on_card_matches_cpu(dev):
