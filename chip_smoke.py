@@ -7,9 +7,10 @@ Phases, each of which fails the run (exit code 1) on any error or miss:
   1. device   — a CUDA card is present; print its name and power limit
   2. build    — compile the CUDA kernels from pda_torch/kernels/csrc/
   3. kernels  — each kernel against its plain PyTorch version at every
-                geometry of the serving path and of the Mean-Teacher step,
-                random seeded inputs; each backward twice, bit-equal,
-                and against its plain version in float64
+                geometry of the serving path (tiled and pseudo) and of the
+                Mean-Teacher step (pda_torch/tools/workload.py), random
+                seeded inputs; each ConvBlock kernel twice, bit-equal, and
+                against its plain version in float64
   4. serving  — the flagship PUNet (num_filters 64..512, latent 6,
                 no_convs_fcomb 3, float32, seeded weights) on a seeded
                 synthetic 520x704 frame: tiled MC-16 prediction (block 384,
@@ -21,8 +22,10 @@ Phases, each of which fails the run (exit code 1) on any error or miss:
                 batch 2, on the card against the same step of the port on
                 the CPU (loss, every gradient, updated student and teacher),
                 with its kernel launch counts; then steps at 512^2, batch 2
-  6. times    — CUDA-event medians of every kernel and its plain version,
-                end-to-end ms/frame and tiles/s, MT ms/step and patches/s
+  6. times    — CUDA-event medians of every kernel, its plain version and
+                (forward) cuDNN's convolutions, beside its bound from the
+                shapes; end-to-end ms/frame and tiles/s, MT ms/step and
+                patches/s
 
 Every comparison runs with TF32 off (torch.backends.cudnn.allow_tf32 and
 torch.backends.cuda.matmul.allow_tf32 both False), so the plain versions
@@ -46,28 +49,16 @@ MC = 16
 FRAME = (520, 704)
 BLOCK, HALO = (384, 384), (64, 64)
 K12_REL_TOL = 1e-4  # kernels 1/2: max |kernel - plain| <= 1e-4 * max |plain|
+# ... and max |kernel - ref64| <= 1e-5 * max |ref64|, ref64 the plain version in
+# float64: float32 accuracy (3xTF32 is ~1e-6 off, one TF32 product ~1e-3)
+K12_REF64_TOL = 1e-5
 K3_MEAN_TOL = 1e-5  # kernel 3: max abs error of the MC mean
 K3_WINDOW = 1e-4  # kernel 3: consensus may differ only where a logit is this near a threshold
 TILE_TOL = 1e-4  # one tile, card vs CPU: max abs error of the MC mean
 
-# (B, H, W, Cin, C): the ConvBlocks of one tiled forward (4 tiles of 512^2);
-# each runs twice per forward, in the backbone and in the prior
-K1_SHAPES = [(4, 512, 512, 1, 64), (4, 256, 256, 64, 128),
-             (4, 128, 128, 128, 256), (4, 64, 64, 256, 512)]
-K1_PSEUDO = (1, 528, 704, 1, 64)  # the pseudo path's entry block (frame padded to 16)
-# (B, H, W, Ca, Cb, C): the decoder blocks, input [upsample | skip]
-K2_SHAPES = [(4, 128, 128, 512, 256, 256), (4, 256, 256, 256, 128, 128),
-             (4, 512, 512, 128, 64, 64)]
+# The ConvBlock shapes of the serving path and the MT step (K1, K2, the
+# backward) are pda_torch/tools/workload.py's, shared with the profiler.
 K3_SHAPE = (4, 512, 512, 64)  # feature term of one tiled forward
-# The ConvBlock backwards of one MT step (512^2, batch 2): ((B, H, W, Cin, C),
-# need_dx, calls per step). The entry blocks (backbone, prior: Cin 1;
-# posterior: image + mask, Cin 2) take no dx; levels 1-3 run in all three nets.
-BWD_SHAPES = [((2, 512, 512, 1, 64), False, 2), ((2, 512, 512, 2, 64), False, 1),
-              ((2, 256, 256, 64, 128), True, 3), ((2, 128, 128, 128, 256), True, 3),
-              ((2, 64, 64, 256, 512), True, 3)]
-# (B, H, W, Ca, Cb, C): the decoder blocks' backward, once each per step
-BWD_DUAL_SHAPES = [(2, 128, 128, 512, 256, 256), (2, 256, 256, 256, 128, 128),
-                   (2, 512, 512, 128, 64, 64)]
 BWD_REL_TOL = 1e-4  # each of dx, dW, db: max |kernel - plain| <= 1e-4 * max |plain|
 # ... and max |kernel - ref64| <= 1e-5 * max |ref64|, ref64 the plain version in
 # float64: float32 accuracy (3xTF32 is ~1e-6 off, one TF32 product ~1e-3)
@@ -84,36 +75,27 @@ MT_PARAM_TOL = 1e-6  # card vs CPU: updated student (where Adam's sign is define
 MT_LAUNCHES = {"conv_block_fwd": 20, "conv_block_fwd_dual": 6, "mc_consensus": 1,
                "conv_block_bwd": 12, "conv_block_bwd_dual": 3}
 
+# A kernel's bound: the larger of its FLOPs over the card's float32-accurate
+# peak and its bytes (each input read once, each output written once) over
+# the memory rate. H100 SXM data sheet: 495 TFLOP/s TF32 on the tensor cores,
+# so 165 in 3xTF32, the fastest float32-accurate route (67 TFLOP/s on the FMA
+# pipes); 3.35 TB/s.
+PEAK_FLOPS = 495e12 / 3
+PEAK_BYTES = 3.35e12
+
 
 def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def cuda_ms(fn, warmup: int = 2, iters: int = 5) -> float:
-    """Median milliseconds of ``fn()`` by CUDA events, after warm-up."""
-    import torch
-
-    for _ in range(warmup):
-        fn()
-    times = []
-    for _ in range(iters):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
-
-
-def conv_weights(gen, cin, c, dev):
-    import torch
-
-    out = []
-    for ci in (cin, c, c):
-        out.append((torch.randn(3, 3, ci, c, generator=gen) * (2.0 / (9 * ci)) ** 0.5).to(dev))
-        out.append((torch.randn(c, generator=gen) * 0.1).to(dev))
-    return out
+def add_bound(entry, binding, flops, nbytes, weight=1):
+    """Add ``weight`` calls' bound (ms) to ``entry``; ``binding`` sums each
+    term's share, which names ``bound_by``. Returns one call's (ms, term)."""
+    ops_ms, bytes_ms = 1e3 * flops / PEAK_FLOPS, 1e3 * nbytes / PEAK_BYTES
+    ms, term = (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
+    entry["bound_ms"] += weight * ms
+    binding[entry["name"], term] = binding.get((entry["name"], term), 0.0) + weight * ms
+    return ms, term
 
 
 def synthetic_frame(gen, shape, dev):
@@ -136,6 +118,7 @@ def saved_block(gen, b, h, w, cin, c, dev):
     import torch
 
     from pda_torch.kernels import conv_block as kc
+    from pda_torch.tools.workload import conv_weights
 
     x = torch.randn(b, h, w, cin, generator=gen).to(dev)
     w1, b1, w2, b2, w3, b3 = conv_weights(gen, cin, c, dev)
@@ -144,11 +127,13 @@ def saved_block(gen, b, h, w, cin, c, dev):
     return (g, x, *hs, w1, w2, w3)
 
 
-def check_bwd(entry, label, kernel, plain, args, names, per_step):
+def check_bwd(entry, label, kernel, plain, args, names, per_step, binding, need_dx):
     """A backward kernel against its plain version: every output within
     BWD_REL_TOL of the plain one's largest and within BWD_REF64_TOL of the
     plain version's in float64, and two runs bit-equal."""
     import torch
+
+    from pda_torch.tools.workload import block_flops, block_weight_bytes, cuda_ms, dgrad_flops
 
     out, again, ref = kernel(*args), kernel(*args), plain(*args)
     ref64 = plain(*(a.double() for a in args))
@@ -171,68 +156,125 @@ def check_bwd(entry, label, kernel, plain, args, names, per_step):
     ok &= same
     del out, again, ref, ref64
     ms, plain_ms = cuda_ms(lambda: kernel(*args)), cuda_ms(lambda: plain(*args))
+    # wgrad of three layers, dgrad of two (and of the first with dx);
+    # reads x (or xa, xb), h1, h2, h3, g, W; writes dx, dW, db
+    b, h, w, c = args[0].shape
+    cin = sum(t.shape[-1] for t in args[1:-6])
+    flops = block_flops(b, h, w, cin, c) + dgrad_flops(b, h, w, cin, c, need_dx)
+    nbytes = (4 * b * h * w * (cin * (2 if need_dx else 1) + 4 * c)
+              + 2 * block_weight_bytes(cin, c))
+    bound, term = add_bound(entry, binding, flops, nbytes, per_step)
     log(f"kernel {label}: worst max_abs_err/max|plain| {worst[0]:.3e} ({worst[1]}; tol "
         f"{BWD_REL_TOL:.0e}), /max|ref64| {worst64[0]:.3e} ({worst64[1]}; tol "
-        f"{BWD_REF64_TOL:.0e}), repeat bit-equal {same}, ms {ms:.3f} plain_ms {plain_ms:.3f} "
-        f"{'ok' if ok else 'FAIL'}")
+        f"{BWD_REF64_TOL:.0e}), repeat bit-equal {same}, ms {ms:.3f} "
+        f"({flops / ms / 1e9:.1f} TFLOP/s) plain_ms {plain_ms:.3f} bound_ms {bound:.3f} "
+        f"({term}) {'ok' if ok else 'FAIL'}")
     entry["ms"] += per_step * ms
     entry["plain_ms"] += per_step * plain_ms
     return ok
 
 
-def phase_kernels(dev, results):
+def cudnn_block(x, w1, b1, w2, b2, w3, b3):
+    """The library's ConvBlock: three cuDNN convolutions (``F.conv2d`` with
+    bias, then ReLU) on a channels-last (NHWC) batch, with the weights laid
+    out beforehand (:func:`cudnn_weights`). Timed as ``library_ms`` only."""
+    import torch.nn.functional as F
+
+    h = x.permute(0, 3, 1, 2)
+    for w, b in ((w1, b1), (w2, b2), (w3, b3)):
+        h = F.relu(F.conv2d(h, w, b, padding=1))
+    return h
+
+
+def cudnn_weights(w1, b1, w2, b2, w3, b3):
+    import torch
+
+    return [t if t.ndim == 1 else t.permute(3, 2, 0, 1).contiguous(
+        memory_format=torch.channels_last) for t in (w1, b1, w2, b2, w3, b3)]
+
+
+def phase_kernels(dev, results, binding):
     """Kernels against their plain versions; fills ``results`` per kernel."""
     import torch
 
     from pda_torch.kernels import conv_block as kc
     from pda_torch.kernels import mc_consensus as km
+    from pda_torch.tools import workload as wl
+    from pda_torch.tools.workload import block_flops, block_weight_bytes, conv_weights, cuda_ms
 
     gen = torch.Generator().manual_seed(SEED)
     k1, k2, k3 = results["conv_block_fwd"], results["conv_block_fwd_dual"], results["mc_consensus"]
 
     def check_conv(entry, label, kernel, plain, args, per_forward):
-        out, ref = kernel(*args), plain(*args)
+        """A forward kernel against its plain version: within K12_REL_TOL of
+        the plain one's largest, within K12_REF64_TOL of the plain version's
+        in float64, and two runs bit-equal; then times and the bound."""
+        out, again, ref = kernel(*args), kernel(*args), plain(*args)
+        ref64 = plain(*(a.double() for a in args))
         torch.cuda.synchronize()
-        err = float((out - ref).abs().max())
-        tol = K12_REL_TOL * float(ref.abs().max())
-        ok = bool(torch.isfinite(out).all()) and err <= tol
+        same = torch.equal(out, again)
+        err, scale = float((out - ref).abs().max()), float(ref.abs().max())
+        err64 = float((out.double() - ref64).abs().max())
+        scale64 = float(ref64.abs().max())
+        ok = (bool(torch.isfinite(out).all()) and err <= K12_REL_TOL * scale
+              and err64 <= K12_REF64_TOL * scale64 and same)
+        del out, again, ref, ref64
+        x = torch.cat(args[:-6], dim=-1)
+        lib_args = (x, *cudnn_weights(*args[-6:]))
         ms, plain_ms = cuda_ms(lambda: kernel(*args)), cuda_ms(lambda: plain(*args))
-        log(f"kernel {label}: max_abs_err {err:.3e} (tol {tol:.3e}) ms {ms:.3f} "
-            f"plain_ms {plain_ms:.3f} {'ok' if ok else 'FAIL'}")
+        library_ms = cuda_ms(lambda: cudnn_block(*lib_args))
+        b, h, w, cin = x.shape
+        c = args[-1].shape[0]
+        flops = block_flops(b, h, w, cin, c)
+        nbytes = 4 * b * h * w * (cin + 3 * c) + block_weight_bytes(cin, c)
+        bound, term = add_bound(entry, binding, flops, nbytes, per_forward)
+        del x, lib_args
+        log(f"kernel {label}: max_abs_err/max|plain| {err / scale:.3e} (tol "
+            f"{K12_REL_TOL:.0e}), /max|ref64| {err64 / scale64:.3e} (tol {K12_REF64_TOL:.0e}), "
+            f"repeat bit-equal {same}, ms {ms:.3f} ({flops / ms / 1e9:.1f} TFLOP/s) plain_ms "
+            f"{plain_ms:.3f} library_ms {library_ms:.3f} bound_ms {bound:.3f} ({term}) "
+            f"{'ok' if ok else 'FAIL'}")
         entry["max_abs_err"] = max(entry["max_abs_err"], err)
         entry["ms"] += per_forward * ms
         entry["plain_ms"] += per_forward * plain_ms
-        del out, ref
+        entry["library_ms"] = (entry["library_ms"] or 0.0) + per_forward * library_ms
         return ok
 
+    # every shape of the serving path and the MT step's posterior entry; the
+    # JSON line's times and bounds sum one tiled forward's calls (weight 0:
+    # checked and logged only)
     ok = True
-    for b, h, w, cin, c in K1_SHAPES + [K1_PSEUDO]:
+    for shape, per_forward in ([(s, 2) for s in wl.K1_TILED] + [(s, 0) for s in wl.K1_PSEUDO]
+                               + [(wl.K1_POSTERIOR, 0)]):
+        b, h, w, cin, c = shape
         x = torch.randn(b, h, w, cin, generator=gen).to(dev)
-        per_forward = 0 if (b, h, w, cin, c) == K1_PSEUDO else 2
         ok &= check_conv(k1, f"conv_block_fwd {cin}->{c} @{b}x{h}x{w}", kc.conv_block_fwd,
                          kc.conv_block_fwd_plain, (x, *conv_weights(gen, cin, c, dev)),
                          per_forward)
-    for b, h, w, ca, cb, c in K2_SHAPES:
+    for shape, per_forward in [(s, 1) for s in wl.K2_TILED] + [(s, 0) for s in wl.K2_PSEUDO]:
+        b, h, w, ca, cb, c = shape
         xa = torch.randn(b, h, w, ca, generator=gen).to(dev)
         xb = torch.randn(b, h, w, cb, generator=gen).to(dev)
         ok &= check_conv(k2, f"conv_block_fwd_dual {ca}+{cb}->{c} @{b}x{h}x{w}",
                          kc.conv_block_fwd_dual, kc.conv_block_fwd_dual_plain,
-                         (xa, xb, *conv_weights(gen, ca + cb, c, dev)), 1)
+                         (xa, xb, *conv_weights(gen, ca + cb, c, dev)), per_forward)
 
-    for (b, h, w, cin, c), need_dx, per_step in BWD_SHAPES:
+    for (b, h, w, cin, c), need_dx, per_step in wl.BWD_SHAPES:
         saved = saved_block(gen, b, h, w, cin, c, dev)
         ok &= check_bwd(results["conv_block_bwd"], f"conv_block_bwd {cin}->{c} @{b}x{h}x{w} "
                         f"need_dx={need_dx}", lambda *a: kc.conv_block_bwd(*a, need_dx=need_dx),
                         lambda *a: kc.conv_block_bwd_plain(*a, need_dx=need_dx), saved,
-                        ("dx", "dw1", "db1", "dw2", "db2", "dw3", "db3"), per_step)
+                        ("dx", "dw1", "db1", "dw2", "db2", "dw3", "db3"), per_step, binding,
+                        need_dx)
         del saved
-    for b, h, w, ca, cb, c in BWD_DUAL_SHAPES:
+    for b, h, w, ca, cb, c in wl.BWD_DUAL_SHAPES:
         g, x, *rest = saved_block(gen, b, h, w, ca + cb, c, dev)
         args = (g, x[..., :ca].contiguous(), x[..., ca:].contiguous(), *rest)
         del x
         ok &= check_bwd(results["conv_block_bwd_dual"], f"conv_block_bwd_dual {ca}+{cb}->{c} "
                         f"@{b}x{h}x{w}", kc.conv_block_bwd_dual, kc.conv_block_bwd_dual_plain,
-                        args, ("dxa", "dxb", "dw1", "db1", "dw2", "db2", "dw3", "db3"), 1)
+                        args, ("dxa", "dxb", "dw1", "db1", "dw2", "db2", "dw3", "db3"), 1,
+                        binding, True)
         del g, rest, args
 
     b, h, w, c = K3_SHAPE
@@ -242,6 +284,12 @@ def phase_kernels(dev, results):
             (torch.randn(1, c, generator=gen) * 0.1).to(dev),
             (torch.randn(c, 1, generator=gen) * 3 / c ** 0.5).to(dev),
             torch.randn(1, generator=gen).to(dev))
+    # per pixel and sample: feature + latent term, the mid layers, the last
+    # layer's dot product; reads feat, z, weights; writes mean and consensus
+    n_mid, s = args[2].shape[0], MC
+    flops = b * h * w * s * (2 * c + n_mid * (2 * c * c + 2 * c) + 2 * c)
+    nbytes = 4 * (b * h * w * (c + 2) + s * b * c + n_mid * (c * c + c) + c + 1)
+    k3_bound, k3_term = add_bound(k3, binding, flops, nbytes)
     logits = km.mc_logits_plain(*args)
     near = ((logits.abs() - torch.log(torch.tensor(9.0))).abs() < K3_WINDOW).any(dim=0)
     del logits
@@ -258,7 +306,8 @@ def phase_kernels(dev, results):
         log(f"kernel mc_consensus S={MC} feat {b}x{h}x{w}x{c} masking={masking}: "
             f"mean max_abs_err {err:.3e} (tol {K3_MEAN_TOL:.0e}), consensus differs at {flips} "
             f"px, {stray} of them farther than {K3_WINDOW:.0e} from a threshold; ms {ms:.3f} "
-            f"plain_ms {plain_ms:.3f} {'ok' if good else 'FAIL'}")
+            f"plain_ms {plain_ms:.3f} bound_ms {k3_bound:.3f} ({k3_term}) "
+            f"{'ok' if good else 'FAIL'}")
         k3["max_abs_err"] = max(k3["max_abs_err"], err)
         if not masking:  # the tiled forward's call
             k3["ms"], k3["plain_ms"] = ms, plain_ms
@@ -277,13 +326,14 @@ def phase_serving(dev, results):
     from pda_torch.kernels import conv_block as kc
     from pda_torch.kernels import mc_consensus as km
     from pda_torch.models.punet import livecell_punet, mc_pseudo
+    from pda_torch.tools.workload import cuda_ms
 
     wrappers = {"conv_block_fwd": kc.conv_block_fwd,
                 "conv_block_fwd_dual": kc.conv_block_fwd_dual,
                 "mc_consensus": km.mc_consensus}
     expect = {"conv_block_fwd": 8, "conv_block_fwd_dual": 3, "mc_consensus": 1}
     gen = torch.Generator().manual_seed(SEED)
-    model_cpu = livecell_punet(generator=torch.Generator().manual_seed(SEED)).eval()
+    model_cpu = livecell_punet(generator=torch.Generator().manual_seed(SEED), device="cpu").eval()
     model = copy.deepcopy(model_cpu).to(dev)
     frame = synthetic_frame(gen, FRAME, dev)
     n_tiles = 4
@@ -374,7 +424,8 @@ def phase_training(dev, results):
                 "mc_consensus": km.mc_consensus, "conv_block_bwd": kc.conv_block_bwd,
                 "conv_block_bwd_dual": kc.conv_block_bwd_dual}
     gen = torch.Generator().manual_seed(SEED + 1)
-    model = livecell_punet(consensus_masking=True, generator=torch.Generator().manual_seed(SEED))
+    model = livecell_punet(consensus_masking=True, generator=torch.Generator().manual_seed(SEED),
+                           device="cpu")
     with torch.no_grad():
         model.fcomb.last_layer.weight.mul_(LAST_SCALE)
     frame = synthetic_frame(gen, FRAME, "cpu")
@@ -520,7 +571,8 @@ def main() -> int:
     log(card)
 
     results = {name: {"name": name, "route": "cuda", "source": src, "replaces": rep,
-                      "launches": 0, "max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0}
+                      "launches": 0, "max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
+                      "bound_ms": 0.0, "bound_by": None, "library_ms": None}
                for name, src, rep in (
                    ("conv_block_fwd", "pda_torch/kernels/csrc/conv_block_fwd.cu",
                     "pda/kernels/conv_block.py:391"),
@@ -532,6 +584,7 @@ def main() -> int:
                     "pda/kernels/conv_block_bwd.py:402"),
                    ("conv_block_bwd_dual", "pda_torch/kernels/csrc/conv_block_bwd.cu",
                     "pda/kernels/conv_block_bwd.py:502"))}
+    binding = {}  # (kernel, "operations" or "bytes") -> ms of bound that term sets
     ok = True
     try:
         t0 = time.perf_counter()
@@ -539,7 +592,7 @@ def main() -> int:
         _build.library()
         log(f"build: {lib.name} in {time.perf_counter() - t0:.1f} s")
         with torch.inference_mode():
-            ok &= phase_kernels(dev, results)
+            ok &= phase_kernels(dev, results, binding)
         torch.cuda.synchronize()
         ok &= phase_serving(dev, results)
         torch.cuda.synchronize()
@@ -551,9 +604,14 @@ def main() -> int:
     if not ok:
         log("chip_smoke: FAILED")
         return 1
-    log("kernel ms/plain_ms: forward kernels summed over one tiled MC-16 forward's calls, "
-        "backward kernels over one MT step's (512^2, batch 2); launches: both serving "
-        "entries and the checked MT step")
+    for entry in results.values():
+        entry["bound_by"] = max(("operations", "bytes"),
+                                key=lambda t: binding.get((entry["name"], t), 0.0))
+    log("kernel ms/plain_ms/library_ms/bound_ms: forward kernels summed over one tiled "
+        "MC-16 forward's calls, backward kernels over one MT step's (512^2, batch 2); "
+        f"bound at {PEAK_FLOPS / 1e12:.0f} TFLOP/s (3xTF32) and {PEAK_BYTES / 1e12:.2f} TB/s; "
+        "library_ms: cuDNN's three convolutions (F.conv2d, TF32 off); launches: both "
+        "serving entries and the checked MT step")
     print(json.dumps({"kernels": list(results.values())}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

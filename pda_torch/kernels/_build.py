@@ -21,7 +21,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import List, Optional
+from typing import Dict, List
 
 import torch
 
@@ -33,7 +33,8 @@ NVCC_FLAGS = (
 )
 
 _lock = threading.Lock()
-_lib: Optional[ctypes.CDLL] = None
+_csrc = CSRC  # the sources whose kernels launch
+_libs: Dict[Path, ctypes.CDLL] = {}
 
 
 def _nvcc() -> str:
@@ -44,25 +45,26 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME to the CUDA toolkit")
 
 
-def _sources() -> List[Path]:
-    return sorted(CSRC.glob("*.cu"))
+def _sources(csrc: Path = CSRC) -> List[Path]:
+    return sorted(csrc.glob("*.cu"))
 
 
-def _library_path() -> Path:
-    """Where the library for the current sources lives (built or not)."""
+def _library_path(csrc: Path = CSRC) -> Path:
+    """Where the library for the sources in ``csrc`` lives (built or not)."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sorted(CSRC.glob("*.cu*")):
+    for src in sorted(csrc.glob("*.cu*")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"libpda_torch_{h.hexdigest()[:16]}.so"
 
 
-def build() -> Path:
-    """Compile the sources if their library is missing; return its path.
+def build(csrc: Path = CSRC) -> Path:
+    """Compile the sources in ``csrc`` if their library is missing; return
+    its path.
 
     The compiler writes to a file unique to this process, then renames it
     into place, so concurrent builds never load a half-written library."""
-    out = _library_path()
+    out = _library_path(csrc)
     if out.exists():
         return out
     out.parent.mkdir(parents=True, exist_ok=True)
@@ -70,7 +72,7 @@ def build() -> Path:
     nvcc = _nvcc()
     objs, compiles = [], []
     try:
-        for src in _sources():
+        for src in _sources(csrc):
             obj = out.parent / f"{src.stem}.{os.getpid()}.o"
             cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
             objs.append(obj)
@@ -100,11 +102,20 @@ def _check_nvcc(cmd, returncode: int, stdout: str, stderr: str) -> None:
 
 def library() -> ctypes.CDLL:
     """The loaded kernel library, built on first use."""
-    global _lib
     with _lock:
-        if _lib is None:
-            _lib = ctypes.CDLL(str(build()))
-        return _lib
+        if _csrc not in _libs:
+            _libs[_csrc] = ctypes.CDLL(str(build(_csrc)))
+        return _libs[_csrc]
+
+
+def use_sources(csrc: Path = CSRC) -> ctypes.CDLL:
+    """Launch the kernels built from the sources in ``csrc`` (by default the
+    package's own) from now on; return their library. A variant of the
+    sources (a copy of ``csrc/`` with one change) is timed this way against
+    the package's own in one process (:mod:`pda_torch.tools.bench_variants`)."""
+    global _csrc
+    _csrc = Path(csrc).resolve()
+    return library()
 
 
 def entry(name: str, argtypes, restype=ctypes.c_int) -> ctypes._CFuncPtr:

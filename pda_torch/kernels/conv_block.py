@@ -18,10 +18,17 @@ dgrad run on the tensor cores in 3xTF32 (:mod:`.tf32x3`), float32-accurate.
 dx is computed only when autograd asks for it: an entry block, whose input
 is the image, takes none (``pda``'s ``need_dx=False``).
 
+The forward's layers run on the tensor cores in 3xTF32 too
+(``csrc/conv3x3_tc.cuh``, the body the dgrad shares), so on the card the
+forward is about 1e-6 of its largest value off a float64 reference, no
+longer bit-equal to cuDNN's float32 FMAs; a single-input first layer with
+1 or 2 channels (the image, or image + mask) runs on the FMA pipes.
+
 Tensors are NHWC float32, weights HWIO ``(3, 3, Cin, C)`` as in ``pda``,
-biases ``(C,)``. On a CPU tensor the wrappers run the plain PyTorch
-versions (``*_plain``); on a CUDA tensor they launch the hand-written kernels
-on the current stream, or raise.
+biases ``(C,)``; the forward kernel reads an HWOI copy (:func:`_hwoi`). On a
+CPU tensor the wrappers run the plain PyTorch versions (``*_plain``); on a
+CUDA tensor they launch the hand-written kernels on the current stream, or
+raise.
 """
 
 from __future__ import annotations
@@ -128,6 +135,13 @@ def _check_block(xa: torch.Tensor, xb: Optional[torch.Tensor], w1, w2, w3, b=())
     return bsz, h, w, ca, cb, c
 
 
+def _hwoi(w: torch.Tensor) -> torch.Tensor:
+    """An HWIO kernel ``(3, 3, Cin, C)`` as the contiguous HWOI copy
+    ``(3, 3, C, Cin)`` the forward kernel reads: its reduction index (Cin)
+    contiguous, as the tensor-core tiles take it."""
+    return w.permute(0, 1, 3, 2).contiguous()
+
+
 def _launch(xa: torch.Tensor, xb: Optional[torch.Tensor], w1, b1, w2, b2, w3, b3):
     """(h1, h2, h3) of the forward kernel."""
     dev = xa.device
@@ -138,6 +152,7 @@ def _launch(xa: torch.Tensor, xb: Optional[torch.Tensor], w1, b1, w2, b2, w3, b3
         return h1, h2, h3
     fn = _build.entry("pda_conv_block_fwd", _FWD_ARGTYPES)
     with torch.cuda.device(dev):
+        w1, w2, w3 = _hwoi(w1), _hwoi(w2), _hwoi(w3)
         stream = torch.cuda.current_stream(dev).cuda_stream
         code = fn(xa.data_ptr(), None if xb is None else xb.data_ptr(), ca, cb,
                   w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),

@@ -1,19 +1,20 @@
-// One 3x3 SAME conv layer (zero padding) + bias + ReLU, float32, NHWC
-// activations, HWIO weights: the layer kernel of the fused ConvBlock forward
-// (conv_block_fwd.cu), y = relu(conv(x) + bias).
+// The entry layer of the fused ConvBlock forward (conv_block_fwd.cu) when it
+// has 1 or 2 input channels (the image: Cin 1; the posterior's image + mask:
+// Cin 2): one 3x3 SAME conv (zero padding) + bias + ReLU, float32, NHWC
+// activations, HWOI weights ([tap][co][ci]), on the FMA pipes.
 //
-// The input's channels may come from two tensors, [0, Ca) from xa and
-// [Ca, Ca+Cb) from xb (the decoder's [upsample | skip], never concatenated in
-// device memory).
+// Why not the tensor cores (conv3x3_tc.cuh, every other layer): its stages
+// take 16 input channels, of which Cin 1-2 would fill 1-2, through 4-byte
+// copies. The layer does 18 * Cin FLOPs for each output value it writes
+// (1,152 a pixel at 1 -> 64, 0.8% of the 1 -> 64 block's), so its time is
+// mostly the 64-channel output it must write; the SIMT path keeps the whole
+// input (CIN channels) in one shared-memory stage. On an H100 the
+// tensor-core body in its place made the 1 -> 64 block at 4 x 512^2 8-14%
+// slower and the 2 -> 64 block at 2 x 512^2 8% (PERF.md).
 //
-// What bounds it: at 64..512 channels a layer does 18*Cin FLOPs per output
-// value and is compute-bound on the float32 FMA pipes (no tensor cores in f32
-// without TF32). The design keeps the FMA units fed from shared memory: a
-// block computes an 8x16-pixel x 64-channel output tile; each stage copies an
-// 8-channel slice of the input tile with its one-pixel halo (zeros outside the
-// image) and the matching 3x3x8x64 weights into shared memory; every thread
-// holds a 4-pixel x 8-channel accumulator tile in registers, so one
-// shared-memory load feeds about 8 FMAs.
+// A block computes an 8x16-pixel x 64-channel output tile; every thread holds
+// a 4-pixel x 8-channel accumulator tile in registers, so one shared-memory
+// load feeds about 8 FMAs. The sum adds the bias last, then the ReLU.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -25,7 +26,6 @@ namespace {
 constexpr int TH = 8;        // output rows per block
 constexpr int TW = 16;       // output columns per block
 constexpr int TCO = 64;      // output channels per block
-constexpr int CK = 8;        // input channels per shared-memory stage
 constexpr int THREADS = 256;
 constexpr int IH = TH + 2;   // input tile rows, with the halo
 constexpr int IW = TW + 2;   // input tile columns, with the halo
@@ -34,15 +34,14 @@ constexpr int IW = TW + 2;   // input tile columns, with the halo
 // 32+cg*4+{0..3} of the block's 64 (two float4 weight reads that a quarter
 // warp takes from 8 distinct 16-byte words, free of bank conflicts);
 // pg = tid / 8 owns the 4 pixels (row pg/4, columns (pg%4)*4 + {0..3}).
-__global__ void __launch_bounds__(THREADS)
-conv3x3_layer(const float* __restrict__ xa, const float* __restrict__ xb,
-              const float* __restrict__ w, const float* __restrict__ bias,
-              float* __restrict__ y, int H, int W, int Ca, int Cb, int cout,
-              int tiles_x) {
-  __shared__ __align__(16) float s_in[CK][IH][IW];
-  __shared__ __align__(16) float s_w[CK][9][TCO];
+template <int CIN>
+__global__ void __launch_bounds__(THREADS, 3)
+conv3x3_entry(const float* __restrict__ x, const float* __restrict__ w,
+              const float* __restrict__ bias, float* __restrict__ y, int H,
+              int W, int cout, int tiles_x) {
+  __shared__ __align__(16) float s_in[CIN][IH][IW];
+  __shared__ __align__(16) float s_w[CIN][9][TCO];
 
-  const int cin = Ca + Cb;
   const int tid = threadIdx.x;
   const int cg = tid & 7;
   const int pg = tid >> 3;
@@ -54,71 +53,62 @@ conv3x3_layer(const float* __restrict__ xa, const float* __restrict__ xb,
   const int co0 = blockIdx.y * TCO;
   const size_t img = static_cast<size_t>(blockIdx.z) * H * W;
 
+  for (int e = tid; e < CIN * IH * IW; e += THREADS) {
+    const int ci = e % CIN;
+    const int pix = e / CIN;
+    const int iy = pix / IW;
+    const int ix = pix % IW;
+    const int gy = y0 - 1 + iy;
+    const int gx = x0 - 1 + ix;
+    s_in[ci][iy][ix] =
+        (gy >= 0 && gy < H && gx >= 0 && gx < W)
+            ? x[(img + static_cast<size_t>(gy) * W + gx) * CIN + ci]
+            : 0.f;
+  }
+  for (int e = tid; e < CIN * 9 * TCO; e += THREADS) {
+    const int ci = e % CIN;
+    const int r = e / CIN;  // tap * TCO + co
+    const int co = r % TCO;
+    const int tap = r / TCO;
+    const int o = co0 + co;
+    s_w[ci][tap][co] =
+        o < cout ? w[(static_cast<size_t>(tap) * cout + o) * CIN + ci] : 0.f;
+  }
+  __syncthreads();
+
   float acc[4][8];
 #pragma unroll
   for (int j = 0; j < 4; ++j)
 #pragma unroll
     for (int k = 0; k < 8; ++k) acc[j][k] = 0.f;
 
-  for (int c0 = 0; c0 < cin; c0 += CK) {
-    for (int e = tid; e < CK * IH * IW; e += THREADS) {
-      const int ci = e % CK;
-      const int pix = e / CK;
-      const int iy = pix / IW;
-      const int ix = pix % IW;
-      const int gy = y0 - 1 + iy;
-      const int gx = x0 - 1 + ix;
-      const int c = c0 + ci;
-      float v = 0.f;
-      if (gy >= 0 && gy < H && gx >= 0 && gx < W && c < cin) {
-        const size_t p = img + static_cast<size_t>(gy) * W + gx;
-        v = c < Ca ? xa[p * Ca + c] : xb[p * Cb + (c - Ca)];
-      }
-      s_in[ci][iy][ix] = v;
-    }
-    for (int e = tid; e < CK * 9 * TCO; e += THREADS) {
-      const int co = e % TCO;
-      const int r = e / TCO;
-      const int tap = r % 9;
-      const int ci = r / 9;
-      const int c = c0 + ci;
-      const int o = co0 + co;
-      s_w[ci][tap][co] =
-          (c < cin && o < cout)
-              ? w[(static_cast<size_t>(tap) * cin + c) * cout + o]
-              : 0.f;
-    }
-    __syncthreads();
-
-#pragma unroll 2
-    for (int ci = 0; ci < CK; ++ci) {
+#pragma unroll 1
+  for (int ci = 0; ci < CIN; ++ci) {
 #pragma unroll
-      for (int ky = 0; ky < 3; ++ky) {
-        float r[6];
+    for (int ky = 0; ky < 3; ++ky) {
+      float r[6];
 #pragma unroll
-        for (int q = 0; q < 6; ++q) r[q] = s_in[ci][row + ky][col0 + q];
+      for (int q = 0; q < 6; ++q) r[q] = s_in[ci][row + ky][col0 + q];
 #pragma unroll
-        for (int kx = 0; kx < 3; ++kx) {
-          const float4 wa =
-              *reinterpret_cast<const float4*>(&s_w[ci][ky * 3 + kx][cg * 4]);
-          const float4 wb = *reinterpret_cast<const float4*>(
-              &s_w[ci][ky * 3 + kx][32 + cg * 4]);
+      for (int kx = 0; kx < 3; ++kx) {
+        const float4 wa =
+            *reinterpret_cast<const float4*>(&s_w[ci][ky * 3 + kx][cg * 4]);
+        const float4 wb = *reinterpret_cast<const float4*>(
+            &s_w[ci][ky * 3 + kx][32 + cg * 4]);
 #pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            const float a = r[j + kx];
-            acc[j][0] = fmaf(a, wa.x, acc[j][0]);
-            acc[j][1] = fmaf(a, wa.y, acc[j][1]);
-            acc[j][2] = fmaf(a, wa.z, acc[j][2]);
-            acc[j][3] = fmaf(a, wa.w, acc[j][3]);
-            acc[j][4] = fmaf(a, wb.x, acc[j][4]);
-            acc[j][5] = fmaf(a, wb.y, acc[j][5]);
-            acc[j][6] = fmaf(a, wb.z, acc[j][6]);
-            acc[j][7] = fmaf(a, wb.w, acc[j][7]);
-          }
+        for (int j = 0; j < 4; ++j) {
+          const float a = r[j + kx];
+          acc[j][0] = fmaf(a, wa.x, acc[j][0]);
+          acc[j][1] = fmaf(a, wa.y, acc[j][1]);
+          acc[j][2] = fmaf(a, wa.z, acc[j][2]);
+          acc[j][3] = fmaf(a, wa.w, acc[j][3]);
+          acc[j][4] = fmaf(a, wb.x, acc[j][4]);
+          acc[j][5] = fmaf(a, wb.y, acc[j][5]);
+          acc[j][6] = fmaf(a, wb.z, acc[j][6]);
+          acc[j][7] = fmaf(a, wb.w, acc[j][7]);
         }
       }
     }
-    __syncthreads();
   }
 
   const int oy = y0 + row;
@@ -137,15 +127,16 @@ conv3x3_layer(const float* __restrict__ xa, const float* __restrict__ xb,
   }
 }
 
-// Launch one layer over a (B, H, W, *) batch on ``stream``.
-cudaError_t conv3x3(const float* xa, const float* xb, int Ca, int Cb,
-                    const float* w, const float* b, float* y, int Cout, int B,
-                    int H, int W, cudaStream_t stream) {
+// Launch the entry layer (Cin 1 or 2) over a (B, H, W, Cin) batch on
+// ``stream``.
+cudaError_t conv3x3_entry_layer(const float* x, int Cin, const float* w,
+                                const float* b, float* y, int Cout, int B,
+                                int H, int W, cudaStream_t stream) {
   const int tiles_x = (W + TW - 1) / TW;
   const int tiles_y = (H + TH - 1) / TH;
   const dim3 grid(tiles_x * tiles_y, (Cout + TCO - 1) / TCO, B);
-  conv3x3_layer<<<grid, THREADS, 0, stream>>>(xa, xb, w, b, y, H, W, Ca, Cb,
-                                               Cout, tiles_x);
+  const auto kernel = Cin == 1 ? &conv3x3_entry<1> : &conv3x3_entry<2>;
+  kernel<<<grid, THREADS, 0, stream>>>(x, w, b, y, H, W, Cout, tiles_x);
   return cudaGetLastError();
 }
 

@@ -41,11 +41,12 @@
 // warp runs short mma chains (8 k-steps in the wgrad, 18 in the dgrad) into
 // zeroed fragments and adds them into float32 sums kept in shared memory
 // (tf32x3.cuh), which also keeps them out of the registers. Per k-step a
-// warp issues 24 mma and splits 16 values (4 integer/float ops each); on an
-// H100 that runs at about 0.3 mma a cycle an SM, well under both the issue
-// rate and the mma rate, so latency (4-5 warps a scheduler, each waiting on
-// its loads, splits and 3-deep mma chains) is the likely bound (stall
-// reasons not measured). wgmma would take TF32 only
+// wgrad warp runs 24 mma and splits 16 values (4 integer/float ops each);
+// on an H100 that runs at about 0.3 mma a cycle an SM. Splitting each value
+// once instead of once a warp made the dgrad's body slower, not faster
+// (conv3x3_tc.cuh), so the splits are not the bound; what is (mma.sync's own
+// rate, latency) is not measured: stall reasons cannot be read on the card.
+// wgmma would take TF32 only
 // K-major from shared memory, which neither operand of the wgrad is in NHWC;
 // mma.sync gathers its fragments from [pixel][channel] tiles, with the
 // fragments' rows, columns or k-slots mapped to channels so that a lane's
@@ -63,22 +64,21 @@
 // query). The entry layer (Cin 1 or 2) runs the same path and skips the
 // second m-fragment, which holds none of its channels; a SIMT path for it
 // is later work.
-// dgrad: a block owns 16x16 pixels x 64 channels of da_{k-1}; 16 warps of
-// 32 pixels x 32 channels. Each stage holds 16 channels of da_k's halo tile
-// and the matching 9 x 64 x 16 slice of W_k, read from its HWIO layout with
-// the tap flipped at the fragment load (no flipped copy of W); 2 stages of
-// cp.async and the sums, 180,736 bytes.
+// dgrad: the implicit-GEMM layer body it shares with the forward
+// (conv3x3_tc.cuh, which gives its tiling), with the tap flipped at the
+// fragment load (no flipped copy of W, read in its HWIO layout), the output
+// split into dxa | dxb, and the ReLU mask of the layer below applied as it
+// is stored.
 //
 // Not done yet (later work): TMA and warp-specialised producers, keeping da
 // on chip between the wgrad and the dgrad, the 2x2 pool's transpose.
 
 #include <algorithm>
 
+#include "conv3x3_tc.cuh"
 #include "tf32x3.cuh"
 
 namespace {
-
-__host__ __device__ inline int cdiv(int a, int b) { return (a + b - 1) / b; }
 
 // ---- wgrad -----------------------------------------------------------------
 constexpr int WG_T = 8;                    // pixel tile: 8 x 8, one row a k-step
@@ -256,159 +256,10 @@ __global__ void relu_mask(const float* __restrict__ g, const float* __restrict__
     da[i] = h[i] > 0.f ? g[i] : 0.f;
 }
 
-// ---- dgrad -----------------------------------------------------------------
-constexpr int DG_T = 16;                   // pixel tile: 16 x 16
-constexpr int DG_I = DG_T + 2;             // halo tile side
-constexpr int DG_HALO = DG_I * DG_I;
-constexpr int DG_CI = 64;                  // output (input-of-layer) channels a block
-constexpr int DG_CK = 16;                  // reduction channels a stage
-constexpr int DG_LD = DG_CK;               // s_da, s_w row stride: 16 * odd (mod 32)
-constexpr int DG_WARPS = 16;               // 8 (2 pixel rows) x 2 (32 channels)
-constexpr int DG_THREADS = 32 * DG_WARPS;
-constexpr int DG_STAGES = 2;
-constexpr int DG_STAGE = DG_HALO * DG_LD + 9 * DG_CI * DG_LD;  // floats
-constexpr int DG_ACC = 8 * 4 * DG_THREADS;  // the float32 sums, 8 fragments a thread
-constexpr int DG_SMEM = (DG_STAGES * DG_STAGE + DG_ACC) * 4;  // bytes
-
-// y[p, ci] = mask * sum_{tap, co} da[p + tap, co] * w[8 - tap, ci, co], with
-// y's channels split into ya ([0, Coa)) and yb ([Coa, Coa + Cob)); mask is
-// [m[p, ci] > 0] (m has Coa channels, Cob = 0) or 1 when m is null.
-// grid = (pixel tiles of an image, channel slices, B).
-//
-// A stage's two k-steps of a tap take its 16 channels so that k-slot q of
-// k-step ks is channel 4 q + 2 ks and k-slot q + 4 is channel 4 q + 2 ks + 1:
-// a lane's A values of both k-steps are 4 adjacent channels of one pixel and
-// its B values 4 adjacent channels of one weight row, one 16-byte load each
-// (conflict-free: rows of 16 floats).
-template <int V>
-__global__ void __launch_bounds__(DG_THREADS, 1)
-dgrad_tc(const float* __restrict__ da, const float* __restrict__ w,
-         const float* __restrict__ m, float* __restrict__ ya,
-         float* __restrict__ yb, int Coa, int Cob, int H, int W, int C,
-         int tiles_x) {
-  extern __shared__ __align__(16) float smem[];
-  float4* s_acc = reinterpret_cast<float4*>(smem + DG_STAGES * DG_STAGE);
-  const int cin = Coa + Cob;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31, warp = tid >> 5;
-  const int grp = lane >> 2, quad = lane & 3;
-  const int wm = warp & 7, wn = warp >> 3;
-  const int y0 = (blockIdx.x / tiles_x) * DG_T;
-  const int x0 = (blockIdx.x % tiles_x) * DG_T;
-  const int ci0 = blockIdx.y * DG_CI;
-  const size_t img = static_cast<size_t>(blockIdx.z) * H * W;
-  const int n_stages = cdiv(C, DG_CK);
-
-  // Channels [s * DG_CK, (s + 1) * DG_CK) of da's halo tile and of w into
-  // stage s % DG_STAGES.
-  auto load = [&](int s) {
-    float* s_da = smem + (s % DG_STAGES) * DG_STAGE;
-    float* s_w = s_da + DG_HALO * DG_LD;
-    const int c0 = s * DG_CK;
-    for (int e = tid; e < DG_HALO * DG_CK / V; e += DG_THREADS) {
-      const int c = (e % (DG_CK / V)) * V;
-      const int pix = e / (DG_CK / V);
-      const int gy = y0 - 1 + pix / DG_I, gx = x0 - 1 + pix % DG_I;
-      const bool in = gy >= 0 && gy < H && gx >= 0 && gx < W && c0 + c < C;
-      const float* src =
-          in ? da + (img + static_cast<size_t>(gy) * W + gx) * C + c0 + c : da;
-      tc::cp_async<V>(s_da + pix * DG_LD + c, src, in);
-    }
-    for (int e = tid; e < 9 * DG_CI * DG_CK / V; e += DG_THREADS) {
-      const int c = (e % (DG_CK / V)) * V;
-      const int r = e / (DG_CK / V);  // tap * DG_CI + ci
-      const int ci = ci0 + r % DG_CI, tap = r / DG_CI;
-      const bool in = ci < cin && c0 + c < C;
-      const float* src =
-          in ? w + (static_cast<size_t>(tap) * cin + ci) * C + c0 + c : w;
-      tc::cp_async<V>(s_w + r * DG_LD + c, src, in);
-    }
-  };
-
-  float chain[8][4] = {};  // fragment mf * 4 + nf
-#pragma unroll
-  for (int f = 0; f < 8; ++f) s_acc[f * DG_THREADS + tid] = make_float4(0.f, 0.f, 0.f, 0.f);
-
-#pragma unroll
-  for (int s = 0; s < DG_STAGES - 1; ++s) {
-    if (s < n_stages) load(s);
-    tc::cp_async_commit();
-  }
-  for (int s = 0; s < n_stages; ++s) {
-    tc::cp_async_wait<DG_STAGES - 2>();
-    __syncthreads();
-    if (s + DG_STAGES - 1 < n_stages) load(s + DG_STAGES - 1);
-    tc::cp_async_commit();
-
-    const float* s_da = smem + (s % DG_STAGES) * DG_STAGE;
-    const float* s_w = s_da + DG_HALO * DG_LD;
-    const float* a_ptr = s_da + (2 * wm * DG_I + grp) * DG_LD + 4 * quad;
-    const float* b_ptr = s_w + (wn * 32 + grp) * DG_LD + 4 * quad;
-#pragma unroll
-    for (int tap = 0; tap < 9; ++tap) {
-      const int ky = tap / 3, kx = tap % 3;
-      float4 wv[4];  // channels 4 quad .. 4 quad + 3 of weight rows nf * 8 + grp
-#pragma unroll
-      for (int nf = 0; nf < 4; ++nf)
-        wv[nf] = *reinterpret_cast<const float4*>(b_ptr + ((8 - tap) * DG_CI + nf * 8) * DG_LD);
-      float4 xv[2][2];  // [mf][pixel grp, grp + 8]
-#pragma unroll
-      for (int mf = 0; mf < 2; ++mf) {
-        const float* p = a_ptr + ((mf + ky) * DG_I + kx) * DG_LD;
-        xv[mf][0] = *reinterpret_cast<const float4*>(p);
-        xv[mf][1] = *reinterpret_cast<const float4*>(p + 8 * DG_LD);
-      }
-#pragma unroll
-      for (int ks = 0; ks < 2; ++ks) {
-        tc::FragB bf[4];
-#pragma unroll
-        for (int nf = 0; nf < 4; ++nf)
-          tc::split(ks ? wv[nf].z : wv[nf].x, ks ? wv[nf].w : wv[nf].y, bf[nf]);
-#pragma unroll
-        for (int mf = 0; mf < 2; ++mf) {
-          const float4& u = xv[mf][0];
-          const float4& v = xv[mf][1];
-          tc::FragA a;
-          tc::split(ks ? u.z : u.x, ks ? v.z : v.x, ks ? u.w : u.y, ks ? v.w : v.y, a);
-#pragma unroll
-          for (int nf = 0; nf < 4; ++nf) tc::mma3(chain[mf * 4 + nf], a, bf[nf]);
-        }
-      }
-    }
-    tc::flush(s_acc + tid, DG_THREADS, chain);
-  }
-  tc::cp_async_wait<0>();
-
-#pragma unroll
-  for (int f = 0; f < 8; ++f) {
-    const float4 sum = s_acc[f * DG_THREADS + tid];
-    const float acc[4] = {sum.x, sum.y, sum.z, sum.w};
-    const int gy = y0 + 2 * wm + f / 4;
-    const int ci = ci0 + wn * 32 + (f % 4) * 8 + 2 * quad;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int gx = x0 + grp + (j >= 2 ? 8 : 0), c = ci + (j & 1);
-      if (gy >= H || gx >= W || c >= cin) continue;
-      const size_t p = img + static_cast<size_t>(gy) * W + gx;
-      float v = acc[j];
-      if (m != nullptr && !(m[p * cin + c] > 0.f)) v = 0.f;
-      if (c < Coa) {
-        ya[p * Coa + c] = v;
-      } else {
-        yb[p * Cob + (c - Coa)] = v;
-      }
-    }
-  }
-}
-
 // ---- host ------------------------------------------------------------------
 int grid_1d(long long n) {
   const long long blocks = (n + 255) / 256;
   return blocks < 4096 ? static_cast<int>(blocks) : 4096;
-}
-
-bool aligned16(const void* p) {
-  return p == nullptr || reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }
 
 // Blocks of wgrad_tc the card runs at once (SMs x blocks an SM).
@@ -483,16 +334,8 @@ cudaError_t wgrad(const float* xa, const float* xb, int Ca, int Cb,
 cudaError_t dgrad(const float* da, const float* w, const float* m, float* ya,
                   float* yb, int Coa, int Cob, int B, int H, int W, int C,
                   cudaStream_t s) {
-  const int tiles_x = cdiv(W, DG_T);
-  const dim3 grid(tiles_x * cdiv(H, DG_T), cdiv(Coa + Cob, DG_CI), B);
-  const bool vec = C % 4 == 0 && aligned16(da) && aligned16(w);
-  const auto kernel = vec ? &dgrad_tc<4> : &dgrad_tc<1>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, DG_SMEM);
-  if (err != cudaSuccess) return err;
-  kernel<<<grid, DG_THREADS, DG_SMEM, s>>>(da, w, m, ya, yb, Coa, Cob, H, W, C,
-                                           tiles_x);
-  return cudaGetLastError();
+  return conv3x3_tc_layer<false>(da, nullptr, C, 0, w, m, ya, yb, Coa, Cob, B,
+                                 H, W, s);
 }
 
 // da1 and da2 are (B, H, W, C) workspaces: da_3 goes to da1, da_2 to da2,

@@ -15,7 +15,7 @@ Noise is explicit everywhere: ``eps`` of shape ``(n, B, latent_dim)``, or a
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Sequence, Tuple
+from typing import NamedTuple, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -147,12 +147,20 @@ class ProbabilisticUnet(nn.Module):
 
 
 def livecell_punet(consensus_masking: bool = False,
-                   generator: Optional[torch.Generator] = None) -> ProbabilisticUnet:
+                   generator: Optional[torch.Generator] = None,
+                   device: Union[str, torch.device] = "cuda") -> ProbabilisticUnet:
     """The flagship PUNet every LIVECell/MitoEM/Lung experiment builds
-    (``pda/experiments/common.py`` ``livecell_punet``), float32."""
-    return ProbabilisticUnet(input_channels=1, num_classes=1, num_filters=(64, 128, 256, 512),
-                             latent_dim=6, no_convs_fcomb=3, beta=1.0, rl_swap=True,
-                             consensus_masking=consensus_masking, generator=generator)
+    (``pda/experiments/common.py`` ``livecell_punet``), float32, on
+    ``device``: the card unless the caller asks for the CPU. The weights are
+    drawn on the CPU from ``generator`` and then moved, so they are the same
+    on either device; ``device="cuda"`` raises where there is no card."""
+    if torch.device(device).type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("livecell_punet: no CUDA card (torch.cuda.is_available() is "
+                           "False); pass device='cpu' to build on the CPU")
+    model = ProbabilisticUnet(input_channels=1, num_classes=1, num_filters=(64, 128, 256, 512),
+                              latent_dim=6, no_convs_fcomb=3, beta=1.0, rl_swap=True,
+                              consensus_masking=consensus_masking, generator=generator)
+    return model.to(device)
 
 
 def tail_weights(model: ProbabilisticUnet):

@@ -1,0 +1,82 @@
+"""The ConvBlock work of the flagship PUNet's paths, in one place.
+
+The shapes each kernel entry takes on the serving path (a tiled MC-16
+forward of a 520x704 frame, 4 tiles of 512^2; the pseudo export of the same
+frame, padded to 528x704) and in the Mean-Teacher step (512^2, batch 2), the
+FLOPs and bytes a call needs, seeded He-scaled weights, and a CUDA-event
+timer. ``chip_smoke.py``, :mod:`.profile` and :mod:`.bench_variants` all read
+them from here.
+"""
+
+from __future__ import annotations
+
+import statistics
+
+import torch
+
+# (B, H, W, Cin, C): the single-input ConvBlocks of one tiled forward; each
+# runs twice a forward, in the backbone and in the prior
+K1_TILED = [(4, 512, 512, 1, 64), (4, 256, 256, 64, 128),
+            (4, 128, 128, 128, 256), (4, 64, 64, 256, 512)]
+# ... of one pseudo forward (batch 1, ragged against the 16x16 pixel tile
+# but at 528x704), each run twice
+K1_PSEUDO = [(1, 528, 704, 1, 64), (1, 264, 352, 64, 128),
+             (1, 132, 176, 128, 256), (1, 66, 88, 256, 512)]
+# the MT step's posterior entry block: image + mask
+K1_POSTERIOR = (2, 512, 512, 2, 64)
+# (B, H, W, Ca, Cb, C): the decoder blocks, input [upsample | skip], once a forward
+K2_TILED = [(4, 128, 128, 512, 256, 256), (4, 256, 256, 256, 128, 128),
+            (4, 512, 512, 128, 64, 64)]
+K2_PSEUDO = [(1, 132, 176, 512, 256, 256), (1, 264, 352, 256, 128, 128),
+             (1, 528, 704, 128, 64, 64)]
+# The ConvBlock backwards of one MT step: ((B, H, W, Cin, C), need_dx, calls
+# a step). The entry blocks (backbone, prior: Cin 1; posterior: image + mask,
+# Cin 2) take no dx; levels 1-3 run in all three nets.
+BWD_SHAPES = [((2, 512, 512, 1, 64), False, 2), ((2, 512, 512, 2, 64), False, 1),
+              ((2, 256, 256, 64, 128), True, 3), ((2, 128, 128, 128, 256), True, 3),
+              ((2, 64, 64, 256, 512), True, 3)]
+# (B, H, W, Ca, Cb, C): the decoder blocks' backward, once each a step
+BWD_DUAL_SHAPES = [(2, 128, 128, 512, 256, 256), (2, 256, 256, 256, 128, 128),
+                   (2, 512, 512, 128, 64, 64)]
+
+
+def block_flops(b, h, w, cin, c):
+    """FLOPs of one ConvBlock forward, or of its three wgrads: 18 * Cin * Cout
+    a pixel and layer."""
+    return 18 * b * h * w * (cin * c + 2 * c * c)
+
+
+def dgrad_flops(b, h, w, cin, c, need_dx):
+    """FLOPs of one ConvBlock backward's dgrads: layers 3 and 2, and layer 1
+    when dx is asked for."""
+    return 36 * b * h * w * c * c + (18 * b * h * w * cin * c if need_dx else 0)
+
+
+def block_weight_bytes(cin, c):
+    """Bytes of a ConvBlock's three kernels and biases, float32."""
+    return 4 * (9 * (cin * c + 2 * c * c) + 3 * c)
+
+
+def conv_weights(gen, cin, c, dev):
+    """[w1, b1, w2, b2, w3, b3]: He-scaled HWIO kernels and small biases, from
+    ``gen`` on the CPU, then moved to ``dev``."""
+    out = []
+    for ci in (cin, c, c):
+        out.append((torch.randn(3, 3, ci, c, generator=gen) * (2.0 / (9 * ci)) ** 0.5).to(dev))
+        out.append((torch.randn(c, generator=gen) * 0.1).to(dev))
+    return out
+
+
+def cuda_ms(fn, warmup: int = 2, iters: int = 5) -> float:
+    """Median milliseconds of ``fn()`` by CUDA events, after warm-up."""
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(iters):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)

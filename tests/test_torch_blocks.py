@@ -169,3 +169,45 @@ def test_wrappers_refuse_other_devices_and_count_no_cpu_launch():
     with pytest.raises(ValueError, match="cpu or cuda"):
         kmc.mc_consensus(feat, feat.new_zeros(2, 1, 32), feat.new_zeros(1, 32, 32),
                          feat.new_zeros(1, 32), feat.new_zeros(32, 1), feat.new_zeros(1))
+
+
+def test_forward_kernel_weights_are_an_hwoi_copy():
+    """The forward kernel reads each HWIO kernel as a contiguous HWOI copy
+    (its reduction index, Cin, contiguous)."""
+    w = torch.arange(3 * 3 * 5 * 7, dtype=torch.float32).reshape(3, 3, 5, 7)
+    out = kconv._hwoi(w)
+    assert out.shape == (3, 3, 7, 5) and out.is_contiguous()
+    assert torch.equal(out, w.permute(0, 1, 3, 2))
+    assert out.data_ptr() != w.data_ptr()
+
+
+@pytest.mark.parametrize("shape,gflop", [
+    ((4, 256, 256, 64, 128), 193.3), ((4, 128, 128, 128, 256), 193.3),
+    ((4, 64, 64, 256, 512), 193.3), ((4, 512, 512, 1, 64), 155.8),
+    ((1, 528, 704, 1, 64), 55.2), ((4, 128, 128, 512 + 256, 256), 386.5),
+])
+def test_workload_flops_of_the_serving_blocks(shape, gflop):
+    """18 * Cin * Cout FLOPs a pixel and layer, the count every bound and
+    TFLOP/s figure of the measurement scripts rests on."""
+    from pda_torch.tools import workload
+
+    assert round(workload.block_flops(*shape) / 1e9, 1) == gflop
+    b, h, w, cin, c = shape
+    assert workload.dgrad_flops(b, h, w, cin, c, True) == workload.block_flops(b, h, w, cin, c)
+
+
+def test_kernel_library_is_keyed_by_its_sources(tmp_path):
+    """A copy of the kernel sources builds into the package's library until
+    one of its files changes; then it has a library of its own, so a variant
+    and the package's kernels load side by side."""
+    import shutil
+
+    from pda_torch.kernels import _build
+
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC, csrc)
+    assert _build._library_path(csrc) == _build._library_path()
+    header = csrc / "conv3x3_tc.cuh"
+    header.write_text(header.read_text().replace("IG_STAGES = 2", "IG_STAGES = 3"))
+    assert _build._library_path(csrc) != _build._library_path()
+    assert [p.name for p in _build._sources(csrc)] == [p.name for p in _build._sources()]

@@ -56,7 +56,8 @@ def test_port_init_matches_pda_tree():
 def test_port_imports_no_jax():
     code = (
         "import sys, pda_torch, pda_torch.core, pda_torch.models, pda_torch.kernels, "
-        "pda_torch.infer, pda_torch.train\n"
+        "pda_torch.infer, pda_torch.train, pda_torch.tools.profile, "
+        "pda_torch.tools.bench_variants\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'pda'))\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
@@ -64,3 +65,27 @@ def test_port_imports_no_jax():
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                           text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_livecell_punet_on_cpu_keeps_the_seed_weights():
+    """Asked for the CPU, ``livecell_punet`` gives the seed-0 weights (the
+    default generator), which it draws on the CPU whatever the device."""
+    from pda_torch.models import ProbabilisticUnet, livecell_punet
+
+    got = livecell_punet(device="cpu").state_dict()
+    want = ProbabilisticUnet(input_channels=1, num_classes=1, num_filters=(64, 128, 256, 512),
+                             latent_dim=6, no_convs_fcomb=3, beta=1.0, rl_swap=True,
+                             generator=torch.Generator().manual_seed(0)).state_dict()
+    assert sorted(got) == sorted(want)
+    for k, v in got.items():
+        assert v.device.type == "cpu" and torch.equal(v, want[k]), k
+
+
+def test_livecell_punet_defaults_to_the_card(monkeypatch):
+    """By default the flagship is built on the card; without one it raises
+    (no quiet fall-back to the CPU)."""
+    from pda_torch.models import livecell_punet
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        livecell_punet()

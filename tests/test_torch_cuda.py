@@ -45,6 +45,11 @@ def _assert_rel(out, ref, rel=1e-4):
 
 @pytest.mark.parametrize("b,h,w,cin,c", [
     (2, 9, 13, 1, 64), (1, 17, 33, 2, 40), (2, 8, 16, 70, 128), (1, 5, 3, 8, 8),
+    # the edges of the tensor-core layer's tiling (16x16 pixels x 64 channels,
+    # 16-channel stages) and of the FMA entry layer (Cin 1, 2)
+    (1, 17, 33, 16, 40),    # H = 16 + 1, W = 2 * 16 + 1; C = 40: a ragged channel slice
+    (1, 66, 88, 256, 512),  # the pseudo path's level-3 map
+    (2, 7, 5, 3, 20),       # Cin 3 on the tensor cores' 4-byte copies, under one tile
 ])
 def test_conv_block_kernel_matches_plain(dev, b, h, w, cin, c):
     gen = torch.Generator().manual_seed(cin)
@@ -53,12 +58,17 @@ def test_conv_block_kernel_matches_plain(dev, b, h, w, cin, c):
     before = conv_block_fwd.launches
     with torch.no_grad():
         out = conv_block_fwd(x, *ws)
+        again = conv_block_fwd(x, *ws)
     torch.cuda.synchronize()
-    assert conv_block_fwd.launches == before + 1
+    assert conv_block_fwd.launches == before + 2
     _assert_rel(out, conv_block_fwd_plain(x, *ws))
+    assert torch.equal(out, again)  # deterministic: bit-equal repeats
 
 
-@pytest.mark.parametrize("b,h,w,ca,cb,c", [(2, 10, 12, 13, 7, 24), (1, 16, 16, 64, 32, 64)])
+@pytest.mark.parametrize("b,h,w,ca,cb,c", [
+    (2, 10, 12, 13, 7, 24), (1, 16, 16, 64, 32, 64),
+    (1, 9, 11, 20, 12, 40),  # the split at 20, inside a 16-channel stage, on 16-byte copies
+])
 def test_dual_conv_block_kernel_matches_plain(dev, b, h, w, ca, cb, c):
     gen = torch.Generator().manual_seed(ca)
     xa = torch.randn(b, h, w, ca, generator=gen).to(dev)
@@ -66,8 +76,24 @@ def test_dual_conv_block_kernel_matches_plain(dev, b, h, w, ca, cb, c):
     ws = _weights(gen, ca + cb, c, dev)
     with torch.no_grad():
         out = conv_block_fwd_dual(xa, xb, *ws)
+        again = conv_block_fwd_dual(xa, xb, *ws)
     torch.cuda.synchronize()
     _assert_rel(out, conv_block_fwd_dual_plain(xa, xb, *ws))
+    assert torch.equal(out, again)
+
+
+def test_conv_block_kernel_matches_float64(dev):
+    """At 2x64x64, 64->128, the forward within 1e-5 of the largest value of
+    the plain version computed in float64: float32 accuracy, which the
+    3xTF32 split keeps (~1e-6) and one TF32 product (~1e-3) would not."""
+    gen = torch.Generator().manual_seed(64)
+    x = torch.randn(2, 64, 64, 64, generator=gen).to(dev)
+    ws = _weights(gen, 64, 128, dev)
+    with torch.no_grad():
+        out = conv_block_fwd(x, *ws)
+    ref64 = conv_block_fwd_plain(x.double(), *(w.double() for w in ws))
+    torch.cuda.synchronize()
+    assert float((out.double() - ref64).abs().max()) <= 1e-5 * float(ref64.abs().max())
 
 
 @pytest.mark.parametrize("c", [32, 64])

@@ -1,5 +1,5 @@
-"""The numerics of the backward kernels' tensor-core products (3xTF32), on
-the CPU.
+"""The numerics of the ConvBlock kernels' tensor-core products (3xTF32),
+on the CPU.
 
 ``round_tf32`` must be ``cvt.rna.tf32.f32`` bit for bit: hand-worked bit
 patterns, ties included. Then the kernels' reductions are emulated in numpy:
@@ -8,7 +8,8 @@ accumulator with round-toward-zero (as the tensor cores do: one chain of
 mma over K = 65,536 drifts by ~4e-4 on an H100), and the kernels run short
 chains, each added into a float32 sum with round-to-nearest. Held against a
 float64 reference over the wgrad's reduction at MT length (K = 65,536
-pixels) and the dgrad's (K = 9 * 512):
+pixels), the dgrad's (K = 9 * 512) and the forward's (K = 9 * 768 at the
+512+256 -> 256 decoder block, K = 9 * 64 at level 0):
 
 - the 3-term split with short chains stays within 1e-5 of the largest value;
 - one TF32 product (1xTF32) does not, and neither does one long chain.
@@ -101,14 +102,23 @@ def _tc_matmul(a: np.ndarray, b: np.ndarray, terms: str, chain: int) -> np.ndarr
     ("dgrad", 9 * 512, "3x", 18, True),  # the dgrad kernel: a chain per 16-channel stage
     ("dgrad", 9 * 512, "1x", 18, False),
     ("dgrad", 9 * 512, "3x", 0, False),
+    ("fwd", 9 * 768, "3x", 6, True),     # the forward kernel: a chain per 3 taps
+    ("fwd", 9 * 768, "1x", 6, False),
+    ("fwd", 9 * 768, "3x", 0, False),
+    ("fwd", 9 * 64, "3x", 6, True),
+    ("fwd", 9 * 64, "1x", 6, False),
+    ("fwd", 9 * 64, "3x", 0, True),      # 72 k-steps: one chain still holds at this depth
 ])
 def test_tc_product_against_float64(what, k, terms, chain, within):
     rng = np.random.default_rng(k)
     if what == "wgrad":  # post-ReLU activations times a masked cotangent
         a = np.maximum(rng.normal(size=(16, k)), 0.0).astype(np.float32)
         b = (rng.normal(size=(k, 8)) * (rng.random((k, 8)) > 0.5)).astype(np.float32)
-    else:  # a masked cotangent times He-scaled weights
+    elif what == "dgrad":  # a masked cotangent times He-scaled weights
         a = (rng.normal(size=(16, k)) * (rng.random((16, k)) > 0.5)).astype(np.float32)
+        b = (rng.normal(size=(k, 8)) * np.sqrt(2.0 / k)).astype(np.float32)
+    else:  # post-ReLU activations times He-scaled weights
+        a = np.maximum(rng.normal(size=(16, k)), 0.0).astype(np.float32)
         b = (rng.normal(size=(k, 8)) * np.sqrt(2.0 / k)).astype(np.float32)
     ref = a.astype(np.float64) @ b.astype(np.float64)
     err = np.abs(_tc_matmul(a, b, terms, chain) - ref).max() / np.abs(ref).max()
