@@ -9,8 +9,9 @@ Phases, each of which fails the run (exit code 1) on any error or miss:
   3. kernels  — each kernel against its plain PyTorch version at every
                 geometry of the serving path (tiled and pseudo) and of the
                 Mean-Teacher step (pda_torch/tools/workload.py), random
-                seeded inputs; each ConvBlock kernel twice, bit-equal, and
-                against its plain version in float64
+                seeded inputs; each kernel twice, bit-equal, and against its
+                plain version in float64 (the MC tail, K3, at the tiled, MT
+                teacher and pseudo shapes)
   4. serving  — the flagship PUNet (num_filters 64..512, latent 6,
                 no_convs_fcomb 3, float32, seeded weights) on a seeded
                 synthetic 520x704 frame: tiled MC-16 prediction (block 384,
@@ -23,9 +24,9 @@ Phases, each of which fails the run (exit code 1) on any error or miss:
                 the CPU (loss, every gradient, updated student and teacher),
                 with its kernel launch counts; then steps at 512^2, batch 2
   6. times    — CUDA-event medians of every kernel, its plain version and
-                (forward) cuDNN's convolutions, beside its bound from the
-                shapes; end-to-end ms/frame and tiles/s, MT ms/step and
-                patches/s
+                (ConvBlock forward and backward) cuDNN's convolutions, beside
+                its bound from the shapes, with TFLOP/s; end-to-end ms/frame
+                and tiles/s, MT ms/step and patches/s
 
 Every comparison runs with TF32 off (torch.backends.cudnn.allow_tf32 and
 torch.backends.cuda.matmul.allow_tf32 both False), so the plain versions
@@ -38,6 +39,7 @@ from __future__ import annotations
 
 import copy
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -52,17 +54,20 @@ K12_REL_TOL = 1e-4  # kernels 1/2: max |kernel - plain| <= 1e-4 * max |plain|
 # ... and max |kernel - ref64| <= 1e-5 * max |ref64|, ref64 the plain version in
 # float64: float32 accuracy (3xTF32 is ~1e-6 off, one TF32 product ~1e-3)
 K12_REF64_TOL = 1e-5
-K3_MEAN_TOL = 1e-5  # kernel 3: max abs error of the MC mean
+K3_MEAN_TOL = 1e-5  # kernel 3: max abs error of the MC mean (vs plain and vs float64)
 K3_WINDOW = 1e-4  # kernel 3: consensus may differ only where a logit is this near a threshold
 TILE_TOL = 1e-4  # one tile, card vs CPU: max abs error of the MC mean
 
 # The ConvBlock shapes of the serving path and the MT step (K1, K2, the
-# backward) are pda_torch/tools/workload.py's, shared with the profiler.
-K3_SHAPE = (4, 512, 512, 64)  # feature term of one tiled forward
+# backward, and K3's feature terms) are pda_torch/tools/workload.py's, shared
+# with the profiler.
 BWD_REL_TOL = 1e-4  # each of dx, dW, db: max |kernel - plain| <= 1e-4 * max |plain|
 # ... and max |kernel - ref64| <= 1e-5 * max |ref64|, ref64 the plain version in
 # float64: float32 accuracy (3xTF32 is ~1e-6 off, one TF32 product ~1e-3)
 BWD_REF64_TOL = 1e-5
+# (B, H, W, Cin, C) whose library backward is timed with cudnn.benchmark on:
+# there cuDNN's default dgrad algorithm takes ~300 ms (PERF.md, row 10)
+BWD_LIBRARY_BENCHMARK = {(2, 128, 128, 128, 256)}
 
 MT_LR, MT_MOMENTUM, MT_BATCH = 1e-5, 0.999, 2
 MT_CHECK_PATCH, MT_TIME_PATCH = 128, 512
@@ -130,7 +135,9 @@ def saved_block(gen, b, h, w, cin, c, dev):
 def check_bwd(entry, label, kernel, plain, args, names, per_step, binding, need_dx):
     """A backward kernel against its plain version: every output within
     BWD_REL_TOL of the plain one's largest and within BWD_REF64_TOL of the
-    plain version's in float64, and two runs bit-equal."""
+    plain version's in float64, and two runs bit-equal; then times (the
+    kernel's, the plain version's, cuDNN's: :func:`cudnn_block_bwd`) and the
+    bound."""
     import torch
 
     from pda_torch.tools.workload import block_flops, block_weight_bytes, cuda_ms, dgrad_flops
@@ -160,6 +167,14 @@ def check_bwd(entry, label, kernel, plain, args, names, per_step, binding, need_
     # reads x (or xa, xb), h1, h2, h3, g, W; writes dx, dW, db
     b, h, w, c = args[0].shape
     cin = sum(t.shape[-1] for t in args[1:-6])
+    lib_args = (args[0], torch.cat(args[1:-6], dim=-1), *args[-6:-3], *map(oihw, args[-3:]))
+    benchmark = (b, h, w, cin, c) in BWD_LIBRARY_BENCHMARK
+    torch.backends.cudnn.benchmark = benchmark
+    try:
+        library_ms = cuda_ms(lambda: cudnn_block_bwd(*lib_args, need_dx=need_dx))
+    finally:
+        torch.backends.cudnn.benchmark = False
+    del lib_args
     flops = block_flops(b, h, w, cin, c) + dgrad_flops(b, h, w, cin, c, need_dx)
     nbytes = (4 * b * h * w * (cin * (2 if need_dx else 1) + 4 * c)
               + 2 * block_weight_bytes(cin, c))
@@ -167,11 +182,79 @@ def check_bwd(entry, label, kernel, plain, args, names, per_step, binding, need_
     log(f"kernel {label}: worst max_abs_err/max|plain| {worst[0]:.3e} ({worst[1]}; tol "
         f"{BWD_REL_TOL:.0e}), /max|ref64| {worst64[0]:.3e} ({worst64[1]}; tol "
         f"{BWD_REF64_TOL:.0e}), repeat bit-equal {same}, ms {ms:.3f} "
-        f"({flops / ms / 1e9:.1f} TFLOP/s) plain_ms {plain_ms:.3f} bound_ms {bound:.3f} "
-        f"({term}) {'ok' if ok else 'FAIL'}")
+        f"({flops / ms / 1e9:.1f} TFLOP/s) plain_ms {plain_ms:.3f} library_ms {library_ms:.3f}"
+        f"{' (cudnn.benchmark on)' if benchmark else ''} bound_ms {bound:.3f} ({term}) "
+        f"{'ok' if ok else 'FAIL'}")
     entry["ms"] += per_step * ms
     entry["plain_ms"] += per_step * plain_ms
+    entry["library_ms"] = (entry["library_ms"] or 0.0) + per_step * library_ms
     return ok
+
+
+def oihw(w):
+    """An HWIO kernel as cuDNN takes it: OIHW, channels-last."""
+    import torch
+
+    return w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+
+
+def cudnn_block_bwd(g, x, h1, h2, h3, w1, w2, w3, need_dx):
+    """The library's ConvBlock backward: for layers 3, 2, 1 the ReLU mask
+    ``da = dh * [h > 0]``, then one cuDNN ``convolution_backward`` (dgrad,
+    wgrad and bias gradient) on channels-last views, with the OIHW weights
+    laid out beforehand (:func:`oihw`); the dual block's input is
+    concatenated beforehand. Timed as ``library_ms`` only."""
+    import torch
+
+    dout, grads = g.permute(0, 3, 1, 2), []
+    for k, (h_out, h_in, w) in enumerate(((h3, h2, w3), (h2, h1, w2), (h1, x, w1))):
+        da = torch.where(h_out.permute(0, 3, 1, 2) > 0, dout, 0.0)
+        dout, dw, db = torch.ops.aten.convolution_backward(
+            da, h_in.permute(0, 3, 1, 2), w, [w.shape[0]], [1, 1], [1, 1], [1, 1], False,
+            [0, 0], 1, [k < 2 or need_dx, True, True])
+        grads = [dw, db] + grads
+    return (dout, *grads)
+
+
+def check_mc(entry, label, args, masking, binding, weight):
+    """K3 against its plain version: the MC mean within K3_MEAN_TOL of the
+    plain version's and of the plain version's in float64, the consensus
+    only where a logit lies within K3_WINDOW of a threshold, two launches
+    bit-equal; then times, TFLOP/s and the bound."""
+    import torch
+
+    from pda_torch.kernels import mc_consensus as km
+    from pda_torch.tools.workload import cuda_ms, mc_bytes, mc_flops
+
+    mean, cons = km.mc_consensus(*args, masking=masking)
+    again = km.mc_consensus(*args, masking=masking)
+    ref_mean, ref_cons = km.mc_consensus_plain(*args, masking)
+    ref64 = km.mc_consensus_plain(*(a.double() for a in args), masking)[0]
+    near = ((km.mc_logits_plain(*args).abs() - math.log(9.0)).abs() < K3_WINDOW).any(dim=0)
+    torch.cuda.synchronize()
+    err = float((mean - ref_mean).abs().max())
+    err64 = float((mean.double() - ref64).abs().max())
+    flips = int((cons != ref_cons).sum())
+    stray = int(((cons != ref_cons) & ~near).sum())
+    same = torch.equal(mean, again[0]) and torch.equal(cons, again[1])
+    good = (bool(torch.isfinite(mean).all()) and err <= K3_MEAN_TOL and err64 <= K3_MEAN_TOL
+            and stray == 0 and same)
+    del mean, cons, again, ref_mean, ref_cons, ref64, near
+    ms = cuda_ms(lambda: km.mc_consensus(*args, masking=masking))
+    plain_ms = cuda_ms(lambda: km.mc_consensus_plain(*args, masking), iters=3)
+    b, h, w, c = args[0].shape
+    s, n_mid = args[1].shape[0], args[2].shape[0]
+    flops = mc_flops(b, h, w, c, s, n_mid)
+    bound, term = add_bound(entry, binding, flops, mc_bytes(b, h, w, c, s, n_mid), weight)
+    log(f"kernel mc_consensus {label} S={s} feat {b}x{h}x{w}x{c} masking={masking}: mean "
+        f"max_abs_err {err:.3e}, vs ref64 {err64:.3e} (tol {K3_MEAN_TOL:.0e}), consensus differs "
+        f"at {flips} px, {stray} of them farther than {K3_WINDOW:.0e} from a threshold, repeat "
+        f"bit-equal {same}; ms {ms:.3f} ({flops / ms / 1e9:.1f} TFLOP/s) plain_ms {plain_ms:.3f} "
+        f"bound_ms {bound:.3f} ({term}) {'ok' if good else 'FAIL'}")
+    entry["max_abs_err"] = max(entry["max_abs_err"], err)
+    entry["ms"] += weight * ms
+    entry["plain_ms"] += weight * plain_ms
+    return good
 
 
 def cudnn_block(x, w1, b1, w2, b2, w3, b3):
@@ -198,7 +281,6 @@ def phase_kernels(dev, results, binding):
     import torch
 
     from pda_torch.kernels import conv_block as kc
-    from pda_torch.kernels import mc_consensus as km
     from pda_torch.tools import workload as wl
     from pda_torch.tools.workload import block_flops, block_weight_bytes, conv_weights, cuda_ms
 
@@ -277,42 +359,11 @@ def phase_kernels(dev, results, binding):
                         binding, True)
         del g, rest, args
 
-    b, h, w, c = K3_SHAPE
-    feat = (torch.randn(b, h, w, c, generator=gen) * 2).to(dev)
-    args = (feat, torch.randn(MC, b, c, generator=gen).to(dev),
-            (torch.randn(1, c, c, generator=gen) / c ** 0.5).to(dev),
-            (torch.randn(1, c, generator=gen) * 0.1).to(dev),
-            (torch.randn(c, 1, generator=gen) * 3 / c ** 0.5).to(dev),
-            torch.randn(1, generator=gen).to(dev))
-    # per pixel and sample: feature + latent term, the mid layers, the last
-    # layer's dot product; reads feat, z, weights; writes mean and consensus
-    n_mid, s = args[2].shape[0], MC
-    flops = b * h * w * s * (2 * c + n_mid * (2 * c * c + 2 * c) + 2 * c)
-    nbytes = 4 * (b * h * w * (c + 2) + s * b * c + n_mid * (c * c + c) + c + 1)
-    k3_bound, k3_term = add_bound(k3, binding, flops, nbytes)
-    logits = km.mc_logits_plain(*args)
-    near = ((logits.abs() - torch.log(torch.tensor(9.0))).abs() < K3_WINDOW).any(dim=0)
-    del logits
-    for masking in (False, True):
-        mean, cons = km.mc_consensus(*args, masking=masking)
-        ref_mean, ref_cons = km.mc_consensus_plain(*args, masking)
-        torch.cuda.synchronize()
-        err = float((mean - ref_mean).abs().max())
-        stray = int(((cons != ref_cons) & ~near).sum())
-        flips = int((cons != ref_cons).sum())
-        good = err <= K3_MEAN_TOL and stray == 0
-        ms = cuda_ms(lambda: km.mc_consensus(*args, masking=masking))
-        plain_ms = cuda_ms(lambda: km.mc_consensus_plain(*args, masking), iters=3)
-        log(f"kernel mc_consensus S={MC} feat {b}x{h}x{w}x{c} masking={masking}: "
-            f"mean max_abs_err {err:.3e} (tol {K3_MEAN_TOL:.0e}), consensus differs at {flips} "
-            f"px, {stray} of them farther than {K3_WINDOW:.0e} from a threshold; ms {ms:.3f} "
-            f"plain_ms {plain_ms:.3f} bound_ms {k3_bound:.3f} ({k3_term}) "
-            f"{'ok' if good else 'FAIL'}")
-        k3["max_abs_err"] = max(k3["max_abs_err"], err)
-        if not masking:  # the tiled forward's call
-            k3["ms"], k3["plain_ms"] = ms, plain_ms
-        ok &= good
-        del mean, cons, ref_mean, ref_cons
+    # K3 at the MC tail's shape on each path; the JSON line's times and bound
+    # are the tiled forward's call (weight 0: checked and logged only)
+    for name, (b, h, w, c), masking in wl.K3_SHAPES:
+        ok &= check_mc(k3, name, wl.mc_inputs(gen, b, h, w, c, dev=dev), masking, binding,
+                       int(name == "tiled"))
     torch.cuda.synchronize()
     return ok
 
@@ -610,8 +661,11 @@ def main() -> int:
     log("kernel ms/plain_ms/library_ms/bound_ms: forward kernels summed over one tiled "
         "MC-16 forward's calls, backward kernels over one MT step's (512^2, batch 2); "
         f"bound at {PEAK_FLOPS / 1e12:.0f} TFLOP/s (3xTF32) and {PEAK_BYTES / 1e12:.2f} TB/s; "
-        "library_ms: cuDNN's three convolutions (F.conv2d, TF32 off); launches: both "
-        "serving entries and the checked MT step")
+        "library_ms: cuDNN's three convolutions (F.conv2d) for the forward, its three "
+        "convolution_backward calls with the ReLU masks between them for the backward "
+        "(cudnn.benchmark on at 128->256), TF32 off; none for mc_consensus (no single PyTorch "
+        "call computes it); mc_consensus: the tiled forward's call; launches: both serving "
+        "entries and the checked MT step")
     print(json.dumps({"kernels": list(results.values())}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -10,7 +10,9 @@ the ``S x B x H x W x C`` hidden stack to device memory.
 On a CPU tensor the wrapper runs the plain PyTorch version (the batched
 Fcomb tail + :func:`pda_torch.core.consensus.consensus_from_logits`); on a
 CUDA tensor it launches ``csrc/mc_consensus.cu`` on the current stream, or
-raises.
+raises. The kernel runs the mid layers on the tensor cores in 3xTF32 (one
+small GEMM a sample, each warp's 16 feature rows held in registers across
+the S samples), so it keeps float32 accuracy.
 """
 
 from __future__ import annotations
@@ -32,7 +34,7 @@ _ARGTYPES = (_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _F, _F,
              _I, _VP)
 #: feature widths the kernel is instantiated for
 KERNEL_WIDTHS = (32, 64)
-_THREADS = 256
+_THREADS = 256  # csrc/mc_consensus.cu THREADS: a warp a 16-pixel tile
 _MAX_SMEM = 232448  # bytes of shared memory a block may use on sm_90
 
 
@@ -52,9 +54,11 @@ def mc_consensus_plain(feat_term, z_terms, mid_w, mid_b, last_w, last_b,
 
 
 def _smem_bytes(c: int, s: int, n_mid: int) -> int:
-    pixels = 4 * _THREADS // (c // 8)
-    floats = n_mid * c * c + n_mid * c + c + s * c + (2 if n_mid >= 2 else 1) * pixels * (c + 1)
-    return 4 * floats
+    """The kernel's shared memory: each mid layer's W split into TF32 hi and
+    lo, with n_mid >= 2 a hidden layer per thread, the mid biases, the last
+    weights and this image's S latent terms."""
+    hidden = _THREADS * c // 2 if n_mid >= 2 else 0  # 16 rows x C a warp
+    return 4 * (2 * n_mid * c * c + hidden + n_mid * c + c + s * c)
 
 
 def _launch(feat, z_terms, mid_w, mid_b, last_w, last_b, masking):
@@ -77,6 +81,8 @@ def _launch(feat, z_terms, mid_w, mid_b, last_w, last_b, masking):
         ("last_w", last_w, (c, 1)), ("last_b", last_b, (1,)),
     ):
         _build.check_tensor(name, t, shape, dev)
+    if feat.data_ptr() % 8:
+        raise ValueError("feat_term must be 8-byte aligned (the kernel reads it as float2)")
     _build.check_forward_only("mc_consensus", feat, z_terms, mid_w, mid_b, last_w, last_b)
     mean = torch.empty((b, h, w, 1), device=dev, dtype=torch.float32)
     cons = torch.empty_like(mean)

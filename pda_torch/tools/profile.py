@@ -11,7 +11,8 @@ Needs one CUDA card (exits 1 without). Three parts, each optional:
   ``torch.profiler`` for ``--steps`` steps after 3 warm-ups: device time per
   kernel name a step, launches a step, share of the wall time (CUDA events
   around the window), busy share (device time summed over wall), and the
-  ConvBlock kernels' TFLOP/s from the FLOPs their shapes need.
+  ConvBlock kernels' and the MC tail's TFLOP/s from the FLOPs their shapes
+  need.
 - ``serving``: the same for the tiled MC-16 prediction and the MC-16 pseudo
   export of one seeded 520x704 frame, per frame.
 
@@ -31,7 +32,8 @@ import torch
 
 from ..kernels import _build
 from ..kernels import conv_block as kc
-from .workload import block_flops, cuda_ms, dgrad_flops
+from ..kernels import mc_consensus as km
+from .workload import block_flops, cuda_ms, dgrad_flops, mc_flops
 
 # kernel name pattern -> label; the first that matches names a kernel
 LABELS = (
@@ -41,7 +43,7 @@ LABELS = (
     (r"wgrad_tc<", "wgrad (wgrad_tc)"),
     (r"sum_chunks", "wgrad chunk reduce (sum_chunks)"),
     (r"relu_mask", "da3 mask (relu_mask)"),
-    (r"mc_consensus", "MC tail (mc_consensus)"),
+    (r"mc_consensus_tc<", "MC tail, tensor cores (mc_consensus_tc)"),
 )
 
 
@@ -74,11 +76,11 @@ def demangle(name: str) -> str:
 @contextlib.contextmanager
 def count_flops():
     """Within the block, every ConvBlock launch adds the FLOPs its shapes need
-    to the yielded counter: forward, wgrad and dgrad, 18 * Cin * Cout a pixel
-    and layer."""
+    to the yielded counter (forward, wgrad and dgrad, 18 * Cin * Cout a pixel
+    and layer), and every MC-tail launch its own (``mc``)."""
     flops = collections.Counter()
     weights = flops.weights = []  # the forward's HWIO kernels, in launch order
-    launch, launch_bwd = kc._launch, kc._launch_bwd
+    launch, launch_bwd, launch_mc = kc._launch, kc._launch_bwd, km._launch
 
     def fwd(xa, xb, w1, b1, w2, b2, w3, b3):
         b, h, w, ca = xa.shape
@@ -94,11 +96,15 @@ def count_flops():
         flops["dgrad"] += dgrad_flops(b, h, w, cin, c, need_dx or xb is not None)
         return launch_bwd(g, xa, xb, h1, h2, h3, w1, w2, w3, need_dx)
 
-    kc._launch, kc._launch_bwd = fwd, bwd
+    def mc(feat, z_terms, mid_w, *rest):
+        flops["mc"] += mc_flops(*feat.shape, z_terms.shape[0], mid_w.shape[0])
+        return launch_mc(feat, z_terms, mid_w, *rest)
+
+    kc._launch, kc._launch_bwd, km._launch = fwd, bwd, mc
     try:
         yield flops
     finally:
-        kc._launch, kc._launch_bwd = launch, launch_bwd
+        kc._launch, kc._launch_bwd, km._launch = launch, launch_bwd, launch_mc
 
 
 def profiled(run, n: int, flops: collections.Counter, what: str) -> None:
@@ -135,7 +141,8 @@ def profiled(run, n: int, flops: collections.Counter, what: str) -> None:
     print(f"== {what}: wall {wall:.2f} ms per call (profiled), device busy {busy:.2f} ms "
           f"({busy / wall:.3f})")
     rates = {"forward layer, tensor cores (conv3x3_tc fwd)": "forward",
-             "dgrad (conv3x3_tc)": "dgrad", "wgrad (wgrad_tc)": "wgrad"}
+             "dgrad (conv3x3_tc)": "dgrad", "wgrad (wgrad_tc)": "wgrad",
+             "MC tail, tensor cores (mc_consensus_tc)": "mc"}
     fwd_ms = sum(ms for k, (ms, _) in rows.items() if k.startswith("forward"))
     for key, (ms, count) in sorted(rows.items(), key=lambda kv: -kv[1][0]):
         rate = ""

@@ -1,10 +1,10 @@
-"""The ConvBlock work of the flagship PUNet's paths, in one place.
+"""The kernel work of the flagship PUNet's paths, in one place.
 
 The shapes each kernel entry takes on the serving path (a tiled MC-16
 forward of a 520x704 frame, 4 tiles of 512^2; the pseudo export of the same
 frame, padded to 528x704) and in the Mean-Teacher step (512^2, batch 2), the
-FLOPs and bytes a call needs, seeded He-scaled weights, and a CUDA-event
-timer. ``chip_smoke.py``, :mod:`.profile` and :mod:`.bench_variants` all read
+FLOPs and bytes a call needs, seeded He-scaled weights and MC-tail inputs,
+and a CUDA-event timer. ``chip_smoke.py``, :mod:`.profile` and :mod:`.bench_variants` all read
 them from here.
 """
 
@@ -38,6 +38,36 @@ BWD_SHAPES = [((2, 512, 512, 1, 64), False, 2), ((2, 512, 512, 2, 64), False, 1)
 # (B, H, W, Ca, Cb, C): the decoder blocks' backward, once each a step
 BWD_DUAL_SHAPES = [(2, 128, 128, 512, 256, 256), (2, 256, 256, 256, 128, 128),
                    (2, 512, 512, 128, 64, 64)]
+
+
+# (name, (B, H, W, C), masking): the MC tail (K3, S = 16, n_mid 1) of a tiled
+# forward, of the MT teacher (batch 2 of 512^2) and of a pseudo forward
+K3_SHAPES = [("tiled", (4, 512, 512, 64), False), ("mt", (2, 512, 512, 64), True),
+             ("pseudo", (1, 528, 704, 64), True)]
+MC_SAMPLES = 16
+
+
+def mc_inputs(gen, b, h, w, c, s=MC_SAMPLES, n_mid=1, dev="cpu"):
+    """(feat_term, z_terms, mid_w, mid_b, last_w, last_b) of K3, seeded, with
+    logits spread over both sides of the consensus band."""
+    return ((torch.randn(b, h, w, c, generator=gen) * 2).to(dev),
+            torch.randn(s, b, c, generator=gen).to(dev),
+            (torch.randn(n_mid, c, c, generator=gen) / c ** 0.5).to(dev),
+            (torch.randn(n_mid, c, generator=gen) * 0.1).to(dev),
+            (torch.randn(c, 1, generator=gen) * 3 / c ** 0.5).to(dev),
+            torch.randn(1, generator=gen).to(dev))
+
+
+def mc_flops(b, h, w, c, s, n_mid):
+    """FLOPs of K3: per pixel and sample, feature + latent term, the mid
+    layers (2 C^2 + 2 C each), the last layer's dot product."""
+    return b * h * w * s * (2 * c + n_mid * (2 * c * c + 2 * c) + 2 * c)
+
+
+def mc_bytes(b, h, w, c, s, n_mid):
+    """Bytes K3 must move: feat, z and the weights read, mean and consensus
+    written, float32."""
+    return 4 * (b * h * w * (c + 2) + s * b * c + n_mid * (c * c + c) + c + 1)
 
 
 def block_flops(b, h, w, cin, c):

@@ -16,7 +16,9 @@ import torch
 from pda_torch.kernels import conv_block as kconv
 from pda_torch.kernels.conv_block import (conv_block_fwd, conv_block_fwd_dual,
                                           conv_block_fwd_dual_plain, conv_block_fwd_plain)
+from pda_torch.kernels import mc_consensus as kmc
 from pda_torch.kernels.mc_consensus import mc_consensus, mc_consensus_plain, mc_logits_plain
+from pda_torch.tools.workload import mc_inputs
 
 pytestmark = pytest.mark.cuda
 
@@ -116,6 +118,45 @@ def test_mc_consensus_kernel_matches_plain(dev, c, n_mid, masking):
     logits = mc_logits_plain(*args)
     near = ((logits.abs() - np.log(9.0)).abs() < 1e-4).any(dim=0)
     assert not ((cons != ref_cons) & ~near).any()
+
+
+@pytest.mark.parametrize("c", [32, 64])
+@pytest.mark.parametrize("masking", [False, True])
+def test_mc_consensus_kernel_s16_ragged_float64_repeats(dev, c, masking):
+    """S = 16 at 2 x 37 x 29 pixels (1,073 an image: no multiple of the
+    kernel's 128-pixel block): the mean within 1e-5 of the plain version and
+    of the plain version in float64, the consensus only where a logit lies
+    within 1e-4 of a threshold, and two launches bit-equal."""
+    args = mc_inputs(torch.Generator().manual_seed(c), 2, 37, 29, c, s=16, n_mid=1, dev=dev)
+    with torch.no_grad():
+        mean, cons = mc_consensus(*args, masking=masking)
+        mean2, cons2 = mc_consensus(*args, masking=masking)
+    ref_mean, ref_cons = mc_consensus_plain(*args, masking)
+    ref64 = mc_consensus_plain(*(a.double() for a in args), masking)[0]
+    torch.cuda.synchronize()
+    assert torch.equal(mean, mean2) and torch.equal(cons, cons2)
+    assert float((mean - ref_mean).abs().max()) <= 1e-5
+    assert float((mean.double() - ref64).abs().max()) <= 1e-5
+    near = ((mc_logits_plain(*args).abs() - np.log(9.0)).abs() < 1e-4).any(dim=0)
+    assert not ((cons != ref_cons) & ~near).any()
+
+
+def test_mc_consensus_kernel_refuses_s_beyond_shared_memory(dev):
+    """The largest S whose latent terms fit beside the split weights runs;
+    one more raises ValueError before any launch."""
+    c, n_mid = 64, 1
+    s_max = max(s for s in range(1, 2000) if kmc._smem_bytes(c, s, n_mid) <= kmc._MAX_SMEM)
+    gen = torch.Generator().manual_seed(0)
+    args = mc_inputs(gen, 1, 5, 7, c, s=s_max, n_mid=n_mid, dev=dev)
+    with torch.no_grad():
+        mean, _ = mc_consensus(*args)
+    torch.cuda.synchronize()
+    assert float((mean - mc_consensus_plain(*args, False)[0]).abs().max()) <= 1e-5
+    too_many = mc_inputs(gen, 1, 5, 7, c, s=s_max + 1, n_mid=n_mid, dev=dev)
+    before = mc_consensus.launches
+    with torch.no_grad(), pytest.raises(ValueError, match="shared memory"):
+        mc_consensus(*too_many)
+    assert mc_consensus.launches == before
 
 
 def test_wrappers_refuse_mixed_devices_and_autograd(dev):

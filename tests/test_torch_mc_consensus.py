@@ -2,6 +2,9 @@
 consensus functions, against pda's mc_decode_logits + consensus_from_logits
 with the same weights and the same latent noise."""
 
+import re
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -13,6 +16,7 @@ from pda.core.distributions import DiagGaussian as JGauss
 from pda.models.punet import mc_decode_logits as j_mc_decode_logits
 from pda_torch.core import consensus as tcons
 from pda_torch.core.distributions import DiagGaussian as TGauss
+from pda_torch.kernels import mc_consensus as kmc
 from pda_torch.kernels.mc_consensus import mc_consensus
 from pda_torch.models.punet import mc_decode_logits, tail_weights
 from torch_port_utils import (FILTERS, LATENT, assert_consensus_matches, pda_punet,
@@ -71,3 +75,17 @@ def test_consensus_functions_match_pda(masking):
         jp, jc = jfn(jnp.asarray(arr), masking=masking)
         np.testing.assert_allclose(p.numpy(), jp, atol=1e-6)
         assert_consensus_matches(c.numpy(), jc, logits)
+
+
+def test_shared_memory_reckoning_follows_the_kernel_source():
+    """The wrapper refuses an S that the kernel's shared memory cannot hold by
+    the kernel's own block shape (``csrc/mc_consensus.cu``): each mid layer's
+    W split into hi and lo (8 bytes a weight), with n_mid >= 2 a 16 x C
+    hidden tile a warp, the biases, w_last and S latent terms."""
+    src = (Path(kmc.__file__).parent / "csrc" / "mc_consensus.cu").read_text()
+    warps = int(re.search(r"constexpr int WARPS = (\d+);", src).group(1))
+    assert kmc._THREADS == 32 * warps
+    assert kmc._smem_bytes(64, 16, 1) == 8 * 64 * 64 + 4 * (64 + 64 + 16 * 64)  # the flagship
+    hidden = warps * 16 * 32 * 4
+    assert kmc._smem_bytes(32, 5, 2) == 2 * 8 * 32 * 32 + hidden + 4 * (2 * 32 + 32 + 5 * 32)
+    assert kmc._smem_bytes(64, 778, 1) <= kmc._MAX_SMEM < kmc._smem_bytes(64, 779, 1)

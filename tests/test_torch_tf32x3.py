@@ -13,6 +13,12 @@ pixels), the dgrad's (K = 9 * 512) and the forward's (K = 9 * 768 at the
 
 - the 3-term split with short chains stays within 1e-5 of the largest value;
 - one TF32 product (1xTF32) does not, and neither does one long chain.
+
+The MC-consensus kernel's mid layer (K = C = 64 or 32, one chain of C / 8
+k-steps) is held closer: within 1e-6 of the largest value, so that a logit
+moves by far less than the 1e-4 window around the consensus thresholds in
+which the kernel and its plain version may disagree; 1xTF32 moves logits by
+more than that window.
 """
 
 import numpy as np
@@ -123,3 +129,27 @@ def test_tc_product_against_float64(what, k, terms, chain, within):
     ref = a.astype(np.float64) @ b.astype(np.float64)
     err = np.abs(_tc_matmul(a, b, terms, chain) - ref).max() / np.abs(ref).max()
     assert (err <= 1e-5) == within, err
+
+
+@pytest.mark.parametrize("c", [32, 64])
+@pytest.mark.parametrize("terms", ["3x", "1x"])
+def test_mc_mid_layer_product_against_float64(c, terms):
+    """K3's mid layer as the kernel forms it: A = relu(feat + z_s) (float32),
+    B = W_mid, one chain of C / 8 k-steps; then the logit relu(h + b) . w_last
+    in float32, against the same layer and logit in float64."""
+    rng = np.random.default_rng(c)
+    feat = (rng.normal(size=(64, c)) * 2).astype(np.float32)
+    z = rng.normal(size=c).astype(np.float32)
+    a = np.maximum(feat + z, 0).astype(np.float32)
+    w = (rng.normal(size=(c, c)) / np.sqrt(c)).astype(np.float32)
+    bias = (rng.normal(size=c) * 0.1).astype(np.float32)
+    w_last = (rng.normal(size=c) * 3 / np.sqrt(c)).astype(np.float32)
+    ref = a.astype(np.float64) @ w.astype(np.float64)
+    prod = _tc_matmul(a, w, terms, c // 8)
+    err = np.abs(prod - ref).max() / np.abs(ref).max()
+    logit = np.maximum(prod + bias, np.float32(0)) @ w_last
+    logit_err = np.abs(logit - np.maximum(ref + bias, 0.0) @ w_last.astype(np.float64)).max()
+    if terms == "3x":
+        assert err <= 1e-6 and logit_err < 1e-4, (err, logit_err)
+    else:
+        assert err > 1e-6 and logit_err > 1e-4, (err, logit_err)
