@@ -23,10 +23,21 @@ Phases, each of which fails the run (exit code 1) on any error or miss:
                 batch 2, on the card against the same step of the port on
                 the CPU (loss, every gradient, updated student and teacher),
                 with its kernel launch counts; then steps at 512^2, batch 2
-  6. times    — CUDA-event medians of every kernel, its plain version and
+  6. algorithms — fault 3.1: K3 at C = 16 and 20 (zero-padded to 24)
+                against its plain version, a PUNet at num_filters (16, 32,
+                48, 64) and a 2-class one through mc_pseudo and the
+                validation predictor, card vs CPU (no K3 launch for 2
+                classes); the pseudo-PUNet, FixMatch (distribution
+                alignment), AdaMT and AdaMatch steps of the flagship, one at
+                128^2 card vs CPU with launch counts each, then timed at
+                512^2; the UNet2d path (depth 4, 64 features, sigmoid): the
+                supervised and pseudo-label steps at 256^2 batch 4 card vs
+                CPU, then timed, and tiled prediction of the frame, one tile
+                card vs CPU, with no kernel launch
+  7. times    — CUDA-event medians of every kernel, its plain version and
                 (ConvBlock forward and backward) cuDNN's convolutions, beside
                 its bound from the shapes, with TFLOP/s; end-to-end ms/frame
-                and tiles/s, MT ms/step and patches/s
+                and tiles/s, ms/step and patches/s of every step
 
 Every comparison runs with TF32 off (torch.backends.cudnn.allow_tf32 and
 torch.backends.cuda.matmul.allow_tf32 both False), so the plain versions
@@ -37,7 +48,9 @@ the kind is printed when a phase fails or there is no card.
 
 from __future__ import annotations
 
+import contextlib
 import copy
+import itertools
 import json
 import math
 import statistics
@@ -76,9 +89,37 @@ LAST_SCALE = 8.0  # Fcomb last layer x8: the random teacher's consensus share li
 MT_LOSS_TOL = 1e-4  # card vs CPU: |loss - ref| <= 1e-4 * max(1, |ref|), same for recon, kl
 MT_GRAD_TOL = 1e-3  # card vs CPU: per parameter, max |g - ref| <= 1e-3 * max |ref|
 MT_PARAM_TOL = 1e-6  # card vs CPU: updated student (where Adam's sign is defined) and teacher
+# the algorithms phase: a gradient leaf beyond MT_GRAD_TOL passes if 1 - its
+# cosine to the float64 step's is within GRAD_COS_TOL, or within GRAD_COS_CPU
+# times the CPU float32 step's (check_step)
+GRAD_COS_TOL, GRAD_COS_CPU = 1e-5, 4.0
 # kernel launches of one MT step
 MT_LAUNCHES = {"conv_block_fwd": 20, "conv_block_fwd_dual": 6, "mc_consensus": 1,
                "conv_block_bwd": 12, "conv_block_bwd_dual": 3}
+
+# The algorithms phase. The MC tail at widths the kernel once refused (C = 20
+# is zero-padded to 24), a small PUNet through it, a 2-class PUNet (the plain
+# tail, no MC kernel launch); the other PUNet steps at the flagship's widths,
+# checked at 128^2 and timed at 512^2; the UNet2d path the UNet experiments
+# build (depth 4, 64 features, sigmoid; 256^2 batch 4, Adam 1e-4).
+FAULT_WIDTHS = (16, 20)
+SMALL_FILTERS = (16, 32, 48, 64)
+ALG_CHECK_PATCH, ALG_TIME_PATCH = 128, 512
+ALG_WARMUP, ALG_TIMED = 2, 5
+SOURCE_DISTRIBUTION = (0.7, 0.3)  # FixMatch's source class distribution [bg, fg]
+# kernel launches of one step: the student's forward (12 blocks, 3 decoder
+# blocks) and backward a loss, the teacher's (or the model's own) MC pass
+# (8 + 3 blocks and the MC tail) where the step draws pseudo-labels
+ALG_LAUNCHES = {
+    "pseudo_punet": {"conv_block_fwd": 12, "conv_block_fwd_dual": 3, "mc_consensus": 0,
+                     "conv_block_bwd": 12, "conv_block_bwd_dual": 3},
+    "fixmatch": MT_LAUNCHES,
+    "adamt": {"conv_block_fwd": 32, "conv_block_fwd_dual": 9, "mc_consensus": 1,
+              "conv_block_bwd": 24, "conv_block_bwd_dual": 6},
+}
+ALG_LAUNCHES["adamatch"] = ALG_LAUNCHES["adamt"]
+UNET_LR, UNET_BATCH, UNET_PATCH = 1e-4, 4, 256
+NO_LAUNCHES = dict.fromkeys(MT_LAUNCHES, 0)
 
 # A kernel's bound: the larger of its FLOPs over the card's float32-accurate
 # peak and its bytes (each input read once, each output written once) over
@@ -461,6 +502,127 @@ def mt_batch(gen, frame, patch, dev):
     return [a.to(dev) for a in (x, x1, x2, (x > 1.0).float())]
 
 
+@contextlib.contextmanager
+def recorded_blocks(out):
+    """Append (h1, h2, h3) of every ConvBlock forward to ``out``, from the
+    kernel on the card or the plain version on the CPU (for the ReLU-mask
+    census of :func:`relu_flips`)."""
+    from pda_torch.kernels import conv_block as kc
+
+    launch, nhwc = kc._launch, kc._nhwc
+
+    def record(fn):
+        def run(*a, **k):
+            hs = fn(*a, **k)
+            out.append(hs)
+            return hs
+        return run
+
+    kc._launch, kc._nhwc = record(launch), record(nhwc)
+    try:
+        yield out
+    finally:
+        kc._launch, kc._nhwc = launch, nhwc
+
+
+def relu_flips(card_blocks, cpu_blocks):
+    """(pixels whose ReLU output is 0 on one side and not on the other, the
+    largest such nonzero output relative to its map's largest)."""
+    n, margin = 0, 0.0
+    for hs, hs_cpu in zip(card_blocks, cpu_blocks):
+        for a, b in zip(hs, hs_cpu):
+            a, b = a.detach().cpu(), b.detach()
+            flip = (a > 0) != (b > 0)
+            if flip.any():
+                n += int(flip.sum())
+                margin = max(margin, float((a - b).abs()[flip].max() / b.abs().max()))
+    return n, margin
+
+
+def check_step(label, card, cpu, aux, aux_cpu, init, lr, zero_grads=(), ref64=None):
+    """One train step on the card against the same step of the port on the
+    CPU: every aux value within MT_LOSS_TOL (relative to max(1, |ref|)); every
+    gradient within MT_GRAD_TOL of its leaf's largest; the updated student
+    within MT_PARAM_TOL wherever the reference gradient lies farther from 0
+    than the gradients' error (nearer, Adam's sign is noise and the step is
+    only held to lr); the teacher (if any) likewise, its noisy entries within
+    2 lr (AdaMT's teacher is the student after its first step).
+    ``zero_grads``: parameters whose exact gradient is 0 (the UNet's sampler
+    biases, which the InstanceNorm after them takes out); their gradients are
+    held to MT_GRAD_TOL of 1e-2 of the model's largest, their step is noise.
+
+    ``ref64``: the same step of the port on the CPU in float64. A leaf beyond
+    MT_GRAD_TOL of the CPU's float32 gradient then passes if its direction
+    is within GRAD_COS_TOL of the float64 gradient's (1 - cosine), or within
+    GRAD_COS_CPU times the CPU's own float32 distance: a ReLU pixel whose
+    pre-activation lies within float32 rounding of 0 may switch sides
+    between card and CPU and move one leaf by a few 1e-3 of its largest,
+    and a leaf whose gradient is a small remainder of cancelling terms (the
+    UNet's, after its InstanceNorms) is 1e-2 off float64 in float32 on the
+    CPU too. The worst errors of card and CPU against float64 are printed
+    beside."""
+    import torch
+
+    errs = {k: 0.0 if float(aux[k]) == float(v)  # equal, infinities included
+            else abs(float(aux[k]) - float(v)) / max(1.0, abs(float(v)))
+            for k, v in aux_cpu.items()}
+    ok = set(aux) == set(aux_cpu) and all(e <= MT_LOSS_TOL for e in errs.values())
+    log(f"{label} card vs cpu: loss {float(aux['loss']):.6f} vs {float(aux_cpu['loss']):.6f}, "
+        f"relative errors {', '.join(f'{k} {e:.2e}' for k, e in errs.items())} (tol "
+        f"{MT_LOSS_TOL:.0e}) {'ok' if ok else 'FAIL'}")
+    worst, worst64, cpu_worst64, worst_cos = (0.0, ""), (0.0, ""), (0.0, ""), (1.0, "", 1.0)
+    param_worst, teacher_worst, sign_ok, n_beyond, n_bad = 0.0, 0.0, True, 0, 0
+    top = max(float(p.grad.abs().max()) for p in cpu.model.parameters())
+    refs = (itertools.repeat(None) if ref64 is None
+            else (p.grad for p in ref64.model.parameters()))
+    teachers = (itertools.repeat(None) if card.teacher is None
+                else zip(card.teacher.parameters(), cpu.teacher.parameters()))
+    for (name, p), p_cpu, g64, tp in zip(card.model.named_parameters(), cpu.model.parameters(),
+                                         refs, teachers):
+        g, g_cpu = p.grad.cpu(), p_cpu.grad
+        zero = name in zero_grads
+        scale = 1e-2 * top if zero else float(g_cpu.abs().max())
+        err = float((g - g_cpu).abs().max())
+        worst = max(worst, (err / scale, name))
+        beyond = err > MT_GRAD_TOL * scale
+        noise = max(MT_GRAD_TOL * scale, err)  # the gradients' error
+        sign_ref = g_cpu
+        if g64 is not None:
+            e64, c64 = float((g.double() - g64).abs().max()), float((g_cpu.double() - g64).abs().max())
+            worst64 = max(worst64, (e64 / scale, name))
+            cpu_worst64 = max(cpu_worst64, (c64 / scale, name))
+            noise, sign_ref = max(noise, e64, c64), g64
+            if beyond and not zero:
+                cos, cos_cpu = (float(torch.nn.functional.cosine_similarity(
+                    a.double().flatten(), g64.flatten(), dim=0)) for a in (g, g_cpu))
+                worst_cos = min(worst_cos, (cos, name, cos_cpu))
+                n_beyond += 1
+                beyond = 1.0 - cos > max(GRAD_COS_TOL, GRAD_COS_CPU * (1.0 - cos_cpu))
+        n_bad += beyond
+        noisy = (sign_ref.abs() <= noise).cpu() | zero  # there Adam's sign is noise
+        diff = (p.detach().cpu() - p_cpu.detach()).abs()
+        param_worst = max(param_worst, float(torch.where(noisy, 0.0, diff).max()))
+        moved = (p_cpu.detach() - init[name]).abs()
+        sign_ok &= float(torch.where(noisy, moved, 0.0).max()) <= lr + MT_PARAM_TOL
+        if tp is not None:  # the teacher follows the student, noise included
+            t_diff = (tp[0].cpu() - tp[1]).abs()
+            teacher_worst = max(teacher_worst, float(torch.where(noisy, 0.0, t_diff).max()))
+            sign_ok &= float(torch.where(noisy, t_diff, 0.0).max()) <= 2 * lr + MT_PARAM_TOL
+    good = (n_bad == 0 and param_worst <= MT_PARAM_TOL and sign_ok
+            and teacher_worst <= MT_PARAM_TOL and card.step == cpu.step == 1)
+    grads = (f"gradients worst max_abs_err/max|ref| {worst[0]:.3e} ({worst[1]}; tol "
+             f"{MT_GRAD_TOL:.0e})")
+    if ref64 is not None:
+        grads += (f", {n_beyond} leaves beyond it, their worst cosine to float64 "
+                  f"{worst_cos[0]:.8f} ({worst_cos[1]}; the CPU's float32 {worst_cos[2]:.8f}; tol "
+                  f"1 - max({GRAD_COS_TOL:.0e}, {GRAD_COS_CPU:g} x the CPU's)); against "
+                  f"the CPU's float64 step: card {worst64[0]:.3e} ({worst64[1]}), the CPU's "
+                  f"float32 {cpu_worst64[0]:.3e} ({cpu_worst64[1]})")
+    log(f"{label} card vs cpu: {grads}; updated student max_abs_err {param_worst:.3e}, teacher "
+        f"{teacher_worst:.3e} (tol {MT_PARAM_TOL:.0e}) {'ok' if good else 'FAIL'}")
+    return ok and good
+
+
 def phase_training(dev, results):
     """The Mean-Teacher step of the flagship: one step at 128^2 on the card
     against the port on the CPU, launch counts, then timed 512^2 steps."""
@@ -531,64 +693,315 @@ def phase_training(dev, results):
     finally:
         steps._mc_pseudo = pseudo
     cpu_s = time.perf_counter() - t0
-    errs = {k: abs(float(aux[k]) - float(v)) / max(1.0, abs(float(v))) for k, v in aux_cpu.items()}
-    good = all(e <= MT_LOSS_TOL for e in errs.values())
-    log(f"training MT step card vs cpu: loss {float(aux['loss']):.6f} vs {float(aux_cpu['loss']):.6f}, "
-        f"relative errors {', '.join(f'{k} {e:.2e}' for k, e in errs.items())} (tol "
-        f"{MT_LOSS_TOL:.0e}) {'ok' if good else 'FAIL'}")
-    ok &= good
-    grad_worst, param_worst, sign_ok = (0.0, ""), 0.0, True
-    init = model.state_dict()
-    for (name, p), p_cpu in zip(card.model.named_parameters(), cpu.model.parameters()):
-        g, g_cpu = p.grad.cpu(), p_cpu.grad
-        scale = float(g_cpu.abs().max())
-        grad_worst = max(grad_worst, (float((g - g_cpu).abs().max()) / scale, name))
-        noisy = g_cpu.abs() <= MT_GRAD_TOL * scale  # there Adam's sign is noise
-        diff = (p.detach().cpu() - p_cpu.detach()).abs()
-        param_worst = max(param_worst, float(torch.where(noisy, 0.0, diff).max()))
-        moved = (p_cpu.detach() - init[name]).abs()
-        sign_ok &= float(torch.where(noisy, moved, 0.0).max()) <= MT_LR + MT_PARAM_TOL
-    teacher_worst = max(float((p.cpu() - p_cpu).abs().max())
-                        for p, p_cpu in zip(card.teacher.parameters(), cpu.teacher.parameters()))
-    good = (grad_worst[0] <= MT_GRAD_TOL and param_worst <= MT_PARAM_TOL and sign_ok
-            and teacher_worst <= MT_PARAM_TOL)
-    log(f"training MT step card vs cpu: gradients worst max_abs_err/max|ref| {grad_worst[0]:.3e} "
-        f"({grad_worst[1]}; tol {MT_GRAD_TOL:.0e}), updated student max_abs_err {param_worst:.3e}, "
-        f"teacher {teacher_worst:.3e} (tol {MT_PARAM_TOL:.0e}); cpu {cpu_s:.1f} s "
-        f"{'ok' if good else 'FAIL'}")
-    ok &= good
+    ok &= check_step("training MT step", card, cpu, aux, aux_cpu, model.state_dict(), MT_LR)
+    log(f"training MT step card vs cpu: cpu {cpu_s:.1f} s")
     del card, cpu, logits, enc
 
     # 2. timed steps at 512^2, batch 2, fresh noise from a card generator
-    state = state_on(dev)
-    batch = mt_batch(gen, frame, MT_TIME_PATCH, dev)
-    cuda_gen = torch.Generator(device=dev).manual_seed(SEED)
+    good, _ = time_steps(f"MT step MC-{MC} 512^2 batch {MT_BATCH} f32", step, state_on(dev),
+                         mt_batch(gen, frame, MT_TIME_PATCH, dev), MT_BATCH, wrappers,
+                         MT_LAUNCHES, MT_WARMUP, MT_TIMED,
+                         torch.Generator(device=dev).manual_seed(SEED))
+    return ok and good
+
+
+def time_steps(label, step, state, batch, n_patches, wrappers, launches, warmup, timed,
+               generator=None):
+    """Train steps on the card, timed: the CUDA-event median of ``timed``
+    steps after ``warmup``, ms/step, patches/s and peak memory; every loss
+    finite and each kernel launched ``launches[name]`` times a step.
+    Returns (ok, ms)."""
+    import torch
+
     for w in wrappers.values():
         w.launches = 0
+    kw = {} if generator is None else {"generator": generator}
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     losses, events = [], []
-    for _ in range(MT_WARMUP + MT_TIMED):
+    for _ in range(warmup + timed):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
-        _, aux = step(state, *batch, generator=cuda_gen)
+        _, aux = step(state, *batch, **kw)
         end.record()
         losses.append(aux["loss"])
         events.append((start, end))
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated() / 2**30
-    times = [s.elapsed_time(e) for s, e in events[MT_WARMUP:]]
+    times = [s.elapsed_time(e) for s, e in events[warmup:]]
     ms = statistics.median(times)
     counts = {k: w.launches for k, w in wrappers.items()}
-    n = MT_WARMUP + MT_TIMED
+    n = warmup + timed
     finite = bool(torch.isfinite(torch.stack(losses)).all())
-    good = finite and counts == {k: n * v for k, v in MT_LAUNCHES.items()} and state.step == n
-    log(f"training MT step 512^2 batch {MT_BATCH}: losses {[round(float(v), 5) for v in losses]} "
-        f"finite {finite}, launches {counts} over {n} steps {'ok' if good else 'FAIL'}")
-    log(f"time MT step MC-{MC} 512^2 batch {MT_BATCH} f32: {ms:.2f} ms/step (median of "
-        f"{MT_TIMED}, min {min(times):.2f}, max {max(times):.2f}), "
-        f"{1000.0 * MT_BATCH / ms:.3f} patches/s, peak {peak:.2f} GiB")
-    return ok and good
+    good = finite and counts == {k: n * v for k, v in launches.items()} and state.step == n
+    log(f"training {label}: losses {[round(float(v), 5) for v in losses]} finite {finite}, "
+        f"launches {counts} over {n} steps {'ok' if good else 'FAIL'}")
+    log(f"time {label}: {ms:.2f} ms/step (median of {timed}, min {min(times):.2f}, max "
+        f"{max(times):.2f}), {n_patches} patches a step, {1000.0 * n_patches / ms:.3f} "
+        f"patches/s, peak {peak:.2f} GiB")
+    return good, ms
+
+
+def phase_algorithms(dev, results, binding):
+    """The fault-3.1 widths and class counts, the pseudo-PUNet, FixMatch,
+    AdaMT and AdaMatch steps of the flagship, and the UNet2d path: each on
+    the card against the port on the CPU, with its kernel launch counts, then
+    timed."""
+    import torch
+
+    from pda_torch import train as tt
+    from pda_torch.infer import tiled_unet_probs
+    from pda_torch.infer.tiling import extract_tiles, tile_standardize
+    from pda_torch.kernels import conv_block as kc
+    from pda_torch.kernels import mc_consensus as km
+    from pda_torch.models import ProbabilisticUnet, UNet2d
+    from pda_torch.models.punet import (livecell_punet, mc_decode_logits, mc_predict_probs,
+                                        mc_pseudo)
+    from pda_torch.tools import workload as wl
+    from pda_torch.tools.workload import cuda_ms
+    from pda_torch.train import adam, create_train_state, steps
+
+    wrappers = {"conv_block_fwd": kc.conv_block_fwd, "conv_block_fwd_dual": kc.conv_block_fwd_dual,
+                "mc_consensus": km.mc_consensus, "conv_block_bwd": kc.conv_block_bwd,
+                "conv_block_bwd_dual": kc.conv_block_bwd_dual}
+
+    def reset():
+        for w in wrappers.values():
+            w.launches = 0
+
+    def counted():
+        """The launches since :func:`reset`, added to the JSON line's counts."""
+        counts = {k: w.launches for k, w in wrappers.items()}
+        for k, n in counts.items():
+            results[k]["launches"] += n
+        return counts
+
+    gen = torch.Generator().manual_seed(SEED + 2)
+    ok = True
+
+    # 1. fault 3.1: K3 at the widths it once refused, then whole PUNets
+    with torch.inference_mode():
+        for c in FAULT_WIDTHS:
+            for masking in (False, True):
+                ok &= check_mc(results["mc_consensus"], f"C={c}",
+                               wl.mc_inputs(gen, 2, 128, 128, c, dev=dev), masking, binding, 0)
+    frame = synthetic_frame(gen, FRAME, "cpu")
+    x = mt_batch(gen, frame, ALG_CHECK_PATCH, "cpu")[1]
+    eps = torch.randn(MC, MT_BATCH, 6, generator=gen)
+    for n_classes in (1, 2):
+        small = ProbabilisticUnet(num_classes=n_classes, num_filters=SMALL_FILTERS,
+                                  no_convs_fcomb=3, beta=1.0, rl_swap=True,
+                                  generator=torch.Generator().manual_seed(SEED))
+        with torch.no_grad():
+            small.fcomb.last_layer.weight.mul_(LAST_SCALE)
+        on_card = copy.deepcopy(small).to(dev)
+        with torch.inference_mode():
+            reset()
+            y, z = mc_pseudo(on_card, x.to(dev), MC, eps=eps.to(dev), masking=True)
+            mean = mc_predict_probs(on_card, x.to(dev), MC, eps=eps.to(dev))
+            torch.cuda.synchronize()
+            counts = counted()
+            y_cpu, z_cpu = mc_pseudo(small, x, MC, eps=eps, masking=True)
+            mean_cpu = mc_predict_probs(small, x, MC, eps=eps)
+            enc = small.encode(x)
+            logits = mc_decode_logits(small, enc.features, enc.prior, MC, eps=eps)
+        near = ((logits.abs() - math.log(9.0)).abs() < K3_WINDOW).any(dim=0)
+        flips = int((z.cpu() != z_cpu).sum())
+        stray = int(((z.cpu() != z_cpu) & ~near).sum())
+        err = max(float((y.cpu() - y_cpu).abs().max()), float((mean.cpu() - mean_cpu).abs().max()))
+        want_mc = 2 if n_classes == 1 else 0  # mc_pseudo and the val predictor
+        good = (tuple(y.shape) == tuple(mean.shape) == (MT_BATCH, ALG_CHECK_PATCH,
+                                                        ALG_CHECK_PATCH, n_classes)
+                and err <= TILE_TOL and stray == 0 and counts["mc_consensus"] == want_mc)
+        log(f"algorithms PUNet num_filters {SMALL_FILTERS}, {n_classes} class(es), MC-{MC} "
+            f"{ALG_CHECK_PATCH}^2 batch {MT_BATCH} card vs cpu: pseudo-label and mean max_abs_err "
+            f"{err:.3e} (tol {TILE_TOL:.0e}), consensus share {float(z.mean()):.4f}, {flips} px "
+            f"flip, {stray} of them farther than {K3_WINDOW:.0e} from a threshold; mc_consensus "
+            f"launches {counts['mc_consensus']} (expected {want_mc}) {'ok' if good else 'FAIL'}")
+        ok &= good
+        del small, on_card, enc, logits
+
+    # 2. the other PUNet steps at the flagship's widths, 128^2 card vs CPU
+    model = livecell_punet(consensus_masking=True, generator=torch.Generator().manual_seed(SEED),
+                           device="cpu")
+    with torch.no_grad():
+        model.fcomb.last_layer.weight.mul_(LAST_SCALE)
+    init = model.state_dict()
+    source_frame = synthetic_frame(gen, FRAME, "cpu")
+
+    def state_on(device, with_teacher, dtype=torch.float32):
+        student = copy.deepcopy(model).to(device=device, dtype=dtype)
+        return create_train_state(student, adam(student.parameters(), MT_LR),
+                                  with_teacher=with_teacher)
+
+    def batch_of(algo, patch, device):
+        """pseudo PUNet: (x, y, z) with soft pseudo-labels and a consensus
+        mask as read from disk; FixMatch: (x, x1, x2, gt); the joint steps:
+        (xs, ys) of another frame + the target's (xt, xt1, xt2, yt)."""
+        g = torch.Generator().manual_seed(SEED + patch)
+        target = mt_batch(g, frame, patch, device)
+        if algo == "pseudo_punet":
+            y = torch.sigmoid(2.0 * target[1])
+            return target[2], y, ((y - 0.5).abs() > 0.3).float()
+        if algo == "fixmatch":
+            return target
+        xs, _, _, ys = mt_batch(g, source_frame, patch, device)
+        return (xs, ys, *target)
+
+    noise_shapes = {"eps_post": (MT_BATCH, 6), "eps_source": (MT_BATCH, 6),
+                    "eps_teacher": (MC, MT_BATCH, 6), "eps_weak": (MC, MT_BATCH, 6)}
+    algos = {
+        "pseudo_punet": (tt.make_pseudo_punet_step(), False, ("eps_post",)),
+        "fixmatch": (tt.make_fixmatch_step(source_distribution=SOURCE_DISTRIBUTION,
+                                           do_consensus_masking=True), False,
+                     ("eps_weak", "eps_post")),
+        "adamt": (tt.make_adamt_step(momentum=MT_MOMENTUM, do_consensus_masking=True), True,
+                  ("eps_source", "eps_teacher", "eps_post")),
+        "adamatch": (tt.make_adamatch_step(do_consensus_masking=True), False,
+                     ("eps_source", "eps_weak", "eps_post")),
+    }
+    pseudo = steps._mc_pseudo
+    for algo, (step, with_teacher, names) in algos.items():
+        batch = batch_of(algo, ALG_CHECK_PATCH, "cpu")
+        noise = {k: torch.randn(*noise_shapes[k], generator=gen) for k in names}
+        card, cpu = state_on(dev, with_teacher), state_on("cpu", with_teacher)
+        drawn, card_blocks, cpu_blocks = [], [], []
+
+        def capture(*a, **k):  # the pseudo-label pass, kept out of the census
+            n = len(card_blocks)
+            drawn.append(pseudo(*a, **k))
+            del card_blocks[n:]
+            return drawn[-1]
+
+        steps._mc_pseudo = capture
+        reset()
+        try:
+            with recorded_blocks(card_blocks):
+                _, aux = step(card, *(a.to(dev) for a in batch),
+                              **{k: v.to(dev) for k, v in noise.items()})
+            torch.cuda.synchronize()
+        finally:
+            steps._mc_pseudo = pseudo
+        counts = counted()
+        good = counts == ALG_LAUNCHES[algo]
+        log(f"algorithms {algo} step {ALG_CHECK_PATCH}^2: launches {counts} (expected "
+            f"{ALG_LAUNCHES[algo]}) {'ok' if good else 'FAIL'}")
+        # the CPU steps (float32, and float64 for the gradients' reference)
+        # take the card's pseudo-labels, so that a consensus pixel flipped
+        # within K3's threshold window is no step difference
+        t0 = time.perf_counter()
+        cpu64 = state_on("cpu", with_teacher, torch.float64)
+        for state, dtype in ((cpu, torch.float32), (cpu64, torch.float64)):
+            if drawn:
+                y, z = (t.to("cpu", dtype) for t in drawn[0])
+                steps._mc_pseudo = lambda *a, **k: (y, z)
+            try:
+                with recorded_blocks(cpu_blocks if dtype == torch.float32 else []):
+                    _, out = step(state, *(a.to(dtype) for a in batch),
+                                  **{k: v.to(dtype) for k, v in noise.items()})
+            finally:
+                steps._mc_pseudo = pseudo
+            if dtype == torch.float32:
+                aux_cpu = out
+        cpu_s = time.perf_counter() - t0
+        flips, margin = relu_flips(card_blocks, cpu_blocks)
+        log(f"algorithms {algo} step {ALG_CHECK_PATCH}^2: ReLU masks of the student's "
+            f"{len(cpu_blocks)} ConvBlocks card vs cpu: {flips} px differ, each output within "
+            f"{margin:.1e} of 0 (relative to its map's largest)")
+        del card_blocks, cpu_blocks
+        good &= check_step(f"algorithms {algo} step {ALG_CHECK_PATCH}^2", card, cpu, aux,
+                           aux_cpu, init, MT_LR, ref64=cpu64)
+        log(f"algorithms {algo} step card vs cpu: cpu (float32 and float64) {cpu_s:.1f} s")
+        ok &= good
+        del card, cpu, cpu64, drawn
+
+    # 3. the PUNet steps timed at 512^2, batch 2 (the joint steps: 2 source
+    # and 2 target patches), noise from a card generator
+    cuda_gen = torch.Generator(device=dev).manual_seed(SEED)
+    for algo, (step, with_teacher, _) in algos.items():
+        n_patches = 2 * MT_BATCH if algo in ("adamt", "adamatch") else MT_BATCH
+        good, _ = time_steps(f"{algo} step MC-{MC} {ALG_TIME_PATCH}^2 batch {MT_BATCH} f32",
+                             step, state_on(dev, with_teacher),
+                             batch_of(algo, ALG_TIME_PATCH, dev), n_patches, wrappers,
+                             ALG_LAUNCHES[algo], ALG_WARMUP, ALG_TIMED, cuda_gen)
+        ok &= good
+    del model
+
+    # 4. UNet2d: the supervised and pseudo-label steps at 256^2, batch 4,
+    # Adam 1e-4, card vs CPU; then timed; no kernel of the port launches
+    unet = UNet2d(depth=4, initial_features=64, final_activation="sigmoid",
+                  generator=torch.Generator().manual_seed(SEED))
+    zero_grads = tuple(n for n, _ in unet.named_parameters()
+                       if n.startswith("decoder.samplers.") and n.endswith(".bias"))
+    h, w = FRAME
+    p = UNET_PATCH
+    ux = tile_standardize(torch.stack([frame[:p, :p], frame[:p, w - p:], frame[h - p:, :p],
+                                       frame[h - p:, w - p:]]))
+    soft = torch.sigmoid(2.0 * ux)
+    unet_steps = {"supervised_unet": (tt.make_supervised_unet_step(), (ux, (ux > 1.0).float())),
+                  "pseudo_unet": (tt.make_pseudo_unet_step(),
+                                  (ux, soft, ((soft - 0.5).abs() > 0.3).float()))}
+
+    def unet_state(device, dtype=torch.float32):
+        m = copy.deepcopy(unet).to(device=device, dtype=dtype)
+        return create_train_state(m, adam(m.parameters(), UNET_LR))
+
+    for name, (step, batch) in unet_steps.items():
+        card, cpu, cpu64 = unet_state(dev), unet_state("cpu"), unet_state("cpu", torch.float64)
+        reset()
+        _, aux = step(card, *(a.to(dev) for a in batch))
+        torch.cuda.synchronize()
+        counts = counted()
+        good = counts == NO_LAUNCHES
+        log(f"algorithms {name} step {p}^2 batch {UNET_BATCH}: launches {counts} (expected "
+            f"none) {'ok' if good else 'FAIL'}")
+        _, aux_cpu = step(cpu, *batch)
+        step(cpu64, *(a.double() for a in batch))
+        good &= check_step(f"algorithms {name} step {p}^2 batch {UNET_BATCH}", card, cpu, aux,
+                           aux_cpu, unet.state_dict(), UNET_LR, zero_grads, ref64=cpu64)
+        ok &= good
+        del card, cpu, cpu64
+    for name, (step, batch) in unet_steps.items():
+        good, _ = time_steps(f"{name} step {p}^2 batch {UNET_BATCH} f32", step, unet_state(dev),
+                             tuple(a.to(dev) for a in batch), UNET_BATCH, wrappers, NO_LAUNCHES,
+                             ALG_WARMUP, ALG_TIMED)
+        ok &= good
+    # yardsticks, not the port's path: the supervised step under cuDNN's
+    # autotuner, and with cuDNN off (PyTorch's own CUDA convolutions)
+    step, batch = unet_steps["supervised_unet"]
+    for mode, flags in (("cudnn.benchmark on", {"benchmark": True}),
+                        ("cuDNN off", {"enabled": False})):
+        with torch.backends.cudnn.flags(**{"enabled": True, "benchmark": False,
+                                           "deterministic": False, "allow_tf32": False,
+                                           **flags}):
+            time_steps(f"supervised_unet step {p}^2 batch {UNET_BATCH} f32 ({mode}, a "
+                       f"yardstick)", step, unet_state(dev), tuple(a.to(dev) for a in batch),
+                       UNET_BATCH, wrappers, NO_LAUNCHES, ALG_WARMUP, ALG_TIMED)
+
+    # 5. unet_prediction's tiled path on the 520x704 frame; one tile card vs CPU
+    on_card = copy.deepcopy(unet).to(dev).eval()
+    frame_dev = frame.to(dev)
+    reset()
+    probs = tiled_unet_probs(on_card, frame_dev, BLOCK, HALO)
+    torch.cuda.synchronize()
+    counts = counted()
+    with torch.inference_mode():
+        tile = tile_standardize(extract_tiles(frame_dev, BLOCK, HALO))[:1]
+        err = float((on_card(tile).cpu() - unet.eval()(tile.cpu())).abs().max())
+    good = (counts == NO_LAUNCHES and tuple(probs.shape) == (*FRAME, 1)
+            and bool(torch.isfinite(probs).all()) and float(probs.min()) >= 0.0
+            and float(probs.max()) <= 1.0 and err <= TILE_TOL)
+    log(f"algorithms tiled_unet_probs 520x704: shape {tuple(probs.shape)} range "
+        f"[{float(probs.min()):.4f}, {float(probs.max()):.4f}], one 512^2 tile card vs cpu "
+        f"max_abs_err {err:.3e} (tol {TILE_TOL:.0e}), launches {counts} (expected none) "
+        f"{'ok' if good else 'FAIL'}")
+    ok &= good
+    torch.cuda.reset_peak_memory_stats()
+    ms = cuda_ms(lambda: tiled_unet_probs(on_card, frame_dev, BLOCK, HALO), warmup=1, iters=5)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"time tiled_unet_probs UNet2d(depth 4, 64) 520x704 (4 tiles of 512^2): {ms:.2f} "
+        f"ms/frame, {4000.0 / ms:.2f} tiles/s, peak {peak:.2f} GiB")
+    return ok
 
 
 def main() -> int:
@@ -649,6 +1062,8 @@ def main() -> int:
         torch.cuda.synchronize()
         ok &= phase_training(dev, results)
         torch.cuda.synchronize()
+        ok &= phase_algorithms(dev, results, binding)
+        torch.cuda.synchronize()
     except Exception:  # any phase's error fails the run, with its traceback
         traceback.print_exc()
         ok = False
@@ -665,7 +1080,8 @@ def main() -> int:
         "convolution_backward calls with the ReLU masks between them for the backward "
         "(cudnn.benchmark on at 128->256), TF32 off; none for mc_consensus (no single PyTorch "
         "call computes it); mc_consensus: the tiled forward's call; launches: both serving "
-        "entries and the checked MT step")
+        "entries, the checked MT step and the algorithms phase's checked paths (PUNets at "
+        "other widths and class counts, the other PUNet steps, the UNet2d path)")
     print(json.dumps({"kernels": list(results.values())}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

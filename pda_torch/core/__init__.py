@@ -3,6 +3,7 @@ from .consensus import (  # noqa: F401
     UPPER_THRESHOLD,
     consensus_from_logits,
     consensus_from_probs,
+    distribution_alignment,
 )
 from .distributions import DiagGaussian, kl_divergence, mc_kl_divergence  # noqa: F401
 from .ema import ema_update, ramped_momentum  # noqa: F401

@@ -6,7 +6,8 @@
   consensus  = mean_s agree_s;  masking: consensus = (consensus == 1)
 
 This is also the plain version of the reduction in the MC-consensus kernel
-(``pda_torch.kernels.mc_consensus``).
+(``pda_torch.kernels.mc_consensus``). :func:`distribution_alignment` is
+FixMatch's rescaling of the pseudo-labels.
 """
 
 from __future__ import annotations
@@ -54,3 +55,19 @@ def consensus_from_logits(
     if masking:
         consensus = (consensus == 1.0).to(pseudo.dtype)
     return pseudo, consensus
+
+
+def distribution_alignment(pseudo: torch.Tensor, source_distribution, *,
+                           eps: float = 0.0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """FixMatch distribution alignment: ``(aligned, ratio)``.
+
+    The target's binary class frequency is the foreground share
+    ``fg = mean(pseudo >= 0.5)``; ``ratio = source / ([1 - fg, fg] + eps)``
+    (``source_distribution`` = [bg, fg]); each pseudo-label is scaled by the
+    ratio of its side of 0.5 and clipped to [0, 1]. Single device: ``pda``'s
+    ``axis_name`` (a global-batch mean) comes with data parallelism."""
+    fg = (pseudo >= 0.5).to(pseudo.dtype).mean()
+    source = torch.as_tensor(source_distribution, dtype=pseudo.dtype, device=pseudo.device)
+    ratio = source / (torch.stack([1.0 - fg, fg]) + eps)
+    aligned = torch.where(pseudo < 0.5, pseudo * ratio[0], pseudo * ratio[1])
+    return aligned.clamp(0.0, 1.0), ratio

@@ -1,12 +1,16 @@
-"""PUNet serving path (port of ``pda/infer/predict.py``).
+"""Serving path (port of ``pda/infer/predict.py``).
 
 Array-level entries, on the device the model and image live on:
   tiled_punet_probs  — tiled (block + halo) MC-N mean probability map
   full_punet_pseudo  — whole-frame MC-N pseudo-label + consensus
+  tiled_unet_probs   — tiled UNet2d probability map
+  padded_unet_probs  — whole-frame UNet2d probability map
 File-level entries, same directory contract as ``pda``:
   punet_prediction        — per image a float32 probability TIFF
   punet_pseudo_prediction — annotations/<split>/<cell>/ (float pseudo-labels)
                             and consensus/<split>/<cell>/ (uint8 0/1)
+  unet_prediction         — per image a float32 probability TIFF, tiled or
+                            padded
 
 Noise: ``eps`` is the ``(n_samples, batch, latent_dim)`` standard-normal
 draw of the latent samples, or a ``torch.Generator`` to draw it from.
@@ -54,13 +58,35 @@ def full_punet_pseudo(model: ProbabilisticUnet, image: torch.Tensor, eps: Noise,
     """Whole-image MC-N pseudo-label + consensus, each (H, W, 1): standardize
     the frame, reflect-pad to a multiple of 16, one batch of 1. ``eps``:
     (n_samples, 1, latent_dim)."""
-    mean = image.mean()
-    norm = (image - mean) / ((image - mean).std(correction=0) + 1e-7)
-    padded, (h, w) = pad_to_divisible(norm, (16, 16))
+    padded, (h, w) = pad_to_divisible(_standardize(image), (16, 16))
     e, g = _noise(eps)
     pseudo, consensus = mc_pseudo(model, padded[None], n_samples, eps=e, generator=g,
                                   masking=masking)
     return pseudo[0, :h, :w], consensus[0, :h, :w]
+
+
+def _standardize(image: torch.Tensor) -> torch.Tensor:
+    """Whole-frame (x - mean) / (population std + 1e-7)."""
+    centered = image - image.mean()
+    return centered / (centered.std(correction=0) + 1e-7)
+
+
+@torch.inference_mode()
+def tiled_unet_probs(model: torch.nn.Module, image: torch.Tensor,
+                     block: Tuple[int, int] = BLOCK_SHAPE,
+                     halo: Tuple[int, int] = HALO) -> torch.Tensor:
+    """(H, W, C) image -> (H, W, out_channels) UNet2d output: gather the
+    tiles, standardize each, one forward of the tile batch, stitch."""
+    tiles = tile_standardize(extract_tiles(image, block, halo))
+    return stitch_tiles(model(tiles), image.shape[:2], block, halo)
+
+
+@torch.inference_mode()
+def padded_unet_probs(model: torch.nn.Module, image: torch.Tensor) -> torch.Tensor:
+    """(H, W, C) image -> (H, W, out_channels): standardize the frame,
+    reflect-pad to a multiple of 16, one forward, crop."""
+    padded, (h, w) = pad_to_divisible(_standardize(image), (16, 16))
+    return model(padded[None])[0, :h, :w]
 
 
 def _read_image(path: str) -> np.ndarray:
@@ -160,3 +186,22 @@ def punet_pseudo_prediction(input_image_path: str, output_pred_path: str,
                     consensus[..., 0].cpu().numpy().astype("uint8"))
         if verbose:
             print(f"{img_name}'s predictions saved")
+
+
+def unet_prediction(input_path: str, output_path: str, model: torch.nn.Module, *,
+                    tiling: bool = True, block_shape: Tuple[int, int] = BLOCK_SHAPE,
+                    halo: Tuple[int, int] = HALO, verbose: bool = True):
+    """Deterministic UNet inference: glob input images -> per image a
+    float32 probability TIFF, tiled (:func:`tiled_unet_probs`) or padded
+    (:func:`padded_unet_probs`), on the model's device."""
+    os.makedirs(output_path, exist_ok=True)
+    dev = _device(model)
+    for img_path in _glob_images(input_path):
+        img = torch.from_numpy(_read_image(img_path)[..., None]).to(dev)
+        pred = (tiled_unet_probs(model, img, block_shape, halo) if tiling
+                else padded_unet_probs(model, img))
+        stem = os.path.splitext(os.path.basename(img_path))[0]
+        out = os.path.join(output_path, f"{stem}.tif")
+        _write_tiff(out, pred[..., 0].cpu().numpy().astype(np.float32))
+        if verbose:
+            print(f"Saved image at '{out}'")

@@ -81,6 +81,7 @@ mc_consensus_tc(const float* __restrict__ feat, const float* __restrict__ z_term
                 float* __restrict__ mean_out, float* __restrict__ cons_out,
                 int B, int HW, int S, int n_mid, float logit_hi, float logit_lo,
                 int masking) {
+  static_assert(C % 8 == 0 && C >= 8 && C <= 64, "C: a multiple of 8 up to 64");
   constexpr int NB = C / 8;  // channel blocks: n-tiles and k-steps
   extern __shared__ __align__(16) float smem[];
   uint4* s_w = reinterpret_cast<uint4*>(smem);  // [m][j][n][lane]: W_m split
@@ -239,7 +240,10 @@ cudaError_t launch(const float* feat, const float* z, const float* mw,
 
 // feat (B, HW, C), z_terms (S, B, C), mid_w (n_mid, C, C) as (in, out),
 // mid_b (n_mid, C), last_w (C,), last_b (1,); mean and cons are (B, HW).
-// C must be 32 or 64; feat 8-byte aligned.
+// C must be a multiple of 8 up to 64 (the wrapper zero-pads any other C up to
+// 64: a zero channel stays relu(0 + 0) = 0 through every layer and meets a
+// zero row of last_w); feat 8-byte aligned. Above 64 one warp's 16 x C feature
+// rows no longer fit in its registers (C = 64 already takes 128 a thread).
 extern "C" int pda_mc_consensus(const void* feat, const void* z_terms,
                                 const void* mid_w, const void* mid_b,
                                 const void* last_w, const void* last_b,
@@ -251,14 +255,20 @@ extern "C" int pda_mc_consensus(const void* feat, const void* z_terms,
   auto* m = static_cast<float*>(mean);
   auto* c = static_cast<float*>(cons);
   switch (C) {
-    case 32:
-      return launch<32>(f(feat), f(z_terms), f(mid_w), f(mid_b), f(last_w),
-                        f(last_b), m, c, B, HW, S, n_mid, logit_hi, logit_lo,
-                        masking, s);
-    case 64:
-      return launch<64>(f(feat), f(z_terms), f(mid_w), f(mid_b), f(last_w),
-                        f(last_b), m, c, B, HW, S, n_mid, logit_hi, logit_lo,
-                        masking, s);
+#define PDA_MC_WIDTH(W)                                                          \
+  case W:                                                                        \
+    return launch<W>(f(feat), f(z_terms), f(mid_w), f(mid_b), f(last_w),         \
+                     f(last_b), m, c, B, HW, S, n_mid, logit_hi, logit_lo,       \
+                     masking, s);
+    PDA_MC_WIDTH(8)
+    PDA_MC_WIDTH(16)
+    PDA_MC_WIDTH(24)
+    PDA_MC_WIDTH(32)
+    PDA_MC_WIDTH(40)
+    PDA_MC_WIDTH(48)
+    PDA_MC_WIDTH(56)
+    PDA_MC_WIDTH(64)
+#undef PDA_MC_WIDTH
     default:
       return cudaErrorInvalidValue;
   }

@@ -5,7 +5,11 @@ from .blocks import (  # noqa: F401
     avg_pool_2x2,
     upsample_2x_align_corners,
 )
-from .convert import state_dict_from_pda  # noqa: F401
+from .convert import (  # noqa: F401
+    backbone_state_dict_from_pda,
+    state_dict_from_pda,
+    unet_state_dict_from_pda,
+)
 from .punet import (  # noqa: F401
     Fcomb,
     GaussianEncoder,
@@ -15,5 +19,6 @@ from .punet import (  # noqa: F401
     mc_decode_logits,
     mc_predict_probs,
     mc_pseudo,
+    uses_mc_kernel,
 )
-from .unet import PUNetBackbone  # noqa: F401
+from .unet import PUNetBackbone, UNet2d  # noqa: F401

@@ -4,10 +4,13 @@ Parameters are held in the reference torch layout (``weight`` (O, I, kh, kw)
 and ``bias``, inside ``layers`` Sequentials with the parameterless pool/ReLU
 modules at their reference indices), so ``state_dict()`` carries the names
 that ``pda.models.convert`` documents. The compute never calls those
-Sequentials: a ConvBlock runs as one call of the fused ConvBlock kernel
-(:mod:`pda_torch.kernels.conv_block`), the plain PyTorch version on CPU
-tensors, and its gradient as one call of the fused backward. The pool and
-the upsample are PyTorch ops that autograd differentiates.
+Sequentials: a ConvBlock of 3 convs (every experiment's) runs as one call
+of the fused ConvBlock kernel (:mod:`pda_torch.kernels.conv_block`), the
+plain PyTorch version on CPU tensors, and its gradient as one call of the
+fused backward. A block of any other depth runs conv + bias + ReLU layer by
+layer under autograd (``F.conv2d``, cuDNN on the card), as ``pda`` runs it
+with plain autodiff convs: ``pda`` has no kernel for that depth either. The
+pool and the upsample are PyTorch ops that autograd differentiates.
 
 Initialization follows ``pda`` (reference my_models/utils.py:17-28), each
 draw from an explicit ``torch.Generator``:
@@ -27,7 +30,7 @@ from torch import nn
 
 from ..kernels.conv_block import conv_block_fwd, conv_block_fwd_dual
 
-#: convs per block; the fused kernels implement exactly this depth
+#: convs per block by default; the fused kernels implement exactly this depth
 N_CONVS = 3
 
 
@@ -115,30 +118,44 @@ def _weights(convs: Sequence[ConvParams]):
     return out
 
 
-def _conv_layers(in_channels: int, features: int) -> list:
+def _conv_layers(in_channels: int, features: int, n_convs: int = N_CONVS) -> list:
     mods, cin = [], in_channels
-    for _ in range(N_CONVS):
+    for _ in range(n_convs):
         mods += [ConvParams(cin, features, 3), nn.ReLU()]
         cin = features
     return mods
 
 
+def conv_relu_layers(x: torch.Tensor, convs: Sequence[ConvParams]) -> torch.Tensor:
+    """n x (conv3x3 SAME + bias + ReLU) on (B, H, W, C), layer by layer: the
+    path of a block whose depth the fused kernels do not take."""
+    h = x.permute(0, 3, 1, 2)
+    for c in convs:
+        h = F.relu(F.conv2d(h, c.weight, c.bias, padding=1))
+    return h.permute(0, 2, 3, 1).contiguous()
+
+
 def conv_block(x: torch.Tensor, convs: Sequence[ConvParams], pool: bool) -> torch.Tensor:
-    """[2x2 avg pool] + the fused 3 x (conv3x3 + bias + ReLU) on (B, H, W, C)."""
+    """[2x2 avg pool] + n x (conv3x3 + bias + ReLU) on (B, H, W, C): the
+    fused kernel at 3 convs, :func:`conv_relu_layers` at any other depth."""
     if pool:
         x = avg_pool_2x2(x)
+    if len(convs) != N_CONVS:
+        return conv_relu_layers(x, convs)
     return conv_block_fwd(x.contiguous(), *_weights(convs))
 
 
 class ConvBlock(nn.Module):
-    """[AvgPool] + 3 x (Conv3x3 + ReLU): reference ``DownConvBlock``
-    (``layers`` = [pool,] conv, relu, conv, relu, conv, relu)."""
+    """[AvgPool] + n_convs x (Conv3x3 + ReLU): reference ``DownConvBlock``
+    (``layers`` = [pool,] conv, relu, conv, relu, conv, relu at 3 convs)."""
 
-    def __init__(self, in_channels: int, features: int, pool: bool = False):
+    def __init__(self, in_channels: int, features: int, pool: bool = False,
+                 n_convs: int = N_CONVS):
         super().__init__()
         self.pool = pool
         self.layers = nn.Sequential(
-            *([nn.AvgPool2d(2)] if pool else []), *_conv_layers(in_channels, features))
+            *([nn.AvgPool2d(2)] if pool else []),
+            *_conv_layers(in_channels, features, n_convs))
 
     def convs(self) -> list:
         return [m for m in self.layers if isinstance(m, ConvParams)]
@@ -152,17 +169,20 @@ class UpBlock(nn.Module):
     ``UpConvBlock``). The concat [upsample | skip] is read by the dual-input
     kernel and never built on the card."""
 
-    def __init__(self, in_channels: int, skip_channels: int, features: int):
+    def __init__(self, in_channels: int, skip_channels: int, features: int,
+                 n_convs: int = N_CONVS):
         super().__init__()
-        self.conv_block = ConvBlock(in_channels + skip_channels, features)
+        self.conv_block = ConvBlock(in_channels + skip_channels, features, n_convs=n_convs)
 
     def forward(self, x: torch.Tensor, bridge: torch.Tensor) -> torch.Tensor:
         up = upsample_2x_align_corners(x)
         if up.shape[1:3] != bridge.shape[1:3]:
             raise ValueError(
                 f"skip-connection shape mismatch: {tuple(up.shape)} vs {tuple(bridge.shape)}")
-        return conv_block_fwd_dual(up, bridge.contiguous(),
-                                   *_weights(self.conv_block.convs()))
+        convs = self.conv_block.convs()
+        if len(convs) != N_CONVS:
+            return conv_relu_layers(torch.cat([up, bridge], dim=-1), convs)
+        return conv_block_fwd_dual(up, bridge.contiguous(), *_weights(convs))
 
 
 class EncoderPyramid(nn.Module):
@@ -170,19 +190,21 @@ class EncoderPyramid(nn.Module):
     first: reference ``Encoder``, whose ``layers`` is ONE Sequential with the
     pools interleaved."""
 
-    def __init__(self, in_channels: int, num_filters: Sequence[int]):
+    def __init__(self, in_channels: int, num_filters: Sequence[int], n_convs: int = N_CONVS):
         super().__init__()
         self.depth = len(num_filters)
+        self.n_convs = n_convs
         mods, cin = [], in_channels
         for i, feats in enumerate(num_filters):
             if i > 0:
                 mods.append(nn.AvgPool2d(2))
-            mods += _conv_layers(cin, feats)
+            mods += _conv_layers(cin, feats, n_convs)
             cin = feats
         self.layers = nn.Sequential(*mods)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         convs = [m for m in self.layers if isinstance(m, ConvParams)]
+        n = self.n_convs
         for i in range(self.depth):
-            x = conv_block(x, convs[N_CONVS * i:N_CONVS * (i + 1)], pool=i > 0)
+            x = conv_block(x, convs[n * i:n * (i + 1)], pool=i > 0)
         return x

@@ -8,7 +8,8 @@ and a per-sample latent projection (``z_term``).
 
 MC sampling: :func:`mc_decode_logits` is the plain path (the whole
 ``(n, B, H, W, C)`` logit stack); :func:`mc_pseudo` runs the per-sample tail
-and the consensus in the MC-consensus kernel, which never writes that stack.
+and the consensus in the MC-consensus kernel, which never writes that stack,
+wherever the model's configuration lets it (:func:`uses_mc_kernel`).
 Noise is explicit everywhere: ``eps`` of shape ``(n, B, latent_dim)``, or a
 ``torch.Generator``.
 """
@@ -22,9 +23,15 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..core.distributions import DiagGaussian
-from ..kernels.mc_consensus import mc_consensus, mc_logits_plain
-from .blocks import ConvParams, EncoderPyramid
+from ..core.consensus import consensus_from_logits
+from ..kernels.mc_consensus import MAX_WIDTH, mc_consensus, mc_logits_plain
+from .blocks import N_CONVS, ConvParams, EncoderPyramid
 from .unet import PUNetBackbone
+
+
+def _at_least_f32(t: torch.Tensor) -> torch.Tensor:
+    """``t`` in float32, or in its own wider type (a float64 reference run)."""
+    return t.to(torch.promote_types(t.dtype, torch.float32))
 
 
 class PUNetEncoding(NamedTuple):
@@ -35,20 +42,21 @@ class PUNetEncoding(NamedTuple):
 
 class GaussianEncoder(nn.Module):
     """Conv pyramid -> global spatial mean -> 1x1 conv (a Dense) to
-    2*latent_dim -> (mu, log_sigma), kept in float32 (reference
+    2*latent_dim -> (mu, log_sigma), kept in float32 or wider (reference
     ``AxisAlignedConvGaussian``)."""
 
-    def __init__(self, input_channels: int, num_filters: Sequence[int], latent_dim: int = 6):
+    def __init__(self, input_channels: int, num_filters: Sequence[int], latent_dim: int = 6,
+                 n_convs: int = N_CONVS):
         super().__init__()
         self.latent_dim = latent_dim
-        self.encoder = EncoderPyramid(input_channels, num_filters)
+        self.encoder = EncoderPyramid(input_channels, num_filters, n_convs)
         self.conv_layer = ConvParams(num_filters[-1], 2 * latent_dim, 1, init="orthogonal")
 
     def forward(self, x: torch.Tensor, segm: Optional[torch.Tensor] = None) -> DiagGaussian:
         if segm is not None:
             x = torch.cat([x, segm.to(x.dtype)], dim=-1)
         enc = self.encoder(x).mean(dim=(1, 2))
-        stats = (enc @ self.conv_layer.dense() + self.conv_layer.bias).float()
+        stats = _at_least_f32(enc @ self.conv_layer.dense() + self.conv_layer.bias)
         return DiagGaussian(stats[:, : self.latent_dim], stats[:, self.latent_dim:])
 
 
@@ -89,7 +97,7 @@ class Fcomb(nn.Module):
         h = F.relu(feat_term + self.z_term(z)[:, None, None, :])
         for w, b in self.mid_layers():
             h = F.relu(h @ w + b)
-        return (h @ self.last_layer.dense() + self.last_layer.bias).float()
+        return _at_least_f32(h @ self.last_layer.dense() + self.last_layer.bias)
 
     def forward(self, features: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
         return self.decode_from_term(self.feature_term(features), z)
@@ -99,8 +107,9 @@ class ProbabilisticUnet(nn.Module):
     """Probabilistic U-Net (https://arxiv.org/abs/1806.05034), float32.
 
     Defaults mirror ``pda``'s; the experiments use ``num_filters=(64, 128,
-    256, 512), no_convs_fcomb=3, beta=1, rl_swap=True``
-    (:func:`livecell_punet`). ``beta``, ``rl_swap``, ``consensus_masking``
+    256, 512), no_convs_fcomb=3, beta=1, rl_swap=True`` and 3 convs a block
+    (:func:`livecell_punet`); blocks of ``no_convs_per_block`` != 3 run
+    without the fused ConvBlock kernels (:mod:`.blocks`). ``beta``, ``rl_swap``, ``consensus_masking``
     and ``analytic_kl`` are loss settings the module carries, as in ``pda``;
     :func:`pda_torch.core.losses.neg_elbo` reads them. Parameters are drawn
     from ``generator`` (default: a CPU generator seeded 0) on the CPU; move
@@ -110,17 +119,20 @@ class ProbabilisticUnet(nn.Module):
                  num_filters: Sequence[int] = (32, 64, 128, 192), latent_dim: int = 6,
                  no_convs_fcomb: int = 4, beta: float = 10.0,
                  consensus_masking: bool = False, rl_swap: bool = False,
-                 analytic_kl: bool = True, generator: Optional[torch.Generator] = None):
+                 analytic_kl: bool = True, no_convs_per_block: int = N_CONVS,
+                 generator: Optional[torch.Generator] = None):
         super().__init__()
         nf = tuple(num_filters)
+        n = no_convs_per_block
+        self.num_classes = num_classes
         self.latent_dim = latent_dim
         self.beta = beta
         self.consensus_masking = consensus_masking
         self.rl_swap = rl_swap
         self.analytic_kl = analytic_kl
-        self.unet = PUNetBackbone(input_channels, nf)
-        self.prior = GaussianEncoder(input_channels, nf, latent_dim)
-        self.posterior = GaussianEncoder(input_channels + num_classes, nf, latent_dim)
+        self.unet = PUNetBackbone(input_channels, nf, n)
+        self.prior = GaussianEncoder(input_channels, nf, latent_dim, n)
+        self.posterior = GaussianEncoder(input_channels + num_classes, nf, latent_dim, n)
         self.fcomb = Fcomb(nf[0], latent_dim, num_classes, no_convs_fcomb)
         self.reset_parameters(generator or torch.Generator().manual_seed(0))
 
@@ -188,23 +200,44 @@ def mc_decode_logits(model: ProbabilisticUnet, features: torch.Tensor, dist: Dia
     return mc_logits_plain(feat_term, model.fcomb.z_term(zs), *tail_weights(model))
 
 
+def uses_mc_kernel(model: ProbabilisticUnet) -> bool:
+    """Whether :func:`mc_pseudo` takes the MC-consensus kernel for this
+    model: one class (as ``pda`` decides, ``steps.py`` ``_pallas_mc_enabled``)
+    and a Fcomb width the kernel holds in registers, C <= 64 (every
+    experiment's PUNet has C = 64). Any other tail is the plain one."""
+    return model.num_classes == 1 and model.fcomb.num_filters0 <= MAX_WIDTH
+
+
 def mc_pseudo(model: ProbabilisticUnet, x: torch.Tensor, n_samples: int,
               eps: Optional[torch.Tensor] = None, generator: Optional[torch.Generator] = None,
               masking: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(pseudo, consensus), each (B, H, W, 1): encode, feature term, latent
-    terms ``z @ W_z + b_z``, then the MC-consensus kernel (``pda``'s
-    ``mc_pseudo_fused``). Single-class PUNets only."""
+    """(pseudo, consensus), each (B, H, W, num_classes): encode, feature
+    term, latent terms ``z @ W_z + b_z``, then the Fcomb tail and the
+    consensus over the n samples.
+
+    The path is chosen by the model's configuration, never by an error: with
+    one class and a Fcomb width C <= 64 (:func:`uses_mc_kernel`) the tail
+    runs in the MC-consensus kernel (``pda``'s ``mc_pseudo_fused``), which
+    on the card takes any such C (zero-padded to a multiple of 8); with more
+    classes, or C > 64, where one warp's feature rows no longer fit in its
+    registers, it is the plain logit stack + ``consensus_from_logits``, as in
+    ``pda``, which has no kernel for that case either."""
     enc = model.encode(x)
     feat_term = model.decode_feature_term(enc.features)
     zs = enc.prior.sample_n(n_samples, eps=eps, generator=generator)
     z_terms = model.fcomb.z_term(zs)
-    return mc_consensus(feat_term.contiguous(), z_terms.contiguous(), *tail_weights(model),
-                        masking=masking)
+    weights = tail_weights(model)
+    if not uses_mc_kernel(model):
+        return consensus_from_logits(mc_logits_plain(feat_term, z_terms, *weights),
+                                     masking=masking)
+    return mc_consensus(feat_term.contiguous(), z_terms.contiguous(), *weights, masking=masking)
 
 
 def mc_predict_probs(model: ProbabilisticUnet, x: torch.Tensor, n_samples: int,
                      eps: Optional[torch.Tensor] = None,
                      generator: Optional[torch.Generator] = None) -> torch.Tensor:
-    """Mean sigmoid over n prior samples, (B, H, W, 1) — the PUNet
-    inference primitive (reference ``_custom_punet_prediction``)."""
+    """Mean sigmoid over n prior samples, (B, H, W, num_classes): the PUNet
+    inference primitive and validation predictor (reference
+    ``_custom_punet_prediction``; ``pda``'s ``mc_predict_probs`` and
+    ``_mc_mean_probs``), through :func:`mc_pseudo`'s path."""
     return mc_pseudo(model, x, n_samples, eps=eps, generator=generator)[0]

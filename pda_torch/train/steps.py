@@ -1,17 +1,24 @@
-"""Train and validation steps of the PUNet (port of ``pda/train/steps.py``):
-supervised PUNet training and Mean-Teacher self-training.
+"""Train and validation steps of every training algorithm (port of
+``pda/train/steps.py``):
+
+  supervised PUNet, pseudo UNet, pseudo PUNet, Mean Teacher, FixMatch,
+  AdaMT (joint Mean Teacher), AdaMatch (joint FixMatch), supervised UNet
 
 Each factory returns ``step(state, *batch, ...) -> (state, aux)``. Batches
 are NHWC tensors on the model's device. A step updates the state's modules
 and optimizer in place (``pda``'s jitted steps return a new state) and
 returns it with ``aux``, a dict of 0-d tensors.
 
-Noise is explicit, since torch cannot reproduce ``jax.random`` streams: the
-posterior draw takes ``eps_post`` (B, L), the teacher's MC draws
-``eps_teacher`` (n, B, L) and the validation MC draws ``eps_mc`` (n, B, L);
-or a ``torch.Generator`` draws whichever is not given, in that order of use.
-``pda`` draws them as ``jax.random.normal`` of the keys its step splits off
-``state.rng``, so handing those arrays in reproduces its step.
+Noise is explicit, since torch cannot reproduce ``jax.random`` streams. The
+arrays are named after the keys ``pda``'s steps split off ``state.rng``:
+the target (or only) posterior draw ``eps_post`` (B, L) goes with
+``k_post``, the source posterior draw ``eps_source`` (B, L) with ``k_s``,
+the teacher's MC draws ``eps_teacher`` (n, B, L) with ``k_t``, the model's
+own (weak-view) MC draws ``eps_weak`` (n, B, L) with ``k_w`` and the
+validation MC draws ``eps_mc`` (n, B, L) with ``k_mc``. ``pda`` draws each as
+``jax.random.normal`` of its key, so handing those arrays in reproduces its
+step; each step's docstring gives the split. A ``torch.Generator`` draws
+whichever is not given, in the order the step uses them.
 """
 
 from __future__ import annotations
@@ -20,8 +27,9 @@ from typing import Optional
 
 import torch
 
-from ..core.ema import ema_update
-from ..core.losses import neg_elbo
+from ..core.consensus import distribution_alignment
+from ..core.ema import ema_update, ramped_momentum
+from ..core.losses import dice_loss, neg_elbo
 from ..core.metrics import dice_score_torch
 from ..models.punet import ProbabilisticUnet, mc_predict_probs, mc_pseudo
 from .state import TrainState, punet_l2_reg
@@ -56,8 +64,9 @@ def _punet_loss(model: ProbabilisticUnet, x, segm, eps_post=None,
 def _mc_pseudo(model: ProbabilisticUnet, x, n_samples: int, masking: bool, eps=None,
                generator: Optional[torch.Generator] = None):
     """Teacher-style MC pseudo-label and consensus, gradient-free: the
-    MC-consensus kernel on the card (``pda`` takes its XLA path here by
-    default, ``steps.py`` ``USE_PALLAS_MC``; both compute the same)."""
+    MC-consensus kernel on the card where :func:`mc_pseudo` takes it
+    (``pda`` takes its XLA path here by default, ``steps.py``
+    ``USE_PALLAS_MC``; both compute the same)."""
     return mc_pseudo(model, x, n_samples, eps=eps, generator=generator, masking=masking)
 
 
@@ -73,7 +82,8 @@ def _detached(aux: dict) -> dict:
 
 
 def make_supervised_punet_step():
-    """Supervised PUNet training: -ELBO on (x, y), one Adam step."""
+    """Supervised PUNet training: -ELBO on (x, y), one Adam step.
+    ``pda``: ``rng, k_post = split(rng)``."""
 
     def step(state: TrainState, x, y, *, eps_post=None,
              generator: Optional[torch.Generator] = None):
@@ -86,17 +96,25 @@ def make_supervised_punet_step():
 
 def make_punet_val_step(n_samples: int = N_MC_VAL):
     """Train-style loss, and the dice of the MC-n mean probability (``pda``'s
-    ``_mc_mean_probs``) against the target; metric = 1 - dice."""
+    ``_mc_mean_probs``) against the target; metric = 1 - dice.
+    ``pda``: ``rng, k_post, k_mc = split(rng, 3)``."""
 
     @torch.no_grad()
     def step(state: TrainState, x, y, *, eps_post=None, eps_mc=None,
              generator: Optional[torch.Generator] = None):
-        _, aux = _punet_loss(state.model, x, y, eps_post, generator)
-        pred = mc_predict_probs(state.model, x, n_samples, eps=eps_mc, generator=generator)
-        dice = dice_score_torch(pred, y)
-        return state, {"loss": aux["loss"], "dice": dice, "metric": 1.0 - dice}
+        return state, _punet_val(state.model, x, y, n_samples, eps_post, eps_mc, generator)
 
     return step
+
+
+def _punet_val(model: ProbabilisticUnet, x, y, n_samples: int, eps_post, eps_mc, generator,
+               consm=None) -> dict:
+    """Train-style loss on (x, y[, z]) and the MC mean-probability dice
+    against y; metric = 1 - dice."""
+    _, aux = _punet_loss(model, x, y, eps_post, generator, consm=consm)
+    pred = mc_predict_probs(model, x, n_samples, eps=eps_mc, generator=generator)
+    dice = dice_score_torch(pred, y)
+    return {"loss": aux["loss"], "dice": dice, "metric": 1.0 - dice}
 
 
 def make_mean_teacher_step(*, momentum: float = 0.999, do_consensus_masking: bool = False,
@@ -104,7 +122,8 @@ def make_mean_teacher_step(*, momentum: float = 0.999, do_consensus_masking: boo
     """Mean-Teacher step: the teacher's MC-n pseudo-label y and consensus z
     on the weak view x1; the student's -ELBO on (x2, y, z) and one Adam
     step; then the teacher's EMA toward the UPDATED student. ``x`` and
-    ``gt`` are unused, as in ``pda``."""
+    ``gt`` are unused, as in ``pda``. ``pda``: ``rng, k_t, k_post =
+    split(rng, 3)``."""
 
     def step(state: TrainState, x, x1, x2, gt, *, eps_teacher=None, eps_post=None,
              generator: Optional[torch.Generator] = None):
@@ -122,17 +141,215 @@ def make_mean_teacher_val_step(*, do_consensus_masking: bool = False,
                                n_samples: int = N_MC_TRAIN):
     """Teacher pseudo-label on x1, the student's loss on (x2, y, z), and the
     student's MC mean-probability dice against y (metric) and against the
-    true gt (gt_metric)."""
+    true gt (gt_metric). ``pda``: ``rng, k_t, k_post, k_mc = split(rng, 4)``."""
 
     @torch.no_grad()
     def step(state: TrainState, x, x1, x2, gt, *, eps_teacher=None, eps_post=None,
              eps_mc=None, generator: Optional[torch.Generator] = None):
-        y, z = _mc_pseudo(state.teacher, x1, n_samples, do_consensus_masking,
-                          eps_teacher, generator)
-        _, aux = _punet_loss(state.model, x2, y, eps_post, generator, consm=z)
-        pred = mc_predict_probs(state.model, x2, n_samples, eps=eps_mc, generator=generator)
-        dice, gt_dice = dice_score_torch(pred, y), dice_score_torch(pred, gt)
-        return state, {"loss": aux["loss"], "dice": dice, "metric": 1.0 - dice,
-                       "gt_metric": 1.0 - gt_dice}
+        return state, _target_val(state, state.teacher, x1, x2, gt, n_samples,
+                                  do_consensus_masking, eps_teacher, eps_post, eps_mc,
+                                  generator)
+
+    return step
+
+
+def _target_val(state: TrainState, labeller, x1, x2, gt, n_samples: int, masking: bool,
+                eps_pseudo, eps_post, eps_mc, generator):
+    """The self-training validation: ``labeller``'s MC pseudo-label and
+    consensus on x1, the model's loss on (x2, y, z), and its MC
+    mean-probability dice against y (metric) and against gt (gt_metric)."""
+    y, z = _mc_pseudo(labeller, x1, n_samples, masking, eps_pseudo, generator)
+    _, aux = _punet_loss(state.model, x2, y, eps_post, generator, consm=z)
+    pred = mc_predict_probs(state.model, x2, n_samples, eps=eps_mc, generator=generator)
+    dice, gt_dice = dice_score_torch(pred, y), dice_score_torch(pred, gt)
+    return {"loss": aux["loss"], "dice": dice, "metric": 1.0 - dice,
+            "gt_metric": 1.0 - gt_dice}
+
+
+def make_pseudo_unet_step():
+    """Pseudo-label UNet training on fixed pseudo-labels y and consensus z
+    from disk: ``dice_loss(pred * z, y * z)``, one Adam step. No noise
+    (``pda`` splits ``rng`` and draws nothing)."""
+
+    def step(state: TrainState, x, y, z):
+        loss = dice_loss(state.model(x) * z, y * z)
+        _apply_updates(state, loss)
+        return state, {"loss": loss.detach()}
+
+    return step
+
+
+def make_pseudo_unet_val_step():
+    @torch.no_grad()
+    def step(state: TrainState, x, y, z):
+        loss = dice_loss(state.model(x) * z, y * z)
+        return state, {"loss": loss, "metric": loss}
+
+    return step
+
+
+def make_pseudo_punet_step():
+    """Pseudo-label PUNet training: -ELBO on the precomputed pseudo-labels y
+    with the consensus z from disk as the consensus mask, one Adam step.
+    ``pda``: ``rng, k_post = split(rng)``."""
+
+    def step(state: TrainState, x, y, z, *, eps_post=None,
+             generator: Optional[torch.Generator] = None):
+        loss, aux = _punet_loss(state.model, x, y, eps_post, generator, consm=z)
+        _apply_updates(state, loss)
+        return state, _detached(aux)
+
+    return step
+
+
+def make_pseudo_punet_val_step(n_samples: int = N_MC_VAL):
+    """The consensus-weighted loss and the MC-n mean-probability dice against
+    y; metric = 1 - dice. ``pda``: ``rng, k_post, k_mc = split(rng, 3)``."""
+
+    @torch.no_grad()
+    def step(state: TrainState, x, y, z, *, eps_post=None, eps_mc=None,
+             generator: Optional[torch.Generator] = None):
+        return state, _punet_val(state.model, x, y, n_samples, eps_post, eps_mc, generator,
+                                 consm=z)
+
+    return step
+
+
+def make_fixmatch_step(*, source_distribution=None, do_consensus_masking: bool = False,
+                       n_samples: int = N_MC_TRAIN):
+    """FixMatch: the model itself, gradient-free and before the update, draws
+    the MC-n pseudo-label y and consensus z on the weak view x1; with a
+    ``source_distribution`` ([bg, fg]) y is distribution-aligned; then the
+    model's -ELBO on (x2, y, z) and one Adam step. aux gains
+    ``distr_ratio_bg`` / ``distr_ratio_fg`` (0 without alignment).
+    ``pda``: ``rng, k_w, k_post = split(rng, 3)``."""
+
+    def step(state: TrainState, x, x1, x2, gt, *, eps_weak=None, eps_post=None,
+             generator: Optional[torch.Generator] = None):
+        y, z = _mc_pseudo(state.model, x1, n_samples, do_consensus_masking, eps_weak,
+                          generator)
+        if source_distribution is not None:
+            y, ratio = distribution_alignment(y, source_distribution)
+        else:
+            ratio = y.new_zeros(2)
+        loss, aux = _punet_loss(state.model, x2, y, eps_post, generator, consm=z)
+        _apply_updates(state, loss)
+        return state, {"distr_ratio_bg": ratio[0], "distr_ratio_fg": ratio[1],
+                       **_detached(aux)}
+
+    return step
+
+
+def make_fixmatch_val_step(*, do_consensus_masking: bool = False,
+                           n_samples: int = N_MC_TRAIN):
+    """The model's own pseudo-label on x1 (no alignment at validation), its
+    loss on (x2, y, z), and its MC mean-probability dice against y (metric)
+    and gt (gt_metric). ``pda``: ``rng, k_w, k_post, k_mc = split(rng, 4)``."""
+
+    @torch.no_grad()
+    def step(state: TrainState, x, x1, x2, gt, *, eps_weak=None, eps_post=None,
+             eps_mc=None, generator: Optional[torch.Generator] = None):
+        return state, _target_val(state, state.model, x1, x2, gt, n_samples,
+                                  do_consensus_masking, eps_weak, eps_post, eps_mc, generator)
+
+    return step
+
+
+def _joint_loss(model: ProbabilisticUnet, xs, ys, xt2, y, z, eps_source, eps_post, generator):
+    """(source -ELBO on (xs, ys) + target -ELBO on (xt2, y, z)) / 2, with
+    aux ``loss``, ``supervised_loss``, ``target_loss``."""
+    sup, _ = _punet_loss(model, xs, ys, eps_source, generator)
+    tgt, _ = _punet_loss(model, xt2, y, eps_post, generator, consm=z)
+    loss = (sup + tgt) / 2.0
+    return loss, {"loss": loss, "supervised_loss": sup, "target_loss": tgt}
+
+
+def make_adamt_step(*, momentum: float = 0.999, do_consensus_masking: bool = False,
+                    n_samples: int = N_MC_TRAIN):
+    """AdaMT (joint Mean Teacher): the teacher's MC-n pseudo-label y and
+    consensus z on the target's weak view xt1; (source -ELBO on (xs, ys) +
+    target -ELBO on (xt2, y, z)) / 2 and one Adam step; then the teacher's
+    EMA toward the updated student at ``min(1 - 1/(step + 1), momentum)``,
+    ``step`` the count BEFORE this update. ``xt`` and ``yt`` are unused.
+    ``pda``: ``rng, k_s, k_t, k_post = split(rng, 4)``."""
+
+    def step(state: TrainState, xs, ys, xt, xt1, xt2, yt, *, eps_source=None,
+             eps_teacher=None, eps_post=None, generator: Optional[torch.Generator] = None):
+        y, z = _mc_pseudo(state.teacher, xt1, n_samples, do_consensus_masking, eps_teacher,
+                          generator)
+        loss, aux = _joint_loss(state.model, xs, ys, xt2, y, z, eps_source, eps_post,
+                                generator)
+        m = ramped_momentum(float(state.step), momentum)
+        _apply_updates(state, loss)
+        ema_update(state.teacher, state.model, m)
+        return state, _detached(aux)
+
+    return step
+
+
+def make_adamt_val_step(*, do_consensus_masking: bool = False, n_samples: int = N_MC_TRAIN):
+    """Target-only validation: the teacher's pseudo-label on xt1, the
+    model's loss on (xt2, y, z), its MC mean-probability dice against y
+    (metric) and yt (gt_metric). ``pda``: ``rng, k_t, k_post, k_mc =
+    split(rng, 4)``."""
+
+    @torch.no_grad()
+    def step(state: TrainState, xt, xt1, xt2, yt, *, eps_teacher=None, eps_post=None,
+             eps_mc=None, generator: Optional[torch.Generator] = None):
+        return state, _target_val(state, state.teacher, xt1, xt2, yt, n_samples,
+                                  do_consensus_masking, eps_teacher, eps_post, eps_mc,
+                                  generator)
+
+    return step
+
+
+def make_adamatch_step(*, do_consensus_masking: bool = False, n_samples: int = N_MC_TRAIN):
+    """AdaMatch (joint FixMatch): AdaMT's loss with the pseudo-label drawn by
+    the model itself (gradient-free, before the update) and no EMA.
+    ``pda``: ``rng, k_s, k_w, k_post = split(rng, 4)``."""
+
+    def step(state: TrainState, xs, ys, xt, xt1, xt2, yt, *, eps_source=None,
+             eps_weak=None, eps_post=None, generator: Optional[torch.Generator] = None):
+        y, z = _mc_pseudo(state.model, xt1, n_samples, do_consensus_masking, eps_weak,
+                          generator)
+        loss, aux = _joint_loss(state.model, xs, ys, xt2, y, z, eps_source, eps_post,
+                                generator)
+        _apply_updates(state, loss)
+        return state, _detached(aux)
+
+    return step
+
+
+def make_adamatch_val_step(*, do_consensus_masking: bool = False, n_samples: int = N_MC_TRAIN):
+    """The model's own pseudo-label on xt1, its loss on (xt2, y, z), its MC
+    mean-probability dice against y and yt. ``pda``: ``rng, k_w, k_post,
+    k_mc = split(rng, 4)``."""
+
+    @torch.no_grad()
+    def step(state: TrainState, xt, xt1, xt2, yt, *, eps_weak=None, eps_post=None,
+             eps_mc=None, generator: Optional[torch.Generator] = None):
+        return state, _target_val(state, state.model, xt1, xt2, yt, n_samples,
+                                  do_consensus_masking, eps_weak, eps_post, eps_mc, generator)
+
+    return step
+
+
+def make_supervised_unet_step():
+    """Supervised UNet2d training (torch_em's default segmentation trainer):
+    ``dice_loss(pred, y)`` on the sigmoid output, one Adam step. No noise."""
+
+    def step(state: TrainState, x, y):
+        loss = dice_loss(state.model(x), y)
+        _apply_updates(state, loss)
+        return state, {"loss": loss.detach()}
+
+    return step
+
+
+def make_supervised_unet_val_step():
+    @torch.no_grad()
+    def step(state: TrainState, x, y):
+        loss = dice_loss(state.model(x), y)
+        return state, {"loss": loss, "metric": loss}
 
     return step

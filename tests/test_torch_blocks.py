@@ -151,10 +151,13 @@ def test_conv_kernel_wrapper_rejects_what_it_cannot_take(bad):
 
 
 def test_mc_kernel_wrapper_rejects_unsupported_width():
-    feat, z = torch.zeros(1, 4, 4, 16), torch.zeros(2, 1, 16)
-    with pytest.raises(ValueError, match="C in"):
-        kmc._launch(feat, z, torch.zeros(1, 16, 16), torch.zeros(1, 16),
-                    torch.zeros(16, 1), torch.zeros(1), False)
+    """The kernel takes C up to 64 (any C, zero-padded to a multiple of 8);
+    a wider tail is refused before any launch (``mc_pseudo`` sends it to the
+    plain tail)."""
+    feat, z = torch.zeros(1, 4, 4, 72), torch.zeros(2, 1, 72)
+    with pytest.raises(ValueError, match="C <= 64"):
+        kmc._launch(feat, z, torch.zeros(1, 72, 72), torch.zeros(1, 72),
+                    torch.zeros(72, 1), torch.zeros(1), False)
 
 
 def test_wrappers_refuse_other_devices_and_count_no_cpu_launch():

@@ -56,7 +56,7 @@ def test_port_init_matches_pda_tree():
 def test_port_imports_no_jax():
     code = (
         "import sys, pda_torch, pda_torch.core, pda_torch.models, pda_torch.kernels, "
-        "pda_torch.infer, pda_torch.train, pda_torch.tools.profile, "
+        "pda_torch.infer, pda_torch.train, pda_torch.eval, pda_torch.tools.profile, "
         "pda_torch.tools.bench_variants\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'pda'))\n"
         "print(bad)\n"

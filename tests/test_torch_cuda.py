@@ -141,6 +141,77 @@ def test_mc_consensus_kernel_s16_ragged_float64_repeats(dev, c, masking):
     assert not ((cons != ref_cons) & ~near).any()
 
 
+@pytest.mark.parametrize("c", [8, 16, 20, 44])
+@pytest.mark.parametrize("masking", [False, True])
+def test_mc_consensus_kernel_other_widths_match_plain(dev, c, masking):
+    """S = 16 at widths other than 32 and 64: a multiple of 8 runs as it is,
+    any other C zero-padded to the next one (20 -> 24, 44 -> 48). The mean
+    within 1e-5 of the plain version and of float64, the consensus only
+    within 1e-4 of a threshold, two launches bit-equal."""
+    args = mc_inputs(torch.Generator().manual_seed(c), 2, 37, 29, c, s=16, n_mid=1, dev=dev)
+    before = mc_consensus.launches
+    with torch.no_grad():
+        mean, cons = mc_consensus(*args, masking=masking)
+        mean2, cons2 = mc_consensus(*args, masking=masking)
+    ref_mean, ref_cons = mc_consensus_plain(*args, masking)
+    ref64 = mc_consensus_plain(*(a.double() for a in args), masking)[0]
+    torch.cuda.synchronize()
+    assert mc_consensus.launches == before + 2
+    assert torch.equal(mean, mean2) and torch.equal(cons, cons2)
+    assert float((mean - ref_mean).abs().max()) <= 1e-5
+    assert float((mean.double() - ref64).abs().max()) <= 1e-5
+    near = ((mc_logits_plain(*args).abs() - np.log(9.0)).abs() < 1e-4).any(dim=0)
+    assert not ((cons != ref_cons) & ~near).any()
+
+
+@pytest.mark.parametrize("num_classes,launched", [(1, 2), (2, 0)])
+def test_punet_mc_path_on_card_matches_cpu(dev, num_classes, launched):
+    """A PUNet of first width 16 through mc_pseudo and the validation
+    predictor: the card against the CPU. One class runs the MC kernel (once
+    each); two classes take the plain tail and launch none."""
+    from pda_torch.models import ProbabilisticUnet
+    from pda_torch.models.punet import mc_decode_logits, mc_predict_probs, mc_pseudo
+
+    gen = torch.Generator().manual_seed(num_classes)
+    model = ProbabilisticUnet(num_classes=num_classes, num_filters=(16, 24), no_convs_fcomb=3,
+                              generator=gen)
+    with torch.no_grad():
+        model.fcomb.last_layer.weight.mul_(16.0)
+    x, eps = torch.randn(2, 24, 20, 1, generator=gen), torch.randn(16, 2, 6, generator=gen)
+    on_card = copy.deepcopy(model).to(dev)
+    before = mc_consensus.launches
+    with torch.no_grad():
+        y, z = mc_pseudo(on_card, x.to(dev), 16, eps=eps.to(dev), masking=True)
+        mean = mc_predict_probs(on_card, x.to(dev), 16, eps=eps.to(dev))
+        torch.cuda.synchronize()
+        assert mc_consensus.launches == before + launched
+        y_cpu, z_cpu = mc_pseudo(model, x, 16, eps=eps, masking=True)
+        enc = model.encode(x)
+        logits = mc_decode_logits(model, enc.features, enc.prior, 16, eps=eps)
+    assert y.shape == mean.shape == (2, 24, 20, num_classes)
+    assert float((y.cpu() - y_cpu).abs().max()) <= 1e-4
+    assert float((mean.cpu() - y_cpu).abs().max()) <= 1e-4
+    near = ((logits.abs() - np.log(9.0)).abs() < 1e-4).any(dim=0)
+    assert not ((z.cpu() != z_cpu) & ~near).any()
+
+
+def test_unet2d_forward_on_card_matches_cpu(dev):
+    """UNet2d (depth 2, 8 features, sigmoid) on cuDNN against the CPU, and
+    none of the port's kernels launched."""
+    from pda_torch.models import UNet2d
+
+    model = UNet2d(depth=2, initial_features=8, generator=torch.Generator().manual_seed(0))
+    x = torch.randn(2, 36, 28, 1, generator=torch.Generator().manual_seed(1))
+    before = (conv_block_fwd.launches, mc_consensus.launches)
+    with torch.no_grad():
+        out = copy.deepcopy(model).to(dev)(x.to(dev))
+        torch.cuda.synchronize()
+        ref = model(x)
+    assert (conv_block_fwd.launches, mc_consensus.launches) == before
+    assert out.shape == (2, 36, 28, 1)
+    assert float((out.cpu() - ref).abs().max()) <= 1e-5
+
+
 def test_mc_consensus_kernel_refuses_s_beyond_shared_memory(dev):
     """The largest S whose latent terms fit beside the split weights runs;
     one more raises ValueError before any launch."""
@@ -290,3 +361,54 @@ def test_mean_teacher_step_on_card_matches_cpu(dev):
         assert float(torch.where(noisy, 0.0, diff).max()) <= 1e-6, name
     for p, p_cpu in zip(card.teacher.parameters(), cpu.teacher.parameters()):
         assert float((p.cpu() - p_cpu).abs().max()) <= 1e-6
+
+
+def test_adamt_step_on_card_matches_cpu(dev):
+    """One small AdaMT step (masking on, ramped EMA at step 0) on the card
+    against the same port on the CPU, the CPU taking the card teacher's
+    pseudo-labels; the kernel launches of a joint step."""
+    from pda_torch.models import ProbabilisticUnet
+    from pda_torch.train import adam, create_train_state, make_adamt_step
+    from pda_torch.train import steps
+
+    gen = torch.Generator().manual_seed(0)
+    model = ProbabilisticUnet(num_filters=(32, 32, 48, 64), latent_dim=6, no_convs_fcomb=3,
+                              beta=1.0, rl_swap=True, consensus_masking=True, generator=gen)
+    with torch.no_grad():
+        model.fcomb.last_layer.weight.mul_(16.0)
+    xs, xt = torch.randn(2, 32, 32, 1, generator=gen), torch.randn(2, 32, 32, 1, generator=gen)
+    batch = (xs, (xs > 0.3).float(), xt, xt + 0.1 * torch.randn(xt.shape, generator=gen),
+             xt + 0.1 * torch.randn(xt.shape, generator=gen), (xt > 0.5).float())
+    noise = {"eps_source": torch.randn(2, 6, generator=gen),
+             "eps_teacher": torch.randn(16, 2, 6, generator=gen),
+             "eps_post": torch.randn(2, 6, generator=gen)}
+    step = make_adamt_step(do_consensus_masking=True)
+    on_card = copy.deepcopy(model).to(dev)
+    card = create_train_state(on_card, adam(on_card.parameters(), 1e-5), with_teacher=True)
+    cpu = create_train_state(model, adam(model.parameters(), 1e-5), with_teacher=True)
+    y, z = steps._mc_pseudo(card.teacher, batch[3].to(dev), 16, True, noise["eps_teacher"].to(dev))
+    wrappers = (kconv.conv_block_fwd, kconv.conv_block_fwd_dual, mc_consensus,
+                kconv.conv_block_bwd, kconv.conv_block_bwd_dual)
+    before = [w.launches for w in wrappers]
+    _, aux = step(card, *(a.to(dev) for a in batch), **{k: v.to(dev) for k, v in noise.items()})
+    torch.cuda.synchronize()
+    assert [w.launches - b for w, b in zip(wrappers, before)] == [32, 9, 1, 24, 6]
+    pseudo = steps._mc_pseudo
+    steps._mc_pseudo = lambda *a, **k: (y.cpu(), z.cpu())
+    try:
+        _, aux_cpu = step(cpu, *batch, **noise)
+    finally:
+        steps._mc_pseudo = pseudo
+    assert 0.0 < float(z.mean()) < 1.0
+    for k, v in aux_cpu.items():
+        assert abs(float(aux[k]) - float(v)) <= 1e-4 * max(1.0, abs(float(v))), k
+    for (name, p), p_cpu in zip(card.model.named_parameters(), cpu.model.parameters()):
+        g, g_cpu = p.grad.cpu(), p_cpu.grad
+        assert float((g - g_cpu).abs().max()) <= 1e-3 * float(g_cpu.abs().max()), name
+        noisy = g_cpu.abs() <= 1e-3 * g_cpu.abs().max()  # Adam's sign is noise there
+        diff = (p.detach().cpu() - p_cpu.detach()).abs()
+        assert float(torch.where(noisy, 0.0, diff).max()) <= 1e-6, name
+    for (name, p), p_cpu in zip(card.teacher.named_parameters(), cpu.teacher.parameters()):
+        # at step 0 the ramp is 0: the teacher is the updated student
+        assert torch.equal(p, dict(card.model.named_parameters())[name].detach()), name
+        assert torch.equal(p_cpu, dict(cpu.model.named_parameters())[name].detach()), name

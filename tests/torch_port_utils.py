@@ -17,22 +17,14 @@ FILTERS = (4, 8, 12, 16)
 LATENT = 6
 
 
-@functools.lru_cache(maxsize=None)
-def pda_punet(no_convs_fcomb: int = 3, seed: int = 0, consensus_masking: bool = False):
-    """(flax module, params) of a small pda PUNet, posterior included, with
-    the flagship's loss settings (beta 1, rl_swap).
+def seeded_params(model, *inputs, seed: int = 0):
+    """Seeded numpy params on the tree of ``model.init(key, *inputs)``.
 
     The tree's structure and shapes are pda's own (``jax.eval_shape`` of
     ``model.init``, which traces without compiling the initializers); the
-    values are seeded normals: He-scaled 3x3 kernels, 1/sqrt(fan_in)-scaled
+    values are seeded normals: He-scaled conv kernels, 1/sqrt(fan_in)-scaled
     Dense kernels and biases of scale 0.1, so that every leaf matters."""
-    from pda.models import ProbabilisticUnet
-
-    model = ProbabilisticUnet(num_filters=FILTERS, latent_dim=LATENT,
-                              no_convs_fcomb=no_convs_fcomb, beta=1.0, rl_swap=True,
-                              consensus_masking=consensus_masking)
-    x = jnp.zeros((1, 16, 16, 1))
-    shapes = jax.eval_shape(model.init, jax.random.PRNGKey(0), x, x)["params"]
+    shapes = jax.eval_shape(model.init, jax.random.PRNGKey(0), *inputs)["params"]
     rng = np.random.default_rng(seed)
 
     def draw(leaf):
@@ -43,17 +35,36 @@ def pda_punet(no_convs_fcomb: int = 3, seed: int = 0, consensus_masking: bool = 
             scale = np.sqrt((2.0 if len(shape) == 4 else 1.0) / np.prod(shape[:-1]))
         return (rng.normal(size=shape) * scale).astype(np.float32)
 
-    return model, jax.tree_util.tree_map(draw, shapes)
+    return jax.tree_util.tree_map(draw, shapes)
 
 
-def port_punet(params, no_convs_fcomb: int = 3, consensus_masking: bool = False):
+@functools.lru_cache(maxsize=None)
+def pda_punet(no_convs_fcomb: int = 3, seed: int = 0, consensus_masking: bool = False,
+              num_classes: int = 1, no_convs_per_block: int = 3):
+    """(flax module, params) of a small pda PUNet, posterior included, with
+    the flagship's loss settings (beta 1, rl_swap); params from
+    :func:`seeded_params`."""
+    from pda.models import ProbabilisticUnet
+
+    model = ProbabilisticUnet(num_filters=FILTERS, latent_dim=LATENT,
+                              no_convs_fcomb=no_convs_fcomb, beta=1.0, rl_swap=True,
+                              consensus_masking=consensus_masking, num_classes=num_classes,
+                              no_convs_per_block=no_convs_per_block)
+    x = jnp.zeros((1, 16, 16, 1))
+    segm = jnp.zeros((1, 16, 16, num_classes))
+    return model, seeded_params(model, x, segm, seed=seed)
+
+
+def port_punet(params, no_convs_fcomb: int = 3, consensus_masking: bool = False,
+               num_classes: int = 1, no_convs_per_block: int = 3):
     """The port's PUNet carrying ``params`` (a pda tree), with the loss
     settings of :func:`pda_punet`."""
     from pda_torch.models import ProbabilisticUnet, state_dict_from_pda
 
     model = ProbabilisticUnet(num_filters=FILTERS, latent_dim=LATENT,
                               no_convs_fcomb=no_convs_fcomb, beta=1.0, rl_swap=True,
-                              consensus_masking=consensus_masking)
+                              consensus_masking=consensus_masking, num_classes=num_classes,
+                              no_convs_per_block=no_convs_per_block)
     model.load_state_dict(state_dict_from_pda(params))
     return model.eval()
 
