@@ -34,7 +34,20 @@ Phases, each of which fails the run (exit code 1) on any error or miss:
                 supervised and pseudo-label steps at 256^2 batch 4 card vs
                 CPU, then timed, and tiled prediction of the frame, one tile
                 card vs CPU, with no kernel launch
-  7. times    — CUDA-event medians of every kernel, its plain version and
+  7. engine   — the training engine (pda_torch.train.engine) on the card: the
+                flagship's MeanTeacherTrainer.fit(8) at 512^2, batch 2, on
+                seeded synthetic 520x704 frames through the port's Loader and
+                DualImageCollectionDataset (epochs of 4 steps, a validation
+                each, panels every 4 steps, the plateau controller, best and
+                latest .pt checkpoints in a temporary directory), with exact
+                launch counts and its patches/s beside the bare MT step's; a
+                fresh trainer reloading latest.pt bit for bit, then resuming
+                to 10; the same fit at 128^2 (2 steps, 1 validation) on the
+                card against the CPU (float32, and float64 for the gradients'
+                reference); and 300 iterations of development/learning_smoke.py's
+                PUNetTrainer run (PUNet 16/32/64/96, 64^2, batch 8, lr 1e-3),
+                final validation dice above 0.5
+  8. times    — CUDA-event medians of every kernel, its plain version and
                 (ConvBlock forward and backward) cuDNN's convolutions, beside
                 its bound from the shapes, with TFLOP/s; end-to-end ms/frame
                 and tiles/s, ms/step and patches/s of every step
@@ -53,9 +66,11 @@ import copy
 import itertools
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 import traceback
 
@@ -120,6 +135,23 @@ ALG_LAUNCHES = {
 ALG_LAUNCHES["adamatch"] = ALG_LAUNCHES["adamt"]
 UNET_LR, UNET_BATCH, UNET_PATCH = 1e-4, 4, 256
 NO_LAUNCHES = dict.fromkeys(MT_LAUNCHES, 0)
+
+# The engine phase: the flagship's MT trainer at 512^2 (epochs of 4 steps, a
+# validation batch each, panels every 4 steps), resumed to 10; the same fit at
+# 128^2 card vs CPU; development/learning_smoke.py's run (pda records 0.82-0.84
+# final dice on its TPU in bf16: a reference point, not a target)
+ENGINE_EPOCH, ENGINE_FIT, ENGINE_RESUME = 4, 8, 10
+ENGINE_CHECK_PATCH, ENGINE_CHECK_FIT = 128, 2
+ENGINE_MIN_SHARE = 0.9  # the engine's loop against the bare step's patches/s (reported)
+LEARN_FILTERS, LEARN_ITERATIONS, LEARN_BATCH = (16, 32, 64, 96), 300, 8
+LEARN_LR, LEARN_BAR = 1e-3, 0.5
+# kernel launches of one MT validation step (the teacher's MC pass, the
+# student's loss with its posterior, the student's MC pass) and of one MT
+# panel pass (the teacher's and the student's MC passes on one patch)
+MT_VAL_LAUNCHES = {"conv_block_fwd": 28, "conv_block_fwd_dual": 9, "mc_consensus": 2,
+                   "conv_block_bwd": 0, "conv_block_bwd_dual": 0}
+MT_PANEL_LAUNCHES = {"conv_block_fwd": 16, "conv_block_fwd_dual": 6, "mc_consensus": 2,
+                     "conv_block_bwd": 0, "conv_block_bwd_dual": 0}
 
 # A kernel's bound: the larger of its FLOPs over the card's float32-accurate
 # peak and its bytes (each input read once, each output written once) over
@@ -363,18 +395,19 @@ def phase_kernels(dev, results, binding):
         entry["library_ms"] = (entry["library_ms"] or 0.0) + per_forward * library_ms
         return ok
 
-    # every shape of the serving path and the MT step's posterior entry; the
-    # JSON line's times and bounds sum one tiled forward's calls (weight 0:
-    # checked and logged only)
+    # every shape of the serving path, the MT step's posterior entry and the
+    # learning check's blocks at width 96; the JSON line's times and bounds
+    # sum one tiled forward's calls (weight 0: checked and logged only)
     ok = True
     for shape, per_forward in ([(s, 2) for s in wl.K1_TILED] + [(s, 0) for s in wl.K1_PSEUDO]
-                               + [(wl.K1_POSTERIOR, 0)]):
+                               + [(wl.K1_POSTERIOR, 0), (wl.LEARN_BLOCK, 0)]):
         b, h, w, cin, c = shape
         x = torch.randn(b, h, w, cin, generator=gen).to(dev)
         ok &= check_conv(k1, f"conv_block_fwd {cin}->{c} @{b}x{h}x{w}", kc.conv_block_fwd,
                          kc.conv_block_fwd_plain, (x, *conv_weights(gen, cin, c, dev)),
                          per_forward)
-    for shape, per_forward in [(s, 1) for s in wl.K2_TILED] + [(s, 0) for s in wl.K2_PSEUDO]:
+    for shape, per_forward in ([(s, 1) for s in wl.K2_TILED] + [(s, 0) for s in wl.K2_PSEUDO]
+                               + [(wl.LEARN_DUAL_BLOCK, 0)]):
         b, h, w, ca, cb, c = shape
         xa = torch.randn(b, h, w, ca, generator=gen).to(dev)
         xb = torch.randn(b, h, w, cb, generator=gen).to(dev)
@@ -382,7 +415,7 @@ def phase_kernels(dev, results, binding):
                          kc.conv_block_fwd_dual, kc.conv_block_fwd_dual_plain,
                          (xa, xb, *conv_weights(gen, ca + cb, c, dev)), per_forward)
 
-    for (b, h, w, cin, c), need_dx, per_step in wl.BWD_SHAPES:
+    for (b, h, w, cin, c), need_dx, per_step in wl.BWD_SHAPES + [(wl.LEARN_BLOCK, True, 0)]:
         saved = saved_block(gen, b, h, w, cin, c, dev)
         ok &= check_bwd(results["conv_block_bwd"], f"conv_block_bwd {cin}->{c} @{b}x{h}x{w} "
                         f"need_dx={need_dx}", lambda *a: kc.conv_block_bwd(*a, need_dx=need_dx),
@@ -390,13 +423,14 @@ def phase_kernels(dev, results, binding):
                         ("dx", "dw1", "db1", "dw2", "db2", "dw3", "db3"), per_step, binding,
                         need_dx)
         del saved
-    for b, h, w, ca, cb, c in wl.BWD_DUAL_SHAPES:
+    for (b, h, w, ca, cb, c), per_step in ([(s, 1) for s in wl.BWD_DUAL_SHAPES]
+                                           + [(wl.LEARN_DUAL_BLOCK, 0)]):
         g, x, *rest = saved_block(gen, b, h, w, ca + cb, c, dev)
         args = (g, x[..., :ca].contiguous(), x[..., ca:].contiguous(), *rest)
         del x
         ok &= check_bwd(results["conv_block_bwd_dual"], f"conv_block_bwd_dual {ca}+{cb}->{c} "
                         f"@{b}x{h}x{w}", kc.conv_block_bwd_dual, kc.conv_block_bwd_dual_plain,
-                        args, ("dxa", "dxb", "dw1", "db1", "dw2", "db2", "dw3", "db3"), 1,
+                        args, ("dxa", "dxb", "dw1", "db1", "dw2", "db2", "dw3", "db3"), per_step,
                         binding, True)
         del g, rest, args
 
@@ -625,17 +659,14 @@ def check_step(label, card, cpu, aux, aux_cpu, init, lr, zero_grads=(), ref64=No
 
 def phase_training(dev, results):
     """The Mean-Teacher step of the flagship: one step at 128^2 on the card
-    against the port on the CPU, launch counts, then timed 512^2 steps."""
+    against the port on the CPU, launch counts, then timed 512^2 steps.
+    Returns (ok, the timed step's median ms)."""
     import torch
 
-    from pda_torch.kernels import conv_block as kc
-    from pda_torch.kernels import mc_consensus as km
     from pda_torch.models.punet import livecell_punet, mc_decode_logits
     from pda_torch.train import adam, create_train_state, make_mean_teacher_step, steps
 
-    wrappers = {"conv_block_fwd": kc.conv_block_fwd, "conv_block_fwd_dual": kc.conv_block_fwd_dual,
-                "mc_consensus": km.mc_consensus, "conv_block_bwd": kc.conv_block_bwd,
-                "conv_block_bwd_dual": kc.conv_block_bwd_dual}
+    wrappers = kernel_wrappers()
     gen = torch.Generator().manual_seed(SEED + 1)
     model = livecell_punet(consensus_masking=True, generator=torch.Generator().manual_seed(SEED),
                            device="cpu")
@@ -698,11 +729,11 @@ def phase_training(dev, results):
     del card, cpu, logits, enc
 
     # 2. timed steps at 512^2, batch 2, fresh noise from a card generator
-    good, _ = time_steps(f"MT step MC-{MC} 512^2 batch {MT_BATCH} f32", step, state_on(dev),
-                         mt_batch(gen, frame, MT_TIME_PATCH, dev), MT_BATCH, wrappers,
-                         MT_LAUNCHES, MT_WARMUP, MT_TIMED,
-                         torch.Generator(device=dev).manual_seed(SEED))
-    return ok and good
+    good, ms = time_steps(f"MT step MC-{MC} 512^2 batch {MT_BATCH} f32", step, state_on(dev),
+                          mt_batch(gen, frame, MT_TIME_PATCH, dev), MT_BATCH, wrappers,
+                          MT_LAUNCHES, MT_WARMUP, MT_TIMED,
+                          torch.Generator(device=dev).manual_seed(SEED))
+    return ok and good, ms
 
 
 def time_steps(label, step, state, batch, n_patches, wrappers, launches, warmup, timed,
@@ -752,8 +783,6 @@ def phase_algorithms(dev, results, binding):
     from pda_torch import train as tt
     from pda_torch.infer import tiled_unet_probs
     from pda_torch.infer.tiling import extract_tiles, tile_standardize
-    from pda_torch.kernels import conv_block as kc
-    from pda_torch.kernels import mc_consensus as km
     from pda_torch.models import ProbabilisticUnet, UNet2d
     from pda_torch.models.punet import (livecell_punet, mc_decode_logits, mc_predict_probs,
                                         mc_pseudo)
@@ -761,20 +790,13 @@ def phase_algorithms(dev, results, binding):
     from pda_torch.tools.workload import cuda_ms
     from pda_torch.train import adam, create_train_state, steps
 
-    wrappers = {"conv_block_fwd": kc.conv_block_fwd, "conv_block_fwd_dual": kc.conv_block_fwd_dual,
-                "mc_consensus": km.mc_consensus, "conv_block_bwd": kc.conv_block_bwd,
-                "conv_block_bwd_dual": kc.conv_block_bwd_dual}
+    wrappers = kernel_wrappers()
 
     def reset():
-        for w in wrappers.values():
-            w.launches = 0
+        reset_launches(wrappers)
 
     def counted():
-        """The launches since :func:`reset`, added to the JSON line's counts."""
-        counts = {k: w.launches for k, w in wrappers.items()}
-        for k, n in counts.items():
-            results[k]["launches"] += n
-        return counts
+        return counted_launches(wrappers, results)
 
     gen = torch.Generator().manual_seed(SEED + 2)
     ok = True
@@ -800,7 +822,7 @@ def phase_algorithms(dev, results, binding):
             y, z = mc_pseudo(on_card, x.to(dev), MC, eps=eps.to(dev), masking=True)
             mean = mc_predict_probs(on_card, x.to(dev), MC, eps=eps.to(dev))
             torch.cuda.synchronize()
-            counts = counted()
+            counts = read_launches(wrappers)
             y_cpu, z_cpu = mc_pseudo(small, x, MC, eps=eps, masking=True)
             mean_cpu = mc_predict_probs(small, x, MC, eps=eps)
             enc = small.encode(x)
@@ -1004,6 +1026,326 @@ def phase_algorithms(dev, results, binding):
     return ok
 
 
+def kernel_wrappers():
+    """The five kernels' wrappers, each with its ``launches`` count."""
+    from pda_torch.kernels import conv_block as kc
+    from pda_torch.kernels import mc_consensus as km
+
+    return {"conv_block_fwd": kc.conv_block_fwd, "conv_block_fwd_dual": kc.conv_block_fwd_dual,
+            "mc_consensus": km.mc_consensus, "conv_block_bwd": kc.conv_block_bwd,
+            "conv_block_bwd_dual": kc.conv_block_bwd_dual}
+
+
+def reset_launches(wrappers):
+    for w in wrappers.values():
+        w.launches = 0
+
+
+def read_launches(wrappers):
+    """The launches since :func:`reset_launches` (a check's, logged only)."""
+    return {k: w.launches for k, w in wrappers.items()}
+
+
+def counted_launches(wrappers, results):
+    """The launches since :func:`reset_launches` of a main path's run, added
+    to the JSON line's counts."""
+    counts = read_launches(wrappers)
+    for k, n in counts.items():
+        results[k]["launches"] += n
+    return counts
+
+
+def same_trainer_state(a, b):
+    """Bit-equal student, teacher, Adam moments and steps, iteration, best
+    metric, plateau state and noise generators."""
+    import torch
+
+    ok = all(torch.equal(v, w) for m, n in ((a.state.model, b.state.model),
+                                             (a.state.teacher, b.state.teacher))
+             for v, w in zip(m.state_dict().values(), n.state_dict().values()))
+    sa, sb = a.state.optimizer.state_dict()["state"], b.state.optimizer.state_dict()["state"]
+    ok &= sorted(sa) == sorted(sb) and all(
+        torch.equal(sa[k][key].cpu(), sb[k][key].cpu()) for k in sa
+        for key in ("step", "exp_avg", "exp_avg_sq"))
+    ok &= (a._iteration, a._best_metric) == (b._iteration, b._best_metric)
+    ok &= a.lr_scheduler.state_dict() == b.lr_scheduler.state_dict()
+    ok &= a.state.learning_rate == b.state.learning_rate
+    ok &= all(torch.equal(g.get_state(), h.get_state()) for g, h in
+              ((a.generator, b.generator), (a.panel_generator, b.panel_generator)))
+    return ok
+
+
+def check_fit(label, card, cpu, grads, init, lr):
+    """The final student and teacher of a fit on the card against the same
+    fit on the CPU, each step's gradients as :func:`check_step` judges one
+    step's (within MT_GRAD_TOL of the CPU's float32 leaf, or by cosine to
+    the float64 fit's); the weights within MT_PARAM_TOL wherever no step's
+    float64 gradient lay within the gradients' error of 0 (there Adam's
+    sign is noise, and the student is held to steps x lr of its start, the
+    teacher to twice that of the CPU's)."""
+    import torch
+
+    n_steps = len(grads["card"])
+    params = list(cpu.state.model.parameters())
+    noisy = [torch.zeros(p.shape, dtype=torch.bool) for p in params]
+    worst, worst_cos, n_beyond, n_bad = (0.0, ""), (1.0, "", 1.0), 0, 0
+    names = [n for n, _ in card.state.model.named_parameters()]
+    for k in range(n_steps):
+        for i, name in enumerate(names):
+            g, gc, g64 = grads["card"][k][i], grads["cpu"][k][i], grads["cpu64"][k][i]
+            scale = float(gc.abs().max())
+            err = float((g - gc).abs().max())
+            worst = max(worst, (err / scale if scale else err, f"step {k} {name}"))
+            noise = max(MT_GRAD_TOL * scale, err, float((g - g64).abs().max()),
+                        float((gc - g64).abs().max()))
+            noisy[i] |= g64.abs() <= noise
+            if err > MT_GRAD_TOL * scale:
+                n_beyond += 1
+                cos, cos_cpu = (float(torch.nn.functional.cosine_similarity(
+                    a.flatten(), g64.flatten(), dim=0)) for a in (g, gc))
+                worst_cos = min(worst_cos, (cos, f"step {k} {name}", cos_cpu))
+                n_bad += 1.0 - cos > max(GRAD_COS_TOL, GRAD_COS_CPU * (1.0 - cos_cpu))
+    student, teacher, sign_ok = 0.0, 0.0, True
+    for i, ((name, p), pc, tp, tc) in enumerate(zip(
+            card.state.model.named_parameters(), params, card.state.teacher.parameters(),
+            cpu.state.teacher.parameters())):
+        diff = (p.detach().cpu() - pc.detach()).abs()
+        student = max(student, float(torch.where(noisy[i], 0.0, diff).max()))
+        moved = (pc.detach() - init[name]).abs()
+        sign_ok &= float(torch.where(noisy[i], moved, 0.0).max()) <= n_steps * lr + MT_PARAM_TOL
+        t_diff = (tp.detach().cpu() - tc.detach()).abs()
+        teacher = max(teacher, float(torch.where(noisy[i], 0.0, t_diff).max()))
+        sign_ok &= (float(torch.where(noisy[i], t_diff, 0.0).max())
+                    <= 2 * n_steps * lr + MT_PARAM_TOL)
+    good = n_bad == 0 and student <= MT_PARAM_TOL and teacher <= MT_PARAM_TOL and sign_ok
+    log(f"{label} card vs cpu: {n_steps} steps' gradients worst max_abs_err/max|ref| "
+        f"{worst[0]:.3e} ({worst[1]}; tol {MT_GRAD_TOL:.0e}), {n_beyond} leaves beyond it, "
+        f"their worst cosine to float64 {worst_cos[0]:.8f} ({worst_cos[1]}; the CPU's float32 "
+        f"{worst_cos[2]:.8f}); final student max_abs_err {student:.3e}, teacher {teacher:.3e} "
+        f"(tol {MT_PARAM_TOL:.0e}, where Adam's sign is defined), the rest within steps x lr "
+        f"{sign_ok} {'ok' if good else 'FAIL'}")
+    return good
+
+
+def phase_engine(dev, results, bare_ms):
+    """The training engine on the card: the flagship's MT fit at 512^2, the
+    reload and resume, the fit at 128^2 card vs CPU, the learning check."""
+    import torch
+
+    from pda_torch.data import ImageCollectionDataset, Loader
+    from pda_torch.data.synthetic import make_dataset_arrays
+    from pda_torch.models import ProbabilisticUnet
+    from pda_torch.tools.workload import livecell_mt_trainer
+    from pda_torch.train import LATEST, PUNetTrainer, ReduceLROnPlateau, steps
+
+    wrappers = kernel_wrappers()
+
+    def reset():
+        reset_launches(wrappers)
+
+    def expected(n_steps, step, n_val, val, n_panels):
+        return {k: n_steps * step[k] + n_val * val[k] + n_panels * MT_PANEL_LAUNCHES[k]
+                for k in MT_LAUNCHES}
+
+    def finite(history):
+        return all(math.isfinite(v) for _, h in history for v in h.values())
+
+    def flagship(root):
+        return livecell_mt_trainer(root, device=dev, steps_per_epoch=ENGINE_EPOCH)
+
+    ok = True
+    with tempfile.TemporaryDirectory() as root:
+        # 1. the flagship's MT fit at 512^2, batch 2, through the port's data path
+        trainer = flagship(root)
+        t0 = time.perf_counter()
+        trainer.initialize()  # the loader's worker processes start, one example batch
+        init_s = time.perf_counter() - t0
+        starts, train = [], trainer.train_step
+
+        def timed_step(state, *batch, **kw):  # a CUDA event as each step starts
+            starts.append(torch.cuda.Event(enable_timing=True))
+            starts[-1].record()
+            return train(state, *batch, **kw)
+
+        trainer.train_step = timed_step
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset()
+        stats = trainer.fit(ENGINE_FIT)
+        torch.cuda.synchronize()
+        counts = counted_launches(wrappers, results)  # the main path's run
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        n_val = ENGINE_FIT // ENGINE_EPOCH
+        n_panels = len(range(0, ENGINE_FIT, trainer.logger.log_image_interval)) + n_val
+        want = expected(ENGINE_FIT, MT_LAUNCHES, n_val, MT_VAL_LAUNCHES, n_panels)
+        files = sorted(os.listdir(trainer.ckpt_dir))
+        good = (counts == want and [i for i, _ in trainer.history] == list(range(ENGINE_FIT))
+                and [i for i, _ in trainer.val_history] == [ENGINE_EPOCH, ENGINE_FIT]
+                and finite(trainer.history) and finite(trainer.val_history)
+                and files == ["best.pt", "latest.pt"])
+        log(f"engine MeanTeacherTrainer.fit({ENGINE_FIT}) 512^2 batch {MT_BATCH}: losses "
+            f"{[round(h['loss'], 5) for _, h in trainer.history]}; validations "
+            f"{[(i, {k: round(v, 5) for k, v in m.items()}) for i, m in trainer.val_history]}; "
+            f"learning rate {trainer.state.learning_rate:g}; {files} "
+            f"({os.path.getsize(os.path.join(trainer.ckpt_dir, 'latest.pt')) / 2**20:.1f} MiB "
+            f"each); launches {counts} (expected {ENGINE_FIT} steps, {n_val} validations, "
+            f"{n_panels} panel passes: {want}) {'ok' if good else 'FAIL'}")
+        ok &= good
+        # the loop: one step's start to the next one's on the card's clock,
+        # within an epoch (a validation and the checkpoints lie between epochs)
+        loop = [a.elapsed_time(b) for k, (a, b) in enumerate(zip(starts, starts[1:]))
+                if (k + 1) % ENGINE_EPOCH]
+        loop_ms = statistics.median(loop)
+        ms_iter = 1000.0 * stats["elapsed_sec"] / stats["steps"]
+        ckpt_s = trainer.timings["checkpoint"]
+        unwritten_ms = 1000.0 * (stats["elapsed_sec"] - ckpt_s) / stats["steps"]
+        host = ", ".join(f"{k} {v:.3f}" for k, v in sorted(trainer.timings.items(),
+                                                           key=lambda kv: -kv[1]))
+        log(f"time engine MeanTeacherTrainer.fit({ENGINE_FIT}) 512^2 batch {MT_BATCH} f32, "
+            f"epochs of {ENGINE_EPOCH}: the fit's Throughput (the train loop with each epoch's "
+            f"first batch and the epochs' checkpoint writes, not the validations) "
+            f"{ms_iter:.2f} ms/iteration, {stats['patches_per_sec']:.3f} patches/s, "
+            f"{bare_ms / ms_iter:.3f} of the bare MT step's {bare_ms:.2f} ms "
+            f"({1000.0 * MT_BATCH / bare_ms:.3f} patches/s; aim {ENGINE_MIN_SHARE}); less its "
+            f"checkpoint writes ({ckpt_s:.3f} s) {unwritten_ms:.2f} ms/iteration, "
+            f"{bare_ms / unwritten_ms:.3f}; the host loop within an epoch {loop_ms:.2f} "
+            f"ms/iteration (median of {len(loop)} step-to-step spans, CUDA events; min "
+            f"{min(loop):.2f}, max {max(loop):.2f}), {bare_ms / loop_ms:.3f}; peak {peak:.2f} "
+            f"GiB; set-up {init_s:.1f} s; host seconds by part: {host}")
+
+        # 2. a fresh trainer reloads latest.pt bit for bit, then resumes to 10
+        fresh = flagship(root)
+        fresh.load_checkpoint(LATEST)
+        same = same_trainer_state(trainer, fresh)
+        del trainer
+        reset()
+        fresh.fit(ENGINE_RESUME, overwrite_training=False)
+        torch.cuda.synchronize()
+        counts = read_launches(wrappers)
+        n_steps = ENGINE_RESUME - ENGINE_FIT
+        want = expected(n_steps, MT_LAUNCHES, 1, MT_VAL_LAUNCHES, 2)
+        good = (same and counts == want and fresh._iteration == ENGINE_RESUME
+                and [i for i, _ in fresh.history] == list(range(ENGINE_FIT, ENGINE_RESUME))
+                and finite(fresh.history))
+        log(f"engine reload of latest.pt: student, teacher, Adam moments and steps, iteration, "
+            f"best metric, plateau state, generators bit-equal {same}; fit({ENGINE_RESUME}, "
+            f"overwrite_training=False) resumed at {fresh.history[0][0]}, losses "
+            f"{[round(h['loss'], 5) for _, h in fresh.history]}, launches {counts} (expected "
+            f"{want}) {'ok' if good else 'FAIL'}")
+        ok &= good
+        del fresh
+
+        # 3. the same fit at 128^2 (2 steps, 1 validation) on the card, the CPU
+        # (float32) and the CPU in float64; the CPU fits take the card
+        # teacher's pseudo-labels, so that a consensus pixel flipped within
+        # the MC kernel's threshold window is no difference
+        fits, grads, drawn = {}, {}, []
+        for name, device, dtype in (("card", dev, torch.float32), ("cpu", "cpu", torch.float32),
+                                    ("cpu64", "cpu", torch.float64)):
+            tr = livecell_mt_trainer(os.path.join(root, name), device=device,
+                                     patch=ENGINE_CHECK_PATCH, steps_per_epoch=ENGINE_CHECK_FIT,
+                                     num_workers=0, logger=False, dtype=dtype)
+            tr.initialize()
+            grads[name], train = [], tr.train_step
+
+            def train_step(state, *batch, _train=train, _out=grads[name], **kw):
+                res = _train(state, *batch, **kw)
+                _out.append([p.grad.detach().cpu().double() for p in state.model.parameters()])
+                return res
+
+            tr.train_step = train_step
+            fits[name] = tr
+        init = {k: v.clone() for k, v in fits["cpu"].state.model.state_dict().items()}
+        pseudo = steps._mc_pseudo
+
+        def record(*a, **k):
+            y, z = pseudo(*a, **k)
+            drawn.append((y.cpu(), z.cpu()))
+            return y, z
+
+        def replayed(recorded, dtype):
+            """``_mc_pseudo`` giving the card's pseudo-labels, after drawing
+            its noise from the generator as the card's call did."""
+            def mc_pseudo(model, x, n_samples, masking, eps=None, generator=None):
+                if eps is None:
+                    torch.randn((n_samples, x.shape[0], model.latent_dim), generator=generator)
+                return tuple(v.to(dtype) for v in next(recorded))
+            return mc_pseudo
+
+        t0 = time.perf_counter()
+        try:
+            steps._mc_pseudo = record
+            reset()
+            fits["card"].fit(ENGINE_CHECK_FIT)
+            torch.cuda.synchronize()
+            counts = read_launches(wrappers)
+            for name, dtype in (("cpu", torch.float32), ("cpu64", torch.float64)):
+                steps._mc_pseudo = replayed(iter(drawn), dtype)
+                fits[name].fit(ENGINE_CHECK_FIT)
+        finally:
+            steps._mc_pseudo = pseudo
+        cpu_s = time.perf_counter() - t0
+        card, cpu = fits["card"], fits["cpu"]
+        pairs = list(zip(card.history + card.val_history, cpu.history + cpu.val_history))
+        same_keys = len(pairs) == ENGINE_CHECK_FIT + 1 and all(
+            i == j and sorted(a) == sorted(b) for (i, a), (j, b) in pairs)
+        worst = max((0.0 if a[k] == v else abs(a[k] - v) / max(1.0, abs(v)), f"{j} {k}")
+                    for (_, a), (j, b) in pairs for k, v in b.items())
+        want = expected(ENGINE_CHECK_FIT, MT_LAUNCHES, 1, MT_VAL_LAUNCHES, 0)
+        share = float(drawn[0][1].mean())
+        good = (same_keys and worst[0] <= MT_LOSS_TOL and counts == want and len(drawn) == 3
+                and 0.0 < share < 1.0)
+        log(f"engine MeanTeacherTrainer.fit({ENGINE_CHECK_FIT}) {ENGINE_CHECK_PATCH}^2 card vs "
+            f"cpu: losses {[round(h['loss'], 6) for _, h in card.history]} vs "
+            f"{[round(h['loss'], 6) for _, h in cpu.history]}, validation "
+            f"{card.val_history[0][1]} vs {cpu.val_history[0][1]}; worst relative error "
+            f"{worst[0]:.2e} ({worst[1]}; tol {MT_LOSS_TOL:.0e}); consensus share {share:.4f}; "
+            f"launches {counts} (expected {want}); cpu (float32 and float64) {cpu_s:.1f} s "
+            f"{'ok' if good else 'FAIL'}")
+        ok &= good
+        ok &= check_fit(f"engine MeanTeacherTrainer.fit({ENGINE_CHECK_FIT}) "
+                        f"{ENGINE_CHECK_PATCH}^2", card, cpu, grads, init, MT_LR)
+        del fits, card, cpu
+
+        # 4. learning: development/learning_smoke.py's run on the port
+        raws, labels = make_dataset_arrays(32, (96, 96), seed=7)
+        train_ds = ImageCollectionDataset(raws[:24], labels[:24], patch_shape=(64, 64),
+                                          n_samples=LEARN_BATCH * 16)
+        val_ds = ImageCollectionDataset(raws[24:], labels[24:], patch_shape=(64, 64))
+        model = ProbabilisticUnet(num_filters=LEARN_FILTERS, latent_dim=6, no_convs_fcomb=3,
+                                  beta=1.0, rl_swap=True,
+                                  generator=torch.Generator().manual_seed(SEED))
+        learner = PUNetTrainer("learning-smoke", model,
+                               Loader(train_ds, LEARN_BATCH, seed=0, num_workers=4),
+                               Loader(val_ds, 4, seed=1), learning_rate=LEARN_LR,
+                               lr_scheduler=ReduceLROnPlateau(), save_root=root, logger=False,
+                               device=dev)
+        reset()
+        t0 = time.perf_counter()
+        stats = learner.fit(LEARN_ITERATIONS)
+        final = learner.validate()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read_launches(wrappers)
+        n_val_steps = len(learner.val_history) * len(learner.val_loader)
+        want = {"conv_block_fwd": 12 * LEARN_ITERATIONS + 20 * n_val_steps,
+                "conv_block_fwd_dual": 3 * LEARN_ITERATIONS + 6 * n_val_steps,
+                "mc_consensus": n_val_steps, "conv_block_bwd": 12 * LEARN_ITERATIONS,
+                "conv_block_bwd_dual": 3 * LEARN_ITERATIONS}
+        good = final["dice"] > LEARN_BAR and counts == want and finite(learner.history)
+        log(f"engine learning check (development/learning_smoke.py): PUNetTrainer, PUNet "
+            f"{LEARN_FILTERS}, 64^2 batch {LEARN_BATCH}, lr {LEARN_LR:g} with the plateau "
+            f"controller, {LEARN_ITERATIONS} iterations f32: validation dice by epoch "
+            f"{[round(m['dice'], 4) for _, m in learner.val_history]}, final {final['dice']:.4f} "
+            f"(bar {LEARN_BAR}; pda records 0.82-0.84 on its TPU in bf16, a reference point); "
+            f"learning rate {learner.state.learning_rate:g}; {stats['patches_per_sec']:.1f} "
+            f"patches/s (Throughput), {wall:.1f} s with the validations; launches {counts} "
+            f"(expected {want}) {'ok' if good else 'FAIL'}")
+        ok &= good
+        del learner
+    return ok
+
+
 def main() -> int:
     try:
         import torch
@@ -1055,15 +1397,26 @@ def main() -> int:
         lib = _build.build()
         _build.library()
         log(f"build: {lib.name} in {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+
+        def lap(name):
+            nonlocal t0
+            torch.cuda.synchronize()
+            log(f"phase {name}: {time.perf_counter() - t0:.1f} s")
+            t0 = time.perf_counter()
+
         with torch.inference_mode():
             ok &= phase_kernels(dev, results, binding)
-        torch.cuda.synchronize()
+        lap("kernels")
         ok &= phase_serving(dev, results)
-        torch.cuda.synchronize()
-        ok &= phase_training(dev, results)
-        torch.cuda.synchronize()
+        lap("serving")
+        good, mt_ms = phase_training(dev, results)
+        ok &= good
+        lap("training")
         ok &= phase_algorithms(dev, results, binding)
-        torch.cuda.synchronize()
+        lap("algorithms")
+        ok &= phase_engine(dev, results, mt_ms)
+        lap("engine")
     except Exception:  # any phase's error fails the run, with its traceback
         traceback.print_exc()
         ok = False
@@ -1079,9 +1432,10 @@ def main() -> int:
         "library_ms: cuDNN's three convolutions (F.conv2d) for the forward, its three "
         "convolution_backward calls with the ReLU masks between them for the backward "
         "(cudnn.benchmark on at 128->256), TF32 off; none for mc_consensus (no single PyTorch "
-        "call computes it); mc_consensus: the tiled forward's call; launches: both serving "
-        "entries, the checked MT step and the algorithms phase's checked paths (PUNets at "
-        "other widths and class counts, the other PUNet steps, the UNet2d path)")
+        "call computes it); mc_consensus: the tiled forward's call; launches: the main "
+        "paths' runs, each counted from 0: both serving entries, the checked MT step, the "
+        "other PUNet steps and the UNet2d path at the flagship's widths, and the flagship's "
+        "MeanTeacherTrainer.fit (the checks' runs are logged on their own lines only)")
     print(json.dumps({"kernels": list(results.values())}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

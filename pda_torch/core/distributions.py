@@ -18,10 +18,14 @@ def _noise(shape, like: torch.Tensor, eps: Optional[torch.Tensor],
     if eps is None:
         if generator is None:
             raise ValueError("pass the noise as eps or a torch.Generator")
-        eps = torch.randn(shape, generator=generator,
-                          device=generator.device, dtype=like.dtype)
+        # drawn in float32 whatever the model's dtype, so that a float64
+        # model on the same generator sees the same noise
+        eps = torch.randn(shape, generator=generator, device=generator.device)
     if tuple(eps.shape) != tuple(shape):
         raise ValueError(f"eps has shape {tuple(eps.shape)}, expected {tuple(shape)}")
+    if eps.device.type == "cpu" and like.device.type == "cuda":
+        # from pinned memory, so the host does not wait for the card's queue
+        return eps.pin_memory().to(device=like.device, dtype=like.dtype, non_blocking=True)
     return eps.to(device=like.device, dtype=like.dtype)
 
 

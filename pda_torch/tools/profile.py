@@ -1,8 +1,8 @@
 """Where the card's time goes, for ``PERF.md`` section 5.
 
-    python -m pda_torch.tools.profile [--what ptxas,mt,serving] [--steps 3]
+    python -m pda_torch.tools.profile [--what ptxas,mt,serving,engine] [--steps 3] [--epoch 4]
 
-Needs one CUDA card (exits 1 without). Three parts, each optional:
+Needs one CUDA card (exits 1 without). Four parts, each optional:
 
 - ``ptxas``: each kernel source compiled as the build compiles it, plus
   ``-Xptxas -v``: registers, spill bytes and shared memory per kernel.
@@ -15,6 +15,17 @@ Needs one CUDA card (exits 1 without). Three parts, each optional:
   need.
 - ``serving``: the same for the tiled MC-16 prediction and the MC-16 pseudo
   export of one seeded 520x704 frame, per frame.
+- ``engine`` (not in the default): the flagship's ``MeanTeacherTrainer`` at
+  512^2 (``workload.livecell_mt_trainer``: epochs of ``--epoch`` steps, a
+  validation, the panels every 4 steps, checkpoints). After a warm-up
+  epoch: the bare MT step on one of its batches (CUDA events), then
+  ``--steps`` epochs unprofiled: the fit's Throughput with and without its
+  checkpoint writes, beside the bare step's. Then one more epoch under
+  ``torch.profiler``: the device's busy share over the epoch (kernels'
+  union over wall time) and over its train loop (first step to the
+  validation), the host seconds of each part of the loop (the engine's
+  ``engine/<part>`` ranges), and the longest idle gaps of the device, each
+  with the host part that was running when it began.
 
 TF32 is off for cuDNN and matmul, as in ``chip_smoke.py``.
 """
@@ -207,10 +218,86 @@ def serving(dev, frames: int) -> None:
         profiled(run, frames, flops, name)
 
 
+def _union(intervals) -> list:
+    """Sorted, merged (start, end) intervals."""
+    out = []
+    for a, b in sorted(intervals):
+        if out and a <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], b)
+        else:
+            out.append([a, b])
+    return out
+
+
+def engine(dev, epochs: int, epoch: int) -> None:
+    import tempfile
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from .workload import livecell_mt_trainer
+
+    with tempfile.TemporaryDirectory() as root:
+        trainer = livecell_mt_trainer(root, device=dev, steps_per_epoch=epoch)
+        trainer.fit(epoch)  # the loader's workers, the first epoch's validation and checkpoints
+        batch = trainer._put(next(iter(trainer.train_loader)))
+        bare_ms = cuda_ms(lambda: trainer.train_step(trainer.state, *batch, **trainer._noise),
+                          iters=7)
+        del batch
+        before = dict(trainer.timings)
+        stats = trainer.fit(trainer._iteration + epochs * epoch)
+        writes = trainer.timings["checkpoint"] - before.get("checkpoint", 0.0)
+        ms_iter = 1e3 * stats["elapsed_sec"] / stats["steps"]
+        unwritten = 1e3 * (stats["elapsed_sec"] - writes) / stats["steps"]
+        print(f"== engine: MeanTeacherTrainer 512^2 batch 2 MC-16 f32, epochs of {epoch} "
+              f"(validation, panels every 4, checkpoints), {epochs * epoch} iterations after a "
+              f"warm-up epoch: the fit's Throughput {ms_iter:.2f} ms/iteration, "
+              f"{stats['patches_per_sec']:.3f} patches/s, {bare_ms / ms_iter:.3f} of the bare MT "
+              f"step's {bare_ms:.2f} ms (CUDA events, the same batch); less its checkpoint "
+              f"writes ({writes:.3f} s) {unwritten:.2f} ms/iteration, {bare_ms / unwritten:.3f}")
+        before = dict(trainer.timings)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            stats = trainer.fit(trainer._iteration + epoch)
+            torch.cuda.synchronize()
+    events = prof.events()
+    kernels = _union((e.time_range.start, e.time_range.end) for e in events
+                     if e.device_type == DeviceType.CUDA and e.time_range.end > e.time_range.start)
+    spans = sorted((e.time_range.start, e.time_range.end, e.name[len("engine/"):])
+                   for e in events if e.device_type == DeviceType.CPU
+                   and e.name.startswith("engine/"))
+    t0, t1 = kernels[0][0], kernels[-1][1]
+    busy = sum(b - a for a, b in kernels)
+    print(f"  one more epoch profiled: {stats['patches_per_sec']:.3f} patches/s (Throughput), "
+          f"device busy {busy / 1e3:.1f} of {(t1 - t0) / 1e3:.1f} ms ({busy / (t1 - t0):.3f})")
+    a = next(x for x, _, name in spans if name == "step")  # the train loop: first step to validation
+    b = next((x for x, _, name in spans if name == "validation" and x > a), t1)
+    busy_loop = sum(max(0.0, min(y, b) - max(x, a)) for x, y in kernels)
+    print(f"  train loop (first step to the validation): busy {busy_loop / 1e3:.1f} of "
+          f"{(b - a) / 1e3:.1f} ms ({busy_loop / max(b - a, 1e-9):.3f})")
+    host = {k: v - before.get(k, 0.0) for k, v in trainer.timings.items()}
+    print("  host seconds by part: " + ", ".join(f"{k} {v:.3f}" for k, v in
+                                                 sorted(host.items(), key=lambda kv: -kv[1])))
+    gaps = [(b - a, a) for (_, a), (b, _) in zip(kernels, kernels[1:]) if b - a > 100.0]
+    by_part = collections.Counter()
+    rows = []
+    for length, start in sorted(gaps, reverse=True):
+        running = [name for x, y, name in spans if x <= start < y]
+        part = running[-1] if running else "(none)"
+        by_part[part] += length / 1e3
+        rows.append((length, start, part))
+    print(f"  idle gaps over 0.1 ms: {len(gaps)}, {sum(g for g, _ in gaps) / 1e3:.1f} ms; by "
+          "the host part running when each began: " + ", ".join(
+              f"{k} {v:.1f} ms" for k, v in by_part.most_common()))
+    for length, start, part in rows[:12]:
+        print(f"    {length / 1e3:8.2f} ms at {(start - t0) / 1e3:9.1f} ms  ({part})")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--what", default="ptxas,mt,serving")
     ap.add_argument("--steps", type=int, default=3)
+    ap.add_argument("--epoch", type=int, default=4, help="engine: iterations an epoch")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile: needs a CUDA card", file=sys.stderr)
@@ -229,6 +316,8 @@ def main(argv=None) -> int:
     if "serving" in what:
         with torch.inference_mode():
             serving(dev, args.steps)
+    if "engine" in what:
+        engine(dev, args.steps, args.epoch)
     return 0
 
 

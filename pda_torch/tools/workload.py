@@ -38,6 +38,11 @@ BWD_SHAPES = [((2, 512, 512, 1, 64), False, 2), ((2, 512, 512, 2, 64), False, 1)
 # (B, H, W, Ca, Cb, C): the decoder blocks' backward, once each a step
 BWD_DUAL_SHAPES = [(2, 128, 128, 512, 256, 256), (2, 256, 256, 256, 128, 128),
                    (2, 512, 512, 128, 64, 64)]
+# The blocks at width 96 of development/learning_smoke.py's PUNet (16, 32,
+# 64, 96) at 64^2, batch 8: the last encoder block (B, H, W, Cin, C) and the
+# first decoder block (B, H, W, Ca, Cb, C), forward and backward
+LEARN_BLOCK = (8, 8, 8, 64, 96)
+LEARN_DUAL_BLOCK = (8, 16, 16, 96, 64, 64)
 
 
 # (name, (B, H, W, C), masking): the MC tail (K3, S = 16, n_mid 1) of a tiled
@@ -110,3 +115,57 @@ def cuda_ms(fn, warmup: int = 2, iters: int = 5) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+# The flagship's Mean-Teacher trainer as the LIVECell MT experiment builds it
+# (pda/experiments/livecell_da.py): 512^2 patches, batch 2, MC-16, consensus
+# masking, Adam 1e-5, EMA 0.999, the plateau controller, the weak view recipe
+# of pda/experiments/common.py (numpy path) for both views, on seeded
+# synthetic frames of LIVECell's size
+LIVECELL_FRAME = (520, 704)
+FCOMB_LAST_SCALE = 8.0  # the random teacher's consensus share lies inside (0, 1)
+
+
+def weak_augmentations(p: float = 0.25):
+    """``pda``'s weak views: standardize, then blur and noise (0-0.15), each
+    with probability ``p``."""
+    from ..data import AdditiveGaussianNoise, Compose, GaussianBlur, RandomApply, standardize
+
+    return Compose(standardize, RandomApply([GaussianBlur()], p=p),
+                   RandomApply([AdditiveGaussianNoise(scale=(0, 0.15))], p=p))
+
+
+def livecell_mt_trainer(save_root: str, *, device="cuda", patch: int = 512,
+                        steps_per_epoch: int = 4, num_workers: int = 4, logger=True,
+                        dtype=torch.float32):
+    """``MeanTeacherTrainer`` of the flagship PUNet (seed-0 weights, the
+    Fcomb's last layer x8) on 8 seeded synthetic 520x704 frames (6 to train,
+    2 to validate), batch 2, epochs of ``steps_per_epoch`` steps, panels
+    every 4 steps; the train loader samples in ``num_workers`` processes,
+    the validation loader (one batch an epoch) inline."""
+    from ..data import DualImageCollectionDataset, Loader
+    from ..data.synthetic import make_dataset_arrays
+    from ..models.punet import livecell_punet
+    from ..train import MeanTeacherTrainer, ReduceLROnPlateau
+
+    batch, seed = 2, 0
+    raws, labels = make_dataset_arrays(8, LIVECELL_FRAME, seed=seed)
+    weak = weak_augmentations()
+
+    def loader(lo, hi, n, s, workers):
+        ds = DualImageCollectionDataset(raws[lo:hi], labels[lo:hi], patch_shape=(patch, patch),
+                                        augmentation1=weak, augmentation2=weak,
+                                        n_samples=n * batch, seed=s)
+        return Loader(ds, batch, seed=s, num_workers=workers)
+
+    model = livecell_punet(consensus_masking=True, device="cpu",
+                           generator=torch.Generator().manual_seed(seed))
+    with torch.no_grad():
+        model.fcomb.last_layer.weight.mul_(FCOMB_LAST_SCALE)
+    return MeanTeacherTrainer("mean-teacher-livecell", model.to(dtype),
+                              loader(0, 6, steps_per_epoch, seed, num_workers),
+                              loader(6, 8, 1, seed + 1, 0), learning_rate=1e-5,
+                              momentum=0.999, do_consensus_masking=True,
+                              lr_scheduler=ReduceLROnPlateau(), logger=logger,
+                              log_image_interval=4, save_root=save_root, device=device,
+                              seed=seed)

@@ -2,14 +2,16 @@
 ``pda/train/state.py``).
 
 ``pda``'s state is a pytree that each jitted step returns anew; here it holds
-modules and an optimizer that a step updates in place.
+modules and an optimizer that a step updates in place. ``pda``'s
+``state.rng`` has no field here: the noise comes from a ``torch.Generator``
+that the trainer owns.
 """
 
 from __future__ import annotations
 
 import copy
 from dataclasses import dataclass
-from typing import Optional
+from typing import Mapping, Optional, Union
 
 import torch
 from torch import nn
@@ -28,13 +30,33 @@ class TrainState:
     teacher: Optional[nn.Module] = None
     step: int = 0
 
+    @property
+    def learning_rate(self) -> float:
+        """The optimizer's learning rate (its first parameter group's)."""
+        return float(self.optimizer.param_groups[0]["lr"])
+
+    def replace_lr(self, new_lr: float) -> "TrainState":
+        """Set the learning rate of every parameter group, in place."""
+        for group in self.optimizer.param_groups:
+            group["lr"] = new_lr
+        return self
+
 
 def create_train_state(model: nn.Module, optimizer: torch.optim.Optimizer, *,
-                       with_teacher: bool = False) -> TrainState:
-    """Fresh state; the teacher (if any) starts as a copy of the student and
-    takes no gradients."""
-    teacher = copy.deepcopy(model).requires_grad_(False) if with_teacher else None
-    return TrainState(model=model, optimizer=optimizer, teacher=teacher)
+                       with_teacher: bool = False,
+                       teacher: Optional[Union[nn.Module, Mapping]] = None) -> TrainState:
+    """Fresh state. The teacher (if any) takes no gradients; it starts as a
+    copy of the student, or from ``teacher``: a module, or a state dict such
+    as a checkpoint's ``teacher_state`` (``pda``'s ``teacher_params=``)."""
+    if not with_teacher:
+        return TrainState(model=model, optimizer=optimizer)
+    if isinstance(teacher, nn.Module):
+        t = teacher
+    else:
+        t = copy.deepcopy(model)
+        if teacher is not None:
+            t.load_state_dict(teacher)
+    return TrainState(model=model, optimizer=optimizer, teacher=t.requires_grad_(False))
 
 
 def punet_l2_reg(model: ProbabilisticUnet) -> torch.Tensor:

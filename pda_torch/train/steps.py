@@ -31,7 +31,7 @@ from ..core.consensus import distribution_alignment
 from ..core.ema import ema_update, ramped_momentum
 from ..core.losses import dice_loss, neg_elbo
 from ..core.metrics import dice_score_torch
-from ..models.punet import ProbabilisticUnet, mc_predict_probs, mc_pseudo
+from ..models.punet import ProbabilisticUnet, mc_decode_logits, mc_predict_probs, mc_pseudo
 from .state import TrainState, punet_l2_reg
 
 REG_WEIGHT = 1e-5  # reference punet_trainer.py:34
@@ -353,3 +353,129 @@ def make_supervised_unet_val_step():
         return state, {"loss": loss, "metric": loss}
 
     return step
+
+
+# TensorBoard image panels: the tensors each reference logger writes
+# (pseudo-labels, consensus, MC samples, predictions), computed in a separate
+# forward-only pass on the first batch element. Each factory returns
+# ``panels(model, teacher, *batch, eps_*=None, generator=None) -> {tag:
+# tensor}``; the trainer hands in a generator of its own for panels, so they
+# never shift the training noise (``pda`` folds the state's key instead,
+# ``steps.py`` ``_panel_keys``: ``pda``'s key k of ``_panel_keys(rng, n)`` is
+# the port's k-th ``eps_*`` keyword below, each drawn ``(n_samples, 1, L)``).
+
+
+def _sample_logits(model: ProbabilisticUnet, x, n_samples: int, eps, generator):
+    """n raw-logit prior samples (n, B, H, W, C) (reference ``_sample``)."""
+    enc = model.encode(x)
+    return mc_decode_logits(model, enc.features, enc.prior, n_samples, eps=eps,
+                            generator=generator)
+
+
+def make_punet_panels(n_samples: int = 16):
+    """PUNetLogger, and the pseudo-label PUNet's panels: input, target and 16
+    raw prior samples (gridded on the host, ``make_grid(nrow=4, padding=4)``);
+    a pseudo-label batch's consensus is not shown. ``pda``: one key,
+    ``eps_samples``."""
+
+    @torch.no_grad()
+    def panels(model, teacher, x, y, *_, eps_samples=None,
+               generator: Optional[torch.Generator] = None):
+        s = _sample_logits(model, x[:1], n_samples, eps_samples, generator)
+        return {"input": x[0], "target": y[0], "samples": s[:, 0]}
+
+    return panels
+
+
+make_pseudo_punet_panels = make_punet_panels
+
+
+def _labelled_panels(labeller, model, x1, x2, n_samples, masking, eps_pseudo, eps_mc,
+                     generator):
+    """``labeller``'s MC pseudo-label and consensus on x1[:1] (the
+    MC-consensus kernel on the card) and the model's MC mean on x2[:1]."""
+    y, z = mc_pseudo(labeller, x1[:1], n_samples, eps=eps_pseudo, generator=generator,
+                     masking=masking)
+    pred = mc_predict_probs(model, x2[:1], n_samples, eps=eps_mc, generator=generator)
+    return y[0], z[0], pred[0]
+
+
+def make_mean_teacher_panels(*, do_consensus_masking: bool = False,
+                             n_samples: int = N_MC_TRAIN):
+    """MeanTeacherLogger: input, both views, the teacher's pseudo-labels and
+    consensus, ground truth, the model's MC mean. ``pda``: ``k_t, k_m``
+    -> ``eps_teacher``, ``eps_mc``."""
+
+    @torch.no_grad()
+    def panels(model, teacher, x, x1, x2, gt, *, eps_teacher=None, eps_mc=None,
+               generator: Optional[torch.Generator] = None):
+        y, z, pred = _labelled_panels(teacher, model, x1, x2, n_samples, do_consensus_masking,
+                                      eps_teacher, eps_mc, generator)
+        return {"input": x[0], "aug_inputs_1": x1[0], "aug_inputs_2": x2[0],
+                "teacher_predictions": y, "teacher_consensus": z, "ground_truth": gt[0],
+                "model_samples": pred}
+
+    return panels
+
+
+def make_fixmatch_panels(*, do_consensus_masking: bool = False, n_samples: int = N_MC_TRAIN):
+    """FixMatchLogger's four components (weak view, strong view,
+    pseudo-labels, prediction), gridded on the host. ``pda``: ``k_w, k_m``
+    -> ``eps_weak``, ``eps_mc``."""
+
+    @torch.no_grad()
+    def panels(model, teacher, x, x1, x2, gt, *, eps_weak=None, eps_mc=None,
+               generator: Optional[torch.Generator] = None):
+        y, _, pred = _labelled_panels(model, model, x1, x2, n_samples, do_consensus_masking,
+                                      eps_weak, eps_mc, generator)
+        return {"weak_aug": x1[0], "strong_aug": x2[0], "pseudo_labels": y, "prediction": pred}
+
+    return panels
+
+
+def make_adamt_panels(*, do_consensus_masking: bool = False, n_samples: int = N_MC_TRAIN):
+    """AdaMTLogger: the target's input and weak views, the teacher's
+    pseudo-labels and consensus, the target ground truth, the model's MC
+    mean. ``pda``: ``k_t, k_m`` -> ``eps_teacher``, ``eps_mc``."""
+
+    @torch.no_grad()
+    def panels(model, teacher, xt, xt1, xt2, yt, *, eps_teacher=None, eps_mc=None,
+               generator: Optional[torch.Generator] = None):
+        y, z, pred = _labelled_panels(teacher, model, xt1, xt2, n_samples, do_consensus_masking,
+                                      eps_teacher, eps_mc, generator)
+        return {"target_inputs": xt[0], "weak_aug1": xt1[0], "weak_aug2": xt2[0],
+                "teacher_predictions": y, "teacher_consensus": z,
+                "target_ground_truth": yt[0], "model_samples": pred}
+
+    return panels
+
+
+def make_adamatch_panels(*, do_consensus_masking: bool = False, n_samples: int = N_MC_TRAIN):
+    """AdaMatchLogger: the target's views, the model's own pseudo-labels and
+    consensus, the target ground truth, its MC mean. ``pda``: ``k_w, k_m``
+    -> ``eps_weak``, ``eps_mc``."""
+
+    @torch.no_grad()
+    def panels(model, teacher, xt, xt1, xt2, yt, *, eps_weak=None, eps_mc=None,
+               generator: Optional[torch.Generator] = None):
+        y, z, pred = _labelled_panels(model, model, xt1, xt2, n_samples, do_consensus_masking,
+                                      eps_weak, eps_mc, generator)
+        return {"target_inputs": xt[0], "weak_aug": xt1[0], "strong_aug": xt2[0],
+                "weak_model_predictions": y, "weak_model_consensus": z,
+                "target_ground_truth": yt[0], "model_samples": pred}
+
+    return panels
+
+
+def make_supervised_unet_panels():
+    """The UNet's panels (supervised, and PseudoLogger's): input, target,
+    prediction; a pseudo-label batch's consensus is not shown. No noise."""
+
+    @torch.no_grad()
+    def panels(model, teacher, x, y, *_):
+        return {"input": x[0], "target": y[0], "prediction": model(x[:1])[0]}
+
+    return panels
+
+
+make_pseudo_unet_panels = make_supervised_unet_panels

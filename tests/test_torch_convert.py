@@ -57,7 +57,9 @@ def test_port_imports_no_jax():
     code = (
         "import sys, pda_torch, pda_torch.core, pda_torch.models, pda_torch.kernels, "
         "pda_torch.infer, pda_torch.train, pda_torch.eval, pda_torch.tools.profile, "
-        "pda_torch.tools.bench_variants\n"
+        "pda_torch.tools.bench_variants, pda_torch.data, pda_torch.data.loader, "
+        "pda_torch.train.engine, pda_torch.train.checkpoint, pda_torch.train.logging, "
+        "pda_torch.train.profiling\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'pda'))\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"

@@ -52,6 +52,7 @@ def _assert_rel(out, ref, rel=1e-4):
     (1, 17, 33, 16, 40),    # H = 16 + 1, W = 2 * 16 + 1; C = 40: a ragged channel slice
     (1, 66, 88, 256, 512),  # the pseudo path's level-3 map
     (2, 7, 5, 3, 20),       # Cin 3 on the tensor cores' 4-byte copies, under one tile
+    (8, 8, 8, 64, 96),      # the learning check's PUNet (16, 32, 64, 96): C = 64 + 32
 ])
 def test_conv_block_kernel_matches_plain(dev, b, h, w, cin, c):
     gen = torch.Generator().manual_seed(cin)
@@ -70,6 +71,7 @@ def test_conv_block_kernel_matches_plain(dev, b, h, w, cin, c):
 @pytest.mark.parametrize("b,h,w,ca,cb,c", [
     (2, 10, 12, 13, 7, 24), (1, 16, 16, 64, 32, 64),
     (1, 9, 11, 20, 12, 40),  # the split at 20, inside a 16-channel stage, on 16-byte copies
+    (8, 16, 16, 96, 64, 64),  # the learning check's PUNet: its first decoder block
 ])
 def test_dual_conv_block_kernel_matches_plain(dev, b, h, w, ca, cb, c):
     gen = torch.Generator().manual_seed(ca)
@@ -278,6 +280,7 @@ def _assert_all_rel(outs, refs, rel=1e-4):
     (1, 16, 16, 64, 72, True),  # C = 64 + 8: ragged wgrad co slice and dgrad stage
     (1, 9, 9, 6, 10, True),     # C % 4 != 0: the 4-byte cp.async path of both halves
     (2, 7, 5, 1, 16, False),    # entry layer smaller than one tile, no dx
+    (8, 8, 8, 64, 96, True),    # the learning check's PUNet (16, 32, 64, 96): C = 64 + 32
 ])
 def test_conv_block_bwd_kernel_matches_plain(dev, b, h, w, cin, c, need_dx):
     saved = _saved(torch.Generator().manual_seed(cin + h), b, h, w, cin, c, dev)
@@ -293,7 +296,8 @@ def test_conv_block_bwd_kernel_matches_plain(dev, b, h, w, cin, c, need_dx):
 
 @pytest.mark.parametrize("b,h,w,ca,cb,c", [(2, 10, 12, 13, 7, 24), (1, 9, 17, 3, 5, 64),
                                            (1, 16, 16, 64, 32, 64),
-                                           (1, 12, 18, 30, 34, 66)])  # Ca % 4 != 0, dx split at 30
+                                           (1, 12, 18, 30, 34, 66),  # Ca % 4 != 0, dx split at 30
+                                           (8, 16, 16, 96, 64, 64)])  # the learning check's
 def test_conv_block_bwd_dual_kernel_matches_plain(dev, b, h, w, ca, cb, c):
     g, x, *rest = _saved(torch.Generator().manual_seed(ca), b, h, w, ca + cb, c, dev)
     xa, xb = x[..., :ca].contiguous(), x[..., ca:].contiguous()
@@ -412,3 +416,122 @@ def test_adamt_step_on_card_matches_cpu(dev):
         # at step 0 the ramp is 0: the teacher is the updated student
         assert torch.equal(p, dict(card.model.named_parameters())[name].detach()), name
         assert torch.equal(p_cpu, dict(cpu.model.named_parameters())[name].detach()), name
+
+
+# -- the engine on the card ----------------------------------------------------------
+
+
+def _mt_trainer(device, root, logger=False, name="mt"):
+    """A small Mean-Teacher trainer (masking on) on seeded synthetic data:
+    epochs of 2 steps of batch 2 at 32^2, one validation batch."""
+    from pda_torch.data import DualImageCollectionDataset, Loader
+    from pda_torch.data.synthetic import make_dataset_arrays
+    from pda_torch.models import ProbabilisticUnet
+    from pda_torch.train import MeanTeacherTrainer, ReduceLROnPlateau
+
+    model = ProbabilisticUnet(num_filters=(32, 32, 48, 64), latent_dim=6, no_convs_fcomb=3,
+                              beta=1.0, rl_swap=True, consensus_masking=True,
+                              generator=torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        model.fcomb.last_layer.weight.mul_(16.0)
+    raws, labels = make_dataset_arrays(3, (48, 48), seed=1)
+
+    def std(x, rng):
+        return (x - x.mean()) / (x.std() + 1e-7) + 0.1 * rng.standard_normal(x.shape)
+
+    def loader(n, seed):
+        ds = DualImageCollectionDataset(raws, labels, patch_shape=(32, 32), augmentation1=std,
+                                        augmentation2=std, n_samples=n, seed=seed)
+        return Loader(ds, 2, seed=seed)
+
+    return MeanTeacherTrainer(name, model, loader(4, 0), loader(2, 1), device=device,
+                              save_root=str(root), logger=logger, log_image_interval=1,
+                              lr_scheduler=ReduceLROnPlateau(), do_consensus_masking=True)
+
+
+def test_mean_teacher_fit_on_card_matches_cpu(dev, tmp_path):
+    """``fit(2)`` (one epoch, one validation) on the card against the CPU:
+    the same seed gives the same noise. The CPU fit takes the card teacher's
+    pseudo-labels (a consensus pixel may flip within the MC kernel's
+    threshold window)."""
+    from pda_torch.train import steps
+
+    card, cpu = _mt_trainer("cuda", tmp_path / "card"), _mt_trainer("cpu", tmp_path / "cpu")
+    pseudo, drawn, grads = steps._mc_pseudo, [], []
+
+    def record(*a, **k):
+        y, z = pseudo(*a, **k)
+        drawn.append((y.cpu(), z.cpu()))
+        return y, z
+
+    card.initialize()
+    train = card.train_step
+
+    def train_step(state, *batch, **kw):
+        out = train(state, *batch, **kw)
+        grads.append({n: p.grad.cpu() for n, p in state.model.named_parameters()})
+        return out
+
+    card.train_step = train_step
+    steps._mc_pseudo = record
+    try:
+        card.fit(2)
+        replay = iter(drawn)
+
+        def replayed(model, x, n_samples, masking, eps=None, generator=None):
+            # the generator's draw of the card's call, then its pseudo-labels
+            torch.randn((n_samples, x.shape[0], model.latent_dim), generator=generator)
+            return next(replay)
+
+        steps._mc_pseudo = replayed
+        cpu.fit(2)
+    finally:
+        steps._mc_pseudo = pseudo
+    assert len(drawn) == 3 and 0.0 < float(drawn[0][1].mean()) < 1.0
+    for (i, a), (j, b) in zip(card.history + card.val_history, cpu.history + cpu.val_history):
+        assert i == j and sorted(a) == sorted(b)
+        for k, v in b.items():
+            assert abs(a[k] - v) <= 1e-4 * max(1.0, abs(v)), (i, k)
+    for (name, p), p_cpu in zip(card.state.model.named_parameters(),
+                                cpu.state.model.parameters()):
+        noisy = torch.zeros_like(p_cpu, dtype=torch.bool)
+        for g in grads:  # Adam's sign is noise where a step's gradient is this small
+            noisy |= g[name].abs() <= 1e-3 * g[name].abs().max()
+        diff = (p.detach().cpu() - p_cpu.detach()).abs()
+        assert float(torch.where(noisy, 0.0, diff).max()) <= 1e-6, name
+        assert float(diff.max()) <= 4 * 1e-5 + 1e-6, name
+    for p, p_cpu in zip(card.state.teacher.parameters(), cpu.state.teacher.parameters()):
+        assert float((p.cpu() - p_cpu).abs().max()) <= 1e-6
+
+
+def test_checkpoint_written_on_card_loads_on_cpu(dev, tmp_path):
+    card = _mt_trainer("cuda", tmp_path)
+    card.fit(2)
+    cpu = _mt_trainer("cpu", tmp_path)
+    blob = cpu.load_checkpoint("latest")
+    assert cpu._iteration == 2 and all(v.device.type == "cpu" for v in blob["model_state"].values())
+    for a, b in ((card.state.model, cpu.state.model), (card.state.teacher, cpu.state.teacher)):
+        for (name, v), w in zip(a.state_dict().items(), b.state_dict().values()):
+            assert w.device.type == "cpu" and torch.equal(v.cpu(), w), name
+    for k, s in card.state.optimizer.state_dict()["state"].items():
+        s_cpu = cpu.state.optimizer.state_dict()["state"][k]
+        for key in ("exp_avg", "exp_avg_sq"):
+            assert torch.equal(s[key].cpu(), s_cpu[key]), (k, key)
+    assert torch.equal(card.generator.get_state(), cpu.generator.get_state())
+    cpu.fit(3, overwrite_training=False)  # and trains on from there
+    assert cpu._iteration == 3
+
+
+def test_engine_iteration_launches(dev, tmp_path):
+    """One engine iteration with its validation and panels (logger on,
+    panels every step): the MT step (20, 6, 1, 12, 3), the validation step
+    (28, 9, 2, 0, 0) and two panel passes (16, 6, 2, 0, 0 each) of
+    conv_block_fwd, _dual, mc_consensus, conv_block_bwd, _dual."""
+    t = _mt_trainer("cuda", tmp_path, logger=True)
+    t.initialize()
+    wrappers = (kconv.conv_block_fwd, kconv.conv_block_fwd_dual, mc_consensus,
+                kconv.conv_block_bwd, kconv.conv_block_bwd_dual)
+    before = [w.launches for w in wrappers]
+    t.fit(1)
+    torch.cuda.synchronize()
+    assert [w.launches - b for w, b in zip(wrappers, before)] == [80, 27, 7, 12, 3]
