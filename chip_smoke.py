@@ -28,7 +28,8 @@ Phases, each of which fails the run (exit code 1) on any error or miss:
                 48, 64) and a 2-class one through mc_pseudo and the
                 validation predictor, card vs CPU (no K3 launch for 2
                 classes); the pseudo-PUNet, FixMatch (distribution
-                alignment), AdaMT and AdaMatch steps of the flagship, one at
+                alignment), AdaMT and AdaMatch steps of the flagship and
+                its supervised step (PUNetTrainer's), one at
                 128^2 card vs CPU with launch counts each, then timed at
                 512^2; the UNet2d path (depth 4, 64 features, sigmoid): the
                 supervised and pseudo-label steps at 256^2 batch 4 card vs
@@ -47,7 +48,24 @@ Phases, each of which fails the run (exit code 1) on any error or miss:
                 reference); and 300 iterations of development/learning_smoke.py's
                 PUNetTrainer run (PUNet 16/32/64/96, 64^2, batch 8, lr 1e-3),
                 final validation dice above 0.5
-  8. times    — CUDA-event medians of every kernel, its plain version and
+  8. experiments — the LIVECell CLIs (pda_torch/experiments/) through their
+                main(argv) on a synthetic LIVECell tree (two cell types, 4
+                train, 1 validation, 1 test frame each, 520x704, written by
+                the port's TIFF codec), at the flagship's width:
+                livecell_prepare_data; livecell_punet --train --predict
+                --evaluate; livecell_punet_target --get_pseudo_labels
+                --train --predict --evaluate --consensus; livecell_mt
+                --train --predict --evaluate --masking (each --iterations 2);
+                livecell_fm, _adamt, _adamatch and _unet --train
+                --iterations 1; checkpoints under pda's names, predictions,
+                pseudo trees, dice in [0, 1] and the dice runner's known
+                answers on the test labels, the codec's round trip, the
+                first prediction file bit-equal to tiled_punet_probs, the
+                card's memory back after the last trainer; every distinct
+                shape the CLIs gave a kernel, held against its plain version
+                and float64 as in phase 3 where that phase had not; seconds
+                by CLI and by trainer part, peak disk
+  9. times    — CUDA-event medians of every kernel, its plain version and
                 (ConvBlock forward and backward) cuDNN's convolutions, beside
                 its bound from the shapes, with TFLOP/s; end-to-end ms/frame
                 and tiles/s, ms/step and patches/s of every step
@@ -97,6 +115,11 @@ BWD_REF64_TOL = 1e-5
 # there cuDNN's default dgrad algorithm takes ~300 ms (PERF.md, row 10)
 BWD_LIBRARY_BENCHMARK = {(2, 128, 128, 128, 256)}
 
+# (kernel, shape) of every check against the plain version, filled as the
+# checks run (shape_key); the experiments phase checks each other shape that
+# its run gives a kernel
+CHECKED = set()
+
 MT_LR, MT_MOMENTUM, MT_BATCH = 1e-5, 0.999, 2
 MT_CHECK_PATCH, MT_TIME_PATCH = 128, 512
 MT_WARMUP, MT_TIMED = 3, 7
@@ -126,12 +149,13 @@ SOURCE_DISTRIBUTION = (0.7, 0.3)  # FixMatch's source class distribution [bg, fg
 # blocks) and backward a loss, the teacher's (or the model's own) MC pass
 # (8 + 3 blocks and the MC tail) where the step draws pseudo-labels
 ALG_LAUNCHES = {
-    "pseudo_punet": {"conv_block_fwd": 12, "conv_block_fwd_dual": 3, "mc_consensus": 0,
-                     "conv_block_bwd": 12, "conv_block_bwd_dual": 3},
+    "supervised_punet": {"conv_block_fwd": 12, "conv_block_fwd_dual": 3, "mc_consensus": 0,
+                         "conv_block_bwd": 12, "conv_block_bwd_dual": 3},
     "fixmatch": MT_LAUNCHES,
     "adamt": {"conv_block_fwd": 32, "conv_block_fwd_dual": 9, "mc_consensus": 1,
               "conv_block_bwd": 24, "conv_block_bwd_dual": 6},
 }
+ALG_LAUNCHES["pseudo_punet"] = ALG_LAUNCHES["supervised_punet"]
 ALG_LAUNCHES["adamatch"] = ALG_LAUNCHES["adamt"]
 UNET_LR, UNET_BATCH, UNET_PATCH = 1e-4, 4, 256
 NO_LAUNCHES = dict.fromkeys(MT_LAUNCHES, 0)
@@ -176,6 +200,51 @@ def add_bound(entry, binding, flops, nbytes, weight=1):
     return ms, term
 
 
+def shape_key(name, args, need_dx=True, masking=False):
+    """(kernel, shape) of a launch from its arguments: the ConvBlock
+    forwards (B, H, W, Cin[, Cb], C); the backwards the same, the
+    single-input one with need_dx; K3 (B, H, W, C, S, n_mid, masking)."""
+    if name == "mc_consensus":
+        feat, z, mid_w = args[:3]
+        return name, (*feat.shape, z.shape[0], mid_w.shape[0], bool(masking))
+    inputs = args[1:-6] if name.startswith("conv_block_bwd") else args[:-6]
+    b, h, w, _ = inputs[0].shape
+    c = args[-1].shape[-1] if name.startswith("conv_block_bwd") else args[-1].shape[0]
+    key = (b, h, w, *(t.shape[-1] for t in inputs), c)
+    return name, key + ((bool(need_dx),) if name == "conv_block_bwd" else ())
+
+
+@contextlib.contextmanager
+def kernel_shapes(census):
+    """Add the (kernel, shape) of every kernel launch inside the block to
+    ``census`` (the launchers wrapped; the launch counts are untouched)."""
+    from pda_torch.kernels import conv_block as kc
+    from pda_torch.kernels import mc_consensus as km
+
+    launch, launch_bwd, launch_mc = kc._launch, kc._launch_bwd, km._launch
+
+    def fwd(xa, xb, *rest):
+        name = "conv_block_fwd" if xb is None else "conv_block_fwd_dual"
+        census.add(shape_key(name, (xa,) + (() if xb is None else (xb,)) + rest))
+        return launch(xa, xb, *rest)
+
+    def bwd(g, xa, xb, h1, h2, h3, w1, w2, w3, need_dx):
+        name = "conv_block_bwd" if xb is None else "conv_block_bwd_dual"
+        inputs = (xa,) + (() if xb is None else (xb,))
+        census.add(shape_key(name, (g, *inputs, h1, h2, h3, w1, w2, w3), need_dx))
+        return launch_bwd(g, xa, xb, h1, h2, h3, w1, w2, w3, need_dx)
+
+    def mc(feat, z, mid_w, mid_b, last_w, last_b, masking):
+        census.add(shape_key("mc_consensus", (feat, z, mid_w), masking=masking))
+        return launch_mc(feat, z, mid_w, mid_b, last_w, last_b, masking)
+
+    kc._launch, kc._launch_bwd, km._launch = fwd, bwd, mc
+    try:
+        yield census
+    finally:
+        kc._launch, kc._launch_bwd, km._launch = launch, launch_bwd, launch_mc
+
+
 def synthetic_frame(gen, shape, dev):
     """A LIVECell-sized grey frame: bright blobs on a ramp, with noise."""
     import torch
@@ -205,12 +274,13 @@ def saved_block(gen, b, h, w, cin, c, dev):
     return (g, x, *hs, w1, w2, w3)
 
 
-def check_bwd(entry, label, kernel, plain, args, names, per_step, binding, need_dx):
+def check_bwd(entry, label, kernel, plain, args, names, per_step, binding, need_dx,
+              timed=True):
     """A backward kernel against its plain version: every output within
     BWD_REL_TOL of the plain one's largest and within BWD_REF64_TOL of the
-    plain version's in float64, and two runs bit-equal; then times (the
-    kernel's, the plain version's, cuDNN's: :func:`cudnn_block_bwd`) and the
-    bound."""
+    plain version's in float64, and two runs bit-equal; then, if ``timed``,
+    times (the kernel's, the plain version's, cuDNN's:
+    :func:`cudnn_block_bwd`) and the bound."""
     import torch
 
     from pda_torch.tools.workload import block_flops, block_weight_bytes, cuda_ms, dgrad_flops
@@ -235,6 +305,13 @@ def check_bwd(entry, label, kernel, plain, args, names, per_step, binding, need_
         entry["max_abs_err"] = max(entry["max_abs_err"], err)
     ok &= same
     del out, again, ref, ref64
+    CHECKED.add(shape_key(entry["name"], args, need_dx))
+    verdict = (f"kernel {label}: worst max_abs_err/max|plain| {worst[0]:.3e} ({worst[1]}; tol "
+               f"{BWD_REL_TOL:.0e}), /max|ref64| {worst64[0]:.3e} ({worst64[1]}; tol "
+               f"{BWD_REF64_TOL:.0e}), repeat bit-equal {same}")
+    if not timed:
+        log(f"{verdict} {'ok' if ok else 'FAIL'}")
+        return ok
     ms, plain_ms = cuda_ms(lambda: kernel(*args)), cuda_ms(lambda: plain(*args))
     # wgrad of three layers, dgrad of two (and of the first with dx);
     # reads x (or xa, xb), h1, h2, h3, g, W; writes dx, dW, db
@@ -252,10 +329,8 @@ def check_bwd(entry, label, kernel, plain, args, names, per_step, binding, need_
     nbytes = (4 * b * h * w * (cin * (2 if need_dx else 1) + 4 * c)
               + 2 * block_weight_bytes(cin, c))
     bound, term = add_bound(entry, binding, flops, nbytes, per_step)
-    log(f"kernel {label}: worst max_abs_err/max|plain| {worst[0]:.3e} ({worst[1]}; tol "
-        f"{BWD_REL_TOL:.0e}), /max|ref64| {worst64[0]:.3e} ({worst64[1]}; tol "
-        f"{BWD_REF64_TOL:.0e}), repeat bit-equal {same}, ms {ms:.3f} "
-        f"({flops / ms / 1e9:.1f} TFLOP/s) plain_ms {plain_ms:.3f} library_ms {library_ms:.3f}"
+    log(f"{verdict}, ms {ms:.3f} ({flops / ms / 1e9:.1f} TFLOP/s) plain_ms {plain_ms:.3f} "
+        f"library_ms {library_ms:.3f}"
         f"{' (cudnn.benchmark on)' if benchmark else ''} bound_ms {bound:.3f} ({term}) "
         f"{'ok' if ok else 'FAIL'}")
     entry["ms"] += per_step * ms
@@ -289,11 +364,11 @@ def cudnn_block_bwd(g, x, h1, h2, h3, w1, w2, w3, need_dx):
     return (dout, *grads)
 
 
-def check_mc(entry, label, args, masking, binding, weight):
+def check_mc(entry, label, args, masking, binding, weight, timed=True):
     """K3 against its plain version: the MC mean within K3_MEAN_TOL of the
     plain version's and of the plain version's in float64, the consensus
     only where a logit lies within K3_WINDOW of a threshold, two launches
-    bit-equal; then times, TFLOP/s and the bound."""
+    bit-equal; then, if ``timed``, times, TFLOP/s and the bound."""
     import torch
 
     from pda_torch.kernels import mc_consensus as km
@@ -313,18 +388,23 @@ def check_mc(entry, label, args, masking, binding, weight):
     good = (bool(torch.isfinite(mean).all()) and err <= K3_MEAN_TOL and err64 <= K3_MEAN_TOL
             and stray == 0 and same)
     del mean, cons, again, ref_mean, ref_cons, ref64, near
-    ms = cuda_ms(lambda: km.mc_consensus(*args, masking=masking))
-    plain_ms = cuda_ms(lambda: km.mc_consensus_plain(*args, masking), iters=3)
+    CHECKED.add(shape_key("mc_consensus", args, masking=masking))
+    entry["max_abs_err"] = max(entry["max_abs_err"], err)
     b, h, w, c = args[0].shape
     s, n_mid = args[1].shape[0], args[2].shape[0]
+    verdict = (f"kernel mc_consensus {label} S={s} n_mid={n_mid} feat {b}x{h}x{w}x{c} "
+               f"masking={masking}: mean max_abs_err {err:.3e}, vs ref64 {err64:.3e} (tol "
+               f"{K3_MEAN_TOL:.0e}), consensus differs at {flips} px, {stray} of them farther "
+               f"than {K3_WINDOW:.0e} from a threshold, repeat bit-equal {same}")
+    if not timed:
+        log(f"{verdict} {'ok' if good else 'FAIL'}")
+        return good
+    ms = cuda_ms(lambda: km.mc_consensus(*args, masking=masking))
+    plain_ms = cuda_ms(lambda: km.mc_consensus_plain(*args, masking), iters=3)
     flops = mc_flops(b, h, w, c, s, n_mid)
     bound, term = add_bound(entry, binding, flops, mc_bytes(b, h, w, c, s, n_mid), weight)
-    log(f"kernel mc_consensus {label} S={s} feat {b}x{h}x{w}x{c} masking={masking}: mean "
-        f"max_abs_err {err:.3e}, vs ref64 {err64:.3e} (tol {K3_MEAN_TOL:.0e}), consensus differs "
-        f"at {flips} px, {stray} of them farther than {K3_WINDOW:.0e} from a threshold, repeat "
-        f"bit-equal {same}; ms {ms:.3f} ({flops / ms / 1e9:.1f} TFLOP/s) plain_ms {plain_ms:.3f} "
+    log(f"{verdict}; ms {ms:.3f} ({flops / ms / 1e9:.1f} TFLOP/s) plain_ms {plain_ms:.3f} "
         f"bound_ms {bound:.3f} ({term}) {'ok' if good else 'FAIL'}")
-    entry["max_abs_err"] = max(entry["max_abs_err"], err)
     entry["ms"] += weight * ms
     entry["plain_ms"] += weight * plain_ms
     return good
@@ -349,51 +429,61 @@ def cudnn_weights(w1, b1, w2, b2, w3, b3):
         memory_format=torch.channels_last) for t in (w1, b1, w2, b2, w3, b3)]
 
 
+def check_conv(entry, label, kernel, plain, args, per_forward, binding, timed=True):
+    """A forward kernel against its plain version: within K12_REL_TOL of
+    the plain one's largest, within K12_REF64_TOL of the plain version's in
+    float64, and two runs bit-equal; then, if ``timed``, times and the
+    bound."""
+    import torch
+
+    from pda_torch.tools.workload import block_flops, block_weight_bytes, cuda_ms
+
+    out, again, ref = kernel(*args), kernel(*args), plain(*args)
+    ref64 = plain(*(a.double() for a in args))
+    torch.cuda.synchronize()
+    same = torch.equal(out, again)
+    err, scale = float((out - ref).abs().max()), float(ref.abs().max())
+    err64 = float((out.double() - ref64).abs().max())
+    scale64 = float(ref64.abs().max())
+    ok = (bool(torch.isfinite(out).all()) and err <= K12_REL_TOL * scale
+          and err64 <= K12_REF64_TOL * scale64 and same)
+    del out, again, ref, ref64
+    CHECKED.add(shape_key(entry["name"], args))
+    entry["max_abs_err"] = max(entry["max_abs_err"], err)
+    verdict = (f"kernel {label}: max_abs_err/max|plain| {err / scale:.3e} (tol "
+               f"{K12_REL_TOL:.0e}), /max|ref64| {err64 / scale64:.3e} (tol {K12_REF64_TOL:.0e}), "
+               f"repeat bit-equal {same}")
+    if not timed:
+        log(f"{verdict} {'ok' if ok else 'FAIL'}")
+        return ok
+    x = torch.cat(args[:-6], dim=-1)
+    lib_args = (x, *cudnn_weights(*args[-6:]))
+    ms, plain_ms = cuda_ms(lambda: kernel(*args)), cuda_ms(lambda: plain(*args))
+    library_ms = cuda_ms(lambda: cudnn_block(*lib_args))
+    b, h, w, cin = x.shape
+    c = args[-1].shape[0]
+    flops = block_flops(b, h, w, cin, c)
+    nbytes = 4 * b * h * w * (cin + 3 * c) + block_weight_bytes(cin, c)
+    bound, term = add_bound(entry, binding, flops, nbytes, per_forward)
+    del x, lib_args
+    log(f"{verdict}, ms {ms:.3f} ({flops / ms / 1e9:.1f} TFLOP/s) plain_ms {plain_ms:.3f} "
+        f"library_ms {library_ms:.3f} bound_ms {bound:.3f} ({term}) {'ok' if ok else 'FAIL'}")
+    entry["ms"] += per_forward * ms
+    entry["plain_ms"] += per_forward * plain_ms
+    entry["library_ms"] = (entry["library_ms"] or 0.0) + per_forward * library_ms
+    return ok
+
+
 def phase_kernels(dev, results, binding):
     """Kernels against their plain versions; fills ``results`` per kernel."""
     import torch
 
     from pda_torch.kernels import conv_block as kc
     from pda_torch.tools import workload as wl
-    from pda_torch.tools.workload import block_flops, block_weight_bytes, conv_weights, cuda_ms
+    from pda_torch.tools.workload import conv_weights
 
     gen = torch.Generator().manual_seed(SEED)
     k1, k2, k3 = results["conv_block_fwd"], results["conv_block_fwd_dual"], results["mc_consensus"]
-
-    def check_conv(entry, label, kernel, plain, args, per_forward):
-        """A forward kernel against its plain version: within K12_REL_TOL of
-        the plain one's largest, within K12_REF64_TOL of the plain version's
-        in float64, and two runs bit-equal; then times and the bound."""
-        out, again, ref = kernel(*args), kernel(*args), plain(*args)
-        ref64 = plain(*(a.double() for a in args))
-        torch.cuda.synchronize()
-        same = torch.equal(out, again)
-        err, scale = float((out - ref).abs().max()), float(ref.abs().max())
-        err64 = float((out.double() - ref64).abs().max())
-        scale64 = float(ref64.abs().max())
-        ok = (bool(torch.isfinite(out).all()) and err <= K12_REL_TOL * scale
-              and err64 <= K12_REF64_TOL * scale64 and same)
-        del out, again, ref, ref64
-        x = torch.cat(args[:-6], dim=-1)
-        lib_args = (x, *cudnn_weights(*args[-6:]))
-        ms, plain_ms = cuda_ms(lambda: kernel(*args)), cuda_ms(lambda: plain(*args))
-        library_ms = cuda_ms(lambda: cudnn_block(*lib_args))
-        b, h, w, cin = x.shape
-        c = args[-1].shape[0]
-        flops = block_flops(b, h, w, cin, c)
-        nbytes = 4 * b * h * w * (cin + 3 * c) + block_weight_bytes(cin, c)
-        bound, term = add_bound(entry, binding, flops, nbytes, per_forward)
-        del x, lib_args
-        log(f"kernel {label}: max_abs_err/max|plain| {err / scale:.3e} (tol "
-            f"{K12_REL_TOL:.0e}), /max|ref64| {err64 / scale64:.3e} (tol {K12_REF64_TOL:.0e}), "
-            f"repeat bit-equal {same}, ms {ms:.3f} ({flops / ms / 1e9:.1f} TFLOP/s) plain_ms "
-            f"{plain_ms:.3f} library_ms {library_ms:.3f} bound_ms {bound:.3f} ({term}) "
-            f"{'ok' if ok else 'FAIL'}")
-        entry["max_abs_err"] = max(entry["max_abs_err"], err)
-        entry["ms"] += per_forward * ms
-        entry["plain_ms"] += per_forward * plain_ms
-        entry["library_ms"] = (entry["library_ms"] or 0.0) + per_forward * library_ms
-        return ok
 
     # every shape of the serving path, the MT step's posterior entry and the
     # learning check's blocks at width 96; the JSON line's times and bounds
@@ -405,7 +495,7 @@ def phase_kernels(dev, results, binding):
         x = torch.randn(b, h, w, cin, generator=gen).to(dev)
         ok &= check_conv(k1, f"conv_block_fwd {cin}->{c} @{b}x{h}x{w}", kc.conv_block_fwd,
                          kc.conv_block_fwd_plain, (x, *conv_weights(gen, cin, c, dev)),
-                         per_forward)
+                         per_forward, binding)
     for shape, per_forward in ([(s, 1) for s in wl.K2_TILED] + [(s, 0) for s in wl.K2_PSEUDO]
                                + [(wl.LEARN_DUAL_BLOCK, 0)]):
         b, h, w, ca, cb, c = shape
@@ -413,7 +503,7 @@ def phase_kernels(dev, results, binding):
         xb = torch.randn(b, h, w, cb, generator=gen).to(dev)
         ok &= check_conv(k2, f"conv_block_fwd_dual {ca}+{cb}->{c} @{b}x{h}x{w}",
                          kc.conv_block_fwd_dual, kc.conv_block_fwd_dual_plain,
-                         (xa, xb, *conv_weights(gen, ca + cb, c, dev)), per_forward)
+                         (xa, xb, *conv_weights(gen, ca + cb, c, dev)), per_forward, binding)
 
     for (b, h, w, cin, c), need_dx, per_step in wl.BWD_SHAPES + [(wl.LEARN_BLOCK, True, 0)]:
         saved = saved_block(gen, b, h, w, cin, c, dev)
@@ -843,7 +933,7 @@ def phase_algorithms(dev, results, binding):
         ok &= good
         del small, on_card, enc, logits
 
-    # 2. the other PUNet steps at the flagship's widths, 128^2 card vs CPU
+    # 2. the PUNet steps at the flagship's widths, 128^2 card vs CPU
     model = livecell_punet(consensus_masking=True, generator=torch.Generator().manual_seed(SEED),
                            device="cpu")
     with torch.no_grad():
@@ -857,11 +947,14 @@ def phase_algorithms(dev, results, binding):
                                   with_teacher=with_teacher)
 
     def batch_of(algo, patch, device):
-        """pseudo PUNet: (x, y, z) with soft pseudo-labels and a consensus
-        mask as read from disk; FixMatch: (x, x1, x2, gt); the joint steps:
-        (xs, ys) of another frame + the target's (xt, xt1, xt2, yt)."""
+        """supervised PUNet: (x, gt); pseudo PUNet: (x, y, z) with soft
+        pseudo-labels and a consensus mask as read from disk; FixMatch:
+        (x, x1, x2, gt); the joint steps: (xs, ys) of another frame + the
+        target's (xt, xt1, xt2, yt)."""
         g = torch.Generator().manual_seed(SEED + patch)
         target = mt_batch(g, frame, patch, device)
+        if algo == "supervised_punet":
+            return target[0], target[3]
         if algo == "pseudo_punet":
             y = torch.sigmoid(2.0 * target[1])
             return target[2], y, ((y - 0.5).abs() > 0.3).float()
@@ -873,6 +966,7 @@ def phase_algorithms(dev, results, binding):
     noise_shapes = {"eps_post": (MT_BATCH, 6), "eps_source": (MT_BATCH, 6),
                     "eps_teacher": (MC, MT_BATCH, 6), "eps_weak": (MC, MT_BATCH, 6)}
     algos = {
+        "supervised_punet": (tt.make_supervised_punet_step(), False, ("eps_post",)),
         "pseudo_punet": (tt.make_pseudo_punet_step(), False, ("eps_post",)),
         "fixmatch": (tt.make_fixmatch_step(source_distribution=SOURCE_DISTRIBUTION,
                                            do_consensus_masking=True), False,
@@ -1346,6 +1440,353 @@ def phase_engine(dev, results, bare_ms):
     return ok
 
 
+# The experiments phase: the LIVECell CLIs (pda_torch/experiments/) on a
+# synthetic LIVECell tree of two cell types, each with 4 train frames (the
+# source PUNet's batch), 1 validation and 1 test frame of 520x704, at the
+# flagship's width on the card; --iterations 2 for the source, pseudo-label
+# and MT runs, 1 for the rest.
+EXP_CELL_TYPES = ("A172", "BT474")
+EXP_COUNTS = (("train", 4), ("val", 1), ("test", 1))
+EXP_MEMORY_SLACK = 64 * 2**20  # bytes the card may keep after the last trainer
+DICE_TOL = 1e-9  # the dice runner against its known answers
+TIFF_DTYPES = ("uint8", "uint16", "int32", "float32")
+
+
+def glob_tifs(folder):
+    return sorted(os.path.join(folder, n) for n in (os.listdir(folder) if os.path.isdir(folder)
+                                                    else []) if n.endswith(".tif"))
+
+
+def tree_bytes(root):
+    return sum(os.path.getsize(os.path.join(d, f)) for d, _, files in os.walk(root)
+               for f in files)
+
+
+def tiff_roundtrip(folder):
+    """The port's TIFF codec writes and reads each dtype bit for bit (every
+    float32 bit pattern included)."""
+    import numpy as np
+
+    from pda_torch.data import tiff
+
+    rng = np.random.default_rng(SEED)
+    same = {}
+    for name in TIFF_DTYPES:
+        dt = np.dtype(name)
+        bits = rng.integers(0, 2**(8 * dt.itemsize), size=(37, 53), dtype=np.uint64)
+        a = bits.astype(f"u{dt.itemsize}").view(dt)
+        path = os.path.join(folder, f"roundtrip_{name}.tif")
+        tiff.imwrite(path, a)
+        b = tiff.imread(path)
+        same[name] = b.dtype == dt and b.shape == a.shape and a.tobytes() == b.tobytes()
+    return same
+
+
+def check_shapes(dev, results, binding, census):
+    """Each (kernel, shape) of ``census`` that no check has held against
+    its plain version yet, on seeded inputs: the checks of the kernels
+    phase, untimed. Returns (ok, number checked)."""
+    import torch
+
+    from pda_torch.kernels import conv_block as kc
+    from pda_torch.tools import workload as wl
+
+    gen = torch.Generator().manual_seed(SEED + 5)
+    todo = sorted(census - CHECKED)
+    ok = True
+    with torch.inference_mode():
+        for name, shape in todo:
+            entry = results[name]
+            if name == "conv_block_fwd":
+                b, h, w, cin, c = shape
+                x = torch.randn(b, h, w, cin, generator=gen).to(dev)
+                ok &= check_conv(entry, f"{name} {cin}->{c} @{b}x{h}x{w}", kc.conv_block_fwd,
+                                 kc.conv_block_fwd_plain, (x, *wl.conv_weights(gen, cin, c, dev)),
+                                 0, binding, timed=False)
+            elif name == "conv_block_fwd_dual":
+                b, h, w, ca, cb, c = shape
+                args = (torch.randn(b, h, w, ca, generator=gen).to(dev),
+                        torch.randn(b, h, w, cb, generator=gen).to(dev),
+                        *wl.conv_weights(gen, ca + cb, c, dev))
+                ok &= check_conv(entry, f"{name} {ca}+{cb}->{c} @{b}x{h}x{w}",
+                                 kc.conv_block_fwd_dual, kc.conv_block_fwd_dual_plain, args, 0,
+                                 binding, timed=False)
+            elif name == "conv_block_bwd":
+                b, h, w, cin, c, need_dx = shape
+                ok &= check_bwd(entry, f"{name} {cin}->{c} @{b}x{h}x{w} need_dx={need_dx}",
+                                lambda *a, n=need_dx: kc.conv_block_bwd(*a, need_dx=n),
+                                lambda *a, n=need_dx: kc.conv_block_bwd_plain(*a, need_dx=n),
+                                saved_block(gen, b, h, w, cin, c, dev),
+                                ("dx", "dw1", "db1", "dw2", "db2", "dw3", "db3"), 0, binding,
+                                need_dx, timed=False)
+            elif name == "conv_block_bwd_dual":
+                b, h, w, ca, cb, c = shape
+                g, x, *rest = saved_block(gen, b, h, w, ca + cb, c, dev)
+                args = (g, x[..., :ca].contiguous(), x[..., ca:].contiguous(), *rest)
+                del x
+                ok &= check_bwd(entry, f"{name} {ca}+{cb}->{c} @{b}x{h}x{w}",
+                                kc.conv_block_bwd_dual, kc.conv_block_bwd_dual_plain, args,
+                                ("dxa", "dxb", "dw1", "db1", "dw2", "db2", "dw3", "db3"), 0,
+                                binding, True, timed=False)
+                del g, rest, args
+            else:
+                b, h, w, c, s, n_mid, masking = shape
+                ok &= check_mc(entry, "experiments", wl.mc_inputs(gen, b, h, w, c, s, n_mid, dev),
+                               masking, binding, 0, timed=False)
+    torch.cuda.synchronize()
+    return ok, len(todo)
+
+
+def phase_experiments(dev, results, binding):
+    """The LIVECell experiment CLIs on the card, through their main(argv),
+    on a synthetic LIVECell tree written by the port's TIFF codec."""
+    import gc
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from pda_torch.data import tiff
+    from pda_torch.data.synthetic import write_livecell_tree
+    from pda_torch.experiments import (livecell_adamatch, livecell_adamt, livecell_da,
+                                       livecell_fm, livecell_mt, livecell_prepare_data,
+                                       livecell_punet, livecell_punet_target, livecell_unet)
+    from pda_torch.infer import tiled_punet_probs
+    from pda_torch.infer.tiling import grid_shape
+    from pda_torch.train import checkpoint_dir, engine, load_params
+
+    wrappers = kernel_wrappers()
+    ok = True
+    trainers, dice, cli_s, census = [], [], {}, set()
+    disk = {"peak": 0}
+    fit = engine.Trainer.fit
+
+    def recording_fit(self, iterations, **kw):
+        t0 = time.perf_counter()
+        self.initialize()
+        init_s = time.perf_counter() - t0
+        out = fit(self, iterations, **kw)
+        trainers.append((type(self).__name__, self.name, init_s, time.perf_counter() - t0,
+                         dict(self.timings)))
+        return out
+
+    def recording_dice(run):
+        def dice_evaluation(*a, **k):
+            value = run(*a, **k)
+            dice.append(value)
+            return value
+        return dice_evaluation
+
+    dice_modules = (livecell_punet, livecell_punet_target, livecell_da, livecell_unet)
+    saved_dice = [m.run_dice_evaluation for m in dice_modules]
+
+    def check(label, good, detail=""):
+        nonlocal ok
+        log(f"experiments {label}: {detail}{' ' if detail else ''}{'ok' if good else 'FAIL'}")
+        ok &= bool(good)
+
+    with tempfile.TemporaryDirectory() as root:
+        data, pred, save = (os.path.join(root, d) for d in ("data", "pred", "save"))
+        same = tiff_roundtrip(root)
+        check("TIFF codec round trip", all(same.values()), f"bit-equal {same}")
+        t0 = time.perf_counter()
+        frames = write_livecell_tree(data, EXP_CELL_TYPES, counts=EXP_COUNTS, seed=SEED)
+        log(f"experiments synthetic LIVECell tree: {EXP_CELL_TYPES}, frames "
+            f"{ {k: len(v) for k, v in frames.items()} } of {FRAME[0]}x{FRAME[1]}, "
+            f"{tree_bytes(data) / 2**20:.1f} MiB, {time.perf_counter() - t0:.1f} s")
+        common = ["--data", data, "--pred_path", pred, "--save_root", save]
+
+        def run(module, flags, iterations=None):
+            paths = ["--data", data] if module is livecell_prepare_data else common
+            argv = flags + paths + ([] if iterations is None else
+                                    ["--iterations", str(iterations)])
+            name = module.__name__.rsplit(".", 1)[-1]
+            n_trainers = len(trainers)
+            t0 = time.perf_counter()
+            module.main(argv, cell_types=EXP_CELL_TYPES, device=dev.type)
+            torch.cuda.synchronize()
+            cli_s[f"{name} {' '.join(flags)}"] = time.perf_counter() - t0
+            disk["peak"] = max(disk["peak"], tree_bytes(root))
+            log(f"experiments {name} {' '.join(flags)}: {time.perf_counter() - t0:.1f} s, "
+                f"{len(trainers) - n_trainers} trainers, disk {tree_bytes(root) / 2**30:.2f} GiB")
+
+        def ckpt_dirs(names):
+            dirs = [checkpoint_dir(n, save) for n in names]
+            good = all(os.path.isdir(d) and sorted(os.listdir(d)) == ["best.pt", "latest.pt"]
+                       for d in dirs)
+            return dirs, good
+
+        def drop(dirs):
+            for d in dirs:
+                shutil.rmtree(d, ignore_errors=True)
+
+        def probability_maps(folder):
+            """Each test frame's prediction: float32, 520x704, finite, in [0, 1]."""
+            names = sorted(os.listdir(folder)) if os.path.isdir(folder) else []
+            good = len(names) == 1
+            for n in names:
+                p = tiff.imread(os.path.join(folder, n))
+                good &= (p.dtype == np.float32 and p.shape == FRAME and bool(np.isfinite(p).all())
+                         and float(p.min()) >= 0.0 and float(p.max()) <= 1.0)
+            return good
+
+        pairs = [(s, t) for t in EXP_CELL_TYPES for s in EXP_CELL_TYPES if s != t]
+        others = [(livecell_fm, "fixmatch"), (livecell_adamt, "adamt"),
+                  (livecell_adamatch, "adamatch"), (livecell_unet, None)]
+        census_on = contextlib.ExitStack()
+        try:
+            census_on.enter_context(kernel_shapes(census))
+            engine.Trainer.fit = recording_fit
+            for m in dice_modules:
+                m.run_dice_evaluation = recording_dice(m.run_dice_evaluation)
+            gc.collect()
+            torch.cuda.synchronize()
+            mem0 = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            reset_launches(wrappers)
+
+            # 1. the label TIFFs
+            run(livecell_prepare_data, [])
+            labels = {s: [p for ct in EXP_CELL_TYPES for p in glob_tifs(
+                os.path.join(data, "annotations", f"livecell_{s}_images", ct))]
+                for s in ("train_val", "test")}
+            good = (len(labels["train_val"]) == 2 * 4 and len(labels["test"]) == 2
+                    and all(tiff.imread(p).dtype == np.uint16 and tiff.imread(p).max() > 1
+                            for v in labels.values() for p in v))
+            check("livecell_prepare_data", good, f"uint16 instance label TIFFs (train, test) "
+                  f"{[len(v) for v in labels.values()]}")
+
+            # 2. the source PUNets
+            run(livecell_punet, ["--train", "--predict", "--evaluate"], 2)
+            src_dirs, good = ckpt_dirs([f"punet-source-livecell-{c}" for c in EXP_CELL_TYPES])
+            good &= all(probability_maps(os.path.join(pred, "punet_source", a, b))
+                        for a in EXP_CELL_TYPES for b in EXP_CELL_TYPES)
+            check("livecell_punet checkpoints and predictions", good, f"{len(dice)} dice values")
+            first = EXP_CELL_TYPES[0]
+            kept_state = load_params(src_dirs[0])  # on the host, for the check below
+            first_frame = frames["test"][0]
+            first_pred = glob_tifs(os.path.join(pred, "punet_source", first, first))[0]
+            first_bytes = tiff.imread(first_pred).tobytes()
+
+            # 3. pseudo-labels, the PUNets on them, their predictions
+            run(livecell_punet_target,
+                ["--get_pseudo_labels", "--train", "--predict", "--evaluate", "--consensus"], 2)
+            good = True
+            for src in EXP_CELL_TYPES:
+                for ct in EXP_CELL_TYPES:
+                    tree = os.path.join(pred, "punet_source_predictions", src)
+                    lab, con = (glob_tifs(os.path.join(tree, k, "livecell_train_val_images", ct))
+                                for k in ("annotations", "consensus"))
+                    good &= len(lab) == 5 and [os.path.basename(p) for p in lab] == [
+                        os.path.basename(p) for p in con]
+                    good &= all(set(np.unique(tiff.imread(p)).tolist()) <= {0, 1} for p in con)
+            tgt_dirs, good_dirs = ckpt_dirs([f"punet-livecell-source-{s}-target-{t}-consensus"
+                                             for s, t in pairs])
+            good &= good_dirs and all(probability_maps(
+                os.path.join(pred, "punet_target", f"source-{s}-target-{t}")) for s, t in pairs)
+            check("livecell_punet_target pseudo trees, checkpoints and predictions", good)
+            drop(tgt_dirs)
+
+            # 4. Mean Teacher, warm-started from the source runs
+            run(livecell_mt, ["--train", "--predict", "--evaluate", "--masking"], 2)
+            mt_dirs, good = ckpt_dirs([livecell_da.da_name("mean-teacher", "livecell", s, t,
+                                                           False, True) for s, t in pairs])
+            good &= all(probability_maps(os.path.join(pred, "mean_teacher",
+                                                      f"source-{s}-target-{t}"))
+                        for s, t in pairs)
+            check("livecell_mt checkpoints and predictions", good)
+            drop(mt_dirs)
+
+            # 5. the other methods' training
+            for module, method in others:
+                run(module, ["--train"], 1)
+                names = ([livecell_da.da_name(method, "livecell", s, t, False, False)
+                          for s, t in pairs] if method else
+                         [f"unet-source-livecell-{c}" for c in EXP_CELL_TYPES])
+                dirs, good = ckpt_dirs(names)
+                check(f"{module.__name__.rsplit('.', 1)[-1]} --train checkpoints", good)
+                drop(dirs)
+                if module is livecell_fm:
+                    drop(src_dirs)  # no later CLI warm-starts from the source runs
+            drop(src_dirs)
+            counts = counted_launches(wrappers, results)  # the main path's run
+            check("kernel launches", all(n > 0 for n in counts.values()), f"{counts}")
+            check("dice", dice and all(math.isfinite(d) and 0.0 <= d <= 1.0 for d in dice),
+                  f"{[round(d, 4) for d in dice]}")
+            peak_mem = torch.cuda.max_memory_allocated()
+        finally:
+            census_on.close()
+            engine.Trainer.fit = fit
+            for m, f in zip(dice_modules, saved_dice):
+                m.run_dice_evaluation = f
+
+        gc.collect()
+        torch.cuda.synchronize()
+        mem1 = torch.cuda.memory_allocated()
+        check("card memory after the last trainer",
+              mem1 - mem0 <= EXP_MEMORY_SLACK,
+              f"{mem0 / 2**20:.1f} MiB before the first, {mem1 / 2**20:.1f} MiB after the last "
+              f"(slack {EXP_MEMORY_SLACK / 2**20:.0f} MiB); peak {peak_mem / 2**30:.2f} GiB")
+        log(f"experiments peak disk {disk['peak'] / 2**30:.2f} GiB")
+
+        # the dice runner's known answers on the test labels: each label's
+        # own binarisation scores 1; the binarisation with its left half
+        # cleared, written as 0.25 / 0.75 so that the runner's threshold
+        # (> 0.5) decides, scores 2|A and B| / (|A| + |B|) by numpy
+        gt_glob = os.path.join(data, "annotations", "livecell_test_images", "{}", "*")
+        for case in ("own", "half"):
+            want, got = [], []
+            for ct in EXP_CELL_TYPES:
+                folder = os.path.join(root, "known", case, ct)
+                os.makedirs(folder)
+                scores = []
+                for p in glob_tifs(os.path.dirname(gt_glob.format(ct))):
+                    a = tiff.imread(p) > 0
+                    b = a.copy()
+                    if case == "half":
+                        b[:, : b.shape[1] // 2] = False
+                    tiff.imwrite(os.path.join(folder, os.path.basename(p)),
+                                 (0.25 + 0.5 * b).astype(np.float32))
+                    scores.append(2.0 * np.sum(a & b) / (np.sum(a) + np.sum(b)))
+                want.append(float(np.mean(scores)))
+                got.append(livecell_punet.run_dice_evaluation(gt_glob.format(ct), folder,
+                                                              verbose=False))
+            good = (0.0 < min(want) and (case == "half" or max(want) == 1.0)
+                    and all(abs(g - w) <= DICE_TOL for g, w in zip(got, want)))
+            check(f"dice runner's known answer ({case})", good,
+                  f"{[round(g, 6) for g in got]} against {[round(w, 6) for w in want]}")
+
+        # every shape the CLIs gave a kernel, held against its plain version
+        t0 = time.perf_counter()
+        good, n = check_shapes(dev, results, binding, census)
+        check("the CLIs' kernel shapes against the plain versions", good,
+              f"{len(census)} (kernel, shape) pairs, {len(census) - n} checked in the kernels "
+              f"phase, {n} here in {time.perf_counter() - t0:.1f} s")
+
+        # the CLI's first prediction against tiled_punet_probs of the same
+        # weights (the copy kept after the source runs), frame and noise (the
+        # first draw of punet_prediction's seed-0 generator): the reading,
+        # standardising and writing add nothing
+        model = livecell_punet.livecell_punet(device=dev)
+        model.load_state_dict(kept_state)
+        img = torch.from_numpy(tiff.imread(first_frame).astype(np.float32)[..., None]).to(dev)
+        gy, gx = grid_shape(img.shape[:2], BLOCK)
+        eps = torch.randn((MC, gy * gx, model.latent_dim),
+                          generator=torch.Generator().manual_seed(0))
+        ref = tiled_punet_probs(model, img, eps.to(dev), MC, BLOCK, HALO)[..., 0].cpu().numpy()
+        check("the first livecell_punet --predict file against tiled_punet_probs",
+              ref.tobytes() == first_bytes, f"{os.path.basename(first_pred)}: bit-equal "
+              f"{ref.tobytes() == first_bytes}")
+        del model, img
+        log("experiments seconds by CLI: " + "; ".join(f"{k} {v:.1f}" for k, v in cli_s.items()))
+        for cls, name, init_s, fit_s, timings in trainers:
+            host = ", ".join(f"{k} {v:.3f}" for k, v in sorted(timings.items(),
+                                                               key=lambda kv: -kv[1]))
+            log(f"experiments trainer {cls} {name}: set-up (loader start, model, warm start) "
+                f"{init_s:.2f} s, fit {fit_s:.2f} s; host seconds by part: {host}")
+    return ok
+
+
 def main() -> int:
     try:
         import torch
@@ -1417,6 +1858,8 @@ def main() -> int:
         lap("algorithms")
         ok &= phase_engine(dev, results, mt_ms)
         lap("engine")
+        ok &= phase_experiments(dev, results, binding)
+        lap("experiments")
     except Exception:  # any phase's error fails the run, with its traceback
         traceback.print_exc()
         ok = False
@@ -1434,8 +1877,9 @@ def main() -> int:
         "(cudnn.benchmark on at 128->256), TF32 off; none for mc_consensus (no single PyTorch "
         "call computes it); mc_consensus: the tiled forward's call; launches: the main "
         "paths' runs, each counted from 0: both serving entries, the checked MT step, the "
-        "other PUNet steps and the UNet2d path at the flagship's widths, and the flagship's "
-        "MeanTeacherTrainer.fit (the checks' runs are logged on their own lines only)")
+        "other PUNet steps and the UNet2d path at the flagship's widths, the flagship's "
+        "MeanTeacherTrainer.fit, and the experiments phase's LIVECell CLIs (the checks' runs "
+        "are logged on their own lines only)")
     print(json.dumps({"kernels": list(results.values())}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -1,7 +1,8 @@
 """Data pipelines (port of ``pda.data``): numpy transforms, 2D patch
-datasets, the loader and synthetic data. numpy only: the trainer moves
-batches to the card. ``pda``'s HDF5 volume datasets, native augmentation
-library and dataset builders are not ported yet (ROADMAP §1)."""
+datasets, the loader, synthetic data, a TIFF codec (:mod:`.tiff`) and the
+LIVECell builder (:mod:`.builders`). numpy only: the trainer moves batches
+to the card. ``pda``'s HDF5 volume datasets, native augmentation library
+and its EM and Lung builders are not ported yet (ROADMAP §1)."""
 
 from .datasets import (
     ConcatDataset,

@@ -11,7 +11,8 @@ stacks to NHWC; the trainer moves it to the card. Randomness is an explicit
 ``numpy.random.Generator`` handed in per sample (``sample(index, rng)``), so
 a loader with workers stays deterministic. The rejection loop (at most 500
 attempts) crops every array of a sample, the consensus mask included. Images
-are numpy arrays or file paths (read with imageio, imported on first use).
+are numpy arrays or file paths (a TIFF read by the port's codec,
+:mod:`.tiff`; any other file by imageio, imported on first use).
 """
 
 from __future__ import annotations
@@ -22,6 +23,7 @@ from typing import Callable, Optional, Sequence, Tuple, Union
 
 import numpy as np
 
+from .tiff import read_image
 from .transforms import get_augmentations, standardize
 
 ArrayOrPath = Union[str, np.ndarray]
@@ -32,9 +34,7 @@ MAX_SAMPLING_ATTEMPTS = 500
 def load_image(path_or_array: ArrayOrPath) -> np.ndarray:
     if isinstance(path_or_array, np.ndarray):
         return path_or_array
-    import imageio.v3 as imageio
-
-    return np.asarray(imageio.imread(path_or_array))
+    return read_image(path_or_array)
 
 
 def _ensure_hwc(x: np.ndarray, dtype=np.float32) -> np.ndarray:

@@ -8,6 +8,8 @@ can run end-to-end without any dataset download.
 
 from __future__ import annotations
 
+import json
+import os
 from typing import Optional, Tuple
 
 import numpy as np
@@ -67,3 +69,75 @@ def make_consensus_arrays(labels, seed: int = 0):
         cons[holes] = rng.uniform(0.2, 0.9, size=int(holes.sum())).astype(np.float32)
         out.append(cons)
     return out
+
+
+# LIVECell's layout (pda_torch/data/builders/livecell.py): images under
+# images/livecell_{train_val,test}_images/<TYPE>/, COCO annotations in
+# {train,val,test}.json
+LIVECELL_SPLITS = {"train": "livecell_train_val_images", "val": "livecell_train_val_images",
+                   "test": "livecell_test_images"}
+
+
+def rle_counts(mask: np.ndarray) -> list:
+    """COCO run lengths of a bool mask: column-major, a zero run first."""
+    flat = np.asarray(mask, dtype=bool).T.ravel()
+    edges = np.flatnonzero(np.diff(flat.astype(np.int8))) + 1
+    bounds = np.concatenate([[0], edges, [flat.size]])
+    counts = np.diff(bounds).tolist()
+    return [0] + counts if flat.size and flat[0] else counts
+
+
+def rle_string(counts: list) -> str:
+    """COCO's compressed RLE string of run lengths (pycocotools
+    ``rleToString``): from the third run on, the difference to the run two
+    before, in 5-bit groups with a continuation bit, offset by 48."""
+    out = []
+    for i, x in enumerate(counts):
+        x = int(x) - (int(counts[i - 2]) if i > 2 else 0)
+        more = True
+        while more:
+            c = x & 0x1F
+            x >>= 5
+            more = x != -1 if c & 0x10 else x != 0
+            out.append(chr((c | 0x20 if more else c) + 48))
+    return "".join(out)
+
+
+def write_livecell_tree(path: str, cell_types=("A172", "BT474"), *,
+                        counts=(("train", 4), ("val", 1), ("test", 1)),
+                        shape: Tuple[int, int] = (520, 704), seed: int = 0) -> dict:
+    """A synthetic LIVECell tree at ``path``: for each cell type and split,
+    blob frames (uint8 TIFFs, written by the port's codec) and their
+    instances (connected blobs) in ``<split>.json``, in compressed RLE and
+    list RLE by turns. Returns {split: [image paths]}."""
+    from scipy import ndimage
+
+    from .tiff import imwrite
+
+    rng = np.random.default_rng(seed)
+    written = {}
+    for split, n in counts:
+        images, anns = [], []
+        for ct in cell_types:
+            folder = os.path.join(path, "images", LIVECELL_SPLITS[split], ct)
+            os.makedirs(folder, exist_ok=True)
+            for k in range(n):
+                raw, mask = make_blob_image(shape, n_blobs=24, rng=rng)
+                name = f"{ct}_Phase_{split}_{k}_00d00h00m_1.tif"
+                imwrite(os.path.join(folder, name),
+                        np.clip(raw * 96 + 48, 0, 255).astype(np.uint8))
+                written.setdefault(split, []).append(os.path.join(folder, name))
+                image_id = len(images) + 1
+                images.append({"id": image_id, "file_name": name, "height": shape[0],
+                               "width": shape[1]})
+                labels, n_inst = ndimage.label(mask > 0)
+                for inst in range(1, n_inst + 1):
+                    runs = rle_counts(labels == inst)
+                    counts_field = rle_string(runs) if len(anns) % 2 == 0 else runs
+                    anns.append({"id": len(anns) + 1, "image_id": image_id, "category_id": 1,
+                                 "iscrowd": 0, "segmentation": {"size": list(shape),
+                                                                "counts": counts_field}})
+        with open(os.path.join(path, f"{split}.json"), "w") as f:
+            json.dump({"images": images, "annotations": anns,
+                       "categories": [{"id": 1, "name": "cell"}]}, f)
+    return written

@@ -5,9 +5,10 @@ remap, and return (and print) the mean dice.
 The remaps and thresholds are ``pda``'s (and the reference's): lucchi
 ``mask{NNNN}.tif``, urocell ``_gt`` -> ``_image``, jsrt2's 6-character
 annotation suffix, mitoem's ``im`` prefix; the prediction thresholded at 0.5
-for LIVECell, the ground truth at 0 for lung and EM. numpy and imageio only,
-on :func:`pda_torch.core.metrics.dice_score`; imageio is imported when a
-file is read.
+for LIVECell, the ground truth at 0 for lung and EM. numpy only, on
+:func:`pda_torch.core.metrics.dice_score`: TIFFs through the port's codec
+(:mod:`pda_torch.data.tiff`), any other file through imageio, imported when
+one is read.
 """
 
 from __future__ import annotations
@@ -19,12 +20,11 @@ from typing import List, Optional
 import numpy as np
 
 from ..core.metrics import dice_score
+from ..data.tiff import read_image
 
 
 def _imread(path: str) -> np.ndarray:
-    import imageio.v3 as imageio
-
-    return np.asarray(imageio.imread(path))
+    return read_image(path)
 
 
 def _mean(scores: List[float]) -> float:

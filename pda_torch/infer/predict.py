@@ -5,7 +5,8 @@ Array-level entries, on the device the model and image live on:
   full_punet_pseudo  — whole-frame MC-N pseudo-label + consensus
   tiled_unet_probs   — tiled UNet2d probability map
   padded_unet_probs  — whole-frame UNet2d probability map
-File-level entries, same directory contract as ``pda``:
+File-level entries, same directory contract as ``pda``, TIFFs through the
+port's codec (:mod:`pda_torch.data.tiff`):
   punet_prediction        — per image a float32 probability TIFF
   punet_pseudo_prediction — annotations/<split>/<cell>/ (float pseudo-labels)
                             and consensus/<split>/<cell>/ (uint8 0/1)
@@ -25,7 +26,9 @@ from typing import Optional, Tuple, Union
 import numpy as np
 import torch
 
+from ..data.tiff import read_image, write_image
 from ..models.punet import ProbabilisticUnet, mc_pseudo
+from ..utils import clean_folder
 from .tiling import (extract_tiles, grid_shape, pad_to_divisible, stitch_tiles,
                      tile_standardize)
 
@@ -90,9 +93,7 @@ def padded_unet_probs(model: torch.nn.Module, image: torch.Tensor) -> torch.Tens
 
 
 def _read_image(path: str) -> np.ndarray:
-    import imageio.v3 as imageio
-
-    img = np.asarray(imageio.imread(path)).astype(np.float32)
+    img = read_image(path).astype(np.float32)
     if img.ndim == 3:  # RGB(A) -> first channel (reference data is grayscale)
         img = img[..., 0]
     return img
@@ -101,11 +102,19 @@ def _read_image(path: str) -> np.ndarray:
 _IMAGE_EXTS = (".tif", ".tiff", ".png", ".bmp")
 
 
-def _glob_images(pattern: str):
+def _glob_images(pattern: str, search_subfolders: bool = False):
     """Glob input images, expanding any matched directory to its images
-    (LIVECell keeps images in per-cell-type folders)."""
+    (LIVECell keeps images in per-cell-type folders). With
+    ``search_subfolders`` a pattern that matches nothing is tried one folder
+    down, so ``.../livecell_test_images/A172*.tif`` finds
+    ``.../livecell_test_images/A172/A172_*.tif``; ``pda`` has no such rule
+    and finds no image there."""
+    matched = sorted(glob(pattern))
+    if not matched and search_subfolders:
+        head, tail = os.path.split(pattern)
+        matched = sorted(glob(os.path.join(head, "*", tail)))
     paths = []
-    for p in sorted(glob(pattern)):
+    for p in matched:
         if os.path.isdir(p):
             paths.extend(sorted(q for q in glob(os.path.join(p, "*"))
                                 if q.lower().endswith(_IMAGE_EXTS)))
@@ -115,17 +124,7 @@ def _glob_images(pattern: str):
 
 
 def _write_tiff(path: str, data: np.ndarray):
-    import imageio.v3 as imageio
-
-    imageio.imwrite(path, np.ascontiguousarray(data))
-
-
-def _clean_folder(folder: str) -> None:
-    """Remove the files in a folder (stale exports of an earlier run)."""
-    for name in os.listdir(folder):
-        path = os.path.join(folder, name)
-        if os.path.isfile(path):
-            os.remove(path)
+    write_image(path, data)
 
 
 def _device(model: torch.nn.Module) -> torch.device:
@@ -135,12 +134,14 @@ def _device(model: torch.nn.Module) -> torch.device:
 def punet_prediction(input_image_path: str, output_pred_path: str,
                      model: ProbabilisticUnet, *, prior_samples: int = 8,
                      block_shape: Tuple[int, int] = BLOCK_SHAPE,
-                     halo: Tuple[int, int] = HALO, seed: int = 0, verbose: bool = True):
-    """Glob input images -> per image a tiled MC-mean probability TIFF."""
+                     halo: Tuple[int, int] = HALO, seed: int = 0, verbose: bool = True,
+                     search_subfolders: bool = False):
+    """Glob input images -> per image a tiled MC-mean probability TIFF
+    (``search_subfolders``: see :func:`_glob_images`)."""
     os.makedirs(output_pred_path, exist_ok=True)
     gen = torch.Generator().manual_seed(seed)
     dev = _device(model)
-    for img_path in _glob_images(input_image_path):
+    for img_path in _glob_images(input_image_path, search_subfolders):
         img = torch.from_numpy(_read_image(img_path)[..., None]).to(dev)
         gy, gx = grid_shape(img.shape[:2], block_shape)
         eps = torch.randn((prior_samples, gy * gx, model.latent_dim), generator=gen)
@@ -173,7 +174,7 @@ def punet_pseudo_prediction(input_image_path: str, output_pred_path: str,
     dir2 = os.path.join(output_pred_path, "consensus", split_name or "", cellname or "")
     for d in (dir1, dir2):
         os.makedirs(d, exist_ok=True)
-        _clean_folder(d)
+        clean_folder(d)
     gen = torch.Generator().manual_seed(seed)
     dev = _device(model)
     for img_path in image_paths:
@@ -190,13 +191,15 @@ def punet_pseudo_prediction(input_image_path: str, output_pred_path: str,
 
 def unet_prediction(input_path: str, output_path: str, model: torch.nn.Module, *,
                     tiling: bool = True, block_shape: Tuple[int, int] = BLOCK_SHAPE,
-                    halo: Tuple[int, int] = HALO, verbose: bool = True):
+                    halo: Tuple[int, int] = HALO, verbose: bool = True,
+                    search_subfolders: bool = False):
     """Deterministic UNet inference: glob input images -> per image a
     float32 probability TIFF, tiled (:func:`tiled_unet_probs`) or padded
-    (:func:`padded_unet_probs`), on the model's device."""
+    (:func:`padded_unet_probs`), on the model's device
+    (``search_subfolders``: see :func:`_glob_images`)."""
     os.makedirs(output_path, exist_ok=True)
     dev = _device(model)
-    for img_path in _glob_images(input_path):
+    for img_path in _glob_images(input_path, search_subfolders):
         img = torch.from_numpy(_read_image(img_path)[..., None]).to(dev)
         pred = (tiled_unet_probs(model, img, block_shape, halo) if tiling
                 else padded_unet_probs(model, img))

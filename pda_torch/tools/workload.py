@@ -120,19 +120,10 @@ def cuda_ms(fn, warmup: int = 2, iters: int = 5) -> float:
 # The flagship's Mean-Teacher trainer as the LIVECell MT experiment builds it
 # (pda/experiments/livecell_da.py): 512^2 patches, batch 2, MC-16, consensus
 # masking, Adam 1e-5, EMA 0.999, the plateau controller, the weak view recipe
-# of pda/experiments/common.py (numpy path) for both views, on seeded
+# (pda_torch/experiments/common.py, pda's numpy path) for both views, on seeded
 # synthetic frames of LIVECell's size
 LIVECELL_FRAME = (520, 704)
 FCOMB_LAST_SCALE = 8.0  # the random teacher's consensus share lies inside (0, 1)
-
-
-def weak_augmentations(p: float = 0.25):
-    """``pda``'s weak views: standardize, then blur and noise (0-0.15), each
-    with probability ``p``."""
-    from ..data import AdditiveGaussianNoise, Compose, GaussianBlur, RandomApply, standardize
-
-    return Compose(standardize, RandomApply([GaussianBlur()], p=p),
-                   RandomApply([AdditiveGaussianNoise(scale=(0, 0.15))], p=p))
 
 
 def livecell_mt_trainer(save_root: str, *, device="cuda", patch: int = 512,
@@ -145,7 +136,7 @@ def livecell_mt_trainer(save_root: str, *, device="cuda", patch: int = 512,
     the validation loader (one batch an epoch) inline."""
     from ..data import DualImageCollectionDataset, Loader
     from ..data.synthetic import make_dataset_arrays
-    from ..models.punet import livecell_punet
+    from ..experiments.common import livecell_punet, weak_augmentations
     from ..train import MeanTeacherTrainer, ReduceLROnPlateau
 
     batch, seed = 2, 0

@@ -535,3 +535,36 @@ def test_engine_iteration_launches(dev, tmp_path):
     t.fit(1)
     torch.cuda.synchronize()
     assert [w.launches - b for w, b in zip(wrappers, before)] == [80, 27, 7, 12, 3]
+
+
+def test_tiff_codec_and_punet_prediction_through_files_on_card(dev, tmp_path):
+    """The port's TIFF codec round-trips each dtype bit for bit, and
+    punet_prediction through files on the card equals tiled_punet_probs of
+    the same model, frame and noise (seed 0's first draw), bit for bit."""
+    from pda_torch.data import tiff
+    from pda_torch.infer import punet_prediction, tiled_punet_probs
+    from pda_torch.infer.tiling import grid_shape
+    from pda_torch.models import ProbabilisticUnet
+
+    rng = np.random.default_rng(0)
+    for name in ("uint8", "uint16", "int32", "float32"):
+        dt = np.dtype(name)
+        a = rng.integers(0, 2**(8 * dt.itemsize), size=(19, 23), dtype=np.uint64)
+        a = a.astype(f"u{dt.itemsize}").view(dt)
+        tiff.imwrite(str(tmp_path / f"{name}.tif"), a)
+        b = tiff.imread(str(tmp_path / f"{name}.tif"))
+        assert b.dtype == dt and b.tobytes() == a.tobytes(), name
+
+    model = ProbabilisticUnet(num_filters=(16, 32, 48, 64), latent_dim=6, no_convs_fcomb=3,
+                              beta=1.0, rl_swap=True).to(dev)
+    frame = (rng.random((200, 264)) * 255).astype(np.uint8)
+    (tmp_path / "in").mkdir()
+    tiff.imwrite(str(tmp_path / "in" / "A172_a.tif"), frame)
+    punet_prediction(str(tmp_path / "in" / "A172*.tif"), str(tmp_path / "out"), model,
+                     prior_samples=16, block_shape=(96, 96), halo=(16, 16), verbose=False)
+    img = torch.from_numpy(frame.astype(np.float32)[..., None]).to(dev)
+    gy, gx = grid_shape(img.shape[:2], (96, 96))
+    eps = torch.randn((16, gy * gx, 6), generator=torch.Generator().manual_seed(0))
+    ref = tiled_punet_probs(model, img, eps.to(dev), 16, (96, 96), (16, 16))[..., 0]
+    out = tiff.imread(str(tmp_path / "out" / "A172_a.tif"))
+    assert out.dtype == np.float32 and out.tobytes() == ref.cpu().numpy().tobytes()

@@ -198,6 +198,25 @@ def test_loader_matches_pda(case):
             assert g[0].shape[1:] == (32, 32, 1)
 
 
+def test_loader_close_stops_the_workers_and_a_later_epoch_restarts_them():
+    """close() shuts the process pool and frees its shared memory; the next
+    epoch starts a new pool and draws what it would have drawn anyway."""
+    ds = _datasets(tdata)["dual"]
+    loader = tdata.Loader(ds, 2, seed=9, num_workers=2, force_workers=True)
+    inline = tdata.Loader(_datasets(tdata)["dual"], 2, seed=9)
+    first = list(loader)
+    pool, shm = loader._pool[1], loader._shm
+    loader.close()
+    assert loader._pool is None and loader._shm is None
+    assert not pool._processes  # the executor drops its processes once they are joined
+    with pytest.raises(FileNotFoundError):
+        type(shm)(name=shm.name)  # unlinked
+    second = list(loader)
+    for got, want in zip(first + second, list(inline) + list(inline)):
+        assert_same(got, want)
+    loader.close()
+
+
 def test_loader_refuses_a_dataset_smaller_than_its_batch():
     ds = _datasets(tdata)["dual_plain"]
     with pytest.raises(ValueError, match="smaller than"):
