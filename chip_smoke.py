@@ -65,7 +65,25 @@ Phases, each of which fails the run (exit code 1) on any error or miss:
                 shape the CLIs gave a kernel, held against its plain version
                 and float64 as in phase 3 where that phase had not; seconds
                 by CLI and by trainer part, peak disk
-  9. times    — CUDA-event medians of every kernel, its plain version and
+  9. mitoem   — the MitoEM CLIs (pda_torch/experiments/mitoem_*) through
+                their main(argv) on a synthetic MitoEM tree (MitoEM slices
+                as PNG and TIFF, the VNC and Lucchi++ zips, UroCell NIfTI
+                volumes; synthetic.write_mitoem_tree) at the flagship's
+                width: the HDF5 codec's round trip; mitoem_prepare_data
+                (every converted volume read back through the port's HDF5
+                reader against its source slices); mitoem_punet --train
+                --predict --evaluate --iterations 2; mitoem_mt --masking,
+                mitoem_fm --consensus (vnc, lucchi and urocell each),
+                mitoem_adamt --type urocell and mitoem_adamatch --type vnc
+                --consensus --masking, each --train --predict --evaluate
+                --iterations 1; mitoem_unet the same; checkpoints, one
+                probability map per target frame, 14 dice values in
+                [0, 1], the dice runner's known answers on
+                each target's ground truth, the first prediction bit-equal
+                to tiled_punet_probs (MC-8), the card's memory back after
+                the last trainer; every new (kernel, shape) held against its
+                plain version and float64; seconds by CLI and trainer part
+ 10. times    — CUDA-event medians of every kernel, its plain version and
                 (ConvBlock forward and backward) cuDNN's convolutions, beside
                 its bound from the shapes, with TFLOP/s; end-to-end ms/frame
                 and tiles/s, ms/step and patches/s of every step
@@ -79,6 +97,7 @@ the kind is printed when a phase fails or there is no card.
 
 from __future__ import annotations
 
+import argparse
 import contextlib
 import copy
 import itertools
@@ -91,6 +110,7 @@ import sys
 import tempfile
 import time
 import traceback
+from glob import glob
 
 SEED = 0
 MC = 16
@@ -1482,10 +1502,12 @@ def tiff_roundtrip(folder):
     return same
 
 
-def check_shapes(dev, results, binding, census):
+def check_shapes(dev, results, binding, census, timed=False):
     """Each (kernel, shape) of ``census`` that no check has held against
     its plain version yet, on seeded inputs: the checks of the kernels
-    phase, untimed. Returns (ok, number checked)."""
+    phase; ``timed`` also logs each shape's kernel, plain and library times
+    and bound (weight 0: the JSON line's sums stay as they are). Returns
+    (ok, number checked)."""
     import torch
 
     from pda_torch.kernels import conv_block as kc
@@ -1502,7 +1524,7 @@ def check_shapes(dev, results, binding, census):
                 x = torch.randn(b, h, w, cin, generator=gen).to(dev)
                 ok &= check_conv(entry, f"{name} {cin}->{c} @{b}x{h}x{w}", kc.conv_block_fwd,
                                  kc.conv_block_fwd_plain, (x, *wl.conv_weights(gen, cin, c, dev)),
-                                 0, binding, timed=False)
+                                 0, binding, timed=timed)
             elif name == "conv_block_fwd_dual":
                 b, h, w, ca, cb, c = shape
                 args = (torch.randn(b, h, w, ca, generator=gen).to(dev),
@@ -1510,7 +1532,7 @@ def check_shapes(dev, results, binding, census):
                         *wl.conv_weights(gen, ca + cb, c, dev))
                 ok &= check_conv(entry, f"{name} {ca}+{cb}->{c} @{b}x{h}x{w}",
                                  kc.conv_block_fwd_dual, kc.conv_block_fwd_dual_plain, args, 0,
-                                 binding, timed=False)
+                                 binding, timed=timed)
             elif name == "conv_block_bwd":
                 b, h, w, cin, c, need_dx = shape
                 ok &= check_bwd(entry, f"{name} {cin}->{c} @{b}x{h}x{w} need_dx={need_dx}",
@@ -1518,7 +1540,7 @@ def check_shapes(dev, results, binding, census):
                                 lambda *a, n=need_dx: kc.conv_block_bwd_plain(*a, need_dx=n),
                                 saved_block(gen, b, h, w, cin, c, dev),
                                 ("dx", "dw1", "db1", "dw2", "db2", "dw3", "db3"), 0, binding,
-                                need_dx, timed=False)
+                                need_dx, timed=timed)
             elif name == "conv_block_bwd_dual":
                 b, h, w, ca, cb, c = shape
                 g, x, *rest = saved_block(gen, b, h, w, ca + cb, c, dev)
@@ -1527,12 +1549,12 @@ def check_shapes(dev, results, binding, census):
                 ok &= check_bwd(entry, f"{name} {ca}+{cb}->{c} @{b}x{h}x{w}",
                                 kc.conv_block_bwd_dual, kc.conv_block_bwd_dual_plain, args,
                                 ("dxa", "dxb", "dw1", "db1", "dw2", "db2", "dw3", "db3"), 0,
-                                binding, True, timed=False)
+                                binding, True, timed=timed)
                 del g, rest, args
             else:
                 b, h, w, c, s, n_mid, masking = shape
-                ok &= check_mc(entry, "experiments", wl.mc_inputs(gen, b, h, w, c, s, n_mid, dev),
-                               masking, binding, 0, timed=False)
+                ok &= check_mc(entry, "census", wl.mc_inputs(gen, b, h, w, c, s, n_mid, dev),
+                               masking, binding, 0, timed=timed)
     torch.cuda.synchronize()
     return ok, len(todo)
 
@@ -1787,6 +1809,354 @@ def phase_experiments(dev, results, binding):
     return ok
 
 
+# The mitoem phase: the MitoEM suite's CLIs (pda_torch/experiments/mitoem_*) on
+# a synthetic MitoEM tree (synthetic.write_mitoem_tree) at the flagship's
+# width on the card: MitoEM slices cut from 4096^2 to 1024^2, 4 train and 2
+# validation slices a sample; VNC at its 1024^2, 3 slices a stack (of 20);
+# Lucchi++ at its 768x1024, 4 Test and 2 Train slices (of 165); UroCell 3
+# volumes of 3 slices at 512^2 (its 256^2 is below the CLIs' 512^2 patch);
+# --iterations 2 for the source PUNet, 1 for the rest; AdaMT and AdaMatch train
+# one target each (--type urocell, --type vnc), Mean Teacher and FixMatch all
+# three.
+MITO_SHAPES = {"mitoem": (1024, 1024), "vnc": (1024, 1024), "lucchi": (768, 1024),
+               "urocell": (512, 512)}
+MITO_MC = 8  # punet_prediction's prior samples in the MitoEM CLIs (pda's default)
+H5_DTYPES = ("uint8", "uint16", "int32", "float32", "float64")
+
+
+def h5_roundtrip(folder):
+    """The port's HDF5 writer and reader, each dtype bit for bit (every
+    float bit pattern included), whole and one slice at a time, through a
+    nested group."""
+    import numpy as np
+
+    from pda_torch.data import h5
+
+    rng = np.random.default_rng(SEED)
+    same = {}
+    path = os.path.join(folder, "roundtrip.h5")
+    arrays = {}
+    with h5.Writer(path) as f:
+        for name in H5_DTYPES:
+            dt = np.dtype(name)
+            bits = rng.integers(0, 2**(8 * dt.itemsize) - 1, size=(70, 37, 53), dtype=np.uint64)
+            arrays[name] = a = bits.astype(f"u{dt.itemsize}").view(dt)
+            f.create_dataset(f"whole/{name}", data=a)
+            d = f.create_dataset(f"slices/{name}", shape=a.shape, dtype=a.dtype,
+                                 chunks=(1, 37, 53))
+            for i in range(len(a)):
+                d[i] = a[i]
+    with h5.File(path) as f:
+        for name, a in arrays.items():
+            same[name] = all(f[f"{k}/{name}"][...].tobytes() == a.tobytes()
+                             and f[f"{k}/{name}"][3:60:7, 5:].tobytes() == a[3:60:7, 5:].tobytes()
+                             for k in ("whole", "slices"))
+    return same
+
+
+def converted_volumes(data):
+    """Every converted volume against the slices it came from, read back
+    through the port's HDF5 reader: {file: bit-equal}."""
+    import numpy as np
+
+    from pda_torch.data import h5
+    from pda_torch.data.builders.em import _connected_components
+    from pda_torch.data.builders.prepare import _files, _find_slice_dirs, read_nifti
+    from pda_torch.data.tiff import read_image
+
+    def stack(files):
+        return np.stack([read_image(f) for f in files])
+
+    want = {}
+    for sample in ("human", "rat"):
+        im, tr, va = _find_slice_dirs(os.path.join(data, "mitoem", f"{sample}_raw"))
+        raw, seg_tr, seg_va = stack(_files(im)), stack(_files(tr)), stack(_files(va))
+        want[f"mitoem/{sample}_train.h5"] = {"raw": raw[:len(seg_tr)], "labels": seg_tr}
+        want[f"mitoem/{sample}_val.h5"] = {"raw": raw[len(seg_tr):], "labels": seg_va}
+    vnc = os.path.join(data, "vnc", "groundtruth-drosophila-vnc-master")
+    want["vnc/vnc_train.h5"] = {
+        "raw": stack(sorted(glob(os.path.join(vnc, "stack1", "raw", "*.tif")))),
+        "labels/mitochondria": _connected_components(
+            stack(sorted(glob(os.path.join(vnc, "stack1", "mitochondria", "*.png")))))}
+    want["vnc/vnc_test.h5"] = {"raw": stack(sorted(glob(os.path.join(vnc, "stack2", "raw",
+                                                                    "*.tif"))))}
+    luc = os.path.join(data, "lucchi", "Lucchi++")
+    for part, name in (("Test", "lucchi_train.h5"), ("Train", "lucchi_test.h5")):
+        masks = stack(sorted(glob(os.path.join(luc, f"{part}_Out", "*.png"))))
+        masks = masks[..., 0] if masks.ndim == 4 else masks
+        want[f"lucchi/{name}"] = {"raw": stack(sorted(glob(os.path.join(luc, f"{part}_In",
+                                                                        "*.png")))),
+                                  "labels": (masks == 255).astype(np.uint8)}
+    uro = os.path.join(data, "urocell", "UroCell-master")
+    for f in sorted(glob(os.path.join(uro, "data", "*.nii.gz"))):
+        name = os.path.basename(f).replace(".nii.gz", "")
+        want[f"urocell/{name}.h5"] = {"raw": read_nifti(f), "labels/mito": read_nifti(
+            os.path.join(uro, "mito", os.path.basename(f)))}
+    same = {}
+    for rel, datasets in want.items():
+        with h5.File(os.path.join(data, rel)) as f:
+            same[rel] = all(f[k][...].dtype == v.dtype and np.array_equal(f[k][...], v)
+                            for k, v in datasets.items())
+    return same
+
+
+def phase_mitoem(dev, results, binding):
+    """The MitoEM experiment CLIs on the card, through their main(argv), on
+    a synthetic MitoEM tree read and converted by the port's codecs."""
+    import gc
+    import shutil
+    import urllib.request
+
+    import numpy as np
+    import torch
+
+    from pda_torch.data import tiff
+    from pda_torch.data.synthetic import write_mitoem_tree
+    from pda_torch.experiments import (mitoem_adamatch, mitoem_adamt, mitoem_common, mitoem_da,
+                                       mitoem_fm, mitoem_mt, mitoem_prepare_data, mitoem_punet,
+                                       mitoem_unet)
+    from pda_torch.infer import tiled_punet_probs
+    from pda_torch.infer.tiling import grid_shape
+    from pda_torch.train import checkpoint_dir, engine, load_params
+
+    wrappers = kernel_wrappers()
+    ok = True
+    trainers, dice, cli_s, census = [], [], {}, set()
+    disk = {"peak": 0}
+    fit = engine.Trainer.fit
+
+    def recording_fit(self, iterations, **kw):
+        t0 = time.perf_counter()
+        self.initialize()
+        init_s = time.perf_counter() - t0
+        out = fit(self, iterations, **kw)
+        trainers.append((type(self).__name__, self.name, init_s, time.perf_counter() - t0,
+                         dict(self.timings)))
+        return out
+
+    def recording_dice(run):
+        def dice_evaluation(*a, **k):
+            value = run(*a, **k)
+            dice.append(value)
+            return value
+        return dice_evaluation
+
+    def refuse(url, path):
+        raise OSError(f"chip_smoke fetches nothing ({url})")
+
+    dice_modules = (mitoem_punet, mitoem_da, mitoem_unet)
+    saved_dice = [m.run_dice_evaluation for m in dice_modules]
+    saved_fetch = urllib.request.urlretrieve
+
+    def check(label, good, detail=""):
+        nonlocal ok
+        log(f"mitoem {label}: {detail}{' ' if detail else ''}{'ok' if good else 'FAIL'}")
+        ok &= bool(good)
+
+    types = mitoem_common.EM_TYPES
+    with tempfile.TemporaryDirectory() as root:
+        data, pred, save = (os.path.join(root, d) for d in ("data", "pred", "save"))
+        same = h5_roundtrip(root)
+        check("HDF5 codec round trip", all(same.values()), f"bit-equal {same}")
+        t0 = time.perf_counter()
+        folders = write_mitoem_tree(data, SEED, shapes=MITO_SHAPES)
+        log(f"mitoem synthetic MitoEM tree: {sorted(folders)}, shapes {MITO_SHAPES}, "
+            f"{tree_bytes(data) / 2**20:.1f} MiB, {time.perf_counter() - t0:.1f} s")
+        common = ["--data", data, "--pred_path", pred, "--save_root", save]
+
+        def run(module, flags, iterations=None):
+            paths = ["--data", data] if module is mitoem_prepare_data else common
+            argv = flags + paths + ([] if iterations is None else
+                                    ["--iterations", str(iterations)])
+            name = module.__name__.rsplit(".", 1)[-1]
+            n_trainers = len(trainers)
+            t0 = time.perf_counter()
+            module.main(argv, device=dev.type)
+            torch.cuda.synchronize()
+            label = " ".join([name, *flags])
+            cli_s[label] = time.perf_counter() - t0
+            disk["peak"] = max(disk["peak"], tree_bytes(root))
+            log(f"mitoem {label}: {time.perf_counter() - t0:.1f} s, "
+                f"{len(trainers) - n_trainers} trainers, disk {tree_bytes(root) / 2**30:.2f} GiB")
+
+        def ckpt_dirs(names):
+            dirs = [checkpoint_dir(n, save) for n in names]
+            good = all(os.path.isdir(d) and sorted(os.listdir(d)) == ["best.pt", "latest.pt"]
+                       for d in dirs)
+            return dirs, good
+
+        def drop(dirs):
+            for d in dirs:
+                shutil.rmtree(d, ignore_errors=True)
+
+        def probability_maps(folder, em_type):
+            """One float32 map in [0, 1] per target frame, of the frame's shape."""
+            frames = sorted(glob(mitoem_common.em_input_glob(data, em_type)))
+            names = sorted(os.listdir(folder)) if os.path.isdir(folder) else []
+            good = len(names) == len(frames) > 0
+            shape = tuple(MITO_SHAPES[em_type])
+            for n in names:
+                p = tiff.imread(os.path.join(folder, n))
+                good &= (p.dtype == np.float32 and p.shape == shape and bool(np.isfinite(p).all())
+                         and float(p.min()) >= 0.0 and float(p.max()) <= 1.0)
+            return good
+
+        def da_checks(method, flags, targets):
+            masking, consensus = "--masking" in flags, "--consensus" in flags
+            suffix = mitoem_da._suffix(argparse.Namespace(consensus=consensus, masking=masking))
+            dirs, good = ckpt_dirs([mitoem_da.da_name(method, "mito", "mitoem", t, consensus,
+                                                      masking) for t in targets])
+            good &= all(probability_maps(os.path.join(
+                pred, mitoem_da.PRED_SUBDIR[method], f"source-mitoem-target-{t}{suffix}"), t)
+                for t in targets)
+            return dirs, good
+
+        census_on = contextlib.ExitStack()
+        try:
+            census_on.enter_context(kernel_shapes(census))
+            engine.Trainer.fit = recording_fit
+            urllib.request.urlretrieve = refuse
+            for m in dice_modules:
+                m.run_dice_evaluation = recording_dice(m.run_dice_evaluation)
+            gc.collect()
+            torch.cuda.synchronize()
+            mem0 = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            reset_launches(wrappers)
+
+            # 1. the volumes and the UroCell evaluation slices
+            run(mitoem_prepare_data, [])
+            same = converted_volumes(data)
+            check("mitoem_prepare_data volumes against their slices", all(same.values()),
+                  f"{len(same)} files bit-equal {all(same.values())}")
+            uro_slices = glob(os.path.join(data, "urocell", "preprocessed", "*.tif"))
+            check("mitoem_prepare_data UroCell slices", len(uro_slices) == 2 * 3,
+                  f"{len(uro_slices)} image/gt TIFFs")
+
+            # 2. the source PUNet, its predictions on the three targets
+            run(mitoem_punet, ["--train", "--predict", "--evaluate"], 2)
+            src_dirs, good = ckpt_dirs(["punet-source-mitoem"])
+            good &= all(probability_maps(os.path.join(pred, "punet_predictions", t), t)
+                        for t in types)
+            check("mitoem_punet checkpoint and predictions", good, f"{len(dice)} dice values")
+            kept_state = load_params(src_dirs[0])  # on the host, for the check below
+            first_frame = sorted(glob(mitoem_common.em_input_glob(data, "vnc")))[0]
+            first_pred = os.path.join(pred, "punet_predictions", "vnc",
+                                      os.path.splitext(os.path.basename(first_frame))[0] + ".tif")
+            first_bytes = tiff.imread(first_pred).tobytes()
+
+            # 3. the domain-adaptation methods: Mean Teacher and FixMatch on
+            # the three targets, AdaMT and AdaMatch on one each (--type)
+            for module, method, flags, targets in (
+                    (mitoem_mt, "mean-teacher", ["--masking"], types),
+                    (mitoem_fm, "fixmatch", ["--consensus"], types),
+                    (mitoem_adamt, "adamt", ["--type", "urocell"], ["urocell"]),
+                    (mitoem_adamatch, "adamatch", ["--type", "vnc", "--consensus", "--masking"],
+                     ["vnc"])):
+                run(module, ["--train", "--predict", "--evaluate"] + flags, 1)
+                dirs, good = da_checks(method, flags, targets)
+                check(f"{module.__name__.rsplit('.', 1)[-1]} checkpoints and predictions", good)
+                drop(dirs)
+            drop(src_dirs)
+
+            # 4. the UNet source model
+            run(mitoem_unet, ["--train", "--predict", "--evaluate"], 1)
+            dirs, good = ckpt_dirs(["unet-source-mitoem"])
+            good &= all(probability_maps(os.path.join(pred, "unet_predictions", t), t)
+                        for t in types)
+            check("mitoem_unet checkpoint and predictions", good)
+            drop(dirs)
+            counts = counted_launches(wrappers, results)  # the main path's run
+            check("kernel launches", all(n > 0 for n in counts.values()), f"{counts}")
+            check("dice", len(dice) == 4 * 3 + 2 and all(math.isfinite(d) and 0.0 <= d <= 1.0
+                                                         for d in dice),
+                  f"{[round(d, 4) for d in dice]}")
+            peak_mem = torch.cuda.max_memory_allocated()
+        finally:
+            census_on.close()
+            engine.Trainer.fit = fit
+            urllib.request.urlretrieve = saved_fetch
+            for m, f in zip(dice_modules, saved_dice):
+                m.run_dice_evaluation = f
+
+        gc.collect()
+        torch.cuda.synchronize()
+        mem1 = torch.cuda.memory_allocated()
+        check("card memory after the last trainer",
+              mem1 - mem0 <= EXP_MEMORY_SLACK,
+              f"{mem0 / 2**20:.1f} MiB before the first, {mem1 / 2**20:.1f} MiB after the last "
+              f"(slack {EXP_MEMORY_SLACK / 2**20:.0f} MiB); peak {peak_mem / 2**30:.2f} GiB")
+        log(f"mitoem peak disk {disk['peak'] / 2**30:.2f} GiB")
+
+        # the dice runner's known answers on each target's ground truth (its
+        # name remap included): the ground truth against itself scores 1;
+        # with its left half cleared (written 0.25 / 0.75, the runner's
+        # threshold deciding), numpy's 2|A and B| / (|A| + |B|)
+        for case in ("own", "half"):
+            want, got = [], []
+            for t in types:
+                folder = os.path.join(root, "known", case, t)
+                os.makedirs(folder)
+                scores = []
+                for p in sorted(glob(mitoem_common.em_gt_glob(data, t))):
+                    a = tiff.read_image(p) > 0
+                    a = a[:, :, 0] if a.ndim > 2 else a
+                    b = a.copy()
+                    if case == "half":
+                        b[:, : b.shape[1] // 2] = False
+                    tiff.imwrite(os.path.join(folder, em_prediction_name(p, t)),
+                                 (0.25 + 0.5 * b).astype(np.float32))
+                    scores.append(2.0 * np.sum(a & b) / (np.sum(a) + np.sum(b)))
+                want.append(float(np.mean(scores)))
+                got.append(mitoem_punet.run_dice_evaluation(
+                    mitoem_common.em_gt_glob(data, t), folder, subtype=t, verbose=False))
+            good = (0.0 < min(want) and (case == "half" or max(want) == 1.0)
+                    and all(abs(g - w) <= DICE_TOL for g, w in zip(got, want)))
+            check(f"dice runner's known answer ({case}, {'/'.join(types)})", good,
+                  f"{[round(g, 6) for g in got]} against {[round(w, 6) for w in want]}")
+
+        # every shape the CLIs gave a kernel, held against its plain version
+        t0 = time.perf_counter()
+        good, n = check_shapes(dev, results, binding, census, timed=True)
+        check("the CLIs' kernel shapes against the plain versions", good,
+              f"{len(census)} (kernel, shape) pairs, {len(census) - n} checked before, "
+              f"{n} here in {time.perf_counter() - t0:.1f} s")
+
+        # the first mitoem_punet --predict file (a VNC frame) against
+        # tiled_punet_probs of the same weights, frame and noise (the first
+        # draw of punet_prediction's seed-0 generator, MC-8)
+        model = mitoem_punet.mitoem_punet(device=dev)
+        model.load_state_dict(kept_state)
+        img = torch.from_numpy(tiff.read_image(first_frame).astype(np.float32)[..., None]).to(dev)
+        gy, gx = grid_shape(img.shape[:2], BLOCK)
+        eps = torch.randn((MITO_MC, gy * gx, model.latent_dim),
+                          generator=torch.Generator().manual_seed(0))
+        ref = tiled_punet_probs(model, img, eps.to(dev), MITO_MC, BLOCK, HALO)[..., 0]
+        ref = ref.cpu().numpy()
+        check("the first mitoem_punet --predict file against tiled_punet_probs",
+              ref.tobytes() == first_bytes, f"{os.path.basename(first_pred)}: bit-equal "
+              f"{ref.tobytes() == first_bytes}")
+        del model, img
+        log("mitoem seconds by CLI: " + "; ".join(f"{k} {v:.1f}" for k, v in cli_s.items()))
+        for cls, name, init_s, fit_s, timings in trainers:
+            host = ", ".join(f"{k} {v:.3f}" for k, v in sorted(timings.items(),
+                                                               key=lambda kv: -kv[1]))
+            log(f"mitoem trainer {cls} {name}: set-up (loader start, model, warm start) "
+                f"{init_s:.2f} s, fit {fit_s:.2f} s; host seconds by part: {host}")
+    return ok
+
+
+def em_prediction_name(gt_path, subtype):
+    """The prediction file the dice runner reads for a ground-truth file
+    (its lucchi and urocell name remaps)."""
+    name = os.path.basename(gt_path)
+    if subtype == "lucchi":
+        return f"mask{int(name[:-4]):04}.tif"
+    if subtype == "urocell":
+        name = name.replace("_gt", "_image")
+    return f"{name[:-4]}.tif"
+
+
 def main() -> int:
     try:
         import torch
@@ -1860,6 +2230,8 @@ def main() -> int:
         lap("engine")
         ok &= phase_experiments(dev, results, binding)
         lap("experiments")
+        ok &= phase_mitoem(dev, results, binding)
+        lap("mitoem")
     except Exception:  # any phase's error fails the run, with its traceback
         traceback.print_exc()
         ok = False
@@ -1878,8 +2250,8 @@ def main() -> int:
         "call computes it); mc_consensus: the tiled forward's call; launches: the main "
         "paths' runs, each counted from 0: both serving entries, the checked MT step, the "
         "other PUNet steps and the UNet2d path at the flagship's widths, the flagship's "
-        "MeanTeacherTrainer.fit, and the experiments phase's LIVECell CLIs (the checks' runs "
-        "are logged on their own lines only)")
+        "MeanTeacherTrainer.fit, the experiments phase's LIVECell CLIs and the mitoem phase's "
+        "MitoEM CLIs (the checks' runs are logged on their own lines only)")
     print(json.dumps({"kernels": list(results.values())}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -1,15 +1,19 @@
-"""Data pipelines (port of ``pda.data``): numpy transforms, 2D patch
-datasets, the loader, synthetic data, a TIFF codec (:mod:`.tiff`) and the
-LIVECell builder (:mod:`.builders`). numpy only: the trainer moves batches
-to the card. ``pda``'s HDF5 volume datasets, native augmentation library
-and its EM and Lung builders are not ported yet (ROADMAP §1)."""
+"""Data pipelines (port of ``pda.data``): numpy transforms, the 2D patch
+datasets and the HDF5 volume datasets, the loader, synthetic data, the
+file codecs the card machine needs (:mod:`.tiff`, :mod:`.png`, :mod:`.h5`)
+and the LIVECell and EM builders (:mod:`.builders`). numpy only: the
+trainer moves batches to the card. ``pda``'s native augmentation library and
+its Lung builder are not ported yet (ROADMAP §1)."""
 
 from .datasets import (
     ConcatDataset,
     DualImageCollectionDataset,
     DualRawImageCollectionDataset,
+    DualSegmentationDataset,
     ImageCollectionDataset,
+    LazyH5Volume,
     MinForegroundSampler,
+    SegmentationDataset,
     load_image,
 )
 from .loader import Loader, get_data_loader
@@ -35,6 +39,9 @@ __all__ = [
     "ImageCollectionDataset",
     "DualImageCollectionDataset",
     "DualRawImageCollectionDataset",
+    "SegmentationDataset",
+    "DualSegmentationDataset",
+    "LazyH5Volume",
     "ConcatDataset",
     "MinForegroundSampler",
     "load_image",

@@ -1,8 +1,14 @@
-"""Dataset builders (port of ``pda/data/builders``): LIVECell (COCO).
+"""Dataset builders (port of ``pda/data/builders``): LIVECell (COCO) and
+the EM volumes (MitoEM, VNC, Lucchi++, UroCell).
 
-The EM volume builders (MitoEM, VNC, Lucchi, UroCell) and the Lung X-Ray
-folders are still to come (ROADMAP §1)."""
+The Lung X-Ray folders are still to come (ROADMAP §1)."""
 
+from .em import (
+    get_lucchi_loader,
+    get_mitoem_loader,
+    get_uro_cell_loader,
+    get_vnc_mito_loader,
+)
 from .livecell import (
     CELL_TYPES,
     compute_class_distribution,
@@ -17,4 +23,8 @@ __all__ = [
     "get_my_livecell_loader",
     "get_dual_livecell_loader",
     "compute_class_distribution",
+    "get_mitoem_loader",
+    "get_vnc_mito_loader",
+    "get_lucchi_loader",
+    "get_uro_cell_loader",
 ]

@@ -1,9 +1,10 @@
-"""2D patch datasets held in memory or read from image files (port of
-``pda/data/datasets.py``, its 2D part):
+"""Patch datasets held in memory, read from image files or from HDF5
+volumes (port of ``pda/data/datasets.py``):
 
   ImageCollectionDataset        -> (x, y) or (x, y, consensus)
   DualImageCollectionDataset    -> (x, aug1(x), aug2(x), y)
   DualRawImageCollectionDataset -> (x, aug1(x), aug2(x), dummy_y)   (unlabeled)
+  SegmentationDataset (+Dual)   -> 2D crops of HDF5 volumes (slices of 3D)
   ConcatDataset                 -> the samples of several datasets in turn
 
 Samples are channel-last ``(H, W, C)`` float32 numpy arrays, so a batch
@@ -11,18 +12,22 @@ stacks to NHWC; the trainer moves it to the card. Randomness is an explicit
 ``numpy.random.Generator`` handed in per sample (``sample(index, rng)``), so
 a loader with workers stays deterministic. The rejection loop (at most 500
 attempts) crops every array of a sample, the consensus mask included. Images
-are numpy arrays or file paths (a TIFF read by the port's codec,
-:mod:`.tiff`; any other file by imageio, imported on first use).
+are numpy arrays or file paths (a TIFF or PNG read by the port's codecs,
+:mod:`.tiff` and :mod:`.png`; any other file by imageio, imported on first
+use). Volumes are numpy arrays or HDF5 files read by :mod:`.h5`: one larger
+than ``EAGER_LIMIT_BYTES`` is read a window at a time (:class:`LazyH5Volume`).
 """
 
 from __future__ import annotations
 
 import os
+import threading
 from collections import OrderedDict
 from typing import Callable, Optional, Sequence, Tuple, Union
 
 import numpy as np
 
+from . import h5
 from .tiff import read_image
 from .transforms import get_augmentations, standardize
 
@@ -285,6 +290,149 @@ class DualRawImageCollectionDataset(_PatchDatasetBase):
             raw = self.raw_transform(raw)
         dummy = (raw > 0).astype(np.float32)
         return _ensure_hwc(raw), _ensure_hwc(raw1), _ensure_hwc(raw2), _ensure_hwc(dummy)
+
+
+class LazyH5Volume:
+    """A window-at-a-time view of one HDF5 dataset, ``roi`` selecting a
+    range of its first axis: nothing is read until it is indexed, and then
+    only the chunks the window needs. One file handle, opened on first use,
+    serves every thread of a process (reads are positional); a pickled copy
+    opens its own, so the view travels to loader worker processes."""
+
+    def __init__(self, path: str, key: str, roi: Optional[slice] = None):
+        self.path, self.key = path, key
+        self._file, self._lock = None, threading.Lock()
+        d = self._dataset()
+        shape, self.dtype = d.shape, d.dtype.newbyteorder("=")
+        self._start, self._stop, self._step = (
+            roi.indices(shape[0]) if roi is not None else (0, shape[0], 1))
+        if self._step <= 0:
+            raise ValueError(f"roi step must be positive, got {roi}")
+        n0 = max(0, -(-(self._stop - self._start) // self._step))
+        self.shape = (n0, *shape[1:])
+        self.ndim = len(self.shape)
+
+    def _dataset(self):
+        with self._lock:
+            if self._file is None:
+                self._file = h5.File(self.path)
+            return self._file[self.key]
+
+    def __getitem__(self, index):
+        if not isinstance(index, tuple):
+            index = (index,)
+        first = index[0]
+        if isinstance(first, (int, np.integer)):
+            i = int(first) + self.shape[0] if first < 0 else int(first)
+            if not 0 <= i < self.shape[0]:
+                raise IndexError(f"index {int(first)} out of range for ROI axis of "
+                                 f"length {self.shape[0]}")
+            first = self._start + i * self._step
+        elif isinstance(first, slice):
+            if first.step is not None and first.step < 0:
+                raise IndexError("negative-step slices are not supported on the lazy ROI "
+                                 "axis; read the window and reverse on the host")
+            lo, hi, st = first.indices(self.shape[0])
+            first = slice(self._start + lo * self._step, self._start + hi * self._step,
+                          st * self._step)
+        return self._dataset()[(first,) + index[1:]]
+
+    def __getstate__(self):
+        state = self.__dict__.copy()
+        state["_file"] = state["_lock"] = None
+        return state
+
+    def __setstate__(self, state):
+        self.__dict__.update(state)
+        self._lock = threading.Lock()
+
+
+class SegmentationDataset(_PatchDatasetBase):
+    """2D random crops of HDF5 volumes (a 3D volume's slices, or one 2D
+    image); ``roi`` restricts the slices along axis 0."""
+
+    #: volumes larger than this (bytes) are read a window at a time
+    EAGER_LIMIT_BYTES = 512 * 1024 * 1024
+
+    def __init__(self, raw_path: Union[str, np.ndarray], label_path: Union[str, np.ndarray, None],
+                 *, raw_key: str = "raw", label_key: str = "labels",
+                 patch_shape: Tuple[int, int], roi: Optional[slice] = None,
+                 raw_transform: Optional[Callable] = standardize,
+                 label_transform: Optional[Callable] = None,
+                 label_transform2: Optional[Callable] = None,
+                 transform: Optional[Callable] = None, n_samples: Optional[int] = None,
+                 sampler: Optional[Callable] = None, seed: int = 0, lazy: Optional[bool] = None):
+        self.raw = self._open(raw_path, raw_key, roi, lazy)
+        self.labels = (self._open(label_path, label_key, roi, lazy)
+                       if label_path is not None else None)
+        n_slices = self.raw.shape[0] if self.raw.ndim == 3 else 1
+        super().__init__(patch_shape, n_samples=n_samples, n_images=n_slices, sampler=sampler,
+                         seed=seed)
+        self.raw_transform = raw_transform
+        self.label_transform = label_transform
+        self.label_transform2 = label_transform2
+        self.transform = transform if transform is not None else get_augmentations(2)
+
+    @classmethod
+    def _open(cls, path, key, roi=None, lazy=None):
+        if isinstance(path, np.ndarray):
+            return path if roi is None else path[roi]
+        with h5.File(path) as f:
+            dset = f[key]
+            if lazy is None:
+                lazy = dset.size * dset.dtype.itemsize > cls.EAGER_LIMIT_BYTES
+            if not lazy:
+                data = dset[...]
+                return data if roi is None else data[roi]
+        return LazyH5Volume(path, key, roi=roi)
+
+    def _slice(self, index: int, rng):
+        if self.raw.ndim != 3:
+            return self.raw, self.labels
+        if self.sample_random_index:
+            index = int(rng.integers(0, self.raw.shape[0]))
+        index %= self.raw.shape[0]
+        return self.raw[index], None if self.labels is None else self.labels[index]
+
+    def _crop(self, index, rng):
+        """The cropped raw (float32) and labels, the joint augmentation and
+        both label transforms applied."""
+        raw_full, label_full = self._slice(index, rng)
+        arrays = [raw_full] if label_full is None else [raw_full, label_full]
+        patches = self._crop_with_rejection(arrays, rng)
+        raw = patches[0].astype(np.float32)
+        labels = patches[1] if len(patches) > 1 else np.zeros_like(raw)
+        if self.label_transform is not None:
+            labels = self.label_transform(labels)
+        labels = np.asarray(labels, dtype=np.float32)
+        if self.transform is not None:
+            raw, labels = self.transform([raw, labels], rng)
+        return raw, self._apply_label_transform2(labels)
+
+    def sample(self, index: int, rng: np.random.Generator):
+        raw, labels = self._crop(index, rng)
+        if self.raw_transform is not None:
+            raw = self.raw_transform(raw)
+        return _ensure_hwc(raw), _ensure_hwc(labels)
+
+
+class DualSegmentationDataset(SegmentationDataset):
+    """Two-view crops of HDF5 volumes: (x, aug1(x), aug2(x), y); without
+    augmentations a plain (x, y)."""
+
+    def __init__(self, *args, augmentation1=None, augmentation2=None, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.augmentation1 = augmentation1
+        self.augmentation2 = augmentation2
+
+    def sample(self, index: int, rng: np.random.Generator):
+        if self.augmentation1 is None and self.augmentation2 is None:
+            return super().sample(index, rng)
+        raw, labels = self._crop(index, rng)
+        raw1, raw2 = _two_views(raw, self.augmentation1, self.augmentation2, rng)
+        if self.raw_transform is not None:
+            raw = self.raw_transform(raw)
+        return _ensure_hwc(raw), _ensure_hwc(raw1), _ensure_hwc(raw2), _ensure_hwc(labels)
 
 
 class ConcatDataset(_PatchDatasetBase):

@@ -8,8 +8,12 @@ can run end-to-end without any dataset download.
 
 from __future__ import annotations
 
+import gzip
 import json
 import os
+import struct
+import tempfile
+import zipfile
 from typing import Optional, Tuple
 
 import numpy as np
@@ -141,3 +145,119 @@ def write_livecell_tree(path: str, cell_types=("A172", "BT474"), *,
             json.dump({"images": images, "annotations": anns,
                        "categories": [{"id": 1, "name": "cell"}]}, f)
     return written
+
+
+# The MitoEM suite's layout (pda_torch/data/builders/{em,prepare}.py): the
+# source samples as extracted slice folders, the VNC and Lucchi++ archives as
+# the zips their builders unzip (a zip in place is never fetched), UroCell as
+# its extracted github tree of NIfTI volumes.
+MITOEM_SHAPES = {"mitoem": (512, 512), "vnc": (512, 512), "lucchi": (512, 512),
+                 "urocell": (512, 512)}
+
+
+def _blob_stack(rng, n, shape, n_blobs):
+    """``n`` uint8 frames and their instance labels (connected blobs)."""
+    from scipy import ndimage
+
+    raws, labels = [], []
+    for _ in range(n):
+        raw, mask = make_blob_image(shape, n_blobs=n_blobs, rng=rng)
+        raws.append(np.clip(raw * 96 + 48, 0, 255).astype(np.uint8))
+        labels.append(ndimage.label(mask > 0)[0].astype(np.uint16))
+    return raws, labels
+
+
+def write_nifti(path: str, volume: np.ndarray) -> None:
+    """A gzipped NIfTI-1 file of a (z, y, x) uint8 volume (x fastest on disk)."""
+    vol = np.ascontiguousarray(volume, dtype=np.uint8)
+    header = bytearray(352)
+    struct.pack_into("<i", header, 0, 348)
+    struct.pack_into("<8h", header, 40, 3, vol.shape[2], vol.shape[1], vol.shape[0], 1, 1, 1, 1)
+    struct.pack_into("<hh", header, 70, 2, 8)  # datatype uint8, 8 bits
+    struct.pack_into("<f", header, 108, 352.0)
+    header[344:348] = b"n+1\0"
+    with gzip.open(path, "wb") as f:
+        f.write(bytes(header) + vol.tobytes())
+
+
+def _zip_tree(src: str, zip_path: str) -> None:
+    with zipfile.ZipFile(zip_path, "w", zipfile.ZIP_STORED) as z:
+        for d, _, files in os.walk(src):
+            for name in sorted(files):
+                full = os.path.join(d, name)
+                z.write(full, os.path.relpath(full, os.path.dirname(src)))
+
+
+def write_mitoem_tree(path: str, seed: int = 0, *, shapes: Optional[dict] = None,
+                      mitoem_slices=(4, 2), vnc_slices=(3, 3), lucchi_slices=(4, 2),
+                      urocell_volumes: int = 3, urocell_depth: int = 3,
+                      n_blobs: int = 40) -> dict:
+    """A synthetic MitoEM-suite data tree at ``path``, from ``seed``:
+
+      mitoem/{human,rat}_raw/{im,mito-train-v2,mito-val-v2}/  raw PNG slices
+          (``mitoem_slices`` train + val of them) and uint16 instance TIFFs
+      vnc/vnc.zip         stack1/raw/*.tif, stack1/mitochondria/*.png
+                          (0/255), stack2/raw/*.tif (``vnc_slices``)
+      lucchi/lucchi.zip   Lucchi++/{Test,Train}_{In,Out}/*.png: gray raw
+                          ``maskNNNN.png``, masks ``N.png`` (Test_Out RGB,
+                          Train_Out gray, 0/255)
+      urocell/UroCell-master/{data,mito}/fib1-*.nii.gz  uint8 volumes
+
+    blob frames of ``shapes[name]`` (default 512x512, one 512^2 patch each),
+    whose foreground is well above the samplers' 5% (1% for UroCell).
+    Returns {dataset: its folder}."""
+    from .png import imwrite as png_write
+    from .tiff import imwrite as tif_write
+
+    shapes = {**MITOEM_SHAPES, **(shapes or {})}
+    rng = np.random.default_rng(seed)
+    out = {}
+    for sample in ("human", "rat"):
+        root = os.path.join(path, "mitoem", f"{sample}_raw")
+        raws, labels = _blob_stack(rng, sum(mitoem_slices), shapes["mitoem"], n_blobs)
+        for k, (raw, lab) in enumerate(zip(raws, labels)):
+            folder = "mito-train-v2" if k < mitoem_slices[0] else "mito-val-v2"
+            for sub, name, write, a in (("im", f"im{k:04}.png", png_write, raw),
+                                        (folder, f"seg{k:04}.tif", tif_write, lab)):
+                os.makedirs(os.path.join(root, sub), exist_ok=True)
+                write(os.path.join(root, sub, name), a)
+    out["mitoem"] = os.path.join(path, "mitoem")
+
+    with tempfile.TemporaryDirectory(dir=path) as tmp:
+        vnc = os.path.join(tmp, "groundtruth-drosophila-vnc-master")
+        for stack, n in (("stack1", vnc_slices[0]), ("stack2", vnc_slices[1])):
+            raws, labels = _blob_stack(rng, n, shapes["vnc"], n_blobs)
+            for k, (raw, lab) in enumerate(zip(raws, labels)):
+                os.makedirs(os.path.join(vnc, stack, "raw"), exist_ok=True)
+                tif_write(os.path.join(vnc, stack, "raw", f"{k:02}.tif"), raw)
+                if stack == "stack1":
+                    os.makedirs(os.path.join(vnc, stack, "mitochondria"), exist_ok=True)
+                    png_write(os.path.join(vnc, stack, "mitochondria", f"{k:02}.png"),
+                              np.where(lab > 0, 255, 0).astype(np.uint8))
+        os.makedirs(os.path.join(path, "vnc"), exist_ok=True)
+        _zip_tree(vnc, os.path.join(path, "vnc", "vnc.zip"))
+
+        lucchi = os.path.join(tmp, "Lucchi++")
+        for part, n in (("Test", lucchi_slices[0]), ("Train", lucchi_slices[1])):
+            raws, labels = _blob_stack(rng, n, shapes["lucchi"], n_blobs)
+            for d in ("In", "Out"):
+                os.makedirs(os.path.join(lucchi, f"{part}_{d}"), exist_ok=True)
+            for k, (raw, lab) in enumerate(zip(raws, labels)):
+                png_write(os.path.join(lucchi, f"{part}_In", f"mask{k:04}.png"), raw)
+                mask = np.where(lab > 0, 255, 0).astype(np.uint8)
+                png_write(os.path.join(lucchi, f"{part}_Out", f"{k}.png"),
+                          np.repeat(mask[..., None], 3, -1) if part == "Test" else mask)
+        os.makedirs(os.path.join(path, "lucchi"), exist_ok=True)
+        _zip_tree(lucchi, os.path.join(path, "lucchi", "lucchi.zip"))
+
+    uro = os.path.join(path, "urocell", "UroCell-master")
+    for sub in ("data", "mito"):
+        os.makedirs(os.path.join(uro, sub), exist_ok=True)
+    for v in range(urocell_volumes):
+        raws, labels = _blob_stack(rng, urocell_depth, shapes["urocell"], n_blobs)
+        write_nifti(os.path.join(uro, "data", f"fib1-{v}-0-0.nii.gz"), np.stack(raws))
+        write_nifti(os.path.join(uro, "mito", f"fib1-{v}-0-0.nii.gz"),
+                    (np.stack(labels) > 0).astype(np.uint8))
+    for name in ("vnc", "lucchi", "urocell"):
+        out[name] = os.path.join(path, name)
+    return out

@@ -14,8 +14,8 @@ nothing beyond numpy.
            its value
 
 :func:`read_image` and :func:`write_image` route by extension: ``.tif`` and
-``.tiff`` to this codec, any other extension to imageio, imported on first
-use.
+``.tiff`` to this codec, ``.png`` to :mod:`.png`, any other extension to
+imageio, imported on first use.
 """
 
 from __future__ import annotations
@@ -24,6 +24,8 @@ import struct
 import zlib
 
 import numpy as np
+
+from . import png
 
 TIFF_EXTS = (".tif", ".tiff")
 
@@ -281,18 +283,25 @@ def imwrite(path: str, array) -> None:
 
 
 def read_image(path: str) -> np.ndarray:
-    """A TIFF through :func:`imread`; any other file through imageio."""
+    """A TIFF through :func:`imread`, a PNG through :func:`.png.imread`; any
+    other file through imageio."""
     if is_tiff(path):
         return imread(path)
+    if png.is_png(path):
+        return png.imread(path)
     import imageio.v3 as imageio
 
     return np.asarray(imageio.imread(path))
 
 
 def write_image(path: str, array) -> None:
-    """A TIFF through :func:`imwrite`; any other file through imageio."""
+    """A TIFF through :func:`imwrite`, a PNG through :func:`.png.imwrite`;
+    any other file through imageio."""
     if is_tiff(path):
         imwrite(path, array)
+        return
+    if png.is_png(path):
+        png.imwrite(path, array)
         return
     import imageio.v3 as imageio
 

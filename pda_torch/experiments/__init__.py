@@ -1,6 +1,6 @@
 """Experiment plumbing (port of ``pda.experiments``): the shared
-configuration (:mod:`.common`) and the LIVECell suite's command lines, each
-run as ``python -m pda_torch.experiments.<name>``:
+configuration (:mod:`.common`) and the LIVECell and MitoEM suites' command
+lines, each run as ``python -m pda_torch.experiments.<name>``:
 
   livecell_prepare_data  images, annotations and label TIFFs
   livecell_punet         supervised PUNet source models
@@ -8,8 +8,15 @@ run as ``python -m pda_torch.experiments.<name>``:
   livecell_unet          supervised UNet2d source models
   livecell_mt, livecell_fm, livecell_adamt, livecell_adamatch
                          the domain-adaptation methods (:mod:`.livecell_da`)
+  mitoem_prepare_data    the VNC, Lucchi++, UroCell and MitoEM volumes
+  mitoem_punet, mitoem_unet
+                         the MitoEM source models, predicted and scored on
+                         vnc, lucchi and urocell
+  mitoem_mt, mitoem_fm, mitoem_adamt, mitoem_adamatch
+                         the domain-adaptation methods (:mod:`.mitoem_da`,
+                         loaders in :mod:`.mitoem_common`)
 
-The MitoEM and Lung X-Ray suites are still to come (ROADMAP §1). The
+The Lung X-Ray suite is still to come (ROADMAP §1). The
 flagship's factory is ``pda_torch.experiments.common.livecell_punet``
 (``pda`` exports it here too): the name ``livecell_punet`` in this package
 is the command-line module.

@@ -59,8 +59,15 @@ def test_port_imports_no_jax():
         "pda_torch.infer, pda_torch.train, pda_torch.eval, pda_torch.tools.profile, "
         "pda_torch.tools.bench_variants, pda_torch.data, pda_torch.data.loader, "
         "pda_torch.train.engine, pda_torch.train.checkpoint, pda_torch.train.logging, "
-        "pda_torch.train.profiling\n"
-        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'pda'))\n"
+        "pda_torch.train.profiling, pda_torch.data.h5, pda_torch.data.png, "
+        "pda_torch.data.builders.em, pda_torch.data.builders.prepare, "
+        "pda_torch.experiments.mitoem_common, pda_torch.experiments.mitoem_da, "
+        "pda_torch.experiments.mitoem_punet, pda_torch.experiments.mitoem_unet, "
+        "pda_torch.experiments.mitoem_mt, pda_torch.experiments.mitoem_fm, "
+        "pda_torch.experiments.mitoem_adamt, pda_torch.experiments.mitoem_adamatch, "
+        "pda_torch.experiments.mitoem_prepare_data, pda_torch.experiments.livecell_da\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('jax', 'flax', 'pda', 'h5py', 'imageio'))\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
     )

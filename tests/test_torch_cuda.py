@@ -568,3 +568,53 @@ def test_tiff_codec_and_punet_prediction_through_files_on_card(dev, tmp_path):
     ref = tiled_punet_probs(model, img, eps.to(dev), 16, (96, 96), (16, 16))[..., 0]
     out = tiff.imread(str(tmp_path / "out" / "A172_a.tif"))
     assert out.dtype == np.float32 and out.tobytes() == ref.cpu().numpy().tobytes()
+
+
+def test_png_punet_prediction_and_h5_volume_on_card(dev, tmp_path):
+    """The MitoEM path's files on the card machine (no h5py, imageio or
+    cv2 there): punet_prediction of a PNG frame equals tiled_punet_probs of
+    the decoded array, bit for bit; a volume written by the port's HDF5
+    writer one slice at a time reads back bit for bit and feeds a
+    SegmentationDataset whose samples equal those of the same array."""
+    from pda_torch.data import SegmentationDataset, h5, png
+    from pda_torch.infer import punet_prediction, tiled_punet_probs
+    from pda_torch.infer.tiling import grid_shape
+    from pda_torch.models import ProbabilisticUnet
+
+    rng = np.random.default_rng(1)
+    model = ProbabilisticUnet(num_filters=(16, 32, 48, 64), latent_dim=6, no_convs_fcomb=3,
+                              beta=1.0, rl_swap=True).to(dev)
+    frame = (rng.random((210, 250)) * 255).astype(np.uint8)
+    (tmp_path / "in").mkdir()
+    png.imwrite(str(tmp_path / "in" / "mask0000.png"), frame)
+    assert png.imread(str(tmp_path / "in" / "mask0000.png")).tobytes() == frame.tobytes()
+    punet_prediction(str(tmp_path / "in" / "*"), str(tmp_path / "out"), model,
+                     block_shape=(96, 96), halo=(16, 16), verbose=False)
+    img = torch.from_numpy(frame.astype(np.float32)[..., None]).to(dev)
+    gy, gx = grid_shape(img.shape[:2], (96, 96))
+    eps = torch.randn((8, gy * gx, 6), generator=torch.Generator().manual_seed(0))
+    ref = tiled_punet_probs(model, img, eps.to(dev), 8, (96, 96), (16, 16))[..., 0]
+    from pda_torch.data import tiff
+
+    out = tiff.imread(str(tmp_path / "out" / "mask0000.tif"))
+    assert out.dtype == np.float32 and out.tobytes() == ref.cpu().numpy().tobytes()
+
+    vol = (rng.random((5, 70, 90)) * 255).astype(np.uint8)
+    labels = (rng.random((5, 70, 90)) < 0.3).astype(np.uint16)
+    path = str(tmp_path / "v.h5")
+    with h5.Writer(path) as f:
+        raw_ds = f.create_dataset("raw", shape=vol.shape, dtype=vol.dtype, chunks=(1, 70, 90))
+        lab_ds = f.create_dataset("labels/mito", shape=labels.shape, dtype=labels.dtype,
+                                  chunks=(1, 70, 90))
+        for i in range(len(vol)):
+            raw_ds[i], lab_ds[i] = vol[i], labels[i]
+    with h5.File(path) as f:
+        assert f["raw"][...].tobytes() == vol.tobytes()
+        assert f["labels/mito"][1:4, ::2].tobytes() == labels[1:4, ::2].tobytes()
+    for lazy in (False, True):
+        ds = SegmentationDataset(path, path, label_key="labels/mito", patch_shape=(48, 48),
+                                 n_samples=3, lazy=lazy)
+        ref_ds = SegmentationDataset(vol, labels, patch_shape=(48, 48), n_samples=3)
+        for i in range(3):
+            for a, b in zip(ds[i], ref_ds[i]):
+                assert a.tobytes() == b.tobytes()
