@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (``pda_torch``) on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--phases kernels,lung]
 
-Phases, each of which fails the run (exit code 1) on any error or miss:
+Phases, each of which fails the run (exit code 1) on any error or miss
+(``--phases`` runs some of them, and then prints no result lines):
   1. device   — a CUDA card is present; print its name and power limit
   2. build    — compile the CUDA kernels from pda_torch/kernels/csrc/
   3. kernels  — each kernel against its plain PyTorch version at every
@@ -55,9 +56,9 @@ Phases, each of which fails the run (exit code 1) on any error or miss:
                 livecell_prepare_data; livecell_punet --train --predict
                 --evaluate; livecell_punet_target --get_pseudo_labels
                 --train --predict --evaluate --consensus; livecell_mt
-                --train --predict --evaluate --masking (each --iterations 2);
-                livecell_fm, _adamt, _adamatch and _unet --train
-                --iterations 1; checkpoints under pda's names, predictions,
+                --train --predict --evaluate --masking; livecell_fm,
+                _adamt, _adamatch and _unet --train (each --iterations
+                1); checkpoints under pda's names, predictions,
                 pseudo trees, dice in [0, 1] and the dice runner's known
                 answers on the test labels, the codec's round trip, the
                 first prediction file bit-equal to tiled_punet_probs, the
@@ -72,18 +73,39 @@ Phases, each of which fails the run (exit code 1) on any error or miss:
                 width: the HDF5 codec's round trip; mitoem_prepare_data
                 (every converted volume read back through the port's HDF5
                 reader against its source slices); mitoem_punet --train
-                --predict --evaluate --iterations 2; mitoem_mt --masking,
-                mitoem_fm --consensus (vnc, lucchi and urocell each),
-                mitoem_adamt --type urocell and mitoem_adamatch --type vnc
-                --consensus --masking, each --train --predict --evaluate
+                --predict --evaluate --iterations 2; mitoem_mt --masking
+                and mitoem_fm --consensus on lucchi, mitoem_adamt --type
+                urocell and mitoem_adamatch --type vnc --consensus
+                --masking, each --train --predict --evaluate
                 --iterations 1; mitoem_unet the same; checkpoints, one
-                probability map per target frame, 14 dice values in
+                probability map per target frame, 10 dice values in
                 [0, 1], the dice runner's known answers on
                 each target's ground truth, the first prediction bit-equal
                 to tiled_punet_probs (MC-8), the card's memory back after
                 the last trainer; every new (kernel, shape) held against its
                 plain version and float64; seconds by CLI and trainer part
- 10. times    — CUDA-event medians of every kernel, its plain version and
+ 10. lung     — one 128^2 Mean-Teacher step of the Lung PUNet (the
+                flagship with the BCE reconstruction, consensus masking) card
+                vs CPU (float32, float64 the gradients' reference), with its
+                launch counts; then the Lung X-Ray CLIs
+                (pda_torch/experiments/lung_*) through their main(argv) on a
+                synthetic Lung tree (synthetic.write_lung_tree: JSRT 2048^2
+                PNG and 8-bit BMP, NIH 1024^2, Montgomery 4892x4020 and
+                4020x4892 16-bit PNG) at the flagship's width:
+                lung_prepare_data (each prepared image and mask against its
+                raw file resized by the port: 256^2, masks 0/255);
+                lung_punet and lung_unet --train --predict --evaluate
+                --iterations 2 on the four domains; lung_mt --masking and
+                lung_adamt --consensus --train --predict --evaluate
+                --iterations 1 on jsrt2 and montgomery (2 pairs each);
+                checkpoint names, one probability map per test image and
+                pair, 36 dice values in [0, 1], the dice runner's known
+                answers on each domain's ground truth, the first
+                prediction bit-equal to tiled_punet_probs (MC-16), the
+                card's memory back after the last trainer; every new
+                (kernel, shape) held against its plain version and float64,
+                timed; seconds by CLI and trainer part, peak disk and memory
+ 11. times    — CUDA-event medians of every kernel, its plain version and
                 (ConvBlock forward and backward) cuDNN's convolutions, beside
                 its bound from the shapes, with TFLOP/s; end-to-end ms/frame
                 and tiles/s, ms/step and patches/s of every step
@@ -123,6 +145,9 @@ K12_REF64_TOL = 1e-5
 K3_MEAN_TOL = 1e-5  # kernel 3: max abs error of the MC mean (vs plain and vs float64)
 K3_WINDOW = 1e-4  # kernel 3: consensus may differ only where a logit is this near a threshold
 TILE_TOL = 1e-4  # one tile, card vs CPU: max abs error of the MC mean
+# K3's plain version materializes (S, B, H, W, C): batches beyond this many
+# bytes of it (a 2048^2 frame's 36 tiles) run it in chunks of the batch
+PLAIN_MC_BYTES = 4 * 2**30
 
 # The ConvBlock shapes of the serving path and the MT step (K1, K2, the
 # backward, and K3's feature terms) are pda_torch/tools/workload.py's, shared
@@ -384,6 +409,23 @@ def cudnn_block_bwd(g, x, h1, h2, h3, w1, w2, w3, need_dx):
     return (dout, *grads)
 
 
+def plain_mc(fn, args, *rest):
+    """K3's plain version ``fn`` over the batch in chunks whose (S, b, H, W,
+    C) float32 intermediate stays within PLAIN_MC_BYTES (one chunk up to
+    that size, as the kernels phase's shapes are); the pixels are
+    independent, so the chunks' outputs, joined, are the whole call's."""
+    import torch
+
+    feat, z, *weights = args
+    s, b, (h, w, c) = z.shape[0], z.shape[1], feat.shape[1:]
+    step = b if s * b * h * w * c * 4 <= PLAIN_MC_BYTES else max(
+        1, PLAIN_MC_BYTES // (s * h * w * c * 4))
+    parts = [fn(feat[i:i + step], z[:, i:i + step], *weights, *rest) for i in range(0, b, step)]
+    if isinstance(parts[0], torch.Tensor):
+        return torch.cat(parts)
+    return tuple(torch.cat(p) for p in zip(*parts))
+
+
 def check_mc(entry, label, args, masking, binding, weight, timed=True):
     """K3 against its plain version: the MC mean within K3_MEAN_TOL of the
     plain version's and of the plain version's in float64, the consensus
@@ -396,9 +438,10 @@ def check_mc(entry, label, args, masking, binding, weight, timed=True):
 
     mean, cons = km.mc_consensus(*args, masking=masking)
     again = km.mc_consensus(*args, masking=masking)
-    ref_mean, ref_cons = km.mc_consensus_plain(*args, masking)
-    ref64 = km.mc_consensus_plain(*(a.double() for a in args), masking)[0]
-    near = ((km.mc_logits_plain(*args).abs() - math.log(9.0)).abs() < K3_WINDOW).any(dim=0)
+    ref_mean, ref_cons = plain_mc(km.mc_consensus_plain, args, masking)
+    ref64 = plain_mc(km.mc_consensus_plain, [a.double() for a in args], masking)[0]
+    near = plain_mc(lambda *a: ((km.mc_logits_plain(*a).abs() - math.log(9.0)).abs()
+                                < K3_WINDOW).any(dim=0), args)
     torch.cuda.synchronize()
     err = float((mean - ref_mean).abs().max())
     err64 = float((mean.double() - ref64).abs().max())
@@ -420,7 +463,7 @@ def check_mc(entry, label, args, masking, binding, weight, timed=True):
         log(f"{verdict} {'ok' if good else 'FAIL'}")
         return good
     ms = cuda_ms(lambda: km.mc_consensus(*args, masking=masking))
-    plain_ms = cuda_ms(lambda: km.mc_consensus_plain(*args, masking), iters=3)
+    plain_ms = cuda_ms(lambda: plain_mc(km.mc_consensus_plain, args, masking), iters=3)
     flops = mc_flops(b, h, w, c, s, n_mid)
     bound, term = add_bound(entry, binding, flops, mc_bytes(b, h, w, c, s, n_mid), weight)
     log(f"{verdict}; ms {ms:.3f} ({flops / ms / 1e9:.1f} TFLOP/s) plain_ms {plain_ms:.3f} "
@@ -1463,8 +1506,8 @@ def phase_engine(dev, results, bare_ms):
 # The experiments phase: the LIVECell CLIs (pda_torch/experiments/) on a
 # synthetic LIVECell tree of two cell types, each with 4 train frames (the
 # source PUNet's batch), 1 validation and 1 test frame of 520x704, at the
-# flagship's width on the card; --iterations 2 for the source, pseudo-label
-# and MT runs, 1 for the rest.
+# flagship's width on the card; --iterations 1 for every CLI (2 for the source,
+# pseudo-label and MT runs until the Lung phase needed the time).
 EXP_CELL_TYPES = ("A172", "BT474")
 EXP_COUNTS = (("train", 4), ("val", 1), ("test", 1))
 EXP_MEMORY_SLACK = 64 * 2**20  # bytes the card may keep after the last trainer
@@ -1513,10 +1556,12 @@ def check_shapes(dev, results, binding, census, timed=False):
     from pda_torch.kernels import conv_block as kc
     from pda_torch.tools import workload as wl
 
-    gen = torch.Generator().manual_seed(SEED + 5)
+    # the inputs are drawn on the card: a 2048^2 frame's 36 tiles take
+    # seconds of the CPU's generator a shape
+    gen = torch.Generator(device=dev).manual_seed(SEED + 5)
     todo = sorted(census - CHECKED)
     ok = True
-    with torch.inference_mode():
+    with torch.inference_mode(), torch.device(dev):
         for name, shape in todo:
             entry = results[name]
             if name == "conv_block_fwd":
@@ -1559,11 +1604,50 @@ def check_shapes(dev, results, binding, census, timed=False):
     return ok, len(todo)
 
 
+def recording_fit(fit, trainers):
+    """``engine.Trainer.fit`` that appends (class, run name, set-up seconds,
+    fit seconds, host seconds by part) of each fit to ``trainers``."""
+    def recorded(self, iterations, **kw):
+        t0 = time.perf_counter()
+        self.initialize()
+        init_s = time.perf_counter() - t0
+        out = fit(self, iterations, **kw)
+        trainers.append((type(self).__name__, self.name, init_s, time.perf_counter() - t0,
+                         dict(self.timings)))
+        return out
+    return recorded
+
+
+def recording(run, values):
+    """``run`` that appends each value it returns to ``values``."""
+    def recorded(*a, **k):
+        value = run(*a, **k)
+        values.append(value)
+        return value
+    return recorded
+
+
+def checkpoint_dirs(save, names):
+    """(the runs' checkpoint folders under ``save``, whether each holds
+    best.pt and latest.pt and nothing else)."""
+    from pda_torch.train import checkpoint_dir
+
+    dirs = [checkpoint_dir(n, save) for n in names]
+    return dirs, all(os.path.isdir(d) and sorted(os.listdir(d)) == ["best.pt", "latest.pt"]
+                     for d in dirs)
+
+
+def drop(dirs):
+    import shutil
+
+    for d in dirs:
+        shutil.rmtree(d, ignore_errors=True)
+
+
 def phase_experiments(dev, results, binding):
     """The LIVECell experiment CLIs on the card, through their main(argv),
     on a synthetic LIVECell tree written by the port's TIFF codec."""
     import gc
-    import shutil
 
     import numpy as np
     import torch
@@ -1575,29 +1659,13 @@ def phase_experiments(dev, results, binding):
                                        livecell_punet, livecell_punet_target, livecell_unet)
     from pda_torch.infer import tiled_punet_probs
     from pda_torch.infer.tiling import grid_shape
-    from pda_torch.train import checkpoint_dir, engine, load_params
+    from pda_torch.train import engine, load_params
 
     wrappers = kernel_wrappers()
     ok = True
     trainers, dice, cli_s, census = [], [], {}, set()
     disk = {"peak": 0}
     fit = engine.Trainer.fit
-
-    def recording_fit(self, iterations, **kw):
-        t0 = time.perf_counter()
-        self.initialize()
-        init_s = time.perf_counter() - t0
-        out = fit(self, iterations, **kw)
-        trainers.append((type(self).__name__, self.name, init_s, time.perf_counter() - t0,
-                         dict(self.timings)))
-        return out
-
-    def recording_dice(run):
-        def dice_evaluation(*a, **k):
-            value = run(*a, **k)
-            dice.append(value)
-            return value
-        return dice_evaluation
 
     dice_modules = (livecell_punet, livecell_punet_target, livecell_da, livecell_unet)
     saved_dice = [m.run_dice_evaluation for m in dice_modules]
@@ -1632,16 +1700,6 @@ def phase_experiments(dev, results, binding):
             log(f"experiments {name} {' '.join(flags)}: {time.perf_counter() - t0:.1f} s, "
                 f"{len(trainers) - n_trainers} trainers, disk {tree_bytes(root) / 2**30:.2f} GiB")
 
-        def ckpt_dirs(names):
-            dirs = [checkpoint_dir(n, save) for n in names]
-            good = all(os.path.isdir(d) and sorted(os.listdir(d)) == ["best.pt", "latest.pt"]
-                       for d in dirs)
-            return dirs, good
-
-        def drop(dirs):
-            for d in dirs:
-                shutil.rmtree(d, ignore_errors=True)
-
         def probability_maps(folder):
             """Each test frame's prediction: float32, 520x704, finite, in [0, 1]."""
             names = sorted(os.listdir(folder)) if os.path.isdir(folder) else []
@@ -1658,9 +1716,9 @@ def phase_experiments(dev, results, binding):
         census_on = contextlib.ExitStack()
         try:
             census_on.enter_context(kernel_shapes(census))
-            engine.Trainer.fit = recording_fit
+            engine.Trainer.fit = recording_fit(fit, trainers)
             for m in dice_modules:
-                m.run_dice_evaluation = recording_dice(m.run_dice_evaluation)
+                m.run_dice_evaluation = recording(m.run_dice_evaluation, dice)
             gc.collect()
             torch.cuda.synchronize()
             mem0 = torch.cuda.memory_allocated()
@@ -1679,8 +1737,8 @@ def phase_experiments(dev, results, binding):
                   f"{[len(v) for v in labels.values()]}")
 
             # 2. the source PUNets
-            run(livecell_punet, ["--train", "--predict", "--evaluate"], 2)
-            src_dirs, good = ckpt_dirs([f"punet-source-livecell-{c}" for c in EXP_CELL_TYPES])
+            run(livecell_punet, ["--train", "--predict", "--evaluate"], 1)
+            src_dirs, good = checkpoint_dirs(save, [f"punet-source-livecell-{c}" for c in EXP_CELL_TYPES])
             good &= all(probability_maps(os.path.join(pred, "punet_source", a, b))
                         for a in EXP_CELL_TYPES for b in EXP_CELL_TYPES)
             check("livecell_punet checkpoints and predictions", good, f"{len(dice)} dice values")
@@ -1692,7 +1750,7 @@ def phase_experiments(dev, results, binding):
 
             # 3. pseudo-labels, the PUNets on them, their predictions
             run(livecell_punet_target,
-                ["--get_pseudo_labels", "--train", "--predict", "--evaluate", "--consensus"], 2)
+                ["--get_pseudo_labels", "--train", "--predict", "--evaluate", "--consensus"], 1)
             good = True
             for src in EXP_CELL_TYPES:
                 for ct in EXP_CELL_TYPES:
@@ -1702,7 +1760,7 @@ def phase_experiments(dev, results, binding):
                     good &= len(lab) == 5 and [os.path.basename(p) for p in lab] == [
                         os.path.basename(p) for p in con]
                     good &= all(set(np.unique(tiff.imread(p)).tolist()) <= {0, 1} for p in con)
-            tgt_dirs, good_dirs = ckpt_dirs([f"punet-livecell-source-{s}-target-{t}-consensus"
+            tgt_dirs, good_dirs = checkpoint_dirs(save, [f"punet-livecell-source-{s}-target-{t}-consensus"
                                              for s, t in pairs])
             good &= good_dirs and all(probability_maps(
                 os.path.join(pred, "punet_target", f"source-{s}-target-{t}")) for s, t in pairs)
@@ -1710,8 +1768,8 @@ def phase_experiments(dev, results, binding):
             drop(tgt_dirs)
 
             # 4. Mean Teacher, warm-started from the source runs
-            run(livecell_mt, ["--train", "--predict", "--evaluate", "--masking"], 2)
-            mt_dirs, good = ckpt_dirs([livecell_da.da_name("mean-teacher", "livecell", s, t,
+            run(livecell_mt, ["--train", "--predict", "--evaluate", "--masking"], 1)
+            mt_dirs, good = checkpoint_dirs(save, [livecell_da.da_name("mean-teacher", "livecell", s, t,
                                                            False, True) for s, t in pairs])
             good &= all(probability_maps(os.path.join(pred, "mean_teacher",
                                                       f"source-{s}-target-{t}"))
@@ -1725,7 +1783,7 @@ def phase_experiments(dev, results, binding):
                 names = ([livecell_da.da_name(method, "livecell", s, t, False, False)
                           for s, t in pairs] if method else
                          [f"unet-source-livecell-{c}" for c in EXP_CELL_TYPES])
-                dirs, good = ckpt_dirs(names)
+                dirs, good = checkpoint_dirs(save, names)
                 check(f"{module.__name__.rsplit('.', 1)[-1]} --train checkpoints", good)
                 drop(dirs)
                 if module is livecell_fm:
@@ -1815,9 +1873,9 @@ def phase_experiments(dev, results, binding):
 # validation slices a sample; VNC at its 1024^2, 3 slices a stack (of 20);
 # Lucchi++ at its 768x1024, 4 Test and 2 Train slices (of 165); UroCell 3
 # volumes of 3 slices at 512^2 (its 256^2 is below the CLIs' 512^2 patch);
-# --iterations 2 for the source PUNet, 1 for the rest; AdaMT and AdaMatch train
-# one target each (--type urocell, --type vnc), Mean Teacher and FixMatch all
-# three.
+# --iterations 2 for the source PUNet, 1 for the rest; each domain-adaptation
+# method trains one target: AdaMT and AdaMatch by --type (urocell, vnc), Mean
+# Teacher and FixMatch Lucchi++ (their loop's target list narrowed).
 MITO_SHAPES = {"mitoem": (1024, 1024), "vnc": (1024, 1024), "lucchi": (768, 1024),
                "urocell": (512, 512)}
 MITO_MC = 8  # punet_prediction's prior samples in the MitoEM CLIs (pda's default)
@@ -1904,7 +1962,6 @@ def phase_mitoem(dev, results, binding):
     """The MitoEM experiment CLIs on the card, through their main(argv), on
     a synthetic MitoEM tree read and converted by the port's codecs."""
     import gc
-    import shutil
     import urllib.request
 
     import numpy as np
@@ -1917,29 +1974,13 @@ def phase_mitoem(dev, results, binding):
                                        mitoem_unet)
     from pda_torch.infer import tiled_punet_probs
     from pda_torch.infer.tiling import grid_shape
-    from pda_torch.train import checkpoint_dir, engine, load_params
+    from pda_torch.train import engine, load_params
 
     wrappers = kernel_wrappers()
     ok = True
     trainers, dice, cli_s, census = [], [], {}, set()
     disk = {"peak": 0}
     fit = engine.Trainer.fit
-
-    def recording_fit(self, iterations, **kw):
-        t0 = time.perf_counter()
-        self.initialize()
-        init_s = time.perf_counter() - t0
-        out = fit(self, iterations, **kw)
-        trainers.append((type(self).__name__, self.name, init_s, time.perf_counter() - t0,
-                         dict(self.timings)))
-        return out
-
-    def recording_dice(run):
-        def dice_evaluation(*a, **k):
-            value = run(*a, **k)
-            dice.append(value)
-            return value
-        return dice_evaluation
 
     def refuse(url, path):
         raise OSError(f"chip_smoke fetches nothing ({url})")
@@ -1979,16 +2020,6 @@ def phase_mitoem(dev, results, binding):
             log(f"mitoem {label}: {time.perf_counter() - t0:.1f} s, "
                 f"{len(trainers) - n_trainers} trainers, disk {tree_bytes(root) / 2**30:.2f} GiB")
 
-        def ckpt_dirs(names):
-            dirs = [checkpoint_dir(n, save) for n in names]
-            good = all(os.path.isdir(d) and sorted(os.listdir(d)) == ["best.pt", "latest.pt"]
-                       for d in dirs)
-            return dirs, good
-
-        def drop(dirs):
-            for d in dirs:
-                shutil.rmtree(d, ignore_errors=True)
-
         def probability_maps(folder, em_type):
             """One float32 map in [0, 1] per target frame, of the frame's shape."""
             frames = sorted(glob(mitoem_common.em_input_glob(data, em_type)))
@@ -2004,7 +2035,7 @@ def phase_mitoem(dev, results, binding):
         def da_checks(method, flags, targets):
             masking, consensus = "--masking" in flags, "--consensus" in flags
             suffix = mitoem_da._suffix(argparse.Namespace(consensus=consensus, masking=masking))
-            dirs, good = ckpt_dirs([mitoem_da.da_name(method, "mito", "mitoem", t, consensus,
+            dirs, good = checkpoint_dirs(save, [mitoem_da.da_name(method, "mito", "mitoem", t, consensus,
                                                       masking) for t in targets])
             good &= all(probability_maps(os.path.join(
                 pred, mitoem_da.PRED_SUBDIR[method], f"source-mitoem-target-{t}{suffix}"), t)
@@ -2014,10 +2045,10 @@ def phase_mitoem(dev, results, binding):
         census_on = contextlib.ExitStack()
         try:
             census_on.enter_context(kernel_shapes(census))
-            engine.Trainer.fit = recording_fit
+            engine.Trainer.fit = recording_fit(fit, trainers)
             urllib.request.urlretrieve = refuse
             for m in dice_modules:
-                m.run_dice_evaluation = recording_dice(m.run_dice_evaluation)
+                m.run_dice_evaluation = recording(m.run_dice_evaluation, dice)
             gc.collect()
             torch.cuda.synchronize()
             mem0 = torch.cuda.memory_allocated()
@@ -2035,7 +2066,7 @@ def phase_mitoem(dev, results, binding):
 
             # 2. the source PUNet, its predictions on the three targets
             run(mitoem_punet, ["--train", "--predict", "--evaluate"], 2)
-            src_dirs, good = ckpt_dirs(["punet-source-mitoem"])
+            src_dirs, good = checkpoint_dirs(save, ["punet-source-mitoem"])
             good &= all(probability_maps(os.path.join(pred, "punet_predictions", t), t)
                         for t in types)
             check("mitoem_punet checkpoint and predictions", good, f"{len(dice)} dice values")
@@ -2045,15 +2076,23 @@ def phase_mitoem(dev, results, binding):
                                       os.path.splitext(os.path.basename(first_frame))[0] + ".tif")
             first_bytes = tiff.imread(first_pred).tobytes()
 
-            # 3. the domain-adaptation methods: Mean Teacher and FixMatch on
-            # the three targets, AdaMT and AdaMatch on one each (--type)
+            # 3. the domain-adaptation methods, one target each: AdaMT and
+            # AdaMatch by --type; Mean Teacher and FixMatch (whose command
+            # lines, as pda's, have no --type) on Lucchi++ alone, their loop's
+            # target list narrowed for the call. Each target is trained by
+            # at least one method.
             for module, method, flags, targets in (
-                    (mitoem_mt, "mean-teacher", ["--masking"], types),
-                    (mitoem_fm, "fixmatch", ["--consensus"], types),
+                    (mitoem_mt, "mean-teacher", ["--masking"], ["lucchi"]),
+                    (mitoem_fm, "fixmatch", ["--consensus"], ["lucchi"]),
                     (mitoem_adamt, "adamt", ["--type", "urocell"], ["urocell"]),
                     (mitoem_adamatch, "adamatch", ["--type", "vnc", "--consensus", "--masking"],
                      ["vnc"])):
-                run(module, ["--train", "--predict", "--evaluate"] + flags, 1)
+                em_types = mitoem_da.EM_TYPES
+                mitoem_da.EM_TYPES = targets
+                try:
+                    run(module, ["--train", "--predict", "--evaluate"] + flags, 1)
+                finally:
+                    mitoem_da.EM_TYPES = em_types
                 dirs, good = da_checks(method, flags, targets)
                 check(f"{module.__name__.rsplit('.', 1)[-1]} checkpoints and predictions", good)
                 drop(dirs)
@@ -2061,14 +2100,14 @@ def phase_mitoem(dev, results, binding):
 
             # 4. the UNet source model
             run(mitoem_unet, ["--train", "--predict", "--evaluate"], 1)
-            dirs, good = ckpt_dirs(["unet-source-mitoem"])
+            dirs, good = checkpoint_dirs(save, ["unet-source-mitoem"])
             good &= all(probability_maps(os.path.join(pred, "unet_predictions", t), t)
                         for t in types)
             check("mitoem_unet checkpoint and predictions", good)
             drop(dirs)
             counts = counted_launches(wrappers, results)  # the main path's run
             check("kernel launches", all(n > 0 for n in counts.values()), f"{counts}")
-            check("dice", len(dice) == 4 * 3 + 2 and all(math.isfinite(d) and 0.0 <= d <= 1.0
+            check("dice", len(dice) == 3 + 4 + 3 and all(math.isfinite(d) and 0.0 <= d <= 1.0
                                                          for d in dice),
                   f"{[round(d, 4) for d in dice]}")
             peak_mem = torch.cuda.max_memory_allocated()
@@ -2157,7 +2196,345 @@ def em_prediction_name(gt_path, subtype):
     return f"{name[:-4]}.tif"
 
 
-def main() -> int:
+# The lung phase: the Lung X-Ray suite's CLIs (pda_torch/experiments/lung_*) on
+# a synthetic Lung tree (synthetic.write_lung_tree) at the sources' frame
+# sizes (JSRT 2048^2 PNG and BMP, NIH 1024^2, Montgomery 4892x4020 and
+# 4020x4892 16-bit) and the flagship's width with the BCE reconstruction
+# (lung_punet: rl_swap=False), 256^2 patches, batch 2. Cut: 3 train + 1 test
+# frames a JSRT or NIH domain and 4 Montgomery frames (of 124-247 a domain);
+# --iterations 2 for the source models, 1 for Mean Teacher and AdaMT, which
+# train 2 of the 12 pairs (LUNG_DA_DOMAINS: a BMP target and a prepared one).
+LUNG_COUNTS = {"jsrt1": (3, 1), "jsrt2": (3, 1), "nih": (3, 1), "montgomery": 4}
+LUNG_DA_DOMAINS = ("jsrt2", "montgomery")
+LUNG_SIZE = (256, 256)  # the prepared Montgomery and NIH frames (rows, cols)
+LUNG_MC = 16  # punet_prediction's prior samples in the Lung CLIs
+
+
+def lung_step(dev):
+    """One 128^2 Mean-Teacher step of the Lung PUNet (BCE reconstruction,
+    consensus masking) on the card against the same step on the CPU, in
+    float32 and (the gradients' reference) float64; the CPU steps take the
+    card teacher's pseudo-labels. Returns ok."""
+    import numpy as np
+    import torch
+
+    from pda_torch.data.synthetic import make_lung_frame
+    from pda_torch.experiments.common import lung_punet
+    from pda_torch.train import adam, create_train_state, make_mean_teacher_step, steps
+
+    wrappers = kernel_wrappers()
+    gen = torch.Generator().manual_seed(SEED + 7)
+    model = lung_punet(consensus_masking=True, generator=torch.Generator().manual_seed(SEED),
+                       device="cpu")
+    with torch.no_grad():
+        model.fcomb.last_layer.weight.mul_(LAST_SCALE)
+    init = model.state_dict()
+    raw, _ = make_lung_frame(LUNG_SIZE, np.random.default_rng(SEED))
+    batch = mt_batch(gen, torch.from_numpy(raw)[..., None], MT_CHECK_PATCH, "cpu")
+    noise = {"eps_teacher": torch.randn(MC, MT_BATCH, 6, generator=gen),
+             "eps_post": torch.randn(MT_BATCH, 6, generator=gen)}
+    step = make_mean_teacher_step(momentum=MT_MOMENTUM, do_consensus_masking=True)
+
+    def state_on(device, dtype=torch.float32):
+        student = copy.deepcopy(model).to(device=device, dtype=dtype)
+        return create_train_state(student, adam(student.parameters(), MT_LR), with_teacher=True)
+
+    card, cpu, cpu64 = state_on(dev), state_on("cpu"), state_on("cpu", torch.float64)
+    pseudo, drawn = steps._mc_pseudo, []
+
+    def capture(*a, **k):
+        drawn.append(pseudo(*a, **k))
+        return drawn[-1]
+
+    steps._mc_pseudo = capture
+    reset_launches(wrappers)
+    try:
+        _, aux = step(card, *(a.to(dev) for a in batch),
+                      **{k: v.to(dev) for k, v in noise.items()})
+        torch.cuda.synchronize()
+    finally:
+        steps._mc_pseudo = pseudo
+    counts = read_launches(wrappers)  # a check's run: logged only
+    ok = counts == MT_LAUNCHES and float(drawn[0][1].mean()) not in (0.0, 1.0)
+    log(f"lung MT step (BCE, masking) {MT_CHECK_PATCH}^2: launches {counts} (expected "
+        f"{MT_LAUNCHES}), consensus share {float(drawn[0][1].mean()):.4f} "
+        f"{'ok' if ok else 'FAIL'}")
+    t0 = time.perf_counter()
+    for state, dtype in ((cpu, torch.float32), (cpu64, torch.float64)):
+        y, z = (t.to("cpu", dtype) for t in drawn[0])
+        steps._mc_pseudo = lambda *a, **k: (y, z)
+        try:
+            _, out = step(state, *(a.to(dtype) for a in batch),
+                          **{k: v.to(dtype) for k, v in noise.items()})
+        finally:
+            steps._mc_pseudo = pseudo
+        if dtype == torch.float32:
+            aux_cpu = out
+    ok &= check_step(f"lung MT step (BCE, masking) {MT_CHECK_PATCH}^2", card, cpu, aux, aux_cpu,
+                     init, MT_LR, ref64=cpu64)
+    log(f"lung MT step card vs cpu: recon (BCE sum) {float(aux['recon_loss']):.3f}, cpu (float32 "
+        f"and float64) {time.perf_counter() - t0:.1f} s")
+    return ok
+
+
+def prepared_frames(data):
+    """Every prepared Montgomery and NIH image and mask against its raw file
+    resized by the port (INTER_AREA, INTER_NEAREST), LUNG_SIZE, masks in
+    {0, 255}: (number of files, all equal)."""
+    import numpy as np
+
+    from pda_torch.data import png
+    from pda_torch.data.resize import INTER_AREA, INTER_NEAREST, resize
+
+    dsize = LUNG_SIZE[::-1]
+    n, good = 0, True
+    raw = {}
+    mont = os.path.join(data, "montgomery")
+    for p in sorted(glob(os.path.join(mont, "CXR_png", "*.png"))):
+        name = os.path.basename(p)
+        masks = [png.imread(os.path.join(mont, "ManualMask", side, name)) > 0
+                 for side in ("leftMask", "rightMask")]
+        raw["montgomery_processed", name] = (png.imread(p),
+                                             (masks[0] | masks[1]).astype(np.uint8) * 255)
+    for split in ("train", "test"):
+        for p in sorted(glob(os.path.join(data, "nih", "images", split, "*.png"))):
+            lab = png.imread(os.path.join(data, "nih", "labels", split, os.path.basename(p)))
+            raw["nih_processed", os.path.basename(p)] = (png.imread(p), lab)
+    for (folder, name), (img, mask) in raw.items():
+        img = img[..., 0] if img.ndim == 3 else img
+        found = glob(os.path.join(data, folder, "images", "*", name))
+        if len(found) != 1:
+            return n, False
+        got_img = png.imread(found[0])
+        got_mask = png.imread(found[0].replace(os.sep + "images" + os.sep,
+                                               os.sep + "labels" + os.sep))
+        want_img = resize(img, dsize, INTER_AREA).astype(np.uint8)
+        want_mask = resize(mask, dsize, INTER_NEAREST)
+        want_mask = ((want_mask > 0) * 255).astype(np.uint8)
+        good &= (got_img.shape == got_mask.shape == LUNG_SIZE
+                 and np.array_equal(got_img, want_img) and np.array_equal(got_mask, want_mask)
+                 and set(np.unique(got_mask).tolist()) <= {0, 255})
+        n += 2
+    return n, good
+
+
+def phase_lung(dev, results, binding):
+    """The Lung X-Ray experiment CLIs on the card, through their
+    main(argv), on a synthetic Lung tree read by the port's PNG and BMP
+    codecs and prepared by its numpy resize."""
+    import gc
+    import importlib
+
+    import numpy as np
+    import torch
+
+    from pda_torch.data import tiff
+    from pda_torch.data.builders.lung import LUNG_DOMAINS
+    from pda_torch.data.synthetic import write_lung_tree
+    from pda_torch.experiments import lung as lung_da
+    from pda_torch.infer import tiled_punet_probs
+    from pda_torch.infer.tiling import grid_shape
+    from pda_torch.train import engine, load_params
+
+    (lung_prepare_data, lung_punet, lung_unet, lung_mt, lung_adamt) = (
+        importlib.import_module(f"pda_torch.experiments.{n}")
+        for n in ("lung_prepare_data", "lung_punet", "lung_unet", "lung_mt", "lung_adamt"))
+    wrappers = kernel_wrappers()
+    ok = lung_step(dev)
+    trainers, dice, cli_s, census = [], [], {}, set()
+    disk = {"peak": 0}
+    fit = engine.Trainer.fit
+
+    dice_modules = (lung_punet, lung_unet, lung_da)
+    saved_dice = [m.run_lung_dice_evaluation for m in dice_modules]
+
+    def check(label, good, detail=""):
+        nonlocal ok
+        log(f"lung {label}: {detail}{' ' if detail else ''}{'ok' if good else 'FAIL'}")
+        ok &= bool(good)
+
+    with tempfile.TemporaryDirectory() as root:
+        data, pred, save = (os.path.join(root, d) for d in ("data", "pred", "save"))
+        t0 = time.perf_counter()
+        write_lung_tree(data, SEED, counts=LUNG_COUNTS)
+        log(f"lung synthetic Lung tree: {LUNG_COUNTS} frames, "
+            f"{tree_bytes(data) / 2**20:.1f} MiB, {time.perf_counter() - t0:.1f} s")
+        common = ["--data", data, "--pred_path", pred, "--save_root", save]
+
+        def run(module, flags, iterations=None, domains=LUNG_DOMAINS):
+            name = module.__name__.rsplit(".", 1)[-1]
+            n_trainers = len(trainers)
+            t0 = time.perf_counter()
+            if module is lung_prepare_data:
+                module.main(["--data", data])
+            else:
+                module.main(flags + common + ["--iterations", str(iterations)],
+                            domains=domains, device=dev.type)
+            torch.cuda.synchronize()
+            label = " ".join([name, *flags])
+            cli_s[label] = time.perf_counter() - t0
+            disk["peak"] = max(disk["peak"], tree_bytes(root))
+            log(f"lung {label}: {time.perf_counter() - t0:.1f} s, "
+                f"{len(trainers) - n_trainers} trainers, disk {tree_bytes(root) / 2**30:.2f} GiB")
+
+        def probability_maps(folder, domain):
+            """One float32 map in [0, 1] per test image of the target, of its shape."""
+            images = sorted(glob(lung_da.test_image_glob(data, domain)))
+            names = sorted(os.listdir(folder)) if os.path.isdir(folder) else []
+            good = [os.path.splitext(os.path.basename(p))[0] + ".tif" for p in images] == names
+            for p, n in zip(images, names):
+                m = tiff.imread(os.path.join(folder, n))
+                good &= (m.dtype == np.float32 and m.shape == tiff.read_image(p).shape[:2]
+                         and bool(np.isfinite(m).all()) and float(m.min()) >= 0.0
+                         and float(m.max()) <= 1.0)
+            return good and len(names) > 0
+
+        def pair_maps(subdir, pairs):
+            return all(probability_maps(os.path.join(pred, subdir, f"source-{s}-target-{t}"), t)
+                       for s, t in pairs)
+
+        every = [(s, t) for s in LUNG_DOMAINS for t in LUNG_DOMAINS]
+        da_pairs = [(s, t) for t in LUNG_DA_DOMAINS for s in LUNG_DA_DOMAINS if s != t]
+        census_on = contextlib.ExitStack()
+        try:
+            census_on.enter_context(kernel_shapes(census))
+            engine.Trainer.fit = recording_fit(fit, trainers)
+            for m in dice_modules:
+                m.run_lung_dice_evaluation = recording(m.run_lung_dice_evaluation, dice)
+            gc.collect()
+            torch.cuda.synchronize()
+            mem0 = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            reset_launches(wrappers)
+
+            # 1. Montgomery and NIH prepared to 256^2
+            run(lung_prepare_data, [])
+            n, good = prepared_frames(data)
+            check("lung_prepare_data against the raw files resized by the port", good,
+                  f"{n} images and masks")
+
+            # 2. the source PUNets and UNets, predicted on every domain
+            run(lung_punet, ["--train", "--predict", "--evaluate"], 2)
+            src_dirs, good = checkpoint_dirs(save, [f"punet-source-lung-{d}" for d in LUNG_DOMAINS])
+            good &= pair_maps("punet_source", every)
+            check("lung_punet checkpoints and predictions", good, f"{len(dice)} dice values")
+            kept_state = load_params(src_dirs[0])  # on the host, for the check below
+            first_frame = sorted(glob(lung_da.test_image_glob(data, LUNG_DOMAINS[0])))[0]
+            first_pred = os.path.join(pred, "punet_source",
+                                      f"source-{LUNG_DOMAINS[0]}-target-{LUNG_DOMAINS[0]}",
+                                      os.path.splitext(os.path.basename(first_frame))[0] + ".tif")
+            first_bytes = tiff.imread(first_pred).tobytes()
+            run(lung_unet, ["--train", "--predict", "--evaluate"], 2)
+            dirs, good = checkpoint_dirs(save, [f"unet-source-lung-{d}" for d in LUNG_DOMAINS])
+            good &= pair_maps("unet_source", every)
+            check("lung_unet checkpoints and predictions", good)
+            drop(dirs)
+
+            # 3. Mean Teacher (warm-started from the source PUNets) and AdaMT
+            for module, method, flags in ((lung_mt, "mean-teacher", ["--masking"]),
+                                          (lung_adamt, "adamt", ["--consensus"])):
+                run(module, ["--train", "--predict", "--evaluate"] + flags, 1,
+                    domains=LUNG_DA_DOMAINS)
+                dirs, good = checkpoint_dirs(save, [lung_da.da_name(method, "lung", s, t,
+                                                        "--consensus" in flags,
+                                                        "--masking" in flags)
+                                        for s, t in da_pairs])
+                good &= pair_maps(lung_da.PRED_SUBDIR[method], da_pairs)
+                check(f"{module.__name__.rsplit('.', 1)[-1]} checkpoints and predictions", good)
+                drop(dirs)
+            drop(src_dirs)
+            counts = counted_launches(wrappers, results)  # the main path's run
+            check("kernel launches", all(n > 0 for n in counts.values()), f"{counts}")
+            n_dice = 2 * len(every) + 2 * len(da_pairs)
+            check("dice", len(dice) == n_dice and all(math.isfinite(d) and 0.0 <= d <= 1.0
+                                                      for d in dice),
+                  f"{len(dice)} of {n_dice}: {[round(d, 4) for d in dice]}")
+            peak_mem = torch.cuda.max_memory_allocated()
+        finally:
+            census_on.close()
+            engine.Trainer.fit = fit
+            for m, f in zip(dice_modules, saved_dice):
+                m.run_lung_dice_evaluation = f
+
+        gc.collect()
+        torch.cuda.synchronize()
+        mem1 = torch.cuda.memory_allocated()
+        check("card memory after the last trainer",
+              mem1 - mem0 <= EXP_MEMORY_SLACK,
+              f"{mem0 / 2**20:.1f} MiB before the first, {mem1 / 2**20:.1f} MiB after the last "
+              f"(slack {EXP_MEMORY_SLACK / 2**20:.0f} MiB); peak {peak_mem / 2**30:.2f} GiB")
+        log(f"lung peak disk {disk['peak'] / 2**30:.2f} GiB")
+
+        # the lung dice runner's known answers on each domain's ground truth
+        # (jsrt2's name remap included): the ground truth against itself
+        # scores 1; with its left half cleared, numpy's 2|A and B| / (|A| + |B|)
+        for case in ("own", "half"):
+            want, got = [], []
+            for d in LUNG_DOMAINS:
+                folder = os.path.join(root, "known", case, d) + os.sep
+                os.makedirs(folder)
+                gt_dir = lung_da.test_gt_dir(data, d)
+                images = sorted(glob(lung_da.test_image_glob(data, d)))
+                scores = []
+                for p, img in zip(sorted(glob(gt_dir + "*")), images):
+                    a = tiff.read_image(p) != 0
+                    b = a.copy()
+                    if case == "half":
+                        b[:, : b.shape[1] // 2] = False
+                    stem = os.path.splitext(os.path.basename(img))[0]
+                    tiff.imwrite(os.path.join(folder, stem + ".tif"), b.astype(np.float32))
+                    scores.append(2.0 * np.sum(a & b) / (np.sum(a) + np.sum(b)))
+                want.append(float(np.mean(scores)))
+                got.append(lung_punet.run_lung_dice_evaluation(gt_dir, folder, d, verbose=False))
+            good = (0.0 < min(want) and (case == "half" or max(want) == 1.0)
+                    and all(abs(g - w) <= DICE_TOL for g, w in zip(got, want)))
+            check(f"dice runner's known answer ({case}, {'/'.join(LUNG_DOMAINS)})", good,
+                  f"{[round(g, 6) for g in got]} against {[round(w, 6) for w in want]}")
+
+        # every new shape the CLIs gave a kernel, held against its plain version
+        t0 = time.perf_counter()
+        good, n = check_shapes(dev, results, binding, census, timed=True)
+        check("the CLIs' kernel shapes against the plain versions", good,
+              f"{len(census)} (kernel, shape) pairs, {len(census) - n} checked before, "
+              f"{n} here in {time.perf_counter() - t0:.1f} s")
+
+        # the first lung_punet --predict file (a JSRT segmentation01 frame)
+        # against tiled_punet_probs of the same weights, frame and noise
+        model = lung_punet.lung_punet(device=dev)
+        model.load_state_dict(kept_state)
+        img = torch.from_numpy(tiff.read_image(first_frame).astype(np.float32)[..., None]).to(dev)
+        gy, gx = grid_shape(img.shape[:2], BLOCK)
+        eps = torch.randn((LUNG_MC, gy * gx, model.latent_dim),
+                          generator=torch.Generator().manual_seed(0))
+        ref = tiled_punet_probs(model, img, eps.to(dev), LUNG_MC, BLOCK, HALO)[..., 0]
+        ref = ref.cpu().numpy()
+        check("the first lung_punet --predict file against tiled_punet_probs",
+              ref.tobytes() == first_bytes, f"{os.path.basename(first_pred)} "
+              f"({'x'.join(map(str, ref.shape))}): bit-equal {ref.tobytes() == first_bytes}")
+        del model, img
+        log("lung seconds by CLI: " + "; ".join(f"{k} {v:.1f}" for k, v in cli_s.items()))
+        for cls, name, init_s, fit_s, timings in trainers:
+            host = ", ".join(f"{k} {v:.3f}" for k, v in sorted(timings.items(),
+                                                               key=lambda kv: -kv[1]))
+            log(f"lung trainer {cls} {name}: set-up (loader start, model, warm start) "
+                f"{init_s:.2f} s, fit {fit_s:.2f} s; host seconds by part: {host}")
+    return ok
+
+
+PHASES = ("kernels", "serving", "training", "algorithms", "engine", "experiments", "mitoem",
+          "lung")
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(description="Smoke run of pda_torch on one NVIDIA GPU.")
+    parser.add_argument("--phases", default=",".join(PHASES),
+                        help="comma-separated phases to run (default: all; the engine phase "
+                             "needs the training phase); a partial run prints no result lines")
+    phases = parser.parse_args(argv).phases.split(",")
+    if set(phases) - set(PHASES) or ("engine" in phases and "training" not in phases):
+        print(f"chip_smoke: --phases takes some of {','.join(PHASES)} (engine with training)",
+              file=sys.stderr)
+        return 2
     try:
         import torch
     except ImportError as e:
@@ -2216,28 +2593,31 @@ def main() -> int:
             log(f"phase {name}: {time.perf_counter() - t0:.1f} s")
             t0 = time.perf_counter()
 
-        with torch.inference_mode():
-            ok &= phase_kernels(dev, results, binding)
-        lap("kernels")
-        ok &= phase_serving(dev, results)
-        lap("serving")
-        good, mt_ms = phase_training(dev, results)
-        ok &= good
-        lap("training")
-        ok &= phase_algorithms(dev, results, binding)
-        lap("algorithms")
-        ok &= phase_engine(dev, results, mt_ms)
-        lap("engine")
-        ok &= phase_experiments(dev, results, binding)
-        lap("experiments")
-        ok &= phase_mitoem(dev, results, binding)
-        lap("mitoem")
+        mt_ms = None
+        for name in (n for n in PHASES if n in phases):
+            if name == "kernels":
+                with torch.inference_mode():
+                    ok &= phase_kernels(dev, results, binding)
+            elif name == "serving":
+                ok &= phase_serving(dev, results)
+            elif name == "training":
+                good, mt_ms = phase_training(dev, results)
+                ok &= good
+            elif name == "engine":
+                ok &= phase_engine(dev, results, mt_ms)
+            else:
+                ok &= {"algorithms": phase_algorithms, "experiments": phase_experiments,
+                       "mitoem": phase_mitoem, "lung": phase_lung}[name](dev, results, binding)
+            lap(name)
     except Exception:  # any phase's error fails the run, with its traceback
         traceback.print_exc()
         ok = False
     if not ok:
         log("chip_smoke: FAILED")
         return 1
+    if len(phases) < len(PHASES):
+        log(f"chip_smoke: phases {','.join(phases)} passed (a partial run: no result lines)")
+        return 0
     for entry in results.values():
         entry["bound_by"] = max(("operations", "bytes"),
                                 key=lambda t: binding.get((entry["name"], t), 0.0))
@@ -2250,8 +2630,9 @@ def main() -> int:
         "call computes it); mc_consensus: the tiled forward's call; launches: the main "
         "paths' runs, each counted from 0: both serving entries, the checked MT step, the "
         "other PUNet steps and the UNet2d path at the flagship's widths, the flagship's "
-        "MeanTeacherTrainer.fit, the experiments phase's LIVECell CLIs and the mitoem phase's "
-        "MitoEM CLIs (the checks' runs are logged on their own lines only)")
+        "MeanTeacherTrainer.fit, the experiments phase's LIVECell CLIs, the mitoem phase's "
+        "MitoEM CLIs and the lung phase's Lung X-Ray CLIs (the checks' runs are logged on "
+        "their own lines only)")
     print(json.dumps({"kernels": list(results.values())}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -1,9 +1,10 @@
 """Data pipelines (port of ``pda.data``): numpy transforms, the 2D patch
 datasets and the HDF5 volume datasets, the loader, synthetic data, the
-file codecs the card machine needs (:mod:`.tiff`, :mod:`.png`, :mod:`.h5`)
-and the LIVECell and EM builders (:mod:`.builders`). numpy only: the
-trainer moves batches to the card. ``pda``'s native augmentation library and
-its Lung builder are not ported yet (ROADMAP §1)."""
+file codecs the card machine needs (:mod:`.tiff`, :mod:`.png`, :mod:`.h5`,
+:mod:`.bmp`), OpenCV's area and nearest resize (:mod:`.resize`) and the
+LIVECell, EM and Lung X-Ray builders (:mod:`.builders`). numpy only: the
+trainer moves batches to the card. ``pda``'s native augmentation library is
+not ported yet (ROADMAP §1)."""
 
 from .datasets import (
     ConcatDataset,

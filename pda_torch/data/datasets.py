@@ -12,9 +12,9 @@ stacks to NHWC; the trainer moves it to the card. Randomness is an explicit
 ``numpy.random.Generator`` handed in per sample (``sample(index, rng)``), so
 a loader with workers stays deterministic. The rejection loop (at most 500
 attempts) crops every array of a sample, the consensus mask included. Images
-are numpy arrays or file paths (a TIFF or PNG read by the port's codecs,
-:mod:`.tiff` and :mod:`.png`; any other file by imageio, imported on first
-use). Volumes are numpy arrays or HDF5 files read by :mod:`.h5`: one larger
+are numpy arrays or file paths (a TIFF, PNG or BMP read by the port's
+codecs, :mod:`.tiff`, :mod:`.png` and :mod:`.bmp`; any other file by
+imageio, imported on first use). Volumes are numpy arrays or HDF5 files read by :mod:`.h5`: one larger
 than ``EAGER_LIMIT_BYTES`` is read a window at a time (:class:`LazyH5Volume`).
 """
 

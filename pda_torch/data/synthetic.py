@@ -28,7 +28,7 @@ def make_blob_image(
     """(raw, binary_mask) pair: gaussian blobs on a noisy background."""
     rng = np.random.default_rng(0) if rng is None else rng
     h, w = shape
-    yy, xx = np.mgrid[0:h, 0:w]
+    yy, xx = np.arange(h)[:, None], np.arange(w)[None, :]  # broadcast: mgrid's values
     raw = np.zeros(shape, dtype=np.float32)
     mask = np.zeros(shape, dtype=np.float32)
     for _ in range(n_blobs):
@@ -260,4 +260,123 @@ def write_mitoem_tree(path: str, seed: int = 0, *, shapes: Optional[dict] = None
                     (np.stack(labels) > 0).astype(np.uint8))
     for name in ("vnc", "lucchi", "urocell"):
         out[name] = os.path.join(path, name)
+    return out
+
+
+# The Lung X-Ray suite's raw layout (pda_torch/data/builders/lung.py and the
+# lung_prepare_data command's --data ROOT form), at the sources' own frame
+# sizes: JSRT scans 2048^2, ChestX-ray14 (NIH) 1024^2, Montgomery CXRs
+# 4020x4892 and 4892x4020 (width x height) with 12-bit greys in 16-bit PNGs.
+LUNG_SHAPES = {"jsrt1": [(2048, 2048)], "jsrt2": [(2048, 2048)], "nih": [(1024, 1024)],
+               "montgomery": [(4892, 4020), (4020, 4892)]}
+LUNG_COUNTS = {"jsrt1": (3, 1), "jsrt2": (3, 1), "nih": (3, 1), "montgomery": 5}
+JSRT2_LABEL_SUFFIX = "_lungs"  # 6 characters, stripped by the jsrt2 dice remap
+
+
+def make_lung_frame(shape: Tuple[int, int], rng: np.random.Generator):
+    """(raw in [0, 1] float32, lung mask bool): two jittered ellipses,
+    darker than a graded background, with noise."""
+    h, w = shape
+    yy = (np.arange(h, dtype=np.float32) / h)[:, None]
+    xx = (np.arange(w, dtype=np.float32) / w)[None, :]
+    mask = np.zeros(shape, bool)
+    for cx in (0.3, 0.7):
+        cy, rx, ry = rng.uniform(0.45, 0.55), rng.uniform(0.12, 0.18), rng.uniform(0.25, 0.35)
+        cx = cx + rng.uniform(-0.03, 0.03)
+        mask |= ((yy - cy) / ry) ** 2 + ((xx - cx) / rx) ** 2 < 1.0
+    raw = 0.55 + 0.25 * yy - 0.35 * mask + 0.05 * rng.standard_normal(shape, np.float32)
+    return np.clip(raw, 0.0, 1.0).astype(np.float32), mask
+
+
+def write_bmp(path: str, image: np.ndarray) -> None:
+    """A 2D uint8 array as an 8-bit BMP with the grey ramp as its palette
+    (BITMAPINFOHEADER, bottom-up), as JSRT segmentation02's raw images are
+    read: ``imageio`` and :func:`pda_torch.data.bmp.imread` give the array
+    back."""
+    a = np.asarray(image)
+    if a.ndim != 2 or a.dtype != np.uint8:
+        raise ValueError(f"write_bmp takes a 2D uint8 array, got {a.dtype} {a.shape}")
+    h, w = a.shape
+    stride = (w + 3) & ~3
+    rows = np.zeros((h, stride), np.uint8)
+    rows[:, :w] = a[::-1]
+    palette = np.repeat(np.arange(256, dtype=np.uint8)[:, None], 4, 1)
+    palette[:, 3] = 0
+    offset = 14 + 40 + palette.nbytes
+    with open(path, "wb") as f:
+        f.write(b"BM" + struct.pack("<IHHI", offset + rows.nbytes, 0, 0, offset)
+                + struct.pack("<IiiHHIIiiII", 40, w, h, 1, 8, 0, rows.nbytes, 2835, 2835, 256, 0)
+                + palette.tobytes() + rows.tobytes())
+
+
+def write_lung_tree(path: str, seed: int = 0, *, shapes: Optional[dict] = None,
+                    counts: Optional[dict] = None) -> dict:
+    """A synthetic Lung X-Ray tree at ``path`` (the ``--data`` root), from
+    ``seed``, in the four raw layouts that the builders and
+    ``lung_prepare_data`` read:
+
+      jsrt1/{train,test}/{org,label}/*.png      8-bit raw, labels 0/255
+      jsrt2/{org,label}_{train,test}/           raw 8-bit grey-palette
+          ``*.bmp``, labels ``<name>_lungs.png`` (the 6-character suffix
+          the jsrt2 dice remap strips)
+      montgomery/CXR_png/*.png                  16-bit, 12-bit greys
+      montgomery/ManualMask/{leftMask,rightMask}/*.png   0/255, one lung each
+      nih/{images,labels}/{train,test}/*.png    8-bit, labels 0/255
+
+    Frames are ``shapes[domain]`` (default :data:`LUNG_SHAPES`, Montgomery
+    alternating between its two), ``counts[domain]`` of them ((train,
+    test), or the Montgomery total; default :data:`LUNG_COUNTS`). The frames
+    are drawn in turn and written by a pool of threads (zlib lets go of the
+    GIL). Returns {domain: its folder}."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from .png import imwrite as png_write
+
+    shapes = {**LUNG_SHAPES, **(shapes or {})}
+    counts = {**LUNG_COUNTS, **(counts or {})}
+    rng = np.random.default_rng(seed)
+
+    def frames(domain, n):
+        for k in range(n):
+            raw, mask = make_lung_frame(shapes[domain][k % len(shapes[domain])], rng)
+            yield k, raw, mask
+
+    pool = ThreadPoolExecutor(max_workers=min(8, os.cpu_count() or 1))
+    writes = []
+
+    def save(folder, name, write, a):
+        os.makedirs(folder, exist_ok=True)
+        writes.append(pool.submit(write, os.path.join(folder, name), a))
+
+    out = {}
+    for domain in ("jsrt1", "jsrt2", "nih"):
+        root = out[domain] = os.path.join(path, domain)
+        for split, n in zip(("train", "test"), counts[domain]):
+            for k, raw, mask in frames(domain, n):
+                img, lab = (raw * 255).astype(np.uint8), mask.astype(np.uint8) * 255
+                name = f"{domain.upper()}{split}{k:03}"
+                if domain == "jsrt1":
+                    save(os.path.join(root, split, "org"), name + ".png", png_write, img)
+                    save(os.path.join(root, split, "label"), name + ".png", png_write, lab)
+                elif domain == "jsrt2":
+                    save(os.path.join(root, f"org_{split}"), name + ".bmp", write_bmp, img)
+                    save(os.path.join(root, f"label_{split}"),
+                         name + JSRT2_LABEL_SUFFIX + ".png", png_write, lab)
+                else:
+                    save(os.path.join(root, "images", split), name + ".png", png_write, img)
+                    save(os.path.join(root, "labels", split), name + ".png", png_write, lab)
+
+    root = out["montgomery"] = os.path.join(path, "montgomery")
+    for k, raw, mask in frames("montgomery", counts["montgomery"]):
+        name = f"MCUCXR_{k:04}_{k % 2}.png"
+        save(os.path.join(root, "CXR_png"), name, png_write, (raw * 4095).astype(np.uint16))
+        half = mask.shape[1] // 2
+        for side, cols in (("rightMask", slice(0, half)), ("leftMask", slice(half, None))):
+            one = np.zeros_like(mask)
+            one[:, cols] = mask[:, cols]
+            save(os.path.join(root, "ManualMask", side), name, png_write,
+                 one.astype(np.uint8) * 255)
+    with pool:
+        for w in writes:
+            w.result()
     return out

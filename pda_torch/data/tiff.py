@@ -14,8 +14,8 @@ nothing beyond numpy.
            its value
 
 :func:`read_image` and :func:`write_image` route by extension: ``.tif`` and
-``.tiff`` to this codec, ``.png`` to :mod:`.png`, any other extension to
-imageio, imported on first use.
+``.tiff`` to this codec, ``.png`` to :mod:`.png`, ``.bmp`` (read only) to
+:mod:`.bmp`, any other extension to imageio, imported on first use.
 """
 
 from __future__ import annotations
@@ -25,7 +25,7 @@ import zlib
 
 import numpy as np
 
-from . import png
+from . import bmp, png
 
 TIFF_EXTS = (".tif", ".tiff")
 
@@ -283,12 +283,14 @@ def imwrite(path: str, array) -> None:
 
 
 def read_image(path: str) -> np.ndarray:
-    """A TIFF through :func:`imread`, a PNG through :func:`.png.imread`; any
-    other file through imageio."""
+    """A TIFF through :func:`imread`, a PNG through :func:`.png.imread`, a
+    BMP through :func:`.bmp.imread`; any other file through imageio."""
     if is_tiff(path):
         return imread(path)
     if png.is_png(path):
         return png.imread(path)
+    if bmp.is_bmp(path):
+        return bmp.imread(path)
     import imageio.v3 as imageio
 
     return np.asarray(imageio.imread(path))

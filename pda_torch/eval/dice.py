@@ -6,9 +6,9 @@ The remaps and thresholds are ``pda``'s (and the reference's): lucchi
 ``mask{NNNN}.tif``, urocell ``_gt`` -> ``_image``, jsrt2's 6-character
 annotation suffix, mitoem's ``im`` prefix; the prediction thresholded at 0.5
 for LIVECell, the ground truth at 0 for lung and EM. numpy only, on
-:func:`pda_torch.core.metrics.dice_score`: TIFFs through the port's codec
-(:mod:`pda_torch.data.tiff`), any other file through imageio, imported when
-one is read.
+:func:`pda_torch.core.metrics.dice_score`: TIFF, PNG and BMP files through
+the port's codecs (:func:`pda_torch.data.tiff.read_image`), any other file
+through imageio, imported when one is read.
 """
 
 from __future__ import annotations

@@ -1,6 +1,6 @@
 """Experiment plumbing (port of ``pda.experiments``): the shared
-configuration (:mod:`.common`) and the LIVECell and MitoEM suites' command
-lines, each run as ``python -m pda_torch.experiments.<name>``:
+configuration (:mod:`.common`) and the LIVECell, MitoEM and Lung X-Ray
+suites' command lines, each run as ``python -m pda_torch.experiments.<name>``:
 
   livecell_prepare_data  images, annotations and label TIFFs
   livecell_punet         supervised PUNet source models
@@ -15,11 +15,16 @@ lines, each run as ``python -m pda_torch.experiments.<name>``:
   mitoem_mt, mitoem_fm, mitoem_adamt, mitoem_adamatch
                          the domain-adaptation methods (:mod:`.mitoem_da`,
                          loaders in :mod:`.mitoem_common`)
+  lung_prepare_data      Montgomery and NIH resized to 256^2, JSRT copied
+  lung_punet, lung_unet  the Lung X-Ray source models, one a domain,
+                         predicted and scored on every domain
+  lung_mt, lung_adamt    the 4x3 domain-adaptation pairs (:mod:`.lung`)
 
-The Lung X-Ray suite is still to come (ROADMAP §1). The
-flagship's factory is ``pda_torch.experiments.common.livecell_punet``
-(``pda`` exports it here too): the name ``livecell_punet`` in this package
-is the command-line module.
+The flagship's factory is ``pda_torch.experiments.common.livecell_punet``
+and the Lung PUNet's ``pda_torch.experiments.common.lung_punet`` (``pda``
+exports both here too): in this package the names ``livecell_punet`` and
+``lung_punet`` are the factories, the command-line modules are imported by
+their full names.
 """
 
 from .common import (

@@ -367,6 +367,54 @@ def test_mean_teacher_step_on_card_matches_cpu(dev):
         assert float((p.cpu() - p_cpu).abs().max()) <= 1e-6
 
 
+@pytest.mark.parametrize("masking", [False, True])
+def test_bce_mean_teacher_step_on_card_matches_cpu(dev, masking):
+    """One small Mean-Teacher step of a PUNet with the Lung suite's BCE
+    reconstruction (``rl_swap=False``: an unreduced sum over the pixels),
+    consensus weighting or masking, on the card against the same port on the
+    CPU, the CPU taking the card teacher's pseudo-labels; the tolerances of
+    the dice-reconstruction test above, relative to each value's largest."""
+    from pda_torch.models import ProbabilisticUnet
+    from pda_torch.train import adam, create_train_state, make_mean_teacher_step
+    from pda_torch.train import steps
+
+    gen = torch.Generator().manual_seed(3)
+    model = ProbabilisticUnet(num_filters=(32, 32, 48, 64), latent_dim=6, no_convs_fcomb=3,
+                              beta=1.0, rl_swap=False, consensus_masking=True, generator=gen)
+    with torch.no_grad():
+        model.fcomb.last_layer.weight.mul_(16.0)
+    x = torch.randn(2, 48, 40, 1, generator=gen)
+    batch = (x, x + 0.1 * torch.randn(x.shape, generator=gen),
+             x + 0.1 * torch.randn(x.shape, generator=gen), (x > 0.5).float())
+    noise = {"eps_teacher": torch.randn(16, 2, 6, generator=gen),
+             "eps_post": torch.randn(2, 6, generator=gen)}
+    step = make_mean_teacher_step(do_consensus_masking=masking)
+    on_card = copy.deepcopy(model).to(dev)
+    card = create_train_state(on_card, adam(on_card.parameters(), 1e-5), with_teacher=True)
+    cpu = create_train_state(model, adam(model.parameters(), 1e-5), with_teacher=True)
+    y, z = steps._mc_pseudo(card.teacher, batch[1].to(dev), 16, masking,
+                            noise["eps_teacher"].to(dev))
+    _, aux = step(card, *(a.to(dev) for a in batch), **{k: v.to(dev) for k, v in noise.items()})
+    torch.cuda.synchronize()
+    pseudo = steps._mc_pseudo
+    steps._mc_pseudo = lambda *a, **k: (y.cpu(), z.cpu())
+    try:
+        _, aux_cpu = step(cpu, *batch, **noise)
+    finally:
+        steps._mc_pseudo = pseudo
+    assert float(aux_cpu["recon_loss"]) > 100.0  # a sum over 2 x 48 x 40 pixels, not a mean
+    for k, v in aux_cpu.items():
+        assert abs(float(aux[k]) - float(v)) <= 1e-4 * max(1.0, abs(float(v))), k
+    for (name, p), p_cpu in zip(card.model.named_parameters(), cpu.model.parameters()):
+        g, g_cpu = p.grad.cpu(), p_cpu.grad
+        assert float((g - g_cpu).abs().max()) <= 1e-3 * float(g_cpu.abs().max()), name
+        noisy = g_cpu.abs() <= 1e-3 * g_cpu.abs().max()  # Adam's sign is noise there
+        diff = (p.detach().cpu() - p_cpu.detach()).abs()
+        assert float(torch.where(noisy, 0.0, diff).max()) <= 1e-6, name
+    for p, p_cpu in zip(card.teacher.parameters(), cpu.teacher.parameters()):
+        assert float((p.cpu() - p_cpu).abs().max()) <= 1e-6
+
+
 def test_adamt_step_on_card_matches_cpu(dev):
     """One small AdaMT step (masking on, ramped EMA at step 0) on the card
     against the same port on the CPU, the CPU taking the card teacher's

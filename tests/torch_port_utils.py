@@ -45,14 +45,14 @@ def seeded_params(model, *inputs, seed: int = 0):
 
 @functools.lru_cache(maxsize=None)
 def pda_punet(no_convs_fcomb: int = 3, seed: int = 0, consensus_masking: bool = False,
-              num_classes: int = 1, no_convs_per_block: int = 3):
+              num_classes: int = 1, no_convs_per_block: int = 3, rl_swap: bool = True):
     """(flax module, params) of a small pda PUNet, posterior included, with
-    the flagship's loss settings (beta 1, rl_swap); params from
-    :func:`seeded_params`."""
+    the flagship's loss settings (beta 1, rl_swap; ``rl_swap=False``: the
+    Lung suite's BCE reconstruction); params from :func:`seeded_params`."""
     from pda.models import ProbabilisticUnet
 
     model = ProbabilisticUnet(num_filters=FILTERS, latent_dim=LATENT,
-                              no_convs_fcomb=no_convs_fcomb, beta=1.0, rl_swap=True,
+                              no_convs_fcomb=no_convs_fcomb, beta=1.0, rl_swap=rl_swap,
                               consensus_masking=consensus_masking, num_classes=num_classes,
                               no_convs_per_block=no_convs_per_block)
     x = jnp.zeros((1, 16, 16, 1))
@@ -61,13 +61,13 @@ def pda_punet(no_convs_fcomb: int = 3, seed: int = 0, consensus_masking: bool = 
 
 
 def port_punet(params, no_convs_fcomb: int = 3, consensus_masking: bool = False,
-               num_classes: int = 1, no_convs_per_block: int = 3):
+               num_classes: int = 1, no_convs_per_block: int = 3, rl_swap: bool = True):
     """The port's PUNet carrying ``params`` (a pda tree), with the loss
     settings of :func:`pda_punet`."""
     from pda_torch.models import ProbabilisticUnet, state_dict_from_pda
 
     model = ProbabilisticUnet(num_filters=FILTERS, latent_dim=LATENT,
-                              no_convs_fcomb=no_convs_fcomb, beta=1.0, rl_swap=True,
+                              no_convs_fcomb=no_convs_fcomb, beta=1.0, rl_swap=rl_swap,
                               consensus_masking=consensus_masking, num_classes=num_classes,
                               no_convs_per_block=no_convs_per_block)
     model.load_state_dict(state_dict_from_pda(params))
