@@ -2,9 +2,10 @@
 datasets and the HDF5 volume datasets, the loader, synthetic data, the
 file codecs the card machine needs (:mod:`.tiff`, :mod:`.png`, :mod:`.h5`,
 :mod:`.bmp`), OpenCV's area and nearest resize (:mod:`.resize`) and the
-LIVECell, EM and Lung X-Ray builders (:mod:`.builders`). numpy only: the
-trainer moves batches to the card. ``pda``'s native augmentation library is
-not ported yet (ROADMAP §1)."""
+LIVECell, EM and Lung X-Ray builders (:mod:`.builders`), OpenCV's Gaussian
+blur (:mod:`.blur`) and ``pda``'s native host library (:mod:`.native`,
+switched by ``PDA_NATIVE_AUGS``). numpy on the host: the trainer moves
+batches to the card."""
 
 from .datasets import (
     ConcatDataset,

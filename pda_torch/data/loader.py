@@ -13,8 +13,11 @@ the card. Worker modes:
   * ``worker_mode="thread"``: a thread pool, also the fallback (with a
     warning) for a dataset that cannot be sent to a process.
 
-A host with one core samples inline whatever ``num_workers`` says, unless
-``force_workers``. Determinism: sample ``i`` of epoch ``e`` always uses
+Under ``PDA_NATIVE_AUGS`` the parent builds the native library
+(:mod:`.native`) before its workers start, and each worker loads the built
+file; the workers take the parent's switch. A host with one core samples
+inline whatever ``num_workers`` says, unless ``force_workers``.
+Determinism: sample ``i`` of epoch ``e`` always uses
 ``default_rng((seed, e, i))``, whatever the worker count or mode; the shuffle
 of epoch ``e`` uses ``default_rng((seed, e))``. ``drop_last=True`` by
 default, so every batch has one shape.
@@ -31,12 +34,16 @@ from typing import Iterator, Sequence
 
 import numpy as np
 
+from . import native
+
 _WORKER_DATASET = None
 _WORKER_SHM = None
 
 
-def _worker_init(dataset, shm_name):
+def _worker_init(dataset, shm_name, native_augs):
     global _WORKER_DATASET, _WORKER_SHM
+    # the parent's switch, not the forkserver's environment of its start
+    os.environ["PDA_NATIVE_AUGS"] = native_augs
     _WORKER_DATASET = dataset
     _WORKER_SHM = shared_memory.SharedMemory(name=shm_name) if shm_name else None
 
@@ -143,10 +150,14 @@ class Loader:
             create=True, size=max(self._slot_nbytes * self._n_slots, 1))
         # the slots belong to the Loader, so two live iterators never share one
         self._free_slots = list(range(self._n_slots))
+        native_augs = native.enabled()
+        if native_augs:  # built once here, so no two workers compile it
+            native.build()
         pool = cf.ProcessPoolExecutor(max_workers=self.num_workers,
                                       mp_context=_forkserver(),
                                       initializer=_worker_init,
-                                      initargs=(self.dataset, self._shm.name))
+                                      initargs=(self.dataset, self._shm.name,
+                                                "1" if native_augs else "0"))
         self._pending_pool = pool
         # one first fetch a worker, submitted together so that every worker
         # starts now (the pool starts them as tasks wait), not in the first

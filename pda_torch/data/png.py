@@ -4,9 +4,10 @@
 MitoEM's raw slices) through imageio (Pillow's plugin); the port reads them
 here, so that the card machine needs no imageio.
 
-  imread   every PNG of the standard: color types 0 (gray), 2 (RGB),
-           3 (palette), 4 (gray and alpha) and 6 (RGBA) at each bit depth
-           the standard allows (1, 2, 4, 8, 16), all five row filters,
+  imread   (``decode`` for bytes) every PNG of the standard: color types
+           0 (gray), 2 (RGB), 3 (palette), 4 (gray and alpha) and 6 (RGBA)
+           at each bit depth the standard allows (1, 2, 4, 8, 16), all five
+           row filters,
            Adam7 interlacing; checksums checked. It returns what
            ``imageio.v3.imread`` returns: a 1-bit gray image as bool, 2- and
            4-bit gray scaled to uint8 (x 85, x 17), 8- and 16-bit gray as
@@ -14,7 +15,7 @@ here, so that the card machine needs no imageio.
            gray and alpha (H, W, 2) at 8 bits but RGBA (H, W, 4) at 16;
            palettes expanded to RGB (H, W, 3) (transparency dropped).
   imwrite  2D uint8 or uint16 (gray) and (H, W, 3) uint8 (RGB), no filter,
-           not interlaced.
+           not interlaced (``encode`` gives the file's bytes).
 
 Any other file raises ``ValueError`` naming what it is.
 """
@@ -117,7 +118,11 @@ def _samples(data: bytes, h: int, w: int, depth: int, channels: int, path) -> np
 def imread(path: str) -> np.ndarray:
     """The image of a PNG file, as ``imageio.v3.imread`` gives it."""
     with open(path, "rb") as f:
-        buf = f.read()
+        return decode(f.read(), path)
+
+
+def decode(buf: bytes, path: str = "<bytes>") -> np.ndarray:
+    """The image of a PNG file's bytes (``path`` names it in errors)."""
     header, palette, idat = None, None, []
     for kind, data in _chunks(buf, path):
         if kind == b"IHDR":
@@ -168,8 +173,9 @@ def _chunk(kind: bytes, data: bytes) -> bytes:
             + struct.pack(">I", zlib.crc32(kind + data) & 0xFFFFFFFF))
 
 
-def imwrite(path: str, array) -> None:
-    """A 2D uint8 or uint16 array as gray, an (H, W, 3) uint8 array as RGB."""
+def encode(array, level: int = 6) -> bytes:
+    """A 2D uint8 or uint16 array as gray, an (H, W, 3) uint8 array as RGB,
+    as the bytes of a PNG file (zlib compression ``level``)."""
     a = np.asarray(array)
     if a.ndim == 2 and a.dtype in (np.uint8, np.uint16):
         ctype, depth = 0, 8 * a.dtype.itemsize
@@ -181,6 +187,12 @@ def imwrite(path: str, array) -> None:
     h, w = a.shape[:2]
     rows = np.ascontiguousarray(a, ">u2" if depth == 16 else np.uint8).reshape(h, -1)
     raw = np.concatenate([np.zeros((h, 1), np.uint8), rows.view(np.uint8)], axis=1)
+    return (SIGNATURE + _chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, depth, ctype, 0, 0, 0))
+            + _chunk(b"IDAT", zlib.compress(raw.tobytes(), level)) + _chunk(b"IEND", b""))
+
+
+def imwrite(path: str, array) -> None:
+    """A 2D uint8 or uint16 array as gray, an (H, W, 3) uint8 array as RGB."""
+    data = encode(array)
     with open(path, "wb") as f:
-        f.write(SIGNATURE + _chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, depth, ctype, 0, 0, 0))
-                + _chunk(b"IDAT", zlib.compress(raw.tobytes(), 6)) + _chunk(b"IEND", b""))
+        f.write(data)

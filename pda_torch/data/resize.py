@@ -10,9 +10,11 @@ its arithmetic:
   INTER_NEAREST   source index ``floor(x * (1 / (dst / src)))`` in double,
                   clamped to the last row or column (not
                   ``INTER_NEAREST_EXACT``)
-  INTER_AREA      - both factors integers ("fast area"): the block's integer
-                    sum, ``(sum + 2) >> 2`` for 2x2 blocks, else
-                    ``rint(float32(sum) * float32(1 / area))``;
+  INTER_AREA      - both factors integers ("fast area"): ``(sum + 2) >> 2``
+                    of the block's integer sum for 2x2 blocks, else
+                    ``rint(float32(sum) * float32(1 / area))``, the sum an
+                    int for uint8 and, for uint16, a float32 that takes the
+                    block in row-major order four pixels at a time;
                   - both factors >= 1 otherwise: per-pixel area weights
                     (``computeResizeAreaTab``) summed along each row in
                     float32, then the rows weighted and summed in float32,
@@ -57,11 +59,21 @@ def _area_fast(src: np.ndarray, dw: int, dh: int, sx: int, sy: int) -> np.ndarra
     """resizeAreaFast_ over whole sy x sx blocks (the source is then a
     multiple of the block in each axis)."""
     blocks = src.astype(np.int64).reshape(dh, sy, dw, sx)
-    total = blocks.sum(axis=(1, 3))
     if sx == 2 and sy == 2:
-        return ((total + 2) >> 2).astype(src.dtype)
-    scale = np.float32(1.0) / np.float32(sx * sy)
-    return _saturate(total.astype(np.float32) * scale, src.dtype)
+        return ((blocks.sum(axis=(1, 3)) + 2) >> 2).astype(src.dtype)
+    area = sx * sy
+    scale = np.float32(1.0) / np.float32(area)
+    if src.dtype == np.uint8:  # an int sum
+        return _saturate(blocks.sum(axis=(1, 3)).astype(np.float32) * scale, src.dtype)
+    # uint16 sums in float32 over the block in row-major order: four pixels'
+    # int sum at a time, then the rest one by one
+    taps = blocks.transpose(0, 2, 1, 3).reshape(dh, dw, area)
+    total = np.zeros((dh, dw), np.float32)
+    for k in range(0, area - area % 4, 4):
+        total += taps[..., k:k + 4].sum(axis=-1).astype(np.float32)
+    for k in range(area - area % 4, area):
+        total += taps[..., k].astype(np.float32)
+    return _saturate(total * scale, src.dtype)
 
 
 def _area_tab(ssize: int, dsize: int, scale: float):

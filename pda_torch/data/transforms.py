@@ -1,15 +1,16 @@
 """Host-side numpy transforms and augmentations (port of
-``pda/data/transforms.py``, its numpy path).
+``pda/data/transforms.py``).
 
 ``standardize``, ``normalize``, ``Compose``, ``RandomApply``,
 ``GaussianBlur``, ``AdditiveGaussianNoise``, ``RandomContrast``,
 ``get_raw_transform``, the joint geometric augmentations
-(``get_augmentations(ndim=2)``) and the label transforms. All are numpy
-(OpenCV's blur where ``cv2`` imports, scipy's otherwise, as in ``pda``),
-operate on float32 ``(H, W)`` or ``(H, W, C)`` arrays and take an explicit
-``numpy.random.Generator``. ``pda`` runs some of them through its native C
-library when that is built; the port has no such library, and these
-functions compute what ``pda``'s numpy path computes.
+(``get_augmentations(ndim=2)``) and the label transforms. They operate on
+float32 ``(H, W)`` or ``(H, W, C)`` arrays and take an explicit
+``numpy.random.Generator``. The blur is OpenCV's, computed in numpy
+(:mod:`.blur`). Under ``PDA_NATIVE_AUGS`` (default ``"1"``), ``standardize``
+with default statistics and the elastic field and warp run in the native
+library (:mod:`.native`), at the points where ``pda`` takes it; ``"0"``
+selects numpy and scipy there.
 """
 
 from __future__ import annotations
@@ -19,15 +20,11 @@ from typing import Callable, Optional, Sequence, Tuple
 
 import numpy as np
 # imported here, not at first use as in ``pda``: a loader's worker process
-# then pays for it when it starts, not at its first blur or warp in a timed loop
-from scipy.ndimage import gaussian_filter, map_coordinates
+# then pays for it when it starts, not at its first warp in a timed loop
+from scipy.ndimage import map_coordinates
 
-try:
-    import cv2
-
-    _HAS_CV2 = True
-except Exception:  # pragma: no cover - OpenCV is optional
-    _HAS_CV2 = False
+from . import native
+from .blur import gaussian_blur
 
 EPS = 1e-7
 
@@ -35,7 +32,10 @@ EPS = 1e-7
 def standardize(x: np.ndarray, mean: Optional[float] = None, std: Optional[float] = None,
                 eps: float = EPS) -> np.ndarray:
     """(x - mean) / (std + eps), the statistics of ``x`` where not given
-    (torch_em ``standardize``)."""
+    (torch_em ``standardize``); with both defaulted, in the native library
+    under ``PDA_NATIVE_AUGS``."""
+    if mean is None and std is None and native.enabled():
+        return native.standardize(x, eps)
     x = np.asarray(x, dtype=np.float32)
     mean = x.mean() if mean is None else mean
     x = x - mean
@@ -89,7 +89,8 @@ class RandomApply:
 
 
 class GaussianBlur:
-    """Gaussian blur of the spatial axes with a uniformly drawn sigma."""
+    """Gaussian blur of the spatial axes with a uniformly drawn sigma:
+    ``cv2.GaussianBlur(x, (0, 0), sigma)``, computed by :mod:`.blur`."""
 
     def __init__(self, kernel_size=None, sigma: Tuple[float, float] = (0.0, 3.0)):
         self.sigma = sigma
@@ -98,12 +99,9 @@ class GaussianBlur:
         sigma = rng.uniform(*self.sigma)
         if sigma <= 0:
             return x
-        if _HAS_CV2:
-            squeeze = x.ndim == 3 and x.shape[-1] == 1
-            src = x[..., 0] if squeeze else x
-            out = cv2.GaussianBlur(np.ascontiguousarray(src, dtype=np.float32), (0, 0), sigma)
-            return out[..., None] if squeeze else out
-        return gaussian_filter(x, (sigma, sigma) + (0,) * (x.ndim - 2))
+        squeeze = x.ndim == 3 and x.shape[-1] == 1
+        out = gaussian_blur(x[..., 0] if squeeze else x, sigma)
+        return out[..., None] if squeeze else out
 
 
 class AdditiveGaussianNoise:
@@ -176,6 +174,8 @@ class JointAugmentations:
         step = max(int(self.sigma), 2)
         gh, gw = h // step + 3, w // step + 3
         coarse = rng.standard_normal((gh, gw)).astype(np.float32)
+        if native.enabled():
+            return native.field_upsample(coarse, h, w)
         ys = np.linspace(0, gh - 1.001, h, dtype=np.float32)
         xs = np.linspace(0, gw - 1.001, w, dtype=np.float32)
         y0, x0 = ys.astype(np.int32), xs.astype(np.int32)
@@ -190,11 +190,15 @@ class JointAugmentations:
         dy, dx = self._field(h, w, rng), self._field(h, w, rng)
         norm = max(np.abs(dy).max(), np.abs(dx).max(), 1e-8)
         dy, dx = dy * (self.alpha / norm), dx * (self.alpha / norm)
-        yy, xx = np.meshgrid(np.arange(h), np.arange(w), indexing="ij")
-        coords = np.stack([yy + dy, xx + dx])
+        if native.enabled():
+            def warp2d(a, order):
+                return native.elastic_warp(a, dy, dx, order=order)
+        else:
+            yy, xx = np.meshgrid(np.arange(h), np.arange(w), indexing="ij")
+            coords = np.stack([yy + dy, xx + dx])
 
-        def warp2d(a, order):
-            return map_coordinates(a, coords, order=order, mode="reflect")
+            def warp2d(a, order):
+                return map_coordinates(a, coords, order=order, mode="reflect")
 
         out = []
         for i, a in enumerate(arrays):

@@ -2,9 +2,9 @@
 the augmentation recipes, the model configurations, checkpoint naming and
 the common command line.
 
-The recipes are ``pda``'s numpy path (its ``PDA_NATIVE_AUGS=0``): the port
-has no native augmentation library. The models are built on the card unless
-the caller passes ``device="cpu"``. Checkpoint names are ``pda``'s, which
+The weak views run in the native library under ``PDA_NATIVE_AUGS`` (default
+``"1"``), as ``pda``'s do; ``"0"`` selects the numpy recipe. The models are
+built on the card unless the caller passes ``device="cpu"``. Checkpoint names are ``pda``'s, which
 are the reference's (they tie the --train, --predict and --evaluate phases
 together); as in ``pda``, masking takes precedence over weighting in a name.
 ``--mesh`` is parsed as ``pda`` parses it, and any mesh raises: the port
@@ -19,6 +19,7 @@ from typing import Optional, Union
 
 import torch
 
+from ..data import native
 from ..data.transforms import (
     AdditiveGaussianNoise,
     Compose,
@@ -36,7 +37,10 @@ Device = Union[str, torch.device]
 def weak_augmentations(p: float = 0.25):
     """Weak views: standardize, then blur and noise (0-0.15), each with
     probability ``p`` (reference LIVECell/livecell_mt.py:16-26,
-    MitoEM/common.py:51-58, Lung-XRay/lung_mt.py:16-26)."""
+    MitoEM/common.py:51-58, Lung-XRay/lung_mt.py:16-26): one native call a
+    sample under ``PDA_NATIVE_AUGS``, else the numpy ``Compose``."""
+    if native.enabled():
+        return native.NativeWeakAugmentation(p=p)
     return Compose(
         standardize,
         RandomApply([GaussianBlur()], p=p),
@@ -164,10 +168,11 @@ def lung_data_path(root_input_dir: str, domain: str) -> str:
 
 
 def release(trainer) -> None:
-    """Stop a finished trainer's loader workers and drop its train state
-    (optimizer moments, teacher), so that the next run of an experiment's
-    loop starts on an empty card."""
-    for name in ("train_loader", "val_loader", "source_train_loader", "target_train_loader"):
+    """Stop a finished trainer's loader workers, close its logger's event
+    file and drop its train state (optimizer moments, teacher), so that the
+    next run of an experiment's loop starts on an empty card."""
+    for name in ("train_loader", "val_loader", "source_train_loader", "target_train_loader",
+                 "logger"):
         close = getattr(getattr(trainer, name, None), "close", None)
         if close is not None:
             close()

@@ -4,8 +4,9 @@ loggers write them (port of ``pda/train/logging.py``).
 Log dir ``./logs/<name>`` or ``<save_root>/logs/<name>``; scalar tags
 ``train/<metric>``, ``train/learning_rate`` and ``validation/<metric>``;
 image panels every ``log_image_interval`` steps and at every validation.
-Written with tensorboardX where it imports; without it the logger writes
-nothing (the scalars still reach the trainer's ``history``).
+Written to one TensorBoard event file per log dir by the port's own writer
+(:mod:`.events`), with the records tensorboardX writes for ``pda``, flushed
+after every validation and at ``close``.
 """
 
 from __future__ import annotations
@@ -15,12 +16,7 @@ from typing import Mapping, Optional
 
 import numpy as np
 
-try:
-    from tensorboardX import SummaryWriter
-
-    _HAS_TB = True
-except Exception:  # pragma: no cover - tensorboardX is optional
-    _HAS_TB = False
+from .events import EventWriter
 
 
 def _normalize(img: np.ndarray, eps: float = 1e-7) -> np.ndarray:
@@ -62,14 +58,11 @@ class TrainLogger:
                  log_image_interval: int = 100):
         self.log_dir = (f"./logs/{name}" if save_root is None
                         else os.path.join(save_root, "logs", name))
-        os.makedirs(self.log_dir, exist_ok=True)
-        self.tb = SummaryWriter(self.log_dir) if _HAS_TB else None
+        self.tb = EventWriter(self.log_dir)
         self.log_image_interval = log_image_interval
 
     def log_train(self, step: int, scalars: Mapping[str, float],
                   images: Optional[Mapping[str, np.ndarray]] = None):
-        if self.tb is None:
-            return
         for tag, value in scalars.items():
             self.tb.add_scalar(f"train/{tag}", float(value), step)
         if images and step % self.log_image_interval == 0:
@@ -77,12 +70,11 @@ class TrainLogger:
 
     def log_validation(self, step: int, scalars: Mapping[str, float],
                        images: Optional[Mapping[str, np.ndarray]] = None):
-        if self.tb is None:
-            return
         for tag, value in scalars.items():
             self.tb.add_scalar(f"validation/{tag}", float(value), step)
         if images:
             self._add_images("validation", step, images)
+        self.tb.flush()  # the file is readable after every epoch
 
     def _add_images(self, prefix: str, step: int, images: Mapping[str, np.ndarray]):
         for tag, img in images.items():
@@ -97,8 +89,7 @@ class TrainLogger:
                               _normalize(img) if tag in self.NORMALIZED_TAGS else img, step)
 
     def close(self):
-        if self.tb is not None:
-            self.tb.close()
+        self.tb.close()
 
 
 # One logger class per reference trainer, under the reference's names, so

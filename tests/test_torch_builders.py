@@ -166,6 +166,12 @@ def _factory(mod, common, kind, root):
         return mod.get_my_livecell_loader(root, patch, "val", label_path=label_path,
                                           cell_types=list(CELLS), batch_size=2,
                                           num_workers=0, seed=4)
+    if kind == "mt":  # the Mean Teacher's two weak views
+        return mod.get_dual_livecell_loader(root, patch, "train", cell_types=list(CELLS),
+                                            binary=True, batch_size=2,
+                                            augmentation1=common.weak_augmentations(),
+                                            augmentation2=common.weak_augmentations(),
+                                            num_workers=0, seed=6)
     return mod.get_dual_livecell_loader(root, patch, "train", cell_types=["A172"], binary=True,
                                         batch_size=2, augmentation1=common.weak_augmentations(),
                                         augmentation2=common.fm_strong_augmentations(),
@@ -192,6 +198,29 @@ def test_loader_factories_match_pda(tree, kind):
         a, b = np.asarray(a), np.asarray(b)
         assert a.shape == b.shape and a.dtype == b.dtype
         np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("kind", ["livecell", "my", "dual", "mt"])
+def test_loader_factories_match_pda_on_native_augs(tree, kind):
+    """With both packages' native libraries (their default), the first two
+    batches, inline with the same seed, bit for bit: the native standardize,
+    elastic warps and (dual, mt) weak views."""
+    port_root, ref_root = _copy(tree, f"port_native_{kind}"), _copy(tree, f"ref_native_{kind}")
+    with numpy_augs(False):
+        port = _factory(tlive, tcommon, kind, port_root)
+        ref = _factory(jlive, jcommon, kind, ref_root)
+        if kind in ("dual", "mt"):
+            assert type(port.dataset.augmentation1).__name__ == "NativeWeakAugmentation"
+            assert type(ref.dataset.augmentation1).__name__ == "NativeWeakAugmentation"
+        pit, rit = iter(port), iter(ref)
+        batches = [(next(pit), next(rit)) for _ in range(min(2, len(port)))]
+    assert len(batches) == (1 if kind == "my" else 2)
+    for pb, rb in batches:
+        assert len(pb) == len(rb) == {"livecell": 2, "my": 3, "dual": 4, "mt": 4}[kind]
+        for a, b in zip(pb, rb):
+            a, b = np.asarray(a), np.asarray(b)
+            assert a.shape == b.shape and a.dtype == b.dtype
+            np.testing.assert_array_equal(a, b)
 
 
 def test_no_fetch_for_a_complete_tree_and_pda_errors_for_a_missing_file(tree, monkeypatch):

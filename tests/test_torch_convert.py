@@ -65,9 +65,12 @@ def test_port_imports_no_jax():
         "pda_torch.experiments.mitoem_punet, pda_torch.experiments.mitoem_unet, "
         "pda_torch.experiments.mitoem_mt, pda_torch.experiments.mitoem_fm, "
         "pda_torch.experiments.mitoem_adamt, pda_torch.experiments.mitoem_adamatch, "
-        "pda_torch.experiments.mitoem_prepare_data, pda_torch.experiments.livecell_da\n"
+        "pda_torch.experiments.mitoem_prepare_data, pda_torch.experiments.livecell_da, "
+        "pda_torch.data.blur, pda_torch.data.native, pda_torch.train.events, "
+        "pda_torch.data.transforms, pda_torch.experiments.common\n"
         "bad = sorted(m for m in sys.modules\n"
-        "             if m.split('.')[0] in ('jax', 'flax', 'pda', 'h5py', 'imageio'))\n"
+        "             if m.split('.')[0] in ('jax', 'flax', 'pda', 'h5py', 'imageio', 'cv2',\n"
+        "                                    'tensorboardX', 'tensorboard'))\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
     )

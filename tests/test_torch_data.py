@@ -1,7 +1,7 @@
 """The port's data path (``pda_torch.data``) against ``pda.data`` on the CPU:
-synthetic images, the numpy transforms (``pda``'s numpy path: its native
-library is switched off with ``PDA_NATIVE_AUGS=0``, the port has none), the
-2D patch datasets and the ``Loader`` (inline, thread workers and one
+synthetic images, the numpy transforms (both packages' numpy path: their
+native libraries are switched off with ``PDA_NATIVE_AUGS=0``; the native
+path is ``test_torch_native.py``'s), the 2D patch datasets and the ``Loader`` (inline, thread workers and one
 shared-memory process case), array for array over two epochs."""
 
 import numpy as np

@@ -312,7 +312,7 @@ def run_port(script, flags, tmp_path):
     rec = Recorder()
     os.chdir(_side_root(tmp_path, "port"))
     cli = port_cli(script)
-    with pytest.MonkeyPatch.context() as mp:
+    with numpy_augs(), pytest.MonkeyPatch.context() as mp:
         _instrument(mp, tda if script in THIN else cli, rec, "port")
         cli.main(flags, cell_types=CELLS, device="cpu")
     return rec.log

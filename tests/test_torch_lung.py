@@ -347,8 +347,11 @@ def test_lung_punet_runs_on_the_cpu_without_imageio_cv2_sklearn(tmp_path):
     imageio, cv2 and scikit-learn blocked: checkpoints, one probability map
     per test image and (source, target) in [0, 1] at the image's shape, 16
     dice values in [0, 1]."""
+    # two intra-op threads: beside the other test workers, a full team of
+    # spinning OpenMP threads would oversubscribe the host's cores
     out = subprocess.run([sys.executable, "-c", RUN, str(tmp_path)], capture_output=True,
-                         text=True, cwd=REPO, timeout=600)
+                         text=True, cwd=REPO, timeout=600,
+                         env={**os.environ, "OMP_NUM_THREADS": "2"})
     assert out.returncode == 0, out.stderr[-4000:]
     result = json.loads(out.stdout.strip().splitlines()[-1])
     assert result["loaded"] == []

@@ -333,8 +333,11 @@ def test_mitoem_punet_runs_on_the_cpu_without_h5py_imageio_cv2(tmp_path):
     --iterations 2 on the CPU, PUNet (4, 8, 12, 16), 512^2 frames, with
     h5py, imageio and cv2 blocked: checkpoints, one probability map per
     target frame in [0, 1], three dice values in [0, 1]."""
+    # two intra-op threads: beside the other test workers, a full team of
+    # spinning OpenMP threads would oversubscribe the host's cores
     out = subprocess.run([sys.executable, "-c", RUN, str(tmp_path)], capture_output=True,
-                         text=True, cwd=REPO, timeout=600)
+                         text=True, cwd=REPO, timeout=600,
+                         env={**os.environ, "OMP_NUM_THREADS": "2"})
     assert out.returncode == 0, out.stderr[-4000:]
     result = json.loads(out.stdout.strip().splitlines()[-1])
     assert result["loaded"] == []

@@ -64,6 +64,18 @@ def test_matches_opencv(case, interpolation):
     same_as_cv2(src, dsize, interpolation)
 
 
+@pytest.mark.parametrize("block", [(54, 57), (7, 9), (64, 64), (33, 1)])
+@pytest.mark.parametrize("binary", [True, False])
+def test_large_uint16_blocks(block, binary):
+    """Fast area on uint16 blocks whose sum passes 2**24, where OpenCV's
+    float32 running sum rounds."""
+    rng = np.random.default_rng(block[0] * 100 + block[1])
+    shape = (2 * block[0], 3 * block[1])
+    src = ((rng.integers(0, 2, shape) * 65535) if binary
+           else rng.integers(0, 65536, shape)).astype(np.uint16)
+    same_as_cv2(src, (3, 2), INTER_AREA)
+
+
 @pytest.mark.parametrize("shape", [(4892, 4020), (4020, 4892), (1024, 1024)])
 def test_real_sizes(shape):
     """Montgomery's two frame sizes and ChestX-ray14's to 256^2: images

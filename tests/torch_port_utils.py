@@ -6,6 +6,7 @@ from __future__ import annotations
 
 import contextlib
 import functools
+import importlib
 import os
 
 import jax
@@ -182,12 +183,12 @@ def recording_logger(cls, name: str, save_root: str):
     return logger
 
 
-def engine_loaders(data, kind: str):
+def engine_loaders(data, kind: str, native: bool = False):
     """The trainer's loaders, built from ``data`` (``pda.data`` or
     ``pda_torch.data``, which share one interface) on seeded synthetic
     images: epochs of two batches of two 32^2 patches, one validation
     batch; the weak and strong views are ``pda/experiments/common.py``'s
-    numpy recipes."""
+    numpy recipes, or with ``native`` its native weak recipe."""
     from pda.data.synthetic import make_consensus_arrays, make_dataset_arrays
 
     raws, labels = make_dataset_arrays(4, (ENGINE_IMAGE, ENGINE_IMAGE), seed=3)
@@ -197,6 +198,8 @@ def engine_loaders(data, kind: str):
     weak = data.Compose(
         data.standardize, data.RandomApply([data.GaussianBlur()], p=0.25),
         data.RandomApply([data.AdditiveGaussianNoise(scale=(0, 0.15))], p=0.25))
+    if native:
+        weak = importlib.import_module(data.__name__ + ".native").NativeWeakAugmentation()
     strong = data.Compose(
         data.standardize, data.RandomApply([data.GaussianBlur(sigma=(1.0, 4.0))], p=0.9),
         data.RandomApply([data.AdditiveGaussianNoise(scale=(0.1, 0.35))], p=0.9),
@@ -242,11 +245,12 @@ def engine_models(kind: str):
 
 
 @contextlib.contextmanager
-def numpy_augs():
-    """pda's numpy transforms, not its native library (the port has none),
-    while the block runs."""
+def numpy_augs(numpy: bool = True):
+    """Both packages' numpy transforms, not their native libraries, while
+    the block runs (with ``numpy=False``: the native libraries, their
+    default)."""
     old = os.environ.get("PDA_NATIVE_AUGS")
-    os.environ["PDA_NATIVE_AUGS"] = "0"
+    os.environ["PDA_NATIVE_AUGS"] = "0" if numpy else "1"
     try:
         yield
     finally:
@@ -267,7 +271,7 @@ def _trainer_kwargs(kind: str, side) -> dict:
 
 
 @functools.lru_cache(maxsize=None)
-def engine_fits(kind: str, save_root: str) -> dict:
+def engine_fits(kind: str, save_root: str, native: bool = False) -> dict:
     """pda's trainer and the port's, each through ``fit(4)`` (two epochs of
     two steps, a plateau reduction at the second validation: patience 0 and
     a threshold no metric can pass), from the same weights on the same
@@ -277,8 +281,10 @@ def engine_fits(kind: str, save_root: str) -> dict:
     of :func:`pda_punet` with the Fcomb scaled so that the consensus share
     lies inside (0, 1) (pda's own PUNet init starts with posterior
     log-sigmas up to 6.6 and a KL near 1e5 at this size, where one flipped
-    pseudo-label pixel sends the two runs apart). Returns both trainers, the
-    initial pda tree and the port's gradients of every step."""
+    pseudo-label pixel sends the two runs apart). Both sides take their
+    numpy augmentations, or with ``native`` their native libraries (the
+    weak views too). Returns both trainers, the initial pda tree and the
+    port's gradients of every step."""
     import pda.train as jtrain
     import pda_torch.data as tdata
     import pda_torch.train as ttrain
@@ -291,8 +297,8 @@ def engine_fits(kind: str, save_root: str) -> dict:
     for side, train_mod, data, model in (("pda", jtrain, jdata, jmodel),
                                          ("port", ttrain, tdata, tmodel)):
         cls = getattr(train_mod, cls_name)
-        root = os.path.join(save_root, side)
-        loaders = engine_loaders(data, kind)
+        root = os.path.join(save_root, side + ("_native" if native else ""))
+        loaders = engine_loaders(data, kind, native)
         kw = dict(learning_rate=ENGINE_LR, save_root=root, seed=0,
                   lr_scheduler=train_mod.ReduceLROnPlateau(patience=0, threshold=1.0),
                   logger=recording_logger(cls.default_logger_cls, kind, root),
@@ -302,7 +308,7 @@ def engine_fits(kind: str, save_root: str) -> dict:
         out[side] = cls(kind, model, *loaders, **kw)
 
     jt, tt = out["pda"], out["port"]
-    with numpy_augs():
+    with numpy_augs(not native):
         jt.initialize()
         params = jt.state.params
         if is_punet:  # the seeded tree of the other tests, the Fcomb scaled
@@ -338,7 +344,8 @@ def engine_fits(kind: str, save_root: str) -> dict:
         return panels(model, teacher, *batch, **(chain.panels(spec[2]) if spec else {}))
 
     tt.train_step, tt.val_step, tt.panel_fn = train_step, val_step, panel_fn
-    tt.fit(ENGINE_ITERATIONS)
+    with numpy_augs(not native):
+        tt.fit(ENGINE_ITERATIONS)
     out["grads"] = grads
     out["bridge"] = bridge
     return out
@@ -351,8 +358,8 @@ def _logged(logger, prefix):
     return {(tag, step): v for tag, step, v in logger.scalars if tag.startswith(prefix)}
 
 
-def check_scalars(kind, root, prefix):
-    fits = engine_fits(kind, root)
+def check_scalars(kind, root, prefix, native=False):
+    fits = engine_fits(kind, root, native)
     want, got = _logged(fits["pda"].logger, prefix), _logged(fits["port"].logger, prefix)
     assert sorted(got) == sorted(want)
     assert want, "no scalar logged"
@@ -363,16 +370,16 @@ def check_scalars(kind, root, prefix):
     return fits
 
 
-def check_train_scalars(kind, root):
-    fits = check_scalars(kind, root, "train/")
+def check_train_scalars(kind, root, native=False):
+    fits = check_scalars(kind, root, "train/", native)
     # every step logged once, one step late, the last one without the rate
     port = fits["port"]
     assert [i for i, _ in port.history] == list(range(ENGINE_ITERATIONS))
     assert "learning_rate" not in port.history[-1][1]
 
 
-def check_validation_scalars(kind, root):
-    fits = check_scalars(kind, root, "validation/")
+def check_validation_scalars(kind, root, native=False):
+    fits = check_scalars(kind, root, "validation/", native)
     assert [i for i, _ in fits["port"].val_history] == [2, 4]
 
 
@@ -389,8 +396,8 @@ def _noisy(fits) -> dict:
     return noisy
 
 
-def check_final_weights(kind, root):
-    fits = engine_fits(kind, root)
+def check_final_weights(kind, root, native=False):
+    fits = engine_fits(kind, root, native)
     jt, tt, bridge = fits["pda"], fits["port"], fits["bridge"]
     noisy, init = _noisy(fits), {k: v.numpy() for k, v in bridge(fits["init"]).items()}
     pairs = [(jt.state.params, tt.state.model)]
@@ -414,8 +421,8 @@ def check_final_weights(kind, root):
     assert all(moved)
 
 
-def check_iteration_lr_and_checkpoints(kind, root):
-    fits = engine_fits(kind, root)
+def check_iteration_lr_and_checkpoints(kind, root, native=False):
+    fits = engine_fits(kind, root, native)
     jt, tt = fits["pda"], fits["port"]
     assert jt._iteration == tt._iteration == tt.state.step == int(jt.state.step) == 4
     # patience 0 and threshold 1: the second validation cannot improve
@@ -438,8 +445,8 @@ def check_iteration_lr_and_checkpoints(kind, root):
     assert sorted(os.listdir(tt.ckpt_dir)) == ["best.pt", "latest.pt"]
 
 
-def check_tags_and_panels(kind, root):
-    fits = engine_fits(kind, root)
+def check_tags_and_panels(kind, root, native=False):
+    fits = engine_fits(kind, root, native)
     jt, tt = fits["pda"], fits["port"]
     assert ({tag for tag, _, _ in tt.logger.scalars}
             == {tag for tag, _, _ in jt.logger.scalars})
