@@ -24,19 +24,38 @@ Phases, each of which fails the run (exit code 1) on any error or miss
                 batch 2, on the card against the same step of the port on
                 the CPU (loss, every gradient, updated student and teacher),
                 with its kernel launch counts; then steps at 512^2, batch 2
-  6. algorithms — fault 3.1: K3 at C = 16 and 20 (zero-padded to 24)
+  6. bf16     — pda's bf16 configuration (bench.py's default MT step:
+                ProbabilisticUnet(dtype=bfloat16), float32 parameters) on the
+                bf16 instances of the four kernel bodies: each at the tiled
+                forward's and the MT step's shapes against its plain version
+                in float64 sums, layer by layer from the kernel's own input
+                (bf16 outputs within one bf16 ulp, or 1e-5 of the largest
+                where the value's ulp is finer, and bit-equal on 99%; dW, db
+                within 1e-4; K3's mean within 2^-8), timed beside cuDNN's bf16
+                convolutions and the bound at 989 TFLOP/s; one 128^2 MT step
+                card vs the plain bf16 step on the CPU; the 512^2 step with
+                the kernels against the step with every plain version on the
+                card (pda's development/ab_step_check.py: loss, gradients'
+                cosine, worst leaf; the consensus differs at most at 4x the
+                pixels the plain leg's float32 and float64 sums differ at;
+                these check the wiring, the layer checks the roundings); 10 timed
+                bf16 MT steps at 512^2 beside the float32 step; tiled MC-16
+                serving in bf16;
+                Trainer(mixed_precision=True).fit ending in a float32
+                checkpoint that reloads bit for bit
+  7. algorithms — fault 3.1: K3 at C = 16 and 20 (zero-padded to 24)
                 against its plain version, a PUNet at num_filters (16, 32,
                 48, 64) and a 2-class one through mc_pseudo and the
                 validation predictor, card vs CPU (no K3 launch for 2
                 classes); the pseudo-PUNet, FixMatch (distribution
                 alignment), AdaMT and AdaMatch steps of the flagship and
                 its supervised step (PUNetTrainer's), one at
-                128^2 card vs CPU with launch counts each, then timed at
+                64^2 card vs CPU with launch counts each, then timed at
                 512^2; the UNet2d path (depth 4, 64 features, sigmoid): the
                 supervised and pseudo-label steps at 256^2 batch 4 card vs
                 CPU, then timed, and tiled prediction of the frame, one tile
                 card vs CPU, with no kernel launch
-  7. engine   — pda's native host library (pda_torch/data/native.py) built
+  8. engine   — pda's native host library (pda_torch/data/native.py) built
                 on the card's host (g++'s version, the build's seconds), each
                 entry point against the port's numpy path, and the port's
                 OpenCV blur of a fixed probe against cv2's digest; the
@@ -52,11 +71,13 @@ Phases, each of which fails the run (exit code 1) on any error or miss
                 step, every panel image decoded); a
                 fresh trainer reloading latest.pt bit for bit, then resuming
                 to 10; the same fit at 128^2 (2 steps, 1 validation) on the
-                card against the CPU (float32, and float64 for the gradients'
-                reference); and 300 iterations of development/learning_smoke.py's
+                native views, card against the CPU (float32, and float64 for
+                the gradients' reference; the final weights within the
+                interval Adam maps each step's gradient error to); and 300
+                iterations of development/learning_smoke.py's
                 PUNetTrainer run (PUNet 16/32/64/96, 64^2, batch 8, lr 1e-3),
                 final validation dice above 0.5
-  8. experiments — the LIVECell CLIs (pda_torch/experiments/) through their
+  9. experiments — the LIVECell CLIs (pda_torch/experiments/) through their
                 main(argv) on a synthetic LIVECell tree (two cell types, 4
                 train, 1 validation, 1 test frame each, 520x704, written by
                 the port's TIFF codec), at the flagship's width:
@@ -73,7 +94,7 @@ Phases, each of which fails the run (exit code 1) on any error or miss
                 shape the CLIs gave a kernel, held against its plain version
                 and float64 as in phase 3 where that phase had not; seconds
                 by CLI and by trainer part, peak disk
-  9. mitoem   — the MitoEM CLIs (pda_torch/experiments/mitoem_*) through
+ 10. mitoem   — the MitoEM CLIs (pda_torch/experiments/mitoem_*) through
                 their main(argv) on a synthetic MitoEM tree (MitoEM slices
                 as PNG and TIFF, the VNC and Lucchi++ zips, UroCell NIfTI
                 volumes; synthetic.write_mitoem_tree) at the flagship's
@@ -84,14 +105,16 @@ Phases, each of which fails the run (exit code 1) on any error or miss
                 and mitoem_fm --consensus on lucchi, mitoem_adamt --type
                 urocell and mitoem_adamatch --type vnc --consensus
                 --masking, each --train --predict --evaluate
-                --iterations 1; mitoem_unet the same; checkpoints, one
+                --iterations 1 (the AdaMT and AdaMatch validations on 40
+                patches, their loaders' 400 cut); mitoem_unet the same;
+                checkpoints, one
                 probability map per target frame, 10 dice values in
                 [0, 1], the dice runner's known answers on
                 each target's ground truth, the first prediction bit-equal
                 to tiled_punet_probs (MC-8), the card's memory back after
                 the last trainer; every new (kernel, shape) held against its
                 plain version and float64; seconds by CLI and trainer part
- 10. lung     — one 128^2 Mean-Teacher step of the Lung PUNet (the
+ 11. lung     — one 64^2 Mean-Teacher step of the Lung PUNet (the
                 flagship with the BCE reconstruction, consensus masking) card
                 vs CPU (float32, float64 the gradients' reference), with its
                 launch counts; then the Lung X-Ray CLIs
@@ -112,7 +135,7 @@ Phases, each of which fails the run (exit code 1) on any error or miss
                 card's memory back after the last trainer; every new
                 (kernel, shape) held against its plain version and float64,
                 timed; seconds by CLI and trainer part, peak disk and memory
- 11. times    — CUDA-event medians of every kernel, its plain version and
+ 12. times    — CUDA-event medians of every kernel, its plain version and
                 (ConvBlock forward and backward) cuDNN's convolutions, beside
                 its bound from the shapes, with TFLOP/s; end-to-end ms/frame
                 and tiles/s, ms/step and patches/s of every step
@@ -190,11 +213,12 @@ MT_LAUNCHES = {"conv_block_fwd": 20, "conv_block_fwd_dual": 6, "mc_consensus": 1
 # The algorithms phase. The MC tail at widths the kernel once refused (C = 20
 # is zero-padded to 24), a small PUNet through it, a 2-class PUNet (the plain
 # tail, no MC kernel launch); the other PUNet steps at the flagship's widths,
-# checked at 128^2 and timed at 512^2; the UNet2d path the UNet experiments
+# checked at 64^2 (at 128^2 their CPU sides take 7-15 s each) and timed at
+# 512^2; the UNet2d path the UNet experiments
 # build (depth 4, 64 features, sigmoid; 256^2 batch 4, Adam 1e-4).
 FAULT_WIDTHS = (16, 20)
 SMALL_FILTERS = (16, 32, 48, 64)
-ALG_CHECK_PATCH, ALG_TIME_PATCH = 128, 512
+ALG_CHECK_PATCH, ALG_STEP_CHECK_PATCH, ALG_TIME_PATCH = 128, 64, 512
 ALG_WARMUP, ALG_TIMED = 2, 5
 SOURCE_DISTRIBUTION = (0.7, 0.3)  # FixMatch's source class distribution [bg, fg]
 # kernel launches of one step: the student's forward (12 blocks, 3 decoder
@@ -260,11 +284,14 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def add_bound(entry, binding, flops, nbytes, weight=1):
-    """Add ``weight`` calls' bound (ms) to ``entry``; ``binding`` sums each
-    term's share, which names ``bound_by``. Returns one call's (ms, term)."""
-    ops_ms, bytes_ms = 1e3 * flops / PEAK_FLOPS, 1e3 * nbytes / PEAK_BYTES
-    ms, term = (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
+def add_bound(entry, binding, flops, nbytes, weight=1, peak_flops=PEAK_FLOPS):
+    """Add ``weight`` calls' bound (ms) to ``entry`` (the FLOPs at
+    ``peak_flops``, the bf16 instances' at 989 TFLOP/s); ``binding`` sums
+    each term's share, which names ``bound_by``. Returns one call's (ms,
+    term)."""
+    from pda_torch.tools.workload import bound_ms
+
+    ms, term = bound_ms(flops, nbytes, peak_flops, PEAK_BYTES)
     entry["bound_ms"] += weight * ms
     binding[entry["name"], term] = binding.get((entry["name"], term), 0.0) + weight * ms
     return ms, term
@@ -329,18 +356,21 @@ def synthetic_frame(gen, shape, dev):
     return (img * 40 + 100)[..., None].to(dev)
 
 
-def saved_block(gen, b, h, w, cin, c, dev):
+def saved_block(gen, b, h, w, cin, c, dev, dtype=None):
     """(g, x, h1, h2, h3, w1, w2, w3): a ConvBlock's saved tensors from the
-    plain forward on seeded inputs, and a seeded cotangent."""
+    plain forward on seeded inputs, and a seeded cotangent; x, g and the
+    saved tensors in ``dtype`` (float32 unless given: bf16), the weights
+    float32."""
     import torch
 
     from pda_torch.kernels import conv_block as kc
     from pda_torch.tools.workload import conv_weights
 
-    x = torch.randn(b, h, w, cin, generator=gen).to(dev)
+    dtype = dtype or torch.float32
+    x = torch.randn(b, h, w, cin, generator=gen).to(dev).to(dtype)
     w1, b1, w2, b2, w3, b3 = conv_weights(gen, cin, c, dev)
     hs = [t.permute(0, 2, 3, 1).contiguous() for t in kc._plain_layers(x, w1, b1, w2, b2, w3, b3)]
-    g = torch.randn(b, h, w, c, generator=gen).to(dev)
+    g = torch.randn(b, h, w, c, generator=gen).to(dev).to(dtype)
     return (g, x, *hs, w1, w2, w3)
 
 
@@ -915,15 +945,14 @@ def phase_training(dev, results):
 
 
 def time_steps(label, step, state, batch, n_patches, wrappers, launches, warmup, timed,
-               generator=None):
+               generator=None, bf16=False):
     """Train steps on the card, timed: the CUDA-event median of ``timed``
     steps after ``warmup``, ms/step, patches/s and peak memory; every loss
-    finite and each kernel launched ``launches[name]`` times a step.
-    Returns (ok, ms)."""
+    finite and each kernel launched ``launches[name]`` times a step (its
+    bf16 instance with ``bf16``). Returns (ok, ms)."""
     import torch
 
-    for w in wrappers.values():
-        w.launches = 0
+    reset_launches(wrappers)
     kw = {} if generator is None else {"generator": generator}
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -939,7 +968,7 @@ def time_steps(label, step, state, batch, n_patches, wrappers, launches, warmup,
     peak = torch.cuda.max_memory_allocated() / 2**30
     times = [s.elapsed_time(e) for s, e in events[warmup:]]
     ms = statistics.median(times)
-    counts = {k: w.launches for k, w in wrappers.items()}
+    counts = read_launches(wrappers, bf16)
     n = warmup + timed
     finite = bool(torch.isfinite(torch.stack(losses)).all())
     good = finite and counts == {k: n * v for k, v in launches.items()} and state.step == n
@@ -949,6 +978,632 @@ def time_steps(label, step, state, batch, n_patches, wrappers, launches, warmup,
         f"{max(times):.2f}), {n_patches} patches a step, {1000.0 * n_patches / ms:.3f} "
         f"patches/s, peak {peak:.2f} GiB")
     return good, ms
+
+
+# The bf16 phase: pda's bf16 configuration (bench.py's default MT step,
+# livecell_punet(dtype=torch.bfloat16)) on the bf16 instances of the four
+# kernel bodies. Each body against its plain version in float64 sums, layer
+# by layer with the kernel's own input to each layer (a bf16 rounding that
+# falls the other way in one layer moves every layer after it: the check
+# holds each layer, not the chain): bf16 outputs within one bf16 ulp of the
+# plain value, or within BF16_ABS_TOL of the layer's largest where the value
+# is so small that its ulp is finer than the float32 sums' error (values near
+# a ReLU's 0), and bit-equal on BF16_BIT_EQUAL of the elements; dW and db
+# within BF16_GRAD_TOL of their largest; K3's mean within one bf16 ulp at
+# 0.5-1 (2^-8), its consensus only where a logit lies within one bf16 ulp of
+# a threshold (2^-6 at |logit| = log 9). Then one 128^2 MT step card vs CPU
+# and the 512^2 step with the kernels against the step with every plain
+# version on the card (pda's development/ab_step_check.py at the bench
+# geometry: loss, gradients' cosine, worst leaf, consensus), timed steps,
+# tiled serving, and Trainer(mixed_precision=True). The A/B's teacher: two
+# bf16 forwards part once a rounding falls the other way, so pixels whose
+# sample logits lie near a threshold flip between any two summation orders;
+# against the plain leg, the kernels' consensus may differ at no more than
+# AB_SPREAD_FACTOR times the pixels at which the plain leg's own two
+# summation orders (float32 and float64 sums) differ. These whole-step
+# comparisons check the wiring and catch gross faults: a bf16 ConvBlock that
+# drops its per-layer roundings passes them (pda_torch/tools/bf16_controls.py;
+# two valid summation orders part as far), so the layer-by-layer checks are
+# what hold the bodies' rounding points.
+BF16_ABS_TOL = 1e-5
+BF16_BIT_EQUAL = 0.99
+BF16_GRAD_TOL = 1e-4
+K3_BF16_MEAN_TOL = 2.0 ** -8
+K3_BF16_WINDOW = 2.0 ** -6
+AB_LOSS_TOL, AB_COS_TOL, AB_LEAF_TOL = 1e-3, 1e-5, 1e-2
+AB_SPREAD_FACTOR = 4
+BF16_FIT_STEPS = 2
+BF16_KERNELS = ("conv_block_fwd", "conv_block_fwd_dual", "mc_consensus", "conv_block_bwd",
+                "conv_block_bwd_dual")
+
+
+def bf16_name(name):
+    """The JSON line's name of a kernel's bf16 instance."""
+    return f"{name}_bf16"
+
+
+def bf16_ulp(t):
+    """One bf16 ulp at each element of a float tensor (0 -> the least normal's)."""
+    import torch
+
+    _, e = torch.frexp(t.double().abs().clamp(min=2.0 ** -126))
+    return torch.ldexp(torch.ones_like(t, dtype=torch.float64), e - 8)
+
+
+def bf16_agree(out, ref):
+    """(ok, elements beyond one ulp and beyond BF16_ABS_TOL, bit-equal share,
+    largest difference relative to max |ref|) of a bf16 ``out`` against its
+    bf16 reference."""
+    import torch
+
+    a, r = out.double(), ref.double()
+    diff = (a - r).abs()
+    scale = float(r.abs().max()) or 1.0
+    beyond = (diff > bf16_ulp(torch.maximum(a.abs(), r.abs()))) & (diff > BF16_ABS_TOL * scale)
+    n_beyond = int(beyond.sum())
+    equal = float((out.view(torch.int16) == ref.view(torch.int16)).double().mean())
+    ok = n_beyond == 0 and equal >= BF16_BIT_EQUAL and bool(torch.isfinite(a).all())
+    return ok, n_beyond, equal, float(diff.max()) / scale
+
+
+def plain_wgrad(h_in, da):
+    """dW (float64) and db of one layer from bf16 tensors, summed in float64."""
+    from pda_torch.kernels import conv_block as kc
+
+    return kc._wgrad_plain(h_in.double(), da.double()), da.double().sum(dim=(0, 1, 2))
+
+
+def plain_dgrad(da, w, mask):
+    """One layer's dgrad as the bf16 kernel computes it, summed in float64:
+    the kernel rounded to bf16, the sum masked by [mask > 0] (no mask: dx),
+    rounded to bf16 once."""
+    import torch
+    import torch.nn.functional as F
+
+    from pda_torch.kernels import conv_block as kc
+
+    wk = kc.bf16_operand(w, torch.float64).flip(0, 1).permute(2, 3, 0, 1)
+    r = F.conv2d(da.double().permute(0, 3, 1, 2), wk, padding=1).permute(0, 2, 3, 1)
+    if mask is not None:
+        r = torch.where(mask > 0, r, 0.0)
+    return r.to(torch.bfloat16).contiguous()
+
+
+def bf16_layers_agree(hs, h_in, ws):
+    """A bf16 block's outputs ``hs`` (h1, h2, h3) layer by layer, each from
+    the block's own input to it, against the plain layer in float64 sums by
+    :func:`bf16_agree`. Returns (ok, (most elements beyond, least bit-equal
+    share, largest relative difference), max abs error)."""
+    import torch
+
+    from pda_torch.kernels import conv_block as kc
+
+    ok, worst, err = True, (0, 1.0, 0.0), 0.0
+    for k, h in enumerate(hs):
+        with kc.plain_sums(torch.float64):
+            ref = kc.conv_relu_layer(h_in.permute(0, 3, 1, 2), ws[2 * k],
+                                     ws[2 * k + 1]).permute(0, 2, 3, 1)
+        good, n_beyond, equal, rel = bf16_agree(h, ref)
+        ok &= good
+        worst = (max(worst[0], n_beyond), min(worst[1], equal), max(worst[2], rel))
+        err = max(err, float((h.double() - ref.double()).abs().max()))
+        h_in = h
+    return ok, worst, err
+
+
+def check_bf16_fwd(entry, label, args, per_forward, binding):
+    """A bf16 forward block (K1 or K2, args (x[, xb], w1, b1, .., b3)) layer
+    by layer against its plain version, twice bit-equal; then the kernel's,
+    the plain version's (float32 sums) and cuDNN's bf16 times and the bound.
+    Returns ok."""
+    import torch
+
+    from pda_torch.kernels import conv_block as kc
+    from pda_torch.tools.workload import PEAK_BF16_FLOPS, block_bytes, block_flops, cuda_ms
+
+    xs, ws = args[:-6], args[-6:]
+    kernel = kc.conv_block_fwd if len(xs) == 1 else kc.conv_block_fwd_dual
+    plain = kc.conv_block_fwd_plain if len(xs) == 1 else kc.conv_block_fwd_dual_plain
+    hs = kc._launch(xs[0], xs[1] if len(xs) > 1 else None, *ws)
+    again = kc._launch(xs[0], xs[1] if len(xs) > 1 else None, *ws)
+    same = all(torch.equal(a, b) for a, b in zip(hs, again))
+    good, worst, err = bf16_layers_agree(hs, torch.cat(xs, dim=-1), ws)
+    ok = same and good
+    entry["max_abs_err"] = max(entry["max_abs_err"], err)
+    del hs, again
+    CHECKED.add(shape_key(entry["name"], args))
+    ms = cuda_ms(lambda: kernel(*args))
+    plain_ms = cuda_ms(lambda: plain(*args))
+    x = torch.cat(xs, dim=-1)
+    lib_args = (x, *[t.to(torch.bfloat16) for t in cudnn_weights(*ws)])
+    library_ms = cuda_ms(lambda: cudnn_block(*lib_args))
+    b, h, w, cin = x.shape
+    c = ws[-1].shape[0]
+    flops = block_flops(b, h, w, cin, c)
+    bound, term = add_bound(entry, binding, flops, block_bytes(b, h, w, cin, c), per_forward,
+                            PEAK_BF16_FLOPS)
+    del x, lib_args
+    log(f"bf16 kernel {label}: per layer, beyond 1 ulp and {BF16_ABS_TOL:.0e} of max "
+        f"{worst[0]} elements, bit-equal {worst[1]:.6f} (>= {BF16_BIT_EQUAL}), worst "
+        f"|diff|/max {worst[2]:.3e}; repeat bit-equal {same}; ms {ms:.3f} "
+        f"({flops / ms / 1e9:.1f} TFLOP/s) plain_ms {plain_ms:.3f} library_ms (cuDNN bf16) "
+        f"{library_ms:.3f} bound_ms {bound:.3f} ({term}) {'ok' if ok else 'FAIL'}")
+    entry["ms"] += per_forward * ms
+    entry["plain_ms"] += per_forward * plain_ms
+    entry["library_ms"] = (entry["library_ms"] or 0.0) + per_forward * library_ms
+    return ok
+
+
+def check_bf16_bwd(entry, label, args, need_dx, per_step, binding):
+    """A bf16 backward block (args (g, x[, xb], h1, h2, h3, w1, w2, w3))
+    layer by layer, each layer from the kernel's own cotangent (its da
+    workspaces): dW, db within BF16_GRAD_TOL of the largest, da_2, da_1 and
+    dx by :func:`bf16_agree`; twice bit-equal; then times and the bound."""
+    import torch
+
+    from pda_torch.kernels import conv_block as kc
+    from pda_torch.tools.workload import (PEAK_BF16_FLOPS, block_bwd_bytes, block_flops, cuda_ms,
+                                          dgrad_flops)
+
+    g, *xs = args[:-6]
+    h1, h2, h3, w1, w2, w3 = args[-6:]
+    dual = len(xs) == 2
+    ws = (torch.empty_like(h1), torch.empty_like(h1))
+    out = kc._launch_bwd(g, xs[0], xs[1] if dual else None, h1, h2, h3, w1, w2, w3, need_dx,
+                         workspaces=ws)
+    again = kc._launch_bwd(g, xs[0], xs[1] if dual else None, h1, h2, h3, w1, w2, w3, need_dx)
+    same = all((a is None and b is None) or torch.equal(a, b) for a, b in zip(out, again))
+    dxa, dxb, dw1, db1, dw2, db2, dw3, db3 = out
+    da1, da2 = ws  # the kernel's da_1 and da_2
+    x = torch.cat(xs, dim=-1)
+    da3 = torch.where(h3 > 0, g, 0.0)
+    ok, grad_worst, worst = same, 0.0, (0, 1.0, 0.0)
+    for (dw, db), h_in, da in (((dw3, db3), h2, da3), ((dw2, db2), h1, da2),
+                               ((dw1, db1), x, da1)):
+        rw, rb = plain_wgrad(h_in, da)
+        for a, r in ((dw, rw), (db, rb)):
+            err = float((a.double() - r).abs().max()) / (float(r.abs().max()) or 1.0)
+            grad_worst = max(grad_worst, err)
+            entry["max_abs_err"] = max(entry["max_abs_err"], float((a.double() - r).abs().max()))
+    checks = [(da2, plain_dgrad(da3, w3, h2)), (da1, plain_dgrad(da2, w2, h1))]
+    if need_dx or dual:
+        dx = torch.cat([dxa, dxb], dim=-1) if dual else dxa
+        checks.append((dx, plain_dgrad(da1, w1, None)))
+    for a, r in checks:
+        good, n_beyond, equal, rel = bf16_agree(a, r)
+        ok &= good
+        worst = (max(worst[0], n_beyond), min(worst[1], equal), max(worst[2], rel))
+    ok &= grad_worst <= BF16_GRAD_TOL
+    del out, again, checks, da3, x
+    CHECKED.add(shape_key(entry["name"], args, need_dx))
+    if dual:
+        kernel = lambda: kc.conv_block_bwd_dual(*args)  # noqa: E731
+        plain = lambda: kc.conv_block_bwd_dual_plain(*args)  # noqa: E731
+    else:
+        kernel = lambda: kc.conv_block_bwd(*args, need_dx=need_dx)  # noqa: E731
+        plain = lambda: kc.conv_block_bwd_plain(*args, need_dx=need_dx)  # noqa: E731
+    ms, plain_ms = cuda_ms(kernel), cuda_ms(plain)
+    b, h, w, c = g.shape
+    cin = sum(t.shape[-1] for t in xs)
+    lib_args = (g, torch.cat(xs, dim=-1), h1, h2, h3,
+                *[oihw(t).to(torch.bfloat16) for t in (w1, w2, w3)])
+    library_ms = cuda_ms(lambda: cudnn_block_bwd(*lib_args, need_dx=need_dx or dual))
+    del lib_args
+    flops = block_flops(b, h, w, cin, c) + dgrad_flops(b, h, w, cin, c, need_dx or dual)
+    bound, term = add_bound(entry, binding, flops,
+                            block_bwd_bytes(b, h, w, cin, c, need_dx or dual), per_step,
+                            PEAK_BF16_FLOPS)
+    log(f"bf16 kernel {label}: per layer dW, db worst |err|/max {grad_worst:.3e} (tol "
+        f"{BF16_GRAD_TOL:.0e}); da_2, da_1{', dx' if need_dx or dual else ''} beyond 1 ulp and "
+        f"{BF16_ABS_TOL:.0e} of max {worst[0]} elements, bit-equal {worst[1]:.6f}, worst "
+        f"|diff|/max {worst[2]:.3e}; repeat bit-equal {same}; ms {ms:.3f} "
+        f"({flops / ms / 1e9:.1f} TFLOP/s) plain_ms {plain_ms:.3f} library_ms (cuDNN bf16) "
+        f"{library_ms:.3f} bound_ms {bound:.3f} ({term}) {'ok' if ok else 'FAIL'}")
+    entry["ms"] += per_step * ms
+    entry["plain_ms"] += per_step * plain_ms
+    entry["library_ms"] = (entry["library_ms"] or 0.0) + per_step * library_ms
+    return ok
+
+
+def check_bf16_mc(entry, label, args, masking, binding, weight):
+    """K3's bf16 instance against its plain version summed in float64: the
+    mean within K3_BF16_MEAN_TOL, the consensus only where a logit lies
+    within K3_BF16_WINDOW of a threshold, twice bit-equal; times, bound."""
+    import torch
+
+    from pda_torch.kernels import conv_block as kc
+    from pda_torch.kernels import mc_consensus as km
+    from pda_torch.tools.workload import PEAK_BF16_FLOPS, cuda_ms, mc_bytes, mc_flops
+
+    mean, cons = km.mc_consensus(*args, masking=masking)
+    again = km.mc_consensus(*args, masking=masking)
+    same = torch.equal(mean, again[0]) and torch.equal(cons, again[1])
+    with kc.plain_sums(torch.float64):
+        ref_mean, ref_cons = plain_mc(km.mc_consensus_plain, args, masking)
+        near = plain_mc(lambda *a: ((km.mc_logits_plain(*a).abs()
+                                     - math.log(9.0)).abs() < K3_BF16_WINDOW).any(dim=0), args)
+    err = float((mean.double() - ref_mean.double()).abs().max())
+    flips = int((cons != ref_cons).sum())
+    stray = int(((cons != ref_cons) & ~near).sum())
+    good = bool(torch.isfinite(mean).all()) and err <= K3_BF16_MEAN_TOL and stray == 0 and same
+    del mean, cons, again, ref_mean, ref_cons, near
+    CHECKED.add(shape_key("mc_consensus", args, masking=masking))
+    entry["max_abs_err"] = max(entry["max_abs_err"], err)
+    ms = cuda_ms(lambda: km.mc_consensus(*args, masking=masking))
+    plain_ms = cuda_ms(lambda: plain_mc(km.mc_consensus_plain, args, masking), iters=3)
+    b, h, w, c = args[0].shape
+    s, n_mid = args[1].shape[0], args[2].shape[0]
+    flops = mc_flops(b, h, w, c, s, n_mid)
+    bound, term = add_bound(entry, binding, flops, mc_bytes(b, h, w, c, s, n_mid, feat_bytes=2),
+                            weight, PEAK_BF16_FLOPS)
+    log(f"bf16 kernel mc_consensus {label} S={s} feat {b}x{h}x{w}x{c} masking={masking}: mean "
+        f"max_abs_err {err:.3e} (tol 2^-8), consensus differs at {flips} px, {stray} of them "
+        f"farther than 2^-6 from a threshold, repeat bit-equal {same}; ms {ms:.3f} "
+        f"({flops / ms / 1e9:.1f} TFLOP/s) plain_ms {plain_ms:.3f} bound_ms {bound:.3f} ({term}) "
+        f"{'ok' if good else 'FAIL'}")
+    entry["ms"] += weight * ms
+    entry["plain_ms"] += weight * plain_ms
+    return good
+
+
+def teacher_logits(state, x1, eps):
+    """The teacher's (S, B, H, W, 1) MC logits through the plain tail, on the
+    CPU (its encoding on the state's device)."""
+    import torch
+
+    from pda_torch.models.punet import mc_decode_logits
+
+    with torch.no_grad():
+        enc = state.teacher.encode(x1)
+        return mc_decode_logits(state.teacher, enc.features, enc.prior, MC, eps=eps).cpu()
+
+
+def mt_compute(state, batch, noise, plain_teacher=False, pseudo=None):
+    """pda's ab_step_check.compute: the teacher's MC pseudo-label and
+    consensus (through ``mc_pseudo``, or with ``plain_teacher`` as the plain
+    path computes them, from its logits, which are kept; given ``pseudo``
+    and no ``plain_teacher``, none), the student's loss on them (or on
+    ``pseudo``) and its raw gradients, no update."""
+    import torch
+
+    from pda_torch.core.consensus import consensus_from_logits
+    from pda_torch.train import steps
+
+    _, x1, x2, _ = batch
+    out = {"logits": None}
+    with torch.no_grad():
+        if plain_teacher:
+            out["logits"] = teacher_logits(state, x1, noise["eps_teacher"])
+            y, z = consensus_from_logits(out["logits"].to(x1.device), masking=True)
+        elif pseudo is None:
+            y, z = steps._mc_pseudo(state.teacher, x1, MC, True, noise["eps_teacher"])
+        else:
+            y, z = pseudo
+    out["y"], out["z"] = y.cpu(), z.cpu()
+    if pseudo is not None:
+        y, z = (v.to(x2.device) for v in pseudo)
+    state.model.zero_grad(set_to_none=True)
+    loss, aux = steps._punet_loss(state.model, x2, y, noise["eps_post"], consm=z)
+    loss.backward()
+    out["aux"] = {k: float(v.detach()) for k, v in aux.items()}
+    out["grads"] = [p.grad.detach().double().cpu() for p in state.model.parameters()]
+    out["names"] = [n for n, _ in state.model.named_parameters()]
+    return out
+
+
+def ab_metrics(a, b):
+    """pda's A/B measures of two MT computations, ``b`` the reference: the
+    loss's relative difference, the aux values' worst (relative to
+    max(1, |ref|)), 1 - the gradients' global cosine, and the worst leaf's
+    relative L2 (floored at 1e-4 of the global norm) with its name."""
+    loss_rel = abs(a["aux"]["loss"] - b["aux"]["loss"]) / max(abs(b["aux"]["loss"]), 1e-12)
+    aux_rel = max(abs(a["aux"][k] - v) / max(1.0, abs(v)) for k, v in b["aux"].items())
+    gnorm = math.sqrt(sum(float((g * g).sum()) for g in b["grads"]))
+    dot = sum(float((p * q).sum()) for p, q in zip(a["grads"], b["grads"]))
+    na = math.sqrt(sum(float((p * p).sum()) for p in a["grads"]))
+    leaf = max((float((p - q).norm()) / max(float(q.norm()), 1e-4 * gnorm), n)
+               for p, q, n in zip(a["grads"], b["grads"], b["names"]))
+    return {"loss": loss_rel, "aux": aux_rel, "cos": 1.0 - dot / max(na * gnorm, 1e-30),
+            "leaf": leaf}
+
+
+def rms_diff(a, b):
+    """The root mean square of ``a - b``, in float64."""
+    return float((a.double() - b.double()).pow(2).mean().sqrt())
+
+
+def ab_compare(label, a, b, spread=None, teacher_spread=None):
+    """pda's A/B bounds between two MT computations (``b`` the reference):
+    the loss's and the aux values' relative difference within AB_LOSS_TOL,
+    the gradients' cosine within AB_COS_TOL of 1, the worst leaf's relative
+    L2 within AB_LEAF_TOL; or, given ``spread`` (:func:`ab_metrics` of two
+    summation orders of the reference itself), each within GRAD_COS_CPU
+    times that spread where that is larger (as :func:`check_step` takes the
+    CPU's own float32 error). Given ``teacher_spread`` (the RMS of the
+    teacher logits' difference and the consensus pixels that differ between
+    two summation orders of the reference), the differing consensus pixels
+    within AB_SPREAD_FACTOR times those (the RMS is logged). Returns
+    {criterion: passed}."""
+    import torch
+
+    m = ab_metrics(a, b)
+    tol = {"loss": AB_LOSS_TOL, "aux": AB_LOSS_TOL, "cos": AB_COS_TOL, "leaf": AB_LEAF_TOL}
+    if spread is not None:
+        tol = {k: max(v, GRAD_COS_CPU * (spread[k][0] if k == "leaf" else spread[k]))
+               for k, v in tol.items()}
+    flips = int((a["z"] != b["z"]).sum())
+    rms = rms_diff(a["logits"], b["logits"])
+    passed = {k: (m[k][0] if k == "leaf" else m[k]) <= v for k, v in tol.items()}
+    passed["finite"] = bool(torch.isfinite(a["y"]).all())
+    if teacher_spread is not None:
+        passed["consensus"] = flips <= AB_SPREAD_FACTOR * teacher_spread[1]
+    failed = [k for k, v in passed.items() if not v]
+    log(f"{label}: loss {a['aux']['loss']:.6f} vs {b['aux']['loss']:.6f}, relative difference "
+        f"{m['loss']:.2e} (tol {tol['loss']:.2e}), aux worst {m['aux']:.2e}; gradients' cosine "
+        f"1 - {m['cos']:.2e} (tol {tol['cos']:.2e}); worst leaf relative L2 {m['leaf'][0]:.2e} "
+        f"({m['leaf'][1]}; tol {tol['leaf']:.2e})"
+        + (f" [tolerances: the larger of pda's A/B bounds and {GRAD_COS_CPU:g} x the "
+           f"reference's own float32-vs-float64-sums spread: loss {spread['loss']:.2e}, cos "
+           f"{spread['cos']:.2e}, leaf {spread['leaf'][0]:.2e}]" if spread else "")
+        + f"; pseudo-label max|dy| {float((a['y'] - b['y']).abs().max()):.2e}; teacher logits "
+        f"max|diff| {float((a['logits'] - b['logits']).abs().max()):.2e}, RMS {rms:.3e}"
+        + (f" (the reference's own {teacher_spread[0]:.3e})" if teacher_spread else "")
+        + f"; consensus differs at {flips} px"
+        + (f" (tol {AB_SPREAD_FACTOR} x {teacher_spread[1]})" if teacher_spread else
+           " (not judged)")
+        + f"; consensus share {float(b['z'].mean()):.4f} "
+        + ("ok" if not failed else f"FAIL ({', '.join(failed)})"))
+    return passed
+
+
+def bf16_model():
+    """The flagship in bf16 on the CPU, from SEED, its Fcomb's last layer x
+    LAST_SCALE (the random teacher's consensus share inside (0, 1))."""
+    import torch
+
+    from pda_torch.models.punet import livecell_punet
+
+    model = livecell_punet(consensus_masking=True, generator=torch.Generator().manual_seed(SEED),
+                           device="cpu", dtype=torch.bfloat16)
+    with torch.no_grad():
+        model.fcomb.last_layer.weight.mul_(LAST_SCALE)
+    return model
+
+
+def bf16_state(model, device):
+    """A Mean-Teacher train state of a copy of ``model`` on ``device``."""
+    from pda_torch.train import adam, create_train_state
+
+    student = copy.deepcopy(model).to(device)
+    return create_train_state(student, adam(student.parameters(), MT_LR), with_teacher=True)
+
+
+def bf16_card_vs_cpu(dev, model, frame, gen, leg=contextlib.nullcontext, name="kernels"):
+    """One 128^2 bf16 MT step (no update) on the card, inside ``leg`` (the
+    kernels; a control's context), against the port's plain bf16 step on the
+    CPU in float64 sums, the CPU taking the card teacher's pseudo-labels,
+    judged by :func:`ab_compare` with the CPU's float32-vs-float64-sums
+    spread. The card's launches are a check's: logged only. Returns
+    {criterion: passed}."""
+    import torch
+
+    from pda_torch.kernels import conv_block as kc
+
+    wrappers = kernel_wrappers()
+    batch = mt_batch(gen, frame, MT_CHECK_PATCH, "cpu")
+    noise = {"eps_teacher": torch.randn(MC, MT_BATCH, 6, generator=gen),
+             "eps_post": torch.randn(MT_BATCH, 6, generator=gen)}
+    reset_launches(wrappers)
+    card_state = bf16_state(model, dev)
+    with leg():
+        card = mt_compute(card_state, [a.to(dev) for a in batch],
+                          {k: v.to(dev) for k, v in noise.items()})
+        torch.cuda.synchronize()
+        counts = read_launches(wrappers, bf16=True)
+        card["logits"] = teacher_logits(card_state, batch[1].to(dev),
+                                        noise["eps_teacher"].to(dev))
+    f32 = (card_state.model.unet.contracting_path[0].dtype == torch.bfloat16
+           and all(p.grad.dtype == torch.float32 for p in card_state.model.parameters()))
+    del card_state
+    # the CPU's plain bf16 step in float64 sums (the reference) and in float32
+    # sums: two summation orders of one algorithm, whose spread is bf16's own
+    t0 = time.perf_counter()
+    cpu = mt_compute(bf16_state(model, "cpu"), batch, noise, plain_teacher=True,
+                     pseudo=(card["y"], card["z"]))
+    with kc.plain_sums(torch.float32):
+        cpu32 = mt_compute(bf16_state(model, "cpu"), batch, noise, pseudo=(card["y"], card["z"]))
+    passed = ab_compare(
+        f"bf16 MT step {MT_CHECK_PATCH}^2 card ({name}) vs cpu (the plain bf16 step, float64 "
+        f"sums, on the card teacher's pseudo-labels; cpu {time.perf_counter() - t0:.1f} s; "
+        f"launches {counts} (a check's; the kernels' expected {MT_LAUNCHES}), float32 gradients "
+        f"{f32})", card, cpu, spread=ab_metrics(cpu32, cpu))
+    passed["dtypes"] = f32
+    return passed, counts
+
+
+def bf16_ab(dev, model, frame, gen, leg=contextlib.nullcontext, name="kernels"):
+    """The 512^2 bf16 MT step (no update) twice from one state on the card:
+    inside ``leg`` (the kernels; a control's context), then with every plain
+    version (float32 sums), at pda's A/B bounds; the teacher's logits and
+    consensus against the plain leg's own float32-vs-float64-sums spread. The launches are a
+    check's: logged only. Returns ({criterion: passed}, launches)."""
+    import torch
+
+    from pda_torch.core.consensus import consensus_from_logits
+    from pda_torch.kernels import conv_block as kc
+
+    wrappers = kernel_wrappers()
+    batch = mt_batch(gen, frame, MT_TIME_PATCH, dev)
+    noise = {k: v.to(dev) for k, v in {"eps_teacher": torch.randn(MC, MT_BATCH, 6, generator=gen),
+                                       "eps_post": torch.randn(MT_BATCH, 6,
+                                                               generator=gen)}.items()}
+    reset_launches(wrappers)
+    t0 = time.perf_counter()
+    state = bf16_state(model, dev)
+    with leg():
+        kern = mt_compute(state, batch, noise)
+        torch.cuda.synchronize()
+        counts = read_launches(wrappers, bf16=True)
+        kern["logits"] = teacher_logits(state, batch[1], noise["eps_teacher"])
+    reset_launches(wrappers)
+    state = bf16_state(model, dev)
+    with kc.plain_versions():
+        plain = mt_compute(state, batch, noise, plain_teacher=True)
+        with kc.plain_sums(torch.float64):
+            logits64 = teacher_logits(state, batch[1], noise["eps_teacher"])
+    del state
+    torch.cuda.synchronize()
+    plain_counts = read_launches(wrappers, bf16=True)
+    z64 = consensus_from_logits(logits64.to(dev), masking=True)[1].cpu()
+    spread = (rms_diff(logits64, plain["logits"]), int((z64 != plain["z"]).sum()))
+    log(f"bf16 MT step {MT_TIME_PATCH}^2 plain leg, float32 vs float64 sums: teacher logits "
+        f"max|diff| {float((plain['logits'] - logits64).abs().max()):.2e}, RMS {spread[0]:.3e}; "
+        f"consensus differs at {spread[1]} px")
+    del logits64, z64
+    passed = ab_compare(f"bf16 MT step {MT_TIME_PATCH}^2 batch {MT_BATCH} {name} vs plain on the "
+                        f"card ({time.perf_counter() - t0:.1f} s; launches {counts} (a check's), "
+                        f"plain leg {plain_counts})", kern, plain, teacher_spread=spread)
+    passed["plain leg"] = plain_counts == dict.fromkeys(plain_counts, 0)
+    return passed, counts
+
+
+def phase_bf16(dev, results, binding, f32_ms):
+    """pda's bf16 configuration on the card: the four bf16 bodies at the MT
+    step's and tiled serving's shapes, the 128^2 MT step card vs CPU, the
+    512^2 step kernels vs plain, timed steps and serving, and
+    Trainer(mixed_precision=True)."""
+    import torch
+
+    from pda_torch.infer import tiled_punet_probs
+    from pda_torch.models.punet import livecell_punet
+    from pda_torch.tools import workload as wl
+    from pda_torch.tools.workload import conv_weights, cuda_ms, livecell_mt_trainer
+    from pda_torch.train import load_checkpoint, make_mean_teacher_step
+    from pda_torch.train.checkpoint import LATEST
+
+    bf16 = torch.bfloat16
+    for name in BF16_KERNELS:
+        source = results[name]["source"]
+        entry = dict(results[name], name=bf16_name(name), dtype="bfloat16", launches=0,
+                     source=source if name == "mc_consensus" else source.replace(".cu", "_bf16.cu"),
+                     max_abs_err=0.0, ms=0.0, plain_ms=0.0, bound_ms=0.0, bound_by=None,
+                     library_ms=None)
+        results[entry["name"]] = entry
+    k1, k2, k3 = (results[bf16_name(n)] for n in ("conv_block_fwd", "conv_block_fwd_dual",
+                                                  "mc_consensus"))
+    gen = torch.Generator().manual_seed(SEED + 3)
+    ok = True
+
+    # 1. each body at the tiled forward's and the MT step's shapes (the JSON
+    # line's times: one tiled forward's calls, one MT step's backward)
+    with torch.inference_mode():
+        for shape, per_forward in [(s, 2) for s in wl.K1_TILED] + [(wl.K1_POSTERIOR, 0)]:
+            b, h, w, cin, c = shape
+            x = torch.randn(b, h, w, cin, generator=gen).to(dev).to(bf16)
+            ok &= check_bf16_fwd(k1, f"conv_block_fwd {cin}->{c} @{b}x{h}x{w}",
+                                 (x, *conv_weights(gen, cin, c, dev)), per_forward, binding)
+        for b, h, w, ca, cb, c in wl.K2_TILED:
+            xa = torch.randn(b, h, w, ca, generator=gen).to(dev).to(bf16)
+            xb = torch.randn(b, h, w, cb, generator=gen).to(dev).to(bf16)
+            ok &= check_bf16_fwd(k2, f"conv_block_fwd_dual {ca}+{cb}->{c} @{b}x{h}x{w}",
+                                 (xa, xb, *conv_weights(gen, ca + cb, c, dev)), 1, binding)
+        for name, (b, h, w, c), masking in wl.K3_SHAPES[:2]:
+            feat, *rest = wl.mc_inputs(gen, b, h, w, c, dev=dev)
+            ok &= check_bf16_mc(k3, name, (feat.to(bf16), *rest), masking, binding,
+                                int(name == "tiled"))
+    for (b, h, w, cin, c), need_dx, per_step in wl.BWD_SHAPES:
+        g, x, *rest = saved_block(gen, b, h, w, cin, c, dev, bf16)
+        ok &= check_bf16_bwd(results[bf16_name("conv_block_bwd")],
+                             f"conv_block_bwd {cin}->{c} @{b}x{h}x{w} need_dx={need_dx}",
+                             (g, x, *rest), need_dx, per_step, binding)
+        del g, x, rest
+    for b, h, w, ca, cb, c in wl.BWD_DUAL_SHAPES:
+        g, x, *rest = saved_block(gen, b, h, w, ca + cb, c, dev, bf16)
+        args = (g, x[..., :ca].contiguous(), x[..., ca:].contiguous(), *rest)
+        del x
+        ok &= check_bf16_bwd(results[bf16_name("conv_block_bwd_dual")],
+                             f"conv_block_bwd_dual {ca}+{cb}->{c} @{b}x{h}x{w}", args, True, 1,
+                             binding)
+        del g, rest, args
+    torch.cuda.synchronize()
+
+    # 2. one 128^2 bf16 MT step on the card against the port's plain bf16 step
+    # on the CPU; 3. the 512^2 step twice from one state: the kernels, then
+    # every plain version (both a check's runs: their launches logged only)
+    wrappers = kernel_wrappers()
+    model = bf16_model()
+    frame = synthetic_frame(gen, FRAME, "cpu")
+    passed, counts = bf16_card_vs_cpu(dev, model, frame, gen)
+    ok &= all(passed.values()) and counts == MT_LAUNCHES
+    passed, counts = bf16_ab(dev, model, frame, gen)
+    ok &= all(passed.values()) and counts == MT_LAUNCHES
+    batch = mt_batch(gen, frame, MT_TIME_PATCH, dev)
+
+    # 4. 10 bf16 MT steps at 512^2, batch 2, timed
+    step = make_mean_teacher_step(momentum=MT_MOMENTUM, do_consensus_masking=True)
+    good, ms = time_steps(f"MT step MC-{MC} 512^2 batch {MT_BATCH} bf16", step,
+                          bf16_state(model, dev),
+                          batch, MT_BATCH, wrappers, MT_LAUNCHES, MT_WARMUP, MT_TIMED,
+                          torch.Generator(device=dev).manual_seed(SEED), bf16=True)
+    ok &= good
+    counted_launches(wrappers, results, bf16=True)
+    log(f"time MT step 512^2 batch {MT_BATCH}: bf16 {ms:.2f} ms against float32 "
+        + (f"{f32_ms:.2f} ms ({f32_ms / ms:.2f}x)" if f32_ms else "not measured in this run"))
+
+    # 5. tiled MC-16 serving of the frame in bf16
+    serve = livecell_punet(generator=torch.Generator().manual_seed(SEED), device=dev,
+                           dtype=bf16).eval()
+    frame_dev = frame.to(dev)
+    eps_tiled = torch.randn(MC, 4, 6, generator=gen).to(dev)
+    reset_launches(wrappers)
+    probs = tiled_punet_probs(serve, frame_dev, eps_tiled, MC, BLOCK, HALO)
+    torch.cuda.synchronize()
+    counts = counted_launches(wrappers, results, bf16=True)
+    want = {"conv_block_fwd": 8, "conv_block_fwd_dual": 3, "mc_consensus": 1,
+            "conv_block_bwd": 0, "conv_block_bwd_dual": 0}
+    good = (counts == want and probs.dtype == torch.float32 and tuple(probs.shape) == (*FRAME, 1)
+            and bool(torch.isfinite(probs).all()) and 0.0 <= float(probs.min())
+            and float(probs.max()) <= 1.0)
+    torch.cuda.reset_peak_memory_stats()
+    tiled_ms = cuda_ms(lambda: tiled_punet_probs(serve, frame_dev, eps_tiled, MC, BLOCK, HALO),
+                       warmup=1, iters=5)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"bf16 serving tiled_punet_probs MC-{MC} 520x704: float32 probabilities in "
+        f"[{float(probs.min()):.4f}, {float(probs.max()):.4f}], launches {counts} (expected "
+        f"{want}) {'ok' if good else 'FAIL'}")
+    log(f"time tiled_punet_probs MC-{MC} 520x704 bf16 (4 tiles of 512^2): {tiled_ms:.2f} ms/frame, "
+        f"{4000.0 / tiled_ms:.2f} tiles/s, peak {peak:.2f} GiB")
+    ok &= good
+    del serve, probs
+
+    # 6. Trainer(mixed_precision=True): bf16 compute, float32 parameters and checkpoints
+    with tempfile.TemporaryDirectory() as root:
+        tr = livecell_mt_trainer(root, device=dev, patch=MT_CHECK_PATCH,
+                                 steps_per_epoch=BF16_FIT_STEPS, num_workers=0, logger=False,
+                                 mixed_precision=True)
+        tr.fit(BF16_FIT_STEPS)
+        torch.cuda.synchronize()
+        with torch.no_grad():
+            feats = tr.state.model.encode(batch[1][:, :MT_CHECK_PATCH, :MT_CHECK_PATCH]).features
+        saved = load_checkpoint(tr.ckpt_dir, which=LATEST)
+        fresh = livecell_mt_trainer(root, device=dev, patch=MT_CHECK_PATCH,
+                                    steps_per_epoch=BF16_FIT_STEPS, num_workers=0, logger=False,
+                                    mixed_precision=True)
+        fresh.load_checkpoint(LATEST)
+        same = all(torch.equal(v, w) for v, w in zip(tr.state.model.state_dict().values(),
+                                                     fresh.state.model.state_dict().values()))
+        f32 = all(v.dtype == torch.float32 for v in saved["model_state"].values()
+                  if v.is_floating_point())
+        good = (tr.model.dtype == bf16 and feats.dtype == bf16 and f32 and same
+                and tr._iteration == BF16_FIT_STEPS
+                and all(math.isfinite(h["loss"]) for _, h in tr.history))
+        log(f"bf16 Trainer(mixed_precision=True) MeanTeacherTrainer.fit({BF16_FIT_STEPS}) "
+            f"{MT_CHECK_PATCH}^2: model dtype {tr.model.dtype}, activations {feats.dtype}, "
+            f"losses {[round(h['loss'], 5) for _, h in tr.history]}, latest.pt float32 {f32}, "
+            f"reloaded bit-equal {same} {'ok' if good else 'FAIL'}")
+        ok &= good
+        del tr, fresh
+    return ok
 
 
 def phase_algorithms(dev, results, binding):
@@ -1066,7 +1721,7 @@ def phase_algorithms(dev, results, binding):
     }
     pseudo = steps._mc_pseudo
     for algo, (step, with_teacher, names) in algos.items():
-        batch = batch_of(algo, ALG_CHECK_PATCH, "cpu")
+        batch = batch_of(algo, ALG_STEP_CHECK_PATCH, "cpu")
         noise = {k: torch.randn(*noise_shapes[k], generator=gen) for k in names}
         card, cpu = state_on(dev, with_teacher), state_on("cpu", with_teacher)
         drawn, card_blocks, cpu_blocks = [], [], []
@@ -1088,7 +1743,7 @@ def phase_algorithms(dev, results, binding):
             steps._mc_pseudo = pseudo
         counts = counted()
         good = counts == ALG_LAUNCHES[algo]
-        log(f"algorithms {algo} step {ALG_CHECK_PATCH}^2: launches {counts} (expected "
+        log(f"algorithms {algo} step {ALG_STEP_CHECK_PATCH}^2: launches {counts} (expected "
             f"{ALG_LAUNCHES[algo]}) {'ok' if good else 'FAIL'}")
         # the CPU steps (float32, and float64 for the gradients' reference)
         # take the card's pseudo-labels, so that a consensus pixel flipped
@@ -1109,11 +1764,11 @@ def phase_algorithms(dev, results, binding):
                 aux_cpu = out
         cpu_s = time.perf_counter() - t0
         flips, margin = relu_flips(card_blocks, cpu_blocks)
-        log(f"algorithms {algo} step {ALG_CHECK_PATCH}^2: ReLU masks of the student's "
+        log(f"algorithms {algo} step {ALG_STEP_CHECK_PATCH}^2: ReLU masks of the student's "
             f"{len(cpu_blocks)} ConvBlocks card vs cpu: {flips} px differ, each output within "
             f"{margin:.1e} of 0 (relative to its map's largest)")
         del card_blocks, cpu_blocks
-        good &= check_step(f"algorithms {algo} step {ALG_CHECK_PATCH}^2", card, cpu, aux,
+        good &= check_step(f"algorithms {algo} step {ALG_STEP_CHECK_PATCH}^2", card, cpu, aux,
                            aux_cpu, init, MT_LR, ref64=cpu64)
         log(f"algorithms {algo} step card vs cpu: cpu (float32 and float64) {cpu_s:.1f} s")
         ok &= good
@@ -1220,20 +1875,21 @@ def kernel_wrappers():
 
 def reset_launches(wrappers):
     for w in wrappers.values():
-        w.launches = 0
+        w.launches = w.launches_bf16 = 0
 
 
-def read_launches(wrappers):
-    """The launches since :func:`reset_launches` (a check's, logged only)."""
-    return {k: w.launches for k, w in wrappers.items()}
+def read_launches(wrappers, bf16=False):
+    """The launches since :func:`reset_launches` (a check's, logged only),
+    of the kernels' float32 instances (or, with ``bf16``, their bf16 ones)."""
+    return {k: w.launches_bf16 if bf16 else w.launches for k, w in wrappers.items()}
 
 
-def counted_launches(wrappers, results):
+def counted_launches(wrappers, results, bf16=False):
     """The launches since :func:`reset_launches` of a main path's run, added
-    to the JSON line's counts."""
-    counts = read_launches(wrappers)
+    to the JSON line's counts (of the bf16 instances' entries with ``bf16``)."""
+    counts = read_launches(wrappers, bf16)
     for k, n in counts.items():
-        results[k]["launches"] += n
+        results[bf16_name(k) if bf16 else k]["launches"] += n
     return counts
 
 
@@ -1257,19 +1913,65 @@ def same_trainer_state(a, b):
     return ok
 
 
+def adam_interval(grads, deltas, lr, betas, eps):
+    """(low, high) of the total Adam update (the sum of a fit's steps) each
+    element can take when step k's gradient may lie anywhere in
+    ``grads[k] +- deltas[k]``: the moments m and v carried as intervals
+    (v's from the squared gradient's interval), the bias-corrected update
+    lr * m / (sqrt(v) + eps) bounded at the corners that bound it (it rises
+    with m, and falls with v where m > 0 and rises with v where m < 0).
+    Interval arithmetic ignores that m and v share one gradient, which
+    Adam's own bound puts back where it matters (a gradient interval that
+    holds 0 lets v's fall to 0): by Cauchy-Schwarz, |m_k| <= sqrt(v_k) *
+    sqrt(sum_i a_i^2 / b_i) with m's weights a_i = (1 - b1) b1^(k-i) and v's
+    b_i = (1 - b2) b2^(k-i), so a step moves an element by at most lr * R_k,
+    R_k = that root * sqrt(1 - b2^k) / (1 - b1^k) (1 at step 1, 1.0014 at
+    step 2 with pda's betas). Both bounds hold, so the interval is wider
+    than the truth, never narrower. Float64."""
+    import torch
+
+    b1, b2 = betas
+    m_lo = m_hi = v_lo = v_hi = torch.zeros_like(grads[0])
+    lo_sum, hi_sum = torch.zeros_like(grads[0]), torch.zeros_like(grads[0])
+
+    def update(m, v, c1, c2):
+        return lr * (m / c1) / ((v / c2).sqrt() + eps)
+
+    for k, (g, d) in enumerate(zip(grads, deltas), start=1):
+        g_lo, g_hi = g - d, g + d
+        sq_hi = torch.maximum(g_lo * g_lo, g_hi * g_hi)
+        sq_lo = torch.where((g_lo <= 0) & (g_hi >= 0), 0.0, torch.minimum(g_lo * g_lo, g_hi * g_hi))
+        m_lo, m_hi = b1 * m_lo + (1 - b1) * g_lo, b1 * m_hi + (1 - b1) * g_hi
+        v_lo, v_hi = b2 * v_lo + (1 - b2) * sq_lo, b2 * v_hi + (1 - b2) * sq_hi
+        c1, c2 = 1 - b1 ** k, 1 - b2 ** k
+        most = lr * math.sqrt(sum((1 - b1) ** 2 * b1 ** (2 * (k - i)) / ((1 - b2) * b2 ** (k - i))
+                                  for i in range(1, k + 1)) * c2) / c1
+        hi = torch.where(m_hi > 0, update(m_hi, v_lo, c1, c2), update(m_hi, v_hi, c1, c2))
+        lo = torch.where(m_lo < 0, update(m_lo, v_lo, c1, c2), update(m_lo, v_hi, c1, c2))
+        hi_sum += hi.clamp(-most, most)
+        lo_sum += lo.clamp(-most, most)
+    return lo_sum, hi_sum
+
+
 def check_fit(label, card, cpu, grads, init, lr):
     """The final student and teacher of a fit on the card against the same
     fit on the CPU, each step's gradients as :func:`check_step` judges one
     step's (within MT_GRAD_TOL of the CPU's float32 leaf, or by cosine to
-    the float64 fit's); the weights within MT_PARAM_TOL wherever no step's
-    float64 gradient lay within the gradients' error of 0 (there Adam's
-    sign is noise, and the student is held to steps x lr of its start, the
-    teacher to twice that of the CPU's)."""
+    the float64 fit's). The weights: each step's gradient on the card lies
+    within its leaf's measured error (the noise :func:`check_step` uses) of
+    the CPU's, so each element's final value lies in the interval Adam
+    (the trainer's own betas, eps and bias correction) maps those gradient
+    intervals to (:func:`adam_interval`), and the teacher in the EMA of the
+    student's intervals; the card's final student and teacher are held
+    within that interval's half-width of its middle plus MT_PARAM_TOL (the
+    CPU's, as a check of the interval, too). Where Adam's second step nearly
+    cancels its first (m_2 near 0), a gradient error within the noise moves
+    the update by a large part of lr: the interval follows it there."""
     import torch
 
     n_steps = len(grads["card"])
     params = list(cpu.state.model.parameters())
-    noisy = [torch.zeros(p.shape, dtype=torch.bool) for p in params]
+    deltas = [[None] * len(params) for _ in range(n_steps)]
     worst, worst_cos, n_beyond, n_bad = (0.0, ""), (1.0, "", 1.0), 0, 0
     names = [n for n, _ in card.state.model.named_parameters()]
     for k in range(n_steps):
@@ -1278,34 +1980,49 @@ def check_fit(label, card, cpu, grads, init, lr):
             scale = float(gc.abs().max())
             err = float((g - gc).abs().max())
             worst = max(worst, (err / scale if scale else err, f"step {k} {name}"))
-            noise = max(MT_GRAD_TOL * scale, err, float((g - g64).abs().max()),
-                        float((gc - g64).abs().max()))
-            noisy[i] |= g64.abs() <= noise
+            deltas[k][i] = max(MT_GRAD_TOL * scale, err, float((g - g64).abs().max()),
+                               float((gc - g64).abs().max()))
             if err > MT_GRAD_TOL * scale:
                 n_beyond += 1
                 cos, cos_cpu = (float(torch.nn.functional.cosine_similarity(
                     a.flatten(), g64.flatten(), dim=0)) for a in (g, gc))
                 worst_cos = min(worst_cos, (cos, f"step {k} {name}", cos_cpu))
                 n_bad += 1.0 - cos > max(GRAD_COS_TOL, GRAD_COS_CPU * (1.0 - cos_cpu))
-    student, teacher, sign_ok = 0.0, 0.0, True
+    group = cpu.state.optimizer.param_groups[0]
+    momentum = cpu.momentum
+    student = teacher = cpu_off = 0.0
+    widest = (0.0, "")
     for i, ((name, p), pc, tp, tc) in enumerate(zip(
             card.state.model.named_parameters(), params, card.state.teacher.parameters(),
             cpu.state.teacher.parameters())):
-        diff = (p.detach().cpu() - pc.detach()).abs()
-        student = max(student, float(torch.where(noisy[i], 0.0, diff).max()))
-        moved = (pc.detach() - init[name]).abs()
-        sign_ok &= float(torch.where(noisy[i], moved, 0.0).max()) <= n_steps * lr + MT_PARAM_TOL
-        t_diff = (tp.detach().cpu() - tc.detach()).abs()
-        teacher = max(teacher, float(torch.where(noisy[i], 0.0, t_diff).max()))
-        sign_ok &= (float(torch.where(noisy[i], t_diff, 0.0).max())
-                    <= 2 * n_steps * lr + MT_PARAM_TOL)
-    good = n_bad == 0 and student <= MT_PARAM_TOL and teacher <= MT_PARAM_TOL and sign_ok
+        p0 = init[name].double()
+        lo, hi = adam_interval([grads["cpu"][k][i] for k in range(n_steps)],
+                               [deltas[k][i] for k in range(n_steps)], lr, group["betas"],
+                               group["eps"])
+        # after step k the student lies in p0 - [hi_k, lo_k]; the teacher, an EMA
+        # of the students from the same start, in the same EMA of those bounds
+        t_lo, t_hi = p0.clone(), p0.clone()
+        for k in range(1, n_steps + 1):
+            lo_k, hi_k = adam_interval([grads["cpu"][j][i] for j in range(k)],
+                                       [deltas[j][i] for j in range(k)], lr, group["betas"],
+                                       group["eps"])
+            t_lo = momentum * t_lo + (1 - momentum) * (p0 - hi_k)
+            t_hi = momentum * t_hi + (1 - momentum) * (p0 - lo_k)
+        mid, half = p0 - (lo + hi) / 2, (hi - lo) / 2
+        t_mid, t_half = (t_lo + t_hi) / 2, (t_hi - t_lo) / 2
+        student = max(student, float(((p.detach().cpu().double() - mid).abs() - half).max()))
+        teacher = max(teacher, float(((tp.detach().cpu().double() - t_mid).abs() - t_half).max()))
+        cpu_off = max(cpu_off, float(((pc.detach().double() - mid).abs() - half).max()),
+                      float(((tc.detach().double() - t_mid).abs() - t_half).max()))
+        widest = max(widest, (float(half.max()), name))
+    good = (n_bad == 0 and student <= MT_PARAM_TOL and teacher <= MT_PARAM_TOL
+            and cpu_off <= MT_PARAM_TOL)
     log(f"{label} card vs cpu: {n_steps} steps' gradients worst max_abs_err/max|ref| "
         f"{worst[0]:.3e} ({worst[1]}; tol {MT_GRAD_TOL:.0e}), {n_beyond} leaves beyond it, "
         f"their worst cosine to float64 {worst_cos[0]:.8f} ({worst_cos[1]}; the CPU's float32 "
-        f"{worst_cos[2]:.8f}); final student max_abs_err {student:.3e}, teacher {teacher:.3e} "
-        f"(tol {MT_PARAM_TOL:.0e}, where Adam's sign is defined), the rest within steps x lr "
-        f"{sign_ok} {'ok' if good else 'FAIL'}")
+        f"{worst_cos[2]:.8f}); final student beyond its Adam interval by {student:.3e}, teacher "
+        f"{teacher:.3e}, the CPU's own {cpu_off:.3e} (tol {MT_PARAM_TOL:.0e}; widest half-width "
+        f"{widest[0]:.3e} at {widest[1]}, lr {lr:g}) {'ok' if good else 'FAIL'}")
     return good
 
 
@@ -1622,10 +2339,10 @@ def phase_engine(dev, results, bare_ms):
         del fresh
 
         # 3. the same fit at 128^2 (2 steps, 1 validation) on the card, the CPU
-        # (float32) and the CPU in float64, on the numpy views this check was
-        # set on (PRs 7-10): its weights' criterion fails on some loader draws
-        # of either view (PERF.md §6, PR 11; pda_torch/tools/fit_check_seeds.py)
-        with augmentation_path(native=False):
+        # (float32) and the CPU in float64, on the native views (the default),
+        # the weights held to their Adam intervals (check_fit; every loader draw
+        # of either view: pda_torch/tools/fit_check_seeds.py)
+        with augmentation_path(native=True):
             fits, grads, drawn, init, counts, cpu_s = small_mt_fits(root, dev, wrappers)
         card, cpu = fits["card"], fits["cpu"]
         pairs = list(zip(card.history + card.val_history, cpu.history + cpu.val_history))
@@ -2064,7 +2781,20 @@ def phase_experiments(dev, results, binding):
 MITO_SHAPES = {"mitoem": (1024, 1024), "vnc": (1024, 1024), "lucchi": (768, 1024),
                "urocell": (512, 512)}
 MITO_MC = 8  # punet_prediction's prior samples in the MitoEM CLIs (pda's default)
+# validation patches a validation of the DA trainers on VNC and UroCell (their
+# CLIs' loaders draw 400; fewer keep the run's time for the bf16 phase)
+MITO_DA_VAL_SAMPLES = 40
 H5_DTYPES = ("uint8", "uint16", "int32", "float32", "float64")
+
+
+def fewer_val_samples(get_dual_loaders):
+    """``get_dual_loaders`` whose validation loader draws at most
+    MITO_DA_VAL_SAMPLES patches (a depth cut of the smoke run)."""
+    def get(*args, **kwargs):
+        train, val = get_dual_loaders(*args, **kwargs)
+        val.dataset._len = min(len(val.dataset), MITO_DA_VAL_SAMPLES)
+        return train, val
+    return get
 
 
 def h5_roundtrip(folder):
@@ -2272,12 +3002,13 @@ def phase_mitoem(dev, results, binding):
                     (mitoem_adamt, "adamt", ["--type", "urocell"], ["urocell"]),
                     (mitoem_adamatch, "adamatch", ["--type", "vnc", "--consensus", "--masking"],
                      ["vnc"])):
-                em_types = mitoem_da.EM_TYPES
+                em_types, loaders = mitoem_da.EM_TYPES, mitoem_common.get_dual_loaders
                 mitoem_da.EM_TYPES = targets
+                mitoem_common.get_dual_loaders = fewer_val_samples(loaders)
                 try:
                     run(module, ["--train", "--predict", "--evaluate"] + flags, 1)
                 finally:
-                    mitoem_da.EM_TYPES = em_types
+                    mitoem_da.EM_TYPES, mitoem_common.get_dual_loaders = em_types, loaders
                 dirs, good = da_checks(method, flags, targets)
                 check(f"{module.__name__.rsplit('.', 1)[-1]} checkpoints and predictions", good)
                 drop(dirs)
@@ -2393,10 +3124,12 @@ LUNG_COUNTS = {"jsrt1": (3, 1), "jsrt2": (3, 1), "nih": (3, 1), "montgomery": 4}
 LUNG_DA_DOMAINS = ("jsrt2", "montgomery")
 LUNG_SIZE = (256, 256)  # the prepared Montgomery and NIH frames (rows, cols)
 LUNG_MC = 16  # punet_prediction's prior samples in the Lung CLIs
+# the Lung MT step card vs CPU at 64^2 (at 128^2 its CPU side takes 9-13 s)
+LUNG_CHECK_PATCH = 64
 
 
 def lung_step(dev):
-    """One 128^2 Mean-Teacher step of the Lung PUNet (BCE reconstruction,
+    """One 64^2 Mean-Teacher step of the Lung PUNet (BCE reconstruction,
     consensus masking) on the card against the same step on the CPU, in
     float32 and (the gradients' reference) float64; the CPU steps take the
     card teacher's pseudo-labels. Returns ok."""
@@ -2415,7 +3148,7 @@ def lung_step(dev):
         model.fcomb.last_layer.weight.mul_(LAST_SCALE)
     init = model.state_dict()
     raw, _ = make_lung_frame(LUNG_SIZE, np.random.default_rng(SEED))
-    batch = mt_batch(gen, torch.from_numpy(raw)[..., None], MT_CHECK_PATCH, "cpu")
+    batch = mt_batch(gen, torch.from_numpy(raw)[..., None], LUNG_CHECK_PATCH, "cpu")
     noise = {"eps_teacher": torch.randn(MC, MT_BATCH, 6, generator=gen),
              "eps_post": torch.randn(MT_BATCH, 6, generator=gen)}
     step = make_mean_teacher_step(momentum=MT_MOMENTUM, do_consensus_masking=True)
@@ -2441,7 +3174,7 @@ def lung_step(dev):
         steps._mc_pseudo = pseudo
     counts = read_launches(wrappers)  # a check's run: logged only
     ok = counts == MT_LAUNCHES and float(drawn[0][1].mean()) not in (0.0, 1.0)
-    log(f"lung MT step (BCE, masking) {MT_CHECK_PATCH}^2: launches {counts} (expected "
+    log(f"lung MT step (BCE, masking) {LUNG_CHECK_PATCH}^2: launches {counts} (expected "
         f"{MT_LAUNCHES}), consensus share {float(drawn[0][1].mean()):.4f} "
         f"{'ok' if ok else 'FAIL'}")
     t0 = time.perf_counter()
@@ -2455,7 +3188,7 @@ def lung_step(dev):
             steps._mc_pseudo = pseudo
         if dtype == torch.float32:
             aux_cpu = out
-    ok &= check_step(f"lung MT step (BCE, masking) {MT_CHECK_PATCH}^2", card, cpu, aux, aux_cpu,
+    ok &= check_step(f"lung MT step (BCE, masking) {LUNG_CHECK_PATCH}^2", card, cpu, aux, aux_cpu,
                      init, MT_LR, ref64=cpu64)
     log(f"lung MT step card vs cpu: recon (BCE sum) {float(aux['recon_loss']):.3f}, cpu (float32 "
         f"and float64) {time.perf_counter() - t0:.1f} s")
@@ -2706,8 +3439,8 @@ def phase_lung(dev, results, binding):
     return ok
 
 
-PHASES = ("kernels", "serving", "training", "algorithms", "engine", "experiments", "mitoem",
-          "lung")
+PHASES = ("kernels", "serving", "training", "bf16", "algorithms", "engine", "experiments",
+          "mitoem", "lung")
 
 
 def main(argv=None) -> int:
@@ -2749,9 +3482,9 @@ def main(argv=None) -> int:
         f"torch {torch.__version__}, CUDA {torch.version.cuda}; TF32 off for cuDNN and matmul")
     log(card)
 
-    results = {name: {"name": name, "route": "cuda", "source": src, "replaces": rep,
-                      "launches": 0, "max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
-                      "bound_ms": 0.0, "bound_by": None, "library_ms": None}
+    results = {name: {"name": name, "dtype": "float32", "route": "cuda", "source": src,
+                      "replaces": rep, "launches": 0, "max_abs_err": 0.0, "ms": 0.0,
+                      "plain_ms": 0.0, "bound_ms": 0.0, "bound_by": None, "library_ms": None}
                for name, src, rep in (
                    ("conv_block_fwd", "pda_torch/kernels/csrc/conv_block_fwd.cu",
                     "pda/kernels/conv_block.py:391"),
@@ -2788,6 +3521,8 @@ def main(argv=None) -> int:
             elif name == "training":
                 good, mt_ms = phase_training(dev, results)
                 ok &= good
+            elif name == "bf16":
+                ok &= phase_bf16(dev, results, binding, mt_ms)
             elif name == "engine":
                 ok &= phase_engine(dev, results, mt_ms)
             else:
@@ -2808,12 +3543,15 @@ def main(argv=None) -> int:
                                 key=lambda t: binding.get((entry["name"], t), 0.0))
     log("kernel ms/plain_ms/library_ms/bound_ms: forward kernels summed over one tiled "
         "MC-16 forward's calls, backward kernels over one MT step's (512^2, batch 2); "
-        f"bound at {PEAK_FLOPS / 1e12:.0f} TFLOP/s (3xTF32) and {PEAK_BYTES / 1e12:.2f} TB/s; "
-        "library_ms: cuDNN's three convolutions (F.conv2d) for the forward, its three "
+        f"bound at {PEAK_FLOPS / 1e12:.0f} TFLOP/s (3xTF32; the *_bf16 entries, pda's bf16 "
+        f"configuration: 989 TFLOP/s dense bf16) and {PEAK_BYTES / 1e12:.2f} TB/s; "
+        "library_ms: cuDNN's three convolutions (F.conv2d; in bf16 on bf16 tensors) for the "
+        "forward, its three "
         "convolution_backward calls with the ReLU masks between them for the backward "
         "(cudnn.benchmark on at 128->256), TF32 off; none for mc_consensus (no single PyTorch "
         "call computes it); mc_consensus: the tiled forward's call; launches: the main "
         "paths' runs, each counted from 0: both serving entries, the checked MT step, the "
+        "bf16 phase's timed MT steps and tiled serving, the "
         "other PUNet steps and the UNet2d path at the flagship's widths, the flagship's "
         "MeanTeacherTrainer.fit, the experiments phase's LIVECell CLIs, the mitoem phase's "
         "MitoEM CLIs and the lung phase's Lung X-Ray CLIs (the checks' runs are logged on "

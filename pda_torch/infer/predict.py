@@ -15,6 +15,9 @@ port's codec (:mod:`pda_torch.data.tiff`):
 
 Noise: ``eps`` is the ``(n_samples, batch, latent_dim)`` standard-normal
 draw of the latent samples, or a ``torch.Generator`` to draw it from.
+
+The PUNet entries compute in the model's dtype (a bf16 model runs the bf16
+kernels); probabilities and pseudo-labels leave as float32, as in ``pda``.
 """
 
 from __future__ import annotations

@@ -9,5 +9,6 @@ PyTorch version:
   conv_block.conv_block_bwd_dual   the same for [xa | xb] (kernel 2's)
 
 A wrapper runs the plain version on a CPU tensor and the kernel on a CUDA
-tensor; ``<wrapper>.launches`` counts kernel launches. The kernels build on
+tensor (the plain version there too under ``conv_block.plain_versions()``);
+``<wrapper>.launches`` counts kernel launches. The kernels build on
 first use (``_build``)."""

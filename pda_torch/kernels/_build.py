@@ -132,12 +132,21 @@ def check(code: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA error {code} at launch")
 
 
-def check_tensor(name: str, t: torch.Tensor, shape, device: torch.device) -> None:
-    """Raise unless ``t`` is a contiguous float32 tensor of ``shape`` on ``device``."""
+#: the dtypes of an entry whose kernel has a bf16 instance (pda's bf16
+#: configuration); every other entry takes float32 only
+FLOAT32_BF16 = (torch.float32, torch.bfloat16)
+
+
+def check_tensor(name: str, t: torch.Tensor, shape, device: torch.device,
+                 dtypes=(torch.float32,)) -> None:
+    """Raise unless ``t`` is a contiguous tensor of ``shape`` on ``device``
+    whose dtype is one of ``dtypes`` (float32 unless the entry has a bf16
+    instance: :data:`FLOAT32_BF16`)."""
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if t.dtype != torch.float32:
-        raise TypeError(f"{name} must be float32, got {t.dtype}")
+    if t.dtype not in dtypes:
+        names = " or ".join(str(d).replace("torch.", "") for d in dtypes)
+        raise TypeError(f"{name} must be {names}, got {t.dtype}")
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
     if not t.is_contiguous():

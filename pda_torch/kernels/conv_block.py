@@ -12,7 +12,7 @@ two tensors without building it (the decoder's ``[upsample | skip]``).
 Both are differentiable. Each is a ``torch.autograd.Function`` whose forward
 keeps h1, h2 and the output h3 (``pda``'s ``save_intermediates=True``) and
 whose backward is :func:`conv_block_bwd` / :func:`conv_block_bwd_dual`, the
-fused ConvBlock backward of ``csrc/conv_block_bwd.cu`` (``pda``'s
+fused ConvBlock backward of ``csrc/conv_block_bwd.cuh`` (``pda``'s
 ``conv_block_bwd*.py`` and ``conv_block_packed_bwd*.py``): its wgrad and
 dgrad run on the tensor cores in 3xTF32 (:mod:`.tf32x3`), float32-accurate.
 dx is computed only when autograd asks for it: an entry block, whose input
@@ -24,15 +24,33 @@ forward is about 1e-6 of its largest value off a float64 reference, no
 longer bit-equal to cuDNN's float32 FMAs; a single-input first layer with
 1 or 2 channels (the image, or image + mask) runs on the FMA pipes.
 
-Tensors are NHWC float32, weights HWIO ``(3, 3, Cin, C)`` as in ``pda``,
-biases ``(C,)``; the forward kernel reads an HWOI copy (:func:`_hwoi`). On a
-CPU tensor the wrappers run the plain PyTorch versions (``*_plain``); on a
-CUDA tensor they launch the hand-written kernels on the current stream, or
-raise.
+Tensors are NHWC float32 or bf16, weights HWIO ``(3, 3, Cin, C)`` float32
+as in ``pda``, biases ``(C,)`` float32; the forward kernel reads an HWOI copy
+(:func:`_hwoi`). On a CPU tensor the wrappers run the plain PyTorch versions
+(``*_plain``); on a CUDA tensor they launch the hand-written kernels on the
+current stream, or raise (float16, float64 and any other dtype too), unless
+the caller asks for the plain versions on the card (:func:`plain_versions`,
+an A/B check's plain leg).
+
+bf16 (``pda``'s bf16 configuration, ``ProbabilisticUnet(dtype=bf16)``): the
+kernels follow the rounding points of ``pda``'s Pallas kernels
+(``pda/kernels/conv_block.py`` ``_kernel``, ``conv_block_bwd.py``): the
+activations and the kernels (cast from the float32 weights inside the
+wrapper, ``pda``'s ``w.astype(dtype)``) are bf16, products accumulate in
+float32, the bias is added in float32, then the ReLU, and each layer's
+output is rounded to bf16 once; in the backward, da and dx are bf16 (the
+mask, the dgrad's float32 sums rounded once), dW and db float32, so
+autograd hands float32 gradients to the float32 parameters. The plain
+versions compute exactly that (bf16-rounded operands, the products summed in
+float32 on the card and in float64 on the CPU, :func:`plain_acc`, or in
+what :func:`plain_sums` sets, one rounding a layer); ``pda``'s XLA path rounds elsewhere (the conv's sum to
+bf16, then the bias added in bf16), so the port is held to ``pda``'s
+kernels, interpreted on the CPU, not to that path.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 from typing import Optional
 
@@ -51,8 +69,72 @@ _BWD_ARGTYPES = (_VP, _I, *[_VP] * 17, *[_I] * 5, _VP)
 _BWD_DUAL_ARGTYPES = (_VP, _VP, _I, _I, *[_VP] * 18, *[_I] * 4, _VP)
 
 
-def _conv_relu(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """One NCHW SAME conv + bias + ReLU with an HWIO weight."""
+_BF16 = torch.bfloat16
+
+
+#: the dtype the bf16 plain versions sum in while :func:`plain_sums` holds
+#: (None: :func:`plain_acc`'s default)
+_PLAIN_SUMS: Optional[torch.dtype] = None
+#: True while :func:`plain_versions` holds
+_PLAIN_VERSIONS = False
+
+
+def plain_acc(t: torch.Tensor) -> torch.dtype:
+    """The dtype a bf16 plain version sums in: float32 on the card (the
+    kernels' sums) and float64 on the CPU (exact sums of the bf16 products,
+    each rounded to bf16 once), or what :func:`plain_sums` set."""
+    return _PLAIN_SUMS or (torch.float64 if t.device.type == "cpu" else torch.float32)
+
+
+@contextlib.contextmanager
+def plain_sums(dtype: torch.dtype):
+    """While the block runs, the bf16 plain versions sum in ``dtype`` on
+    every device (a check's second summation order)."""
+    global _PLAIN_SUMS
+    before, _PLAIN_SUMS = _PLAIN_SUMS, dtype
+    try:
+        yield
+    finally:
+        _PLAIN_SUMS = before
+
+
+@contextlib.contextmanager
+def plain_versions():
+    """While the block runs, every kernel wrapper runs its plain version on
+    a CUDA tensor too and counts no launch: the plain leg of an A/B check
+    on the card. Outside it a CUDA tensor always launches the kernel."""
+    global _PLAIN_VERSIONS
+    before, _PLAIN_VERSIONS = _PLAIN_VERSIONS, True
+    try:
+        yield
+    finally:
+        _PLAIN_VERSIONS = before
+
+
+def runs_plain(t: torch.Tensor, what: str) -> bool:
+    """Whether a wrapper given ``t`` runs its plain version: on a CPU
+    tensor, or under :func:`plain_versions`; a CUDA tensor launches the
+    kernel; any other device raises."""
+    if t.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{what} runs on cpu or cuda, not {t.device}")
+    return t.device.type == "cpu" or _PLAIN_VERSIONS
+
+
+def bf16_operand(w: torch.Tensor, acc: torch.dtype = torch.float32) -> torch.Tensor:
+    """A float32 weight as the bf16 kernels read it (rounded to bf16), in
+    ``acc`` for the plain versions' sums."""
+    return w.to(_BF16).to(acc)
+
+
+def conv_relu_layer(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """One NCHW SAME conv + bias + ReLU with an HWIO weight; a bf16 ``x``
+    as the bf16 kernel computes it (bf16 operands, the products summed in
+    :func:`plain_acc`, the float32 bias, one rounding to bf16)."""
+    if x.dtype == _BF16:
+        acc = plain_acc(x)
+        y = F.conv2d(x.to(acc), bf16_operand(w, acc).permute(3, 2, 0, 1), b.to(acc),
+                     padding=1)
+        return F.relu(y).to(_BF16)
     return F.relu(F.conv2d(x, w.permute(3, 2, 0, 1), b, padding=1))
 
 
@@ -60,7 +142,7 @@ def _plain_layers(x, w1, b1, w2, b2, w3, b3) -> list:
     """[h1, h2, h3] of the plain forward, each an NCHW view."""
     hs, h = [], x.permute(0, 3, 1, 2)
     for w, b in ((w1, b1), (w2, b2), (w3, b3)):
-        h = _conv_relu(h, w, b)
+        h = conv_relu_layer(h, w, b)
         hs.append(h)
     return hs
 
@@ -95,14 +177,27 @@ def conv_block_bwd_plain(g, x, h1, h2, h3, w1, w2, w3, need_dx: bool = True):
     SAME conv of ``da`` with the kernel flipped in space and its in/out
     channels swapped.
 
-    Returns ``(dx or None, dw1, db1, dw2, db2, dw3, db3)``: dx NHWC, dW HWIO."""
+    Returns ``(dx or None, dw1, db1, dw2, db2, dw3, db3)``: dx NHWC, dW HWIO.
+    In bf16 (``g``, ``x``, h1..h3 bf16, the weights float32) as the bf16
+    kernel computes it: the wgrad and the bias gradient of the bf16 values
+    and the dgrad of bf16 operands (the kernel rounded to bf16) summed in
+    :func:`plain_acc`, the dgrad rounded to bf16 once, so da and dx are bf16
+    and dW, db float32."""
+    bf16 = g.dtype == _BF16
+    acc = plain_acc(g)
     dout, grads = g, []
     for k, (h_out, h_in, w) in enumerate(((h3, h2, w3), (h2, h1, w2), (h1, x, w1))):
         da = torch.where(h_out > 0, dout, 0.0)
-        grads = [_wgrad_plain(h_in, da), da.sum(dim=(0, 1, 2))] + grads
+        if bf16:
+            da, h_in, w = da.to(acc), h_in.to(acc), bf16_operand(w, acc)
+            grads = [_wgrad_plain(h_in, da).float(), da.sum(dim=(0, 1, 2)).float()] + grads
+        else:
+            grads = [_wgrad_plain(h_in, da), da.sum(dim=(0, 1, 2))] + grads
         dout = (F.conv2d(da.permute(0, 3, 1, 2), w.flip(0, 1).permute(2, 3, 0, 1),
                          padding=1).permute(0, 2, 3, 1)
                 if k < 2 or need_dx else None)
+        if bf16 and dout is not None:
+            dout = dout.to(_BF16)
     dx = None if dout is None else dout.contiguous()
     return (dx, *grads)
 
@@ -124,9 +219,10 @@ def _check_block(xa: torch.Tensor, xb: Optional[torch.Tensor], w1, w2, w3, b=())
     bsz, h, w, ca = xa.shape
     cb = 0 if xb is None else xb.shape[-1]
     c = w1.shape[-1]
-    _build.check_tensor("xa" if xb is not None else "x", xa, (bsz, h, w, ca), dev)
+    _build.check_tensor("xa" if xb is not None else "x", xa, (bsz, h, w, ca), dev,
+                        _build.FLOAT32_BF16)
     if xb is not None:
-        _build.check_tensor("xb", xb, (bsz, h, w, cb), dev)
+        _build.check_tensor("xb", xb, (bsz, h, w, cb), dev, (xa.dtype,))
     for name, t, shape in (("w1", w1, (3, 3, ca + cb, c)), ("w2", w2, (3, 3, c, c)),
                            ("w3", w3, (3, 3, c, c))):
         _build.check_tensor(name, t, shape, dev)
@@ -142,17 +238,21 @@ def _hwoi(w: torch.Tensor) -> torch.Tensor:
     return w.permute(0, 1, 3, 2).contiguous()
 
 
+def _suffix(dtype: torch.dtype) -> str:
+    """The C entries' suffix of a dtype's instance."""
+    return "_bf16" if dtype == _BF16 else ""
+
+
 def _launch(xa: torch.Tensor, xb: Optional[torch.Tensor], w1, b1, w2, b2, w3, b3):
-    """(h1, h2, h3) of the forward kernel."""
-    dev = xa.device
+    """(h1, h2, h3) of the forward kernel, in x's dtype (float32 or bf16)."""
+    dev, dtype = xa.device, xa.dtype
     bsz, h, w, ca, cb, c = _check_block(xa, xb, w1, w2, w3, (b1, b2, b3))
-    h1, h2, h3 = (torch.empty((bsz, h, w, c), device=dev, dtype=torch.float32)
-                  for _ in range(3))
+    h1, h2, h3 = (torch.empty((bsz, h, w, c), device=dev, dtype=dtype) for _ in range(3))
     if h3.numel() == 0:
         return h1, h2, h3
-    fn = _build.entry("pda_conv_block_fwd", _FWD_ARGTYPES)
+    fn = _build.entry("pda_conv_block_fwd" + _suffix(dtype), _FWD_ARGTYPES)
     with torch.cuda.device(dev):
-        w1, w2, w3 = _hwoi(w1), _hwoi(w2), _hwoi(w3)
+        w1, w2, w3 = (_hwoi(t.to(dtype)) for t in (w1, w2, w3))
         stream = torch.cuda.current_stream(dev).cuda_stream
         code = fn(xa.data_ptr(), None if xb is None else xb.data_ptr(), ca, cb,
                   w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
@@ -162,13 +262,16 @@ def _launch(xa: torch.Tensor, xb: Optional[torch.Tensor], w1, b1, w2, b2, w3, b3
     return h1, h2, h3
 
 
-def _launch_bwd(g, xa, xb, h1, h2, h3, w1, w2, w3, need_dx: bool):
+def _launch_bwd(g, xa, xb, h1, h2, h3, w1, w2, w3, need_dx: bool, workspaces=None):
     """(dxa or None, dxb or None, dw1, db1, dw2, db2, dw3, db3) of the
-    backward kernel; the dual entry (xb given) always computes dxa, dxb."""
-    dev = xa.device
+    backward kernel; the dual entry (xb given) always computes dxa, dxb. In
+    x's dtype (float32 or bf16: dx too), dW and db float32. ``workspaces``:
+    the two (B, H, W, C) buffers of the layers' masked cotangents, which
+    then hold da_1 and da_2 after the call (allocated here if None)."""
+    dev, dtype = xa.device, xa.dtype
     bsz, h, w, ca, cb, c = _check_block(xa, xb, w1, w2, w3)
     for name, t in (("g", g), ("h1", h1), ("h2", h2), ("h3", h3)):
-        _build.check_tensor(name, t, (bsz, h, w, c), dev)
+        _build.check_tensor(name, t, (bsz, h, w, c), dev, (dtype,))
     need_dx = need_dx or xb is not None
     dxa = torch.empty_like(xa) if need_dx else None
     dxb = None if xb is None else torch.empty_like(xb)
@@ -177,30 +280,37 @@ def _launch_bwd(g, xa, xb, h1, h2, h3, w1, w2, w3, need_dx: bool):
     if g.numel() == 0:
         return tuple(None if t is None else t.zero_() for t in (dxa, dxb, *grads))
     # the chunk count of the wgrad, so the workspace, depends on the card
-    n_work = _build.entry("pda_conv_block_bwd_work", (_I,) * 5, ctypes.c_longlong)
+    suffix = _suffix(dtype)
+    n_work = _build.entry("pda_conv_block_bwd_work" + suffix, (_I,) * 5, ctypes.c_longlong)
     # da_3, da_2, da_1 (each layer's masked output cotangent) in two buffers
-    da1, da2 = torch.empty_like(h1), torch.empty_like(h1)
-    tail = [t.data_ptr() for t in (w1, w2, w3, h1, h2, h3, g)]
+    da1, da2 = workspaces or (torch.empty_like(h1), torch.empty_like(h1))
+    for name, t in (("da1", da1), ("da2", da2)):
+        _build.check_tensor(name, t, (bsz, h, w, c), dev, (dtype,))
     with torch.cuda.device(dev):
+        kernels = [t.to(dtype) for t in (w1, w2, w3)]  # HWIO, as the dgrad reads them
+        tail = [t.data_ptr() for t in (*kernels, h1, h2, h3, g)]
         work = w1.new_empty(n_work(bsz, h, w, ca + cb, c))
         outs = [t.data_ptr() for t in (*grads, da1, da2, work)]
         stream = torch.cuda.current_stream(dev).cuda_stream
         if xb is None:
-            fn = _build.entry("pda_conv_block_bwd", _BWD_ARGTYPES)
+            fn = _build.entry("pda_conv_block_bwd" + suffix, _BWD_ARGTYPES)
             code = fn(xa.data_ptr(), ca, *tail, None if dxa is None else dxa.data_ptr(),
                       *outs, bsz, h, w, c, int(need_dx), stream)
         else:
-            fn = _build.entry("pda_conv_block_bwd_dual", _BWD_DUAL_ARGTYPES)
+            fn = _build.entry("pda_conv_block_bwd_dual" + suffix, _BWD_DUAL_ARGTYPES)
             code = fn(xa.data_ptr(), xb.data_ptr(), ca, cb, *tail, dxa.data_ptr(),
                       dxb.data_ptr(), *outs, bsz, h, w, c, stream)
     _build.check(code, "conv_block_bwd")
     return (dxa, dxb, *grads)
 
 
-def _device(t: torch.Tensor, what: str) -> str:
-    if t.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"{what} runs on cpu or cuda, not {t.device}")
-    return t.device.type
+def count_launch(wrapper, dtype: torch.dtype) -> None:
+    """One launch of ``wrapper``'s kernel in ``dtype``: its float32 count
+    (``launches``) or its bf16 count (``launches_bf16``)."""
+    if dtype == _BF16:
+        wrapper.launches_bf16 += 1
+    else:
+        wrapper.launches += 1
 
 
 def _nhwc(hs) -> tuple:
@@ -212,11 +322,11 @@ class _ConvBlock(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, w1, b1, w2, b2, w3, b3):
-        if _device(x, "conv_block_fwd") == "cpu":
+        if runs_plain(x, "conv_block_fwd"):
             h1, h2, h3 = _nhwc(_plain_layers(x, w1, b1, w2, b2, w3, b3))
         else:
             h1, h2, h3 = _launch(x, None, w1, b1, w2, b2, w3, b3)
-            conv_block_fwd.launches += 1
+            count_launch(conv_block_fwd, x.dtype)
         ctx.save_for_backward(x, h1, h2, h3, w1, w2, w3)
         return h3
 
@@ -232,12 +342,12 @@ class _ConvBlockDual(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, xa, xb, w1, b1, w2, b2, w3, b3):
-        if _device(xa, "conv_block_fwd_dual") == "cpu":
+        if runs_plain(xa, "conv_block_fwd_dual"):
             h1, h2, h3 = _nhwc(_plain_layers(torch.cat([xa, xb], dim=-1),
                                              w1, b1, w2, b2, w3, b3))
         else:
             h1, h2, h3 = _launch(xa, xb, w1, b1, w2, b2, w3, b3)
-            conv_block_fwd_dual.launches += 1
+            count_launch(conv_block_fwd_dual, xa.dtype)
         ctx.save_for_backward(xa, xb, h1, h2, h3, w1, w2, w3)
         return h3
 
@@ -264,25 +374,25 @@ def conv_block_fwd_dual(xa, xb, w1, b1, w2, b2, w3, b3) -> torch.Tensor:
 def conv_block_bwd(g, x, h1, h2, h3, w1, w2, w3, need_dx: bool = True):
     """The fused ConvBlock backward from the saved h1, h2, h3 and the
     cotangent ``g`` of h3: ``(dx or None, dw1, db1, dw2, db2, dw3, db3)``."""
-    if _device(g, "conv_block_bwd") == "cpu":
+    if runs_plain(g, "conv_block_bwd"):
         return conv_block_bwd_plain(g, x, h1, h2, h3, w1, w2, w3, need_dx)
     dx, _, *grads = _launch_bwd(g, x, None, h1, h2, h3, w1, w2, w3, need_dx)
-    conv_block_bwd.launches += 1
+    count_launch(conv_block_bwd, g.dtype)
     return (dx, *grads)
 
 
 def conv_block_bwd_dual(g, xa, xb, h1, h2, h3, w1, w2, w3):
     """The fused backward of the block on ``[xa | xb]``:
     ``(dxa, dxb, dw1, db1, dw2, db2, dw3, db3)``."""
-    if _device(g, "conv_block_bwd_dual") == "cpu":
+    if runs_plain(g, "conv_block_bwd_dual"):
         return conv_block_bwd_dual_plain(g, xa, xb, h1, h2, h3, w1, w2, w3)
     out = _launch_bwd(g, xa, xb, h1, h2, h3, w1, w2, w3, True)
-    conv_block_bwd_dual.launches += 1
+    count_launch(conv_block_bwd_dual, g.dtype)
     return out
 
 
-#: launches of the CUDA kernel since the count was last set to 0
-conv_block_fwd.launches = 0
-conv_block_fwd_dual.launches = 0
-conv_block_bwd.launches = 0
-conv_block_bwd_dual.launches = 0
+#: launches of the CUDA kernel since the count was last set to 0: its
+#: float32 instance (``launches``) and its bf16 instance (``launches_bf16``)
+for _fn in (conv_block_fwd, conv_block_fwd_dual, conv_block_bwd, conv_block_bwd_dual):
+    _fn.launches = _fn.launches_bf16 = 0
+del _fn

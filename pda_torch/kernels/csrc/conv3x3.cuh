@@ -1,7 +1,10 @@
-// The entry layer of the fused ConvBlock forward (conv_block_fwd.cu) when it
+// The entry layer of the fused ConvBlock forward (conv_block_fwd.cuh) when it
 // has 1 or 2 input channels (the image: Cin 1; the posterior's image + mask:
 // Cin 2): one 3x3 SAME conv (zero padding) + bias + ReLU, float32, NHWC
-// activations, HWOI weights ([tap][co][ci]), on the FMA pipes.
+// activations, HWOI weights ([tap][co][ci]), on the FMA pipes. T is float or
+// bf16 (pda's bf16 configuration): bf16 input and weights, read into float32
+// shared memory, the FMAs and the bias in float32, one rounding to bf16 as
+// the output is stored.
 //
 // Why not the tensor cores (conv3x3_tc.cuh, every other layer): its stages
 // take 16 input channels, of which Cin 1-2 would fill 1-2, through 4-byte
@@ -20,6 +23,9 @@
 #include <cuda_runtime.h>
 
 #include <cstddef>
+#include <type_traits>
+
+#include "bf16.cuh"
 
 namespace {
 
@@ -34,10 +40,19 @@ constexpr int IW = TW + 2;   // input tile columns, with the halo
 // 32+cg*4+{0..3} of the block's 64 (two float4 weight reads that a quarter
 // warp takes from 8 distinct 16-byte words, free of bank conflicts);
 // pg = tid / 8 owns the 4 pixels (row pg/4, columns (pg%4)*4 + {0..3}).
-template <int CIN>
+template <typename T>
+__device__ __forceinline__ float entry_float(T v) {
+  if constexpr (std::is_same<T, float>::value) {
+    return v;
+  } else {
+    return __bfloat162float(v);
+  }
+}
+
+template <typename T, int CIN>
 __global__ void __launch_bounds__(THREADS, 3)
-conv3x3_entry(const float* __restrict__ x, const float* __restrict__ w,
-              const float* __restrict__ bias, float* __restrict__ y, int H,
+conv3x3_entry(const T* __restrict__ x, const T* __restrict__ w,
+              const float* __restrict__ bias, T* __restrict__ y, int H,
               int W, int cout, int tiles_x) {
   __shared__ __align__(16) float s_in[CIN][IH][IW];
   __shared__ __align__(16) float s_w[CIN][9][TCO];
@@ -62,7 +77,7 @@ conv3x3_entry(const float* __restrict__ x, const float* __restrict__ w,
     const int gx = x0 - 1 + ix;
     s_in[ci][iy][ix] =
         (gy >= 0 && gy < H && gx >= 0 && gx < W)
-            ? x[(img + static_cast<size_t>(gy) * W + gx) * CIN + ci]
+            ? entry_float(x[(img + static_cast<size_t>(gy) * W + gx) * CIN + ci])
             : 0.f;
   }
   for (int e = tid; e < CIN * 9 * TCO; e += THREADS) {
@@ -72,7 +87,7 @@ conv3x3_entry(const float* __restrict__ x, const float* __restrict__ w,
     const int tap = r / TCO;
     const int o = co0 + co;
     s_w[ci][tap][co] =
-        o < cout ? w[(static_cast<size_t>(tap) * cout + o) * CIN + ci] : 0.f;
+        o < cout ? entry_float(w[(static_cast<size_t>(tap) * cout + o) * CIN + ci]) : 0.f;
   }
   __syncthreads();
 
@@ -122,20 +137,26 @@ conv3x3_entry(const float* __restrict__ x, const float* __restrict__ w,
     for (int k = 0; k < 8; ++k) {
       const int o = co0 + (k < 4 ? cg * 4 + k : 32 + cg * 4 + (k - 4));
       if (o >= cout) continue;
-      y[p * cout + o] = fmaxf(acc[j][k] + bias[o], 0.f);
+      const float v = fmaxf(acc[j][k] + bias[o], 0.f);
+      if constexpr (std::is_same<T, float>::value) {
+        y[p * cout + o] = v;
+      } else {
+        y[p * cout + o] = __float2bfloat16_rn(v);
+      }
     }
   }
 }
 
 // Launch the entry layer (Cin 1 or 2) over a (B, H, W, Cin) batch on
 // ``stream``.
-cudaError_t conv3x3_entry_layer(const float* x, int Cin, const float* w,
-                                const float* b, float* y, int Cout, int B,
-                                int H, int W, cudaStream_t stream) {
+template <typename T>
+cudaError_t conv3x3_entry_layer(const T* x, int Cin, const T* w, const float* b,
+                                T* y, int Cout, int B, int H, int W,
+                                cudaStream_t stream) {
   const int tiles_x = (W + TW - 1) / TW;
   const int tiles_y = (H + TH - 1) / TH;
   const dim3 grid(tiles_x * tiles_y, (Cout + TCO - 1) / TCO, B);
-  const auto kernel = Cin == 1 ? &conv3x3_entry<1> : &conv3x3_entry<2>;
+  const auto kernel = Cin == 1 ? &conv3x3_entry<T, 1> : &conv3x3_entry<T, 2>;
   kernel<<<grid, THREADS, 0, stream>>>(x, w, b, y, H, W, Cout, tiles_x);
   return cudaGetLastError();
 }

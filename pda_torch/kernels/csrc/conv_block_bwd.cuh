@@ -1,0 +1,520 @@
+// Fused ConvBlock backward for Hopper (sm_90a), float32 or bf16, NHWC activations,
+// HWIO weights: the gradients of y = relu(conv3(relu(conv2(relu(conv1(x) +
+// b1)) + b2)) + b3) from the saved h1, h2, h3 (= y) and the cotangent g.
+//
+// Replaces the Pallas TPU backward kernels of pda/kernels/:
+//   conv_block_bwd.py         conv_block_bwd_flat (:402, body _kernel :69),
+//                             conv_block_bwd_canvas (:291), conv_block_bwd
+//                             (:610), and the dual-input
+//                             conv_block_bwd_flat_dual (:502);
+//   conv_block_packed_bwd.py  conv_block_packed_bwd_flat (:501, body :92),
+//                             conv_block_packed_bwd_canvas (:403),
+//                             conv_block_packed_bwd (:891), the decoder
+//                             conv_block_packed_bwd_flat_dec (:760) and the
+//                             dense-image entry conv_block_packed_bwd_image
+//                             (:648).
+// The TPU variants differ in layout only (flat canvases, lane-pair packing,
+// image mode); here two entries serve them all: pda_conv_block_bwd (one input,
+// dx optional: the entry blocks take none, as pda's need_dx=False) and
+// pda_conv_block_bwd_dual (input [xa | xb], dxa and dxb written apart, so
+// neither the concat nor its cotangent exists).
+//
+// With da_3 = g * [h3 > 0] (one elementwise pass), for layer k = 3, 2, 1:
+//   wgrad  dW_k[tap, ci, co] = sum_p in_k[p + tap, ci] * da_k[p, co]
+//          db_k[co]          = sum_p da_k[p, co]
+//          a GEMM with M = 9 * Cin (taps x input channels), N = Cout and
+//          K = B * H * W pixels;
+//   dgrad  da_{k-1}[p, ci] = [h_{k-1}[p, ci] > 0] *
+//                            sum_{tap, co} da_k[p + tap, co] * W_k[8 - tap, ci, co]
+//          an implicit GEMM with M = pixels, N = Cin, K = 9 * Cout; the ReLU
+//          mask of the layer below is applied as it is stored (none for dx).
+// in_1 = x, whose border loads are zero-filled (the dense-image entry).
+//
+// What bounds it: both halves are 18 * Cin * Cout FLOPs a pixel (1.7 TFLOP
+// each per MT step). The card's float32 FMA pipes top out at 67 TFLOP/s; the
+// tensor cores reach 495 TFLOP/s in TF32, but one TF32 product keeps ~3
+// decimal digits, which would move the gradients against pda's float32
+// reference (pda's bf16 configuration runs the bf16 instances, below). So
+// both float32 halves run
+// 3xTF32 on mma.sync (tf32x3.cuh): three TF32 products a multiply-add, at a
+// third of the TF32 rate but still above the FMA pipes, with float32
+// accuracy. The tensor cores accumulate with round-toward-zero, so each
+// warp runs short mma chains (8 k-steps in the wgrad, 18 in the dgrad) into
+// zeroed fragments and adds them into float32 sums kept in shared memory
+// (tf32x3.cuh), which also keeps them out of the registers. Per k-step a
+// wgrad warp runs 24 mma and splits 16 values (4 integer/float ops each);
+// on an H100 that runs at about 0.3 mma a cycle an SM. Splitting each value
+// once instead of once a warp made the dgrad's body slower, not faster
+// (conv3x3_tc.cuh), so the splits are not the bound; what is (mma.sync's own
+// rate, latency) is not measured: stall reasons cannot be read on the card.
+// wgmma would take TF32 only
+// K-major from shared memory, which neither operand of the wgrad is in NHWC;
+// mma.sync gathers its fragments from [pixel][channel] tiles, with the
+// fragments' rows, columns or k-slots mapped to channels so that a lane's
+// values are 4 adjacent channels: one 16-byte load, free of bank conflicts.
+//
+// wgrad: a block owns a 9-tap x 32-input x 64-output-channel tile of dW and
+// one chunk of 8x8-pixel tiles; 18 warps, one a tap and 32 output channels,
+// each a 32 x 32 tile of dW (2 x 4 fragments). The halo input tile and the
+// da tile stream through a 3-stage cp.async ring in dynamic shared memory
+// (177,024 bytes with the sums). The input tile is shared by the nine tap
+// warps (each reads it shifted), da by all. Each chunk writes its partial dW
+// and db to a workspace and a second pass adds the chunks in order: no float
+// atomics, so repeats are bit-equal. db is a plain float32 sum of da (no
+// split). The number of chunks fills the card's block slots (occupancy
+// query). The entry layer (Cin 1 or 2) runs the same path and skips the
+// second m-fragment, which holds none of its channels; a SIMT path for it
+// is later work.
+// dgrad: the implicit-GEMM layer body it shares with the forward
+// (conv3x3_tc.cuh, which gives its tiling), with the tap flipped at the
+// fragment load (no flipped copy of W, read in its HWIO layout), the output
+// split into dxa | dxb, and the ReLU mask of the layer below applied as it
+// is stored.
+//
+// bf16 (pda's bf16 configuration, the _bf16 entries): x, h1..h3, g, the
+// saved kernels (copied as bf16 by the wrapper, pda's w.astype(dtype)), the
+// da workspaces and dx in bf16; dW, db, the chunk partials and their sums in
+// float32 (pda/kernels/conv_block_bwd.py: da in the compute dtype, dW and db
+// accumulated in float32). The mask reads the bf16 cotangent; the dgrad is
+// conv3x3_tc<bf16, false> (float32 sums, mask, one rounding to bf16); the
+// wgrad multiplies bf16 on mma.sync.m16n8k16 into float32 chains of 4
+// k-steps (a tile) flushed as above; the chunk pass is the same.
+//
+// Not done yet (later work): TMA and warp-specialised producers, keeping da
+// on chip between the wgrad and the dgrad, the 2x2 pool's transpose,
+// ldmatrix.trans for the bf16 wgrad's fragments (now 4-byte loads and byte
+// permutes).
+
+#pragma once
+
+#include <cuda_bf16.h>
+
+#include <algorithm>
+#include <type_traits>
+
+#include "bf16.cuh"
+#include "conv3x3_tc.cuh"
+#include "tf32x3.cuh"
+
+namespace {
+
+using bf::bf16;
+
+// ---- wgrad -----------------------------------------------------------------
+constexpr int WG_T = 8;                    // pixel tile: 8 x 8, one row a k-step (bf16: two)
+constexpr int WG_PIX = WG_T * WG_T;
+constexpr int WG_I = WG_T + 2;             // halo tile side
+constexpr int WG_HALO = WG_I * WG_I;
+constexpr int WG_CI = 32;                  // input channels a block
+constexpr int WG_CO = 64;                  // output channels a block
+constexpr int WG_WARPS = 9 * (WG_CO / 32); // a tap and 32 output channels each
+constexpr int WG_THREADS = 32 * WG_WARPS;
+constexpr int WG_STAGES = 3;
+constexpr int WG_ACC = 8 * 4 * WG_THREADS;  // the float32 sums, 8 fragments a thread
+
+// Row strides (elements) of the input and da tiles: float 8 * odd (mod 32)
+// floats; bf16 16 * odd (mod 64) elements, 8 * odd words, so that the four
+// pixels a warp's quads read land in distinct banks. All rows 16-byte aligned.
+template <typename T>
+__host__ __device__ constexpr int wg_ldi() {
+  return std::is_same<T, float>::value ? WG_CI + 8 : WG_CI + 16;
+}
+template <typename T>
+__host__ __device__ constexpr int wg_ldd() {
+  return std::is_same<T, float>::value ? WG_CO + 8 : WG_CO + 16;
+}
+template <typename T>
+__host__ __device__ constexpr int wg_stage() {
+  return WG_HALO * wg_ldi<T>() + WG_PIX * wg_ldd<T>();
+}
+template <typename T>
+constexpr int wg_smem() {  // bytes
+  return WG_STAGES * wg_stage<T>() * static_cast<int>(sizeof(T)) + WG_ACC * 4;
+}
+
+// Partial dW and db of one layer over one chunk of pixel tiles.
+// grid = (input-channel slices, output-channel slices, chunks).
+// ws_w: [chunk][9][Cin][Cout]; ws_b: [chunk][Cout] (written by the blocks of
+// input-channel slice 0). V: elements a copy (copy_in, conv3x3_tc.cuh; the
+// larger needs every channel count a multiple of it and 16-byte aligned
+// pointers). T: float (3xTF32) or bf16 (h_in and da bf16, sums float32).
+//
+// float: a warp's 32 x 32 tile of dW is 2 x 4 m16n8k8 fragments. Row r of
+// m-fragment mf is channel 4 (r % 8) + 2 mf + r / 8 and column n of
+// n-fragment nf is channel 4 n + nf, so that a lane's A values of both
+// m-fragments are 4 adjacent channels of one pixel, and its B values of all
+// four n-fragments too: one 16-byte load each (conflict-free: row strides
+// 8 * odd floats).
+// bf16: 2 x 4 m16n8k16 fragments, a k-step = 16 pixels (two rows of the
+// tile: k-slot 2q + j is pixel (row 2s + j, column q), 2q + 8 + j pixel
+// (row 2s + j, column q + 4)). A fragment register pairs two pixels of one
+// channel, so a lane loads 4 bytes (2 adjacent channels) at each of its 4
+// pixels and pairs them with two byte permutes: row grp of m-fragment mf is
+// input channel 16 mf + 2 grp, row grp + 8 channel 16 mf + 2 grp + 1;
+// n-fragments 2p and 2p + 1 take output channels 16 p + 2 grp and
+// 16 p + 2 grp + 1 as column grp.
+template <typename T, int V>
+__global__ void __launch_bounds__(WG_THREADS, 1)
+wgrad_tc(const T* __restrict__ xa, const T* __restrict__ xb, int Ca,
+         int Cb, const T* __restrict__ da, float* __restrict__ ws_w,
+         float* __restrict__ ws_b, int B, int H, int W, int Cout,
+         int tiles_per_chunk) {
+  constexpr bool F32 = std::is_same<T, float>::value;
+  constexpr int LDI = wg_ldi<T>(), LDD = wg_ldd<T>(), STAGE = wg_stage<T>();
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* smem = reinterpret_cast<T*>(smem_raw);
+  float4* s_acc = reinterpret_cast<float4*>(smem + WG_STAGES * STAGE);
+  const int cin = Ca + Cb;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int grp = lane >> 2, quad = lane & 3;
+  const int tap = warp % 9, ky = tap / 3, kx = tap % 3;
+  const int co_w = (warp / 9) * 32;
+  const int ci0 = blockIdx.x * WG_CI;
+  const int co0 = blockIdx.y * WG_CO;
+  const int chunk = blockIdx.z;
+  // m-fragment 1 has channels (float: 2, 3 mod 4; bf16: 16 .. 31)
+  const bool two_rows = ci0 + (F32 ? 2 : 16) < cin;
+  const bool sums_bias = blockIdx.x == 0;
+
+  const int tiles_x = cdiv(W, WG_T);
+  const int tiles_img = cdiv(H, WG_T) * tiles_x;
+  const int t_begin = chunk * tiles_per_chunk;
+  const int n_tiles = min(B * tiles_img, t_begin + tiles_per_chunk) - t_begin;
+
+  // Tile t_begin + i into stage i % WG_STAGES.
+  auto load = [&](int i) {
+    T* s_in = smem + (i % WG_STAGES) * STAGE;
+    T* s_da = s_in + WG_HALO * LDI;
+    const int t = t_begin + i;
+    const int b = t / tiles_img, r = t % tiles_img;
+    const int y0 = (r / tiles_x) * WG_T, x0 = (r % tiles_x) * WG_T;
+    const size_t img = static_cast<size_t>(b) * H * W;
+    for (int e = tid; e < WG_HALO * WG_CI / V; e += WG_THREADS) {
+      const int c = (e % (WG_CI / V)) * V;
+      const int pix = e / (WG_CI / V);
+      const int gy = y0 - 1 + pix / WG_I, gx = x0 - 1 + pix % WG_I;
+      const int ch = ci0 + c;
+      const bool in = gy >= 0 && gy < H && gx >= 0 && gx < W && ch < cin;
+      const T* src = xa;
+      if (in) {
+        const size_t p = img + static_cast<size_t>(gy) * W + gx;
+        src = ch < Ca ? xa + p * Ca + ch : xb + p * Cb + (ch - Ca);
+      }
+      copy_in<T, V>(s_in + pix * LDI + c, src, in);
+    }
+    for (int e = tid; e < WG_PIX * WG_CO / V; e += WG_THREADS) {
+      const int c = (e % (WG_CO / V)) * V;
+      const int pix = e / (WG_CO / V);
+      const int gy = y0 + pix / WG_T, gx = x0 + pix % WG_T;
+      const bool in = gy < H && gx < W && co0 + c < Cout;
+      const T* src =
+          in ? da + (img + static_cast<size_t>(gy) * W + gx) * Cout + co0 + c : da;
+      copy_in<T, V>(s_da + pix * LDD + c, src, in);
+    }
+  };
+
+  float chain[8][4] = {};  // fragment mf * 4 + nf
+#pragma unroll
+  for (int f = 0; f < 8; ++f) s_acc[f * WG_THREADS + tid] = make_float4(0.f, 0.f, 0.f, 0.f);
+  float bsum = 0.f;  // db: channel tid % 64 over pixels tid / 64 + 9j
+  const int b_co = tid % WG_CO, b_pix = tid / WG_CO;
+
+#pragma unroll
+  for (int s = 0; s < WG_STAGES - 1; ++s) {
+    if (s < n_tiles) load(s);
+    tc::cp_async_commit();
+  }
+  for (int i = 0; i < n_tiles; ++i) {
+    tc::cp_async_wait<WG_STAGES - 2>();
+    __syncthreads();
+    if (i + WG_STAGES - 1 < n_tiles) load(i + WG_STAGES - 1);
+    tc::cp_async_commit();
+
+    const T* s_in = smem + (i % WG_STAGES) * STAGE;
+    const T* s_da = s_in + WG_HALO * LDI;
+    if constexpr (F32) {
+      const float* a_ptr = s_in + (ky * WG_I + kx + quad) * LDI + 4 * grp;
+      const float* b_ptr = s_da + quad * LDD + co_w + 4 * grp;
+#pragma unroll
+      for (int row = 0; row < WG_T; ++row) {  // k-step: 8 pixels of one row
+        const float4 x0 = *reinterpret_cast<const float4*>(a_ptr + row * WG_I * LDI);
+        const float4 x4 = *reinterpret_cast<const float4*>(a_ptr + (row * WG_I + 4) * LDI);
+        const float4 y0 = *reinterpret_cast<const float4*>(b_ptr + row * WG_T * LDD);
+        const float4 y4 = *reinterpret_cast<const float4*>(b_ptr + (row * WG_T + 4) * LDD);
+        tc::FragA a0, a1;
+        tc::split(x0.x, x0.y, x4.x, x4.y, a0);
+        tc::split(x0.z, x0.w, x4.z, x4.w, a1);
+        const float b0[4] = {y0.x, y0.y, y0.z, y0.w}, b1[4] = {y4.x, y4.y, y4.z, y4.w};
+#pragma unroll
+        for (int nf = 0; nf < 4; ++nf) {
+          tc::FragB bf;
+          tc::split(b0[nf], b1[nf], bf);
+          tc::mma3(chain[nf], a0, bf);
+          if (two_rows) tc::mma3(chain[4 + nf], a1, bf);
+        }
+      }
+    } else {
+      // 4-byte words: input channels 2 grp, 2 grp + 1 (+ 16 mf) at halo
+      // pixel (row + ky, column quad + kx); output channels 2 grp, 2 grp + 1
+      // (+ co_w + 16 p) at tile pixel (row, column quad)
+      const uint32_t* a_ptr = reinterpret_cast<const uint32_t*>(
+          s_in + (ky * WG_I + kx + quad) * LDI + 2 * grp);
+      const uint32_t* b_ptr =
+          reinterpret_cast<const uint32_t*>(s_da + quad * LDD + co_w + 2 * grp);
+#pragma unroll
+      for (int ks = 0; ks < WG_T / 2; ++ks) {  // k-step: rows 2 ks, 2 ks + 1
+        uint32_t bw[2][4];  // [p][pixel (2ks, q), (2ks + 1, q), (2ks, q + 4), (2ks + 1, q + 4)]
+#pragma unroll
+        for (int p = 0; p < 2; ++p)
+#pragma unroll
+          for (int k = 0; k < 4; ++k)
+            bw[p][k] = b_ptr[((2 * ks + (k & 1)) * WG_T + 4 * (k >> 1)) * LDD / 2 + 8 * p];
+#pragma unroll
+        for (int mf = 0; mf < 2; ++mf) {
+          if (mf == 1 && !two_rows) break;
+          uint32_t aw[4];
+#pragma unroll
+          for (int k = 0; k < 4; ++k)
+            aw[k] = a_ptr[((2 * ks + (k & 1)) * WG_I + 4 * (k >> 1)) * LDI / 2 + 8 * mf];
+          const uint32_t a[4] = {bf::lows(aw[0], aw[1]), bf::highs(aw[0], aw[1]),
+                                 bf::lows(aw[2], aw[3]), bf::highs(aw[2], aw[3])};
+#pragma unroll
+          for (int p = 0; p < 2; ++p) {
+            const uint32_t be[2] = {bf::lows(bw[p][0], bw[p][1]), bf::lows(bw[p][2], bw[p][3])};
+            const uint32_t bo[2] = {bf::highs(bw[p][0], bw[p][1]),
+                                    bf::highs(bw[p][2], bw[p][3])};
+            bf::mma(chain[mf * 4 + 2 * p], a, be);
+            bf::mma(chain[mf * 4 + 2 * p + 1], a, bo);
+          }
+        }
+      }
+    }
+    tc::flush(s_acc + tid, WG_THREADS, chain);
+    if (sums_bias) {
+      for (int p = b_pix; p < WG_PIX; p += WG_WARPS * 32 / WG_CO)
+        bsum += to_float(s_da[p * LDD + b_co]);
+    }
+  }
+  tc::cp_async_wait<0>();
+  __syncthreads();
+
+#pragma unroll
+  for (int f = 0; f < 8; ++f) {
+    const float4 v = s_acc[f * WG_THREADS + tid];
+    const float c[4] = {v.x, v.y, v.z, v.w};
+    const int mf = f / 4, nf = f % 4;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {  // c[j]: row grp (+8 for j >= 2), column 2 quad + j % 2
+      int c_i, c_o;
+      if constexpr (F32) {
+        c_i = ci0 + 4 * grp + 2 * mf + j / 2;
+        c_o = co0 + co_w + 8 * quad + nf + 4 * (j % 2);
+      } else {
+        c_i = ci0 + 16 * mf + 2 * grp + j / 2;
+        c_o = co0 + co_w + 16 * (nf / 2) + 4 * quad + 2 * (j % 2) + nf % 2;
+      }
+      if (c_i < cin && c_o < Cout)
+        ws_w[((static_cast<size_t>(chunk) * 9 + tap) * cin + c_i) * Cout + c_o] = c[j];
+    }
+  }
+  if (sums_bias) {  // the 9 partial sums of each channel, in a fixed order
+    float* s_b = reinterpret_cast<float*>(smem_raw);
+    s_b[tid] = bsum;
+    __syncthreads();
+    if (tid < WG_CO && co0 + tid < Cout) {
+      float s = 0.f;
+      for (int k = 0; k < WG_THREADS / WG_CO; ++k) s += s_b[k * WG_CO + tid];
+      ws_b[static_cast<size_t>(chunk) * Cout + co0 + tid] = s;
+    }
+  }
+}
+
+// out[i] = sum over c in [0, chunks) of ws[c * n + i], in that order.
+__global__ void sum_chunks(const float* __restrict__ ws, float* __restrict__ out,
+                           int n, int chunks) {
+  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n;
+       i += gridDim.x * blockDim.x) {
+    float s = 0.f;
+    for (int c = 0; c < chunks; ++c) s += ws[static_cast<size_t>(c) * n + i];
+    out[i] = s;
+  }
+}
+
+// da = g * [h > 0]
+template <typename T>
+__global__ void relu_mask(const T* __restrict__ g, const T* __restrict__ h,
+                          T* __restrict__ da, long long n) {
+  for (long long i = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x;
+       i < n; i += static_cast<long long>(gridDim.x) * blockDim.x)
+    da[i] = to_float(h[i]) > 0.f ? g[i] : from_float<T>(0.f);
+}
+
+// ---- host ------------------------------------------------------------------
+int grid_1d(long long n) {
+  const long long blocks = (n + 255) / 256;
+  return blocks < 4096 ? static_cast<int>(blocks) : 4096;
+}
+
+template <typename T>
+constexpr int wg_vec() { return std::is_same<T, float>::value ? 4 : 8; }
+
+// Blocks of wgrad_tc the card runs at once (SMs x blocks an SM).
+template <typename T>
+int wgrad_slots() {
+  int dev = 0, sms = 0, per_sm = 0;
+  const auto kernel = &wgrad_tc<T, wg_vec<T>()>;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, wg_smem<T>());
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, WG_THREADS, wg_smem<T>());
+  return sms * (per_sm > 0 ? per_sm : 1);
+}
+
+int wgrad_tiles(int B, int H, int W) {
+  return B * cdiv(H, WG_T) * cdiv(W, WG_T);
+}
+
+// Pixel tiles a chunk for one layer: the chunk count that fills the card's
+// block slots best (the fewest chunks among the best), each chunk >= 1 tile.
+int wgrad_tiles_per_chunk(int cin, int cout, int tiles, int slots) {
+  const int slices = cdiv(cin, WG_CI) * cdiv(cout, WG_CO);
+  const int most = std::min(tiles, std::max(1, cdiv(4 * slots, slices)));
+  int best = 1;
+  long long best_num = 0, best_den = 1;  // fill = blocks / (waves * slots)
+  for (int c = 1; c <= most; ++c) {
+    const long long blocks = static_cast<long long>(slices) * c;
+    const long long den = (blocks + slots - 1) / slots * slots;
+    if (blocks * best_den > best_num * den) {
+      best = c;
+      best_num = blocks;
+      best_den = den;
+    }
+  }
+  return cdiv(tiles, best);
+}
+
+long long wgrad_work(int cin, int cout, int tiles, int slots) {
+  const int chunks = cdiv(tiles, wgrad_tiles_per_chunk(cin, cout, tiles, slots));
+  return static_cast<long long>(chunks) * (9LL * cin * cout + cout);
+}
+
+// dW, db of one layer (input [xa | xb], output cotangent da = dh * [h > 0]).
+template <typename T>
+cudaError_t wgrad(const T* xa, const T* xb, int Ca, int Cb, const T* da, float* dw,
+                  float* db, float* work, int B, int H, int W, int Cout, int slots,
+                  cudaStream_t s) {
+  constexpr int VEC = wg_vec<T>();
+  const int cin = Ca + Cb;
+  const int tiles = wgrad_tiles(B, H, W);
+  const int tpc = wgrad_tiles_per_chunk(cin, Cout, tiles, slots);
+  const int chunks = cdiv(tiles, tpc);
+  float* ws_w = work;
+  float* ws_b = work + static_cast<size_t>(chunks) * 9 * cin * Cout;
+  const dim3 grid(cdiv(cin, WG_CI), cdiv(Cout, WG_CO), chunks);
+  const bool vec = Ca % VEC == 0 && Cb % VEC == 0 && Cout % VEC == 0 && aligned16(xa) &&
+                   aligned16(xb) && aligned16(da);
+  const auto kernel = vec ? &wgrad_tc<T, VEC> : &wgrad_tc<T, 1>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, wg_smem<T>());
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, WG_THREADS, wg_smem<T>(), s>>>(xa, xb, Ca, Cb, da, ws_w, ws_b, B, H, W,
+                                               Cout, tpc);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  const int n = 9 * cin * Cout;
+  sum_chunks<<<grid_1d(n), 256, 0, s>>>(ws_w, dw, n, chunks);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  sum_chunks<<<grid_1d(Cout), 256, 0, s>>>(ws_b, db, Cout, chunks);
+  return cudaGetLastError();
+}
+
+// da_{k-1} (or dx, split into ya: Coa channels, yb: Cob) of one layer with
+// kernel w (3, 3, Coa+Cob, C), masked by [m > 0] unless m is null.
+template <typename T>
+cudaError_t dgrad(const T* da, const T* w, const T* m, T* ya, T* yb, int Coa, int Cob,
+                  int B, int H, int W, int C, cudaStream_t s) {
+  return conv3x3_tc_layer<T, false>(da, nullptr, C, 0, w, nullptr, m, ya, yb, Coa, Cob,
+                                    B, H, W, s);
+}
+
+// da1 and da2 are (B, H, W, C) workspaces: da_3 goes to da1, da_2 to da2,
+// da_1 to da1 again (da_3 is spent by then). T: float, or bf16 for x, the
+// kernels (HWIO, copied as bf16 by the wrapper), h1..h3, g, dx and the
+// workspaces; dW, db and work are float32 in both.
+template <typename T>
+cudaError_t block_bwd(const void* xa_, const void* xb_, int Ca, int Cb, const void* w1_,
+                      const void* w2_, const void* w3_, const void* h1_, const void* h2_,
+                      const void* h3_, const void* g_, void* dxa_, void* dxb_, void* dw1_,
+                      void* db1_, void* dw2_, void* db2_, void* dw3_, void* db3_,
+                      void* da1_, void* da2_, void* work_, int B, int H, int W, int C,
+                      bool need_dx, cudaStream_t s) {
+  const auto c = [](const void* p) { return static_cast<const T*>(p); };
+  const auto m = [](void* p) { return static_cast<T*>(p); };
+  const auto f = [](void* p) { return static_cast<float*>(p); };
+  const T *xa = c(xa_), *xb = c(xb_), *w1 = c(w1_), *w2 = c(w2_), *w3 = c(w3_);
+  const T *h1 = c(h1_), *h2 = c(h2_), *h3 = c(h3_), *g = c(g_);
+  T *da1 = m(da1_), *da2 = m(da2_);
+  float* work = f(work_);
+  const int slots = wgrad_slots<T>();
+  const long long n = static_cast<long long>(B) * H * W * C;
+  relu_mask<T><<<grid_1d(n), 256, 0, s>>>(g, h3, da1, n);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  if ((err = wgrad<T>(h2, nullptr, C, 0, da1, f(dw3_), f(db3_), work, B, H, W, C, slots,
+                      s)) != cudaSuccess)
+    return err;
+  if ((err = dgrad<T>(da1, w3, h2, da2, nullptr, C, 0, B, H, W, C, s)) != cudaSuccess)
+    return err;
+  if ((err = wgrad<T>(h1, nullptr, C, 0, da2, f(dw2_), f(db2_), work, B, H, W, C, slots,
+                      s)) != cudaSuccess)
+    return err;
+  if ((err = dgrad<T>(da2, w2, h1, da1, nullptr, C, 0, B, H, W, C, s)) != cudaSuccess)
+    return err;
+  if ((err = wgrad<T>(xa, xb, Ca, Cb, da1, f(dw1_), f(db1_), work, B, H, W, C, slots,
+                      s)) != cudaSuccess)
+    return err;
+  if (!need_dx) return cudaSuccess;
+  return dgrad<T>(da1, w1, nullptr, m(dxa_), m(dxb_), Ca, Cb, B, H, W, C, s);
+}
+
+template <typename T>
+long long bwd_work(int B, int H, int W, int Cin, int C) {
+  const int slots = wgrad_slots<T>();
+  const int tiles = wgrad_tiles(B, H, W);
+  const long long inner = wgrad_work(C, C, tiles, slots);
+  const long long first = wgrad_work(Cin, C, tiles, slots);
+  return inner > first ? inner : first;
+}
+
+}  // namespace
+
+// Single-input block. x: (B, H, W, Cin); w1: (3, 3, Cin, C); w2, w3:
+// (3, 3, C, C); h1, h2, h3, g: (B, H, W, C). Writes dW (HWIO) and db of the
+// three layers and, with need_dx, dx (B, H, W, Cin) (dx may be null without).
+// Workspaces: da1, da2 (B, H, W, C); work (pda_conv_block_bwd_work floats).
+//
+// Dual-input block on [xa | xb] (Ca + Cb channels): as above, with dx written
+// apart into dxa (B, H, W, Ca) and dxb (B, H, W, Cb).
+//
+// The entries of one operand type T, named with SUFFIX: the _bf16 entries take
+// x, w1..w3, h1..h3, g, dx, da1, da2 as bf16; dW, db and work stay float32.
+#define PDA_BWD_ENTRIES(SUFFIX, T)                                                    \
+  extern "C" int pda_conv_block_bwd##SUFFIX(                                          \
+      const void* x, int Cin, const void* w1, const void* w2, const void* w3,         \
+      const void* h1, const void* h2, const void* h3, const void* g, void* dx,        \
+      void* dw1, void* db1, void* dw2, void* db2, void* dw3, void* db3, void* da1,    \
+      void* da2, void* work, int B, int H, int W, int C, int need_dx, void* stream) { \
+    return block_bwd<T>(x, nullptr, Cin, 0, w1, w2, w3, h1, h2, h3, g, dx, nullptr,   \
+                        dw1, db1, dw2, db2, dw3, db3, da1, da2, work, B, H, W, C,     \
+                        need_dx != 0, static_cast<cudaStream_t>(stream));             \
+  }                                                                                   \
+  extern "C" int pda_conv_block_bwd_dual##SUFFIX(                                     \
+      const void* xa, const void* xb, int Ca, int Cb, const void* w1, const void* w2, \
+      const void* w3, const void* h1, const void* h2, const void* h3, const void* g,  \
+      void* dxa, void* dxb, void* dw1, void* db1, void* dw2, void* db2, void* dw3,    \
+      void* db3, void* da1, void* da2, void* work, int B, int H, int W, int C,        \
+      void* stream) {                                                                 \
+    return block_bwd<T>(xa, xb, Ca, Cb, w1, w2, w3, h1, h2, h3, g, dxa, dxb, dw1,     \
+                        db1, dw2, db2, dw3, db3, da1, da2, work, B, H, W, C, true,    \
+                        static_cast<cudaStream_t>(stream));                           \
+  }

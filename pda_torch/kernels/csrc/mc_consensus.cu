@@ -1,5 +1,6 @@
 // Fused Monte-Carlo Fcomb tail + consensus for Hopper (sm_90a), float32
-// accurate, the mid layers on the tensor cores in 3xTF32.
+// accurate, the mid layers on the tensor cores in 3xTF32; and its bf16
+// instance for pda's bf16 configuration (mc_consensus_bf16, at the end).
 //
 // Replaces the Pallas TPU kernel pda/kernels/mc_consensus.py
 // mc_consensus_decode (:136, body _kernel :49). Per pixel and sample s:
@@ -60,6 +61,7 @@
 #include <cstddef>
 #include <cstdint>
 
+#include "bf16.cuh"
 #include "tf32x3.cuh"
 
 namespace {
@@ -236,6 +238,165 @@ cudaError_t launch(const float* feat, const float* z, const float* mw,
   return cudaGetLastError();
 }
 
+
+// ---- bf16 -------------------------------------------------------------------
+// pda's bf16 configuration (pda/kernels/mc_consensus.py _kernel :96-110):
+// feat and the mid and last kernels bf16, the latent terms and the biases
+// float32. Per sample: the z row rounded to bf16, h = relu(feat + z) rounded
+// to bf16; each mid layer bf16 x bf16 on mma.sync.m16n8k16 with float32
+// sums, + b (float32), ReLU, one rounding to bf16; the last layer a float32
+// dot product of the bf16 h with the bf16 w_last, + b_last: the logit in
+// float32, then the sigmoid mean and the band test in float32. K = C is one
+// chain of C / 16 k-steps (at most 4). Channel block j (16 channels) of the
+// warp's 16 rows sits in a lane as the m16n8k16 A fragment of k-step j,
+// two bf16 a register (bf16.cuh): r0 = (row grp, 16j + 2q + {0,1}),
+// r1 = (row grp + 8, the same channels), r2 = (row grp, 16j + 8 + 2q + {0,1}),
+// r3 = (row grp + 8, those); the C fragments of n-tiles 2j and 2j + 1 give
+// the next layer's A fragment of k-step j in the same lanes, rounded and
+// packed (no shuffles). Every layer's hidden stays in registers (C / 4 of
+// them). W_m is stored once a block in shared memory in B-fragment order
+// (one 8-byte {b0, b1} a lane, k-step and n-tile).
+template <int C>
+__global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
+mc_consensus_bf16(const bf::bf16* __restrict__ feat, const float* __restrict__ z_terms,
+                  const bf::bf16* __restrict__ mid_w, const float* __restrict__ mid_b,
+                  const bf::bf16* __restrict__ last_w, const float* __restrict__ last_b,
+                  float* __restrict__ mean_out, float* __restrict__ cons_out, int B, int HW,
+                  int S, int n_mid, float logit_hi, float logit_lo, int masking) {
+  static_assert(C % 16 == 0 && C >= 16 && C <= 64, "C: a multiple of 16 up to 64");
+  constexpr int NK = C / 16;  // k-steps (channel blocks of 16)
+  constexpr int NB = C / 8;   // n-tiles
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  uint2* s_w = reinterpret_cast<uint2*>(smem_raw);  // [m][j][n][lane]: W_m's B fragments
+  float* s_b = reinterpret_cast<float*>(s_w + n_mid * NK * NB * 32);
+  float* s_wl = s_b + n_mid * C;  // C: w_last as float32
+  float* s_z = s_wl + C;          // S * C: this image's latent terms, rounded to bf16
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int grp = lane >> 2, quad = lane & 3;
+  const int b = blockIdx.y;
+  const int row0 = blockIdx.x * PIXELS + warp * 16;  // the warp's first pixel
+
+  uint32_t f[NK][4];  // the feature rows, in fragment order
+  const uint32_t* fb = reinterpret_cast<const uint32_t*>(feat + static_cast<size_t>(b) * HW * C);
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int p = row0 + grp + 8 * r;
+#pragma unroll
+    for (int j = 0; j < NK; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        f[j][r + 2 * h] =
+            p < HW ? __ldg(fb + (static_cast<size_t>(p) * C + 16 * j + 8 * h + 2 * quad) / 2)
+                   : 0u;
+  }
+
+  // W_m[k][n] (in, out) as B fragments: b0 = W[16j + 2q + {0,1}][8n + grp],
+  // b1 = W[16j + 8 + 2q + {0,1}][8n + grp]
+  for (int e = tid; e < n_mid * NK * NB * 32; e += THREADS) {
+    const int l = e % 32, n = (e / 32) % NB, j = (e / (32 * NB)) % NK, m = e / (32 * NB * NK);
+    const bf::bf16* w = mid_w + static_cast<size_t>(m) * C * C +
+                        (16 * j + 2 * (l & 3)) * C + 8 * n + (l >> 2);
+    const auto u = [&](int k) { return __bfloat16_as_ushort(w[k * C]); };
+    s_w[e] = make_uint2(u(0) | (static_cast<uint32_t>(u(1)) << 16),
+                        u(8) | (static_cast<uint32_t>(u(9)) << 16));
+  }
+  for (int e = tid; e < n_mid * C; e += THREADS) s_b[e] = mid_b[e];
+  for (int e = tid; e < C; e += THREADS) s_wl[e] = __bfloat162float(last_w[e]);
+  for (int e = tid; e < S * C; e += THREADS)
+    s_z[e] = __bfloat162float(
+        __float2bfloat16_rn(z_terms[(static_cast<size_t>(e / C) * B + b) * C + e % C]));
+  __syncthreads();
+
+  const float bl = last_b[0];
+  const int c2 = 2 * quad;  // this lane's first channel of each half block
+  float sum_prob[2] = {}, n_agree[2] = {};  // rows grp, grp + 8
+
+  for (int s = 0; s < S; ++s) {
+    const float* zs = s_z + s * C;
+    uint32_t h[NK][4];  // relu(feat + z_s), rounded: the first layer's input
+#pragma unroll
+    for (int j = 0; j < NK; ++j)
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const float2 z = *reinterpret_cast<const float2*>(zs + 16 * j + 8 * (k >> 1) + c2);
+        h[j][k] = bf::pack(fmaxf(bf::lo(f[j][k]) + z.x, 0.f), fmaxf(bf::hi(f[j][k]) + z.y, 0.f));
+      }
+    for (int m = 0; m < n_mid; ++m) {
+      float acc[NB][4] = {};
+      const uint2* wm = s_w + m * NK * NB * 32 + lane;
+#pragma unroll
+      for (int j = 0; j < NK; ++j) {
+#pragma unroll
+        for (int n = 0; n < NB; ++n) {
+          const uint2 w = wm[(j * NB + n) * 32];
+          const uint32_t bw[2] = {w.x, w.y};
+          bf::mma(acc[n], h[j], bw);
+        }
+      }
+      const float* bm = s_b + m * C;
+#pragma unroll
+      for (int j = 0; j < NK; ++j)
+#pragma unroll
+        for (int t = 0; t < 2; ++t) {  // n-tile 2j + t: channels 16j + 8t + 2q + {0,1}
+          const float2 bb = *reinterpret_cast<const float2*>(bm + 16 * j + 8 * t + c2);
+          const float* a = acc[2 * j + t];
+          h[j][2 * t] = bf::pack(fmaxf(a[0] + bb.x, 0.f), fmaxf(a[1] + bb.y, 0.f));
+          h[j][2 * t + 1] = bf::pack(fmaxf(a[2] + bb.x, 0.f), fmaxf(a[3] + bb.y, 0.f));
+        }
+    }
+    float part[2] = {};  // rows grp, grp + 8: this lane's C / 4 channels
+#pragma unroll
+    for (int j = 0; j < NK; ++j)
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const float2 wl = *reinterpret_cast<const float2*>(s_wl + 16 * j + 8 * (k >> 1) + c2);
+        part[k & 1] = fmaf(bf::lo(h[j][k]), wl.x, part[k & 1]);
+        part[k & 1] = fmaf(bf::hi(h[j][k]), wl.y, part[k & 1]);
+      }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float v = part[r];
+      v += __shfl_xor_sync(0xffffffffu, v, 1);
+      v += __shfl_xor_sync(0xffffffffu, v, 2);
+      const float logit = v + bl;
+      sum_prob[r] += 1.f / (1.f + expf(-logit));
+      n_agree[r] += (logit >= logit_hi || logit <= logit_lo) ? 1.f : 0.f;
+    }
+  }
+
+  if (quad != 0) return;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int p = row0 + grp + 8 * r;
+    if (p >= HW) continue;
+    const size_t o = static_cast<size_t>(b) * HW + p;
+    mean_out[o] = sum_prob[r] / static_cast<float>(S);
+    cons_out[o] = masking ? (n_agree[r] == static_cast<float>(S) ? 1.f : 0.f)
+                          : n_agree[r] / static_cast<float>(S);
+  }
+}
+
+template <int C>
+cudaError_t launch_bf16(const bf::bf16* feat, const float* z, const bf::bf16* mw,
+                        const float* mb, const bf::bf16* lw, const float* lb, float* mean,
+                        float* cons, int B, int HW, int S, int n_mid, float hi, float lo,
+                        int masking, cudaStream_t stream) {
+  if (reinterpret_cast<uintptr_t>(feat) % 4 != 0) return cudaErrorMisalignedAddress;
+  const size_t bytes = static_cast<size_t>(n_mid) * C * C * 2 +
+                       4 * (static_cast<size_t>(n_mid) * C + C + static_cast<size_t>(S) * C);
+  if (bytes > MAX_SMEM) return cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      mc_consensus_bf16<C>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(bytes));
+  if (err != cudaSuccess) return err;
+  const dim3 grid((HW + PIXELS - 1) / PIXELS, B);
+  mc_consensus_bf16<C><<<grid, THREADS, bytes, stream>>>(
+      feat, z, mw, mb, lw, lb, mean, cons, B, HW, S, n_mid, hi, lo, masking);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // feat (B, HW, C), z_terms (S, B, C), mid_w (n_mid, C, C) as (in, out),
@@ -269,6 +430,37 @@ extern "C" int pda_mc_consensus(const void* feat, const void* z_terms,
     PDA_MC_WIDTH(56)
     PDA_MC_WIDTH(64)
 #undef PDA_MC_WIDTH
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+// The bf16 tail: feat (B, HW, C) bf16, z_terms (S, B, C) float32, mid_w
+// (n_mid, C, C) bf16, mid_b (n_mid, C) float32, last_w (C,) bf16, last_b (1,)
+// float32; mean and cons (B, HW) float32. C a multiple of 16 up to 64 (the
+// wrapper zero-pads any other C to the next one); feat 4-byte aligned.
+extern "C" int pda_mc_consensus_bf16(const void* feat, const void* z_terms,
+                                     const void* mid_w, const void* mid_b,
+                                     const void* last_w, const void* last_b, void* mean,
+                                     void* cons, int B, int HW, int C, int S, int n_mid,
+                                     float logit_hi, float logit_lo, int masking,
+                                     void* stream) {
+  const auto h = [](const void* p) { return static_cast<const bf::bf16*>(p); };
+  const auto f = [](const void* p) { return static_cast<const float*>(p); };
+  const auto s = static_cast<cudaStream_t>(stream);
+  auto* m = static_cast<float*>(mean);
+  auto* c = static_cast<float*>(cons);
+  switch (C) {
+#define PDA_MC_WIDTH_BF16(W)                                                        \
+  case W:                                                                           \
+    return launch_bf16<W>(h(feat), f(z_terms), h(mid_w), f(mid_b), h(last_w),       \
+                          f(last_b), m, c, B, HW, S, n_mid, logit_hi, logit_lo,     \
+                          masking, s);
+    PDA_MC_WIDTH_BF16(16)
+    PDA_MC_WIDTH_BF16(32)
+    PDA_MC_WIDTH_BF16(48)
+    PDA_MC_WIDTH_BF16(64)
+#undef PDA_MC_WIDTH_BF16
     default:
       return cudaErrorInvalidValue;
   }

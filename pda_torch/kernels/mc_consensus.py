@@ -15,6 +15,17 @@ small GEMM a sample, each warp's 16 feature rows held in registers across
 the S samples), so it keeps float32 accuracy. It is built for every width C
 that is a multiple of 8 up to 64; the wrapper zero-pads any other C up to 64
 to the next of them. One class only.
+
+bf16 (``pda``'s bf16 configuration): a bf16 ``feat_term`` runs the bf16
+instance (``mc_consensus_bf16<C>``, C a multiple of 16), at the rounding
+points of ``pda``'s kernel (``pda/kernels/mc_consensus.py`` ``_kernel``):
+the float32 latent row rounded to bf16, ``h = relu(feat + z)`` rounded to
+bf16, each mid layer on bf16 operands (the float32 kernels cast inside,
+``pda``'s ``mid_kernels.astype(dtype)``) summed in float32 with the float32
+bias, ReLU and one rounding to bf16, the last layer a float32 sum of bf16
+products plus the float32 bias: float32 logits, whose sigmoid mean and
+consensus are taken in float32. :func:`mc_logits_plain` computes the same
+on any device. Outputs are float32 in both dtypes.
 """
 
 from __future__ import annotations
@@ -28,6 +39,7 @@ import torch.nn.functional as F
 
 from ..core.consensus import LOWER_THRESHOLD, UPPER_THRESHOLD, consensus_from_logits
 from . import _build
+from .conv_block import bf16_operand, count_launch, plain_acc, runs_plain
 
 _VP = ctypes.c_void_p
 _I = ctypes.c_int
@@ -37,13 +49,25 @@ _ARGTYPES = (_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _F, _F,
 #: feature widths the kernel is instantiated for; any other C up to the
 #: largest is zero-padded to the next of them (:func:`_pad_width`)
 KERNEL_WIDTHS = tuple(range(8, 65, 8))
+#: ... for the bf16 instance (its k-step takes 16 channels)
+KERNEL_WIDTHS_BF16 = tuple(range(16, 65, 16))
 MAX_WIDTH = KERNEL_WIDTHS[-1]
+_BF16 = torch.bfloat16
 _THREADS = 256  # csrc/mc_consensus.cu THREADS: a warp a 16-pixel tile
 _MAX_SMEM = 232448  # bytes of shared memory a block may use on sm_90
 
 
 def mc_logits_plain(feat_term, z_terms, mid_w, mid_b, last_w, last_b) -> torch.Tensor:
-    """(S, B, H, W, n_out) logits of the Fcomb tail for every sample."""
+    """(S, B, H, W, n_out) logits of the Fcomb tail for every sample; with a
+    bf16 ``feat_term`` at the bf16 kernel's rounding points (the products
+    summed in ``conv_block.plain_acc``), float32 logits."""
+    if feat_term.dtype == _BF16:
+        acc = plain_acc(feat_term)
+        z = z_terms.to(_BF16).to(acc)[:, :, None, None, :]
+        h = F.relu(feat_term.to(acc)[None] + z).to(_BF16).to(acc)
+        for w, b in zip(mid_w, mid_b):
+            h = F.relu(h @ bf16_operand(w, acc) + b.to(acc)).to(_BF16).to(acc)
+        return (h @ bf16_operand(last_w, acc) + last_b.to(acc)).float()
     h = F.relu(feat_term[None] + z_terms[:, :, None, None, :])
     for w, b in zip(mid_w, mid_b):
         h = F.relu(h @ w + b)
@@ -57,17 +81,22 @@ def mc_consensus_plain(feat_term, z_terms, mid_w, mid_b, last_w, last_b,
     return consensus_from_logits(logits, masking=masking)
 
 
-def _smem_bytes(c: int, s: int, n_mid: int) -> int:
+def _smem_bytes(c: int, s: int, n_mid: int, dtype=torch.float32) -> int:
     """The kernel's shared memory: each mid layer's W split into TF32 hi and
     lo, with n_mid >= 2 a hidden layer per thread, the mid biases, the last
-    weights and this image's S latent terms."""
+    weights and this image's S latent terms; in bf16 each mid layer's W as
+    bf16 and no hidden layer (it stays in registers)."""
+    if dtype == _BF16:
+        return 2 * n_mid * c * c + 4 * (n_mid * c + c + s * c)
     hidden = _THREADS * c // 2 if n_mid >= 2 else 0  # 16 rows x C a warp
     return 4 * (2 * n_mid * c * c + hidden + n_mid * c + c + s * c)
 
 
-def padded_width(c: int) -> int:
-    """The width the kernel runs a C-channel tail at: the next multiple of 8."""
-    return -(-c // 8) * 8
+def padded_width(c: int, dtype=torch.float32) -> int:
+    """The width the kernel runs a C-channel tail at: the next multiple of 8
+    (bf16: of 16, the bf16 fragment's k-step)."""
+    k = 16 if dtype == _BF16 else 8
+    return -(-c // k) * k
 
 
 def _pad_width(cp: int, feat, z_terms, mid_w, mid_b, last_w):
@@ -91,26 +120,30 @@ def _launch(feat, z_terms, mid_w, mid_b, last_w, last_b, masking):
         raise ValueError(f"mc_consensus kernel takes 1 <= C <= {MAX_WIDTH}, got {c}")
     if s < 1:
         raise ValueError("mc_consensus needs at least one sample")
-    cp = padded_width(c)
-    if _smem_bytes(cp, s, n_mid) > _MAX_SMEM:
+    _build.check_tensor("feat_term", feat, (b, h, w, c), dev, _build.FLOAT32_BF16)
+    dtype = feat.dtype
+    cp = padded_width(c, dtype)
+    if _smem_bytes(cp, s, n_mid, dtype) > _MAX_SMEM:
         raise ValueError(f"S={s}, n_mid={n_mid} at C={c} exceed the kernel's shared memory")
     for name, t, shape in (
-        ("feat_term", feat, (b, h, w, c)), ("z_terms", z_terms, (s, b, c)),
-        ("mid_w", mid_w, (n_mid, c, c)), ("mid_b", mid_b, (n_mid, c)),
-        ("last_w", last_w, (c, 1)), ("last_b", last_b, (1,)),
+        ("z_terms", z_terms, (s, b, c)), ("mid_w", mid_w, (n_mid, c, c)),
+        ("mid_b", mid_b, (n_mid, c)), ("last_w", last_w, (c, 1)), ("last_b", last_b, (1,)),
     ):
         _build.check_tensor(name, t, shape, dev)
     _build.check_forward_only("mc_consensus", feat, z_terms, mid_w, mid_b, last_w, last_b)
     if cp != c:
         feat, z_terms, mid_w, mid_b, last_w = _pad_width(cp, feat, z_terms, mid_w, mid_b,
                                                          last_w)
-    if feat.data_ptr() % 8:
-        raise ValueError("feat_term must be 8-byte aligned (the kernel reads it as float2)")
+    if dtype == _BF16:  # the kernels as the bf16 instance reads them
+        mid_w, last_w = mid_w.to(dtype), last_w.to(dtype)
+    if feat.data_ptr() % (8 if dtype == torch.float32 else 4):
+        raise ValueError("feat_term must be 8-byte aligned (4 in bf16: the kernel reads "
+                         "channel pairs)")
     mean = torch.empty((b, h, w, 1), device=dev, dtype=torch.float32)
     cons = torch.empty_like(mean)
     if mean.numel() == 0:
         return mean, cons
-    fn = _build.entry("pda_mc_consensus", _ARGTYPES)
+    fn = _build.entry("pda_mc_consensus" + ("_bf16" if dtype == _BF16 else ""), _ARGTYPES)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         code = fn(
@@ -129,19 +162,19 @@ def mc_consensus(feat_term, z_terms, mid_w, mid_b, last_w, last_b,
                  masking: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
     """Kernel 3: (pseudo, consensus), each (B, H, W, 1) float32.
 
-    feat_term (B, H, W, C); z_terms (S, B, C); mid_w (n_mid, C, C) as
-    (in, out) matrices in the Fcomb's layer order; mid_b (n_mid, C);
-    last_w (C, 1); last_b (1,). One class, and on the card C <= 64
+    feat_term (B, H, W, C) float32 or bf16 (the bf16 instance); z_terms
+    (S, B, C); mid_w (n_mid, C, C) as (in, out) matrices in the Fcomb's layer
+    order; mid_b (n_mid, C); last_w (C, 1); last_b (1,), all float32. One
+    class, and on the card C <= 64
     (:data:`MAX_WIDTH`); :func:`pda_torch.models.punet.mc_pseudo` sends any
     other tail through the plain version."""
-    if feat_term.device.type == "cpu":
+    if runs_plain(feat_term, "mc_consensus"):
         return mc_consensus_plain(feat_term, z_terms, mid_w, mid_b, last_w, last_b, masking)
-    if feat_term.device.type != "cuda":
-        raise ValueError(f"mc_consensus runs on cpu or cuda, not {feat_term.device}")
     out = _launch(feat_term, z_terms, mid_w, mid_b, last_w, last_b, masking)
-    mc_consensus.launches += 1
+    count_launch(mc_consensus, feat_term.dtype)
     return out
 
 
-#: launches of the CUDA kernel since the count was last set to 0
-mc_consensus.launches = 0
+#: launches of the CUDA kernel since the count was last set to 0: its
+#: float32 instance (``launches``) and its bf16 instance (``launches_bf16``)
+mc_consensus.launches = mc_consensus.launches_bf16 = 0

@@ -12,6 +12,14 @@ layer under autograd (``F.conv2d``, cuDNN on the card), as ``pda`` runs it
 with plain autodiff convs: ``pda`` has no kernel for that depth either. The
 pool and the upsample are PyTorch ops that autograd differentiates.
 
+Compute dtype: every module here carries ``dtype`` (float32, or bf16 for
+``pda``'s bf16 configuration; :class:`ComputeDtype`). The parameters stay
+float32. A bf16 block casts its input to bf16 (``pda``'s
+``x.astype(self.dtype)``) and runs the bf16 kernels, which round as
+``pda``'s Pallas kernels do (:mod:`pda_torch.kernels.conv_block`); the
+pool, the upsample and the Dense layers follow ``pda``'s XLA code in bf16
+(:func:`avg_pool_2x2`, :func:`upsample_2x_align_corners`, :func:`dense`).
+
 Initialization follows ``pda`` (reference my_models/utils.py:17-28), each
 draw from an explicit ``torch.Generator``:
   * conv kernels: He normal (fan_in, ReLU gain), untruncated
@@ -32,6 +40,43 @@ from ..kernels.conv_block import conv_block_fwd, conv_block_fwd_dual
 
 #: convs per block by default; the fused kernels implement exactly this depth
 N_CONVS = 3
+#: the compute dtypes a model takes: float32, or ``pda``'s bf16 configuration
+COMPUTE_DTYPES = (torch.float32, torch.bfloat16)
+_BF16 = torch.bfloat16
+
+
+class ComputeDtype:
+    """Mixin of the modules that carry a compute ``dtype``. Setting it on a
+    module sets it on every such module inside (a model is in one dtype, as
+    ``pda``'s ``clone(dtype=...)`` makes it); the parameters are untouched."""
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self._dtype
+
+    @dtype.setter
+    def dtype(self, value: torch.dtype) -> None:
+        if value not in COMPUTE_DTYPES:
+            raise ValueError(f"dtype must be float32 or bfloat16, got {value}")
+        for m in self.modules():
+            if isinstance(m, ComputeDtype):
+                m._dtype = value
+
+
+def compute(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``x`` cast to a bf16 compute dtype; in float32 unchanged (so a float64
+    reference run of a float32 model stays float64)."""
+    return x.to(dtype) if dtype == _BF16 else x
+
+
+def dense(x: torch.Tensor, w: torch.Tensor, b=None, dtype: torch.dtype = torch.float32):
+    """``x @ w + b``; in bf16 as flax's ``Dense(dtype=bf16)`` in ``pda``: bf16
+    operands, the product rounded to bf16, then the bias (rounded to bf16)
+    added in bf16. Returns bf16 there, else x's dtype."""
+    if dtype != _BF16:
+        return x @ w if b is None else x @ w + b
+    y = (x.to(_BF16).float() @ w.to(_BF16).float()).to(_BF16)
+    return y if b is None else y + b.to(_BF16)
 
 
 def he_normal(shape: Sequence[int], generator: torch.Generator) -> torch.Tensor:
@@ -60,15 +105,49 @@ def trunc_normal_bias(n: int, generator: torch.Generator, std: float = 1e-3) -> 
 
 
 def avg_pool_2x2(x: torch.Tensor) -> torch.Tensor:
-    """2x2 / stride-2 average pool of (B, H, W, C); H and W must be even."""
+    """2x2 / stride-2 average pool of (B, H, W, C); H and W must be even.
+    In bf16 as ``pda``'s flat pipeline pools, the path its bf16 models take
+    wherever its kernels run (``flat_ops.pool_flat_packed``,
+    ``pool_flat``): the row pairs summed and rounded to bf16, the column
+    pairs summed and rounded, times 0.25 (exact). (Its image-path
+    ``avg_pool_2x2``, flax's window sum in bf16, rounds after each of the
+    four adds instead.)"""
     b, h, w, c = x.shape
     if h % 2 or w % 2:
         raise ValueError(f"avg_pool_2x2 needs even spatial dims, got {tuple(x.shape)}")
-    return x.reshape(b, h // 2, 2, w // 2, 2, c).mean(dim=(2, 4))
+    x6 = x.reshape(b, h // 2, 2, w // 2, 2, c)
+    if x.dtype != _BF16:
+        return x6.mean(dim=(2, 4))
+    rows = (x6[:, :, 0].float() + x6[:, :, 1].float()).to(_BF16)
+    return (rows[..., 0, :].float() + rows[..., 1, :].float()).to(_BF16) * 0.25
+
+
+def _upsample_matrix(n: int) -> torch.Tensor:
+    """(2n, n) align-corners bilinear interpolation matrix (``pda``'s
+    ``blocks._upsample_matrix``): row t holds the lerp weights (1 - frac,
+    frac) at columns (lo, hi)."""
+    t = torch.arange(2 * n, dtype=torch.float64) * ((n - 1) / (2 * n - 1))
+    lo = t.floor().long()
+    hi = (lo + 1).clamp(max=n - 1)
+    frac = (t - lo).float()
+    mat = torch.zeros(2 * n, n)
+    rows = torch.arange(2 * n)
+    mat.index_put_((rows, lo), 1.0 - frac, accumulate=True)
+    mat.index_put_((rows, hi), frac, accumulate=True)
+    return mat
 
 
 def upsample_2x_align_corners(x: torch.Tensor) -> torch.Tensor:
-    """Bilinear x2 upsampling of (B, H, W, C), ``align_corners=True``."""
+    """Bilinear x2 upsampling of (B, H, W, C), ``align_corners=True``. In
+    bf16 as ``pda`` upsamples bf16: two contractions with the interpolation
+    matrices in bf16, rows then columns, each summed in float32 and rounded
+    to bf16."""
+    if x.dtype == _BF16:
+        _, h, w, _ = x.shape
+        wh = _upsample_matrix(h).to(_BF16).float().to(x.device)
+        ww = _upsample_matrix(w).to(_BF16).float().to(x.device)
+        x = torch.einsum("Hh,bhwc->bHwc", wh, x.float()).to(_BF16)
+        return torch.einsum("Ww,bhwc->bhWc", ww, x.float()).to(_BF16).contiguous()
     up = F.interpolate(x.permute(0, 3, 1, 2), scale_factor=2, mode="bilinear",
                        align_corners=True)
     return up.permute(0, 2, 3, 1).contiguous()
@@ -128,30 +207,40 @@ def _conv_layers(in_channels: int, features: int, n_convs: int = N_CONVS) -> lis
 
 def conv_relu_layers(x: torch.Tensor, convs: Sequence[ConvParams]) -> torch.Tensor:
     """n x (conv3x3 SAME + bias + ReLU) on (B, H, W, C), layer by layer: the
-    path of a block whose depth the fused kernels do not take."""
+    path of a block whose depth the fused kernels do not take. A bf16 ``x``
+    as ``pda``'s autodiff convs compute it: the conv of bf16 operands
+    rounded to bf16, then the bias (in bf16) added in bf16."""
     h = x.permute(0, 3, 1, 2)
     for c in convs:
-        h = F.relu(F.conv2d(h, c.weight, c.bias, padding=1))
+        if h.dtype == _BF16:
+            y = F.conv2d(h.float(), c.weight.to(_BF16).float(), padding=1).to(_BF16)
+            h = F.relu(y + c.bias.to(_BF16)[:, None, None])
+        else:
+            h = F.relu(F.conv2d(h, c.weight, c.bias, padding=1))
     return h.permute(0, 2, 3, 1).contiguous()
 
 
-def conv_block(x: torch.Tensor, convs: Sequence[ConvParams], pool: bool) -> torch.Tensor:
-    """[2x2 avg pool] + n x (conv3x3 + bias + ReLU) on (B, H, W, C): the
-    fused kernel at 3 convs, :func:`conv_relu_layers` at any other depth."""
+def conv_block(x: torch.Tensor, convs: Sequence[ConvParams], pool: bool,
+               dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """[2x2 avg pool] + n x (conv3x3 + bias + ReLU) on (B, H, W, C), the
+    pool in x's dtype, the convs in ``dtype``: the fused kernel at 3 convs,
+    :func:`conv_relu_layers` at any other depth."""
     if pool:
         x = avg_pool_2x2(x)
+    x = compute(x, dtype)
     if len(convs) != N_CONVS:
         return conv_relu_layers(x, convs)
     return conv_block_fwd(x.contiguous(), *_weights(convs))
 
 
-class ConvBlock(nn.Module):
+class ConvBlock(ComputeDtype, nn.Module):
     """[AvgPool] + n_convs x (Conv3x3 + ReLU): reference ``DownConvBlock``
     (``layers`` = [pool,] conv, relu, conv, relu, conv, relu at 3 convs)."""
 
     def __init__(self, in_channels: int, features: int, pool: bool = False,
-                 n_convs: int = N_CONVS):
+                 n_convs: int = N_CONVS, dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.dtype = dtype
         self.pool = pool
         self.layers = nn.Sequential(
             *([nn.AvgPool2d(2)] if pool else []),
@@ -161,37 +250,41 @@ class ConvBlock(nn.Module):
         return [m for m in self.layers if isinstance(m, ConvParams)]
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return conv_block(x, self.convs(), self.pool)
+        return conv_block(x, self.convs(), self.pool, self.dtype)
 
 
-class UpBlock(nn.Module):
+class UpBlock(ComputeDtype, nn.Module):
     """Bilinear x2 upsample + skip concat + ConvBlock (reference
     ``UpConvBlock``). The concat [upsample | skip] is read by the dual-input
     kernel and never built on the card."""
 
     def __init__(self, in_channels: int, skip_channels: int, features: int,
-                 n_convs: int = N_CONVS):
+                 n_convs: int = N_CONVS, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.conv_block = ConvBlock(in_channels + skip_channels, features, n_convs=n_convs)
+        self.dtype = dtype
 
     def forward(self, x: torch.Tensor, bridge: torch.Tensor) -> torch.Tensor:
         up = upsample_2x_align_corners(x)
         if up.shape[1:3] != bridge.shape[1:3]:
             raise ValueError(
                 f"skip-connection shape mismatch: {tuple(up.shape)} vs {tuple(bridge.shape)}")
+        up, bridge = compute(up, self.dtype).contiguous(), compute(bridge, self.dtype)
         convs = self.conv_block.convs()
         if len(convs) != N_CONVS:
             return conv_relu_layers(torch.cat([up, bridge], dim=-1), convs)
         return conv_block_fwd_dual(up, bridge.contiguous(), *_weights(convs))
 
 
-class EncoderPyramid(nn.Module):
+class EncoderPyramid(ComputeDtype, nn.Module):
     """Contracting pyramid of ConvBlocks, a pool before every block but the
     first: reference ``Encoder``, whose ``layers`` is ONE Sequential with the
     pools interleaved."""
 
-    def __init__(self, in_channels: int, num_filters: Sequence[int], n_convs: int = N_CONVS):
+    def __init__(self, in_channels: int, num_filters: Sequence[int], n_convs: int = N_CONVS,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.dtype = dtype
         self.depth = len(num_filters)
         self.n_convs = n_convs
         mods, cin = [], in_channels
@@ -206,5 +299,5 @@ class EncoderPyramid(nn.Module):
         convs = [m for m in self.layers if isinstance(m, ConvParams)]
         n = self.n_convs
         for i in range(self.depth):
-            x = conv_block(x, convs[n * i:n * (i + 1)], pool=i > 0)
+            x = conv_block(x, convs[n * i:n * (i + 1)], pool=i > 0, dtype=self.dtype)
         return x

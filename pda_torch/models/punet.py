@@ -12,6 +12,14 @@ and the consensus in the MC-consensus kernel, which never writes that stack,
 wherever the model's configuration lets it (:func:`uses_mc_kernel`).
 Noise is explicit everywhere: ``eps`` of shape ``(n, B, latent_dim)``, or a
 ``torch.Generator``.
+
+``dtype=torch.bfloat16`` is ``pda``'s bf16 configuration: float32
+parameters, bf16 compute. The ConvBlocks and the MC tail round as ``pda``'s
+Pallas kernels do (:mod:`pda_torch.kernels.conv_block`,
+:mod:`pda_torch.kernels.mc_consensus`, also on the plain path); the
+latent heads and the Fcomb's Dense layers on the student's decode follow
+``pda``'s flax ``Dense(dtype=bf16)`` (:func:`.blocks.dense`); the latent
+statistics and the logits leave in float32.
 """
 
 from __future__ import annotations
@@ -25,7 +33,7 @@ from torch import nn
 from ..core.distributions import DiagGaussian
 from ..core.consensus import consensus_from_logits
 from ..kernels.mc_consensus import MAX_WIDTH, mc_consensus, mc_logits_plain
-from .blocks import N_CONVS, ConvParams, EncoderPyramid
+from .blocks import N_CONVS, ComputeDtype, ConvParams, EncoderPyramid, dense
 from .unet import PUNetBackbone
 
 
@@ -40,34 +48,43 @@ class PUNetEncoding(NamedTuple):
     posterior: Optional[DiagGaussian]  # (B, latent_dim) when segm was given
 
 
-class GaussianEncoder(nn.Module):
+class GaussianEncoder(ComputeDtype, nn.Module):
     """Conv pyramid -> global spatial mean -> 1x1 conv (a Dense) to
     2*latent_dim -> (mu, log_sigma), kept in float32 or wider (reference
-    ``AxisAlignedConvGaussian``)."""
+    ``AxisAlignedConvGaussian``). In bf16 the mean is taken in float32 and
+    rounded to bf16, and the head is a bf16 Dense, as in ``pda``."""
 
     def __init__(self, input_channels: int, num_filters: Sequence[int], latent_dim: int = 6,
-                 n_convs: int = N_CONVS):
+                 n_convs: int = N_CONVS, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.latent_dim = latent_dim
         self.encoder = EncoderPyramid(input_channels, num_filters, n_convs)
         self.conv_layer = ConvParams(num_filters[-1], 2 * latent_dim, 1, init="orthogonal")
+        self.dtype = dtype
 
     def forward(self, x: torch.Tensor, segm: Optional[torch.Tensor] = None) -> DiagGaussian:
         if segm is not None:
             x = torch.cat([x, segm.to(x.dtype)], dim=-1)
-        enc = self.encoder(x).mean(dim=(1, 2))
-        stats = _at_least_f32(enc @ self.conv_layer.dense() + self.conv_layer.bias)
+        enc = self.encoder(x)
+        enc = (enc.float().mean(dim=(1, 2)).to(enc.dtype) if enc.dtype == torch.bfloat16
+               else enc.mean(dim=(1, 2)))
+        stats = _at_least_f32(dense(enc, self.conv_layer.dense(), self.conv_layer.bias,
+                                    self.dtype))
         return DiagGaussian(stats[:, : self.latent_dim], stats[:, self.latent_dim:])
 
 
-class Fcomb(nn.Module):
+class Fcomb(ComputeDtype, nn.Module):
     """Latent sample + feature map -> logits via 1x1 convs (reference
     ``Fcomb``): ``layers`` = conv(C0+L -> C0), relu, (conv(C0 -> C0), relu) x
-    (no_convs_fcomb - 2); then ``last_layer``."""
+    (no_convs_fcomb - 2); then ``last_layer``. In bf16 the feature term and
+    the student's decode are ``pda``'s bf16 Dense chain (:func:`.blocks.dense`),
+    the logits rounded to bf16, then float32; :meth:`z_term` stays float32,
+    as ``pda`` hands the MC tail its latent terms."""
 
     def __init__(self, num_filters0: int, latent_dim: int, num_classes: int = 1,
-                 no_convs_fcomb: int = 4):
+                 no_convs_fcomb: int = 4, dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.dtype = dtype
         c0 = num_filters0
         self.num_filters0 = c0
         mods = [ConvParams(c0 + latent_dim, c0, 1, init="orthogonal",
@@ -86,25 +103,33 @@ class Fcomb(nn.Module):
 
     def feature_term(self, features: torch.Tensor) -> torch.Tensor:
         """The z-independent half of the first 1x1 conv (no bias)."""
-        return features @ self.convs()[0].dense()[: self.num_filters0]
+        return dense(features, self.convs()[0].dense()[: self.num_filters0], dtype=self.dtype)
 
     def z_term(self, z: torch.Tensor) -> torch.Tensor:
-        """The latent half of the first 1x1 conv, with its bias: (..., C0)."""
+        """The latent half of the first 1x1 conv, with its bias: (..., C0),
+        in z's dtype (float32 in a bf16 model: the MC tail's latent terms)."""
         first = self.convs()[0]
         return z @ first.dense()[self.num_filters0:] + first.bias
 
     def decode_from_term(self, feat_term: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
-        h = F.relu(feat_term + self.z_term(z)[:, None, None, :])
+        if self.dtype == torch.bfloat16:
+            first = self.convs()[0]
+            zt = dense(z, first.dense()[self.num_filters0:], first.bias, self.dtype)
+            h = F.relu(feat_term + zt[:, None, None, :])
+        else:
+            h = F.relu(feat_term + self.z_term(z)[:, None, None, :])
         for w, b in self.mid_layers():
-            h = F.relu(h @ w + b)
-        return _at_least_f32(h @ self.last_layer.dense() + self.last_layer.bias)
+            h = F.relu(dense(h, w, b, self.dtype))
+        return _at_least_f32(dense(h, self.last_layer.dense(), self.last_layer.bias,
+                                   self.dtype))
 
     def forward(self, features: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
         return self.decode_from_term(self.feature_term(features), z)
 
 
-class ProbabilisticUnet(nn.Module):
-    """Probabilistic U-Net (https://arxiv.org/abs/1806.05034), float32.
+class ProbabilisticUnet(ComputeDtype, nn.Module):
+    """Probabilistic U-Net (https://arxiv.org/abs/1806.05034), float32 or
+    bf16 compute (``dtype``; float32 parameters either way).
 
     Defaults mirror ``pda``'s; the experiments use ``num_filters=(64, 128,
     256, 512), no_convs_fcomb=3, beta=1, rl_swap=True`` and 3 convs a block
@@ -113,14 +138,17 @@ class ProbabilisticUnet(nn.Module):
     and ``analytic_kl`` are loss settings the module carries, as in ``pda``;
     :func:`pda_torch.core.losses.neg_elbo` reads them. Parameters are drawn
     from ``generator`` (default: a CPU generator seeded 0) on the CPU; move
-    the module with ``.to(device)``."""
+    the module with ``.to(device)``. ``dtype=torch.bfloat16`` is ``pda``'s
+    bf16 configuration (module docstring); setting ``model.dtype`` later
+    switches every part, as ``Trainer(mixed_precision=True)`` does."""
 
     def __init__(self, input_channels: int = 1, num_classes: int = 1,
                  num_filters: Sequence[int] = (32, 64, 128, 192), latent_dim: int = 6,
                  no_convs_fcomb: int = 4, beta: float = 10.0,
                  consensus_masking: bool = False, rl_swap: bool = False,
                  analytic_kl: bool = True, no_convs_per_block: int = N_CONVS,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         nf = tuple(num_filters)
         n = no_convs_per_block
@@ -134,6 +162,7 @@ class ProbabilisticUnet(nn.Module):
         self.prior = GaussianEncoder(input_channels, nf, latent_dim, n)
         self.posterior = GaussianEncoder(input_channels + num_classes, nf, latent_dim, n)
         self.fcomb = Fcomb(nf[0], latent_dim, num_classes, no_convs_fcomb)
+        self.dtype = dtype
         self.reset_parameters(generator or torch.Generator().manual_seed(0))
 
     def reset_parameters(self, generator: torch.Generator) -> None:
@@ -160,9 +189,11 @@ class ProbabilisticUnet(nn.Module):
 
 def livecell_punet(consensus_masking: bool = False,
                    generator: Optional[torch.Generator] = None,
-                   device: Union[str, torch.device] = "cuda") -> ProbabilisticUnet:
+                   device: Union[str, torch.device] = "cuda",
+                   dtype: torch.dtype = torch.float32) -> ProbabilisticUnet:
     """The flagship PUNet every LIVECell/MitoEM/Lung experiment builds
-    (``pda/experiments/common.py`` ``livecell_punet``), float32, on
+    (``pda/experiments/common.py`` ``livecell_punet``), in ``dtype``
+    (float32, or bf16 compute with float32 parameters), on
     ``device``: the card unless the caller asks for the CPU. The weights are
     drawn on the CPU from ``generator`` and then moved, so they are the same
     on either device; ``device="cuda"`` raises where there is no card."""
@@ -171,7 +202,8 @@ def livecell_punet(consensus_masking: bool = False,
                            "False); pass device='cpu' to build on the CPU")
     model = ProbabilisticUnet(input_channels=1, num_classes=1, num_filters=(64, 128, 256, 512),
                               latent_dim=6, no_convs_fcomb=3, beta=1.0, rl_swap=True,
-                              consensus_masking=consensus_masking, generator=generator)
+                              consensus_masking=consensus_masking, generator=generator,
+                              dtype=dtype)
     return model.to(device)
 
 

@@ -18,10 +18,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .blocks import N_CONVS, ConvBlock, ConvParams, UpBlock
+from .blocks import N_CONVS, ComputeDtype, ConvBlock, ConvParams, UpBlock, dense
 
 
-class PUNetBackbone(nn.Module):
+class PUNetBackbone(ComputeDtype, nn.Module):
     """4-level UNet, AvgPool down, bilinear align-corners up, no head
     (reference ``apply_last_layer=False``: the Fcomb is the head). Returns
     the last decoder map, ``num_filters[0]`` channels; with ``num_classes``
@@ -32,13 +32,15 @@ class PUNetBackbone(nn.Module):
     in ``pda`` (flax names ``UpBlock_{i}`` in creation order, deepest first).
     Parameters are drawn from ``generator`` (default: a CPU generator seeded
     0); a :class:`~pda_torch.models.punet.ProbabilisticUnet` redraws them
-    from its own.
+    from its own. ``dtype``: the compute dtype (float32, or bf16 with float32
+    parameters, :mod:`.blocks`).
     """
 
     def __init__(self, input_channels: int = 1,
                  num_filters: Sequence[int] = (64, 128, 256, 512), n_convs: int = N_CONVS,
                  num_classes: Optional[int] = None,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         nf = tuple(num_filters)
         cins = (input_channels, *nf[:-1])
@@ -49,6 +51,7 @@ class PUNetBackbone(nn.Module):
             UpBlock(nf[i + 1], nf[i], nf[i], n_convs=n_convs) for i in range(len(nf) - 2, -1, -1))
         self.last_layer = (None if num_classes is None
                            else ConvParams(nf[0], num_classes, 1, init="he"))
+        self.dtype = dtype
         self.reset_parameters(generator or torch.Generator().manual_seed(0))
 
     def reset_parameters(self, generator: torch.Generator) -> None:
@@ -64,7 +67,7 @@ class PUNetBackbone(nn.Module):
         for up, bridge in zip(self.upsampling_path, reversed(skips[:-1])):
             x = up(x, bridge)
         if self.last_layer is not None:
-            x = x @ self.last_layer.dense() + self.last_layer.bias
+            x = dense(x, self.last_layer.dense(), self.last_layer.bias, self.dtype)
         return x
 
 

@@ -8,8 +8,9 @@ Run from the repository root (it imports ``chip_smoke``). For each view
 the flagship's MT fit at 128^2 (2 steps, 1 validation) runs on the card, on
 the CPU in float32 and on the CPU in float64 (``chip_smoke.small_mt_fits``),
 and ``chip_smoke.check_fit`` judges it: each step's gradients, and the final
-student and teacher within 1e-6 where no step's float64 gradient lay within
-the gradients' error of 0. Prints its line and the seconds a draw. The
+student and teacher within 1e-6 of the interval Adam maps each step's
+gradient, give or take its measured error, to. Prints its line and the
+seconds a draw. The
 first native draw loads the native library, which sets flush-to-zero in the
 process (``pda_torch.data.native``): a seed given twice runs its numpy draw
 without and with it. Needs a CUDA card; TF32 off for cuDNN and matmul.

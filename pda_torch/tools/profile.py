@@ -48,13 +48,13 @@ from .workload import block_flops, cuda_ms, dgrad_flops, mc_flops
 
 # kernel name pattern -> label; the first that matches names a kernel
 LABELS = (
-    (r"conv3x3_tc<\d, true>", "forward layer, tensor cores (conv3x3_tc fwd)"),
+    (r"conv3x3_tc<[^>]*true>", "forward layer, tensor cores (conv3x3_tc fwd)"),
     (r"conv3x3_entry<", "forward entry layer, FMA (conv3x3_entry)"),
-    (r"conv3x3_tc<\d, false>", "dgrad (conv3x3_tc)"),
+    (r"conv3x3_tc<[^>]*false>", "dgrad (conv3x3_tc)"),
     (r"wgrad_tc<", "wgrad (wgrad_tc)"),
     (r"sum_chunks", "wgrad chunk reduce (sum_chunks)"),
     (r"relu_mask", "da3 mask (relu_mask)"),
-    (r"mc_consensus_tc<", "MC tail, tensor cores (mc_consensus_tc)"),
+    (r"mc_consensus_(tc|bf16)<", "MC tail, tensor cores (mc_consensus_tc)"),
 )
 
 

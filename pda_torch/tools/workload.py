@@ -69,10 +69,12 @@ def mc_flops(b, h, w, c, s, n_mid):
     return b * h * w * s * (2 * c + n_mid * (2 * c * c + 2 * c) + 2 * c)
 
 
-def mc_bytes(b, h, w, c, s, n_mid):
-    """Bytes K3 must move: feat, z and the weights read, mean and consensus
-    written, float32."""
-    return 4 * (b * h * w * (c + 2) + s * b * c + n_mid * (c * c + c) + c + 1)
+def mc_bytes(b, h, w, c, s, n_mid, feat_bytes=4):
+    """Bytes K3 must move: feat (``feat_bytes`` an element: 4 in float32, 2
+    in bf16), z and the float32 weights read, mean and consensus written
+    (float32)."""
+    return (feat_bytes * b * h * w * c
+            + 4 * (2 * b * h * w + s * b * c + n_mid * (c * c + c) + c + 1))
 
 
 def block_flops(b, h, w, cin, c):
@@ -90,6 +92,37 @@ def dgrad_flops(b, h, w, cin, c, need_dx):
 def block_weight_bytes(cin, c):
     """Bytes of a ConvBlock's three kernels and biases, float32."""
     return 4 * (9 * (cin * c + 2 * c * c) + 3 * c)
+
+
+# pda's bf16 configuration (bench.py's default Mean-Teacher step) is the
+# flagship at these shapes with bf16 compute and float32 parameters
+# (livecell_punet(dtype=torch.bfloat16), or a trainer's mixed_precision=True):
+# its bytes (bf16 activations, float32 weights) and its bound against the H100
+# SXM data sheet's 989 TFLOP/s dense bf16 on the tensor cores and 3.35 TB/s
+PEAK_BF16_FLOPS = 989e12
+PEAK_BYTES = 3.35e12
+
+
+def block_bytes(b, h, w, cin, c, act_bytes=2):
+    """Bytes one ConvBlock forward must move: its input read and h1, h2, h3
+    written (``act_bytes`` an element: 2 in bf16), the float32 weights read."""
+    return act_bytes * b * h * w * (cin + 3 * c) + block_weight_bytes(cin, c)
+
+
+def block_bwd_bytes(b, h, w, cin, c, need_dx, act_bytes=2):
+    """Bytes one ConvBlock backward must move: x, h1, h2, h3 and g read and
+    dx written (``act_bytes`` an element), the float32 weights read and dW, db
+    written."""
+    acts = b * h * w * (cin * (2 if need_dx else 1) + 4 * c)
+    return act_bytes * acts + 2 * block_weight_bytes(cin, c)
+
+
+def bound_ms(flops, nbytes, peak_flops=PEAK_BF16_FLOPS, peak_bytes=PEAK_BYTES):
+    """(ms, "operations" or "bytes"): the least time the card could take,
+    the larger of the FLOPs over ``peak_flops`` and the bytes over
+    ``peak_bytes``."""
+    ops_ms, bytes_ms = 1e3 * flops / peak_flops, 1e3 * nbytes / peak_bytes
+    return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
 
 
 def conv_weights(gen, cin, c, dev):
@@ -128,12 +161,14 @@ FCOMB_LAST_SCALE = 8.0  # the random teacher's consensus share lies inside (0, 1
 
 def livecell_mt_trainer(save_root: str, *, device="cuda", patch: int = 512,
                         steps_per_epoch: int = 4, num_workers: int = 4, logger=True,
-                        dtype=torch.float32):
+                        dtype=torch.float32, mixed_precision: bool = False):
     """``MeanTeacherTrainer`` of the flagship PUNet (seed-0 weights, the
     Fcomb's last layer x8) on 8 seeded synthetic 520x704 frames (6 to train,
     2 to validate), batch 2, epochs of ``steps_per_epoch`` steps, panels
     every 4 steps; the train loader samples in ``num_workers`` processes,
-    the validation loader (one batch an epoch) inline."""
+    the validation loader (one batch an epoch) inline. ``dtype``: the
+    parameters' dtype (float64 for a CPU reference); ``mixed_precision``:
+    the trainer's bf16 compute."""
     from ..data import DualImageCollectionDataset, Loader
     from ..data.synthetic import make_dataset_arrays
     from ..experiments.common import livecell_punet, weak_augmentations
@@ -159,4 +194,4 @@ def livecell_mt_trainer(save_root: str, *, device="cuda", patch: int = 512,
                               momentum=0.999, do_consensus_masking=True,
                               lr_scheduler=ReduceLROnPlateau(), logger=logger,
                               log_image_interval=4, save_root=save_root, device=device,
-                              seed=seed)
+                              mixed_precision=mixed_precision, seed=seed)

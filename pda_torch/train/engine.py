@@ -22,8 +22,10 @@ The engine keeps ``pda``'s semantics in PyTorch's idiom:
     attributes, set by :meth:`Trainer.initialize` from the subclass's
     factories.
 
-``pda``'s device mesh (data parallelism) and ``mixed_precision`` (bf16) are
-not ported yet: passing either raises.
+``mixed_precision=True`` is ``pda``'s: a model with a compute ``dtype``
+(the PUNet) computes in bf16 with float32 parameters, optimizer and
+checkpoints; a model without one (``UNet2d``) stays float32. ``pda``'s device
+mesh (data parallelism) is not ported yet: passing one raises.
 """
 
 from __future__ import annotations
@@ -87,10 +89,12 @@ class Trainer:
             raise NotImplementedError(
                 "mesh=: data parallelism is not ported yet (ROADMAP §1, M11); the port "
                 "trains on one device")
-        if mixed_precision:
-            raise NotImplementedError(
-                "mixed_precision=True: every kernel of the port takes float32 only; bf16 "
-                "waits for ROADMAP §2.3")
+        # mixed_precision=True (the reference's AMP flag) is pda's bf16 compute:
+        # the model's dtype (where it has one) becomes bf16, in place, its
+        # parameters, the optimizer and the checkpoints stay float32, and the
+        # loss heads take float32 logits and latent statistics (pda/train/engine.py)
+        if mixed_precision and hasattr(model, "dtype"):
+            model.dtype = torch.bfloat16
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(f"{type(self).__name__}: no CUDA card (torch.cuda.is_available() "

@@ -138,16 +138,18 @@ def _conv_args(cin=3, c=4, shape=(1, 5, 6)):
 def test_conv_kernel_wrapper_rejects_what_it_cannot_take(bad):
     """The CUDA path's checks run before any launch, so they run here too."""
     x, ws = _conv_args()
-    if bad == "dtype":
-        x = x.double()
+    xs = [x]
+    if bad == "dtype":  # float32 and bf16 have kernels; float16 and float64 none
+        xs = [x.half(), x.double()]
     elif bad == "shape":
         ws[2] = torch.zeros(3, 3, 5, 4)
     elif bad == "contiguity":
-        x = torch.zeros(1, 6, 5, 3).transpose(1, 2)
+        xs = [torch.zeros(1, 6, 5, 3).transpose(1, 2)]
     else:
         ws[1] = torch.zeros(5)
-    with pytest.raises((TypeError, ValueError)):
-        kconv._launch(x, None, *ws)
+    for x in xs:
+        with pytest.raises((TypeError, ValueError)):
+            kconv._launch(x, None, *ws)
 
 
 def test_mc_kernel_wrapper_rejects_unsupported_width():

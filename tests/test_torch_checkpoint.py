@@ -244,8 +244,11 @@ def test_trainer_refuses_what_the_port_lacks(tmp_path, monkeypatch):
     args = ("x", _punet(), *_loaders(False))
     with pytest.raises(NotImplementedError, match="M11"):
         ttrain.PUNetTrainer(*args, mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="2.3"):
-        ttrain.PUNetTrainer(*args, mixed_precision=True, device="cpu")
+    # mixed precision is pda's bf16 compute now: float32 parameters stay
+    mixed = ttrain.PUNetTrainer("x", _punet(), *_loaders(False), mixed_precision=True,
+                                device="cpu")
+    assert mixed.model.dtype == torch.bfloat16
+    assert {p.dtype for p in mixed.model.parameters()} == {torch.float32}
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA card"):
         ttrain.PUNetTrainer(*args)  # device="cuda" by default
