@@ -12,7 +12,11 @@ Phases, each of which fails the run (exit code 1) on any error or miss
                 Mean-Teacher step (pda_torch/tools/workload.py), random
                 seeded inputs; each kernel twice, bit-equal, and against its
                 plain version in float64 (the MC tail, K3, at the tiled, MT
-                teacher and pseudo shapes)
+                teacher and pseudo shapes); the backward in each of its
+                modes on the MT step: the pooled cotangent ("with": skip +
+                pool, "only": pool; its first pass bit-equal to the plain
+                one) and the recompute of h1, h2 (single and dual entry,
+                bit-equal to the saved-h kernel)
   4. serving  — the flagship PUNet (num_filters 64..512, latent 6,
                 no_convs_fcomb 3, float32, seeded weights) on a seeded
                 synthetic 520x704 frame: tiled MC-16 prediction (block 384,
@@ -23,7 +27,12 @@ Phases, each of which fails the run (exit code 1) on any error or miss
                 Adam 1e-5, EMA 0.999) at full widths: one step at 128^2,
                 batch 2, on the card against the same step of the port on
                 the CPU (loss, every gradient, updated student and teacher),
-                with its kernel launch counts; then steps at 512^2, batch 2
+                with its kernel launch counts; then steps at 512^2, batch 2;
+                then the step under PDA_PALLAS_CONV_MODE=mixed (forwards on
+                cuDNN, every backward recomputing h1, h2): one 64^2 step card
+                vs CPU (float32, float64 the gradients' reference) with its
+                launch counts, and timed at 512^2 beside the default's ms
+                and peak memory
   6. bf16     — pda's bf16 configuration (bench.py's default MT step:
                 ProbabilisticUnet(dtype=bfloat16), float32 parameters) on the
                 bf16 instances of the four kernel bodies: each at the tiled
@@ -209,6 +218,26 @@ GRAD_COS_TOL, GRAD_COS_CPU = 1e-5, 4.0
 # kernel launches of one MT step
 MT_LAUNCHES = {"conv_block_fwd": 20, "conv_block_fwd_dual": 6, "mc_consensus": 1,
                "conv_block_bwd": 12, "conv_block_bwd_dual": 3}
+# The backward's modes, each a JSON entry of its own whose launches are its
+# wrapper's launches in that mode (kc.BWD_MODES: launches_<mode>[_bf16], also
+# counted in the wrapper's own count): the pooled cotangent (pda's gpf) and
+# the recompute of h1, h2 (PDA_PALLAS_CONV_MODE=mixed)
+MODE_ENTRIES = {"conv_block_bwd_pool": ("conv_block_bwd", "pool"),
+                "conv_block_bwd_recompute": ("conv_block_bwd", "recompute"),
+                "conv_block_bwd_dual_recompute": ("conv_block_bwd_dual", "recompute")}
+# ... of one MT step: the 9 blocks whose output feeds a 2x2 pool (levels 0-2
+# of the backbone, the prior and the posterior) read the pooled cotangent
+MT_MODE_LAUNCHES = {"conv_block_bwd_pool": 9, "conv_block_bwd_recompute": 0,
+                    "conv_block_bwd_dual_recompute": 0}
+# one MT step under PDA_PALLAS_CONV_MODE=mixed: every forward on cuDNN (pda's
+# XLA forward), every backward recomputing h1 and h2
+MIXED_MT_LAUNCHES = {"conv_block_fwd": 0, "conv_block_fwd_dual": 0, "mc_consensus": 1,
+                     "conv_block_bwd": 12, "conv_block_bwd_dual": 3}
+MIXED_MT_MODE_LAUNCHES = {"conv_block_bwd_pool": 9, "conv_block_bwd_recompute": 12,
+                          "conv_block_bwd_dual_recompute": 3}
+MIXED_CHECK_PATCH = 64
+# peak device memory (GiB) of each time_steps label's run
+STEP_PEAKS = {}
 
 # The algorithms phase. The MC tail at widths the kernel once refused (C = 20
 # is zero-padded to 24), a small PUNet through it, a 2-class PUNet (the plain
@@ -325,11 +354,11 @@ def kernel_shapes(census):
         census.add(shape_key(name, (xa,) + (() if xb is None else (xb,)) + rest))
         return launch(xa, xb, *rest)
 
-    def bwd(g, xa, xb, h1, h2, h3, w1, w2, w3, need_dx):
+    def bwd(g, xa, xb, h1, h2, h3, w1, w2, w3, need_dx, workspaces=None, **kw):
         name = "conv_block_bwd" if xb is None else "conv_block_bwd_dual"
         inputs = (xa,) + (() if xb is None else (xb,))
         census.add(shape_key(name, (g, *inputs, h1, h2, h3, w1, w2, w3), need_dx))
-        return launch_bwd(g, xa, xb, h1, h2, h3, w1, w2, w3, need_dx)
+        return launch_bwd(g, xa, xb, h1, h2, h3, w1, w2, w3, need_dx, workspaces, **kw)
 
     def mc(feat, z, mid_w, mid_b, last_w, last_b, masking):
         census.add(shape_key("mc_consensus", (feat, z, mid_w), masking=masking))
@@ -375,20 +404,33 @@ def saved_block(gen, b, h, w, cin, c, dev, dtype=None):
 
 
 def check_bwd(entry, label, kernel, plain, args, names, per_step, binding, need_dx,
-              timed=True):
+              timed=True, gp=None, also=None):
     """A backward kernel against its plain version: every output within
     BWD_REL_TOL of the plain one's largest and within BWD_REF64_TOL of the
     plain version's in float64, and two runs bit-equal; then, if ``timed``,
     times (the kernel's, the plain version's, cuDNN's:
-    :func:`cudnn_block_bwd`) and the bound."""
+    :func:`cudnn_block_bwd`) and the bound. ``gp``: the pooled cotangent,
+    handed to both versions (``g``, args[0], may then be None), the
+    kernel's first pass bit-equal to the plain one's, cuDNN's backward
+    after the pool's transpose (:func:`library_cotangent`); ``also``: a
+    second entry (the mode's) that takes the same numbers."""
     import torch
 
-    from pda_torch.tools.workload import block_flops, block_weight_bytes, cuda_ms, dgrad_flops
+    from pda_torch.kernels import conv_block as kc
+    from pda_torch.tools.workload import block_bwd_bytes, block_flops, cuda_ms, dgrad_flops
 
-    out, again, ref = kernel(*args), kernel(*args), plain(*args)
-    ref64 = plain(*(a.double() for a in args))
+    def dbl(a):
+        return None if a is None else a.double()
+
+    kw, kw64 = ({}, {}) if gp is None else ({"gp": gp}, {"gp": gp.double()})
+    out, again, ref = kernel(*args, **kw), kernel(*args, **kw), plain(*args, **kw)
+    ref64 = plain(*map(dbl, args), **kw64)
+    first = True
+    if gp is not None:
+        first = torch.equal(kc.masked_cotangent_kernel(args[0], gp, args[-4]),
+                            kc.masked_cotangent_plain(args[0], gp, args[-4]))
     torch.cuda.synchronize()
-    ok, worst, worst64 = True, (0.0, ""), (0.0, "")
+    ok, worst, worst64 = first, (0.0, ""), (0.0, "")
     same = all((a is None and a2 is None) or torch.equal(a, a2) for a, a2 in zip(out, again))
     for name, a, r, r64 in zip(names, out, ref, ref64):
         if r is None:
@@ -402,40 +444,196 @@ def check_bwd(entry, label, kernel, plain, args, names, per_step, binding, need_
                and err64 <= BWD_REF64_TOL * scale64)
         worst = max(worst, (err / scale if scale else err, name))
         worst64 = max(worst64, (err64 / scale64 if scale64 else err64, name))
-        entry["max_abs_err"] = max(entry["max_abs_err"], err)
+        for e in filter(None, (entry, also)):
+            e["max_abs_err"] = max(e["max_abs_err"], err)
     ok &= same
     del out, again, ref, ref64
     CHECKED.add(shape_key(entry["name"], args, need_dx))
     verdict = (f"kernel {label}: worst max_abs_err/max|plain| {worst[0]:.3e} ({worst[1]}; tol "
                f"{BWD_REL_TOL:.0e}), /max|ref64| {worst64[0]:.3e} ({worst64[1]}; tol "
-               f"{BWD_REF64_TOL:.0e}), repeat bit-equal {same}")
+               f"{BWD_REF64_TOL:.0e}), repeat bit-equal {same}"
+               + ("" if gp is None else f", da_3 bit-equal to the plain version's {first}"))
     if not timed:
         log(f"{verdict} {'ok' if ok else 'FAIL'}")
         return ok
-    ms, plain_ms = cuda_ms(lambda: kernel(*args)), cuda_ms(lambda: plain(*args))
+    ms, plain_ms = cuda_ms(lambda: kernel(*args, **kw)), cuda_ms(lambda: plain(*args, **kw))
     # wgrad of three layers, dgrad of two (and of the first with dx);
-    # reads x (or xa, xb), h1, h2, h3, g, W; writes dx, dW, db
-    b, h, w, c = args[0].shape
+    # reads x (or xa, xb), h1, h2, h3, g (and/or gp), W; writes dx, dW, db
+    b, h, w, c = args[-4].shape
     cin = sum(t.shape[-1] for t in args[1:-6])
-    lib_args = (args[0], torch.cat(args[1:-6], dim=-1), *args[-6:-3], *map(oihw, args[-3:]))
+    lib_args = (torch.cat(args[1:-6], dim=-1), *args[-6:-3], *map(oihw, args[-3:]))
     benchmark = (b, h, w, cin, c) in BWD_LIBRARY_BENCHMARK
     torch.backends.cudnn.benchmark = benchmark
     try:
-        library_ms = cuda_ms(lambda: cudnn_block_bwd(*lib_args, need_dx=need_dx))
+        library_ms = cuda_ms(lambda: cudnn_block_bwd(library_cotangent(args[0], gp, args[-4]),
+                                                     *lib_args, need_dx=need_dx))
     finally:
         torch.backends.cudnn.benchmark = False
     del lib_args
+    mode = "full" if gp is None else "only" if args[0] is None else "with"
     flops = block_flops(b, h, w, cin, c) + dgrad_flops(b, h, w, cin, c, need_dx)
-    nbytes = (4 * b * h * w * (cin * (2 if need_dx else 1) + 4 * c)
-              + 2 * block_weight_bytes(cin, c))
+    nbytes = block_bwd_bytes(b, h, w, cin, c, need_dx, act_bytes=4, g_mode=mode)
     bound, term = add_bound(entry, binding, flops, nbytes, per_step)
     log(f"{verdict}, ms {ms:.3f} ({flops / ms / 1e9:.1f} TFLOP/s) plain_ms {plain_ms:.3f} "
         f"library_ms {library_ms:.3f}"
         f"{' (cudnn.benchmark on)' if benchmark else ''} bound_ms {bound:.3f} ({term}) "
         f"{'ok' if ok else 'FAIL'}")
-    entry["ms"] += per_step * ms
-    entry["plain_ms"] += per_step * plain_ms
-    entry["library_ms"] = (entry["library_ms"] or 0.0) + per_step * library_ms
+    if also is not None:
+        add_bound(also, binding, flops, nbytes, per_step)
+    add_times((entry, also), per_step, ms, plain_ms, library_ms)
+    return ok
+
+
+def add_times(entries, weight, ms, plain_ms, library_ms):
+    """Add ``weight`` calls' kernel, plain and library ms to each entry
+    (None entries skipped)."""
+    for e in filter(None, entries):
+        e["ms"] += weight * ms
+        e["plain_ms"] += weight * plain_ms
+        e["library_ms"] = (e["library_ms"] or 0.0) + weight * library_ms
+
+
+def library_cotangent(g, gp, h3):
+    """The block output's cotangent as the unfused path forms it for the
+    library's backward: the 2x2 average pool's backward of ``gp``
+    (``avg_pool2d_backward``, what autograd of the pool runs), plus ``g``;
+    ``g`` itself without a pooled cotangent. Timed in ``library_ms`` only."""
+    import torch
+
+    if gp is None:
+        return g
+    gx = torch.ops.aten.avg_pool2d_backward(gp.permute(0, 3, 1, 2), h3.permute(0, 3, 1, 2),
+                                            [2, 2], [2, 2], [0, 0], False, True, None)
+    gx = gx.permute(0, 2, 3, 1)
+    return gx if g is None else g + gx
+
+
+def first_draw(gen, gen_modes, seen, shape):
+    """``gen`` at a shape's first backward check and ``gen_modes`` at its
+    repeats (the modes' other entries), so that the checks before the modes
+    draw what they drew."""
+    src = gen_modes if shape in seen else gen
+    seen.add(shape)
+    return src
+
+
+def recompute_checks(dev, results, binding, gen, dtype):
+    """:func:`check_recompute` at workload.RECOMPUTE_SHAPE (single entry)
+    and RECOMPUTE_DUAL_SHAPE (dual entry), inputs in ``dtype``."""
+    import torch
+
+    from pda_torch.tools import workload as wl
+
+    suffix = "_bf16" if dtype == torch.bfloat16 else ""
+    b, h, w, cin, c = wl.RECOMPUTE_SHAPE
+    ok = check_recompute(results["conv_block_bwd_recompute" + suffix],
+                         f"conv_block_bwd recompute {cin}->{c} @{b}x{h}x{w}",
+                         (torch.randn(b, h, w, cin, generator=gen).to(dev).to(dtype),),
+                         wl.conv_weights(gen, cin, c, dev), binding)
+    b, h, w, ca, cb, c = wl.RECOMPUTE_DUAL_SHAPE
+    return ok & check_recompute(results["conv_block_bwd_dual_recompute" + suffix],
+                                f"conv_block_bwd_dual recompute {ca}+{cb}->{c} @{b}x{h}x{w}",
+                                tuple(torch.randn(b, h, w, k, generator=gen).to(dev).to(dtype)
+                                      for k in (ca, cb)),
+                                wl.conv_weights(gen, ca + cb, c, dev), binding)
+
+
+def check_recompute(entry, label, xs, weights, binding, per_step=1):
+    """The backward with recompute (h1, h2 None: the mixed mode) against the
+    saved-h kernel from the forward kernel's h1, h2, h3 on the same inputs:
+    every output bit-equal (the recompute runs the forward's own layer
+    bodies). Then what the two are made of, each against its plain version
+    on the same tensors (a plain recompute of h1, h2 would set some ReLU
+    masks apart at values within rounding of 0, and a flipped mask moves a
+    cotangent by its whole value): in float32 the forward kernel's h1, h2
+    within K12_REL_TOL / K12_REF64_TOL of the plain forward's, and the
+    outputs within BWD_REL_TOL / BWD_REF64_TOL of the plain backward from
+    the kernel's h1, h2, h3; in bf16 h1, h2 by the layer rule
+    (:func:`bf16_layers_agree`; the bf16 phase holds the saved-h backward
+    by its layer rule). Then the kernel's, the saved-h kernel's, the plain
+    version's (recomputing) and cuDNN's times (the first two layers, then
+    :func:`cudnn_block_bwd`) and the bound."""
+    import torch
+    import torch.nn.functional as F
+
+    from pda_torch.kernels import conv_block as kc
+    from pda_torch.tools.workload import (PEAK_BF16_FLOPS, block_bwd_bytes, block_flops,
+                                          cuda_ms, dgrad_flops, recompute_flops)
+
+    w1, b1, w2, b2, w3, b3 = weights
+    dual, bf16 = len(xs) == 2, xs[0].dtype == torch.bfloat16
+    gen = torch.Generator(device=xs[0].device).manual_seed(SEED)
+    h1, h2, h3 = kc._launch(xs[0], xs[1] if dual else None, *weights)
+    g = torch.randn(h3.shape, generator=gen, device=h3.device).to(h3.dtype)
+    bwd = kc.conv_block_bwd_dual if dual else kc.conv_block_bwd
+    bwd_plain = kc.conv_block_bwd_dual_plain if dual else kc.conv_block_bwd_plain
+
+    def kernel(*h):
+        return bwd(g, *xs, *h, h3, w1, w2, w3, b1=b1, b2=b2)
+
+    def plain(dtype=None):
+        a = [t if dtype is None else t.to(dtype) for t in (g, *xs, h3, w1, w2, w3, b1, b2)]
+        return bwd_plain(*a[:-6], None, None, *a[-6:-2], b1=a[-2], b2=a[-1])
+
+    out, again, saved = kernel(None, None), kernel(None, None), kernel(h1, h2)
+    same = all(torch.equal(a, b) for a, b in zip(out, again))
+    equal = all(torch.equal(a, b) for a, b in zip(out, saved))
+    ok, detail = same and equal, ""
+    x = torch.cat(xs, dim=-1)
+    if bf16:
+        good, worst, _ = bf16_layers_agree((h1, h2), x, weights[:4])
+        ok &= good
+        detail = (f"; the forward kernel's h1, h2 by the layer rule: beyond 1 ulp {worst[0]} "
+                  f"elements, bit-equal {worst[1]:.6f}")
+    else:
+        worst_h, worst = 0.0, 0.0
+        for h, r, r64 in zip((h1, h2), kc._nhwc(kc._plain_layers(x, *weights[:4])),
+                             kc._nhwc(kc._plain_layers(x.double(),
+                                                       *(t.double() for t in weights[:4])))):
+            err, scale = float((h - r).abs().max()), float(r.abs().max())
+            err64 = float((h.double() - r64).abs().max())
+            ok &= err <= K12_REL_TOL * scale and err64 <= K12_REF64_TOL * float(r64.abs().max())
+            worst_h = max(worst_h, err / scale)
+        saved_args = (g, *xs, h1, h2, h3, w1, w2, w3)
+        ref = bwd_plain(*saved_args)
+        ref64 = bwd_plain(*(t.double() for t in saved_args))
+        for a, r, r64 in zip(out, ref, ref64):
+            err, err64 = float((a - r).abs().max()), float((a.double() - r64).abs().max())
+            ok &= (err <= BWD_REL_TOL * float(r.abs().max())
+                   and err64 <= BWD_REF64_TOL * float(r64.abs().max()))
+            worst = max(worst, err / float(r.abs().max()))
+            entry["max_abs_err"] = max(entry["max_abs_err"], err)
+        detail = (f"; the forward kernel's h1, h2 against the plain forward's worst |err|/max "
+                  f"{worst_h:.3e}, the outputs against the plain backward from them "
+                  f"{worst:.3e}")
+        del ref, ref64
+    del out, again, saved
+    ms, saved_ms = cuda_ms(lambda: kernel(None, None)), cuda_ms(lambda: kernel(h1, h2))
+    plain_ms = cuda_ms(plain)
+    lib_w = [oihw(t).to(x.dtype) for t in (w1, w2, w3)]
+
+    def library():
+        hs = []
+        h = x.permute(0, 3, 1, 2)
+        for w, b in ((lib_w[0], b1), (lib_w[1], b2)):
+            h = F.relu(F.conv2d(h, w, b.to(x.dtype), padding=1))
+            hs.append(h.permute(0, 2, 3, 1))
+        return cudnn_block_bwd(g, x, *hs, h3, *lib_w, need_dx=True)
+
+    library_ms = cuda_ms(library)
+    b, h, w, c = h3.shape
+    cin = x.shape[-1]
+    flops = (block_flops(b, h, w, cin, c) + dgrad_flops(b, h, w, cin, c, True)
+             + recompute_flops(b, h, w, cin, c))
+    nbytes = block_bwd_bytes(b, h, w, cin, c, True, act_bytes=2 if bf16 else 4, recompute=True)
+    bound, term = add_bound(entry, binding, flops, nbytes, per_step,
+                            PEAK_BF16_FLOPS if bf16 else PEAK_FLOPS)
+    log(f"{'bf16 ' if bf16 else ''}kernel {label}: bit-equal to the saved-h kernel {equal}, "
+        f"repeat bit-equal {same}{detail}; ms {ms:.3f} ({flops / ms / 1e9:.1f} TFLOP/s) "
+        f"saved-h kernel ms {saved_ms:.3f} plain_ms {plain_ms:.3f} library_ms {library_ms:.3f} "
+        f"bound_ms {bound:.3f} ({term}) {'ok' if ok else 'FAIL'}")
+    add_times((entry,), per_step, ms, plain_ms, library_ms)
+    CHECKED.add((entry["name"], (b, h, w, *(t.shape[-1] for t in xs), c)))
     return ok
 
 
@@ -586,9 +784,7 @@ def check_conv(entry, label, kernel, plain, args, per_forward, binding, timed=Tr
     del x, lib_args
     log(f"{verdict}, ms {ms:.3f} ({flops / ms / 1e9:.1f} TFLOP/s) plain_ms {plain_ms:.3f} "
         f"library_ms {library_ms:.3f} bound_ms {bound:.3f} ({term}) {'ok' if ok else 'FAIL'}")
-    entry["ms"] += per_forward * ms
-    entry["plain_ms"] += per_forward * plain_ms
-    entry["library_ms"] = (entry["library_ms"] or 0.0) + per_forward * library_ms
+    add_times((entry,), per_forward, ms, plain_ms, library_ms)
     return ok
 
 
@@ -623,14 +819,25 @@ def phase_kernels(dev, results, binding):
                          kc.conv_block_fwd_dual, kc.conv_block_fwd_dual_plain,
                          (xa, xb, *conv_weights(gen, ca + cb, c, dev)), per_forward, binding)
 
-    for (b, h, w, cin, c), need_dx, per_step in wl.BWD_SHAPES + [(wl.LEARN_BLOCK, True, 0)]:
-        saved = saved_block(gen, b, h, w, cin, c, dev)
+    # the MT step's single-input backwards, each in its mode: the pooled
+    # cotangent ("with": the skip's and the pool's, "only": the pool's) or
+    # the output's own ("full"); conv_block_bwd's times sum the step's calls,
+    # conv_block_bwd_pool's the pooled ones among them
+    gen_modes, seen = torch.Generator().manual_seed(SEED + 13), set()
+    for (b, h, w, cin, c), need_dx, per_step, mode in (wl.BWD_SHAPES
+                                                       + [(wl.LEARN_BLOCK, True, 0, "full")]):
+        g, *rest = saved_block(first_draw(gen, gen_modes, seen, (b, h, w, cin, c)),
+                               b, h, w, cin, c, dev)
+        gp = None if mode == "full" else torch.randn(b, h // 2, w // 2, c,
+                                                     generator=gen_modes).to(dev)
         ok &= check_bwd(results["conv_block_bwd"], f"conv_block_bwd {cin}->{c} @{b}x{h}x{w} "
-                        f"need_dx={need_dx}", lambda *a: kc.conv_block_bwd(*a, need_dx=need_dx),
-                        lambda *a: kc.conv_block_bwd_plain(*a, need_dx=need_dx), saved,
+                        f"need_dx={need_dx} g_mode={mode}",
+                        lambda *a, **k: kc.conv_block_bwd(*a, need_dx=need_dx, **k),
+                        lambda *a, **k: kc.conv_block_bwd_plain(*a, need_dx=need_dx, **k),
+                        (None if mode == "only" else g, *rest),
                         ("dx", "dw1", "db1", "dw2", "db2", "dw3", "db3"), per_step, binding,
-                        need_dx)
-        del saved
+                        need_dx, gp=gp, also=None if gp is None else results["conv_block_bwd_pool"])
+        del g, rest, gp
     for (b, h, w, ca, cb, c), per_step in ([(s, 1) for s in wl.BWD_DUAL_SHAPES]
                                            + [(wl.LEARN_DUAL_BLOCK, 0)]):
         g, x, *rest = saved_block(gen, b, h, w, ca + cb, c, dev)
@@ -641,6 +848,9 @@ def phase_kernels(dev, results, binding):
                         args, ("dxa", "dxb", "dw1", "db1", "dw2", "db2", "dw3", "db3"), per_step,
                         binding, True)
         del g, rest, args
+
+    # the backward with recompute (PDA_PALLAS_CONV_MODE=mixed), each entry
+    ok &= recompute_checks(dev, results, binding, gen_modes, torch.float32)
 
     # K3 at the MC tail's shape on each path; the JSON line's times and bound
     # are the tiled forward's call (weight 0: checked and logged only)
@@ -867,7 +1077,9 @@ def check_step(label, card, cpu, aux, aux_cpu, init, lr, zero_grads=(), ref64=No
 
 def phase_training(dev, results):
     """The Mean-Teacher step of the flagship: one step at 128^2 on the card
-    against the port on the CPU, launch counts, then timed 512^2 steps.
+    against the port on the CPU, launch counts, then timed 512^2 steps; then
+    the same under PDA_PALLAS_CONV_MODE=mixed (64^2 card vs CPU, timed
+    512^2 beside the default's ms and peak).
     Returns (ok, the timed step's median ms)."""
     import torch
 
@@ -883,8 +1095,8 @@ def phase_training(dev, results):
     frame = synthetic_frame(gen, FRAME, "cpu")
     step = make_mean_teacher_step(momentum=MT_MOMENTUM, do_consensus_masking=True)
 
-    def state_on(device):
-        student = copy.deepcopy(model).to(device)
+    def state_on(device, dtype=torch.float32):
+        student = copy.deepcopy(model).to(device=device, dtype=dtype)
         return create_train_state(student, adam(student.parameters(), MT_LR), with_teacher=True)
 
     # 1. one step at 128^2 on the card and on the CPU, same weights, batch, noise
@@ -892,16 +1104,14 @@ def phase_training(dev, results):
     noise = {"eps_teacher": torch.randn(MC, MT_BATCH, 6, generator=gen),
              "eps_post": torch.randn(MT_BATCH, 6, generator=gen)}
     card, cpu = state_on(dev), state_on("cpu")
-    for w in wrappers.values():
-        w.launches = 0
+    reset_launches(wrappers)
     _, aux = step(card, *(a.to(dev) for a in batch), **{k: v.to(dev) for k, v in noise.items()})
     torch.cuda.synchronize()
-    counts = {k: w.launches for k, w in wrappers.items()}
-    for k, n in counts.items():
-        results[k]["launches"] += n
-    ok = counts == MT_LAUNCHES
-    log(f"training MT step 128^2: launches {counts} (expected {MT_LAUNCHES}) "
-        f"{'ok' if ok else 'FAIL'}")
+    counts = counted_launches(wrappers, results)
+    modes = mode_launches(wrappers)
+    ok = counts == MT_LAUNCHES and modes == MT_MODE_LAUNCHES
+    log(f"training MT step 128^2: launches {counts} (expected {MT_LAUNCHES}), by backward mode "
+        f"{modes} (expected {MT_MODE_LAUNCHES}) {'ok' if ok else 'FAIL'}")
 
     # the teacher's pseudo-labels: K3 on the card against the plain tail on the CPU
     t0 = time.perf_counter()
@@ -937,19 +1147,89 @@ def phase_training(dev, results):
     del card, cpu, logits, enc
 
     # 2. timed steps at 512^2, batch 2, fresh noise from a card generator
-    good, ms = time_steps(f"MT step MC-{MC} 512^2 batch {MT_BATCH} f32", step, state_on(dev),
-                          mt_batch(gen, frame, MT_TIME_PATCH, dev), MT_BATCH, wrappers,
+    label = f"MT step MC-{MC} 512^2 batch {MT_BATCH} f32"
+    time_batch = mt_batch(gen, frame, MT_TIME_PATCH, dev)
+    good, ms = time_steps(label, step, state_on(dev), time_batch, MT_BATCH, wrappers,
                           MT_LAUNCHES, MT_WARMUP, MT_TIMED,
-                          torch.Generator(device=dev).manual_seed(SEED))
-    return ok and good, ms
+                          torch.Generator(device=dev).manual_seed(SEED), modes=MT_MODE_LAUNCHES)
+    ok &= good
+
+    # 3. the mixed mode: one 64^2 step card vs CPU (float32; float64 the
+    # gradients' reference), the CPU on the card teacher's pseudo-labels;
+    # its launches are the mode's main path's run; then timed at 512^2
+    batch = mt_batch(gen, frame, MIXED_CHECK_PATCH, "cpu")
+    noise = {"eps_teacher": torch.randn(MC, MT_BATCH, 6, generator=gen),
+             "eps_post": torch.randn(MT_BATCH, 6, generator=gen)}
+    with conv_mode("mixed"):
+        card, cpu, cpu64 = state_on(dev), state_on("cpu"), state_on("cpu", torch.float64)
+        drawn, pseudo = [], steps._mc_pseudo
+        steps._mc_pseudo = lambda *a, **k: drawn.append(pseudo(*a, **k)) or drawn[-1]
+        reset_launches(wrappers)
+        try:
+            _, aux = step(card, *(a.to(dev) for a in batch),
+                          **{k: v.to(dev) for k, v in noise.items()})
+            torch.cuda.synchronize()
+        finally:
+            steps._mc_pseudo = pseudo
+        counts = counted_launches(wrappers, results)
+        modes = mode_launches(wrappers)
+        good = counts == MIXED_MT_LAUNCHES and modes == MIXED_MT_MODE_LAUNCHES
+        log(f"training mixed MT step {MIXED_CHECK_PATCH}^2: launches {counts} (expected "
+            f"{MIXED_MT_LAUNCHES}), by backward mode {modes} (expected "
+            f"{MIXED_MT_MODE_LAUNCHES}) {'ok' if good else 'FAIL'}")
+        t0 = time.perf_counter()
+        for state, dtype in ((cpu, torch.float32), (cpu64, torch.float64)):
+            y, z = (t.to("cpu", dtype) for t in drawn[0])
+            steps._mc_pseudo = lambda *a, **k: (y, z)
+            try:
+                _, out = step(state, *(a.to(dtype) for a in batch),
+                              **{k: v.to(dtype) for k, v in noise.items()})
+            finally:
+                steps._mc_pseudo = pseudo
+            if dtype == torch.float32:
+                aux_cpu = out
+        good &= check_step(f"training mixed MT step {MIXED_CHECK_PATCH}^2", card, cpu, aux,
+                           aux_cpu, model.state_dict(), MT_LR, ref64=cpu64)
+        log(f"training mixed MT step card vs cpu: cpu (float32 and float64) "
+            f"{time.perf_counter() - t0:.1f} s")
+        ok &= good
+        del card, cpu, cpu64, drawn
+        mixed = f"MT step MC-{MC} 512^2 batch {MT_BATCH} f32 PDA_PALLAS_CONV_MODE=mixed"
+        good, mixed_ms = time_steps(mixed, step, state_on(dev), time_batch, MT_BATCH, wrappers,
+                                    MIXED_MT_LAUNCHES, MT_WARMUP, MT_TIMED,
+                                    torch.Generator(device=dev).manual_seed(SEED),
+                                    modes=MIXED_MT_MODE_LAUNCHES)
+    ok &= good
+    log(f"time MT step 512^2 batch {MT_BATCH} f32: mixed {mixed_ms:.2f} ms, peak "
+        f"{STEP_PEAKS[mixed]:.2f} GiB against the default's {ms:.2f} ms, peak "
+        f"{STEP_PEAKS[label]:.2f} GiB ({mixed_ms / ms:.3f}x the time, "
+        f"{STEP_PEAKS[mixed] / STEP_PEAKS[label]:.3f}x the peak)")
+    return ok, ms
+
+
+@contextlib.contextmanager
+def conv_mode(mode):
+    """``PDA_PALLAS_CONV_MODE`` set to ``mode`` while the block runs (the
+    port reads it at each block call, as pda does)."""
+    before = os.environ.get("PDA_PALLAS_CONV_MODE")
+    os.environ["PDA_PALLAS_CONV_MODE"] = mode
+    try:
+        yield
+    finally:
+        if before is None:
+            del os.environ["PDA_PALLAS_CONV_MODE"]
+        else:
+            os.environ["PDA_PALLAS_CONV_MODE"] = before
 
 
 def time_steps(label, step, state, batch, n_patches, wrappers, launches, warmup, timed,
-               generator=None, bf16=False):
+               generator=None, bf16=False, modes=None):
     """Train steps on the card, timed: the CUDA-event median of ``timed``
-    steps after ``warmup``, ms/step, patches/s and peak memory; every loss
-    finite and each kernel launched ``launches[name]`` times a step (its
-    bf16 instance with ``bf16``). Returns (ok, ms)."""
+    steps after ``warmup``, ms/step, patches/s and peak memory (also kept
+    in STEP_PEAKS[label]); every loss finite and each kernel launched
+    ``launches[name]`` times a step (its bf16 instance with ``bf16``), and
+    with ``modes`` each backward mode ``modes[entry]`` times. Returns (ok,
+    ms)."""
     import torch
 
     reset_launches(wrappers)
@@ -972,8 +1252,14 @@ def time_steps(label, step, state, batch, n_patches, wrappers, launches, warmup,
     n = warmup + timed
     finite = bool(torch.isfinite(torch.stack(losses)).all())
     good = finite and counts == {k: n * v for k, v in launches.items()} and state.step == n
+    by_mode = ""
+    if modes is not None:
+        got = mode_launches(wrappers, bf16)
+        good &= got == {k: n * v for k, v in modes.items()}
+        by_mode = f", by backward mode {got}"
+    STEP_PEAKS[label] = peak
     log(f"training {label}: losses {[round(float(v), 5) for v in losses]} finite {finite}, "
-        f"launches {counts} over {n} steps {'ok' if good else 'FAIL'}")
+        f"launches {counts}{by_mode} over {n} steps {'ok' if good else 'FAIL'}")
     log(f"time {label}: {ms:.2f} ms/step (median of {timed}, min {min(times):.2f}, max "
         f"{max(times):.2f}), {n_patches} patches a step, {1000.0 * n_patches / ms:.3f} "
         f"patches/s, peak {peak:.2f} GiB")
@@ -1014,7 +1300,7 @@ AB_LOSS_TOL, AB_COS_TOL, AB_LEAF_TOL = 1e-3, 1e-5, 1e-2
 AB_SPREAD_FACTOR = 4
 BF16_FIT_STEPS = 2
 BF16_KERNELS = ("conv_block_fwd", "conv_block_fwd_dual", "mc_consensus", "conv_block_bwd",
-                "conv_block_bwd_dual")
+                "conv_block_bwd_dual", *MODE_ENTRIES)
 
 
 def bf16_name(name):
@@ -1128,17 +1414,19 @@ def check_bf16_fwd(entry, label, args, per_forward, binding):
         f"|diff|/max {worst[2]:.3e}; repeat bit-equal {same}; ms {ms:.3f} "
         f"({flops / ms / 1e9:.1f} TFLOP/s) plain_ms {plain_ms:.3f} library_ms (cuDNN bf16) "
         f"{library_ms:.3f} bound_ms {bound:.3f} ({term}) {'ok' if ok else 'FAIL'}")
-    entry["ms"] += per_forward * ms
-    entry["plain_ms"] += per_forward * plain_ms
-    entry["library_ms"] = (entry["library_ms"] or 0.0) + per_forward * library_ms
+    add_times((entry,), per_forward, ms, plain_ms, library_ms)
     return ok
 
 
-def check_bf16_bwd(entry, label, args, need_dx, per_step, binding):
+def check_bf16_bwd(entry, label, args, need_dx, per_step, binding, gp=None, also=None):
     """A bf16 backward block (args (g, x[, xb], h1, h2, h3, w1, w2, w3))
     layer by layer, each layer from the kernel's own cotangent (its da
     workspaces): dW, db within BF16_GRAD_TOL of the largest, da_2, da_1 and
-    dx by :func:`bf16_agree`; twice bit-equal; then times and the bound."""
+    dx by :func:`bf16_agree`; twice bit-equal; then times and the bound.
+    ``gp``: the pooled cotangent (``g`` may be None), da_3 the kernel's
+    first pass, bit-equal to the plain one's (one rounding of a float32
+    sum); cuDNN's time after the pool's transpose; ``also``: a second entry
+    (the mode's) that takes the same numbers."""
     import torch
 
     from pda_torch.kernels import conv_block as kc
@@ -1150,21 +1438,24 @@ def check_bf16_bwd(entry, label, args, need_dx, per_step, binding):
     dual = len(xs) == 2
     ws = (torch.empty_like(h1), torch.empty_like(h1))
     out = kc._launch_bwd(g, xs[0], xs[1] if dual else None, h1, h2, h3, w1, w2, w3, need_dx,
-                         workspaces=ws)
-    again = kc._launch_bwd(g, xs[0], xs[1] if dual else None, h1, h2, h3, w1, w2, w3, need_dx)
+                         workspaces=ws, gp=gp)
+    again = kc._launch_bwd(g, xs[0], xs[1] if dual else None, h1, h2, h3, w1, w2, w3, need_dx,
+                           gp=gp)
     same = all((a is None and b is None) or torch.equal(a, b) for a, b in zip(out, again))
     dxa, dxb, dw1, db1, dw2, db2, dw3, db3 = out
     da1, da2 = ws  # the kernel's da_1 and da_2
     x = torch.cat(xs, dim=-1)
-    da3 = torch.where(h3 > 0, g, 0.0)
-    ok, grad_worst, worst = same, 0.0, (0, 1.0, 0.0)
+    da3 = kc.masked_cotangent_kernel(g, gp, h3)
+    first = torch.equal(da3, kc.masked_cotangent_plain(g, gp, h3))
+    ok, grad_worst, worst = same and first, 0.0, (0, 1.0, 0.0)
     for (dw, db), h_in, da in (((dw3, db3), h2, da3), ((dw2, db2), h1, da2),
                                ((dw1, db1), x, da1)):
         rw, rb = plain_wgrad(h_in, da)
         for a, r in ((dw, rw), (db, rb)):
             err = float((a.double() - r).abs().max()) / (float(r.abs().max()) or 1.0)
             grad_worst = max(grad_worst, err)
-            entry["max_abs_err"] = max(entry["max_abs_err"], float((a.double() - r).abs().max()))
+            for e in filter(None, (entry, also)):
+                e["max_abs_err"] = max(e["max_abs_err"], float((a.double() - r).abs().max()))
     checks = [(da2, plain_dgrad(da3, w3, h2)), (da1, plain_dgrad(da2, w2, h1))]
     if need_dx or dual:
         dx = torch.cat([dxa, dxb], dim=-1) if dual else dxa
@@ -1176,32 +1467,36 @@ def check_bf16_bwd(entry, label, args, need_dx, per_step, binding):
     ok &= grad_worst <= BF16_GRAD_TOL
     del out, again, checks, da3, x
     CHECKED.add(shape_key(entry["name"], args, need_dx))
+    kw = {} if gp is None else {"gp": gp}
     if dual:
-        kernel = lambda: kc.conv_block_bwd_dual(*args)  # noqa: E731
-        plain = lambda: kc.conv_block_bwd_dual_plain(*args)  # noqa: E731
+        kernel = lambda: kc.conv_block_bwd_dual(*args, **kw)  # noqa: E731
+        plain = lambda: kc.conv_block_bwd_dual_plain(*args, **kw)  # noqa: E731
     else:
-        kernel = lambda: kc.conv_block_bwd(*args, need_dx=need_dx)  # noqa: E731
-        plain = lambda: kc.conv_block_bwd_plain(*args, need_dx=need_dx)  # noqa: E731
+        kernel = lambda: kc.conv_block_bwd(*args, need_dx=need_dx, **kw)  # noqa: E731
+        plain = lambda: kc.conv_block_bwd_plain(*args, need_dx=need_dx, **kw)  # noqa: E731
     ms, plain_ms = cuda_ms(kernel), cuda_ms(plain)
-    b, h, w, c = g.shape
+    b, h, w, c = h3.shape
     cin = sum(t.shape[-1] for t in xs)
-    lib_args = (g, torch.cat(xs, dim=-1), h1, h2, h3,
+    lib_args = (torch.cat(xs, dim=-1), h1, h2, h3,
                 *[oihw(t).to(torch.bfloat16) for t in (w1, w2, w3)])
-    library_ms = cuda_ms(lambda: cudnn_block_bwd(*lib_args, need_dx=need_dx or dual))
+    library_ms = cuda_ms(lambda: cudnn_block_bwd(library_cotangent(g, gp, h3), *lib_args,
+                                                 need_dx=need_dx or dual))
     del lib_args
+    mode = "full" if gp is None else "only" if g is None else "with"
     flops = block_flops(b, h, w, cin, c) + dgrad_flops(b, h, w, cin, c, need_dx or dual)
-    bound, term = add_bound(entry, binding, flops,
-                            block_bwd_bytes(b, h, w, cin, c, need_dx or dual), per_step,
-                            PEAK_BF16_FLOPS)
+    nbytes = block_bwd_bytes(b, h, w, cin, c, need_dx or dual, g_mode=mode)
+    bound, term = add_bound(entry, binding, flops, nbytes, per_step, PEAK_BF16_FLOPS)
     log(f"bf16 kernel {label}: per layer dW, db worst |err|/max {grad_worst:.3e} (tol "
         f"{BF16_GRAD_TOL:.0e}); da_2, da_1{', dx' if need_dx or dual else ''} beyond 1 ulp and "
         f"{BF16_ABS_TOL:.0e} of max {worst[0]} elements, bit-equal {worst[1]:.6f}, worst "
-        f"|diff|/max {worst[2]:.3e}; repeat bit-equal {same}; ms {ms:.3f} "
+        f"|diff|/max {worst[2]:.3e}; repeat bit-equal {same}"
+        + ("" if gp is None else f", da_3 bit-equal to the plain version's {first}")
+        + f"; ms {ms:.3f} "
         f"({flops / ms / 1e9:.1f} TFLOP/s) plain_ms {plain_ms:.3f} library_ms (cuDNN bf16) "
         f"{library_ms:.3f} bound_ms {bound:.3f} ({term}) {'ok' if ok else 'FAIL'}")
-    entry["ms"] += per_step * ms
-    entry["plain_ms"] += per_step * plain_ms
-    entry["library_ms"] = (entry["library_ms"] or 0.0) + per_step * library_ms
+    if also is not None:
+        add_bound(also, binding, flops, nbytes, per_step, PEAK_BF16_FLOPS)
+    add_times((entry, also), per_step, ms, plain_ms, library_ms)
     return ok
 
 
@@ -1494,14 +1789,20 @@ def phase_bf16(dev, results, binding, f32_ms):
     gen = torch.Generator().manual_seed(SEED + 3)
     ok = True
 
-    # 1. each body at the tiled forward's and the MT step's shapes (the JSON
-    # line's times: one tiled forward's calls, one MT step's backward)
+    # 1. each body at the tiled forward's and the MT step's shapes, and the
+    # pseudo export's entry block (the JSON line's times: one tiled
+    # forward's calls, one MT step's backward); the checks since the
+    # backward's modes draw from their own generator, so that every other
+    # check, the 512^2 A/B's included, keeps its data
+    gen_modes, seen = torch.Generator().manual_seed(SEED + 14), set()
     with torch.inference_mode():
-        for shape, per_forward in [(s, 2) for s in wl.K1_TILED] + [(wl.K1_POSTERIOR, 0)]:
+        for shape, per_forward, src in ([(s, 2, gen) for s in wl.K1_TILED]
+                                        + [(wl.K1_POSTERIOR, 0, gen),
+                                           (wl.K1_PSEUDO[0], 0, gen_modes)]):
             b, h, w, cin, c = shape
-            x = torch.randn(b, h, w, cin, generator=gen).to(dev).to(bf16)
+            x = torch.randn(b, h, w, cin, generator=src).to(dev).to(bf16)
             ok &= check_bf16_fwd(k1, f"conv_block_fwd {cin}->{c} @{b}x{h}x{w}",
-                                 (x, *conv_weights(gen, cin, c, dev)), per_forward, binding)
+                                 (x, *conv_weights(src, cin, c, dev)), per_forward, binding)
         for b, h, w, ca, cb, c in wl.K2_TILED:
             xa = torch.randn(b, h, w, ca, generator=gen).to(dev).to(bf16)
             xb = torch.randn(b, h, w, cb, generator=gen).to(dev).to(bf16)
@@ -1511,12 +1812,18 @@ def phase_bf16(dev, results, binding, f32_ms):
             feat, *rest = wl.mc_inputs(gen, b, h, w, c, dev=dev)
             ok &= check_bf16_mc(k3, name, (feat.to(bf16), *rest), masking, binding,
                                 int(name == "tiled"))
-    for (b, h, w, cin, c), need_dx, per_step in wl.BWD_SHAPES:
-        g, x, *rest = saved_block(gen, b, h, w, cin, c, dev, bf16)
+    for (b, h, w, cin, c), need_dx, per_step, mode in wl.BWD_SHAPES:
+        g, x, *rest = saved_block(first_draw(gen, gen_modes, seen, (b, h, w, cin, c)),
+                                  b, h, w, cin, c, dev, bf16)
+        gp = None if mode == "full" else torch.randn(b, h // 2, w // 2, c,
+                                                     generator=gen_modes).to(dev).to(bf16)
         ok &= check_bf16_bwd(results[bf16_name("conv_block_bwd")],
-                             f"conv_block_bwd {cin}->{c} @{b}x{h}x{w} need_dx={need_dx}",
-                             (g, x, *rest), need_dx, per_step, binding)
-        del g, x, rest
+                             f"conv_block_bwd {cin}->{c} @{b}x{h}x{w} need_dx={need_dx} "
+                             f"g_mode={mode}", (None if mode == "only" else g, x, *rest),
+                             need_dx, per_step, binding, gp=gp,
+                             also=None if gp is None else results[
+                                 bf16_name("conv_block_bwd_pool")])
+        del g, x, rest, gp
     for b, h, w, ca, cb, c in wl.BWD_DUAL_SHAPES:
         g, x, *rest = saved_block(gen, b, h, w, ca + cb, c, dev, bf16)
         args = (g, x[..., :ca].contiguous(), x[..., ca:].contiguous(), *rest)
@@ -1525,6 +1832,7 @@ def phase_bf16(dev, results, binding, f32_ms):
                              f"conv_block_bwd_dual {ca}+{cb}->{c} @{b}x{h}x{w}", args, True, 1,
                              binding)
         del g, rest, args
+    ok &= recompute_checks(dev, results, binding, gen_modes, bf16)
     torch.cuda.synchronize()
 
     # 2. one 128^2 bf16 MT step on the card against the port's plain bf16 step
@@ -1539,16 +1847,30 @@ def phase_bf16(dev, results, binding, f32_ms):
     ok &= all(passed.values()) and counts == MT_LAUNCHES
     batch = mt_batch(gen, frame, MT_TIME_PATCH, dev)
 
-    # 4. 10 bf16 MT steps at 512^2, batch 2, timed
+    # 4. 10 bf16 MT steps at 512^2, batch 2, timed; then under
+    # PDA_PALLAS_CONV_MODE=mixed, beside them
     step = make_mean_teacher_step(momentum=MT_MOMENTUM, do_consensus_masking=True)
-    good, ms = time_steps(f"MT step MC-{MC} 512^2 batch {MT_BATCH} bf16", step,
-                          bf16_state(model, dev),
+    label = f"MT step MC-{MC} 512^2 batch {MT_BATCH} bf16"
+    good, ms = time_steps(label, step, bf16_state(model, dev),
                           batch, MT_BATCH, wrappers, MT_LAUNCHES, MT_WARMUP, MT_TIMED,
-                          torch.Generator(device=dev).manual_seed(SEED), bf16=True)
+                          torch.Generator(device=dev).manual_seed(SEED), bf16=True,
+                          modes=MT_MODE_LAUNCHES)
     ok &= good
     counted_launches(wrappers, results, bf16=True)
     log(f"time MT step 512^2 batch {MT_BATCH}: bf16 {ms:.2f} ms against float32 "
         + (f"{f32_ms:.2f} ms ({f32_ms / ms:.2f}x)" if f32_ms else "not measured in this run"))
+    mixed = f"{label} PDA_PALLAS_CONV_MODE=mixed"
+    with conv_mode("mixed"):
+        good, mixed_ms = time_steps(mixed, step, bf16_state(model, dev), batch, MT_BATCH,
+                                    wrappers, MIXED_MT_LAUNCHES, MT_WARMUP, MT_TIMED,
+                                    torch.Generator(device=dev).manual_seed(SEED), bf16=True,
+                                    modes=MIXED_MT_MODE_LAUNCHES)
+    ok &= good
+    counted_launches(wrappers, results, bf16=True)
+    log(f"time MT step 512^2 batch {MT_BATCH} bf16: mixed {mixed_ms:.2f} ms, peak "
+        f"{STEP_PEAKS[mixed]:.2f} GiB against the default's {ms:.2f} ms, peak "
+        f"{STEP_PEAKS[label]:.2f} GiB ({mixed_ms / ms:.3f}x the time, "
+        f"{STEP_PEAKS[mixed] / STEP_PEAKS[label]:.3f}x the peak)")
 
     # 5. tiled MC-16 serving of the frame in bf16
     serve = livecell_punet(generator=torch.Generator().manual_seed(SEED), device=dev,
@@ -1874,8 +2196,21 @@ def kernel_wrappers():
 
 
 def reset_launches(wrappers):
+    from pda_torch.kernels.conv_block import BWD_MODES
+
     for w in wrappers.values():
         w.launches = w.launches_bf16 = 0
+        for name in (f"launches_{m}{s}" for m in BWD_MODES for s in ("", "_bf16")):
+            if hasattr(w, name):
+                setattr(w, name, 0)
+
+
+def mode_launches(wrappers, bf16=False):
+    """The backward modes' launches since :func:`reset_launches`, by JSON
+    entry (MODE_ENTRIES), of the float32 or (``bf16``) the bf16 instances."""
+    suffix = "_bf16" if bf16 else ""
+    return {name: getattr(wrappers[kernel], f"launches_{mode}{suffix}")
+            for name, (kernel, mode) in MODE_ENTRIES.items()}
 
 
 def read_launches(wrappers, bf16=False):
@@ -1888,7 +2223,7 @@ def counted_launches(wrappers, results, bf16=False):
     """The launches since :func:`reset_launches` of a main path's run, added
     to the JSON line's counts (of the bf16 instances' entries with ``bf16``)."""
     counts = read_launches(wrappers, bf16)
-    for k, n in counts.items():
+    for k, n in {**counts, **mode_launches(wrappers, bf16)}.items():
         results[bf16_name(k) if bf16 else k]["launches"] += n
     return counts
 
@@ -2465,6 +2800,9 @@ def check_shapes(dev, results, binding, census, timed=False):
     ok = True
     with torch.inference_mode(), torch.device(dev):
         for name, shape in todo:
+            # the float64 references of the largest shapes (36 tiles of
+            # 512^2) take tens of GiB: hand the cache of the one before back
+            torch.cuda.empty_cache()
             entry = results[name]
             if name == "conv_block_fwd":
                 b, h, w, cin, c = shape
@@ -3495,7 +3833,13 @@ def main(argv=None) -> int:
                    ("conv_block_bwd", "pda_torch/kernels/csrc/conv_block_bwd.cu",
                     "pda/kernels/conv_block_bwd.py:402"),
                    ("conv_block_bwd_dual", "pda_torch/kernels/csrc/conv_block_bwd.cu",
-                    "pda/kernels/conv_block_bwd.py:502"))}
+                    "pda/kernels/conv_block_bwd.py:502"),
+                   ("conv_block_bwd_pool", "pda_torch/kernels/csrc/conv_block_bwd.cu",
+                    "pda/kernels/conv_block_packed_bwd.py:501"),
+                   ("conv_block_bwd_recompute", "pda_torch/kernels/csrc/conv_block_bwd.cu",
+                    "pda/kernels/conv_block_bwd.py:610"),
+                   ("conv_block_bwd_dual_recompute", "pda_torch/kernels/csrc/conv_block_bwd.cu",
+                    "pda/kernels/conv_block_bwd.py:610"))}
     binding = {}  # (kernel, "operations" or "bytes") -> ms of bound that term sets
     ok = True
     try:
@@ -3549,9 +3893,15 @@ def main(argv=None) -> int:
         "forward, its three "
         "convolution_backward calls with the ReLU masks between them for the backward "
         "(cudnn.benchmark on at 128->256), TF32 off; none for mc_consensus (no single PyTorch "
-        "call computes it); mc_consensus: the tiled forward's call; launches: the main "
+        "call computes it); mc_consensus: the tiled forward's call; conv_block_bwd_pool: "
+        "the MT step's 9 backwards that read the pooled cotangent (also in conv_block_bwd's "
+        "sums and count), library_ms there after the pool's transpose (avg_pool2d_backward) "
+        "and the add; conv_block_bwd[_dual]_recompute: one call at "
+        "workload.RECOMPUTE[_DUAL]_SHAPE, library_ms cuDNN's first two layers then its "
+        "backward; launches: the main "
         "paths' runs, each counted from 0: both serving entries, the checked MT step, the "
-        "bf16 phase's timed MT steps and tiled serving, the "
+        "checked PDA_PALLAS_CONV_MODE=mixed step (the recompute entries' float32 count), the "
+        "bf16 phase's timed MT steps (default and mixed) and tiled serving, the "
         "other PUNet steps and the UNet2d path at the flagship's widths, the flagship's "
         "MeanTeacherTrainer.fit, the experiments phase's LIVECell CLIs, the mitoem phase's "
         "MitoEM CLIs and the lung phase's Lung X-Ray CLIs (the checks' runs are logged on "

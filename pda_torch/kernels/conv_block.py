@@ -18,6 +18,24 @@ dgrad run on the tensor cores in 3xTF32 (:mod:`.tf32x3`), float32-accurate.
 dx is computed only when autograd asks for it: an entry block, whose input
 is the image, takes none (``pda``'s ``need_dx=False``).
 
+Two more modes of the same backward, as ``pda``'s kernels have them:
+
+* the pooled cotangent (``pda``'s ``gpf``): :func:`conv_block_fwd_pool` is
+  the block followed by the 2x2 average pool of its output
+  (:func:`avg_pool_2x2`), returning the pooled map ("only") or the block's
+  output and the pooled map ("with": the backbone's skip and the next
+  level's input). Its backward hands both cotangents to one
+  :func:`conv_block_bwd` launch (``gp=``), which forms
+  ``round(g + 0.25 * gp[p / 2])`` under the ReLU mask, so neither the pool's
+  transposed cotangent nor its sum with the skip's exists in memory;
+* recompute (``pda``'s ``PDA_PALLAS_CONV_MODE=mixed``, ``conv3_relu_mixed``):
+  :func:`conv_block_fwd_mixed` / :func:`conv_block_fwd_dual_mixed` run the
+  forward as ``pda``'s XLA forward, conv + bias + ReLU layer by layer
+  (:func:`autodiff_layers`, cuDNN on the card), and keep only the input and
+  h3; their backward rebuilds h1 and h2 inside the backward's entry (``h1``,
+  ``h2`` None, the biases ``b1``, ``b2`` given) with the forward kernel's
+  layer bodies, for the memory between the forward and the backward.
+
 The forward's layers run on the tensor cores in 3xTF32 too
 (``csrc/conv3x3_tc.cuh``, the body the dgrad shares), so on the card the
 forward is about 1e-6 of its largest value off a float64 reference, no
@@ -63,10 +81,12 @@ _VP = ctypes.c_void_p
 _I = ctypes.c_int
 _FWD_ARGTYPES = (_VP, _VP, _I, _I, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP,
                  _I, _I, _I, _I, _VP)
-# x, Cin, w1..w3, h1..h3, g, dx, dw1, db1, .., db3, da1, da2, work, B, H, W, C, need_dx
-_BWD_ARGTYPES = (_VP, _I, *[_VP] * 17, *[_I] * 5, _VP)
-# xa, xb, Ca, Cb, w1..w3, h1..h3, g, dxa, dxb, dw1, .., db3, da1, da2, work, B, H, W, C
-_BWD_DUAL_ARGTYPES = (_VP, _VP, _I, _I, *[_VP] * 18, *[_I] * 4, _VP)
+# x, Cin, w1..w3, f1, b1, f2, b2, h1..h3, g, gp, dx, dw1, db1, .., db3, da1, da2, work,
+# B, H, W, C, need_dx, recompute
+_BWD_ARGTYPES = (_VP, _I, *[_VP] * 22, *[_I] * 6, _VP)
+# xa, xb, Ca, Cb, w1..w3, f1, b1, f2, b2, h1..h3, g, gp, dxa, dxb, dw1, .., db3, da1,
+# da2, work, B, H, W, C, recompute
+_BWD_DUAL_ARGTYPES = (_VP, _VP, _I, _I, *[_VP] * 23, *[_I] * 5, _VP)
 
 
 _BF16 = torch.bfloat16
@@ -138,13 +158,56 @@ def conv_relu_layer(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.
     return F.relu(F.conv2d(x, w.permute(3, 2, 0, 1), b, padding=1))
 
 
-def _plain_layers(x, w1, b1, w2, b2, w3, b3) -> list:
-    """[h1, h2, h3] of the plain forward, each an NCHW view."""
+def _plain_layers(x, *weights) -> list:
+    """[h1, h2, h3] of the plain forward (or [h1, h2] given w1, b1, w2, b2),
+    each an NCHW view."""
     hs, h = [], x.permute(0, 3, 1, 2)
-    for w, b in ((w1, b1), (w2, b2), (w3, b3)):
+    for w, b in zip(weights[::2], weights[1::2]):
         h = conv_relu_layer(h, w, b)
         hs.append(h)
     return hs
+
+
+def autodiff_conv_relu(h: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """One NCHW SAME conv + bias + ReLU with an OIHW weight, as ``pda``'s
+    autodiff convs compute it (``jnp.maximum(_conv_same(h, w) + b, 0)``):
+    in bf16 the conv of bf16 operands rounded to bf16, then the bias (in
+    bf16) added in bf16. ``F.conv2d``: cuDNN on the card, in bf16 there (its
+    float32 sums rounded to bf16 once: the same rounding point, which the
+    CPU gives with a float32 conv of the bf16 values)."""
+    if h.dtype == _BF16:
+        wb = w.to(_BF16)
+        y = (F.conv2d(h, wb, padding=1) if h.is_cuda
+             else F.conv2d(h.float(), wb.float(), padding=1).to(_BF16))
+        return F.relu(y + b.to(_BF16)[:, None, None])
+    return F.relu(F.conv2d(h, w, b, padding=1))
+
+
+def autodiff_layers(x, w1, b1, w2, b2, w3, b3) -> torch.Tensor:
+    """The block as ``pda``'s XLA forward computes it (:func:`autodiff_conv_relu`
+    a layer, HWIO kernels), NHWC: the forward of the mixed mode."""
+    h = x.permute(0, 3, 1, 2)
+    for w, b in ((w1, b1), (w2, b2), (w3, b3)):
+        h = autodiff_conv_relu(h, w.permute(3, 2, 0, 1), b)
+    return h.permute(0, 2, 3, 1).contiguous()
+
+
+def avg_pool_2x2(x: torch.Tensor) -> torch.Tensor:
+    """2x2 / stride-2 average pool of (B, H, W, C); H and W must be even.
+    In bf16 as ``pda``'s flat pipeline pools, the path its bf16 models take
+    wherever its kernels run (``flat_ops.pool_flat_packed``,
+    ``pool_flat``): the row pairs summed and rounded to bf16, the column
+    pairs summed and rounded, times 0.25 (exact). (Its image-path
+    ``avg_pool_2x2``, flax's window sum in bf16, rounds after each of the
+    four adds instead.)"""
+    b, h, w, c = x.shape
+    if h % 2 or w % 2:
+        raise ValueError(f"avg_pool_2x2 needs even spatial dims, got {tuple(x.shape)}")
+    x6 = x.reshape(b, h // 2, 2, w // 2, 2, c)
+    if x.dtype != _BF16:
+        return x6.mean(dim=(2, 4))
+    rows = (x6[:, :, 0].float() + x6[:, :, 1].float()).to(_BF16)
+    return (rows[..., 0, :].float() + rows[..., 1, :].float()).to(_BF16) * 0.25
 
 
 def conv_block_fwd_plain(x, w1, b1, w2, b2, w3, b3) -> torch.Tensor:
@@ -169,13 +232,32 @@ def _wgrad_plain(h_in: torch.Tensor, da: torch.Tensor) -> torch.Tensor:
                                      for kx in range(3)]) for ky in range(3)])
 
 
-def conv_block_bwd_plain(g, x, h1, h2, h3, w1, w2, w3, need_dx: bool = True):
+def masked_cotangent_plain(g, gp, h3) -> torch.Tensor:
+    """Plain version of the backward's first pass: ``[h3 > 0] * g`` or, with
+    the pooled cotangent ``gp`` (B, H/2, W/2, C), ``[h3 > 0] * round(g +
+    0.25 * gp[p / 2])`` (``g`` may be None): the pool's transpose, then the
+    add, in :func:`plain_acc` in bf16, rounded once (float32 as autograd of
+    the pool and the add computes it)."""
+    if gp is None:
+        return torch.where(h3 > 0, g, 0.0)
+    acc = plain_acc(gp) if gp.dtype == _BF16 else gp.dtype
+    v = 0.25 * gp.to(acc).repeat_interleave(2, dim=1).repeat_interleave(2, dim=2)
+    if g is not None:
+        v = g.to(acc) + v
+    return torch.where(h3 > 0, v.to(h3.dtype), 0.0)
+
+
+def conv_block_bwd_plain(g, x, h1, h2, h3, w1, w2, w3, need_dx: bool = True, *, gp=None,
+                         b1=None, b2=None):
     """Plain PyTorch version of the ConvBlock backward: ``pda``'s hand VJP
     (``blocks.py`` ``_conv3_bwd``). For layer 3, 2, 1: the ReLU mask
     ``da = dh * [h > 0]``, the weight gradient summed over B, H, W
     (:func:`_wgrad_plain`), the bias gradient ``sum(da)``, and the dgrad, a
     SAME conv of ``da`` with the kernel flipped in space and its in/out
-    channels swapped.
+    channels swapped. With the pooled cotangent ``gp`` (``g`` may then be
+    None), layer 3's da is :func:`masked_cotangent_plain`'s; with ``h1``,
+    ``h2`` None (recompute), they are rebuilt from ``x`` with the biases
+    ``b1``, ``b2`` as the forward kernel computes them.
 
     Returns ``(dx or None, dw1, db1, dw2, db2, dw3, db3)``: dx NHWC, dW HWIO.
     In bf16 (``g``, ``x``, h1..h3 bf16, the weights float32) as the bf16
@@ -183,11 +265,13 @@ def conv_block_bwd_plain(g, x, h1, h2, h3, w1, w2, w3, need_dx: bool = True):
     and the dgrad of bf16 operands (the kernel rounded to bf16) summed in
     :func:`plain_acc`, the dgrad rounded to bf16 once, so da and dx are bf16
     and dW, db float32."""
-    bf16 = g.dtype == _BF16
-    acc = plain_acc(g)
-    dout, grads = g, []
+    if h1 is None:
+        h1, h2 = _nhwc(_plain_layers(x, w1, b1, w2, b2))
+    bf16 = h3.dtype == _BF16
+    acc = plain_acc(h3)
+    dout, grads = masked_cotangent_plain(g, gp, h3), []
     for k, (h_out, h_in, w) in enumerate(((h3, h2, w3), (h2, h1, w2), (h1, x, w1))):
-        da = torch.where(h_out > 0, dout, 0.0)
+        da = dout if k == 0 else torch.where(h_out > 0, dout, 0.0)
         if bf16:
             da, h_in, w = da.to(acc), h_in.to(acc), bf16_operand(w, acc)
             grads = [_wgrad_plain(h_in, da).float(), da.sum(dim=(0, 1, 2)).float()] + grads
@@ -202,11 +286,12 @@ def conv_block_bwd_plain(g, x, h1, h2, h3, w1, w2, w3, need_dx: bool = True):
     return (dx, *grads)
 
 
-def conv_block_bwd_dual_plain(g, xa, xb, h1, h2, h3, w1, w2, w3):
+def conv_block_bwd_dual_plain(g, xa, xb, h1, h2, h3, w1, w2, w3, *, gp=None, b1=None,
+                              b2=None):
     """Plain PyTorch version of the dual backward: the block's backward on
     ``cat([xa, xb])``, dx split back. Returns ``(dxa, dxb, dw1, .., db3)``."""
     dx, *grads = conv_block_bwd_plain(g, torch.cat([xa, xb], dim=-1), h1, h2, h3,
-                                      w1, w2, w3)
+                                      w1, w2, w3, gp=gp, b1=b1, b2=b2)
     ca = xa.shape[-1]
     return (dx[..., :ca].contiguous(), dx[..., ca:].contiguous(), *grads)
 
@@ -262,59 +347,148 @@ def _launch(xa: torch.Tensor, xb: Optional[torch.Tensor], w1, b1, w2, b2, w3, b3
     return h1, h2, h3
 
 
-def _launch_bwd(g, xa, xb, h1, h2, h3, w1, w2, w3, need_dx: bool, workspaces=None):
+def _launch_bwd(g, xa, xb, h1, h2, h3, w1, w2, w3, need_dx: bool, workspaces=None, *,
+                gp=None, b1=None, b2=None):
     """(dxa or None, dxb or None, dw1, db1, dw2, db2, dw3, db3) of the
     backward kernel; the dual entry (xb given) always computes dxa, dxb. In
     x's dtype (float32 or bf16: dx too), dW and db float32. ``workspaces``:
     the two (B, H, W, C) buffers of the layers' masked cotangents, which
-    then hold da_1 and da_2 after the call (allocated here if None)."""
+    then hold da_1 and da_2 after the call (allocated here if None).
+    ``gp``: the cotangent of the 2x2 average pool of h3, (B, H/2, W/2, C),
+    beside ``g`` or instead of it (``g`` None). ``h1``, ``h2`` None: the
+    kernel recomputes them from x into buffers of this call, with the
+    forward's layers and the biases ``b1``, ``b2``."""
     dev, dtype = xa.device, xa.dtype
     bsz, h, w, ca, cb, c = _check_block(xa, xb, w1, w2, w3)
-    for name, t in (("g", g), ("h1", h1), ("h2", h2), ("h3", h3)):
-        _build.check_tensor(name, t, (bsz, h, w, c), dev, (dtype,))
+    recompute = h1 is None or h2 is None
+    if recompute and (h1 is not None or h2 is not None or b1 is None or b2 is None):
+        raise ValueError("recompute takes h1 = h2 = None and the biases b1, b2")
+    if g is None and gp is None:
+        raise ValueError("the backward needs the cotangent g, the pooled gp or both")
+    if gp is not None and (h % 2 or w % 2):
+        raise ValueError(f"a pooled cotangent needs even H and W, got {h}x{w}")
+    for name, t, shape in (("g", g, (bsz, h, w, c)), ("gp", gp, (bsz, h // 2, w // 2, c)),
+                           ("h1", h1, (bsz, h, w, c)), ("h2", h2, (bsz, h, w, c)),
+                           ("h3", h3, (bsz, h, w, c))):
+        if t is not None:
+            _build.check_tensor(name, t, shape, dev, (dtype,))
+    if recompute:
+        for name, t in (("b1", b1), ("b2", b2)):
+            _build.check_tensor(name, t, (c,), dev)
     need_dx = need_dx or xb is not None
     dxa = torch.empty_like(xa) if need_dx else None
     dxb = None if xb is None else torch.empty_like(xb)
     grads = [torch.empty_like(w1), w1.new_empty(c), torch.empty_like(w2), w1.new_empty(c),
              torch.empty_like(w3), w1.new_empty(c)]
-    if g.numel() == 0:
+    if h3.numel() == 0:
         return tuple(None if t is None else t.zero_() for t in (dxa, dxb, *grads))
     # the chunk count of the wgrad, so the workspace, depends on the card
     suffix = _suffix(dtype)
     n_work = _build.entry("pda_conv_block_bwd_work" + suffix, (_I,) * 5, ctypes.c_longlong)
     # da_3, da_2, da_1 (each layer's masked output cotangent) in two buffers
-    da1, da2 = workspaces or (torch.empty_like(h1), torch.empty_like(h1))
+    da1, da2 = workspaces or (torch.empty_like(h3), torch.empty_like(h3))
     for name, t in (("da1", da1), ("da2", da2)):
         _build.check_tensor(name, t, (bsz, h, w, c), dev, (dtype,))
     with torch.cuda.device(dev):
         kernels = [t.to(dtype) for t in (w1, w2, w3)]  # HWIO, as the dgrad reads them
-        tail = [t.data_ptr() for t in (*kernels, h1, h2, h3, g)]
+        if recompute:  # HWOI, as the forward's layers read them; h1, h2 of this call
+            fwd = [_hwoi(kernels[0]), b1, _hwoi(kernels[1]), b2]
+            h1, h2 = torch.empty_like(h3), torch.empty_like(h3)
+        else:
+            fwd = [None] * 4
+        ptr = [None if t is None else t.data_ptr() for t in (*kernels, *fwd, h1, h2, h3, g, gp)]
         work = w1.new_empty(n_work(bsz, h, w, ca + cb, c))
         outs = [t.data_ptr() for t in (*grads, da1, da2, work)]
         stream = torch.cuda.current_stream(dev).cuda_stream
         if xb is None:
             fn = _build.entry("pda_conv_block_bwd" + suffix, _BWD_ARGTYPES)
-            code = fn(xa.data_ptr(), ca, *tail, None if dxa is None else dxa.data_ptr(),
-                      *outs, bsz, h, w, c, int(need_dx), stream)
+            code = fn(xa.data_ptr(), ca, *ptr, None if dxa is None else dxa.data_ptr(),
+                      *outs, bsz, h, w, c, int(need_dx), int(recompute), stream)
         else:
             fn = _build.entry("pda_conv_block_bwd_dual" + suffix, _BWD_DUAL_ARGTYPES)
-            code = fn(xa.data_ptr(), xb.data_ptr(), ca, cb, *tail, dxa.data_ptr(),
-                      dxb.data_ptr(), *outs, bsz, h, w, c, stream)
+            code = fn(xa.data_ptr(), xb.data_ptr(), ca, cb, *ptr, dxa.data_ptr(),
+                      dxb.data_ptr(), *outs, bsz, h, w, c, int(recompute), stream)
     _build.check(code, "conv_block_bwd")
     return (dxa, dxb, *grads)
 
 
-def count_launch(wrapper, dtype: torch.dtype) -> None:
+def masked_cotangent_kernel(g, gp, h3) -> torch.Tensor:
+    """The backward kernel's first pass alone on CUDA tensors (the C entry
+    ``pda_masked_cotangent``): da_3 of :func:`masked_cotangent_plain`, for a
+    check against it. Counts no launch: the backward's wrappers count theirs."""
+    dev, dtype = h3.device, h3.dtype
+    bsz, h, w, c = h3.shape
+    _build.check_tensor("h3", h3, (bsz, h, w, c), dev, _build.FLOAT32_BF16)
+    for name, t, shape in (("g", g, (bsz, h, w, c)), ("gp", gp, (bsz, h // 2, w // 2, c))):
+        if t is not None:
+            _build.check_tensor(name, t, shape, dev, (dtype,))
+    da = torch.empty_like(h3)
+    fn = _build.entry("pda_masked_cotangent" + _suffix(dtype), (_VP,) * 4 + (_I,) * 4 + (_VP,))
+    with torch.cuda.device(dev):
+        code = fn(*(None if t is None else t.data_ptr() for t in (g, gp, h3, da)), bsz, h, w, c,
+                  torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(code, "masked_cotangent")
+    return da
+
+
+def count_launch(wrapper, dtype: torch.dtype, modes=()) -> None:
     """One launch of ``wrapper``'s kernel in ``dtype``: its float32 count
-    (``launches``) or its bf16 count (``launches_bf16``)."""
-    if dtype == _BF16:
-        wrapper.launches_bf16 += 1
-    else:
-        wrapper.launches += 1
+    (``launches``) or its bf16 count (``launches_bf16``); a backward launch
+    in a mode ("pool", "recompute") also adds one to each of its modes'
+    counts (``launches_pool``, ``launches_recompute_bf16``, ...)."""
+    suffix = "_bf16" if dtype == _BF16 else ""
+    for name in ("launches", *(f"launches_{m}" for m in modes)):
+        setattr(wrapper, name + suffix, getattr(wrapper, name + suffix) + 1)
 
 
 def _nhwc(hs) -> tuple:
     return tuple(h.permute(0, 2, 3, 1).contiguous() for h in hs)
+
+
+def _block_forward(ctx, xs, weights, mixed: bool, name: str) -> torch.Tensor:
+    """h3 of the block on ``[xs]`` (one or two inputs), with what its
+    backward needs saved: the inputs, h1, h2, h3 and the kernels from the
+    forward kernel (or its plain version on the CPU); under ``mixed``, the
+    output of :func:`autodiff_layers` (``pda``'s XLA forward, no launch of
+    ours), and only the inputs, h3, the kernels and b1, b2."""
+    w1, b1, w2, b2, w3, b3 = weights
+    ctx.mixed, ctx.n_inputs = mixed, len(xs)
+    if mixed:
+        x = xs[0] if len(xs) == 1 else torch.cat(xs, dim=-1)
+        h3 = autodiff_layers(x, *weights)
+        ctx.save_for_backward(*xs, h3, w1, w2, w3, b1, b2)
+        return h3
+    if runs_plain(xs[0], name):
+        x = xs[0] if len(xs) == 1 else torch.cat(xs, dim=-1)
+        h1, h2, h3 = _nhwc(_plain_layers(x, *weights))
+    else:
+        h1, h2, h3 = _launch(xs[0], xs[1] if len(xs) > 1 else None, *weights)
+        count_launch(conv_block_fwd if len(xs) == 1 else conv_block_fwd_dual, xs[0].dtype)
+    ctx.save_for_backward(*xs, h1, h2, h3, w1, w2, w3)
+    return h3
+
+
+def _block_backward(ctx, g, gp=None) -> tuple:
+    """The gradients of the block's inputs and weights from the cotangent
+    of h3 and/or of its pool, through one fused backward call."""
+    n = ctx.n_inputs
+    xs, rest = ctx.saved_tensors[:n], ctx.saved_tensors[n:]
+    if ctx.mixed:
+        h3, w1, w2, w3, b1, b2 = rest
+        h1 = h2 = None
+    else:
+        h1, h2, h3, w1, w2, w3 = rest
+        b1 = b2 = None
+    g = None if g is None else g.contiguous()
+    gp = None if gp is None else gp.contiguous()
+    need = ctx.needs_input_grad[-6 - n:-6]
+    if n == 1:
+        dx, *grads = conv_block_bwd(g, xs[0], h1, h2, h3, w1, w2, w3, need_dx=need[0],
+                                    gp=gp, b1=b1, b2=b2)
+        return (dx, *grads)
+    dxa, dxb, *grads = conv_block_bwd_dual(g, *xs, h1, h2, h3, w1, w2, w3, gp=gp, b1=b1,
+                                           b2=b2)
+    return (dxa if need[0] else None, dxb if need[1] else None, *grads)
 
 
 class _ConvBlock(torch.autograd.Function):
@@ -322,19 +496,11 @@ class _ConvBlock(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, w1, b1, w2, b2, w3, b3):
-        if runs_plain(x, "conv_block_fwd"):
-            h1, h2, h3 = _nhwc(_plain_layers(x, w1, b1, w2, b2, w3, b3))
-        else:
-            h1, h2, h3 = _launch(x, None, w1, b1, w2, b2, w3, b3)
-            count_launch(conv_block_fwd, x.dtype)
-        ctx.save_for_backward(x, h1, h2, h3, w1, w2, w3)
-        return h3
+        return _block_forward(ctx, (x,), (w1, b1, w2, b2, w3, b3), False, "conv_block_fwd")
 
     @staticmethod
     def backward(ctx, g):
-        x, h1, h2, h3, w1, w2, w3 = ctx.saved_tensors
-        return conv_block_bwd(g.contiguous(), x, h1, h2, h3, w1, w2, w3,
-                              need_dx=ctx.needs_input_grad[0])
+        return _block_backward(ctx, g)
 
 
 class _ConvBlockDual(torch.autograd.Function):
@@ -342,21 +508,59 @@ class _ConvBlockDual(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, xa, xb, w1, b1, w2, b2, w3, b3):
-        if runs_plain(xa, "conv_block_fwd_dual"):
-            h1, h2, h3 = _nhwc(_plain_layers(torch.cat([xa, xb], dim=-1),
-                                             w1, b1, w2, b2, w3, b3))
-        else:
-            h1, h2, h3 = _launch(xa, xb, w1, b1, w2, b2, w3, b3)
-            count_launch(conv_block_fwd_dual, xa.dtype)
-        ctx.save_for_backward(xa, xb, h1, h2, h3, w1, w2, w3)
-        return h3
+        return _block_forward(ctx, (xa, xb), (w1, b1, w2, b2, w3, b3), False,
+                              "conv_block_fwd_dual")
 
     @staticmethod
     def backward(ctx, g):
-        xa, xb, h1, h2, h3, w1, w2, w3 = ctx.saved_tensors
-        dxa, dxb, *grads = conv_block_bwd_dual(g.contiguous(), xa, xb, h1, h2, h3, w1, w2, w3)
-        need = ctx.needs_input_grad
-        return (dxa if need[0] else None, dxb if need[1] else None, *grads)
+        return _block_backward(ctx, g)
+
+
+class _ConvBlockMixed(torch.autograd.Function):
+    """``pda``'s ``conv3_relu_mixed``: the forward's plain layers, saving x
+    and h3 only; the fused backward recomputes h1 and h2."""
+
+    @staticmethod
+    def forward(ctx, x, w1, b1, w2, b2, w3, b3):
+        return _block_forward(ctx, (x,), (w1, b1, w2, b2, w3, b3), True, "conv_block_fwd")
+
+    @staticmethod
+    def backward(ctx, g):
+        return _block_backward(ctx, g)
+
+
+class _ConvBlockDualMixed(torch.autograd.Function):
+    """The mixed mode of the block on ``[xa | xb]``: saves xa, xb and h3."""
+
+    @staticmethod
+    def forward(ctx, xa, xb, w1, b1, w2, b2, w3, b3):
+        return _block_forward(ctx, (xa, xb), (w1, b1, w2, b2, w3, b3), True,
+                              "conv_block_fwd_dual")
+
+    @staticmethod
+    def backward(ctx, g):
+        return _block_backward(ctx, g)
+
+
+class _ConvBlockPool(torch.autograd.Function):
+    """The block, then the 2x2 average pool of its output; the backward
+    takes the pool's cotangent (and the output's, with ``keep_full``) in one
+    fused backward call. ``mixed``: the forward and the saved tensors of
+    :class:`_ConvBlockMixed`."""
+
+    @staticmethod
+    def forward(ctx, keep_full, mixed, x, w1, b1, w2, b2, w3, b3):
+        ctx.set_materialize_grads(False)
+        h3 = _block_forward(ctx, (x,), (w1, b1, w2, b2, w3, b3), mixed, "conv_block_fwd")
+        pooled = avg_pool_2x2(h3)
+        return (h3, pooled) if keep_full else pooled
+
+    @staticmethod
+    def backward(ctx, *grads):
+        g, gp = grads if len(grads) == 2 else (None, grads[0])
+        if g is None and gp is None:
+            return (None,) * 9
+        return (None, None, *_block_backward(ctx, g, gp))
 
 
 def conv_block_fwd(x, w1, b1, w2, b2, w3, b3) -> torch.Tensor:
@@ -371,28 +575,69 @@ def conv_block_fwd_dual(xa, xb, w1, b1, w2, b2, w3, b3) -> torch.Tensor:
     return _ConvBlockDual.apply(xa, xb, w1, b1, w2, b2, w3, b3)
 
 
-def conv_block_bwd(g, x, h1, h2, h3, w1, w2, w3, need_dx: bool = True):
+def conv_block_fwd_mixed(x, w1, b1, w2, b2, w3, b3) -> torch.Tensor:
+    """The ConvBlock in ``pda``'s mixed mode: :func:`autodiff_layers`
+    forward, saving x and h3; differentiable through :func:`conv_block_bwd`
+    with recompute."""
+    return _ConvBlockMixed.apply(x, w1, b1, w2, b2, w3, b3)
+
+
+def conv_block_fwd_dual_mixed(xa, xb, w1, b1, w2, b2, w3, b3) -> torch.Tensor:
+    """The block on ``[xa | xb]`` in the mixed mode, saving xa, xb and h3;
+    differentiable through :func:`conv_block_bwd_dual` with recompute."""
+    return _ConvBlockDualMixed.apply(xa, xb, w1, b1, w2, b2, w3, b3)
+
+
+def conv_block_fwd_pool(x, w1, b1, w2, b2, w3, b3, keep_full: bool, mixed: bool = False):
+    """The ConvBlock, then :func:`avg_pool_2x2` of its output: the pooled
+    map, or with ``keep_full`` ``(h3, pooled)``; differentiable through one
+    :func:`conv_block_bwd` call that takes the pool's cotangent (``gp``).
+    ``mixed``: the forward and the recompute backward of
+    :func:`conv_block_fwd_mixed`."""
+    return _ConvBlockPool.apply(keep_full, mixed, x, w1, b1, w2, b2, w3, b3)
+
+
+def conv_block_bwd(g, x, h1, h2, h3, w1, w2, w3, need_dx: bool = True, *, gp=None, b1=None,
+                   b2=None):
     """The fused ConvBlock backward from the saved h1, h2, h3 and the
-    cotangent ``g`` of h3: ``(dx or None, dw1, db1, dw2, db2, dw3, db3)``."""
-    if runs_plain(g, "conv_block_bwd"):
-        return conv_block_bwd_plain(g, x, h1, h2, h3, w1, w2, w3, need_dx)
-    dx, _, *grads = _launch_bwd(g, x, None, h1, h2, h3, w1, w2, w3, need_dx)
-    count_launch(conv_block_bwd, g.dtype)
+    cotangent ``g`` of h3: ``(dx or None, dw1, db1, dw2, db2, dw3, db3)``.
+    ``gp``: the cotangent of h3's 2x2 average pool, beside ``g`` or instead
+    of it (``g`` None). ``h1``, ``h2`` None: recomputed from ``x`` with the
+    biases ``b1``, ``b2`` (the mixed mode)."""
+    if runs_plain(h3, "conv_block_bwd"):
+        return conv_block_bwd_plain(g, x, h1, h2, h3, w1, w2, w3, need_dx, gp=gp, b1=b1, b2=b2)
+    dx, _, *grads = _launch_bwd(g, x, None, h1, h2, h3, w1, w2, w3, need_dx, gp=gp, b1=b1,
+                                b2=b2)
+    count_launch(conv_block_bwd, h3.dtype, _modes(gp, h1))
     return (dx, *grads)
 
 
-def conv_block_bwd_dual(g, xa, xb, h1, h2, h3, w1, w2, w3):
+def conv_block_bwd_dual(g, xa, xb, h1, h2, h3, w1, w2, w3, *, gp=None, b1=None, b2=None):
     """The fused backward of the block on ``[xa | xb]``:
-    ``(dxa, dxb, dw1, db1, dw2, db2, dw3, db3)``."""
-    if runs_plain(g, "conv_block_bwd_dual"):
-        return conv_block_bwd_dual_plain(g, xa, xb, h1, h2, h3, w1, w2, w3)
-    out = _launch_bwd(g, xa, xb, h1, h2, h3, w1, w2, w3, True)
-    count_launch(conv_block_bwd_dual, g.dtype)
+    ``(dxa, dxb, dw1, db1, dw2, db2, dw3, db3)``; ``gp``, and ``h1``, ``h2``
+    None with ``b1``, ``b2``, as :func:`conv_block_bwd` takes them."""
+    if runs_plain(h3, "conv_block_bwd_dual"):
+        return conv_block_bwd_dual_plain(g, xa, xb, h1, h2, h3, w1, w2, w3, gp=gp, b1=b1, b2=b2)
+    out = _launch_bwd(g, xa, xb, h1, h2, h3, w1, w2, w3, True, gp=gp, b1=b1, b2=b2)
+    count_launch(conv_block_bwd_dual, h3.dtype, _modes(gp, h1))
     return out
 
 
+def _modes(gp, h1) -> tuple:
+    """The backward modes of a launch: "pool" (a pooled cotangent) and/or
+    "recompute" (h1, h2 not saved)."""
+    return (("pool",) if gp is not None else ()) + (("recompute",) if h1 is None else ())
+
+
 #: launches of the CUDA kernel since the count was last set to 0: its
-#: float32 instance (``launches``) and its bf16 instance (``launches_bf16``)
+#: float32 instance (``launches``) and its bf16 instance (``launches_bf16``);
+#: the backwards' launches in a mode also count in ``launches_<mode>[_bf16]``
+#: (:data:`BWD_MODES`)
+BWD_MODES = ("pool", "recompute")
 for _fn in (conv_block_fwd, conv_block_fwd_dual, conv_block_bwd, conv_block_bwd_dual):
     _fn.launches = _fn.launches_bf16 = 0
-del _fn
+for _fn in (conv_block_bwd, conv_block_bwd_dual):
+    for _m in BWD_MODES:
+        setattr(_fn, f"launches_{_m}", 0)
+        setattr(_fn, f"launches_{_m}_bf16", 0)
+del _fn, _m

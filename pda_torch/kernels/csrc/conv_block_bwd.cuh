@@ -19,7 +19,7 @@
 // pda_conv_block_bwd_dual (input [xa | xb], dxa and dxb written apart, so
 // neither the concat nor its cotangent exists).
 //
-// With da_3 = g * [h3 > 0] (one elementwise pass), for layer k = 3, 2, 1:
+// With da_3 = [h3 > 0] * g (one elementwise pass, below), for layer k = 3, 2, 1:
 //   wgrad  dW_k[tap, ci, co] = sum_p in_k[p + tap, ci] * da_k[p, co]
 //          db_k[co]          = sum_p da_k[p, co]
 //          a GEMM with M = 9 * Cin (taps x input channels), N = Cout and
@@ -80,10 +80,36 @@
 // wgrad multiplies bf16 on mma.sync.m16n8k16 into float32 chains of 4
 // k-steps (a tile) flushed as above; the chunk pass is the same.
 //
+// The pooled cotangent (pda's gpf: conv_block_packed_bwd.py :501 and :648,
+// the in-kernel transpose :158-189). When the block's output feeds a 2x2
+// average pool, the entries take the pool's cotangent gp (B, H/2, W/2, C)
+// beside, or instead of, the full-resolution g, and the first pass computes
+//   da_3[p] = [h3[p] > 0] * round_T(g[p] + 0.25 * gp[p / 2])
+// with the sum in float32 and one rounding to T (a no-op in float32; in bf16
+// pda's (g + gexp).astype(dtype)). So neither the pool's transposed cotangent
+// nor its sum with the skip's cotangent exists in device memory, and the
+// backward of a pooled block is this one launch sequence. The pass is a
+// plain elementwise CUDA kernel, not a Triton one: it is one more kernel of
+// this header's launch sequence, on the stream and the pointers the entry
+// already holds, and it stays beside the wgrad it feeds. It reads g, gp and
+// h3 once and writes da_3 once (bound by bytes); fusing the mask into the
+// wgrad's loads is later work.
+//
+// Recompute (pda's PDA_PALLAS_CONV_MODE=mixed: conv_block_bwd.py _kernel
+// (:69) with recompute=True, from conv_block_bwd (:610), and the packed twin
+// conv_block_packed_bwd.py :97): the forward kept only x and h3, and the
+// entries rebuild h1 and h2 from x (or [xa | xb]) before the chain, with the
+// forward's own layer bodies (conv_block_fwd.cuh fwd_layer1, then
+// conv3x3_tc<T, V, true>), into h1 and h2 buffers the caller allocates for
+// this call only. What this buys is memory between the forward and the
+// backward: h1 and h2 of every block are no longer held for the whole step.
+// It costs two forward layers a block and does not save HBM traffic; keeping
+// the recomputed band on chip, as pda's kernel does, is later speed work.
+//
 // Not done yet (later work): TMA and warp-specialised producers, keeping da
-// on chip between the wgrad and the dgrad, the 2x2 pool's transpose,
-// ldmatrix.trans for the bf16 wgrad's fragments (now 4-byte loads and byte
-// permutes).
+// on chip between the wgrad and the dgrad, the masked cotangent fused into
+// the wgrad's loads, ldmatrix.trans for the bf16 wgrad's fragments (now
+// 4-byte loads and byte permutes).
 
 #pragma once
 
@@ -94,6 +120,7 @@
 
 #include "bf16.cuh"
 #include "conv3x3_tc.cuh"
+#include "conv_block_fwd.cuh"
 #include "tf32x3.cuh"
 
 namespace {
@@ -341,19 +368,56 @@ __global__ void sum_chunks(const float* __restrict__ ws, float* __restrict__ out
   }
 }
 
-// da = g * [h > 0]
-template <typename T>
-__global__ void relu_mask(const T* __restrict__ g, const T* __restrict__ h,
-                          T* __restrict__ da, long long n) {
-  for (long long i = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x;
-       i < n; i += static_cast<long long>(gridDim.x) * blockDim.x)
-    da[i] = to_float(h[i]) > 0.f ? g[i] : from_float<T>(0.f);
+// da[p, c] = [h[p, c] > 0] * round_T(g[p, c] + 0.25 * gp[p / 2, c]) over a
+// (B, H, W, C) batch: g (full resolution) or gp ((B, H/2, W/2, C), the 2x2
+// pool's cotangent; H, W even) may be null, not both; the sum in float32.
+// I: the index type, 32-bit below 2^31 elements (its divisions are the
+// pooled pass's cost), else 64-bit.
+template <typename T, typename I>
+__global__ void masked_cotangent(const T* __restrict__ g, const T* __restrict__ gp,
+                                 const T* __restrict__ h, T* __restrict__ da, I H, I W, I C,
+                                 I n) {
+  for (I i = blockIdx.x * static_cast<I>(blockDim.x) + threadIdx.x; i < n;
+       i += static_cast<I>(gridDim.x) * blockDim.x) {
+    if (!(to_float(h[i]) > 0.f)) {
+      da[i] = from_float<T>(0.f);
+      continue;
+    }
+    if (gp == nullptr) {
+      da[i] = g[i];
+      continue;
+    }
+    const I pix = i / C, c = i - pix * C;
+    const I row = pix / W, x = pix - row * W;  // row = b * H + y
+    const I b = row / H, y = row - b * H;
+    const I q = ((b * (H / 2) + y / 2) * (W / 2) + x / 2) * C + c;
+    const float v = 0.25f * to_float(gp[q]);
+    da[i] = from_float<T>(g == nullptr ? v : to_float(g[i]) + v);
+  }
 }
 
 // ---- host ------------------------------------------------------------------
 int grid_1d(long long n) {
   const long long blocks = (n + 255) / 256;
   return blocks < 4096 ? static_cast<int>(blocks) : 4096;
+}
+
+// The masked cotangent da_3 of g and/or gp (masked_cotangent) over (B, H, W, C).
+template <typename T>
+cudaError_t masked_cotangent_pass(const void* g, const void* gp, const void* h3, void* da,
+                                  int B, int H, int W, int C, cudaStream_t s) {
+  if ((g == nullptr && gp == nullptr) || (gp != nullptr && (H % 2 || W % 2)))
+    return cudaErrorInvalidValue;
+  const long long n = static_cast<long long>(B) * H * W * C;
+  const T *gt = static_cast<const T*>(g), *gpt = static_cast<const T*>(gp);
+  const T* ht = static_cast<const T*>(h3);
+  T* dat = static_cast<T*>(da);
+  if (n < (1LL << 31))
+    masked_cotangent<T, unsigned><<<grid_1d(n), 256, 0, s>>>(gt, gpt, ht, dat, H, W, C,
+                                                             static_cast<unsigned>(n));
+  else
+    masked_cotangent<T, long long><<<grid_1d(n), 256, 0, s>>>(gt, gpt, ht, dat, H, W, C, n);
+  return cudaGetLastError();
 }
 
 template <typename T>
@@ -439,27 +503,41 @@ cudaError_t dgrad(const T* da, const T* w, const T* m, T* ya, T* yb, int Coa, in
 
 // da1 and da2 are (B, H, W, C) workspaces: da_3 goes to da1, da_2 to da2,
 // da_1 to da1 again (da_3 is spent by then). T: float, or bf16 for x, the
-// kernels (HWIO, copied as bf16 by the wrapper), h1..h3, g, dx and the
-// workspaces; dW, db and work are float32 in both.
+// kernels (HWIO, copied as bf16 by the wrapper), h1..h3, g, gp, dx and the
+// workspaces; dW, db and work are float32 in both. g or gp may be null (not
+// both). With recompute, h1 and h2 are workspaces that the entry first fills
+// from x with the forward's layers: f1, f2 the kernels of layers 1 and 2 as
+// the forward reads them (HWOI, T), b1, b2 their float32 biases.
 template <typename T>
 cudaError_t block_bwd(const void* xa_, const void* xb_, int Ca, int Cb, const void* w1_,
-                      const void* w2_, const void* w3_, const void* h1_, const void* h2_,
-                      const void* h3_, const void* g_, void* dxa_, void* dxb_, void* dw1_,
-                      void* db1_, void* dw2_, void* db2_, void* dw3_, void* db3_,
-                      void* da1_, void* da2_, void* work_, int B, int H, int W, int C,
-                      bool need_dx, cudaStream_t s) {
+                      const void* w2_, const void* w3_, const void* f1_, const void* b1_,
+                      const void* f2_, const void* b2_, void* h1_, void* h2_,
+                      const void* h3_, const void* g_, const void* gp_, void* dxa_,
+                      void* dxb_, void* dw1_, void* db1_, void* dw2_, void* db2_,
+                      void* dw3_, void* db3_, void* da1_, void* da2_, void* work_, int B,
+                      int H, int W, int C, bool need_dx, bool recompute, cudaStream_t s) {
   const auto c = [](const void* p) { return static_cast<const T*>(p); };
   const auto m = [](void* p) { return static_cast<T*>(p); };
   const auto f = [](void* p) { return static_cast<float*>(p); };
   const T *xa = c(xa_), *xb = c(xb_), *w1 = c(w1_), *w2 = c(w2_), *w3 = c(w3_);
-  const T *h1 = c(h1_), *h2 = c(h2_), *h3 = c(h3_), *g = c(g_);
-  T *da1 = m(da1_), *da2 = m(da2_);
+  const T *h3 = c(h3_), *g = c(g_), *gp = c(gp_);
+  T *h1 = m(h1_), *h2 = m(h2_), *da1 = m(da1_), *da2 = m(da2_);
   float* work = f(work_);
+  if (recompute && (f1_ == nullptr || f2_ == nullptr || b1_ == nullptr || b2_ == nullptr))
+    return cudaErrorInvalidValue;
+  cudaError_t err;
+  if (recompute) {
+    const auto b = [](const void* p) { return static_cast<const float*>(p); };
+    if ((err = fwd_layer1<T>(xa, xb, Ca, Cb, c(f1_), b(b1_), h1, B, H, W, C, s)) !=
+        cudaSuccess)
+      return err;
+    if ((err = conv3x3_tc_layer<T, true>(h1, nullptr, C, 0, c(f2_), b(b2_), nullptr, h2,
+                                         nullptr, C, 0, B, H, W, s)) != cudaSuccess)
+      return err;
+  }
   const int slots = wgrad_slots<T>();
-  const long long n = static_cast<long long>(B) * H * W * C;
-  relu_mask<T><<<grid_1d(n), 256, 0, s>>>(g, h3, da1, n);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
+  if ((err = masked_cotangent_pass<T>(g, gp, h3, da1, B, H, W, C, s)) != cudaSuccess)
+    return err;
   if ((err = wgrad<T>(h2, nullptr, C, 0, da1, f(dw3_), f(db3_), work, B, H, W, C, slots,
                       s)) != cudaSuccess)
     return err;
@@ -489,32 +567,52 @@ long long bwd_work(int B, int H, int W, int Cin, int C) {
 }  // namespace
 
 // Single-input block. x: (B, H, W, Cin); w1: (3, 3, Cin, C); w2, w3:
-// (3, 3, C, C); h1, h2, h3, g: (B, H, W, C). Writes dW (HWIO) and db of the
-// three layers and, with need_dx, dx (B, H, W, Cin) (dx may be null without).
-// Workspaces: da1, da2 (B, H, W, C); work (pda_conv_block_bwd_work floats).
+// (3, 3, C, C); h1, h2, h3, g: (B, H, W, C); gp: (B, H/2, W/2, C), the
+// cotangent through a 2x2 average pool of the output (g or gp may be null,
+// not both). Writes dW (HWIO) and db of the three layers and, with need_dx,
+// dx (B, H, W, Cin) (dx may be null without). With recompute, h1 and h2 are
+// (B, H, W, C) workspaces the entry fills from x first, with f1 (3, 3, C,
+// Cin) and f2 (3, 3, C, C) (HWOI, the forward's layout) and the float32
+// biases b1, b2 (null without). Workspaces: da1, da2 (B, H, W, C); work
+// (pda_conv_block_bwd_work floats). A null g and gp, an odd H or W with gp,
+// or recompute without f1, f2, b1, b2 returns cudaErrorInvalidValue.
 //
 // Dual-input block on [xa | xb] (Ca + Cb channels): as above, with dx written
 // apart into dxa (B, H, W, Ca) and dxb (B, H, W, Cb).
 //
+// pda_masked_cotangent: the backward's first pass alone, da_3 of g, gp and
+// h3 into da (B, H, W, C): what a check holds against its plain version.
+//
 // The entries of one operand type T, named with SUFFIX: the _bf16 entries take
-// x, w1..w3, h1..h3, g, dx, da1, da2 as bf16; dW, db and work stay float32.
-#define PDA_BWD_ENTRIES(SUFFIX, T)                                                    \
-  extern "C" int pda_conv_block_bwd##SUFFIX(                                          \
-      const void* x, int Cin, const void* w1, const void* w2, const void* w3,         \
-      const void* h1, const void* h2, const void* h3, const void* g, void* dx,        \
-      void* dw1, void* db1, void* dw2, void* db2, void* dw3, void* db3, void* da1,    \
-      void* da2, void* work, int B, int H, int W, int C, int need_dx, void* stream) { \
-    return block_bwd<T>(x, nullptr, Cin, 0, w1, w2, w3, h1, h2, h3, g, dx, nullptr,   \
-                        dw1, db1, dw2, db2, dw3, db3, da1, da2, work, B, H, W, C,     \
-                        need_dx != 0, static_cast<cudaStream_t>(stream));             \
-  }                                                                                   \
-  extern "C" int pda_conv_block_bwd_dual##SUFFIX(                                     \
-      const void* xa, const void* xb, int Ca, int Cb, const void* w1, const void* w2, \
-      const void* w3, const void* h1, const void* h2, const void* h3, const void* g,  \
-      void* dxa, void* dxb, void* dw1, void* db1, void* dw2, void* db2, void* dw3,    \
-      void* db3, void* da1, void* da2, void* work, int B, int H, int W, int C,        \
-      void* stream) {                                                                 \
-    return block_bwd<T>(xa, xb, Ca, Cb, w1, w2, w3, h1, h2, h3, g, dxa, dxb, dw1,     \
-                        db1, dw2, db2, dw3, db3, da1, da2, work, B, H, W, C, true,    \
-                        static_cast<cudaStream_t>(stream));                           \
+// x, w1..w3, f1, f2, h1..h3, g, gp, dx, da1, da2 as bf16; dW, db, b1, b2 and
+// work stay float32.
+#define PDA_BWD_ENTRIES(SUFFIX, T)                                                     \
+  extern "C" int pda_conv_block_bwd##SUFFIX(                                           \
+      const void* x, int Cin, const void* w1, const void* w2, const void* w3,          \
+      const void* f1, const void* b1, const void* f2, const void* b2, void* h1,        \
+      void* h2, const void* h3, const void* g, const void* gp, void* dx, void* dw1,    \
+      void* db1, void* dw2, void* db2, void* dw3, void* db3, void* da1, void* da2,     \
+      void* work, int B, int H, int W, int C, int need_dx, int recompute,              \
+      void* stream) {                                                                  \
+    return block_bwd<T>(x, nullptr, Cin, 0, w1, w2, w3, f1, b1, f2, b2, h1, h2, h3, g, \
+                        gp, dx, nullptr, dw1, db1, dw2, db2, dw3, db3, da1, da2, work, \
+                        B, H, W, C, need_dx != 0, recompute != 0,                      \
+                        static_cast<cudaStream_t>(stream));                            \
+  }                                                                                    \
+  extern "C" int pda_conv_block_bwd_dual##SUFFIX(                                      \
+      const void* xa, const void* xb, int Ca, int Cb, const void* w1, const void* w2,  \
+      const void* w3, const void* f1, const void* b1, const void* f2, const void* b2,  \
+      void* h1, void* h2, const void* h3, const void* g, const void* gp, void* dxa,    \
+      void* dxb, void* dw1, void* db1, void* dw2, void* db2, void* dw3, void* db3,     \
+      void* da1, void* da2, void* work, int B, int H, int W, int C, int recompute,     \
+      void* stream) {                                                                  \
+    return block_bwd<T>(xa, xb, Ca, Cb, w1, w2, w3, f1, b1, f2, b2, h1, h2, h3, g, gp, \
+                        dxa, dxb, dw1, db1, dw2, db2, dw3, db3, da1, da2, work, B, H,  \
+                        W, C, true, recompute != 0, static_cast<cudaStream_t>(stream)); \
+  }                                                                                    \
+  extern "C" int pda_masked_cotangent##SUFFIX(const void* g, const void* gp,           \
+                                              const void* h3, void* da, int B, int H,  \
+                                              int W, int C, void* stream) {            \
+    return masked_cotangent_pass<T>(g, gp, h3, da, B, H, W, C,                         \
+                                    static_cast<cudaStream_t>(stream));                \
   }

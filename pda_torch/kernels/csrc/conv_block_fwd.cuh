@@ -34,7 +34,9 @@
 // keeps its kernels in (at most 9.4 MB a layer, for 512 -> 512).
 //
 // h1 and h2 go to buffers the caller allocates; the caller keeps them (with
-// the output h3) for the backward, as pda's save_intermediates does. Keeping
+// the output h3) for the backward, as pda's save_intermediates does, or, in
+// the memory-lean mode (PDA_PALLAS_CONV_MODE=mixed), the backward recomputes
+// them with these layer bodies (conv_block_bwd.cuh). Keeping
 // h1/h2 on chip between the layers would not pay here: a 16x16 tile of h1 at
 // 512 channels with its halo is 819 KB, beyond the SM's 227 KB.
 //
@@ -57,6 +59,20 @@
 
 namespace {
 
+// The block's first layer, relu(conv1(x) + b1) into h1: the FMA-pipe entry
+// layer for a single input of 1 or 2 channels, the tensor-core body
+// otherwise. The backward's recompute (conv_block_bwd.cuh) rebuilds h1 with
+// it, so that its h1 is the forward's bit for bit.
+template <typename T>
+cudaError_t fwd_layer1(const T* xa, const T* xb, int Ca, int Cb, const T* w1,
+                       const float* b1, T* h1, int B, int H, int W, int C,
+                       cudaStream_t s) {
+  return Cb == 0 && Ca < 3
+             ? conv3x3_entry_layer<T>(xa, Ca, w1, b1, h1, C, B, H, W, s)
+             : conv3x3_tc_layer<T, true>(xa, xb, Ca, Cb, w1, b1, nullptr, h1, nullptr,
+                                         C, 0, B, H, W, s);
+}
+
 // The whole ConvBlock: y = relu(conv3(relu(conv2(relu(conv1(x)+b1))+b2))+b3).
 // x = [xa | xb] along channels (xb may be null with Cb = 0); weights are HWOI
 // (3, 3, C, Cin) and (3, 3, C, C) of type T, biases float32; h1, h2 are
@@ -70,11 +86,7 @@ cudaError_t block_fwd(const void* xa, const void* xb, int Ca, int Cb, const void
   const auto f = [](const void* p) { return static_cast<const T*>(p); };
   const auto o = [](void* p) { return static_cast<T*>(p); };
   const auto b = [](const void* p) { return static_cast<const float*>(p); };
-  cudaError_t err =
-      Cb == 0 && Ca < 3
-          ? conv3x3_entry_layer<T>(f(xa), Ca, f(w1), b(b1), o(h1), C, B, H, W, s)
-          : conv3x3_tc_layer<T, true>(f(xa), f(xb), Ca, Cb, f(w1), b(b1), nullptr,
-                                      o(h1), nullptr, C, 0, B, H, W, s);
+  cudaError_t err = fwd_layer1<T>(f(xa), f(xb), Ca, Cb, f(w1), b(b1), o(h1), B, H, W, C, s);
   if (err != cudaSuccess) return err;
   err = conv3x3_tc_layer<T, true>(f(h1), nullptr, C, 0, f(w2), b(b2), nullptr, o(h2),
                                   nullptr, C, 0, B, H, W, s);

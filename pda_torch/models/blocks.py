@@ -10,7 +10,28 @@ plain PyTorch version on CPU tensors, and its gradient as one call of the
 fused backward. A block of any other depth runs conv + bias + ReLU layer by
 layer under autograd (``F.conv2d``, cuDNN on the card), as ``pda`` runs it
 with plain autodiff convs: ``pda`` has no kernel for that depth either. The
-pool and the upsample are PyTorch ops that autograd differentiates.
+upsample is a PyTorch op that autograd differentiates.
+
+The 2x2 pools of the contracting pyramids: a 3-conv block whose output feeds
+a pool (every level but the last of :class:`~.unet.PUNetBackbone`, of the
+prior's and of the posterior's :class:`EncoderPyramid`) runs as
+:func:`~pda_torch.kernels.conv_block.conv_block_fwd_pool`, the block and the
+pool of its output, whose backward is one fused backward launch that reads
+the pooled cotangent (``pda``'s ``gpf``): the backbone's "with" variant
+(the skip and the pooled map), the encoders' "only" variant; the next
+block then takes the pooled map and pools nothing itself. ``pda`` fuses
+only level 0, because its lane packing gates the fusion
+(``packed_pool_out_eligible``); the port fuses every pooled level, the same
+function: 9 blocks of a PUNet student pass. A block of another depth, and
+:func:`conv_block` / :class:`ConvBlock` called alone, pool their input under
+autograd, as ``pda``'s unfused path does.
+
+``PDA_PALLAS_CONV_MODE``, read at each call as ``pda``'s ``ConvBlock``
+reads it: ``"mixed"`` runs every 3-conv block (single, dual and pooled) in
+``pda``'s memory-lean mode (``conv3_relu_mixed``): the forward as ``pda``'s
+XLA convs (cuDNN on the card), only the input and h3 kept, the fused
+backward recomputing h1 and h2 (:mod:`pda_torch.kernels.conv_block`); any
+other value, or none, the default path.
 
 Compute dtype: every module here carries ``dtype`` (float32, or bf16 for
 ``pda``'s bf16 configuration; :class:`ComputeDtype`). The parameters stay
@@ -30,13 +51,16 @@ draw from an explicit ``torch.Generator``:
 from __future__ import annotations
 
 import math
-from typing import Sequence, Tuple
+import os
+from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..kernels.conv_block import conv_block_fwd, conv_block_fwd_dual
+from ..kernels.conv_block import (autodiff_conv_relu, avg_pool_2x2, conv_block_fwd,
+                                  conv_block_fwd_dual, conv_block_fwd_dual_mixed,
+                                  conv_block_fwd_mixed, conv_block_fwd_pool)
 
 #: convs per block by default; the fused kernels implement exactly this depth
 N_CONVS = 3
@@ -104,22 +128,10 @@ def trunc_normal_bias(n: int, generator: torch.Generator, std: float = 1e-3) -> 
     return z * std
 
 
-def avg_pool_2x2(x: torch.Tensor) -> torch.Tensor:
-    """2x2 / stride-2 average pool of (B, H, W, C); H and W must be even.
-    In bf16 as ``pda``'s flat pipeline pools, the path its bf16 models take
-    wherever its kernels run (``flat_ops.pool_flat_packed``,
-    ``pool_flat``): the row pairs summed and rounded to bf16, the column
-    pairs summed and rounded, times 0.25 (exact). (Its image-path
-    ``avg_pool_2x2``, flax's window sum in bf16, rounds after each of the
-    four adds instead.)"""
-    b, h, w, c = x.shape
-    if h % 2 or w % 2:
-        raise ValueError(f"avg_pool_2x2 needs even spatial dims, got {tuple(x.shape)}")
-    x6 = x.reshape(b, h // 2, 2, w // 2, 2, c)
-    if x.dtype != _BF16:
-        return x6.mean(dim=(2, 4))
-    rows = (x6[:, :, 0].float() + x6[:, :, 1].float()).to(_BF16)
-    return (rows[..., 0, :].float() + rows[..., 1, :].float()).to(_BF16) * 0.25
+def mixed_mode() -> bool:
+    """Whether ``PDA_PALLAS_CONV_MODE`` is ``"mixed"`` now (``pda`` reads it
+    at each block call; any other value is its default, ``"full"``)."""
+    return os.environ.get("PDA_PALLAS_CONV_MODE", "full") == "mixed"
 
 
 def _upsample_matrix(n: int) -> torch.Tensor:
@@ -212,25 +224,42 @@ def conv_relu_layers(x: torch.Tensor, convs: Sequence[ConvParams]) -> torch.Tens
     rounded to bf16, then the bias (in bf16) added in bf16."""
     h = x.permute(0, 3, 1, 2)
     for c in convs:
-        if h.dtype == _BF16:
-            y = F.conv2d(h.float(), c.weight.to(_BF16).float(), padding=1).to(_BF16)
-            h = F.relu(y + c.bias.to(_BF16)[:, None, None])
-        else:
-            h = F.relu(F.conv2d(h, c.weight, c.bias, padding=1))
+        h = autodiff_conv_relu(h, c.weight, c.bias)
     return h.permute(0, 2, 3, 1).contiguous()
 
 
 def conv_block(x: torch.Tensor, convs: Sequence[ConvParams], pool: bool,
-               dtype: torch.dtype = torch.float32) -> torch.Tensor:
+               dtype: torch.dtype = torch.float32, pool_out: Optional[str] = None):
     """[2x2 avg pool] + n x (conv3x3 + bias + ReLU) on (B, H, W, C), the
-    pool in x's dtype, the convs in ``dtype``: the fused kernel at 3 convs,
-    :func:`conv_relu_layers` at any other depth."""
+    pool in x's dtype, the convs in ``dtype``: the fused kernel at 3 convs
+    (its mixed mode under ``PDA_PALLAS_CONV_MODE=mixed``),
+    :func:`conv_relu_layers` at any other depth.
+
+    ``pool_out`` (``pda``'s ConvBlock argument; 3 convs only): ``"only"``
+    returns the 2x2 average pool of the block's output instead of the
+    output, ``"with"`` the pair ``(output, pooled)``; one call of
+    :func:`~pda_torch.kernels.conv_block.conv_block_fwd_pool`, whose backward
+    reads the pool's cotangent in the fused backward launch."""
+    if pool_out not in (None, "only", "with") or (pool_out and len(convs) != N_CONVS):
+        raise ValueError(f"pool_out takes None, or 'only' or 'with' on a {N_CONVS}-conv "
+                         f"block, got {pool_out!r} on {len(convs)} convs")
     if pool:
         x = avg_pool_2x2(x)
     x = compute(x, dtype)
     if len(convs) != N_CONVS:
         return conv_relu_layers(x, convs)
-    return conv_block_fwd(x.contiguous(), *_weights(convs))
+    if pool_out is not None:
+        return conv_block_fwd_pool(x.contiguous(), *_weights(convs),
+                                   keep_full=pool_out == "with", mixed=mixed_mode())
+    block = conv_block_fwd_mixed if mixed_mode() else conv_block_fwd
+    return block(x.contiguous(), *_weights(convs))
+
+
+def pool_out_plan(depth: int, convs_per_block: int) -> list:
+    """Which blocks of a contracting pyramid of ``depth`` levels pool their
+    own output (fused): every 3-conv block but the last, each feeding the
+    next level, which then pools nothing itself."""
+    return [i < depth - 1 and convs_per_block == N_CONVS for i in range(depth)]
 
 
 class ConvBlock(ComputeDtype, nn.Module):
@@ -249,8 +278,13 @@ class ConvBlock(ComputeDtype, nn.Module):
     def convs(self) -> list:
         return [m for m in self.layers if isinstance(m, ConvParams)]
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return conv_block(x, self.convs(), self.pool, self.dtype)
+    def forward(self, x: torch.Tensor, pool: Optional[bool] = None,
+                pool_out: Optional[str] = None):
+        """The block on ``x``; ``pool`` overrides the block's own input pool
+        (False where the block before already pooled its output);
+        ``pool_out``: :func:`conv_block`'s."""
+        return conv_block(x, self.convs(), self.pool if pool is None else pool, self.dtype,
+                          pool_out)
 
 
 class UpBlock(ComputeDtype, nn.Module):
@@ -273,7 +307,8 @@ class UpBlock(ComputeDtype, nn.Module):
         convs = self.conv_block.convs()
         if len(convs) != N_CONVS:
             return conv_relu_layers(torch.cat([up, bridge], dim=-1), convs)
-        return conv_block_fwd_dual(up, bridge.contiguous(), *_weights(convs))
+        block = conv_block_fwd_dual_mixed if mixed_mode() else conv_block_fwd_dual
+        return block(up, bridge.contiguous(), *_weights(convs))
 
 
 class EncoderPyramid(ComputeDtype, nn.Module):
@@ -298,6 +333,9 @@ class EncoderPyramid(ComputeDtype, nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         convs = [m for m in self.layers if isinstance(m, ConvParams)]
         n = self.n_convs
-        for i in range(self.depth):
-            x = conv_block(x, convs[n * i:n * (i + 1)], pool=i > 0, dtype=self.dtype)
+        pooled = False
+        for i, fuse in enumerate(pool_out_plan(self.depth, n)):
+            x = conv_block(x, convs[n * i:n * (i + 1)], pool=i > 0 and not pooled,
+                           dtype=self.dtype, pool_out="only" if fuse else None)
+            pooled = fuse
         return x

@@ -18,7 +18,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .blocks import N_CONVS, ComputeDtype, ConvBlock, ConvParams, UpBlock, dense
+from .blocks import N_CONVS, ComputeDtype, ConvBlock, ConvParams, UpBlock, dense, pool_out_plan
 
 
 class PUNetBackbone(ComputeDtype, nn.Module):
@@ -60,10 +60,15 @@ class PUNetBackbone(ComputeDtype, nn.Module):
                 m.reset_parameters(generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        skips = []
-        for block in self.contracting_path:
-            x = block(x)
-            skips.append(x)
+        # every 3-conv level but the last returns (skip, pooled) from one
+        # block call whose backward reads both cotangents (blocks.conv_block)
+        skips, pooled = [], False
+        plan = pool_out_plan(len(self.contracting_path), len(self.contracting_path[0].convs()))
+        for block, fuse in zip(self.contracting_path, plan):
+            out = block(x, pool=block.pool and not pooled, pool_out="with" if fuse else None)
+            skip, x = out if fuse else (out, out)
+            skips.append(skip)
+            pooled = fuse
         for up, bridge in zip(self.upsampling_path, reversed(skips[:-1])):
             x = up(x, bridge)
         if self.last_layer is not None:

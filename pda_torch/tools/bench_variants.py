@@ -36,7 +36,7 @@ from . import workload as wl
 FWD_SHAPES = ([(*s[:4], 0, s[4]) for s in (*wl.K1_TILED, *wl.K1_PSEUDO, wl.K1_POSTERIOR)]
               + wl.K2_TILED + wl.K2_PSEUDO)
 # (B, H, W, Ca, Cb, C, need_dx)
-BWD_SHAPES = ([(*s[:4], 0, s[4], need_dx) for s, need_dx, _ in wl.BWD_SHAPES]
+BWD_SHAPES = (list(dict.fromkeys((*s[:4], 0, s[4], need_dx) for s, need_dx, *_ in wl.BWD_SHAPES))
               + [(*s, True) for s in wl.BWD_DUAL_SHAPES])
 
 

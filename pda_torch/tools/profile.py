@@ -44,7 +44,7 @@ import torch
 from ..kernels import _build
 from ..kernels import conv_block as kc
 from ..kernels import mc_consensus as km
-from .workload import block_flops, cuda_ms, dgrad_flops, mc_flops
+from .workload import block_flops, cuda_ms, dgrad_flops, mc_flops, recompute_flops
 
 # kernel name pattern -> label; the first that matches names a kernel
 LABELS = (
@@ -53,7 +53,7 @@ LABELS = (
     (r"conv3x3_tc<[^>]*false>", "dgrad (conv3x3_tc)"),
     (r"wgrad_tc<", "wgrad (wgrad_tc)"),
     (r"sum_chunks", "wgrad chunk reduce (sum_chunks)"),
-    (r"relu_mask", "da3 mask (relu_mask)"),
+    (r"masked_cotangent", "da3 mask and pooled cotangent (masked_cotangent)"),
     (r"mc_consensus_(tc|bf16)<", "MC tail, tensor cores (mc_consensus_tc)"),
 )
 
@@ -100,12 +100,14 @@ def count_flops():
         weights.extend((w1, w2, w3))
         return launch(xa, xb, w1, b1, w2, b2, w3, b3)
 
-    def bwd(g, xa, xb, h1, h2, h3, w1, w2, w3, need_dx):
+    def bwd(g, xa, xb, h1, h2, h3, w1, w2, w3, need_dx, workspaces=None, **kw):
         b, h, w, ca = xa.shape
         cin, c = ca + (0 if xb is None else xb.shape[-1]), w1.shape[-1]
         flops["wgrad"] += block_flops(b, h, w, cin, c)
         flops["dgrad"] += dgrad_flops(b, h, w, cin, c, need_dx or xb is not None)
-        return launch_bwd(g, xa, xb, h1, h2, h3, w1, w2, w3, need_dx)
+        if h1 is None:  # the mixed mode's recompute of h1, h2
+            flops["recompute"] += recompute_flops(b, h, w, cin, c)
+        return launch_bwd(g, xa, xb, h1, h2, h3, w1, w2, w3, need_dx, workspaces, **kw)
 
     def mc(feat, z_terms, mid_w, *rest):
         flops["mc"] += mc_flops(*feat.shape, z_terms.shape[0], mid_w.shape[0])

@@ -30,14 +30,25 @@ K2_TILED = [(4, 128, 128, 512, 256, 256), (4, 256, 256, 256, 128, 128),
 K2_PSEUDO = [(1, 132, 176, 512, 256, 256), (1, 264, 352, 256, 128, 128),
              (1, 528, 704, 128, 64, 64)]
 # The ConvBlock backwards of one MT step: ((B, H, W, Cin, C), need_dx, calls
-# a step). The entry blocks (backbone, prior: Cin 1; posterior: image + mask,
-# Cin 2) take no dx; levels 1-3 run in all three nets.
-BWD_SHAPES = [((2, 512, 512, 1, 64), False, 2), ((2, 512, 512, 2, 64), False, 1),
-              ((2, 256, 256, 64, 128), True, 3), ((2, 128, 128, 128, 256), True, 3),
-              ((2, 64, 64, 256, 512), True, 3)]
+# a step, g_mode). The entry blocks (backbone, prior: Cin 1; posterior: image
+# + mask, Cin 2) take no dx; levels 1-3 run in all three nets. g_mode: the
+# cotangents the block's output takes (pda's g_mode): "with" the skip's and
+# the 2x2 pool's (the backbone's levels 0-2), "only" the pool's (the prior's
+# and the posterior's levels 0-2), "full" its own (level 3)
+BWD_SHAPES = [((2, 512, 512, 1, 64), False, 1, "with"), ((2, 512, 512, 1, 64), False, 1, "only"),
+              ((2, 512, 512, 2, 64), False, 1, "only"),
+              ((2, 256, 256, 64, 128), True, 1, "with"), ((2, 256, 256, 64, 128), True, 2, "only"),
+              ((2, 128, 128, 128, 256), True, 1, "with"),
+              ((2, 128, 128, 128, 256), True, 2, "only"),
+              ((2, 64, 64, 256, 512), True, 3, "full")]
 # (B, H, W, Ca, Cb, C): the decoder blocks' backward, once each a step
 BWD_DUAL_SHAPES = [(2, 128, 128, 512, 256, 256), (2, 256, 256, 256, 128, 128),
                    (2, 512, 512, 128, 64, 64)]
+# One backward with recompute (PDA_PALLAS_CONV_MODE=mixed) per entry: a
+# backbone block of the MT step, (B, H, W, Cin, C), and its last decoder
+# block, (B, H, W, Ca, Cb, C)
+RECOMPUTE_SHAPE = (2, 256, 256, 64, 128)
+RECOMPUTE_DUAL_SHAPE = (2, 512, 512, 128, 64, 64)
 # The blocks at width 96 of development/learning_smoke.py's PUNet (16, 32,
 # 64, 96) at 64^2, batch 8: the last encoder block (B, H, W, Cin, C) and the
 # first decoder block (B, H, W, Ca, Cb, C), forward and backward
@@ -109,12 +120,21 @@ def block_bytes(b, h, w, cin, c, act_bytes=2):
     return act_bytes * b * h * w * (cin + 3 * c) + block_weight_bytes(cin, c)
 
 
-def block_bwd_bytes(b, h, w, cin, c, need_dx, act_bytes=2):
-    """Bytes one ConvBlock backward must move: x, h1, h2, h3 and g read and
-    dx written (``act_bytes`` an element), the float32 weights read and dW, db
-    written."""
-    acts = b * h * w * (cin * (2 if need_dx else 1) + 4 * c)
-    return act_bytes * acts + 2 * block_weight_bytes(cin, c)
+def block_bwd_bytes(b, h, w, cin, c, need_dx, act_bytes=2, g_mode="full",
+                    recompute=False):
+    """Bytes one ConvBlock backward must move: x, h1, h2, h3 and the
+    cotangents read (g; for ``g_mode`` "only" the pooled gp, a quarter of
+    g's; for "with" both) and dx written (``act_bytes`` an element), the
+    float32 weights read and dW, db written. With ``recompute`` h1 and h2 are
+    not read (the biases b1, b2 are)."""
+    cots = {"full": 1.0, "with": 1.25, "only": 0.25}[g_mode] * c
+    acts = b * h * w * (cin * (2 if need_dx else 1) + (2 if recompute else 3) * c + cots)
+    return int(act_bytes * acts) + 2 * block_weight_bytes(cin, c)
+
+
+def recompute_flops(b, h, w, cin, c):
+    """FLOPs of the recompute of h1 and h2 (two forward layers)."""
+    return 18 * b * h * w * (cin * c + c * c)
 
 
 def bound_ms(flops, nbytes, peak_flops=PEAK_BF16_FLOPS, peak_bytes=PEAK_BYTES):

@@ -25,7 +25,13 @@ def test_mixed_precision_trains_the_punet_in_bf16(tmp_path):
     trainer = _mt(tmp_path)
     seen = []
     block = trainer.model.unet.contracting_path[1]
-    block.register_forward_hook(lambda mod, args, out: seen.append((args[0].dtype, out.dtype)))
+
+    def record(mod, args, out):
+        # a block whose output feeds the next level's pool gives (output, pooled map)
+        for o in out if isinstance(out, tuple) else (out,):
+            seen.append((args[0].dtype, o.dtype))
+
+    block.register_forward_hook(record)
     trainer.fit(2)
     assert trainer.model.dtype == torch.bfloat16
     assert trainer.state.teacher.dtype == torch.bfloat16

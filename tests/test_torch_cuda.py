@@ -322,6 +322,93 @@ def test_conv_block_bwd_kernel_matches_float64(dev):
         assert float((a.double() - r).abs().max()) <= 1e-5 * float(r.abs().max())
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,w,cin,c,need_dx,mode", [
+    (2, 10, 14, 1, 64, False, "with"), (1, 18, 34, 2, 40, False, "only"),
+    (2, 8, 16, 70, 128, True, "with"), (1, 6, 10, 3, 8, True, "only"),
+    (1, 34, 18, 16, 72, True, "with"),  # H = 2 x 16 + 2, C = 64 + 8: ragged tiles
+])
+def test_conv_block_bwd_pool_kernel_matches_plain(dev, b, h, w, cin, c, need_dx, mode, dtype):
+    """The pooled cotangent: da_3 bit-equal to the plain version's (in bf16
+    too: one rounding of a float32 sum of two bf16 values), the whole
+    backward within 1e-4 in float32 and bit-equal repeats; its launches
+    count under the wrapper and its pool mode."""
+    gen = torch.Generator().manual_seed(cin + h + 5)
+    g, x, h1, h2, h3, *ws = _saved(gen, b, h, w, cin, c, dev)
+    gp = torch.randn(b, h // 2, w // 2, c, generator=gen).to(dev)
+    g, x, h1, h2, h3, gp = (t.to(dtype) for t in (g, x, h1, h2, h3, gp))
+    g = g if mode == "with" else None
+    da3 = kconv.masked_cotangent_kernel(g, gp, h3)
+    assert torch.equal(da3, kconv.masked_cotangent_plain(g, gp, h3))
+    before = (kconv.conv_block_bwd.launches, kconv.conv_block_bwd.launches_pool)
+    bf16 = dtype == torch.bfloat16
+    if bf16:
+        before = (kconv.conv_block_bwd.launches_bf16, kconv.conv_block_bwd.launches_pool_bf16)
+    args = (g, x, h1, h2, h3, *ws)
+    out = kconv.conv_block_bwd(*args, need_dx=need_dx, gp=gp)
+    again = kconv.conv_block_bwd(*args, need_dx=need_dx, gp=gp)
+    torch.cuda.synchronize()
+    after = ((kconv.conv_block_bwd.launches_bf16, kconv.conv_block_bwd.launches_pool_bf16) if bf16
+             else (kconv.conv_block_bwd.launches, kconv.conv_block_bwd.launches_pool))
+    assert after == (before[0] + 2, before[1] + 2)
+    for a, a2 in zip(out, again):
+        assert (a is None and a2 is None) or torch.equal(a, a2)
+    ref = kconv.conv_block_bwd_plain(*args, need_dx, gp=gp)
+    if bf16:  # dW, db float32 sums of the same bf16 da_3 and h2 (layer 3)
+        _assert_rel(out[5], ref[5])
+        _assert_rel(out[6], ref[6])
+    else:
+        _assert_all_rel(out, ref)
+
+
+@pytest.mark.parametrize("b,h,w,ca,cb,c", [
+    (2, 9, 13, 1, 0, 64), (1, 17, 33, 2, 0, 40), (2, 12, 20, 70, 0, 128), (1, 9, 9, 6, 0, 10),
+    (2, 10, 12, 13, 7, 24), (1, 16, 16, 64, 32, 64),
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_recompute_bwd_is_the_saved_h_bwd(dev, b, h, w, ca, cb, c, dtype):
+    """The mixed mode's backward rebuilds h1 and h2 with the forward
+    kernel's own layers, so from the forward kernel's h3 it gives the
+    saved-h backward's outputs bit for bit, with or without the pooled
+    cotangent; its launches count under the recompute mode."""
+    gen = torch.Generator().manual_seed(ca + cb + h)
+    xa = torch.randn(b, h, w, ca, generator=gen).to(dev).to(dtype)
+    xb = torch.randn(b, h, w, cb, generator=gen).to(dev).to(dtype) if cb else None
+    ws = _weights(gen, ca + cb, c, dev)
+    h1, h2, h3 = kconv._launch(xa, xb, *ws)
+    g = torch.randn(b, h, w, c, generator=gen).to(dev).to(dtype)
+    kw = {"gp": torch.randn(b, h // 2, w // 2, c, generator=gen).to(dev).to(dtype)} \
+        if h % 2 == 0 and w % 2 == 0 and not cb else {}
+    wrapper = kconv.conv_block_bwd if xb is None else kconv.conv_block_bwd_dual
+    name = "launches_recompute" + ("_bf16" if dtype == torch.bfloat16 else "")
+    before = getattr(wrapper, name)
+    if xb is None:
+        saved = kconv.conv_block_bwd(g, xa, h1, h2, h3, *ws[::2], **kw)
+        out = kconv.conv_block_bwd(g, xa, None, None, h3, *ws[::2], b1=ws[1], b2=ws[3], **kw)
+    else:
+        saved = kconv.conv_block_bwd_dual(g, xa, xb, h1, h2, h3, *ws[::2])
+        out = kconv.conv_block_bwd_dual(g, xa, xb, None, None, h3, *ws[::2], b1=ws[1],
+                                        b2=ws[3])
+    torch.cuda.synchronize()
+    assert getattr(wrapper, name) == before + 1
+    for a, r in zip(out, saved):
+        assert (a is None and r is None) or torch.equal(a, r)
+
+
+def test_mixed_mean_teacher_step_on_card_matches_cpu(dev, monkeypatch):
+    """The small MT step of the test below under PDA_PALLAS_CONV_MODE=mixed:
+    the forwards on cuDNN (no forward kernel launch), every backward with
+    recompute, pooled blocks with the pooled cotangent; card against CPU."""
+    monkeypatch.setenv("PDA_PALLAS_CONV_MODE", "mixed")
+    for fn in (kconv.conv_block_fwd, kconv.conv_block_bwd, kconv.conv_block_bwd_dual):
+        fn.launches = 0
+    kconv.conv_block_bwd.launches_recompute = kconv.conv_block_bwd.launches_pool = 0
+    test_mean_teacher_step_on_card_matches_cpu(dev)
+    assert kconv.conv_block_fwd.launches == 0
+    assert kconv.conv_block_bwd.launches == kconv.conv_block_bwd.launches_recompute == 12
+    assert kconv.conv_block_bwd.launches_pool == 9 and kconv.conv_block_bwd_dual.launches == 3
+
+
 def test_mean_teacher_step_on_card_matches_cpu(dev):
     """One small MT step (masking on) on the card against the same port on
     the CPU: same weights, batch and noise. The CPU step takes the card
