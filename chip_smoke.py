@@ -236,6 +236,12 @@ MIXED_MT_LAUNCHES = {"conv_block_fwd": 0, "conv_block_fwd_dual": 0, "mc_consensu
 MIXED_MT_MODE_LAUNCHES = {"conv_block_bwd_pool": 9, "conv_block_bwd_recompute": 12,
                           "conv_block_bwd_dual_recompute": 3}
 MIXED_CHECK_PATCH = 64
+# The bf16 forwards' route, each a JSON entry of its own (bf16 only) whose
+# launches are its wrapper's launches_wgmma_bf16: the launches whose
+# tensor-core layers all ran on the wgmma body (csrc/conv3x3_wgmma.cuh); on
+# the flagship's shapes that is every bf16 forward launch
+FWD_MODE_ENTRIES = {"conv_block_fwd_wgmma": ("conv_block_fwd", "wgmma"),
+                    "conv_block_fwd_dual_wgmma": ("conv_block_fwd_dual", "wgmma")}
 # peak device memory (GiB) of each time_steps label's run
 STEP_PEAKS = {}
 
@@ -1257,6 +1263,10 @@ def time_steps(label, step, state, batch, n_patches, wrappers, launches, warmup,
         got = mode_launches(wrappers, bf16)
         good &= got == {k: n * v for k, v in modes.items()}
         by_mode = f", by backward mode {got}"
+    if bf16 and (launches["conv_block_fwd"] or launches["conv_block_fwd_dual"]):
+        on, routes = all_on_wgmma(wrappers)
+        good &= on
+        by_mode += f", on the wgmma body {routes}"
     STEP_PEAKS[label] = peak
     log(f"training {label}: losses {[round(float(v), 5) for v in losses]} finite {finite}, "
         f"launches {counts}{by_mode} over {n} steps {'ok' if good else 'FAIL'}")
@@ -1377,11 +1387,12 @@ def bf16_layers_agree(hs, h_in, ws):
     return ok, worst, err
 
 
-def check_bf16_fwd(entry, label, args, per_forward, binding):
+def check_bf16_fwd(entry, label, args, per_forward, binding, also=None):
     """A bf16 forward block (K1 or K2, args (x[, xb], w1, b1, .., b3)) layer
-    by layer against its plain version, twice bit-equal; then the kernel's,
-    the plain version's (float32 sums) and cuDNN's bf16 times and the bound.
-    Returns ok."""
+    by layer against its plain version, twice bit-equal, its tensor-core
+    layers on the wgmma body; then the kernel's, the plain version's
+    (float32 sums) and cuDNN's bf16 times and the bound, added to ``entry``
+    and to ``also`` (the wgmma route's entry). Returns ok."""
     import torch
 
     from pda_torch.kernels import conv_block as kc
@@ -1394,8 +1405,10 @@ def check_bf16_fwd(entry, label, args, per_forward, binding):
     again = kc._launch(xs[0], xs[1] if len(xs) > 1 else None, *ws)
     same = all(torch.equal(a, b) for a, b in zip(hs, again))
     good, worst, err = bf16_layers_agree(hs, torch.cat(xs, dim=-1), ws)
-    ok = same and good
-    entry["max_abs_err"] = max(entry["max_abs_err"], err)
+    route = kc._fwd_modes(xs, ws[-1].shape[0]) == ("wgmma",)
+    ok = same and good and route
+    for e in filter(None, (entry, also)):
+        e["max_abs_err"] = max(e["max_abs_err"], err)
     del hs, again
     CHECKED.add(shape_key(entry["name"], args))
     ms = cuda_ms(lambda: kernel(*args))
@@ -1406,15 +1419,18 @@ def check_bf16_fwd(entry, label, args, per_forward, binding):
     b, h, w, cin = x.shape
     c = ws[-1].shape[0]
     flops = block_flops(b, h, w, cin, c)
-    bound, term = add_bound(entry, binding, flops, block_bytes(b, h, w, cin, c), per_forward,
-                            PEAK_BF16_FLOPS)
+    nbytes = block_bytes(b, h, w, cin, c)
+    bound, term = add_bound(entry, binding, flops, nbytes, per_forward, PEAK_BF16_FLOPS)
+    if also is not None:
+        add_bound(also, binding, flops, nbytes, per_forward, PEAK_BF16_FLOPS)
     del x, lib_args
     log(f"bf16 kernel {label}: per layer, beyond 1 ulp and {BF16_ABS_TOL:.0e} of max "
         f"{worst[0]} elements, bit-equal {worst[1]:.6f} (>= {BF16_BIT_EQUAL}), worst "
-        f"|diff|/max {worst[2]:.3e}; repeat bit-equal {same}; ms {ms:.3f} "
+        f"|diff|/max {worst[2]:.3e}; repeat bit-equal {same}; on the wgmma body {route}; "
+        f"ms {ms:.3f} "
         f"({flops / ms / 1e9:.1f} TFLOP/s) plain_ms {plain_ms:.3f} library_ms (cuDNN bf16) "
         f"{library_ms:.3f} bound_ms {bound:.3f} ({term}) {'ok' if ok else 'FAIL'}")
-    add_times((entry,), per_forward, ms, plain_ms, library_ms)
+    add_times((entry, also), per_forward, ms, plain_ms, library_ms)
     return ok
 
 
@@ -1784,8 +1800,12 @@ def phase_bf16(dev, results, binding, f32_ms):
                      max_abs_err=0.0, ms=0.0, plain_ms=0.0, bound_ms=0.0, bound_by=None,
                      library_ms=None)
         results[entry["name"]] = entry
+    for name, (kernel, _) in FWD_MODE_ENTRIES.items():
+        results[bf16_name(name)] = dict(results[bf16_name(kernel)], name=bf16_name(name),
+                                        source="pda_torch/kernels/csrc/conv3x3_wgmma.cuh")
     k1, k2, k3 = (results[bf16_name(n)] for n in ("conv_block_fwd", "conv_block_fwd_dual",
                                                   "mc_consensus"))
+    k1w, k2w = (results[bf16_name(n)] for n in FWD_MODE_ENTRIES)
     gen = torch.Generator().manual_seed(SEED + 3)
     ok = True
 
@@ -1802,12 +1822,14 @@ def phase_bf16(dev, results, binding, f32_ms):
             b, h, w, cin, c = shape
             x = torch.randn(b, h, w, cin, generator=src).to(dev).to(bf16)
             ok &= check_bf16_fwd(k1, f"conv_block_fwd {cin}->{c} @{b}x{h}x{w}",
-                                 (x, *conv_weights(src, cin, c, dev)), per_forward, binding)
+                                 (x, *conv_weights(src, cin, c, dev)), per_forward, binding,
+                                 also=k1w)
         for b, h, w, ca, cb, c in wl.K2_TILED:
             xa = torch.randn(b, h, w, ca, generator=gen).to(dev).to(bf16)
             xb = torch.randn(b, h, w, cb, generator=gen).to(dev).to(bf16)
             ok &= check_bf16_fwd(k2, f"conv_block_fwd_dual {ca}+{cb}->{c} @{b}x{h}x{w}",
-                                 (xa, xb, *conv_weights(gen, ca + cb, c, dev)), 1, binding)
+                                 (xa, xb, *conv_weights(gen, ca + cb, c, dev)), 1, binding,
+                                 also=k2w)
         for name, (b, h, w, c), masking in wl.K3_SHAPES[:2]:
             feat, *rest = wl.mc_inputs(gen, b, h, w, c, dev=dev)
             ok &= check_bf16_mc(k3, name, (feat.to(bf16), *rest), masking, binding,
@@ -1880,10 +1902,12 @@ def phase_bf16(dev, results, binding, f32_ms):
     reset_launches(wrappers)
     probs = tiled_punet_probs(serve, frame_dev, eps_tiled, MC, BLOCK, HALO)
     torch.cuda.synchronize()
+    on, routes = all_on_wgmma(wrappers)
     counts = counted_launches(wrappers, results, bf16=True)
     want = {"conv_block_fwd": 8, "conv_block_fwd_dual": 3, "mc_consensus": 1,
             "conv_block_bwd": 0, "conv_block_bwd_dual": 0}
-    good = (counts == want and probs.dtype == torch.float32 and tuple(probs.shape) == (*FRAME, 1)
+    good = (counts == want and on and probs.dtype == torch.float32
+            and tuple(probs.shape) == (*FRAME, 1)
             and bool(torch.isfinite(probs).all()) and 0.0 <= float(probs.min())
             and float(probs.max()) <= 1.0)
     torch.cuda.reset_peak_memory_stats()
@@ -1892,7 +1916,7 @@ def phase_bf16(dev, results, binding, f32_ms):
     peak = torch.cuda.max_memory_allocated() / 2**30
     log(f"bf16 serving tiled_punet_probs MC-{MC} 520x704: float32 probabilities in "
         f"[{float(probs.min()):.4f}, {float(probs.max()):.4f}], launches {counts} (expected "
-        f"{want}) {'ok' if good else 'FAIL'}")
+        f"{want}), on the wgmma body {routes} {'ok' if good else 'FAIL'}")
     log(f"time tiled_punet_probs MC-{MC} 520x704 bf16 (4 tiles of 512^2): {tiled_ms:.2f} ms/frame, "
         f"{4000.0 / tiled_ms:.2f} tiles/s, peak {peak:.2f} GiB")
     ok &= good
@@ -2196,11 +2220,11 @@ def kernel_wrappers():
 
 
 def reset_launches(wrappers):
-    from pda_torch.kernels.conv_block import BWD_MODES
+    from pda_torch.kernels.conv_block import BWD_MODES, FWD_MODES
 
     for w in wrappers.values():
         w.launches = w.launches_bf16 = 0
-        for name in (f"launches_{m}{s}" for m in BWD_MODES for s in ("", "_bf16")):
+        for name in (f"launches_{m}{s}" for m in (*BWD_MODES, *FWD_MODES) for s in ("", "_bf16")):
             if hasattr(w, name):
                 setattr(w, name, 0)
 
@@ -2213,6 +2237,22 @@ def mode_launches(wrappers, bf16=False):
             for name, (kernel, mode) in MODE_ENTRIES.items()}
 
 
+def route_launches(wrappers):
+    """The bf16 forwards' launches on the wgmma body since
+    :func:`reset_launches`, by JSON entry (FWD_MODE_ENTRIES)."""
+    return {name: getattr(wrappers[kernel], f"launches_{mode}_bf16")
+            for name, (kernel, mode) in FWD_MODE_ENTRIES.items()}
+
+
+def all_on_wgmma(wrappers):
+    """(ok, counts): every bf16 forward launch since :func:`reset_launches`
+    ran on the wgmma body, and at least one did."""
+    routes = route_launches(wrappers)
+    ok = all(routes[name] == wrappers[kernel].launches_bf16
+             for name, (kernel, _) in FWD_MODE_ENTRIES.items()) and any(routes.values())
+    return ok, routes
+
+
 def read_launches(wrappers, bf16=False):
     """The launches since :func:`reset_launches` (a check's, logged only),
     of the kernels' float32 instances (or, with ``bf16``, their bf16 ones)."""
@@ -2223,7 +2263,8 @@ def counted_launches(wrappers, results, bf16=False):
     """The launches since :func:`reset_launches` of a main path's run, added
     to the JSON line's counts (of the bf16 instances' entries with ``bf16``)."""
     counts = read_launches(wrappers, bf16)
-    for k, n in {**counts, **mode_launches(wrappers, bf16)}.items():
+    for k, n in {**counts, **mode_launches(wrappers, bf16),
+                 **(route_launches(wrappers) if bf16 else {})}.items():
         results[bf16_name(k) if bf16 else k]["launches"] += n
     return counts
 
@@ -3898,7 +3939,9 @@ def main(argv=None) -> int:
         "sums and count), library_ms there after the pool's transpose (avg_pool2d_backward) "
         "and the add; conv_block_bwd[_dual]_recompute: one call at "
         "workload.RECOMPUTE[_DUAL]_SHAPE, library_ms cuDNN's first two layers then its "
-        "backward; launches: the main "
+        "backward; conv_block_fwd[_dual]_wgmma_bf16: the bf16 forward launches whose "
+        "tensor-core layers all ran on the wgmma body (csrc/conv3x3_wgmma.cuh), with their "
+        "kernel's times (every bf16 forward launch of the main paths); launches: the main "
         "paths' runs, each counted from 0: both serving entries, the checked MT step, the "
         "checked PDA_PALLAS_CONV_MODE=mixed step (the recompute entries' float32 count), the "
         "bf16 phase's timed MT steps (default and mixed) and tiled serving, the "

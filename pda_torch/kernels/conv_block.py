@@ -40,7 +40,12 @@ The forward's layers run on the tensor cores in 3xTF32 too
 (``csrc/conv3x3_tc.cuh``, the body the dgrad shares), so on the card the
 forward is about 1e-6 of its largest value off a float64 reference, no
 longer bit-equal to cuDNN's float32 FMAs; a single-input first layer with
-1 or 2 channels (the image, or image + mask) runs on the FMA pipes.
+1 or 2 channels (the image, or image + mask) runs on the FMA pipes. In bf16
+every other forward layer whose channel counts are multiples of 8 (with
+16-byte-aligned tensors) runs on Hopper's asynchronous path instead
+(``csrc/conv3x3_wgmma.cuh``: TMA, ``wgmma``, float32 sums in registers),
+and so does the bf16 recompute of h1, h2; a forward launch whose every
+tensor-core layer took it also counts in ``launches_wgmma_bf16``.
 
 Tensors are NHWC float32 or bf16, weights HWIO ``(3, 3, Cin, C)`` float32
 as in ``pda``, biases ``(C,)`` float32; the forward kernel reads an HWOI copy
@@ -463,7 +468,8 @@ def _block_forward(ctx, xs, weights, mixed: bool, name: str) -> torch.Tensor:
         h1, h2, h3 = _nhwc(_plain_layers(x, *weights))
     else:
         h1, h2, h3 = _launch(xs[0], xs[1] if len(xs) > 1 else None, *weights)
-        count_launch(conv_block_fwd if len(xs) == 1 else conv_block_fwd_dual, xs[0].dtype)
+        count_launch(conv_block_fwd if len(xs) == 1 else conv_block_fwd_dual, xs[0].dtype,
+                     _fwd_modes(xs, w1.shape[-1]))
     ctx.save_for_backward(*xs, h1, h2, h3, w1, w2, w3)
     return h3
 
@@ -623,6 +629,19 @@ def conv_block_bwd_dual(g, xa, xb, h1, h2, h3, w1, w2, w3, *, gp=None, b1=None, 
     return out
 
 
+def _fwd_modes(xs, c: int) -> tuple:
+    """The forward's route of a launch: "wgmma" when every tensor-core
+    layer of a bf16 block ran on the wgmma body (``csrc/conv3x3_wgmma.cuh``),
+    which the C entry decides by shape and alignment, as the launch did."""
+    if xs[0].dtype != _BF16:
+        return ()
+    fn = _build.entry("pda_conv_block_fwd_wgmma_bf16", (_VP, _VP, _I, _I, _I))
+    xb = xs[1] if len(xs) > 1 else None
+    on = fn(xs[0].data_ptr(), None if xb is None else xb.data_ptr(), xs[0].shape[-1],
+            0 if xb is None else xb.shape[-1], c)
+    return ("wgmma",) if on else ()
+
+
 def _modes(gp, h1) -> tuple:
     """The backward modes of a launch: "pool" (a pooled cotangent) and/or
     "recompute" (h1, h2 not saved)."""
@@ -632,10 +651,14 @@ def _modes(gp, h1) -> tuple:
 #: launches of the CUDA kernel since the count was last set to 0: its
 #: float32 instance (``launches``) and its bf16 instance (``launches_bf16``);
 #: the backwards' launches in a mode also count in ``launches_<mode>[_bf16]``
-#: (:data:`BWD_MODES`)
+#: (:data:`BWD_MODES`), and the bf16 forwards' launches whose layers all ran
+#: on the wgmma body in ``launches_wgmma_bf16`` (:data:`FWD_MODES`)
 BWD_MODES = ("pool", "recompute")
+FWD_MODES = ("wgmma",)
 for _fn in (conv_block_fwd, conv_block_fwd_dual, conv_block_bwd, conv_block_bwd_dual):
     _fn.launches = _fn.launches_bf16 = 0
+for _fn in (conv_block_fwd, conv_block_fwd_dual):
+    _fn.launches_wgmma_bf16 = 0
 for _fn in (conv_block_bwd, conv_block_bwd_dual):
     for _m in BWD_MODES:
         setattr(_fn, f"launches_{_m}", 0)

@@ -74,7 +74,11 @@
 // 16-byte cp.async (channel counts multiples of 8) or element by element.
 // What bounds it: the same FLOPs against 989 TFLOP/s dense bf16; the
 // stage layout, the flushes to shared memory and mma.sync (not wgmma)
-// keep it far from that (PERF.md).
+// keep it far from that (PERF.md). Which bf16 layers take it: the dgrad
+// (FWD false) always; in the forward only the layers the wgmma body
+// (conv3x3_wgmma.cuh) cannot describe as tensor maps: an input or output
+// channel count that is not a multiple of 8 (Cin 3-7), or a pointer off 16
+// bytes (conv_block_fwd.cuh fwd_layer decides by shape before launch).
 #pragma once
 
 #include <cstdint>

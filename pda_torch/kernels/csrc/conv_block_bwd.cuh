@@ -100,7 +100,8 @@
 // conv_block_packed_bwd.py :97): the forward kept only x and h3, and the
 // entries rebuild h1 and h2 from x (or [xa | xb]) before the chain, with the
 // forward's own layer bodies (conv_block_fwd.cuh fwd_layer1, then
-// conv3x3_tc<T, V, true>), into h1 and h2 buffers the caller allocates for
+// fwd_layer: in bf16 the wgmma body where the forward takes it, so h1, h2
+// are the forward's bit for bit), into h1 and h2 buffers the caller allocates for
 // this call only. What this buys is memory between the forward and the
 // backward: h1 and h2 of every block are no longer held for the whole step.
 // It costs two forward layers a block and does not save HBM traffic; keeping
@@ -531,8 +532,8 @@ cudaError_t block_bwd(const void* xa_, const void* xb_, int Ca, int Cb, const vo
     if ((err = fwd_layer1<T>(xa, xb, Ca, Cb, c(f1_), b(b1_), h1, B, H, W, C, s)) !=
         cudaSuccess)
       return err;
-    if ((err = conv3x3_tc_layer<T, true>(h1, nullptr, C, 0, c(f2_), b(b2_), nullptr, h2,
-                                         nullptr, C, 0, B, H, W, s)) != cudaSuccess)
+    if ((err = fwd_layer<T>(h1, nullptr, C, 0, c(f2_), b(b2_), h2, C, B, H, W, s)) !=
+        cudaSuccess)
       return err;
   }
   const int slots = wgrad_slots<T>();

@@ -44,33 +44,68 @@
 // HWOI weights copied as bf16 by the wrapper (pda's w.astype(dtype)), float32
 // biases; each layer sums in float32, adds the bias in float32, applies the
 // ReLU and rounds to bf16 once (pda/kernels/conv_block.py _kernel), so h1,
-// h2 and the output are bf16. Same bodies, bf16 instances (conv3x3_tc.cuh,
-// conv3x3.cuh).
+// h2 and the output are bf16. Routes, chosen by shape before launch
+// (fwd_layer): a single-input first layer of 1 or 2 channels on the FMA
+// pipes (conv3x3.cuh, bf16 instance); every layer whose input and output
+// channel counts are multiples of 8 with 16-byte-aligned pointers on the
+// wgmma body (conv3x3_wgmma.cuh: TMA, wgmma, float32 sums in registers),
+// which is every other layer of the flagship; any other layer (Cin 3-7, a
+// count off 8, an unaligned view) on conv3x3_tc<bf16, V, true>.
 //
-// Not done yet (later work): TMA and wgmma, warp-specialised producers,
-// ldmatrix for the bf16 fragments.
+// Not done yet (later work): the float32 layers on TMA and wgmma (wgmma
+// takes TF32, not 3xTF32's split, as one product); a persistent bf16 body
+// that overlaps one tile's epilogue with the next tile's loads.
 
 #pragma once
 
 #include <cuda_bf16.h>
 
+#include <type_traits>
+
 #include "conv3x3.cuh"
 #include "conv3x3_tc.cuh"
+#include "conv3x3_wgmma.cuh"
 
 namespace {
 
-// The block's first layer, relu(conv1(x) + b1) into h1: the FMA-pipe entry
-// layer for a single input of 1 or 2 channels, the tensor-core body
-// otherwise. The backward's recompute (conv_block_bwd.cuh) rebuilds h1 with
-// it, so that its h1 is the forward's bit for bit.
+// One tensor-core layer of the block, y = relu(conv(x) + bias) with x =
+// [xa | xb]: in bf16 the wgmma body (conv3x3_wgmma.cuh) where its tensor
+// maps describe the shape (wgmma_takes), else conv3x3_tc<bf16, V, true>; in
+// float32 always conv3x3_tc<float, V, true> (3xTF32). The route is chosen
+// by shape before launch; a failed launch or encode returns its error.
+template <typename T>
+cudaError_t fwd_layer(const T* xa, const T* xb, int Ka, int Kb, const T* w, const float* bias,
+                      T* y, int N, int B, int H, int W, cudaStream_t s) {
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    if (wgmma_takes(Ka, Kb, N, xa, xb, w, y))
+      return conv3x3_wgmma_layer<T>(xa, xb, Ka, Kb, w, bias, y, N, B, H, W, s);
+  }
+  return conv3x3_tc_layer<T, true>(xa, xb, Ka, Kb, w, bias, nullptr, y, nullptr, N, 0, B, H,
+                                   W, s);
+}
+
+// Whether the block's first layer is the FMA-pipe entry layer: a single
+// input of 1 or 2 channels (the image, or image + mask).
+inline bool entry_layer(int Ca, int Cb) { return Cb == 0 && Ca < 3; }
+
+// The block's first layer, relu(conv1(x) + b1) into h1: the entry layer
+// (conv3x3.cuh) or fwd_layer. The backward's recompute (conv_block_bwd.cuh)
+// rebuilds h1 with it, and h2 with fwd_layer, so that its h1 and h2 are the
+// forward's bit for bit.
 template <typename T>
 cudaError_t fwd_layer1(const T* xa, const T* xb, int Ca, int Cb, const T* w1,
                        const float* b1, T* h1, int B, int H, int W, int C,
                        cudaStream_t s) {
-  return Cb == 0 && Ca < 3
-             ? conv3x3_entry_layer<T>(xa, Ca, w1, b1, h1, C, B, H, W, s)
-             : conv3x3_tc_layer<T, true>(xa, xb, Ca, Cb, w1, b1, nullptr, h1, nullptr,
-                                         C, 0, B, H, W, s);
+  return entry_layer(Ca, Cb) ? conv3x3_entry_layer<T>(xa, Ca, w1, b1, h1, C, B, H, W, s)
+                             : fwd_layer<T>(xa, xb, Ca, Cb, w1, b1, h1, C, B, H, W, s);
+}
+
+// Whether every tensor-core layer of a bf16 block on x = [xa | xb] takes
+// the wgmma body (the wrapper's count of that route); the weights and the
+// outputs are the wrapper's own allocations, 16-byte aligned.
+inline bool block_on_wgmma(const void* xa, const void* xb, int Ca, int Cb, int C) {
+  return wgmma_takes(C, 0, C, nullptr, nullptr, nullptr, nullptr) &&
+         (entry_layer(Ca, Cb) || wgmma_takes(Ca, Cb, C, xa, xb, nullptr, nullptr));
 }
 
 // The whole ConvBlock: y = relu(conv3(relu(conv2(relu(conv1(x)+b1))+b2))+b3).
@@ -88,11 +123,9 @@ cudaError_t block_fwd(const void* xa, const void* xb, int Ca, int Cb, const void
   const auto b = [](const void* p) { return static_cast<const float*>(p); };
   cudaError_t err = fwd_layer1<T>(f(xa), f(xb), Ca, Cb, f(w1), b(b1), o(h1), B, H, W, C, s);
   if (err != cudaSuccess) return err;
-  err = conv3x3_tc_layer<T, true>(f(h1), nullptr, C, 0, f(w2), b(b2), nullptr, o(h2),
-                                  nullptr, C, 0, B, H, W, s);
+  err = fwd_layer<T>(f(h1), nullptr, C, 0, f(w2), b(b2), o(h2), C, B, H, W, s);
   if (err != cudaSuccess) return err;
-  return conv3x3_tc_layer<T, true>(f(h2), nullptr, C, 0, f(w3), b(b3), nullptr, o(y),
-                                   nullptr, C, 0, B, H, W, s);
+  return fwd_layer<T>(f(h2), nullptr, C, 0, f(w3), b(b3), o(y), C, B, H, W, s);
 }
 
 }  // namespace

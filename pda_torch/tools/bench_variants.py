@@ -1,6 +1,7 @@
 """Time variants of the kernels against each other on one card.
 
     python -m pda_torch.tools.bench_variants DIR [DIR ...] [--iters 5] [--only fwd|bwd|mc]
+        [--dtype float32|bf16]
 
 Each DIR is a copy of ``pda_torch/kernels/csrc`` with one change (a tile
 size, a flag); each builds into its own library (``_build.use_sources``).
@@ -16,6 +17,15 @@ version and float64 by the MC mean's max abs error, with the consensus
 pixels that differ from the plain version's farther than 1e-4 from a
 threshold counted. Prints one line per shape and variant, with TFLOP/s from
 the FLOPs the shape needs. Needs a CUDA card; TF32 off for cuDNN and matmul.
+
+``--dtype bf16`` runs the bf16 instances (pda's bf16 configuration) on bf16
+activations, the weights float32 as the wrappers take them. The forward is
+then held layer by layer (a bf16 rounding that falls the other way in one
+layer moves every later one) against the plain layer summed in float64 from
+the kernel's own input to it: the least share of bit-equal elements and the
+largest difference relative to the layer's largest value (``ref64``). The
+forward is timed through ``conv_block._launch``, which counts no launch, so
+a variant may be a parent's sources that lack the newer route counts.
 """
 
 from __future__ import annotations
@@ -41,8 +51,23 @@ BWD_SHAPES = (list(dict.fromkeys((*s[:4], 0, s[4], need_dx) for s, need_dx, *_ i
 
 
 def rel_err(outs, refs) -> float:
-    return max(float((o - r).abs().max()) / max(float(r.abs().max()), 1e-30)
+    return max(float((o.double() - r.double()).abs().max()) / max(float(r.abs().max()), 1e-30)
                for o, r in zip(outs, refs) if r is not None)
+
+
+def bf16_layers(hs, x, ws):
+    """(least bit-equal share, largest |diff| / max) of a bf16 block's h1, h2,
+    h3, each against the plain layer in float64 sums from the block's own
+    input to it."""
+    equal, rel = 1.0, 0.0
+    for k, h in enumerate(hs):
+        with kc.plain_sums(torch.float64):
+            ref = kc.conv_relu_layer(x.permute(0, 3, 1, 2), ws[2 * k],
+                                     ws[2 * k + 1]).permute(0, 2, 3, 1)
+        equal = min(equal, float((h.view(torch.int16) == ref.view(torch.int16)).double().mean()))
+        rel = max(rel, rel_err([h.double()], [ref.double()]))
+        x = h
+    return equal, rel
 
 
 def main(argv=None) -> int:
@@ -51,7 +76,10 @@ def main(argv=None) -> int:
     ap.add_argument("--iters", type=int, default=5)
     ap.add_argument("--only", choices=("fwd", "bwd", "mc"),
                     help="time only the forward, the backward or the MC tail")
+    ap.add_argument("--dtype", choices=("float32", "bf16"), default="float32",
+                    help="the kernels' instance: float32 (3xTF32) or bf16")
     args = ap.parse_args(argv)
+    dtype = torch.bfloat16 if args.dtype == "bf16" else torch.float32
     if not torch.cuda.is_available():
         print("bench_variants: needs a CUDA card", file=sys.stderr)
         return 1
@@ -60,33 +88,40 @@ def main(argv=None) -> int:
     dev = torch.device("cuda", 0)
     smi = subprocess.run(["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True)
-    print(f"device: {smi.stdout.strip()}; torch {torch.__version__}, CUDA {torch.version.cuda}")
+    print(f"device: {smi.stdout.strip()}; torch {torch.__version__}, CUDA {torch.version.cuda}; "
+          f"{args.dtype}")
     order = args.dirs + args.dirs[::-1]  # A B B A
     gen = torch.Generator().manual_seed(0)
     for b, h, w, ca, cb, c in FWD_SHAPES if args.only in (None, "fwd") else ():
-        xs = [torch.randn(b, h, w, n, generator=gen).to(dev) for n in ((ca, cb) if cb else (ca,))]
+        xs = [torch.randn(b, h, w, n, generator=gen).to(dev).to(dtype)
+              for n in ((ca, cb) if cb else (ca,))]
         ws = wl.conv_weights(gen, ca + cb, c, dev)
-        kernel = kc.conv_block_fwd_dual if cb else kc.conv_block_fwd
         plain = kc.conv_block_fwd_dual_plain if cb else kc.conv_block_fwd_plain
+        kernel = lambda: kc._launch(xs[0], xs[1] if cb else None, *ws)  # noqa: E731
         with torch.inference_mode():
             ref = plain(*xs, *ws)
-            ref64 = plain(*(t.double() for t in (*xs, *ws)))
+            ref64 = plain(*(t.double() for t in (*xs, *ws))) if dtype == torch.float32 else None
             flops = wl.block_flops(b, h, w, ca + cb, c)
             for d in order:
                 _build.use_sources(d)
-                out = kernel(*xs, *ws)
-                err, err64 = rel_err([out], [ref]), rel_err([out.double()], [ref64])
-                del out
-                ms = wl.cuda_ms(lambda: kernel(*xs, *ws), iters=args.iters)
+                hs = kernel()
+                err = rel_err([hs[-1].double()], [ref.double()])
+                if dtype == torch.float32:
+                    check = f"ref64 {rel_err([hs[-1].double()], [ref64]):.2e}"
+                else:
+                    equal, rel = bf16_layers(hs, torch.cat(xs, dim=-1), ws)
+                    check = f"ref64 per layer: bit-equal >= {equal:.6f}, |diff|/max <= {rel:.2e}"
+                del hs
+                ms = wl.cuda_ms(kernel, iters=args.iters)
                 print(f"fwd {ca}{'+' + str(cb) if cb else ''}->{c} @{b}x{h}x{w} {d.name}: "
                       f"ms {ms:.3f} ({flops / ms / 1e9:.1f} TFLOP/s) rel_err {err:.2e} "
-                      f"ref64 {err64:.2e}", flush=True)
+                      f"{check}", flush=True)
         del xs, ws, ref, ref64
     for b, h, w, ca, cb, c, need_dx in BWD_SHAPES if args.only in (None, "bwd") else ():
-        x = torch.randn(b, h, w, ca + cb, generator=gen).to(dev)
+        x = torch.randn(b, h, w, ca + cb, generator=gen).to(dev).to(dtype)
         ws = wl.conv_weights(gen, ca + cb, c, dev)
         hs = [t.permute(0, 2, 3, 1).contiguous() for t in kc._plain_layers(x, *ws)]
-        g = torch.randn(b, h, w, c, generator=gen).to(dev)
+        g = torch.randn(b, h, w, c, generator=gen).to(dev).to(dtype)
         if cb:
             args_ = (g, x[..., :ca].contiguous(), x[..., ca:].contiguous(), *hs, *ws[::2])
             kernel, plain = kc.conv_block_bwd_dual, kc.conv_block_bwd_dual_plain
@@ -103,7 +138,8 @@ def main(argv=None) -> int:
                   f"ms {ms:.3f} rel_err {err:.2e}", flush=True)
         del x, ws, hs, g, args_, ref
     for name, (b, h, w, c), masking in wl.K3_SHAPES if args.only in (None, "mc") else ():
-        args_ = wl.mc_inputs(gen, b, h, w, c, dev=dev)
+        feat, *rest = wl.mc_inputs(gen, b, h, w, c, dev=dev)
+        args_ = (feat.to(dtype), *rest)
         with torch.inference_mode():
             ref_mean, ref_cons = km.mc_consensus_plain(*args_, masking)
             ref64 = km.mc_consensus_plain(*(t.double() for t in args_), masking)[0]

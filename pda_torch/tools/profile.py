@@ -1,6 +1,7 @@
 """Where the card's time goes, for ``PERF.md`` section 5.
 
     python -m pda_torch.tools.profile [--what ptxas,mt,serving,engine] [--steps 3] [--epoch 4]
+        [--dtype float32|bf16]
 
 Needs one CUDA card (exits 1 without). Four parts, each optional:
 
@@ -15,6 +16,9 @@ Needs one CUDA card (exits 1 without). Four parts, each optional:
   need.
 - ``serving``: the same for the tiled MC-16 prediction and the MC-16 pseudo
   export of one seeded 520x704 frame, per frame.
+- ``--dtype bf16``: ``mt`` and ``serving`` on the flagship in ``pda``'s bf16
+  configuration (``livecell_punet(dtype=torch.bfloat16)``, float32
+  parameters), the bf16 instances of the kernels.
 - ``engine`` (not in the default): the flagship's ``MeanTeacherTrainer`` at
   512^2 (``workload.livecell_mt_trainer``: epochs of ``--epoch`` steps, a
   validation, the panels every 4 steps, checkpoints). After a warm-up
@@ -49,6 +53,7 @@ from .workload import block_flops, cuda_ms, dgrad_flops, mc_flops, recompute_flo
 # kernel name pattern -> label; the first that matches names a kernel
 LABELS = (
     (r"conv3x3_tc<[^>]*true>", "forward layer, tensor cores (conv3x3_tc fwd)"),
+    (r"conv3x3_wgmma<", "forward layer, bf16 wgmma (conv3x3_wgmma)"),
     (r"conv3x3_entry<", "forward entry layer, FMA (conv3x3_entry)"),
     (r"conv3x3_tc<[^>]*false>", "dgrad (conv3x3_tc)"),
     (r"wgrad_tc<", "wgrad (wgrad_tc)"),
@@ -154,6 +159,7 @@ def profiled(run, n: int, flops: collections.Counter, what: str) -> None:
     print(f"== {what}: wall {wall:.2f} ms per call (profiled), device busy {busy:.2f} ms "
           f"({busy / wall:.3f})")
     rates = {"forward layer, tensor cores (conv3x3_tc fwd)": "forward",
+             "forward layer, bf16 wgmma (conv3x3_wgmma)": "forward",
              "dgrad (conv3x3_tc)": "dgrad", "wgrad (wgrad_tc)": "wgrad",
              "MC tail, tensor cores (mc_consensus_tc)": "mc"}
     fwd_ms = sum(ms for k, (ms, _) in rows.items() if k.startswith("forward"))
@@ -175,13 +181,16 @@ def hwoi_ms(weights) -> float:
     return cuda_ms(lambda: [kc._hwoi(w) for w in weights], iters=20)
 
 
-def mt(dev, steps: int) -> None:
+_NAMES = {torch.float32: "f32", torch.bfloat16: "bf16"}
+
+
+def mt(dev, steps: int, dtype: torch.dtype = torch.float32) -> None:
     from ..models.punet import livecell_punet
     from ..train import adam, create_train_state, make_mean_teacher_step
 
     gen = torch.Generator().manual_seed(0)
     model = livecell_punet(consensus_masking=True, generator=torch.Generator().manual_seed(0),
-                           device=dev)
+                           device=dev, dtype=dtype)
     with torch.no_grad():
         model.fcomb.last_layer.weight.mul_(8.0)
     state = create_train_state(model, adam(model.parameters(), 1e-5), with_teacher=True)
@@ -196,22 +205,23 @@ def mt(dev, steps: int) -> None:
     with count_flops() as flops:  # one step's FLOPs, outside the profile
         step(state, *batch, generator=cuda_gen)
     profiled(lambda: step(state, *batch, generator=cuda_gen), steps, flops,
-             "MT step 512^2 batch 2 MC-16 f32")
+             f"MT step 512^2 batch 2 MC-16 {_NAMES[dtype]}")
 
 
-def serving(dev, frames: int) -> None:
+def serving(dev, frames: int, dtype: torch.dtype = torch.float32) -> None:
     from ..infer import full_punet_pseudo, tiled_punet_probs
     from ..models.punet import livecell_punet
 
     gen = torch.Generator().manual_seed(0)
-    model = livecell_punet(generator=torch.Generator().manual_seed(0), device=dev).eval()
+    model = livecell_punet(generator=torch.Generator().manual_seed(0), device=dev,
+                           dtype=dtype).eval()
     frame = (torch.randn(520, 704, 1, generator=gen) * 40 + 100).to(dev)
     eps_tiled = torch.randn(16, 4, 6, generator=gen).to(dev)
     eps_pseudo = torch.randn(16, 1, 6, generator=gen).to(dev)
     for name, run in (
-            ("tiled_punet_probs MC-16 520x704 (4 tiles of 512^2)",
+            (f"tiled_punet_probs MC-16 520x704 (4 tiles of 512^2) {_NAMES[dtype]}",
              lambda: tiled_punet_probs(model, frame, eps_tiled, 16, (384, 384), (64, 64))),
-            ("full_punet_pseudo MC-16 520x704 (padded 528x704)",
+            (f"full_punet_pseudo MC-16 520x704 (padded 528x704) {_NAMES[dtype]}",
              lambda: full_punet_pseudo(model, frame, eps_pseudo, 16, masking=True))):
         for _ in range(3):
             run()
@@ -300,7 +310,10 @@ def main(argv=None) -> int:
     ap.add_argument("--what", default="ptxas,mt,serving")
     ap.add_argument("--steps", type=int, default=3)
     ap.add_argument("--epoch", type=int, default=4, help="engine: iterations an epoch")
+    ap.add_argument("--dtype", choices=("float32", "bf16"), default="float32",
+                    help="mt, serving: the flagship in float32 or in pda's bf16 configuration")
     args = ap.parse_args(argv)
+    dtype = torch.bfloat16 if args.dtype == "bf16" else torch.float32
     if not torch.cuda.is_available():
         print("profile: needs a CUDA card", file=sys.stderr)
         return 1
@@ -314,10 +327,10 @@ def main(argv=None) -> int:
     if "ptxas" in what:
         ptxas()
     if "mt" in what:
-        mt(dev, args.steps)
+        mt(dev, args.steps, dtype)
     if "serving" in what:
         with torch.inference_mode():
-            serving(dev, args.steps)
+            serving(dev, args.steps, dtype)
     if "engine" in what:
         engine(dev, args.steps, args.epoch)
     return 0

@@ -27,7 +27,8 @@ import pytest
 import torch
 from jax.experimental.pallas import tpu as pltpu
 
-from pda.kernels.conv_block import (canvas_wp, conv_block_fused, conv_block_fused_flat_dual,
+from pda.kernels.conv_block import (canvas_wp, conv_block_fused, conv_block_fused_flat,
+                                    conv_block_fused_flat_dual,
                                     flat_m0, uncanvas)
 from pda.kernels.conv_block_bwd import conv_block_bwd_flat, conv_block_bwd_flat_dual
 from pda.kernels.mc_consensus import mc_consensus_decode
@@ -118,6 +119,46 @@ def test_dual_forward_matches_pda_kernel(b, h, w, ca, cb, c):
                                      *map(jnp.asarray, ws), interpret=True)
     out = kc.conv_block_fwd_dual(xa, xb, *map(torch.from_numpy, ws))
     assert_bf16_close(out, uncanvas(ref, h, w))
+
+
+# The edges of the card's wgmma layer body (csrc/conv3x3_wgmma.cuh: 64-channel
+# chunks, 8 x 16 or 16 x 16 pixel tiles, 64 or 128 output channels a block),
+# which tests/test_torch_cuda.py holds against these plain versions: channel
+# counts off the chunk (8, 16, 48, 72, 136), dual splits off it (40 + 24,
+# 200 + 72), odd widths, batch 1, and a Cin-3 block (the mma.sync body's).
+# pda's kernels take H a multiple of their 8- or 16-row band, so H is 8 or 16
+# here; odd heights are checked on the card against the plain version.
+RAGGED_FWD = [(1, 16, 45, 8, 0, 8), (1, 16, 45, 16, 0, 16), (1, 16, 45, 48, 0, 72),
+              (2, 16, 33, 72, 0, 136), (1, 8, 21, 3, 0, 48), (1, 16, 45, 40, 24, 64),
+              (1, 16, 21, 200, 72, 128)]
+
+
+@pytest.mark.parametrize("b,h,w,ca,cb,c", RAGGED_FWD)
+def test_forward_layers_match_pda_kernel_at_ragged_shapes(b, h, w, ca, cb, c):
+    """Layer by layer: each of the port's plain bf16 layers, from pda's own
+    input to it, against pda's h1, h2 and output (``save_intermediates``):
+    a rounding that falls the other way in one layer moves the layers after
+    it, so the block's output alone is held only at a few channels."""
+    rng = np.random.default_rng(ca * 1000 + cb * 10 + c)
+    xa = bf16_input(rng, (b, h, w, ca))
+    xb = bf16_input(rng, (b, h, w, cb)) if cb else None
+    ws = weights(rng, ca + cb, c)
+    wp = canvas_wp(w)
+    jw = list(map(jnp.asarray, ws))
+    if cb:
+        out, h1, h2 = conv_block_fused_flat_dual(flat_m0(to_jax(xa), wp), flat_m0(to_jax(xb), wp),
+                                                 h, w, *jw, interpret=True,
+                                                 save_intermediates=True)
+    else:
+        out, h1, h2 = conv_block_fused_flat(flat_m0(to_jax(xa), wp), h, w, *jw, interpret=True,
+                                            save_intermediates=True)
+    hs = [uncanvas(t, h, w) for t in (h1, h2, out)]
+    h_in = xa if xb is None else torch.cat([xa, xb], dim=-1)
+    for k, ref in enumerate(hs):
+        layer = kc.conv_relu_layer(h_in.permute(0, 3, 1, 2), torch.from_numpy(ws[2 * k]),
+                                   torch.from_numpy(ws[2 * k + 1])).permute(0, 2, 3, 1)
+        assert_bf16_close(layer.contiguous(), ref)
+        h_in = to_torch(ref)
 
 
 @pytest.mark.parametrize("need_dx", [False, True])

@@ -86,6 +86,86 @@ def test_dual_conv_block_kernel_matches_plain(dev, b, h, w, ca, cb, c):
     assert torch.equal(out, again)
 
 
+def _assert_bf16_layer(out, ref):
+    """chip_smoke.py's bf16 layer rule: within one bf16 ulp of the plain
+    layer, or 1e-5 of its largest value, and bit-equal on 99% of it."""
+    a, r = out.double(), ref.double()
+    diff = (a - r).abs()
+    big = torch.maximum(a.abs(), r.abs()).clamp(min=2.0 ** -126)
+    ulp = torch.ldexp(torch.ones_like(big), torch.frexp(big)[1] - 8)
+    beyond = (diff > ulp) & (diff > 1e-5 * float(r.abs().max()))
+    equal = float((out.view(torch.int16) == ref.view(torch.int16)).double().mean())
+    assert bool(torch.isfinite(a).all())
+    assert not beyond.any(), f"{int(beyond.sum())} elements beyond one ulp"
+    assert equal >= 0.99, f"bit-equal on {equal:.4%}"
+
+
+def _bf16_block_layers(xa, xb, ws):
+    """h1, h2, h3 of the bf16 forward kernel, each held against the plain
+    layer summed in float64 from the kernel's own input to it."""
+    hs = kconv._launch(xa, xb, *ws)
+    h_in = xa if xb is None else torch.cat([xa, xb], dim=-1)
+    for k, h in enumerate(hs):
+        with kconv.plain_sums(torch.float64):
+            ref = kconv.conv_relu_layer(h_in.permute(0, 3, 1, 2), ws[2 * k], ws[2 * k + 1])
+        _assert_bf16_layer(h, ref.permute(0, 2, 3, 1))
+        h_in = h
+    return hs
+
+
+@pytest.mark.parametrize("b,h,w,ca,cb,c,wgmma", [
+    # the edges of the bf16 wgmma body (64-channel chunks, 8 x 16 pixel tiles
+    # at Cout > 64, 16 x 16 at Cout <= 64): odd H and W, batch 1, channel
+    # counts off the chunk and off the 64/128-channel slice
+    (1, 33, 45, 8, 0, 8, True), (1, 33, 45, 16, 0, 16, True), (1, 33, 45, 48, 0, 72, True),
+    (2, 66, 88, 72, 0, 136, True), (1, 66, 88, 256, 0, 512, True),
+    (1, 33, 45, 1, 0, 64, True),  # the FMA entry layer, then two wgmma layers
+    # dual splits off the chunk boundary: one chunk reads xa's last channels, zero-filled
+    (1, 33, 45, 40, 24, 64, True), (2, 21, 30, 200, 72, 128, True),
+    # channel counts off 8: no tensor map; the first layer on the mma.sync body
+    (1, 17, 19, 3, 0, 48, False), (1, 9, 11, 20, 12, 40, False),
+])
+def test_bf16_forward_layers_match_plain(dev, b, h, w, ca, cb, c, wgmma):
+    """The bf16 forward (K1, K2) layer by layer against the plain layer in
+    float64 sums, twice bit-equal, and through the wrapper; its launch
+    counts in launches_wgmma_bf16 when every tensor-core layer took the
+    wgmma body, which every shape with Ca and Cb multiples of 8 does."""
+    gen = torch.Generator().manual_seed(ca * 100 + cb + c)
+    xa = torch.randn(b, h, w, ca, generator=gen).to(dev).to(torch.bfloat16)
+    xb = torch.randn(b, h, w, cb, generator=gen).to(dev).to(torch.bfloat16) if cb else None
+    ws = _weights(gen, ca + cb, c, dev)
+    wrapper = conv_block_fwd if xb is None else conv_block_fwd_dual
+    before = (wrapper.launches_bf16, wrapper.launches_wgmma_bf16)
+    with torch.no_grad():
+        hs = _bf16_block_layers(xa, xb, ws)
+        again = kconv._launch(xa, xb, *ws)
+        out = wrapper(xa, *ws) if xb is None else wrapper(xa, xb, *ws)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, r) for a, r in zip(hs, again))
+    assert torch.equal(out, hs[2])
+    assert (wrapper.launches_bf16, wrapper.launches_wgmma_bf16) == (before[0] + 1,
+                                                                     before[1] + int(wgmma))
+
+
+def test_bf16_forward_on_an_unaligned_input_takes_the_mma_sync_body(dev):
+    """A bf16 input 2 bytes off a 16-byte boundary cannot be a tensor map's:
+    its first layer runs on the mma.sync body, counted off the wgmma route,
+    and agrees with the plain layers as the aligned input's forward does."""
+    gen = torch.Generator().manual_seed(5)
+    b, h, w, cin, c = 1, 19, 23, 64, 72
+    flat = torch.randn(b * h * w * cin + 1, generator=gen).to(dev).to(torch.bfloat16)
+    x = flat[1:].view(b, h, w, cin)
+    assert x.data_ptr() % 16 != 0
+    ws = _weights(gen, cin, c, dev)
+    before = (conv_block_fwd.launches_bf16, conv_block_fwd.launches_wgmma_bf16)
+    with torch.no_grad():
+        _bf16_block_layers(x, None, ws)
+        conv_block_fwd(x, *ws)
+    torch.cuda.synchronize()
+    assert (conv_block_fwd.launches_bf16, conv_block_fwd.launches_wgmma_bf16) == (before[0] + 1,
+                                                                                  before[1])
+
+
 def test_conv_block_kernel_matches_float64(dev):
     """At 2x64x64, 64->128, the forward within 1e-5 of the largest value of
     the plain version computed in float64: float32 accuracy, which the
@@ -364,6 +444,8 @@ def test_conv_block_bwd_pool_kernel_matches_plain(dev, b, h, w, cin, c, need_dx,
 @pytest.mark.parametrize("b,h,w,ca,cb,c", [
     (2, 9, 13, 1, 0, 64), (1, 17, 33, 2, 0, 40), (2, 12, 20, 70, 0, 128), (1, 9, 9, 6, 0, 10),
     (2, 10, 12, 13, 7, 24), (1, 16, 16, 64, 32, 64),
+    # bf16: h1 and h2 rebuilt on the wgmma body, from channel counts off its chunk
+    (2, 16, 20, 48, 0, 72), (1, 17, 21, 40, 24, 64),
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_recompute_bwd_is_the_saved_h_bwd(dev, b, h, w, ca, cb, c, dtype):
