@@ -242,6 +242,13 @@ MIXED_CHECK_PATCH = 64
 # the flagship's shapes that is every bf16 forward launch
 FWD_MODE_ENTRIES = {"conv_block_fwd_wgmma": ("conv_block_fwd", "wgmma"),
                     "conv_block_fwd_dual_wgmma": ("conv_block_fwd_dual", "wgmma")}
+# ... and its twin for the bf16 backwards: the launches whose every dgrad
+# (the wgmma body, conv3x3_wgmma.cuh) and every wgrad but an entry layer's
+# (wgrad_wgmma.cuh) ran on the wgmma bodies; on the flagship's shapes that is
+# every bf16 backward launch
+BWD_ROUTE_ENTRIES = {"conv_block_bwd_wgmma": ("conv_block_bwd", "wgmma"),
+                     "conv_block_bwd_dual_wgmma": ("conv_block_bwd_dual", "wgmma")}
+ROUTE_ENTRIES = {**FWD_MODE_ENTRIES, **BWD_ROUTE_ENTRIES}
 # peak device memory (GiB) of each time_steps label's run
 STEP_PEAKS = {}
 
@@ -1263,10 +1270,10 @@ def time_steps(label, step, state, batch, n_patches, wrappers, launches, warmup,
         got = mode_launches(wrappers, bf16)
         good &= got == {k: n * v for k, v in modes.items()}
         by_mode = f", by backward mode {got}"
-    if bf16 and (launches["conv_block_fwd"] or launches["conv_block_fwd_dual"]):
+    if bf16:
         on, routes = all_on_wgmma(wrappers)
         good &= on
-        by_mode += f", on the wgmma body {routes}"
+        by_mode += f", on the wgmma bodies {routes}"
     STEP_PEAKS[label] = peak
     log(f"training {label}: losses {[round(float(v), 5) for v in losses]} finite {finite}, "
         f"launches {counts}{by_mode} over {n} steps {'ok' if good else 'FAIL'}")
@@ -1434,15 +1441,17 @@ def check_bf16_fwd(entry, label, args, per_forward, binding, also=None):
     return ok
 
 
-def check_bf16_bwd(entry, label, args, need_dx, per_step, binding, gp=None, also=None):
+def check_bf16_bwd(entry, label, args, need_dx, per_step, binding, gp=None, also=()):
     """A bf16 backward block (args (g, x[, xb], h1, h2, h3, w1, w2, w3))
     layer by layer, each layer from the kernel's own cotangent (its da
     workspaces): dW, db within BF16_GRAD_TOL of the largest, da_2, da_1 and
-    dx by :func:`bf16_agree`; twice bit-equal; then times and the bound.
-    ``gp``: the pooled cotangent (``g`` may be None), da_3 the kernel's
-    first pass, bit-equal to the plain one's (one rounding of a float32
-    sum); cuDNN's time after the pool's transpose; ``also``: a second entry
-    (the mode's) that takes the same numbers."""
+    dx by :func:`bf16_agree`; twice bit-equal; every dgrad and every wgrad
+    but an entry layer's on the wgmma bodies (``kc._bwd_modes``), and the
+    share of the timed launches that took that route; then times and the
+    bound. ``gp``: the pooled cotangent (``g`` may be None), da_3 the
+    kernel's first pass, bit-equal to the plain one's (one rounding of a
+    float32 sum); cuDNN's time after the pool's transpose; ``also``: more
+    entries (the mode's, the route's) that take the same numbers."""
     import torch
 
     from pda_torch.kernels import conv_block as kc
@@ -1463,14 +1472,16 @@ def check_bf16_bwd(entry, label, args, need_dx, per_step, binding, gp=None, also
     x = torch.cat(xs, dim=-1)
     da3 = kc.masked_cotangent_kernel(g, gp, h3)
     first = torch.equal(da3, kc.masked_cotangent_plain(g, gp, h3))
-    ok, grad_worst, worst = same and first, 0.0, (0, 1.0, 0.0)
+    route = kc._bwd_modes(xs[0], xs[1] if dual else None, h3.shape[-1],
+                          need_dx or dual) == ("wgmma",)
+    ok, grad_worst, worst = same and first and route, 0.0, (0, 1.0, 0.0)
     for (dw, db), h_in, da in (((dw3, db3), h2, da3), ((dw2, db2), h1, da2),
                                ((dw1, db1), x, da1)):
         rw, rb = plain_wgrad(h_in, da)
         for a, r in ((dw, rw), (db, rb)):
             err = float((a.double() - r).abs().max()) / (float(r.abs().max()) or 1.0)
             grad_worst = max(grad_worst, err)
-            for e in filter(None, (entry, also)):
+            for e in filter(None, (entry, *also)):
                 e["max_abs_err"] = max(e["max_abs_err"], float((a.double() - r).abs().max()))
     checks = [(da2, plain_dgrad(da3, w3, h2)), (da1, plain_dgrad(da2, w2, h1))]
     if need_dx or dual:
@@ -1490,7 +1501,12 @@ def check_bf16_bwd(entry, label, args, need_dx, per_step, binding, gp=None, also
     else:
         kernel = lambda: kc.conv_block_bwd(*args, need_dx=need_dx, **kw)  # noqa: E731
         plain = lambda: kc.conv_block_bwd_plain(*args, need_dx=need_dx, **kw)  # noqa: E731
-    ms, plain_ms = cuda_ms(kernel), cuda_ms(plain)
+    wrapper = kc.conv_block_bwd_dual if dual else kc.conv_block_bwd
+    before = (wrapper.launches_bf16, wrapper.launches_wgmma_bf16)
+    ms = cuda_ms(kernel)
+    share = ((wrapper.launches_wgmma_bf16 - before[1])
+             / max(wrapper.launches_bf16 - before[0], 1))
+    plain_ms = cuda_ms(plain)
     b, h, w, c = h3.shape
     cin = sum(t.shape[-1] for t in xs)
     lib_args = (torch.cat(xs, dim=-1), h1, h2, h3,
@@ -1507,12 +1523,13 @@ def check_bf16_bwd(entry, label, args, need_dx, per_step, binding, gp=None, also
         f"{BF16_ABS_TOL:.0e} of max {worst[0]} elements, bit-equal {worst[1]:.6f}, worst "
         f"|diff|/max {worst[2]:.3e}; repeat bit-equal {same}"
         + ("" if gp is None else f", da_3 bit-equal to the plain version's {first}")
+        + f"; on the wgmma bodies {route} (share of the timed launches {share:.3f})"
         + f"; ms {ms:.3f} "
         f"({flops / ms / 1e9:.1f} TFLOP/s) plain_ms {plain_ms:.3f} library_ms (cuDNN bf16) "
         f"{library_ms:.3f} bound_ms {bound:.3f} ({term}) {'ok' if ok else 'FAIL'}")
-    if also is not None:
-        add_bound(also, binding, flops, nbytes, per_step, PEAK_BF16_FLOPS)
-    add_times((entry, also), per_step, ms, plain_ms, library_ms)
+    for e in filter(None, also):
+        add_bound(e, binding, flops, nbytes, per_step, PEAK_BF16_FLOPS)
+    add_times((entry, *also), per_step, ms, plain_ms, library_ms)
     return ok
 
 
@@ -1800,9 +1817,11 @@ def phase_bf16(dev, results, binding, f32_ms):
                      max_abs_err=0.0, ms=0.0, plain_ms=0.0, bound_ms=0.0, bound_by=None,
                      library_ms=None)
         results[entry["name"]] = entry
-    for name, (kernel, _) in FWD_MODE_ENTRIES.items():
-        results[bf16_name(name)] = dict(results[bf16_name(kernel)], name=bf16_name(name),
-                                        source="pda_torch/kernels/csrc/conv3x3_wgmma.cuh")
+    for name, (kernel, _) in ROUTE_ENTRIES.items():
+        results[bf16_name(name)] = dict(
+            results[bf16_name(kernel)], name=bf16_name(name),
+            source="pda_torch/kernels/csrc/" + ("conv3x3_wgmma.cuh" if name in FWD_MODE_ENTRIES
+                                                else "wgrad_wgmma.cuh"))
     k1, k2, k3 = (results[bf16_name(n)] for n in ("conv_block_fwd", "conv_block_fwd_dual",
                                                   "mc_consensus"))
     k1w, k2w = (results[bf16_name(n)] for n in FWD_MODE_ENTRIES)
@@ -1843,8 +1862,9 @@ def phase_bf16(dev, results, binding, f32_ms):
                              f"conv_block_bwd {cin}->{c} @{b}x{h}x{w} need_dx={need_dx} "
                              f"g_mode={mode}", (None if mode == "only" else g, x, *rest),
                              need_dx, per_step, binding, gp=gp,
-                             also=None if gp is None else results[
-                                 bf16_name("conv_block_bwd_pool")])
+                             also=(None if gp is None else results[
+                                 bf16_name("conv_block_bwd_pool")],
+                                   results[bf16_name("conv_block_bwd_wgmma")]))
         del g, x, rest, gp
     for b, h, w, ca, cb, c in wl.BWD_DUAL_SHAPES:
         g, x, *rest = saved_block(gen, b, h, w, ca + cb, c, dev, bf16)
@@ -1852,7 +1872,7 @@ def phase_bf16(dev, results, binding, f32_ms):
         del x
         ok &= check_bf16_bwd(results[bf16_name("conv_block_bwd_dual")],
                              f"conv_block_bwd_dual {ca}+{cb}->{c} @{b}x{h}x{w}", args, True, 1,
-                             binding)
+                             binding, also=(results[bf16_name("conv_block_bwd_dual_wgmma")],))
         del g, rest, args
     ok &= recompute_checks(dev, results, binding, gen_modes, bf16)
     torch.cuda.synchronize()
@@ -2238,18 +2258,18 @@ def mode_launches(wrappers, bf16=False):
 
 
 def route_launches(wrappers):
-    """The bf16 forwards' launches on the wgmma body since
-    :func:`reset_launches`, by JSON entry (FWD_MODE_ENTRIES)."""
+    """The bf16 forwards' and backwards' launches on the wgmma bodies since
+    :func:`reset_launches`, by JSON entry (ROUTE_ENTRIES)."""
     return {name: getattr(wrappers[kernel], f"launches_{mode}_bf16")
-            for name, (kernel, mode) in FWD_MODE_ENTRIES.items()}
+            for name, (kernel, mode) in ROUTE_ENTRIES.items()}
 
 
 def all_on_wgmma(wrappers):
-    """(ok, counts): every bf16 forward launch since :func:`reset_launches`
-    ran on the wgmma body, and at least one did."""
+    """(ok, counts): every bf16 forward and backward launch since
+    :func:`reset_launches` ran on the wgmma bodies, and at least one did."""
     routes = route_launches(wrappers)
     ok = all(routes[name] == wrappers[kernel].launches_bf16
-             for name, (kernel, _) in FWD_MODE_ENTRIES.items()) and any(routes.values())
+             for name, (kernel, _) in ROUTE_ENTRIES.items()) and any(routes.values())
     return ok, routes
 
 
@@ -3941,7 +3961,11 @@ def main(argv=None) -> int:
         "workload.RECOMPUTE[_DUAL]_SHAPE, library_ms cuDNN's first two layers then its "
         "backward; conv_block_fwd[_dual]_wgmma_bf16: the bf16 forward launches whose "
         "tensor-core layers all ran on the wgmma body (csrc/conv3x3_wgmma.cuh), with their "
-        "kernel's times (every bf16 forward launch of the main paths); launches: the main "
+        "kernel's times (every bf16 forward launch of the main paths); "
+        "conv_block_bwd[_dual]_wgmma_bf16: the bf16 backward launches whose every dgrad "
+        "(csrc/conv3x3_wgmma.cuh) and every wgrad but an entry layer's "
+        "(csrc/wgrad_wgmma.cuh) ran on the wgmma bodies, with their kernel's times (every "
+        "bf16 backward launch of the main paths); launches: the main "
         "paths' runs, each counted from 0: both serving entries, the checked MT step, the "
         "checked PDA_PALLAS_CONV_MODE=mixed step (the recompute entries' float32 count), the "
         "bf16 phase's timed MT steps (default and mixed) and tiled serving, the "

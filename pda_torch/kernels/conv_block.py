@@ -45,7 +45,13 @@ every other forward layer whose channel counts are multiples of 8 (with
 16-byte-aligned tensors) runs on Hopper's asynchronous path instead
 (``csrc/conv3x3_wgmma.cuh``: TMA, ``wgmma``, float32 sums in registers),
 and so does the bf16 recompute of h1, h2; a forward launch whose every
-tensor-core layer took it also counts in ``launches_wgmma_bf16``.
+tensor-core layer took it also counts in ``launches_wgmma_bf16``. The bf16
+backward's dgrad runs on that body too (its epilogue the ReLU mask and the
+``dxa | dxb`` split), and its wgrad on ``csrc/wgrad_wgmma.cuh`` (``wgmma``
+with both operands transposed, float32 sums in registers), by the same
+shape rule; a single-input entry layer of 1 or 2 channels has its wgrad on
+the FMA pipes. A backward launch whose every dgrad and every other wgrad
+took them also counts in ``launches_wgmma_bf16``.
 
 Tensors are NHWC float32 or bf16, weights HWIO ``(3, 3, Cin, C)`` float32
 as in ``pda``, biases ``(C,)`` float32; the forward kernel reads an HWOI copy
@@ -614,7 +620,8 @@ def conv_block_bwd(g, x, h1, h2, h3, w1, w2, w3, need_dx: bool = True, *, gp=Non
         return conv_block_bwd_plain(g, x, h1, h2, h3, w1, w2, w3, need_dx, gp=gp, b1=b1, b2=b2)
     dx, _, *grads = _launch_bwd(g, x, None, h1, h2, h3, w1, w2, w3, need_dx, gp=gp, b1=b1,
                                 b2=b2)
-    count_launch(conv_block_bwd, h3.dtype, _modes(gp, h1))
+    count_launch(conv_block_bwd, h3.dtype,
+                 _modes(gp, h1) + _bwd_modes(x, None, w1.shape[-1], need_dx))
     return (dx, *grads)
 
 
@@ -625,7 +632,8 @@ def conv_block_bwd_dual(g, xa, xb, h1, h2, h3, w1, w2, w3, *, gp=None, b1=None, 
     if runs_plain(h3, "conv_block_bwd_dual"):
         return conv_block_bwd_dual_plain(g, xa, xb, h1, h2, h3, w1, w2, w3, gp=gp, b1=b1, b2=b2)
     out = _launch_bwd(g, xa, xb, h1, h2, h3, w1, w2, w3, True, gp=gp, b1=b1, b2=b2)
-    count_launch(conv_block_bwd_dual, h3.dtype, _modes(gp, h1))
+    count_launch(conv_block_bwd_dual, h3.dtype,
+                 _modes(gp, h1) + _bwd_modes(xa, xb, w1.shape[-1], True))
     return out
 
 
@@ -642,6 +650,20 @@ def _fwd_modes(xs, c: int) -> tuple:
     return ("wgmma",) if on else ()
 
 
+def _bwd_modes(xa, xb, c: int, need_dx: bool) -> tuple:
+    """The backward's route of a launch: "wgmma" when every dgrad and every
+    wgrad but a single-input entry layer's (1 or 2 channels) of a bf16 block
+    ran on the wgmma bodies (``csrc/conv3x3_wgmma.cuh``,
+    ``csrc/wgrad_wgmma.cuh``), which the C entry decides by shape and
+    alignment, as the launch did."""
+    if xa.dtype != _BF16:
+        return ()
+    fn = _build.entry("pda_conv_block_bwd_wgmma_bf16", (_VP, _VP, _I, _I, _I, _I))
+    on = fn(xa.data_ptr(), None if xb is None else xb.data_ptr(), xa.shape[-1],
+            0 if xb is None else xb.shape[-1], c, int(need_dx))
+    return ("wgmma",) if on else ()
+
+
 def _modes(gp, h1) -> tuple:
     """The backward modes of a launch: "pool" (a pooled cotangent) and/or
     "recompute" (h1, h2 not saved)."""
@@ -651,13 +673,14 @@ def _modes(gp, h1) -> tuple:
 #: launches of the CUDA kernel since the count was last set to 0: its
 #: float32 instance (``launches``) and its bf16 instance (``launches_bf16``);
 #: the backwards' launches in a mode also count in ``launches_<mode>[_bf16]``
-#: (:data:`BWD_MODES`), and the bf16 forwards' launches whose layers all ran
-#: on the wgmma body in ``launches_wgmma_bf16`` (:data:`FWD_MODES`)
+#: (:data:`BWD_MODES`), and the bf16 launches whose layers all ran on the
+#: wgmma bodies (every forward layer; every dgrad and every wgrad but an entry
+#: layer's) in ``launches_wgmma_bf16`` (:data:`FWD_MODES`, the route of the
+#: forwards and the backwards alike)
 BWD_MODES = ("pool", "recompute")
 FWD_MODES = ("wgmma",)
 for _fn in (conv_block_fwd, conv_block_fwd_dual, conv_block_bwd, conv_block_bwd_dual):
     _fn.launches = _fn.launches_bf16 = 0
-for _fn in (conv_block_fwd, conv_block_fwd_dual):
     _fn.launches_wgmma_bf16 = 0
 for _fn in (conv_block_bwd, conv_block_bwd_dual):
     for _m in BWD_MODES:

@@ -2,7 +2,9 @@
 // asynchronous tensor-core path (sm_90a): wgmma with float32 sums in
 // registers, TMA loads with zero-filled halos into an mbarrier ring fed by one
 // producer warp. The bf16 layer body of the fused ConvBlock forward
-// (conv_block_fwd.cuh: K1 and K2) and of the backward's recompute of h1, h2.
+// (conv_block_fwd.cuh: K1 and K2), of the backward's recompute of h1, h2 and
+// of the backward's dgrad (conv_block_bwd.cuh): one kernel, templated on its
+// epilogue (FwdEpi, DgradEpi below).
 //
 // Replaces, in pda's bf16 configuration, the layer of the Pallas TPU forward
 // kernels pda/kernels/conv_block.py _kernel (:183), which every forward row
@@ -19,6 +21,17 @@
 // channels; x = [xa | xb] along channels (K2's [upsample | skip], never
 // concatenated in device memory); w HWOI, [tap][n][k] with k contiguous, as
 // wgmma reads a K-major B.
+//
+// The dgrad (DgradEpi; replaces the dgrad of pda/kernels/conv_block_bwd.py
+// _kernel (:69) and conv_block_packed_bwd.py's, rows 10-18 of PERF.md's
+// table) is the same GEMM with x = da_k (the layer's masked output
+// cotangent), N = the layer's input channels, K = 9 * its output channels,
+// and the kernel flipped: tap' = 8 - tap, read from the layer's HWIO kernel
+// ([tap][n = Cin][k = Cout], k contiguous: already the K-major B, no copy).
+// Its epilogue: no bias, no ReLU; the float32 sum rounded to bf16 once, then
+// zeroed where the layer below's output m[p, n] is not > 0 (the ReLU mask;
+// none for dx), and stored split at Na into ya | yb (the dual block's dxa |
+// dxb: neither the concat nor its cotangent exists).
 //
 // What bounds it: 18 * Cin * Cout FLOPs a pixel against 989 TFLOP/s dense
 // bf16, and 128-1,152 FLOPs for every byte a layer must move at the PUNet's
@@ -65,15 +78,17 @@
 // Tiling: a block owns 8 * MT x 16 pixels x BN output channels; three
 // warpgroups: the producer (one thread issues every load; setmaxnreg gives
 // its registers to the others) and two consumers, each 8 * MT x 8 pixels (MT
-// m64 tiles) x BN channels. BN = 128, MT = 1 where Cout > 64; BN = 64, MT =
-// 2 (16 x 16 pixels a block) where Cout <= 64, so a 64-channel layer wastes
-// no half tile. The epilogue adds the float32 bias, applies the ReLU, rounds
-// to bf16 once, stages the tile in shared memory and writes whole 16-byte
-// pieces of each pixel's channels, masked at the ragged edge.
+// m64 tiles) x BN channels. BN = 128, MT = 1 where N > 64; BN = 64, MT =
+// 2 (16 x 16 pixels a block) where N <= 64, so a 64-channel layer wastes
+// no half tile. The epilogue (the forward's: the float32 bias, the ReLU)
+// rounds to bf16 once, stages the tile in shared memory and writes whole
+// 16-byte pieces of each pixel's channels, masked at the ragged edge (the
+// dgrad's: the mask read and applied 16 bytes at a time, then the split).
 //
 // Shapes: Ka, Kb and N multiples of 8 and every pointer 16-byte aligned
-// (what a tensor map describes); conv_block_fwd.cuh routes every other
-// bf16 layer to conv3x3_tc<bf16, V, true> by shape, before launch.
+// (what a tensor map describes), and for the dgrad's split Na, Nb multiples
+// of 8; conv_block_fwd.cuh and conv_block_bwd.cuh route every other bf16
+// layer to conv3x3_tc<bf16, V, FWD> by shape, before launch.
 #pragma once
 
 #include <cuda.h>
@@ -168,6 +183,26 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
       }
     }
   }
+}
+
+// The same wait, bounded by a count of polls instead of the clock: in a
+// consumer that holds its sums in registers (wgrad_wgmma.cuh) the clock's
+// 64-bit reads in the wait loop made ptxas spill them (276 bytes; none
+// without). 2^26 polls take over a second (each one tens of cycles at the
+// least, more where try_wait suspends the thread), far beyond any wait on a
+// tile of a running kernel.
+__device__ __forceinline__ void mbar_wait_polls(uint32_t bar, uint32_t parity) {
+  for (uint32_t n = 0; n < (1u << 26); ++n) {
+    uint32_t done;
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+  }
+  __trap();
 }
 
 // TMA tile loads into shared memory, completing on an mbarrier.
@@ -274,18 +309,69 @@ __device__ __forceinline__ void mma(float (&d)[BN / 2], uint64_t a, uint64_t b, 
   }
 }
 
+// The forward's epilogue: relu(sum + bias[n]) (float32 bias), into y with N
+// channels.
+struct FwdEpi {
+  static constexpr bool FLIP = false;  // tap' = tap
+  const float* bias;
+  __nv_bfloat16* y;
+  int N;
+  __device__ float2 prep(int n) const {  // the bias of channels n, n + 1
+    return make_float2(n < N ? bias[n] : 0.f, n < N ? bias[n + 1] : 0.f);
+  }
+  __device__ float2 apply(float a, float b, float2 p) const {
+    return make_float2(fmaxf(a + p.x, 0.f), fmaxf(b + p.y, 0.f));
+  }
+  // 8 channels from n of pixel pix, rounded to bf16
+  __device__ void store(size_t pix, int n, uint4 v) const {
+    *reinterpret_cast<uint4*>(y + pix * N + n) = v;
+  }
+};
+
+// The dgrad's epilogue: the sum as it is, rounded to bf16, zeroed where
+// mask[p, n] is not > 0 (mask null: none), into ya (channels [0, Na)) or yb
+// ([Na, N)). A masked value is +0, as the plain version's where().
+struct DgradEpi {
+  static constexpr bool FLIP = true;  // tap' = 8 - tap: the flipped kernel
+  const __nv_bfloat16* mask;
+  __nv_bfloat16* ya;
+  __nv_bfloat16* yb;
+  int Na, N;
+  __device__ float2 prep(int) const { return make_float2(0.f, 0.f); }
+  __device__ float2 apply(float a, float b, float2) const { return make_float2(a, b); }
+  __device__ void store(size_t pix, int n, uint4 v) const {
+    if (mask != nullptr) {
+      const uint4 m = *reinterpret_cast<const uint4*>(mask + pix * N + n);
+      v.x &= keep(m.x);
+      v.y &= keep(m.y);
+      v.z &= keep(m.z);
+      v.w &= keep(m.w);
+    }
+    if (n < Na) {
+      *reinterpret_cast<uint4*>(ya + pix * Na + n) = v;
+    } else {
+      *reinterpret_cast<uint4*>(yb + pix * (N - Na) + (n - Na)) = v;
+    }
+  }
+  // the bits of each bf16 half of m that is > 0 (NaN is not)
+  __device__ static uint32_t keep(uint32_t m) {
+    return (__uint_as_float(m << 16) > 0.f ? 0x0000FFFFu : 0u) |
+           (__uint_as_float(m & 0xFFFF0000u) > 0.f ? 0xFFFF0000u : 0u);
+  }
+};
+
 // grid = (pixel tiles of an image, output-channel slices of BN, B). xa_map,
 // xb_map: (C, W, H, B) maps of xa and xb (xb_map = xa_map when Kb = 0), box
-// (8, 18, 8 * MT + 2, 1); w_map: (K, N, 9) over the HWOI kernel, box (8, BN,
-// 1). chunks_a, chunks_b: 64-channel chunks of xa and xb; ka_groups = Ka / 8
-// (where xb's rows of w start).
-template <int BN, int MT>
+// (8, 18, 8 * MT + 2, 1); w_map: (K, N, 9) over the [tap][n][k] kernel, box
+// (64, BN, 1). chunks_a, chunks_b: 64-channel chunks of xa and xb; ka_groups
+// = Ka / 8 (where xb's rows of w start). Epi: FwdEpi or DgradEpi (its N the
+// output channels).
+template <int BN, int MT, class Epi>
 __global__ void __launch_bounds__(THREADS, 1)
 conv3x3_wgmma(const __grid_constant__ CUtensorMap xa_map,
               const __grid_constant__ CUtensorMap xb_map,
               const __grid_constant__ CUtensorMap w_map, int chunks_a, int chunks_b,
-              int ka_groups, const float* __restrict__ bias, __nv_bfloat16* __restrict__ y,
-              int N, int H, int W, int tiles_x) {
+              int ka_groups, const Epi epi, int H, int W, int tiles_x) {
   using L = Layout<BN, MT>;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = reinterpret_cast<unsigned char*>(
@@ -335,7 +421,7 @@ conv3x3_wgmma(const __grid_constant__ CUtensorMap xa_map,
           const uint32_t wbar = w_full + 8 * ws;
           mbar_expect_tx(wbar, L::W_STAGE);
           const uint32_t wdst = base + L::WEIGHTS + ws * L::W_STAGE;
-          tma_load_3d(wdst, &w_map, wbar, k0, n0, tap);
+          tma_load_3d(wdst, &w_map, wbar, k0, n0, Epi::FLIP ? 8 - tap : tap);
         }
       }
     }
@@ -401,26 +487,24 @@ conv3x3_wgmma(const __grid_constant__ CUtensorMap xa_map,
       mbar_arrive_if(halo_empty + 8 * hs, lane == 0);  // the chunk's last chain is done
     }
 
-    // Epilogue: the float32 bias, the ReLU, one rounding to bf16, staged in
-    // shared memory as [pixel][channel]; then 16-byte stores. Accumulator
-    // element 4 j + 2 h + e of m-tile mt: m-row 16 warp + lane / 4 + 8 h,
-    // channel 8 j + 2 (lane % 4) + e; m-row r * 8 + px is pixel (r, px) of
-    // the 8 x 8 tile.
+    // Epilogue (the forward's: the float32 bias, the ReLU), one rounding to
+    // bf16, staged in shared memory as [pixel][channel]; then 16-byte stores
+    // (the dgrad's: the mask, the split). Accumulator element 4 j + 2 h + e
+    // of m-tile mt: m-row 16 warp + lane / 4 + 8 h, channel 8 j + 2 (lane %
+    // 4) + e; m-row r * 8 + px is pixel (r, px) of the 8 x 8 tile.
     unsigned char* out = smem + L::OUT + cw * L::OUT_WG;
     const int grp = lane / 4, quad = lane % 4;
 #pragma unroll
     for (int j = 0; j < BN / 8; ++j) {
-      const int n = n0 + 8 * j + 2 * quad;
-      const float b0 = n < N ? bias[n] : 0.f, b1 = n < N ? bias[n + 1] : 0.f;
+      const float2 pj = epi.prep(n0 + 8 * j + 2 * quad);
 #pragma unroll
       for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
           const int p = mt * 64 + (2 * warp + h) * 8 + grp;
-          const __nv_bfloat162 v =
-              __floats2bfloat162_rn(fmaxf(sum[mt][4 * j + 2 * h] + b0, 0.f),
-                                    fmaxf(sum[mt][4 * j + 2 * h + 1] + b1, 0.f));
-          *reinterpret_cast<__nv_bfloat162*>(out + p * L::OUT_PITCH + (8 * j + 2 * quad) * 2) = v;
+          const float2 v = epi.apply(sum[mt][4 * j + 2 * h], sum[mt][4 * j + 2 * h + 1], pj);
+          *reinterpret_cast<__nv_bfloat162*>(out + p * L::OUT_PITCH + (8 * j + 2 * quad) * 2) =
+              __floats2bfloat162_rn(v.x, v.y);
         }
     }
     asm volatile("bar.sync %0, 128;\n" ::"r"(1 + cw) : "memory");
@@ -429,9 +513,9 @@ conv3x3_wgmma(const __grid_constant__ CUtensorMap xa_map,
       const int p = e / (BN / 8), c8 = e % (BN / 8);
       const int gy = y0 + 8 * (p / 64) + (p % 64) / 8, gx = x0 + 8 * cw + p % 8;
       const int n = n0 + 8 * c8;
-      if (gy >= H || gx >= W || n >= N) continue;
-      *reinterpret_cast<uint4*>(y + (img + static_cast<size_t>(gy) * W + gx) * N + n) =
-          *reinterpret_cast<const uint4*>(out + p * L::OUT_PITCH + c8 * 16);
+      if (gy >= H || gx >= W || n >= epi.N) continue;
+      epi.store(img + static_cast<size_t>(gy) * W + gx, n,
+                *reinterpret_cast<const uint4*>(out + p * L::OUT_PITCH + c8 * 16));
     }
   }
 }
@@ -476,13 +560,15 @@ inline bool encode_x(CUtensorMap* map, const __nv_bfloat16* x, int C, int B, int
   return encode(map, x, 4, dims, strides, box, CU_TENSOR_MAP_SWIZZLE_NONE);
 }
 
-template <int BN, int MT>
+// One layer: x = [xa | xb] (Ka + Kb channels), w [tap][n][k] (9, N, Ka +
+// Kb), epi.N outputs.
+template <int BN, int MT, class Epi>
 cudaError_t launch(const __nv_bfloat16* xa, const __nv_bfloat16* xb, int Ka, int Kb,
-                   const __nv_bfloat16* w, const float* bias, __nv_bfloat16* y, int N, int B,
-                   int H, int W, cudaStream_t s) {
+                   const __nv_bfloat16* w, const Epi& epi, int B, int H, int W,
+                   cudaStream_t s) {
   using L = Layout<BN, MT>;
   CUtensorMap ma, mb, mw;
-  const int K = Ka + Kb;
+  const int K = Ka + Kb, N = epi.N;
   const uint64_t wdims[3] = {static_cast<uint64_t>(K), static_cast<uint64_t>(N), 9};
   const uint64_t wstrides[2] = {2ull * K, 2ull * K * N};
   const uint32_t wbox[3] = {KC, BN, 1};
@@ -494,14 +580,14 @@ cudaError_t launch(const __nv_bfloat16* xa, const __nv_bfloat16* xb, int Ka, int
   } else if (!encode_x<MT>(&mb, xb, Kb, B, H, W)) {
     return cudaErrorInvalidValue;
   }
-  const auto kernel = &conv3x3_wgmma<BN, MT>;
+  const auto kernel = &conv3x3_wgmma<BN, MT, Epi>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::SMEM);
   if (err != cudaSuccess) return err;
   const int tiles_x = cdiv(W, TW);
   const dim3 grid(tiles_x * cdiv(H, 8 * MT), cdiv(N, BN), B);
-  kernel<<<grid, THREADS, L::SMEM, s>>>(ma, mb, mw, cdiv(Ka, KC), cdiv(Kb, KC), Ka / 8, bias,
-                                        y, N, H, W, tiles_x);
+  kernel<<<grid, THREADS, L::SMEM, s>>>(ma, mb, mw, cdiv(Ka, KC), cdiv(Kb, KC), Ka / 8, epi,
+                                        H, W, tiles_x);
   return cudaGetLastError();
 }
 
@@ -526,8 +612,31 @@ cudaError_t conv3x3_wgmma_layer(const T* xa, const T* xb, int Ka, int Kb, const 
                                 const float* bias, T* y, int N, int B, int H, int W,
                                 cudaStream_t s) {
   static_assert(std::is_same<T, __nv_bfloat16>::value, "the wgmma body is bf16's");
-  return N <= 64 ? wg::launch<64, 2>(xa, xb, Ka, Kb, w, bias, y, N, B, H, W, s)
-                 : wg::launch<128, 1>(xa, xb, Ka, Kb, w, bias, y, N, B, H, W, s);
+  const wg::FwdEpi epi{bias, y, N};
+  return N <= 64 ? wg::launch<64, 2>(xa, xb, Ka, Kb, w, epi, B, H, W, s)
+                 : wg::launch<128, 1>(xa, xb, Ka, Kb, w, epi, B, H, W, s);
+}
+
+// Whether a bf16 dgrad of da (K channels) into ya | yb (Na + Nb channels),
+// masked by m (or null), takes this body: wgmma_takes, and the split and the
+// mask on 16-byte pieces.
+inline bool wgmma_takes_dgrad(int K, int Na, int Nb, const void* da, const void* w,
+                              const void* m, const void* ya, const void* yb) {
+  return wgmma_takes(K, 0, Na + Nb, da, nullptr, w, ya) && Na > 0 && Na % 8 == 0 &&
+         Nb % 8 == 0 && aligned16(m) && aligned16(yb);
+}
+
+// Launch one bf16 dgrad over a (B, H, W, *) batch on ``s``: da (B, H, W, K),
+// w the layer's HWIO kernel (3, 3, Na + Nb, K), y = [ya | yb] (yb null with
+// Nb = 0) = the flipped conv of da masked by [m > 0] (m (B, H, W, Na + Nb),
+// or null). The caller checks wgmma_takes_dgrad first.
+template <typename T>
+cudaError_t conv3x3_wgmma_dgrad(const T* da, int K, const T* w, const T* m, T* ya, T* yb,
+                                int Na, int Nb, int B, int H, int W, cudaStream_t s) {
+  static_assert(std::is_same<T, __nv_bfloat16>::value, "the wgmma body is bf16's");
+  const wg::DgradEpi epi{m, ya, yb, Na, Na + Nb};
+  return epi.N <= 64 ? wg::launch<64, 2>(da, nullptr, K, 0, w, epi, B, H, W, s)
+                     : wg::launch<128, 1>(da, nullptr, K, 0, w, epi, B, H, W, s);
 }
 
 }  // namespace

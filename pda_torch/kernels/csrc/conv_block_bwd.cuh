@@ -63,8 +63,8 @@
 // atomics, so repeats are bit-equal. db is a plain float32 sum of da (no
 // split). The number of chunks fills the card's block slots (occupancy
 // query). The entry layer (Cin 1 or 2) runs the same path and skips the
-// second m-fragment, which holds none of its channels; a SIMT path for it
-// is later work.
+// second m-fragment, which holds none of its channels (in bf16 it runs on
+// the FMA pipes instead: wgrad_entry below).
 // dgrad: the implicit-GEMM layer body it shares with the forward
 // (conv3x3_tc.cuh, which gives its tiling), with the tap flipped at the
 // fragment load (no flipped copy of W, read in its HWIO layout), the output
@@ -75,10 +75,22 @@
 // saved kernels (copied as bf16 by the wrapper, pda's w.astype(dtype)), the
 // da workspaces and dx in bf16; dW, db, the chunk partials and their sums in
 // float32 (pda/kernels/conv_block_bwd.py: da in the compute dtype, dW and db
-// accumulated in float32). The mask reads the bf16 cotangent; the dgrad is
-// conv3x3_tc<bf16, false> (float32 sums, mask, one rounding to bf16); the
-// wgrad multiplies bf16 on mma.sync.m16n8k16 into float32 chains of 4
-// k-steps (a tile) flushed as above; the chunk pass is the same.
+// accumulated in float32). The mask reads the bf16 cotangent. The bf16
+// dgrad and wgrad run on Hopper's asynchronous path (wgmma, TMA, float32
+// sums in registers), routed by shape before launch: the dgrad is the forward's
+// wgmma body with the dgrad's epilogue (conv3x3_wgmma.cuh DgradEpi: the
+// flipped tap read from the HWIO kernel, float32 sums, one rounding to bf16,
+// the mask, the dxa | dxb split), the wgrad wgrad_wgmma (wgrad_wgmma.cuh:
+// both operands MN-major, float32 register sums, its own chunking, then the
+// same in-order chunk pass), wherever every channel count of the layer is a
+// multiple of 8 and the tensors 16-byte aligned (wgmma_takes); an entry
+// layer's wgrad (Cin 1 or 2) on the FMA pipes (wgrad_entry). Any other bf16
+// layer (a count off 8, an unaligned view; a dx of 1-7 channels) keeps the
+// mma.sync bodies: conv3x3_tc<bf16, V, false> (float32
+// sums flushed every 3 taps, mask, one rounding) and wgrad_tc<bf16, V>
+// (mma.sync.m16n8k16 into float32 chains of 4 k-steps (a tile) flushed as
+// above). pda_conv_block_bwd_wgmma_bf16 tells the wrapper which route a
+// launch took.
 //
 // The pooled cotangent (pda's gpf: conv_block_packed_bwd.py :501 and :648,
 // the in-kernel transpose :158-189). When the block's output feeds a 2x2
@@ -107,10 +119,9 @@
 // It costs two forward layers a block and does not save HBM traffic; keeping
 // the recomputed band on chip, as pda's kernel does, is later speed work.
 //
-// Not done yet (later work): TMA and warp-specialised producers, keeping da
-// on chip between the wgrad and the dgrad, the masked cotangent fused into
-// the wgrad's loads, ldmatrix.trans for the bf16 wgrad's fragments (now
-// 4-byte loads and byte permutes).
+// Not done yet (later work): TMA and warp-specialised producers for the
+// float32 bodies, keeping da on chip between the wgrad and the dgrad, the
+// masked cotangent fused into the wgrad's loads.
 
 #pragma once
 
@@ -123,6 +134,7 @@
 #include "conv3x3_tc.cuh"
 #include "conv_block_fwd.cuh"
 #include "tf32x3.cuh"
+#include "wgrad_wgmma.cuh"
 
 namespace {
 
@@ -358,6 +370,75 @@ wgrad_tc(const T* __restrict__ xa, const T* __restrict__ xb, int Ca,
   }
 }
 
+// The bf16 wgrad of an entry layer (a single input of CIN = 1 or 2 channels:
+// the image, or image + mask), on the FMA pipes: 9 * CIN * Cout outputs
+// summed over every pixel, too few for a tensor-core tile (wgrad_tc filled
+// 1-2 of its 32 input-channel rows, ~0.33 ms a call at 2 x 512^2 on an H100).
+// What bounds it: reading da once (bytes; 18 * CIN FLOPs a pixel and output
+// channel). grid = (chunks, output-channel slices of 64); a block's 8 warps
+// take every 8th pixel of the chunk's range, lane l output channels 64 y +
+// 2 l and + 1: the pixel's 9 * CIN inputs are broadcast loads, its two da
+// values one 4-byte row segment of the warp's 128 bytes. Sums in float32,
+// each lane's in pixel order, the warps' added in order in shared memory,
+// each chunk's written to the workspace for sum_chunks.
+template <int CIN>
+__global__ void __launch_bounds__(256, 4)
+wgrad_entry(const bf16* __restrict__ x, const bf16* __restrict__ da, float* __restrict__ ws_w,
+            float* __restrict__ ws_b, int H, int W, int Cout, long long n_pix,
+            long long pix_per_chunk) {
+  constexpr int OUT = 9 * CIN * 64 + 64;  // a warp's partial dW (tap, ci, channel) and db
+  __shared__ float red[8][OUT];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int co = blockIdx.y * 64 + 2 * lane;
+  const long long p0 = blockIdx.x * pix_per_chunk;
+  const long long p1 = p0 + pix_per_chunk < n_pix ? p0 + pix_per_chunk : n_pix;
+  float acc[9 * CIN][2] = {}, bacc[2] = {};
+  long long p = p0 + warp;
+  int gx = static_cast<int>(p % W), gy = static_cast<int>((p / W) % H);
+  const auto load_da = [&](long long q, int c) {  // the next pixel's, one step ahead
+    return q < p1 && c < Cout ? to_float(da[q * Cout + c]) : 0.f;
+  };
+  float n0 = load_da(p, co), n1 = load_da(p, co + 1);
+  for (; p < p1; p += 8) {
+    const float d0 = n0, d1 = n1;
+    n0 = load_da(p + 8, co);
+    n1 = load_da(p + 8, co + 1);
+    bacc[0] += d0;
+    bacc[1] += d1;
+#pragma unroll
+    for (int tap = 0; tap < 9; ++tap) {
+      const int dy = tap / 3 - 1, dx = tap % 3 - 1;
+      const bool in = gy + dy >= 0 && gy + dy < H && gx + dx >= 0 && gx + dx < W;
+#pragma unroll
+      for (int ci = 0; ci < CIN; ++ci) {
+        const float v = in ? to_float(x[(p + dy * W + dx) * CIN + ci]) : 0.f;
+        acc[tap * CIN + ci][0] += v * d0;
+        acc[tap * CIN + ci][1] += v * d1;
+      }
+    }
+    for (gx += 8; gx >= W; gx -= W) gy = gy + 1 == H ? 0 : gy + 1;
+  }
+#pragma unroll
+  for (int k = 0; k < 9 * CIN; ++k) {
+    red[warp][k * 64 + 2 * lane] = acc[k][0];
+    red[warp][k * 64 + 2 * lane + 1] = acc[k][1];
+  }
+  red[warp][9 * CIN * 64 + 2 * lane] = bacc[0];
+  red[warp][9 * CIN * 64 + 2 * lane + 1] = bacc[1];
+  __syncthreads();
+  for (int i = threadIdx.x; i < OUT; i += 256) {
+    float v = 0.f;
+    for (int w = 0; w < 8; ++w) v += red[w][i];
+    const int c = blockIdx.y * 64 + i % 64;
+    if (c >= Cout) continue;
+    if (i < 9 * CIN * 64) {
+      ws_w[(static_cast<size_t>(blockIdx.x) * 9 * CIN + i / 64) * Cout + c] = v;
+    } else {
+      ws_b[static_cast<size_t>(blockIdx.x) * Cout + c] = v;
+    }
+  }
+}
+
 // out[i] = sum over c in [0, chunks) of ws[c * n + i], in that order.
 __global__ void sum_chunks(const float* __restrict__ ws, float* __restrict__ out,
                            int n, int chunks) {
@@ -424,26 +505,31 @@ cudaError_t masked_cotangent_pass(const void* g, const void* gp, const void* h3,
 template <typename T>
 constexpr int wg_vec() { return std::is_same<T, float>::value ? 4 : 8; }
 
-// Blocks of wgrad_tc the card runs at once (SMs x blocks an SM).
+// Blocks of wgrad_tc the card runs at once (SMs x blocks an SM), queried
+// once a device (the occupancy query costs the host microseconds a call).
 template <typename T>
 int wgrad_slots() {
+  static int known[64] = {};
   int dev = 0, sms = 0, per_sm = 0;
-  const auto kernel = &wgrad_tc<T, wg_vec<T>()>;
   cudaGetDevice(&dev);
+  if (dev < 64 && known[dev] > 0) return known[dev];
+  const auto kernel = &wgrad_tc<T, wg_vec<T>()>;
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, wg_smem<T>());
   cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, WG_THREADS, wg_smem<T>());
-  return sms * (per_sm > 0 ? per_sm : 1);
+  const int slots = sms * (per_sm > 0 ? per_sm : 1);
+  if (dev < 64) known[dev] = slots;
+  return slots;
 }
 
 int wgrad_tiles(int B, int H, int W) {
   return B * cdiv(H, WG_T) * cdiv(W, WG_T);
 }
 
-// Pixel tiles a chunk for one layer: the chunk count that fills the card's
-// block slots best (the fewest chunks among the best), each chunk >= 1 tile.
-int wgrad_tiles_per_chunk(int cin, int cout, int tiles, int slots) {
-  const int slices = cdiv(cin, WG_CI) * cdiv(cout, WG_CO);
+// Pixel tiles a chunk for a grid of ``slices`` blocks a chunk: the chunk
+// count that fills the card's block slots best (the fewest chunks among the
+// best), each chunk >= 1 tile.
+int tiles_per_chunk(int slices, int tiles, int slots) {
   const int most = std::min(tiles, std::max(1, cdiv(4 * slots, slices)));
   int best = 1;
   long long best_num = 0, best_den = 1;  // fill = blocks / (waves * slots)
@@ -459,18 +545,96 @@ int wgrad_tiles_per_chunk(int cin, int cout, int tiles, int slots) {
   return cdiv(tiles, best);
 }
 
+// ... of wgrad_tc for one layer.
+int wgrad_tiles_per_chunk(int cin, int cout, int tiles, int slots) {
+  return tiles_per_chunk(cdiv(cin, WG_CI) * cdiv(cout, WG_CO), tiles, slots);
+}
+
 long long wgrad_work(int cin, int cout, int tiles, int slots) {
   const int chunks = cdiv(tiles, wgrad_tiles_per_chunk(cin, cout, tiles, slots));
   return static_cast<long long>(chunks) * (9LL * cin * cout + cout);
 }
 
-// dW, db of one layer (input [xa | xb], output cotangent da = dh * [h > 0]).
+// The bf16 wgmma wgrad's chunking of one layer (x = [xa | xb] of Ca + Cb
+// channels, Cout outputs) over its 8 x 8-pixel tiles: (tiles a chunk,
+// chunks). A block's fixed cost (its first loads, its partial sums written
+// and read back by sum_chunks) is about WG_BLOCK_COST tiles' work, so the
+// count minimises waves x (tiles a chunk + that cost), the fewest chunks
+// among the best, within the workspace's bound (4 x slots blocks).
+constexpr int WG_BLOCK_COST = 4;
+void wgrad_wgmma_chunks(int Ca, int Cb, int cout, int B, int H, int W, int slots, int* tpc,
+                        int* chunks) {
+  const int tiles = B * cdiv(H, wg::GT) * cdiv(W, wg::GT);
+  const int slices = wg::wgrad_slices(Ca, Cb, cout);
+  const int most = std::min(tiles, std::max(1, cdiv(4 * slots, slices)));
+  long long best = -1;
+  for (int c = 1; c <= most; ++c) {
+    const long long waves = cdiv(slices * c, slots);
+    const long long cost = waves * (cdiv(tiles, c) + WG_BLOCK_COST);
+    if (best < 0 || cost < best) {
+      best = cost;
+      *tpc = cdiv(tiles, c);
+    }
+  }
+  *chunks = cdiv(tiles, *tpc);
+}
+
+// Chunks of wgrad_entry: four blocks an SM (``sms``), so that 32 warps an
+// SM hide the loads' latency, at least 1024 pixels each.
+int wgrad_entry_chunks(long long n_pix, int sms) {
+  const long long most = (n_pix + 1023) / 1024;
+  return static_cast<int>(most < 4 * sms ? most : 4 * sms);
+}
+
+// dw, db from the partial sums: ws_w's ``parts`` partial dW (n floats
+// each), ws_b's ``chunks`` partial db (Cout each), each added in order.
+cudaError_t sum_partials(const float* ws_w, const float* ws_b, float* dw, float* db, int n,
+                         int parts, int Cout, int chunks, cudaStream_t s) {
+  sum_chunks<<<grid_1d(n), 256, 0, s>>>(ws_w, dw, n, parts);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  sum_chunks<<<grid_1d(Cout), 256, 0, s>>>(ws_b, db, Cout, chunks);
+  return cudaGetLastError();
+}
+
+// dW, db of one layer (input [xa | xb], output cotangent da = dh * [h > 0]):
+// in bf16 on wgrad_wgmma where wgmma_takes the shape, an entry layer on
+// wgrad_entry, else on wgrad_tc; then the chunks' partials added in order.
+// slots: wgrad_tc's block slots, wg_slots wgrad_wgmma's (bf16).
 template <typename T>
 cudaError_t wgrad(const T* xa, const T* xb, int Ca, int Cb, const T* da, float* dw,
                   float* db, float* work, int B, int H, int W, int Cout, int slots,
-                  cudaStream_t s) {
+                  int wg_slots, cudaStream_t s) {
   constexpr int VEC = wg_vec<T>();
   const int cin = Ca + Cb;
+  cudaError_t err;
+  if constexpr (std::is_same<T, bf16>::value) {
+    if (wgmma_takes(Ca, Cb, Cout, xa, xb, da, nullptr)) {
+      int tpc, chunks;
+      wgrad_wgmma_chunks(Ca, Cb, Cout, B, H, W, wg_slots, &tpc, &chunks);
+      const int parts = chunks * wg::wgrad_parts(Cout);
+      float* ws_w = work;
+      float* ws_b = work + static_cast<size_t>(parts) * 9 * cin * Cout;
+      if ((err = wgrad_wgmma_partials<T>(xa, xb, Ca, Cb, da, Cout, ws_w, ws_b, B, H, W, tpc,
+                                         chunks, s)) != cudaSuccess)
+        return err;
+      return sum_partials(ws_w, ws_b, dw, db, 9 * cin * Cout, parts, Cout, chunks, s);
+    }
+    if (entry_layer(Ca, Cb)) {
+      const long long n_pix = static_cast<long long>(B) * H * W;
+      const int chunks = wgrad_entry_chunks(n_pix, wg_slots);
+      const long long per = (n_pix + chunks - 1) / chunks;
+      float* ws_w = work;
+      float* ws_b = work + static_cast<size_t>(chunks) * 9 * cin * Cout;
+      const dim3 grid(chunks, cdiv(Cout, 64));
+      if (Ca == 1)
+        wgrad_entry<1><<<grid, 256, 0, s>>>(xa, da, ws_w, ws_b, H, W, Cout, n_pix, per);
+      else
+        wgrad_entry<2><<<grid, 256, 0, s>>>(xa, da, ws_w, ws_b, H, W, Cout, n_pix, per);
+      if ((err = cudaGetLastError()) != cudaSuccess) return err;
+      return sum_partials(ws_w, ws_b, dw, db, 9 * cin * Cout, chunks, Cout, chunks, s);
+    }
+  }
   const int tiles = wgrad_tiles(B, H, W);
   const int tpc = wgrad_tiles_per_chunk(cin, Cout, tiles, slots);
   const int chunks = cdiv(tiles, tpc);
@@ -480,26 +644,50 @@ cudaError_t wgrad(const T* xa, const T* xb, int Ca, int Cb, const T* da, float* 
   const bool vec = Ca % VEC == 0 && Cb % VEC == 0 && Cout % VEC == 0 && aligned16(xa) &&
                    aligned16(xb) && aligned16(da);
   const auto kernel = vec ? &wgrad_tc<T, VEC> : &wgrad_tc<T, 1>;
-  cudaError_t err = cudaFuncSetAttribute(
+  err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, wg_smem<T>());
   if (err != cudaSuccess) return err;
   kernel<<<grid, WG_THREADS, wg_smem<T>(), s>>>(xa, xb, Ca, Cb, da, ws_w, ws_b, B, H, W,
                                                Cout, tpc);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  const int n = 9 * cin * Cout;
-  sum_chunks<<<grid_1d(n), 256, 0, s>>>(ws_w, dw, n, chunks);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  sum_chunks<<<grid_1d(Cout), 256, 0, s>>>(ws_b, db, Cout, chunks);
-  return cudaGetLastError();
+  return sum_partials(ws_w, ws_b, dw, db, 9 * cin * Cout, chunks, Cout, chunks, s);
 }
 
 // da_{k-1} (or dx, split into ya: Coa channels, yb: Cob) of one layer with
-// kernel w (3, 3, Coa+Cob, C), masked by [m > 0] unless m is null.
+// kernel w (3, 3, Coa+Cob, C), masked by [m > 0] unless m is null: in bf16
+// on the wgmma body where wgmma_takes_dgrad the shape, else on
+// conv3x3_tc<T, V, false>.
 template <typename T>
 cudaError_t dgrad(const T* da, const T* w, const T* m, T* ya, T* yb, int Coa, int Cob,
                   int B, int H, int W, int C, cudaStream_t s) {
+  if constexpr (std::is_same<T, bf16>::value) {
+    if (wgmma_takes_dgrad(C, Coa, Cob, da, w, m, ya, yb))
+      return conv3x3_wgmma_dgrad<T>(da, C, w, m, ya, yb, Coa, Cob, B, H, W, s);
+  }
   return conv3x3_tc_layer<T, false>(da, nullptr, C, 0, w, nullptr, m, ya, yb, Coa, Cob,
                                     B, H, W, s);
+}
+
+// Whether every dgrad and every wgrad but an entry layer's (a single input
+// of 1 or 2 channels) of a bf16 block backward on x = [xa | xb] takes the
+// wgmma bodies (the wrapper's count of that route); the kernels, h1..h3,
+// the workspaces and dx are the wrapper's own allocations, 16-byte aligned.
+inline bool bwd_on_wgmma(const void* xa, const void* xb, int Ca, int Cb, int C, bool need_dx) {
+  const bool inner = wgmma_takes(C, 0, C, nullptr, nullptr, nullptr, nullptr);
+  const bool first = wgmma_takes(Ca, Cb, C, xa, xb, nullptr, nullptr);
+  const bool dx = !need_dx || wgmma_takes_dgrad(C, Ca, Cb, nullptr, nullptr, nullptr,
+                                                nullptr, nullptr);
+  return inner && dx && (first || entry_layer(Ca, Cb));
+}
+
+// The bf16 wgmma wgrad's block slots (0 in float32, which never runs it).
+template <typename T>
+int bwd_wgmma_slots() {
+  if constexpr (std::is_same<T, bf16>::value) {
+    return wgrad_wgmma_slots();
+  } else {
+    return 0;
+  }
 }
 
 // da1 and da2 are (B, H, W, C) workspaces: da_3 goes to da1, da_2 to da2,
@@ -536,33 +724,47 @@ cudaError_t block_bwd(const void* xa_, const void* xb_, int Ca, int Cb, const vo
         cudaSuccess)
       return err;
   }
-  const int slots = wgrad_slots<T>();
+  const int slots = wgrad_slots<T>(), wg_slots = bwd_wgmma_slots<T>();
   if ((err = masked_cotangent_pass<T>(g, gp, h3, da1, B, H, W, C, s)) != cudaSuccess)
     return err;
   if ((err = wgrad<T>(h2, nullptr, C, 0, da1, f(dw3_), f(db3_), work, B, H, W, C, slots,
-                      s)) != cudaSuccess)
+                      wg_slots, s)) != cudaSuccess)
     return err;
   if ((err = dgrad<T>(da1, w3, h2, da2, nullptr, C, 0, B, H, W, C, s)) != cudaSuccess)
     return err;
   if ((err = wgrad<T>(h1, nullptr, C, 0, da2, f(dw2_), f(db2_), work, B, H, W, C, slots,
-                      s)) != cudaSuccess)
+                      wg_slots, s)) != cudaSuccess)
     return err;
   if ((err = dgrad<T>(da2, w2, h1, da1, nullptr, C, 0, B, H, W, C, s)) != cudaSuccess)
     return err;
   if ((err = wgrad<T>(xa, xb, Ca, Cb, da1, f(dw1_), f(db1_), work, B, H, W, C, slots,
-                      s)) != cudaSuccess)
+                      wg_slots, s)) != cudaSuccess)
     return err;
   if (!need_dx) return cudaSuccess;
   return dgrad<T>(da1, w1, nullptr, m(dxa_), m(dxb_), Ca, Cb, B, H, W, C, s);
 }
 
+// Floats of the work buffer of a block with Cin (= Ca + Cb) input channels:
+// the most any of its wgrads needs on either route. The wgmma wgrad's chunk
+// count is at most tiles_per_chunk's bound for 3 * cdiv(Cin, 64) input
+// slices (a dual block's split only adds slices, so fewer chunks).
 template <typename T>
 long long bwd_work(int B, int H, int W, int Cin, int C) {
   const int slots = wgrad_slots<T>();
   const int tiles = wgrad_tiles(B, H, W);
-  const long long inner = wgrad_work(C, C, tiles, slots);
-  const long long first = wgrad_work(Cin, C, tiles, slots);
-  return inner > first ? inner : first;
+  long long most = std::max(wgrad_work(C, C, tiles, slots), wgrad_work(Cin, C, tiles, slots));
+  if constexpr (std::is_same<T, bf16>::value) {
+    const int wg_slots = wgrad_wgmma_slots();
+    const int wg_tiles = B * cdiv(H, wg::GT) * cdiv(W, wg::GT);
+    for (const int cin : {C, Cin}) {
+      const int slices = wg::wgrad_slices(cin, 0, C);
+      const long long chunks = std::min(wg_tiles, std::max(1, cdiv(4 * wg_slots, slices)));
+      most = std::max(most, chunks * (wg::wgrad_parts(C) * 9LL * cin * C + C));
+    }
+    const long long entry = wgrad_entry_chunks(static_cast<long long>(B) * H * W, wg_slots);
+    most = std::max(most, entry * (9LL * Cin * C + C));
+  }
+  return most;
 }
 
 }  // namespace

@@ -25,7 +25,13 @@ layer moves every later one) against the plain layer summed in float64 from
 the kernel's own input to it: the least share of bit-equal elements and the
 largest difference relative to the layer's largest value (``ref64``). The
 forward is timed through ``conv_block._launch``, which counts no launch, so
-a variant may be a parent's sources that lack the newer route counts.
+a variant may be a parent's sources that lack the newer route counts. The
+backward is held the same way, each layer from the kernel's own cotangent to
+it (its da workspaces): dW and db against float64 sums (the largest
+difference relative to the largest value), da_2, da_1 and dx against the
+plain dgrad summed in float64 and rounded once (the least bit-equal share);
+it is timed through ``conv_block._launch_bwd``, which counts no launch
+either.
 """
 
 from __future__ import annotations
@@ -68,6 +74,35 @@ def bf16_layers(hs, x, ws):
         rel = max(rel, rel_err([h.double()], [ref.double()]))
         x = h
     return equal, rel
+
+
+def bf16_bwd_layers(out, workspaces, g, xs, h1, h2, h3, w1, w2, w3):
+    """(largest |diff| / max of dW, db, least bit-equal share of da_2, da_1
+    and dx) of a bf16 backward's outputs ``out`` (``_launch_bwd``'s), each
+    layer from the kernel's own cotangent to it (``workspaces``: its da_1,
+    da_2), against float64 sums."""
+    import torch.nn.functional as F
+
+    def dgrad64(da, w, mask):
+        wk = kc.bf16_operand(w, torch.float64).flip(0, 1).permute(2, 3, 0, 1)
+        r = F.conv2d(da.double().permute(0, 3, 1, 2), wk, padding=1).permute(0, 2, 3, 1)
+        return (r if mask is None else torch.where(mask > 0, r, 0.0)).to(torch.bfloat16)
+
+    dxa, dxb, dw1, db1, dw2, db2, dw3, db3 = out
+    da1, da2 = workspaces
+    x = torch.cat(xs, dim=-1)
+    da3 = kc.masked_cotangent_plain(g, None, h3)
+    grad = 0.0
+    for (dw, db), h_in, da in (((dw3, db3), h2, da3), ((dw2, db2), h1, da2), ((dw1, db1), x, da1)):
+        refs = (kc._wgrad_plain(h_in.double(), da.double()), da.double().sum(dim=(0, 1, 2)))
+        grad = max(grad, rel_err([dw, db], refs))
+    checks = [(da2, dgrad64(da3, w3, h2)), (da1, dgrad64(da2, w2, h1))]
+    if dxa is not None:
+        dx = dxa if dxb is None else torch.cat([dxa, dxb], dim=-1)
+        checks.append((dx, dgrad64(da1, w1, None)))
+    equal = min(float((a.view(torch.int16) == r.view(torch.int16)).double().mean())
+                for a, r in checks)
+    return grad, equal
 
 
 def main(argv=None) -> int:
@@ -119,24 +154,34 @@ def main(argv=None) -> int:
         del xs, ws, ref, ref64
     for b, h, w, ca, cb, c, need_dx in BWD_SHAPES if args.only in (None, "bwd") else ():
         x = torch.randn(b, h, w, ca + cb, generator=gen).to(dev).to(dtype)
-        ws = wl.conv_weights(gen, ca + cb, c, dev)
-        hs = [t.permute(0, 2, 3, 1).contiguous() for t in kc._plain_layers(x, *ws)]
+        ws_ = wl.conv_weights(gen, ca + cb, c, dev)
+        hs = [t.permute(0, 2, 3, 1).contiguous() for t in kc._plain_layers(x, *ws_)]
         g = torch.randn(b, h, w, c, generator=gen).to(dev).to(dtype)
         if cb:
-            args_ = (g, x[..., :ca].contiguous(), x[..., ca:].contiguous(), *hs, *ws[::2])
-            kernel, plain = kc.conv_block_bwd_dual, kc.conv_block_bwd_dual_plain
+            args_ = (g, x[..., :ca].contiguous(), x[..., ca:].contiguous(), *hs, *ws_[::2])
+            plain = kc.conv_block_bwd_dual_plain
         else:
-            args_ = (g, x, *hs, *ws[::2])
-            kernel = lambda *a: kc.conv_block_bwd(*a, need_dx=need_dx)  # noqa: E731
+            args_ = (g, x, *hs, *ws_[::2])
             plain = lambda *a: kc.conv_block_bwd_plain(*a, need_dx=need_dx)  # noqa: E731
         ref = plain(*args_)
+        xs = args_[1:3] if cb else args_[1:2]
+        launch = lambda ws=None: kc._launch_bwd(  # noqa: E731
+            g, xs[0], xs[1] if cb else None, *hs, *ws_[::2], need_dx, ws)
         for d in order:
             _build.use_sources(d)
-            err = rel_err(kernel(*args_), ref)
-            ms = wl.cuda_ms(lambda: kernel(*args_), iters=args.iters)
+            out = launch()
+            err = rel_err(out if cb else (out[0], *out[2:]), ref)
+            del out
+            check = ""
+            if dtype == torch.bfloat16:
+                workspaces = (torch.empty_like(hs[0]), torch.empty_like(hs[0]))
+                grad, equal = bf16_bwd_layers(launch(workspaces), workspaces, g, xs, *hs,
+                                              *ws_[::2])
+                check = f" ref64 per layer: dW, db |diff|/max <= {grad:.2e}, da bit-equal >= {equal:.6f}"
+            ms = wl.cuda_ms(launch, iters=args.iters)
             print(f"bwd {ca}{'+' + str(cb) if cb else ''}->{c} @{b}x{h}x{w} {d.name}: "
-                  f"ms {ms:.3f} rel_err {err:.2e}", flush=True)
-        del x, ws, hs, g, args_, ref
+                  f"ms {ms:.3f} rel_err {err:.2e}{check}", flush=True)
+        del x, ws_, hs, g, args_, ref
     for name, (b, h, w, c), masking in wl.K3_SHAPES if args.only in (None, "mc") else ():
         feat, *rest = wl.mc_inputs(gen, b, h, w, c, dev=dev)
         args_ = (feat.to(dtype), *rest)

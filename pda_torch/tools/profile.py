@@ -53,10 +53,13 @@ from .workload import block_flops, cuda_ms, dgrad_flops, mc_flops, recompute_flo
 # kernel name pattern -> label; the first that matches names a kernel
 LABELS = (
     (r"conv3x3_tc<[^>]*true>", "forward layer, tensor cores (conv3x3_tc fwd)"),
+    (r"conv3x3_wgmma<[^>]*DgradEpi", "dgrad, bf16 wgmma (conv3x3_wgmma DgradEpi)"),
     (r"conv3x3_wgmma<", "forward layer, bf16 wgmma (conv3x3_wgmma)"),
     (r"conv3x3_entry<", "forward entry layer, FMA (conv3x3_entry)"),
     (r"conv3x3_tc<[^>]*false>", "dgrad (conv3x3_tc)"),
     (r"wgrad_tc<", "wgrad (wgrad_tc)"),
+    (r"wgrad_wgmma<", "wgrad, bf16 wgmma (wgrad_wgmma)"),
+    (r"wgrad_entry<", "wgrad entry layer, bf16 FMA (wgrad_entry)"),
     (r"sum_chunks", "wgrad chunk reduce (sum_chunks)"),
     (r"masked_cotangent", "da3 mask and pooled cotangent (masked_cotangent)"),
     (r"mc_consensus_(tc|bf16)<", "MC tail, tensor cores (mc_consensus_tc)"),
@@ -160,15 +163,24 @@ def profiled(run, n: int, flops: collections.Counter, what: str) -> None:
           f"({busy / wall:.3f})")
     rates = {"forward layer, tensor cores (conv3x3_tc fwd)": "forward",
              "forward layer, bf16 wgmma (conv3x3_wgmma)": "forward",
+             "forward entry layer, FMA (conv3x3_entry)": "forward",
+             "wgrad entry layer, bf16 FMA (wgrad_entry)": "wgrad",
              "dgrad (conv3x3_tc)": "dgrad", "wgrad (wgrad_tc)": "wgrad",
+             "dgrad, bf16 wgmma (conv3x3_wgmma DgradEpi)": "dgrad",
+             "wgrad, bf16 wgmma (wgrad_wgmma)": "wgrad",
              "MC tail, tensor cores (mc_consensus_tc)": "mc"}
-    fwd_ms = sum(ms for k, (ms, _) in rows.items() if k.startswith("forward"))
+    # a part's rate over all its rows (the entry layers, and in bf16 the
+    # layers that stay on the mma.sync bodies, run beside the main body)
+    part_ms = collections.Counter()
+    for k, (ms, _) in rows.items():
+        if k in rates:
+            part_ms[rates[k]] += ms
     for key, (ms, count) in sorted(rows.items(), key=lambda kv: -kv[1][0]):
         rate = ""
         if key in rates and flops.get(rates[key]):
-            total = fwd_ms if rates[key] == "forward" else ms
+            total = part_ms[rates[key]]
             rate = f", {flops[rates[key]] / (total * 1e-3) / 1e12:.1f} TFLOP/s"
-            rate += " (entry layer included)" if rates[key] == "forward" else ""
+            rate += f" ({rates[key]}: {total:.3f} ms, all its rows)" if total != ms else ""
         print(f"  {ms:9.3f} ms {100 * ms / wall:5.1f}% {count:6.1f} launches  {key}{rate}")
     if flops.weights:
         copy_ms = hwoi_ms(flops.weights)

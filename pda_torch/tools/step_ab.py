@@ -1,0 +1,87 @@
+"""Time the flagship's Mean-Teacher step of two or more checkouts of the
+repository against each other on one card.
+
+    python -m pda_torch.tools.step_ab DIR [DIR ...] [--timed 10]
+
+Each DIR is the root of a checkout (its ``pda_torch`` package and
+``chip_smoke.py``; the parent commit unpacked with ``git archive``, say).
+The checkouts run in turns (DIR1 .. DIRn, then DIRn .. DIR1, so A B B A for
+two), each in a process of its own that imports only that checkout and builds
+its kernels: the step as ``chip_smoke.py`` times it (512^2, batch 2, MC-16,
+consensus masking, Adam 1e-5, EMA 0.999, seeded weights and data, ``pda``'s
+bf16 configuration: ``bench.py``'s default), the CUDA-event median of ``--timed`` steps
+after 3 warm-ups, beside the host's time inside the step call (the launches'
+cost: where it reaches the step's time, the host sets the pace). A whole
+step's comparison needs this rather than ``bench_variants``: a checkout's
+Python wrappers and its kernels change together.
+"""
+
+from __future__ import annotations
+
+import argparse
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+
+def one(root: Path, timed: int) -> None:
+    """Time the step of the checkout at ``root`` (run in its own process,
+    this file as a script: its own folder leaves the import path, since its
+    ``profile.py`` would shadow the standard library's)."""
+    here = Path(__file__).resolve().parent
+    sys.path[:] = [str(root)] + [p for p in sys.path if Path(p or ".").resolve() != here]
+    import torch
+
+    import chip_smoke as cs
+    from pda_torch.train import make_mean_teacher_step
+
+    if not Path(cs.__file__).resolve().is_relative_to(root):
+        raise RuntimeError(f"imported {cs.__file__}, not {root}'s chip_smoke.py")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator().manual_seed(cs.SEED + 3)
+    model = cs.bf16_model()
+    frame = cs.synthetic_frame(gen, cs.FRAME, "cpu")
+    batch = cs.mt_batch(gen, frame, cs.MT_TIME_PATCH, dev)
+    step = make_mean_teacher_step(momentum=cs.MT_MOMENTUM, do_consensus_masking=True)
+    state = cs.bf16_state(model, dev)
+    noise = torch.Generator(device=dev).manual_seed(cs.SEED)
+    times, host = [], []
+    for i in range(3 + timed):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        t0 = time.perf_counter()
+        step(state, *batch, generator=noise)
+        t1 = time.perf_counter()
+        end.record()
+        end.synchronize()
+        if i >= 3:
+            times.append(start.elapsed_time(end))
+            host.append(1000.0 * (t1 - t0))
+    print(f"{root}: bf16 MT step {statistics.median(times):.2f} ms (median of "
+          f"{timed}, min {min(times):.2f}, max {max(times):.2f}); host time inside the step call "
+          f"{statistics.median(host):.2f} ms", flush=True)
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("dirs", nargs="+", type=Path)
+    ap.add_argument("--timed", type=int, default=10)
+    ap.add_argument("--one", action="store_true", help=argparse.SUPPRESS)
+    args = ap.parse_args(argv)
+    if args.one:
+        one(args.dirs[0].resolve(), args.timed)
+        return 0
+    code = 0
+    for d in args.dirs + args.dirs[::-1]:
+        code |= subprocess.run([sys.executable, __file__, str(d.resolve()), "--one",
+                                "--timed", str(args.timed)]).returncode
+    return code
+
+
+if __name__ == "__main__":
+    sys.exit(main())

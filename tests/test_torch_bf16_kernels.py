@@ -4,7 +4,9 @@ on the CPU: the fused ConvBlock forward (``conv_block_fused``, the entry
 layers of 1 and 2 channels among them) and its dual-input form
 (``conv_block_fused_flat_dual``), the backward with and without dx
 (``conv_block_bwd_flat``) and its dual form (``conv_block_bwd_flat_dual``),
-and the MC tail (``mc_consensus_decode`` under
+the backward also layer by layer at the card bodies' edge shapes (identity
+kernels in the other layers, so each side's backward is one layer's), and the
+MC tail (``mc_consensus_decode`` under
 ``pltpu.force_tpu_interpret_mode()``), on the same seeded numpy inputs.
 
 ``pda``'s kernels take bf16 activations and float32 weights (cast to bf16
@@ -199,6 +201,98 @@ def test_dual_backward_matches_pda_kernel(b, h, w, ca, cb, c):
     assert_bf16_close(out[0], uncanvas(ref[0], h, w))
     assert_bf16_close(out[1], uncanvas(ref[1], h, w))
     for a, r in zip(out[2:], ref[2:]):
+        assert_grad_close(a, r)
+
+
+# The edges of the card's bf16 backward bodies (csrc/conv3x3_wgmma.cuh's
+# dgrad, csrc/wgrad_wgmma.cuh: 64-channel slices, 8 x 8-pixel tiles, 64 or
+# 128 output channels a block), which tests/test_torch_cuda.py holds against
+# these plain versions: channel counts off the slice (8, 16, 48, 72, 136),
+# dual splits 40 + 24 and 200 + 72, odd widths, batch 1, and the entry
+# blocks (Cin 1 and 2, whose wgrad stays on the mma.sync body). H is 8 or 16
+# (pda's row band), as in RAGGED_FWD.
+RAGGED_BWD = [(1, 16, 45, 8, 0, 8), (1, 16, 45, 16, 0, 16), (1, 16, 21, 48, 0, 72),
+              (1, 8, 33, 136, 0, 136), (1, 16, 45, 40, 24, 64), (1, 8, 21, 200, 72, 128),
+              (2, 16, 33, 1, 0, 16), (1, 16, 45, 2, 0, 64)]
+
+
+def identity_kernel(c: int) -> np.ndarray:
+    """A (3, 3, c, c) HWIO kernel whose dgrad copies its input: the centre
+    tap the identity, the others 0 (a bf16 value times 1, summed alone, is
+    exact in both sums and rounds to itself)."""
+    w = np.zeros((3, 3, c, c), np.float32)
+    w[1, 1] = np.eye(c, dtype=np.float32)
+    return w
+
+
+def positive(rng, shape) -> torch.Tensor:
+    """bf16 saved activations above 0 everywhere (a ReLU mask of all ones)."""
+    return (bf16_input(rng, shape).float().abs() + 0.25).to(torch.bfloat16)
+
+
+def bwd_both(g, xs, h1, h2, h3, ws, h, w):
+    """pda's interpreted bf16 backward kernel (flat, single or dual) and the
+    port's plain backward on the same saved tensors: (pda's outputs with dx
+    uncanvassed, the port's), each (dx parts..., dw1, db1, dw2, db2, dw3, db3)."""
+    wp = canvas_wp(w)
+    fl = lambda t: flat_m0(to_jax(t), wp)  # noqa: E731
+    kern = [torch.from_numpy(ws[i]) for i in (0, 2, 4)]
+    jw = list(map(jnp.asarray, ws[:5]))
+    if len(xs) == 1:
+        ref = conv_block_bwd_flat(fl(xs[0]), fl(h3), fl(g), fl(h1), fl(h2), h, w, *jw,
+                                  interpret=True)
+        ref = (uncanvas(ref[0], h, w), *ref[1:])
+        out = kc.conv_block_bwd(g, xs[0], h1, h2, h3, *kern, need_dx=True)
+    else:
+        ref = conv_block_bwd_flat_dual(fl(xs[0]), fl(xs[1]), fl(h3), fl(g), fl(h1), fl(h2), h,
+                                       w, *jw, interpret=True)
+        ref = (uncanvas(ref[0], h, w), uncanvas(ref[1], h, w), *ref[2:])
+        out = kc.conv_block_bwd_dual(g, *xs, h1, h2, h3, *kern)
+    return ref, out
+
+
+@pytest.mark.parametrize("b,h,w,ca,cb,c", RAGGED_BWD)
+def test_backward_layers_match_pda_kernel_at_ragged_shapes(b, h, w, ca, cb, c):
+    """The backward layer by layer, each layer's rounding alone: with layers
+    2 and 3 identity kernels and every saved activation above 0, the whole
+    backward of both sides is layer 1's: dx the dgrad of g through w1
+    (unmasked, split at Ca for the dual block), rounded to bf16 once, and
+    dW1, dW2, dW3 (and the three db) the wgrads of x, h1, h2 against g. The
+    port's plain backward against pda's interpreted kernel on the same saved
+    tensors; the masked dgrad alone is the next test's."""
+    rng = np.random.default_rng(ca * 1000 + cb * 10 + c + 3)
+    xs = [bf16_input(rng, (b, h, w, ca))] + ([bf16_input(rng, (b, h, w, cb))] if cb else [])
+    w1, b1 = weights(rng, ca + cb, c)[:2]
+    ws = [w1, b1, identity_kernel(c), np.zeros(c, np.float32), identity_kernel(c),
+          np.zeros(c, np.float32)]
+    h1, h2, h3 = (positive(rng, (b, h, w, c)) for _ in range(3))
+    g = bf16_input(rng, (b, h, w, c))
+    ref, out = bwd_both(g, xs, h1, h2, h3, ws, h, w)
+    n_dx = len(xs)
+    for a, r in zip(out[:n_dx], ref[:n_dx]):
+        assert_bf16_close(a, r)
+    for a, r in zip(out[n_dx:], ref[n_dx:]):
+        assert_grad_close(a, r)
+
+
+@pytest.mark.parametrize("b,h,w,c", [(1, 16, 45, 8), (1, 16, 45, 16), (1, 16, 21, 72),
+                                     (1, 8, 33, 136)])
+def test_backward_masked_layer_matches_pda_kernel(b, h, w, c):
+    """A masked dgrad alone: with layers 1 and 2 identity kernels and h1
+    above 0, the backward's dx is layer 3's dgrad of [h3 > 0] g, rounded to
+    bf16 once and masked by [h2 > 0] (h2, h3 of either sign); dW3, db3 its
+    wgrad. The port's plain backward against pda's interpreted kernel."""
+    rng = np.random.default_rng(c + 11)
+    x = bf16_input(rng, (b, h, w, c))
+    w3, b3 = weights(rng, c, c)[:2]
+    ws = [identity_kernel(c), np.zeros(c, np.float32), identity_kernel(c),
+          np.zeros(c, np.float32), w3, b3]
+    h1 = positive(rng, (b, h, w, c))
+    h2, h3, g = (bf16_input(rng, (b, h, w, c)) for _ in range(3))
+    ref, out = bwd_both(g, [x], h1, h2, h3, ws, h, w)
+    assert_bf16_close(out[0], ref[0])
+    assert (out[0][h2 <= 0] == 0).all()
+    for a, r in zip(out[1:], ref[1:]):
         assert_grad_close(a, r)
 
 

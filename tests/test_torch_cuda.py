@@ -477,6 +477,145 @@ def test_recompute_bwd_is_the_saved_h_bwd(dev, b, h, w, ca, cb, c, dtype):
         assert (a is None and r is None) or torch.equal(a, r)
 
 
+def _plain_dgrad64(da, w, mask):
+    """One bf16 dgrad layer as the kernel computes it, summed in float64: the
+    kernel rounded to bf16 and flipped, masked by [mask > 0] (none for dx),
+    rounded to bf16 once."""
+    wk = kconv.bf16_operand(w, torch.float64).flip(0, 1).permute(2, 3, 0, 1)
+    r = torch.nn.functional.conv2d(da.double().permute(0, 3, 1, 2), wk, padding=1)
+    r = r.permute(0, 2, 3, 1)
+    if mask is not None:
+        r = torch.where(mask > 0, r, 0.0)
+    return r.to(torch.bfloat16).contiguous()
+
+
+def _bf16_bwd_layers(g, xa, xb, h1, h2, h3, w1, w2, w3, need_dx, gp=None):
+    """The bf16 backward kernel layer by layer, each layer from the kernel's
+    own cotangent to it (its da workspaces): dW and db within 1e-4 of their
+    largest value against float64 sums, da_2, da_1 and dx by the bf16 layer
+    rule against the plain dgrad in float64 sums; twice bit-equal. Returns
+    the outputs (dxa, dxb, dw1, db1, .., db3)."""
+    workspaces = (torch.empty_like(h3), torch.empty_like(h3))
+    out = kconv._launch_bwd(g, xa, xb, h1, h2, h3, w1, w2, w3, need_dx, workspaces, gp=gp)
+    again = kconv._launch_bwd(g, xa, xb, h1, h2, h3, w1, w2, w3, need_dx, gp=gp)
+    torch.cuda.synchronize()
+    assert all((a is None and r is None) or torch.equal(a, r) for a, r in zip(out, again))
+    dxa, dxb, dw1, db1, dw2, db2, dw3, db3 = out
+    da1, da2 = workspaces
+    da3 = kconv.masked_cotangent_plain(g, gp, h3)
+    x = xa if xb is None else torch.cat([xa, xb], dim=-1)
+    for (dw, db), h_in, da in (((dw3, db3), h2, da3), ((dw2, db2), h1, da2),
+                               ((dw1, db1), x, da1)):
+        _assert_rel(dw.double(), kconv._wgrad_plain(h_in.double(), da.double()))
+        _assert_rel(db.double(), da.double().sum(dim=(0, 1, 2)))
+    _assert_bf16_layer(da2, _plain_dgrad64(da3, w3, h2))
+    _assert_bf16_layer(da1, _plain_dgrad64(da2, w2, h1))
+    if dxa is not None:
+        dx = dxa if xb is None else torch.cat([dxa, dxb], dim=-1)
+        _assert_bf16_layer(dx, _plain_dgrad64(da1, w1, None))
+    return out
+
+
+def _bf16_saved(gen, b, h, w, ca, cb, c, dev):
+    """(g, xa, xb or None, h1, h2, h3, w1, w2, w3) in bf16 (weights float32):
+    h1..h3 from the bf16 forward kernel."""
+    xa = torch.randn(b, h, w, ca, generator=gen).to(dev).to(torch.bfloat16)
+    xb = torch.randn(b, h, w, cb, generator=gen).to(dev).to(torch.bfloat16) if cb else None
+    ws = _weights(gen, ca + cb, c, dev)
+    hs = kconv._launch(xa, xb, *ws)
+    g = torch.randn(b, h, w, c, generator=gen).to(dev).to(torch.bfloat16)
+    return (g, xa, xb, *hs, *ws[::2])
+
+
+@pytest.mark.parametrize("b,h,w,ca,cb,c,need_dx,wgmma", [
+    # the edges of the bf16 backward's wgmma bodies (the dgrad on the
+    # forward's: 64-channel chunks, 8 x 16 or 16 x 16 pixel tiles; the wgrad:
+    # 64-channel input slices, 8 x 8-pixel tiles, 128 output channels a block
+    # or 64 with the two consumers on alternate tiles): odd H and W, batch 1,
+    # channel counts off the slice
+    (1, 33, 45, 8, 0, 8, True, True), (1, 33, 45, 16, 0, 16, True, True),
+    (1, 33, 45, 48, 0, 72, True, True), (2, 22, 30, 72, 0, 136, True, True),
+    (1, 17, 19, 256, 0, 512, True, True), (2, 20, 24, 64, 0, 64, True, True),
+    # the entry blocks: their first wgrad stays on the mma.sync body by shape
+    (2, 33, 45, 1, 0, 64, False, True), (1, 33, 45, 2, 0, 16, False, True),
+    # ... but a dx of 1 channel cannot be a tensor map's: off the route
+    (1, 17, 23, 1, 0, 16, True, False),
+    # dual splits off the slice boundary, dx split at Ca
+    (1, 33, 45, 40, 24, 64, True, True), (2, 21, 30, 200, 72, 128, True, True),
+    # channel counts off 8: the first layer's wgrad and dx on the mma.sync bodies
+    (1, 17, 19, 3, 0, 48, True, False), (1, 9, 11, 20, 12, 40, True, False),
+])
+def test_bf16_backward_layers_match_plain(dev, b, h, w, ca, cb, c, need_dx, wgmma):
+    """The bf16 backward (conv_block_bwd[_dual]) layer by layer against
+    float64 sums (:func:`_bf16_bwd_layers`), then through the wrapper: its
+    launch counts in launches_wgmma_bf16 when every dgrad and every wgrad
+    but an entry layer's took the wgmma bodies."""
+    gen = torch.Generator().manual_seed(ca * 100 + cb + c + 1)
+    g, xa, xb, h1, h2, h3, *ws = _bf16_saved(gen, b, h, w, ca, cb, c, dev)
+    out = _bf16_bwd_layers(g, xa, xb, h1, h2, h3, *ws, need_dx)
+    wrapper = kconv.conv_block_bwd if xb is None else kconv.conv_block_bwd_dual
+    before = (wrapper.launches_bf16, wrapper.launches_wgmma_bf16)
+    if xb is None:
+        again = wrapper(g, xa, h1, h2, h3, *ws, need_dx=need_dx)
+        out = (out[0], *out[2:])
+    else:
+        again = wrapper(g, xa, xb, h1, h2, h3, *ws)
+    torch.cuda.synchronize()
+    assert all((a is None and r is None) or torch.equal(a, r) for a, r in zip(out, again))
+    assert (wrapper.launches_bf16, wrapper.launches_wgmma_bf16) == (before[0] + 1,
+                                                                     before[1] + int(wgmma))
+
+
+@pytest.mark.parametrize("mode", ["with", "only", "recompute"])
+def test_bf16_backward_modes_on_the_wgmma_bodies(dev, mode):
+    """The pooled cotangent ("with": g and gp; "only": gp) layer by layer
+    from its da_3, and the recompute bit-equal to the saved-h backward, on
+    the wgmma bodies: each launch counts under its mode and the route."""
+    b, h, w, cin, c = 2, 34, 46, 48, 72
+    gen = torch.Generator().manual_seed(17)
+    g, x, _, h1, h2, h3, *ws = _bf16_saved(gen, b, h, w, cin, 0, c, dev)
+    gp = torch.randn(b, h // 2, w // 2, c, generator=gen).to(dev).to(torch.bfloat16)
+    wrapper = kconv.conv_block_bwd
+    names = ("launches_bf16", "launches_wgmma_bf16",
+             "launches_pool_bf16" if mode != "recompute" else "launches_recompute_bf16")
+    before = [getattr(wrapper, n) for n in names]
+    if mode == "recompute":
+        fw = _weights(gen, cin, c, dev)  # with the biases the recompute takes
+        h1, h2, h3 = kconv._launch(x, None, *fw)
+        saved = wrapper(g, x, h1, h2, h3, *fw[::2])
+        out = wrapper(g, x, None, None, h3, *fw[::2], b1=fw[1], b2=fw[3])
+        assert all(torch.equal(a, r) for a, r in zip(out, saved))
+        count = 2
+    else:
+        g = g if mode == "with" else None
+        _bf16_bwd_layers(g, x, None, h1, h2, h3, *ws, True, gp=gp)
+        wrapper(g, x, h1, h2, h3, *ws, gp=gp)
+        count = 1
+    torch.cuda.synchronize()
+    assert [getattr(wrapper, n) for n in names] == [v + count if n != names[2] else v + 1
+                                                   for n, v in zip(names, before)]
+
+
+def test_bf16_backward_on_an_unaligned_input_takes_the_mma_sync_wgrad(dev):
+    """A bf16 input 2 bytes off a 16-byte boundary cannot be a tensor map's:
+    its wgrad runs on the mma.sync body, the launch counted off the wgmma
+    route, and every layer holds as on the aligned input."""
+    gen = torch.Generator().manual_seed(6)
+    b, h, w, cin, c = 1, 19, 23, 64, 72
+    flat = torch.randn(b * h * w * cin + 1, generator=gen).to(dev).to(torch.bfloat16)
+    x = flat[1:].view(b, h, w, cin)
+    assert x.data_ptr() % 16 != 0
+    ws = _weights(gen, cin, c, dev)
+    h1, h2, h3 = kconv._launch(x, None, *ws)
+    g = torch.randn(b, h, w, c, generator=gen).to(dev).to(torch.bfloat16)
+    _bf16_bwd_layers(g, x, None, h1, h2, h3, *ws[::2], True)
+    before = (kconv.conv_block_bwd.launches_bf16, kconv.conv_block_bwd.launches_wgmma_bf16)
+    kconv.conv_block_bwd(g, x, h1, h2, h3, *ws[::2])
+    torch.cuda.synchronize()
+    assert (kconv.conv_block_bwd.launches_bf16,
+            kconv.conv_block_bwd.launches_wgmma_bf16) == (before[0] + 1, before[1])
+
+
 def test_mixed_mean_teacher_step_on_card_matches_cpu(dev, monkeypatch):
     """The small MT step of the test below under PDA_PALLAS_CONV_MODE=mixed:
     the forwards on cuDNN (no forward kernel launch), every backward with
