@@ -32,7 +32,11 @@ Phases, each of which fails the run (exit code 1) on any error or miss
                 cuDNN, every backward recomputing h1, h2): one 64^2 step card
                 vs CPU (float32, float64 the gradients' reference) with its
                 launch counts, and timed at 512^2 beside the default's ms
-                and peak memory
+                and peak memory; then pda's development/ab_step_check.py
+                at 256^2 in float32 (pda_torch/tools/ab_step_check.py):
+                the step's compute on the kernels against every plain
+                version on the card, each measure within 4x the plain
+                leg's own float32-vs-float64 spread and pda's bound
   6. bf16     — pda's bf16 configuration (bench.py's default MT step:
                 ProbabilisticUnet(dtype=bfloat16), float32 parameters) on the
                 bf16 instances of the four kernel bodies: each at the tiled
@@ -62,8 +66,14 @@ Phases, each of which fails the run (exit code 1) on any error or miss
                 64^2 card vs CPU with launch counts each, then timed at
                 512^2; the UNet2d path (depth 4, 64 features, sigmoid): the
                 supervised and pseudo-label steps at 256^2 batch 4 card vs
-                CPU, then timed, and tiled prediction of the frame, one tile
-                card vs CPU, with no kernel launch
+                CPU, then timed, the supervised step also in bf16 beside
+                float32 (its first forward's rounding layers held against
+                float64 sums), and tiled prediction of the frame, one tile
+                card vs CPU, with no kernel launch; a bf16 UNet2d (pda's
+                UNet2d(dtype=bfloat16), depth 3, 16 features, 64^2): each
+                rounding layer from the card's own bf16 input against
+                float64 sums, then one supervised step card vs CPU, float32
+                parameters and gradients
   8. engine   — pda's native host library (pda_torch/data/native.py) built
                 on the card's host (g++'s version, the build's seconds), each
                 entry point against the port's numpy path, and the port's
@@ -84,8 +94,9 @@ Phases, each of which fails the run (exit code 1) on any error or miss
                 the gradients' reference; the final weights within the
                 interval Adam maps each step's gradient error to); and 300
                 iterations of development/learning_smoke.py's
-                PUNetTrainer run (PUNet 16/32/64/96, 64^2, batch 8, lr 1e-3),
-                final validation dice above 0.5
+                PUNetTrainer run (pda_torch/tools/learning_smoke.py in
+                float32: PUNet 16/32/64/96, 64^2, batch 8, lr 1e-3), final
+                validation dice above 0.5
   9. experiments — the LIVECell CLIs (pda_torch/experiments/) through their
                 main(argv) on a synthetic LIVECell tree (two cell types, 4
                 train, 1 validation, 1 test frame each, 520x704, written by
@@ -212,9 +223,9 @@ MT_LOSS_TOL = 1e-4  # card vs CPU: |loss - ref| <= 1e-4 * max(1, |ref|), same fo
 MT_GRAD_TOL = 1e-3  # card vs CPU: per parameter, max |g - ref| <= 1e-3 * max |ref|
 MT_PARAM_TOL = 1e-6  # card vs CPU: updated student (where Adam's sign is defined) and teacher
 # the algorithms phase: a gradient leaf beyond MT_GRAD_TOL passes if 1 - its
-# cosine to the float64 step's is within GRAD_COS_TOL, or within GRAD_COS_CPU
-# times the CPU float32 step's (check_step)
-GRAD_COS_TOL, GRAD_COS_CPU = 1e-5, 4.0
+# cosine to the float64 step's is within GRAD_COS_TOL, or within
+# pda_torch.tools.ab.SPREAD_FACTOR times the CPU float32 step's (check_step)
+GRAD_COS_TOL = 1e-5
 # kernel launches of one MT step
 MT_LAUNCHES = {"conv_block_fwd": 20, "conv_block_fwd_dual": 6, "mc_consensus": 1,
                "conv_block_bwd": 12, "conv_block_bwd_dual": 3}
@@ -276,6 +287,23 @@ ALG_LAUNCHES = {
 ALG_LAUNCHES["pseudo_punet"] = ALG_LAUNCHES["supervised_punet"]
 ALG_LAUNCHES["adamatch"] = ALG_LAUNCHES["adamt"]
 UNET_LR, UNET_BATCH, UNET_PATCH = 1e-4, 4, 256
+# the bf16 UNet2d check (pda's UNet2d(dtype=bfloat16)): a UNet2d of
+# depth 3 from 16 features, its biases drawn (normal, scale 0.1) so that the
+# bias add's rounding shows, on a batch of 2 at 64^2: every rounding layer
+# (norm, conv, upsample, head) from the card's own bf16 input to it against
+# the same layer in float64 sums on the card (cuDNN off; unet_bf16_layers) by
+# the bf16 layer rule (bf16_agree; a conv's tolerance one ulp of its output
+# plus one of its sum before the bias add, the two roundings), then one
+# supervised step card vs CPU,
+# the CPU's convs summing in float64 (as bf16_card_vs_cpu's reference): the
+# loss and the gradients' cosine within pda's bf16 A/B bounds
+# (pda_torch.tools.ab.PDA_BOUNDS), float32 parameters and gradients. The
+# timed bf16 UNet2d step (256^2, batch 4) has its first forward's layers held
+# the same way, at the shapes and cuDNN algorithms it is timed at.
+UNET_BF16_BATCH, UNET_BF16_PATCH, UNET_BF16_DEPTH, UNET_BF16_FEATURES = 2, 64, 3, 16
+UNET_BF16_LAYERS = ("_norm_bf16", "_conv_bf16", "_upsample_bf16")
+# pda's development/ab_step_check.py at 256^2 in float32 (the training phase)
+AB_PATCH = 256
 NO_LAUNCHES = dict.fromkeys(MT_LAUNCHES, 0)
 
 # The engine phase: the flagship's MT trainer at 512^2 (epochs of 4 steps, a
@@ -285,8 +313,7 @@ NO_LAUNCHES = dict.fromkeys(MT_LAUNCHES, 0)
 ENGINE_EPOCH, ENGINE_FIT, ENGINE_RESUME = 4, 8, 10
 ENGINE_CHECK_PATCH, ENGINE_CHECK_FIT = 128, 2
 ENGINE_MIN_SHARE = 0.9  # the engine's loop against the bare step's patches/s (reported)
-LEARN_FILTERS, LEARN_ITERATIONS, LEARN_BATCH = (16, 32, 64, 96), 300, 8
-LEARN_LR, LEARN_BAR = 1e-3, 0.5
+LEARN_ITERATIONS, LEARN_BATCH = 300, 8  # pda_torch/tools/learning_smoke.py's run
 # kernel launches of one MT validation step (the teacher's MC pass, the
 # student's loss with its posterior, the student's MC pass) and of one MT
 # panel pass (the teacher's and the student's MC passes on one patch)
@@ -1019,7 +1046,7 @@ def check_step(label, card, cpu, aux, aux_cpu, init, lr, zero_grads=(), ref64=No
     ``ref64``: the same step of the port on the CPU in float64. A leaf beyond
     MT_GRAD_TOL of the CPU's float32 gradient then passes if its direction
     is within GRAD_COS_TOL of the float64 gradient's (1 - cosine), or within
-    GRAD_COS_CPU times the CPU's own float32 distance: a ReLU pixel whose
+    SPREAD_FACTOR times the CPU's own float32 distance: a ReLU pixel whose
     pre-activation lies within float32 rounding of 0 may switch sides
     between card and CPU and move one leaf by a few 1e-3 of its largest,
     and a leaf whose gradient is a small remainder of cancelling terms (the
@@ -1027,6 +1054,8 @@ def check_step(label, card, cpu, aux, aux_cpu, init, lr, zero_grads=(), ref64=No
     CPU too. The worst errors of card and CPU against float64 are printed
     beside."""
     import torch
+
+    from pda_torch.tools.ab import SPREAD_FACTOR
 
     errs = {k: 0.0 if float(aux[k]) == float(v)  # equal, infinities included
             else abs(float(aux[k]) - float(v)) / max(1.0, abs(float(v)))
@@ -1062,7 +1091,7 @@ def check_step(label, card, cpu, aux, aux_cpu, init, lr, zero_grads=(), ref64=No
                     a.double().flatten(), g64.flatten(), dim=0)) for a in (g, g_cpu))
                 worst_cos = min(worst_cos, (cos, name, cos_cpu))
                 n_beyond += 1
-                beyond = 1.0 - cos > max(GRAD_COS_TOL, GRAD_COS_CPU * (1.0 - cos_cpu))
+                beyond = 1.0 - cos > max(GRAD_COS_TOL, SPREAD_FACTOR * (1.0 - cos_cpu))
         n_bad += beyond
         noisy = (sign_ref.abs() <= noise).cpu() | zero  # there Adam's sign is noise
         diff = (p.detach().cpu() - p_cpu.detach()).abs()
@@ -1080,7 +1109,7 @@ def check_step(label, card, cpu, aux, aux_cpu, init, lr, zero_grads=(), ref64=No
     if ref64 is not None:
         grads += (f", {n_beyond} leaves beyond it, their worst cosine to float64 "
                   f"{worst_cos[0]:.8f} ({worst_cos[1]}; the CPU's float32 {worst_cos[2]:.8f}; tol "
-                  f"1 - max({GRAD_COS_TOL:.0e}, {GRAD_COS_CPU:g} x the CPU's)); against "
+                  f"1 - max({GRAD_COS_TOL:.0e}, {SPREAD_FACTOR:g} x the CPU's)); against "
                   f"the CPU's float64 step: card {worst64[0]:.3e} ({worst64[1]}), the CPU's "
                   f"float32 {cpu_worst64[0]:.3e} ({cpu_worst64[1]})")
     log(f"{label} card vs cpu: {grads}; updated student max_abs_err {param_worst:.3e}, teacher "
@@ -1097,6 +1126,8 @@ def phase_training(dev, results):
     import torch
 
     from pda_torch.models.punet import livecell_punet, mc_decode_logits
+    from pda_torch.tools import ab_step_check
+    from pda_torch.tools.ab import kernel_wrappers, reset_launches
     from pda_torch.train import adam, create_train_state, make_mean_teacher_step, steps
 
     wrappers = kernel_wrappers()
@@ -1217,6 +1248,18 @@ def phase_training(dev, results):
         f"{STEP_PEAKS[mixed]:.2f} GiB against the default's {ms:.2f} ms, peak "
         f"{STEP_PEAKS[label]:.2f} GiB ({mixed_ms / ms:.3f}x the time, "
         f"{STEP_PEAKS[mixed] / STEP_PEAKS[label]:.3f}x the peak)")
+
+    # 4. pda's development/ab_step_check.py at 256^2 in float32, through
+    # pda_torch/tools/ab_step_check.py: the step's compute on the kernels
+    # against every plain version on the card, at pda's bounds (a check's
+    # launches: logged only)
+    t0 = time.perf_counter()
+    passed, res, *_ = ab_step_check.check(AB_PATCH, "f32", ab_step_check.FILTERS, dev)
+    good = all(passed.values())
+    log(f"training ab_step_check {AB_PATCH}^2 f32 kernels vs plain: "
+        f"{time.perf_counter() - t0:.1f} s, launches {res['launches']} "
+        + ("ok" if good else f"FAIL ({', '.join(k for k, v in passed.items() if not v)})"))
+    ok &= good
     return ok, ms
 
 
@@ -1244,6 +1287,8 @@ def time_steps(label, step, state, batch, n_patches, wrappers, launches, warmup,
     with ``modes`` each backward mode ``modes[entry]`` times. Returns (ok,
     ms)."""
     import torch
+
+    from pda_torch.tools.ab import read_launches, reset_launches
 
     reset_launches(wrappers)
     kw = {} if generator is None else {"generator": generator}
@@ -1302,8 +1347,10 @@ def time_steps(label, step, state, batch, n_patches, wrappers, launches, warmup,
 # bf16 forwards part once a rounding falls the other way, so pixels whose
 # sample logits lie near a threshold flip between any two summation orders;
 # against the plain leg, the kernels' consensus may differ at no more than
-# AB_SPREAD_FACTOR times the pixels at which the plain leg's own two
-# summation orders (float32 and float64 sums) differ. These whole-step
+# SPREAD_FACTOR times the pixels at which the plain leg's own two
+# summation orders (float32 and float64 sums) differ (the A/B, its bounds
+# AB_*_TOL and its measures live in pda_torch/tools/ab.py, which
+# pda_torch/tools/ab_step_check.py runs too). These whole-step
 # comparisons check the wiring and catch gross faults: a bf16 ConvBlock that
 # drops its per-layer roundings passes them (pda_torch/tools/bf16_controls.py;
 # two valid summation orders part as far), so the layer-by-layer checks are
@@ -1313,8 +1360,6 @@ BF16_BIT_EQUAL = 0.99
 BF16_GRAD_TOL = 1e-4
 K3_BF16_MEAN_TOL = 2.0 ** -8
 K3_BF16_WINDOW = 2.0 ** -6
-AB_LOSS_TOL, AB_COS_TOL, AB_LEAF_TOL = 1e-3, 1e-5, 1e-2
-AB_SPREAD_FACTOR = 4
 BF16_FIT_STEPS = 2
 BF16_KERNELS = ("conv_block_fwd", "conv_block_fwd_dual", "mc_consensus", "conv_block_bwd",
                 "conv_block_bwd_dual", *MODE_ENTRIES)
@@ -1333,16 +1378,22 @@ def bf16_ulp(t):
     return torch.ldexp(torch.ones_like(t, dtype=torch.float64), e - 8)
 
 
-def bf16_agree(out, ref):
+def bf16_agree(out, ref, first=None):
     """(ok, elements beyond one ulp and beyond BF16_ABS_TOL, bit-equal share,
     largest difference relative to max |ref|) of a bf16 ``out`` against its
-    bf16 reference."""
+    bf16 reference; ``first``: an earlier rounding of the same value (a
+    conv's sum before its bias add), whose one ulp adds to the result's (a
+    sum one ulp off, then rounded again with the bias, can land two of the
+    result's ulps off: ties fall to even both ways)."""
     import torch
 
     a, r = out.double(), ref.double()
     diff = (a - r).abs()
     scale = float(r.abs().max()) or 1.0
-    beyond = (diff > bf16_ulp(torch.maximum(a.abs(), r.abs()))) & (diff > BF16_ABS_TOL * scale)
+    tol = bf16_ulp(torch.maximum(a.abs(), r.abs()))
+    if first is not None:
+        tol = tol + bf16_ulp(first.double().abs())
+    beyond = (diff > tol) & (diff > BF16_ABS_TOL * scale)
     n_beyond = int(beyond.sum())
     equal = float((out.view(torch.int16) == ref.view(torch.int16)).double().mean())
     ok = n_beyond == 0 and equal >= BF16_BIT_EQUAL and bool(torch.isfinite(a).all())
@@ -1574,116 +1625,6 @@ def check_bf16_mc(entry, label, args, masking, binding, weight):
     return good
 
 
-def teacher_logits(state, x1, eps):
-    """The teacher's (S, B, H, W, 1) MC logits through the plain tail, on the
-    CPU (its encoding on the state's device)."""
-    import torch
-
-    from pda_torch.models.punet import mc_decode_logits
-
-    with torch.no_grad():
-        enc = state.teacher.encode(x1)
-        return mc_decode_logits(state.teacher, enc.features, enc.prior, MC, eps=eps).cpu()
-
-
-def mt_compute(state, batch, noise, plain_teacher=False, pseudo=None):
-    """pda's ab_step_check.compute: the teacher's MC pseudo-label and
-    consensus (through ``mc_pseudo``, or with ``plain_teacher`` as the plain
-    path computes them, from its logits, which are kept; given ``pseudo``
-    and no ``plain_teacher``, none), the student's loss on them (or on
-    ``pseudo``) and its raw gradients, no update."""
-    import torch
-
-    from pda_torch.core.consensus import consensus_from_logits
-    from pda_torch.train import steps
-
-    _, x1, x2, _ = batch
-    out = {"logits": None}
-    with torch.no_grad():
-        if plain_teacher:
-            out["logits"] = teacher_logits(state, x1, noise["eps_teacher"])
-            y, z = consensus_from_logits(out["logits"].to(x1.device), masking=True)
-        elif pseudo is None:
-            y, z = steps._mc_pseudo(state.teacher, x1, MC, True, noise["eps_teacher"])
-        else:
-            y, z = pseudo
-    out["y"], out["z"] = y.cpu(), z.cpu()
-    if pseudo is not None:
-        y, z = (v.to(x2.device) for v in pseudo)
-    state.model.zero_grad(set_to_none=True)
-    loss, aux = steps._punet_loss(state.model, x2, y, noise["eps_post"], consm=z)
-    loss.backward()
-    out["aux"] = {k: float(v.detach()) for k, v in aux.items()}
-    out["grads"] = [p.grad.detach().double().cpu() for p in state.model.parameters()]
-    out["names"] = [n for n, _ in state.model.named_parameters()]
-    return out
-
-
-def ab_metrics(a, b):
-    """pda's A/B measures of two MT computations, ``b`` the reference: the
-    loss's relative difference, the aux values' worst (relative to
-    max(1, |ref|)), 1 - the gradients' global cosine, and the worst leaf's
-    relative L2 (floored at 1e-4 of the global norm) with its name."""
-    loss_rel = abs(a["aux"]["loss"] - b["aux"]["loss"]) / max(abs(b["aux"]["loss"]), 1e-12)
-    aux_rel = max(abs(a["aux"][k] - v) / max(1.0, abs(v)) for k, v in b["aux"].items())
-    gnorm = math.sqrt(sum(float((g * g).sum()) for g in b["grads"]))
-    dot = sum(float((p * q).sum()) for p, q in zip(a["grads"], b["grads"]))
-    na = math.sqrt(sum(float((p * p).sum()) for p in a["grads"]))
-    leaf = max((float((p - q).norm()) / max(float(q.norm()), 1e-4 * gnorm), n)
-               for p, q, n in zip(a["grads"], b["grads"], b["names"]))
-    return {"loss": loss_rel, "aux": aux_rel, "cos": 1.0 - dot / max(na * gnorm, 1e-30),
-            "leaf": leaf}
-
-
-def rms_diff(a, b):
-    """The root mean square of ``a - b``, in float64."""
-    return float((a.double() - b.double()).pow(2).mean().sqrt())
-
-
-def ab_compare(label, a, b, spread=None, teacher_spread=None):
-    """pda's A/B bounds between two MT computations (``b`` the reference):
-    the loss's and the aux values' relative difference within AB_LOSS_TOL,
-    the gradients' cosine within AB_COS_TOL of 1, the worst leaf's relative
-    L2 within AB_LEAF_TOL; or, given ``spread`` (:func:`ab_metrics` of two
-    summation orders of the reference itself), each within GRAD_COS_CPU
-    times that spread where that is larger (as :func:`check_step` takes the
-    CPU's own float32 error). Given ``teacher_spread`` (the RMS of the
-    teacher logits' difference and the consensus pixels that differ between
-    two summation orders of the reference), the differing consensus pixels
-    within AB_SPREAD_FACTOR times those (the RMS is logged). Returns
-    {criterion: passed}."""
-    import torch
-
-    m = ab_metrics(a, b)
-    tol = {"loss": AB_LOSS_TOL, "aux": AB_LOSS_TOL, "cos": AB_COS_TOL, "leaf": AB_LEAF_TOL}
-    if spread is not None:
-        tol = {k: max(v, GRAD_COS_CPU * (spread[k][0] if k == "leaf" else spread[k]))
-               for k, v in tol.items()}
-    flips = int((a["z"] != b["z"]).sum())
-    rms = rms_diff(a["logits"], b["logits"])
-    passed = {k: (m[k][0] if k == "leaf" else m[k]) <= v for k, v in tol.items()}
-    passed["finite"] = bool(torch.isfinite(a["y"]).all())
-    if teacher_spread is not None:
-        passed["consensus"] = flips <= AB_SPREAD_FACTOR * teacher_spread[1]
-    failed = [k for k, v in passed.items() if not v]
-    log(f"{label}: loss {a['aux']['loss']:.6f} vs {b['aux']['loss']:.6f}, relative difference "
-        f"{m['loss']:.2e} (tol {tol['loss']:.2e}), aux worst {m['aux']:.2e}; gradients' cosine "
-        f"1 - {m['cos']:.2e} (tol {tol['cos']:.2e}); worst leaf relative L2 {m['leaf'][0]:.2e} "
-        f"({m['leaf'][1]}; tol {tol['leaf']:.2e})"
-        + (f" [tolerances: the larger of pda's A/B bounds and {GRAD_COS_CPU:g} x the "
-           f"reference's own float32-vs-float64-sums spread: loss {spread['loss']:.2e}, cos "
-           f"{spread['cos']:.2e}, leaf {spread['leaf'][0]:.2e}]" if spread else "")
-        + f"; pseudo-label max|dy| {float((a['y'] - b['y']).abs().max()):.2e}; teacher logits "
-        f"max|diff| {float((a['logits'] - b['logits']).abs().max()):.2e}, RMS {rms:.3e}"
-        + (f" (the reference's own {teacher_spread[0]:.3e})" if teacher_spread else "")
-        + f"; consensus differs at {flips} px"
-        + (f" (tol {AB_SPREAD_FACTOR} x {teacher_spread[1]})" if teacher_spread else
-           " (not judged)")
-        + f"; consensus share {float(b['z'].mean()):.4f} "
-        + ("ok" if not failed else f"FAIL ({', '.join(failed)})"))
-    return passed
-
-
 def bf16_model():
     """The flagship in bf16 on the CPU, from SEED, its Fcomb's last layer x
     LAST_SCALE (the random teacher's consensus share inside (0, 1))."""
@@ -1716,6 +1657,8 @@ def bf16_card_vs_cpu(dev, model, frame, gen, leg=contextlib.nullcontext, name="k
     import torch
 
     from pda_torch.kernels import conv_block as kc
+    from pda_torch.tools.ab import (ab_compare, ab_metrics, kernel_wrappers, mt_compute,
+                                    read_launches, reset_launches, teacher_logits)
 
     wrappers = kernel_wrappers()
     batch = mt_batch(gen, frame, MT_CHECK_PATCH, "cpu")
@@ -1753,41 +1696,21 @@ def bf16_ab(dev, model, frame, gen, leg=contextlib.nullcontext, name="kernels"):
     """The 512^2 bf16 MT step (no update) twice from one state on the card:
     inside ``leg`` (the kernels; a control's context), then with every plain
     version (float32 sums), at pda's A/B bounds; the teacher's logits and
-    consensus against the plain leg's own float32-vs-float64-sums spread. The launches are a
-    check's: logged only. Returns ({criterion: passed}, launches)."""
+    consensus against the plain leg's own float32-vs-float64-sums spread
+    (``pda_torch.tools.ab.kernels_and_plain``). The launches are a check's:
+    logged only. Returns ({criterion: passed}, launches)."""
     import torch
 
-    from pda_torch.core.consensus import consensus_from_logits
-    from pda_torch.kernels import conv_block as kc
+    from pda_torch.tools.ab import ab_compare, kernels_and_plain
 
-    wrappers = kernel_wrappers()
     batch = mt_batch(gen, frame, MT_TIME_PATCH, dev)
     noise = {k: v.to(dev) for k, v in {"eps_teacher": torch.randn(MC, MT_BATCH, 6, generator=gen),
                                        "eps_post": torch.randn(MT_BATCH, 6,
                                                                generator=gen)}.items()}
-    reset_launches(wrappers)
     t0 = time.perf_counter()
-    state = bf16_state(model, dev)
-    with leg():
-        kern = mt_compute(state, batch, noise)
-        torch.cuda.synchronize()
-        counts = read_launches(wrappers, bf16=True)
-        kern["logits"] = teacher_logits(state, batch[1], noise["eps_teacher"])
-    reset_launches(wrappers)
-    state = bf16_state(model, dev)
-    with kc.plain_versions():
-        plain = mt_compute(state, batch, noise, plain_teacher=True)
-        with kc.plain_sums(torch.float64):
-            logits64 = teacher_logits(state, batch[1], noise["eps_teacher"])
-    del state
-    torch.cuda.synchronize()
-    plain_counts = read_launches(wrappers, bf16=True)
-    z64 = consensus_from_logits(logits64.to(dev), masking=True)[1].cpu()
-    spread = (rms_diff(logits64, plain["logits"]), int((z64 != plain["z"]).sum()))
-    log(f"bf16 MT step {MT_TIME_PATCH}^2 plain leg, float32 vs float64 sums: teacher logits "
-        f"max|diff| {float((plain['logits'] - logits64).abs().max()):.2e}, RMS {spread[0]:.3e}; "
-        f"consensus differs at {spread[1]} px")
-    del logits64, z64
+    kern, plain, spread, counts, plain_counts = kernels_and_plain(
+        lambda: bf16_state(model, dev), batch, noise, f"bf16 MT step {MT_TIME_PATCH}^2", leg=leg,
+        bf16=True)
     passed = ab_compare(f"bf16 MT step {MT_TIME_PATCH}^2 batch {MT_BATCH} {name} vs plain on the "
                         f"card ({time.perf_counter() - t0:.1f} s; launches {counts} (a check's), "
                         f"plain leg {plain_counts})", kern, plain, teacher_spread=spread)
@@ -1805,6 +1728,7 @@ def phase_bf16(dev, results, binding, f32_ms):
     from pda_torch.infer import tiled_punet_probs
     from pda_torch.models.punet import livecell_punet
     from pda_torch.tools import workload as wl
+    from pda_torch.tools.ab import kernel_wrappers, reset_launches
     from pda_torch.tools.workload import conv_weights, cuda_ms, livecell_mt_trainer
     from pda_torch.train import load_checkpoint, make_mean_teacher_step
     from pda_torch.train.checkpoint import LATEST
@@ -1972,6 +1896,153 @@ def phase_bf16(dev, results, binding, f32_ms):
     return ok
 
 
+def unet_conv64(h, conv):
+    """A bf16 UNet2d conv (``pda_torch.models.unet._conv_bf16``) with its
+    sums in float64: bf16 operands, the sum rounded to bf16, then the bf16
+    bias added in bf16."""
+    import torch
+    import torch.nn.functional as F
+
+    y = F.conv2d(h.to(torch.bfloat16).double(), conv.weight.to(torch.bfloat16).double(), None,
+                 padding=conv.padding).to(torch.bfloat16)
+    return y + conv.bias.to(torch.bfloat16).view(1, -1, 1, 1)
+
+
+def unet_layer64(name, h, rest):
+    """A bf16 UNet2d rounding layer (UNET_BF16_LAYERS) on ``h`` in float64
+    sums, rounded where the layer rounds."""
+    import torch
+    import torch.nn.functional as F
+
+    hd = h.double()
+    if name == "_norm_bf16":
+        mean = hd.mean(dim=(2, 3), keepdim=True)
+        var = ((hd * hd).mean(dim=(2, 3), keepdim=True) - mean * mean).clamp(min=0.0)
+        return ((hd - mean) * torch.rsqrt(var + 1e-5)).to(torch.bfloat16)
+    if name == "_upsample_bf16":
+        return F.interpolate(hd, scale_factor=2, mode="bilinear",
+                             align_corners=False).to(torch.bfloat16)
+    return unet_conv64(h, rest[0])
+
+
+def unet_bf16_layers(label, model, x):
+    """A bf16 UNet2d's forward on the card, each rounding layer
+    (UNET_BF16_LAYERS) recorded and recomputed from the card's own bf16 input
+    to it in float64 sums (:func:`unet_layer64`; cuDNN off, so cuBLAS), held
+    by :func:`bf16_agree` (a conv's tolerance one ulp of its output plus one
+    of its sum before the bias add). Logs under ``label`` (and a failing
+    layer's farthest element); returns ok."""
+    import torch
+
+    from pda_torch.models import unet as mu
+
+    layers = {name: getattr(mu, name) for name in UNET_BF16_LAYERS}
+    ok, worst, err, count = True, (0, 1.0, 0.0), 0.0, {}
+
+    def recording(name):
+        def layer(h, *rest):
+            nonlocal ok, worst, err
+            out = layers[name](h, *rest)
+            with torch.backends.cudnn.flags(enabled=False, allow_tf32=False):
+                ref = unet_layer64(name, h, rest)
+            first = (None if name != "_conv_bf16" else
+                     out.double() - rest[0].bias.to(torch.bfloat16).double().view(1, -1, 1, 1))
+            good, n_beyond, equal, rel = bf16_agree(out, ref, first)
+            ok &= good and out.dtype == torch.bfloat16
+            worst = (max(worst[0], n_beyond), min(worst[1], equal), max(worst[2], rel))
+            err = max(err, float((out.double() - ref.double()).abs().max()))
+            count[name] = count.get(name, 0) + 1
+            if not good:
+                d = (out.double() - ref.double()).abs()
+                tol = bf16_ulp(torch.maximum(out.double().abs(), ref.double().abs()))
+                if first is not None:
+                    tol = tol + bf16_ulp(first.double().abs())
+                i = int((d / tol).argmax())
+                at = ("" if first is None else
+                      f", its sum before the bias {float(first.flatten()[i]):.6e}")
+                log(f"{label} layer {name} #{count[name]} {tuple(out.shape)}: {n_beyond} elements "
+                    f"beyond the ulp rule, bit-equal {equal:.5f}; the farthest at {i}: "
+                    f"{float(out.flatten()[i]):.6e} against {float(ref.flatten()[i]):.6e}{at}")
+            return out
+        return layer
+
+    t0 = time.perf_counter()
+    for name in layers:
+        setattr(mu, name, recording(name))
+    try:
+        with torch.no_grad():
+            probs = model(x)
+        torch.cuda.synchronize()
+    finally:
+        for name, fn in layers.items():
+            setattr(mu, name, fn)
+    ok &= probs.dtype == torch.float32 and bool(torch.isfinite(probs).all())
+    log(f"{label} forward layer by layer on the card against float64 sums (each from the "
+        f"card's own bf16 input; layers {count}; {time.perf_counter() - t0:.1f} s): most elements "
+        f"beyond the ulp rule {worst[0]}, least bit-equal share {worst[1]:.5f} (tol "
+        f"{BF16_BIT_EQUAL}), largest relative difference {worst[2]:.2e}, max_abs_err {err:.3e}; "
+        f"float32 probabilities {probs.dtype == torch.float32} {'ok' if ok else 'FAIL'}")
+    return ok
+
+
+def check_unet_bf16(dev):
+    """A bf16 UNet2d on the card: each rounding layer of its forward from
+    the card's own input to it against float64 sums, then one supervised
+    step against the CPU's (UNET_BF16_*). Returns ok."""
+    import torch
+
+    from pda_torch.models import UNet2d
+    from pda_torch.models import unet as mu
+    from pda_torch.tools.ab import PDA_BOUNDS
+    from pda_torch.train import adam, create_train_state, make_supervised_unet_step
+
+    t0 = time.perf_counter()
+    bf16 = torch.bfloat16
+    gen = torch.Generator().manual_seed(SEED + 17)
+    unet = UNet2d(depth=UNET_BF16_DEPTH, initial_features=UNET_BF16_FEATURES,
+                  final_activation="sigmoid", generator=torch.Generator().manual_seed(SEED),
+                  dtype=bf16)
+    with torch.no_grad():
+        for m in unet.modules():
+            if isinstance(m, torch.nn.Conv2d):
+                m.bias.copy_(0.1 * torch.randn(m.bias.shape, generator=gen))
+    p = UNET_BF16_PATCH
+    x = torch.randn(UNET_BF16_BATCH, p, p, 1, generator=gen)
+    gt = (x > 0.5).float()
+    label = (f"algorithms bf16 UNet2d(depth {UNET_BF16_DEPTH}, {UNET_BF16_FEATURES}) {p}^2 batch "
+             f"{UNET_BF16_BATCH}")
+    ok = unet_bf16_layers(label, copy.deepcopy(unet).to(dev), x.to(dev))
+
+    # one supervised step on the card and on the CPU, the CPU's convs summing
+    # in float64
+    step = make_supervised_unet_step()
+    runs, conv_bf16 = {}, mu._conv_bf16
+    for name, device in (("card", dev), ("cpu", "cpu")):
+        m = copy.deepcopy(unet).to(device)
+        state = create_train_state(m, adam(m.parameters(), UNET_LR))
+        if device == "cpu":
+            mu._conv_bf16 = unet_conv64
+        try:
+            _, aux = step(state, x.to(device), gt.to(device))
+        finally:
+            mu._conv_bf16 = conv_bf16
+        runs[name] = (state, aux)
+    card, cpu = runs["card"][0], runs["cpu"][0]
+    u = torch.cat([q.grad.double().flatten().cpu() for q in card.model.parameters()])
+    v = torch.cat([q.grad.double().flatten() for q in cpu.model.parameters()])
+    loss, loss_cpu = float(runs["card"][1]["loss"]), float(runs["cpu"][1]["loss"])
+    loss_rel, cos = abs(loss - loss_cpu) / abs(loss_cpu), 1.0 - float(u @ v / (u.norm() * v.norm()))
+    tol = PDA_BOUNDS["bf16"]
+    f32 = all(q.dtype == q.grad.dtype == torch.float32 for q in card.model.parameters())
+    good = loss_rel <= tol["loss"] and cos <= tol["cos"] and f32 and card.model.dtype == bf16
+    log(f"{label} supervised step card vs cpu (its convs' sums in float64): loss {loss:.6f} vs "
+        f"{loss_cpu:.6f}, relative difference {loss_rel:.2e} (tol {tol['loss']:.0e}); gradients' "
+        f"cosine 1 - {cos:.2e} (tol {tol['cos']:.0e}; pda's bf16 A/B bounds); float32 "
+        f"parameters and gradients {f32}; the check {time.perf_counter() - t0:.1f} s "
+        f"{'ok' if good else 'FAIL'}")
+    return ok and good
+
+
 def phase_algorithms(dev, results, binding):
     """The fault-3.1 widths and class counts, the pseudo-PUNet, FixMatch,
     AdaMT and AdaMatch steps of the flagship, and the UNet2d path: each on
@@ -1986,6 +2057,7 @@ def phase_algorithms(dev, results, binding):
     from pda_torch.models.punet import (livecell_punet, mc_decode_logits, mc_predict_probs,
                                         mc_pseudo)
     from pda_torch.tools import workload as wl
+    from pda_torch.tools.ab import kernel_wrappers, read_launches, reset_launches
     from pda_torch.tools.workload import cuda_ms
     from pda_torch.train import adam, create_train_state, steps
 
@@ -2167,9 +2239,12 @@ def phase_algorithms(dev, results, binding):
                   "pseudo_unet": (tt.make_pseudo_unet_step(),
                                   (ux, soft, ((soft - 0.5).abs() > 0.3).float()))}
 
-    def unet_state(device, dtype=torch.float32):
+    def unet_state(device, dtype=torch.float32, compute=torch.float32):
         m = copy.deepcopy(unet).to(device=device, dtype=dtype)
+        m.dtype = compute
         return create_train_state(m, adam(m.parameters(), UNET_LR))
+
+    ok &= check_unet_bf16(dev)
 
     for name, (step, batch) in unet_steps.items():
         card, cpu, cpu64 = unet_state(dev), unet_state("cpu"), unet_state("cpu", torch.float64)
@@ -2186,11 +2261,28 @@ def phase_algorithms(dev, results, binding):
                            aux_cpu, unet.state_dict(), UNET_LR, zero_grads, ref64=cpu64)
         ok &= good
         del card, cpu, cpu64
+    unet_ms = {}
     for name, (step, batch) in unet_steps.items():
-        good, _ = time_steps(f"{name} step {p}^2 batch {UNET_BATCH} f32", step, unet_state(dev),
-                             tuple(a.to(dev) for a in batch), UNET_BATCH, wrappers, NO_LAUNCHES,
-                             ALG_WARMUP, ALG_TIMED)
+        good, unet_ms[name] = time_steps(f"{name} step {p}^2 batch {UNET_BATCH} f32", step,
+                                         unet_state(dev), tuple(a.to(dev) for a in batch),
+                                         UNET_BATCH, wrappers, NO_LAUNCHES, ALG_WARMUP, ALG_TIMED)
         ok &= good
+    # the supervised step in pda's bf16 configuration (cuDNN's bf16
+    # convolutions), its first forward's layers held against float64 sums
+    step, batch = unet_steps["supervised_unet"]
+    label = f"supervised_unet step {p}^2 batch {UNET_BATCH} bf16"
+    t0 = time.perf_counter()
+    state = unet_state(dev, compute=torch.bfloat16)
+    ok &= unet_bf16_layers(f"algorithms bf16 UNet2d(depth 4, 64) {p}^2 batch {UNET_BATCH}",
+                           state.model, batch[0].to(dev))
+    good, ms = time_steps(label, step, state, tuple(a.to(dev) for a in batch), UNET_BATCH,
+                          wrappers, NO_LAUNCHES, ALG_WARMUP, ALG_TIMED)
+    ok &= good
+    del state
+    log(f"time supervised_unet step {p}^2 batch {UNET_BATCH}: bf16 {ms:.2f} ms, peak "
+        f"{STEP_PEAKS[label]:.2f} GiB against float32 {unet_ms['supervised_unet']:.2f} ms "
+        f"({unet_ms['supervised_unet'] / ms:.2f}x); its layer check and timing "
+        f"{time.perf_counter() - t0:.1f} s")
     # yardsticks, not the port's path: the supervised step under cuDNN's
     # autotuner, and with cuDNN off (PyTorch's own CUDA convolutions)
     step, batch = unet_steps["supervised_unet"]
@@ -2229,26 +2321,6 @@ def phase_algorithms(dev, results, binding):
     return ok
 
 
-def kernel_wrappers():
-    """The five kernels' wrappers, each with its ``launches`` count."""
-    from pda_torch.kernels import conv_block as kc
-    from pda_torch.kernels import mc_consensus as km
-
-    return {"conv_block_fwd": kc.conv_block_fwd, "conv_block_fwd_dual": kc.conv_block_fwd_dual,
-            "mc_consensus": km.mc_consensus, "conv_block_bwd": kc.conv_block_bwd,
-            "conv_block_bwd_dual": kc.conv_block_bwd_dual}
-
-
-def reset_launches(wrappers):
-    from pda_torch.kernels.conv_block import BWD_MODES, FWD_MODES
-
-    for w in wrappers.values():
-        w.launches = w.launches_bf16 = 0
-        for name in (f"launches_{m}{s}" for m in (*BWD_MODES, *FWD_MODES) for s in ("", "_bf16")):
-            if hasattr(w, name):
-                setattr(w, name, 0)
-
-
 def mode_launches(wrappers, bf16=False):
     """The backward modes' launches since :func:`reset_launches`, by JSON
     entry (MODE_ENTRIES), of the float32 or (``bf16``) the bf16 instances."""
@@ -2273,15 +2345,11 @@ def all_on_wgmma(wrappers):
     return ok, routes
 
 
-def read_launches(wrappers, bf16=False):
-    """The launches since :func:`reset_launches` (a check's, logged only),
-    of the kernels' float32 instances (or, with ``bf16``, their bf16 ones)."""
-    return {k: w.launches_bf16 if bf16 else w.launches for k, w in wrappers.items()}
-
-
 def counted_launches(wrappers, results, bf16=False):
     """The launches since :func:`reset_launches` of a main path's run, added
     to the JSON line's counts (of the bf16 instances' entries with ``bf16``)."""
+    from pda_torch.tools.ab import read_launches
+
     counts = read_launches(wrappers, bf16)
     for k, n in {**counts, **mode_launches(wrappers, bf16),
                  **(route_launches(wrappers) if bf16 else {})}.items():
@@ -2365,6 +2433,8 @@ def check_fit(label, card, cpu, grads, init, lr):
     the update by a large part of lr: the interval follows it there."""
     import torch
 
+    from pda_torch.tools.ab import SPREAD_FACTOR
+
     n_steps = len(grads["card"])
     params = list(cpu.state.model.parameters())
     deltas = [[None] * len(params) for _ in range(n_steps)]
@@ -2383,7 +2453,7 @@ def check_fit(label, card, cpu, grads, init, lr):
                 cos, cos_cpu = (float(torch.nn.functional.cosine_similarity(
                     a.flatten(), g64.flatten(), dim=0)) for a in (g, gc))
                 worst_cos = min(worst_cos, (cos, f"step {k} {name}", cos_cpu))
-                n_bad += 1.0 - cos > max(GRAD_COS_TOL, GRAD_COS_CPU * (1.0 - cos_cpu))
+                n_bad += 1.0 - cos > max(GRAD_COS_TOL, SPREAD_FACTOR * (1.0 - cos_cpu))
     group = cpu.state.optimizer.param_groups[0]
     momentum = cpu.momentum
     student = teacher = cpu_off = 0.0
@@ -2422,21 +2492,6 @@ def check_fit(label, card, cpu, grads, init, lr):
     return good
 
 
-@contextlib.contextmanager
-def augmentation_path(native: bool):
-    """PDA_NATIVE_AUGS set to the native ("1") or the numpy ("0") path while
-    the block runs."""
-    old = os.environ.get("PDA_NATIVE_AUGS")
-    os.environ["PDA_NATIVE_AUGS"] = "1" if native else "0"
-    try:
-        yield
-    finally:
-        if old is None:
-            del os.environ["PDA_NATIVE_AUGS"]
-        else:
-            os.environ["PDA_NATIVE_AUGS"] = old
-
-
 def small_mt_fits(root, dev, wrappers, loader_seed: int = 0):
     """The flagship's MT fit at 128^2 (2 steps, 1 validation) on the card, on
     the CPU (float32) and on the CPU in float64, each step's gradients
@@ -2447,6 +2502,7 @@ def small_mt_fits(root, dev, wrappers, loader_seed: int = 0):
     fit's launches and the CPU fits' seconds."""
     import torch
 
+    from pda_torch.tools.ab import read_launches, reset_launches
     from pda_torch.tools.workload import livecell_mt_trainer
     from pda_torch.train import steps
 
@@ -2546,7 +2602,7 @@ def check_native() -> bool:
         close("elastic_warp", native.elastic_warp(a, dy, dx, order=order),
               map_coordinates(a, np.stack([yy + dy, xx + dx]), order=order, mode="reflect"))
     joint = transforms.JointAugmentations()
-    with augmentation_path(native=False):  # the numpy field from the same draws
+    with native.augmentation_path(native=False):  # the numpy field from the same draws
         field_np = joint._field(96, 80, np.random.default_rng(3))
     close("field_upsample", joint._field(96, 80, np.random.default_rng(3)), field_np)
     # at the loader's size, the joint augmentations' own field (reported)
@@ -2625,11 +2681,11 @@ def phase_engine(dev, results, bare_ms):
     reload and resume, the fit at 128^2 card vs CPU, the learning check."""
     import torch
 
-    from pda_torch.data import ImageCollectionDataset, Loader
-    from pda_torch.data.synthetic import make_dataset_arrays
-    from pda_torch.models import ProbabilisticUnet
+    from pda_torch.data.native import augmentation_path
+    from pda_torch.tools import learning_smoke
+    from pda_torch.tools.ab import kernel_wrappers, read_launches, reset_launches
     from pda_torch.tools.workload import livecell_mt_trainer
-    from pda_torch.train import LATEST, PUNetTrainer, ReduceLROnPlateau
+    from pda_torch.train import LATEST
 
     wrappers = kernel_wrappers()
 
@@ -2762,40 +2818,28 @@ def phase_engine(dev, results, bare_ms):
                         f"{ENGINE_CHECK_PATCH}^2", card, cpu, grads, init, MT_LR)
         del fits, card, cpu
 
-        # 4. learning: development/learning_smoke.py's run on the port
-        raws, labels = make_dataset_arrays(32, (96, 96), seed=7)
-        train_ds = ImageCollectionDataset(raws[:24], labels[:24], patch_shape=(64, 64),
-                                          n_samples=LEARN_BATCH * 16)
-        val_ds = ImageCollectionDataset(raws[24:], labels[24:], patch_shape=(64, 64))
-        model = ProbabilisticUnet(num_filters=LEARN_FILTERS, latent_dim=6, no_convs_fcomb=3,
-                                  beta=1.0, rl_swap=True,
-                                  generator=torch.Generator().manual_seed(SEED))
-        learner = PUNetTrainer("learning-smoke", model,
-                               Loader(train_ds, LEARN_BATCH, seed=0, num_workers=4),
-                               Loader(val_ds, 4, seed=1), learning_rate=LEARN_LR,
-                               lr_scheduler=ReduceLROnPlateau(), save_root=root, logger=False,
-                               device=dev)
+        # 4. learning: development/learning_smoke.py's run on the port, in
+        # float32 (pda_torch/tools/learning_smoke.py runs it in bf16 too)
+        learner = learning_smoke.learner(root, dev, batch=LEARN_BATCH, mixed_precision=False)
         reset()
-        t0 = time.perf_counter()
-        stats = learner.fit(LEARN_ITERATIONS)
-        final = learner.validate()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+        out = learning_smoke.run(learner, LEARN_ITERATIONS)
+        stats, final, wall = out["stats"], out["final"], out["wall"]
         counts = read_launches(wrappers)
         n_val_steps = len(learner.val_history) * len(learner.val_loader)
         want = {"conv_block_fwd": 12 * LEARN_ITERATIONS + 20 * n_val_steps,
                 "conv_block_fwd_dual": 3 * LEARN_ITERATIONS + 6 * n_val_steps,
                 "mc_consensus": n_val_steps, "conv_block_bwd": 12 * LEARN_ITERATIONS,
                 "conv_block_bwd_dual": 3 * LEARN_ITERATIONS}
-        good = final["dice"] > LEARN_BAR and counts == want and finite(learner.history)
+        good = (final["dice"] > learning_smoke.BAR and counts == want
+                and finite(learner.history))
         log(f"engine learning check (development/learning_smoke.py): PUNetTrainer, PUNet "
-            f"{LEARN_FILTERS}, 64^2 batch {LEARN_BATCH}, lr {LEARN_LR:g} with the plateau "
-            f"controller, {LEARN_ITERATIONS} iterations f32: validation dice by epoch "
+            f"{learning_smoke.FILTERS}, 64^2 batch {LEARN_BATCH}, lr {learning_smoke.LR:g} with "
+            f"the plateau controller, {LEARN_ITERATIONS} iterations f32: validation dice by epoch "
             f"{[round(m['dice'], 4) for _, m in learner.val_history]}, final {final['dice']:.4f} "
-            f"(bar {LEARN_BAR}; pda records 0.82-0.84 on its TPU in bf16, a reference point); "
-            f"learning rate {learner.state.learning_rate:g}; {stats['patches_per_sec']:.1f} "
-            f"patches/s (Throughput), {wall:.1f} s with the validations; launches {counts} "
-            f"(expected {want}) {'ok' if good else 'FAIL'}")
+            f"(bar {learning_smoke.BAR}; pda records 0.82-0.84 on its TPU in bf16, a reference "
+            f"point); learning rate {learner.state.learning_rate:g}; "
+            f"{stats['patches_per_sec']:.1f} patches/s (Throughput), {wall:.1f} s with the "
+            f"validations; launches {counts} (expected {want}) {'ok' if good else 'FAIL'}")
         ok &= good
         del learner
     return ok
@@ -2960,6 +3004,7 @@ def phase_experiments(dev, results, binding):
                                        livecell_punet, livecell_punet_target, livecell_unet)
     from pda_torch.infer import tiled_punet_probs
     from pda_torch.infer.tiling import grid_shape
+    from pda_torch.tools.ab import kernel_wrappers, reset_launches
     from pda_torch.train import engine, load_params
 
     wrappers = kernel_wrappers()
@@ -3288,6 +3333,7 @@ def phase_mitoem(dev, results, binding):
                                        mitoem_unet)
     from pda_torch.infer import tiled_punet_probs
     from pda_torch.infer.tiling import grid_shape
+    from pda_torch.tools.ab import kernel_wrappers, reset_launches
     from pda_torch.train import engine, load_params
 
     wrappers = kernel_wrappers()
@@ -3537,6 +3583,7 @@ def lung_step(dev):
 
     from pda_torch.data.synthetic import make_lung_frame
     from pda_torch.experiments.common import lung_punet
+    from pda_torch.tools.ab import kernel_wrappers, read_launches, reset_launches
     from pda_torch.train import adam, create_train_state, make_mean_teacher_step, steps
 
     wrappers = kernel_wrappers()
@@ -3651,6 +3698,7 @@ def phase_lung(dev, results, binding):
     from pda_torch.experiments import lung as lung_da
     from pda_torch.infer import tiled_punet_probs
     from pda_torch.infer.tiling import grid_shape
+    from pda_torch.tools.ab import kernel_wrappers, reset_launches
     from pda_torch.train import engine, load_params
 
     (lung_prepare_data, lung_punet, lung_unet, lung_mt, lung_adamt) = (

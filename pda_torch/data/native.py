@@ -32,6 +32,7 @@ compute as zero in that thread, for numpy and PyTorch's CPU kernels alike.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -63,6 +64,21 @@ class NativeBuildError(RuntimeError):
 def enabled() -> bool:
     """Whether ``PDA_NATIVE_AUGS`` selects the native path (default: yes)."""
     return os.environ.get("PDA_NATIVE_AUGS", "1") != "0"
+
+
+@contextlib.contextmanager
+def augmentation_path(native: bool):
+    """``PDA_NATIVE_AUGS`` set to the native ("1") or the numpy ("0") path
+    while the block runs."""
+    old = os.environ.get("PDA_NATIVE_AUGS")
+    os.environ["PDA_NATIVE_AUGS"] = "1" if native else "0"
+    try:
+        yield
+    finally:
+        if old is None:
+            del os.environ["PDA_NATIVE_AUGS"]
+        else:
+            os.environ["PDA_NATIVE_AUGS"] = old
 
 
 def _host() -> bytes:

@@ -84,15 +84,18 @@ mitoem_punet = livecell_punet
 
 
 def lung_punet(consensus_masking: bool = False, generator: Optional[torch.Generator] = None,
-               device: Device = "cuda") -> ProbabilisticUnet:
+               device: Device = "cuda", dtype: torch.dtype = torch.float32) -> ProbabilisticUnet:
     """The Lung PUNet: the flagship with a BCE reconstruction
-    (``rl_swap=False``, reference Lung-XRay/lung_punet.py:55-63)."""
+    (``rl_swap=False``, reference Lung-XRay/lung_punet.py:55-63), in
+    ``dtype`` (float32, or bf16 compute with float32 parameters) as
+    :func:`~pda_torch.models.punet.livecell_punet` takes it."""
     if torch.device(device).type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("lung_punet: no CUDA card (torch.cuda.is_available() is False); "
                            "pass device='cpu' to build on the CPU")
     model = ProbabilisticUnet(input_channels=1, num_classes=1, num_filters=(64, 128, 256, 512),
                               latent_dim=6, no_convs_fcomb=3, beta=1.0, rl_swap=False,
-                              consensus_masking=consensus_masking, generator=generator)
+                              consensus_masking=consensus_masking, generator=generator,
+                              dtype=dtype)
     return model.to(device)
 
 

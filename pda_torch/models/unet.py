@@ -20,6 +20,8 @@ from torch import nn
 
 from .blocks import N_CONVS, ComputeDtype, ConvBlock, ConvParams, UpBlock, dense, pool_out_plan
 
+_BF16 = torch.bfloat16
+
 
 class PUNetBackbone(ComputeDtype, nn.Module):
     """4-level UNet, AvgPool down, bilinear align-corners up, no head
@@ -76,12 +78,40 @@ class PUNetBackbone(ComputeDtype, nn.Module):
         return x
 
 
-class _DoubleConv(nn.Module):
+def _norm_bf16(x: torch.Tensor) -> torch.Tensor:
+    """``pda``'s ``GroupNorm(group_size=1, dtype=bf16)`` on NCHW: float32
+    statistics over H and W per sample and channel (flax's fast variance,
+    E[x^2] - E[x]^2 clipped at 0, biased; eps 1e-5), the normalized value
+    computed in float32 and rounded to bf16 once."""
+    xf = x.float()
+    mean = xf.mean(dim=(2, 3), keepdim=True)
+    var = ((xf * xf).mean(dim=(2, 3), keepdim=True) - mean * mean).clamp(min=0.0)
+    return ((xf - mean) * torch.rsqrt(var + 1e-5)).to(_BF16)
+
+
+def _upsample_bf16(x: torch.Tensor) -> torch.Tensor:
+    """``pda``'s bf16 upsample: bilinear x2 (half-pixel centers) in float32,
+    rounded to bf16."""
+    return F.interpolate(x.float(), scale_factor=2, mode="bilinear",
+                         align_corners=False).to(_BF16)
+
+
+def _conv_bf16(x: torch.Tensor, conv: nn.Conv2d) -> torch.Tensor:
+    """flax's ``Conv(dtype=bf16)`` in ``pda``: bf16 operands, float32 sums,
+    the sum rounded to bf16 with no bias, then the bf16 bias added in bf16, a
+    second rounding (``F.conv2d``'s own bias would round once on the CPU)."""
+    y = F.conv2d(x.to(_BF16), conv.weight.to(_BF16), None, padding=conv.padding)
+    return y + conv.bias.to(_BF16).view(1, -1, 1, 1)
+
+
+class _DoubleConv(ComputeDtype, nn.Module):
     """torch_em ``ConvBlock2d``: (InstanceNorm -> Conv3x3 -> ReLU) x 2 on
     NCHW, ``block`` = [norm, conv, relu, norm, conv, relu] (convs at 1 and
     4), or [conv, relu, conv, relu] without a norm. The norm is PyTorch's
     parameterless ``InstanceNorm2d`` (no affine, eps 1e-5, biased variance
-    over H and W per sample and channel; ``pda``'s ``GroupNorm(group_size=1)``)."""
+    over H and W per sample and channel; ``pda``'s ``GroupNorm(group_size=1)``).
+    In bf16 each layer rounds where ``pda``'s does (:func:`_norm_bf16`,
+    :func:`_conv_bf16`, the ReLU in bf16)."""
 
     def __init__(self, in_channels: int, features: int, norm: Optional[str] = "InstanceNorm"):
         super().__init__()
@@ -94,21 +124,36 @@ class _DoubleConv(nn.Module):
             mods += [nn.Conv2d(cin, features, 3, padding=1), nn.ReLU()]
             cin = features
         self.block = nn.Sequential(*mods)
+        self.dtype = torch.float32
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.block(x)
+        if self.dtype != _BF16:
+            return self.block(x)
+        for m in self.block:
+            if isinstance(m, nn.InstanceNorm2d):
+                x = _norm_bf16(x)
+            elif isinstance(m, nn.Conv2d):
+                x = _conv_bf16(x, m)
+            else:
+                x = F.relu(x)
+        return x
 
 
-class _Upsampler(nn.Module):
+class _Upsampler(ComputeDtype, nn.Module):
     """torch_em ``Upsampler2d``: bilinear x2 (``align_corners=False``, half-
-    pixel centers), then the 1x1 ``conv``."""
+    pixel centers), then the 1x1 ``conv``; in bf16 :func:`_upsample_bf16`,
+    then :func:`_conv_bf16`."""
 
     def __init__(self, in_channels: int, out_channels: int):
         super().__init__()
         self.conv = nn.Conv2d(in_channels, out_channels, 1)
+        self.dtype = torch.float32
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.conv(F.interpolate(x, scale_factor=2, mode="bilinear", align_corners=False))
+        if self.dtype != _BF16:
+            return self.conv(F.interpolate(x, scale_factor=2, mode="bilinear",
+                                           align_corners=False))
+        return _conv_bf16(_upsample_bf16(x), self.conv)
 
 
 class _Encoder(nn.Module):
@@ -129,15 +174,23 @@ class _Decoder(nn.Module):
         self.blocks = nn.ModuleList(_DoubleConv(2 * feats[i], feats[i], norm) for i in levels)
 
 
-class UNet2d(nn.Module):
+class UNet2d(ComputeDtype, nn.Module):
     """Standalone 2D segmentation UNet, torch_em's ``UNet2d`` (reference
     LIVECell/livecell_unet.py, MitoEM/mitoem_unet.py), on (B, H, W, C).
 
     ``depth`` encoder blocks of ``initial_features * gain**i`` features, 2x2
     max pool down, a base block at ``initial_features * gain**depth``, then
     per level (deepest first) bilinear x2 + 1x1 sampler conv, concat
-    [up | skip] and a block; a 1x1 ``out_conv`` and an optional sigmoid, all
-    in float32. H and W must divide 2**depth.
+    [up | skip] and a block; a 1x1 ``out_conv`` and an optional sigmoid.
+    H and W must divide 2**depth.
+
+    ``dtype``: the compute dtype, float32 or bf16 (``pda``'s
+    ``UNet2d(dtype=...)``, which ``Trainer(mixed_precision=True)`` sets);
+    the parameters stay float32. In bf16 the model rounds where ``pda``'s
+    does (``pda/models/unet.py``): each norm once, each conv's sum and then
+    its bias add, the pool and the concat in bf16, the upsample in float32
+    rounded to bf16, the head conv in bf16 cast to float32 before the
+    sigmoid. The output is float32 in either dtype.
 
     ``pda`` runs this model on XLA convolutions with no Pallas kernel, so the
     port runs it on ``F.conv2d`` (cuDNN on the card) and PyTorch's norm,
@@ -155,7 +208,8 @@ class UNet2d(nn.Module):
                  initial_features: int = 64, gain: int = 2,
                  final_activation: Optional[str] = "sigmoid",
                  norm: Optional[str] = "InstanceNorm",
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         feats = [initial_features * gain ** i for i in range(depth + 1)]
         self.depth = depth
@@ -164,6 +218,7 @@ class UNet2d(nn.Module):
         self.base = _DoubleConv(feats[-2], feats[-1], norm)
         self.decoder = _Decoder(feats, norm)
         self.out_conv = nn.Conv2d(feats[0], out_channels, 1)
+        self.dtype = dtype
         self.reset_parameters(generator or torch.Generator().manual_seed(0))
 
     def reset_parameters(self, generator: torch.Generator) -> None:
@@ -186,7 +241,7 @@ class UNet2d(nn.Module):
         for sampler, block, skip in zip(self.decoder.samplers, self.decoder.blocks,
                                         reversed(skips)):
             h = block(torch.cat([sampler(h), skip], dim=1))
-        h = self.out_conv(h)
+        h = self.out_conv(h) if self.dtype != _BF16 else _conv_bf16(h, self.out_conv).float()
         if (self.final_activation or "").lower() == "sigmoid":
             h = torch.sigmoid(h)
         return h.permute(0, 2, 3, 1).contiguous()

@@ -16,7 +16,7 @@ forward's shapes, beside the kernel. Exits 0 if the kernels pass both checks; wh
 control is the result to read. ``--spread N`` then draws N more 512^2
 batches and prints, for the kernels and the control against the plain
 versions (float32 sums), and for the plain versions in float64 sums against
-them (the spread of two valid summation orders), ``chip_smoke.ab_metrics``
+them (the spread of two valid summation orders), ``pda_torch.tools.ab.ab_metrics``
 and the teacher's differences: each leg with its own teacher, and each
 student on the kernels' pseudo-labels. Needs a CUDA card; TF32 off for
 cuDNN and matmul.
@@ -31,6 +31,8 @@ import sys
 
 import torch
 import torch.nn.functional as F
+
+from . import ab
 
 
 @contextlib.contextmanager
@@ -104,23 +106,23 @@ def spread(cs, dev, model, frame, gen):
     for name, leg in (("kernels", contextlib.nullcontext), ("control", unrounded_blocks)):
         state = cs.bf16_state(model, dev)
         with leg():
-            legs[name] = cs.mt_compute(state, batch, noise)
-            legs[name]["logits"] = cs.teacher_logits(state, batch[1], noise["eps_teacher"])
+            legs[name] = ab.mt_compute(state, batch, noise)
+            legs[name]["logits"] = ab.teacher_logits(state, batch[1], noise["eps_teacher"])
     pseudo = (legs["kernels"]["y"], legs["kernels"]["z"])
     ref = {}
     for acc in (torch.float32, torch.float64):
         with kc.plain_versions(), kc.plain_sums(acc):
-            ref[acc] = cs.mt_compute(cs.bf16_state(model, dev), batch, noise, plain_teacher=True)
-            ref[acc, "shared"] = cs.mt_compute(cs.bf16_state(model, dev), batch, noise,
+            ref[acc] = ab.mt_compute(cs.bf16_state(model, dev), batch, noise, plain_teacher=True)
+            ref[acc, "shared"] = ab.mt_compute(cs.bf16_state(model, dev), batch, noise,
                                                pseudo=pseudo)
     for name, a in (("kernels", legs["kernels"]), ("control", legs["control"]),
                     ("float64 sums", ref[torch.float64])):
-        m = cs.ab_metrics(a, ref[torch.float32])
-        shared = cs.ab_metrics(a if name != "float64 sums" else ref[torch.float64, "shared"],
+        m = ab.ab_metrics(a, ref[torch.float32])
+        shared = ab.ab_metrics(a if name != "float64 sums" else ref[torch.float64, "shared"],
                                ref[torch.float32, "shared"])
         print(f"bf16_controls spread {name} vs plain (float32 sums): own teacher: loss "
               f"{m['loss']:.3e}, cos {m['cos']:.3e}, leaf {m['leaf'][0]:.3e}, teacher logits RMS "
-              f"{cs.rms_diff(a['logits'], ref[torch.float32]['logits']):.3e}, consensus "
+              f"{ab.rms_diff(a['logits'], ref[torch.float32]['logits']):.3e}, consensus "
               f"{int((a['z'] != ref[torch.float32]['z']).sum())} px; on the kernels' "
               f"pseudo-labels: loss {shared['loss']:.3e}, cos {shared['cos']:.3e}, leaf "
               f"{shared['leaf'][0]:.3e}", flush=True)

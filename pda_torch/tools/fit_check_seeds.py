@@ -38,16 +38,19 @@ def main(argv=None) -> int:
     sys.path.insert(0, os.getcwd())
     import chip_smoke as cs
 
+    from pda_torch.data.native import augmentation_path
+    from pda_torch.tools.ab import kernel_wrappers
+
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda", 0)
-    wrappers = cs.kernel_wrappers()
+    wrappers = kernel_wrappers()
     good = True
     with tempfile.TemporaryDirectory() as root:
         for run, seed in enumerate(int(s) for s in args.seeds.split(",")):
             for views in args.views.split(","):
                 t0 = time.perf_counter()
-                with cs.augmentation_path(native=views == "native"):
+                with augmentation_path(native=views == "native"):
                     fits, grads, _, init, _, _ = cs.small_mt_fits(
                         os.path.join(root, f"{run}{views}"), dev, wrappers, loader_seed=seed)
                 good &= cs.check_fit(f"fit check, {views} views, loader seed +{seed}",

@@ -1,7 +1,8 @@
 """``Trainer(mixed_precision=True)`` on the CPU, as ``pda``'s engine takes
-it: a model with a compute ``dtype`` (the PUNet, its teacher too) computes
-in bf16 while its parameters, their gradients, the optimizer and the
-checkpoints stay float32; a model without one (``UNet2d``) stays float32."""
+it: a model with a compute ``dtype`` computes in bf16 while its
+parameters, their gradients, the optimizer and the checkpoints stay
+float32 (the PUNet, its teacher too, and ``UNet2d``); a
+model without one stays float32."""
 
 import os
 
@@ -51,9 +52,37 @@ def test_mixed_precision_trains_the_punet_in_bf16(tmp_path):
     assert fresh.model.dtype == torch.bfloat16
 
 
-def test_mixed_precision_leaves_a_model_without_dtype_in_float32(tmp_path):
+def test_mixed_precision_trains_the_unet_in_bf16(tmp_path):
     model = UNet2d(depth=2, initial_features=4, generator=torch.Generator().manual_seed(1))
     trainer = ttrain.UNetTrainer("unet", model, *_loaders(False), save_root=str(tmp_path),
+                                 device="cpu", logger=False, mixed_precision=True)
+    seen = []
+    trainer.model.base.register_forward_hook(lambda mod, args, out: seen.append(out.dtype))
+    trainer.fit(1)
+    assert trainer.model.dtype == torch.bfloat16
+    assert seen and set(seen) == {torch.bfloat16}
+    out = trainer.model(torch.zeros(1, 32, 32, 1))
+    assert out.dtype == torch.float32
+    assert {p.dtype for p in trainer.model.parameters()} == {torch.float32}
+    assert {p.grad.dtype for p in trainer.model.parameters()} == {torch.float32}
+    assert all(torch.isfinite(torch.tensor(h["loss"])) for _, h in trainer.history)
+    blob = load_checkpoint(trainer.ckpt_dir, which=LATEST)
+    assert {v.dtype for v in blob["model_state"].values()} == {torch.float32}
+
+
+class _NoDtype(torch.nn.Module):
+    """A segmentation model with no compute ``dtype``: a 1x1 conv and a sigmoid."""
+
+    def __init__(self):
+        super().__init__()
+        self.conv = torch.nn.Conv2d(1, 1, 1)
+
+    def forward(self, x):
+        return torch.sigmoid(self.conv(x.permute(0, 3, 1, 2))).permute(0, 2, 3, 1)
+
+
+def test_mixed_precision_leaves_a_model_without_dtype_in_float32(tmp_path):
+    trainer = ttrain.UNetTrainer("plain", _NoDtype(), *_loaders(False), save_root=str(tmp_path),
                                  device="cpu", logger=False, mixed_precision=True)
     trainer.fit(1)
     assert not hasattr(trainer.model, "dtype")

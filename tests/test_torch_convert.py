@@ -67,7 +67,9 @@ def test_port_imports_no_jax():
         "pda_torch.experiments.mitoem_adamt, pda_torch.experiments.mitoem_adamatch, "
         "pda_torch.experiments.mitoem_prepare_data, pda_torch.experiments.livecell_da, "
         "pda_torch.data.blur, pda_torch.data.native, pda_torch.train.events, "
-        "pda_torch.data.transforms, pda_torch.experiments.common\n"
+        "pda_torch.data.transforms, pda_torch.experiments.common, pda_torch.tools.ab, "
+        "pda_torch.tools.common, pda_torch.tools.ab_step_check, pda_torch.tools.learning_smoke, "
+        "pda_torch.tools.mt_smoke, pda_torch.tools.bench_loader, pda_torch.tools.e2e_drive\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'flax', 'pda', 'h5py', 'imageio', 'cv2',\n"
         "                                    'tensorboardX', 'tensorboard'))\n"
