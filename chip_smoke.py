@@ -51,12 +51,21 @@ Phases, each of which fails the run (exit code 1) on any error or miss
                 card (pda's development/ab_step_check.py: loss, gradients'
                 cosine, worst leaf; the consensus differs at most at 4x the
                 pixels the plain leg's float32 and float64 sums differ at;
-                these check the wiring, the layer checks the roundings); 10 timed
+                these check the wiring, the layer checks the roundings); 7 timed
                 bf16 MT steps at 512^2 beside the float32 step; tiled MC-16
                 serving in bf16;
                 Trainer(mixed_precision=True).fit ending in a float32
                 checkpoint that reloads bit for bit
-  7. algorithms — fault 3.1: K3 at C = 16 and 20 (zero-padded to 24)
+  7. parallel — pda's data mesh (pda_torch.parallel) at a world of 1 in
+                this process (NCCL, a HashStore): the flagship MT step at
+                512^2, batch 2, in float32 and in bf16, and the tiled MC-16
+                frame, each from one state, batch and noise without a mesh
+                and with one; the sharded run bit-equal (loss, every
+                parameter, gradient and teacher tensor; the frame), every
+                kernel launched on the sharded path (bf16: on the wgmma
+                bodies); both legs timed, and the gradient bucket's
+                all-reduce alone
+  8. algorithms — fault 3.1: K3 at C = 16 and 20 (zero-padded to 24)
                 against its plain version, a PUNet at num_filters (16, 32,
                 48, 64) and a 2-class one through mc_pseudo and the
                 validation predictor, card vs CPU (no K3 launch for 2
@@ -74,7 +83,7 @@ Phases, each of which fails the run (exit code 1) on any error or miss
                 rounding layer from the card's own bf16 input against
                 float64 sums, then one supervised step card vs CPU, float32
                 parameters and gradients
-  8. engine   — pda's native host library (pda_torch/data/native.py) built
+  9. engine   — pda's native host library (pda_torch/data/native.py) built
                 on the card's host (g++'s version, the build's seconds), each
                 entry point against the port's numpy path, and the port's
                 OpenCV blur of a fixed probe against cv2's digest; the
@@ -97,7 +106,7 @@ Phases, each of which fails the run (exit code 1) on any error or miss
                 PUNetTrainer run (pda_torch/tools/learning_smoke.py in
                 float32: PUNet 16/32/64/96, 64^2, batch 8, lr 1e-3), final
                 validation dice above 0.5
-  9. experiments — the LIVECell CLIs (pda_torch/experiments/) through their
+ 10. experiments — the LIVECell CLIs (pda_torch/experiments/) through their
                 main(argv) on a synthetic LIVECell tree (two cell types, 4
                 train, 1 validation, 1 test frame each, 520x704, written by
                 the port's TIFF codec), at the flagship's width:
@@ -114,7 +123,7 @@ Phases, each of which fails the run (exit code 1) on any error or miss
                 shape the CLIs gave a kernel, held against its plain version
                 and float64 as in phase 3 where that phase had not; seconds
                 by CLI and by trainer part, peak disk
- 10. mitoem   — the MitoEM CLIs (pda_torch/experiments/mitoem_*) through
+ 11. mitoem   — the MitoEM CLIs (pda_torch/experiments/mitoem_*) through
                 their main(argv) on a synthetic MitoEM tree (MitoEM slices
                 as PNG and TIFF, the VNC and Lucchi++ zips, UroCell NIfTI
                 volumes; synthetic.write_mitoem_tree) at the flagship's
@@ -134,7 +143,7 @@ Phases, each of which fails the run (exit code 1) on any error or miss
                 to tiled_punet_probs (MC-8), the card's memory back after
                 the last trainer; every new (kernel, shape) held against its
                 plain version and float64; seconds by CLI and trainer part
- 11. lung     — one 64^2 Mean-Teacher step of the Lung PUNet (the
+ 12. lung     — one 64^2 Mean-Teacher step of the Lung PUNet (the
                 flagship with the BCE reconstruction, consensus masking) card
                 vs CPU (float32, float64 the gradients' reference), with its
                 launch counts; then the Lung X-Ray CLIs
@@ -155,7 +164,7 @@ Phases, each of which fails the run (exit code 1) on any error or miss
                 card's memory back after the last trainer; every new
                 (kernel, shape) held against its plain version and float64,
                 timed; seconds by CLI and trainer part, peak disk and memory
- 12. times    — CUDA-event medians of every kernel, its plain version and
+ 13. times    — CUDA-event medians of every kernel, its plain version and
                 (ConvBlock forward and backward) cuDNN's convolutions, beside
                 its bound from the shapes, with TFLOP/s; end-to-end ms/frame
                 and tiles/s, ms/step and patches/s of every step
@@ -170,6 +179,7 @@ the kind is printed when a phase fails or there is no card.
 from __future__ import annotations
 
 import argparse
+import collections
 import contextlib
 import copy
 import itertools
@@ -217,7 +227,7 @@ CHECKED = set()
 
 MT_LR, MT_MOMENTUM, MT_BATCH = 1e-5, 0.999, 2
 MT_CHECK_PATCH, MT_TIME_PATCH = 128, 512
-MT_WARMUP, MT_TIMED = 3, 7
+MT_WARMUP, MT_TIMED = 2, 4
 LAST_SCALE = 8.0  # Fcomb last layer x8: the random teacher's consensus share lies inside (0, 1)
 MT_LOSS_TOL = 1e-4  # card vs CPU: |loss - ref| <= 1e-4 * max(1, |ref|), same for recon, kl
 MT_GRAD_TOL = 1e-3  # card vs CPU: per parameter, max |g - ref| <= 1e-3 * max |ref|
@@ -272,7 +282,7 @@ STEP_PEAKS = {}
 FAULT_WIDTHS = (16, 20)
 SMALL_FILTERS = (16, 32, 48, 64)
 ALG_CHECK_PATCH, ALG_STEP_CHECK_PATCH, ALG_TIME_PATCH = 128, 64, 512
-ALG_WARMUP, ALG_TIMED = 2, 5
+ALG_WARMUP, ALG_TIMED = 1, 2
 SOURCE_DISTRIBUTION = (0.7, 0.3)  # FixMatch's source class distribution [bg, fg]
 # kernel launches of one step: the student's forward (12 blocks, 3 decoder
 # blocks) and backward a loss, the teacher's (or the model's own) MC pass
@@ -1896,6 +1906,231 @@ def phase_bf16(dev, results, binding, f32_ms):
     return ok
 
 
+PAR_WARMUP, PAR_TIMED = 1, 3
+
+
+def same_bits(a, b):
+    """Bit-equal student (parameters and gradients) and teacher of two MT
+    train states."""
+    import torch
+
+    pairs = [*zip(a.model.parameters(), b.model.parameters()),
+             *zip(a.teacher.parameters(), b.teacher.parameters())]
+    return (all(torch.equal(p, q) for p, q in pairs)
+            and all((p.grad is None and q.grad is None) or torch.equal(p.grad, q.grad)
+                    for p, q in zip(a.model.parameters(), b.model.parameters())))
+
+
+def max_param_diff(a, b):
+    return max(float((p.detach() - q.detach()).abs().max())
+               for p, q in zip(a.model.parameters(), b.model.parameters()))
+
+
+@contextlib.contextmanager
+def matrix_upsample():
+    """The float32 align-corners upsample as two contractions with the
+    interpolation matrices (as the bf16 path computes it) while the block
+    runs: F.interpolate's CUDA backward adds with atomics, so two runs of
+    one step differ in their last bits, and only a deterministic backward
+    lets two legs be held bit for bit."""
+    import torch
+
+    from pda_torch.models import blocks
+
+    plain = blocks.upsample_2x_align_corners
+
+    def upsample(x):
+        if x.dtype == torch.bfloat16:
+            return plain(x)
+        _, h, w, _ = x.shape
+        wh = blocks._upsample_matrix(h).to(x.device, x.dtype)
+        ww = blocks._upsample_matrix(w).to(x.device, x.dtype)
+        x = torch.einsum("Hh,bhwc->bHwc", wh, x)
+        return torch.einsum("Ww,bhwc->bhWc", ww, x).contiguous()
+
+    blocks.upsample_2x_align_corners = upsample
+    try:
+        yield
+    finally:
+        blocks.upsample_2x_align_corners = plain
+
+
+def time_legs(label, legs, batch, wrappers, dev, bf16):
+    """Train steps of each leg ({name: (step, state)}) in turns, PAR_WARMUP
+    then PAR_TIMED rounds, so that a drift of the host's speed falls on every
+    leg alike (the bf16 step is host-bound); CUDA events around each step.
+    Returns (ok, {name: median ms}): every loss finite, each kernel launched
+    MT_LAUNCHES (and MT_MODE_LAUNCHES) times a step of each leg, bf16 on the
+    wgmma bodies."""
+    import torch
+
+    from pda_torch.tools.ab import read_launches, reset_launches
+
+    gens = {name: torch.Generator(device=dev).manual_seed(SEED) for name in legs}
+    events = {name: [] for name in legs}
+    losses = []
+    n = PAR_WARMUP + PAR_TIMED
+    reset_launches(wrappers)
+    torch.cuda.synchronize()
+    for _ in range(n):
+        for name, (step, state) in legs.items():
+            start, end = (torch.cuda.Event(enable_timing=True),
+                          torch.cuda.Event(enable_timing=True))
+            start.record()
+            _, aux = step(state, *batch, generator=gens[name])
+            end.record()
+            losses.append(aux["loss"])
+            events[name].append((start, end))
+    torch.cuda.synchronize()
+    ms = {name: statistics.median(s.elapsed_time(e) for s, e in ev[PAR_WARMUP:])
+          for name, ev in events.items()}
+    k = n * len(legs)
+    counts = read_launches(wrappers, bf16)
+    modes = mode_launches(wrappers, bf16)
+    good = (bool(torch.isfinite(torch.stack(losses)).all())
+            and counts == {name: k * v for name, v in MT_LAUNCHES.items()}
+            and modes == {name: k * v for name, v in MT_MODE_LAUNCHES.items()}
+            and all(state.step == n for _, state in legs.values()))
+    if bf16:
+        good &= all_on_wgmma(wrappers)[0]
+    log(f"training {label}, legs in turns ({PAR_TIMED} timed after {PAR_WARMUP}): "
+        + ", ".join(f"{name} {v:.2f} ms/step" for name, v in ms.items())
+        + f"; launches {counts}, by backward mode {modes} over {k} steps "
+        + ("ok" if good else "FAIL"))
+    return good, ms
+
+
+def phase_parallel(dev, results):
+    """pda's data mesh (pda_torch.parallel) at a world of 1 in this process:
+    NCCL on the card, a HashStore. The flagship MT step at 512^2, batch 2,
+    float32 and bf16, and the tiled MC-16 frame, each run from one state,
+    batch and noise without a mesh and with one: the sharded run bit-equal
+    (an all-reduce over one rank returns its input, and the losses'
+    value-global terms add 0; the steps under matrix_upsample, whose
+    backward is deterministic, and F.interpolate's two runs logged beside),
+    every kernel launched on the sharded path (the bf16 ones on the wgmma
+    bodies), both legs timed on fresh states in turns (time_legs), and the
+    gradient bucket's all-reduce alone."""
+    import torch
+
+    from pda_torch.infer import tiled_punet_probs
+    from pda_torch.models.punet import livecell_punet
+    from pda_torch.parallel import get_mesh
+    from pda_torch.tools.ab import kernel_wrappers, reset_launches
+    from pda_torch.tools.workload import cuda_ms
+    from pda_torch.train import make_mean_teacher_step
+
+    wrappers = kernel_wrappers()
+    gen = torch.Generator().manual_seed(SEED + 7)
+    frame = synthetic_frame(gen, FRAME, "cpu")
+    seconds = {}
+    t0 = time.perf_counter()
+
+    def lap(part):
+        nonlocal t0
+        torch.cuda.synchronize()
+        seconds[part] = round(time.perf_counter() - t0, 2)
+        t0 = time.perf_counter()
+
+    mesh = get_mesh(1, device=dev)
+    mesh.barrier()  # NCCL sets its communicator up at the first collective
+    ok = mesh.world == 1 and mesh.backend == "nccl" and mesh.device == dev
+    log(f"parallel mesh: {mesh} {'ok' if ok else 'FAIL'}")
+    lap("mesh")
+    try:
+        f32_model = livecell_punet(consensus_masking=True, device="cpu",
+                                   generator=torch.Generator().manual_seed(SEED))
+        with torch.no_grad():
+            f32_model.fcomb.last_layer.weight.mul_(LAST_SCALE)
+        lap("model")
+        for dtype in ("f32", "bf16"):
+            bf16 = dtype == "bf16"
+            model = copy.deepcopy(f32_model)
+            model.dtype = torch.bfloat16 if bf16 else torch.float32
+            # a partial run (--phases) has no bf16 entries: count into a scratch line
+            sink = (results if not bf16 or bf16_name("conv_block_fwd") in results
+                    else collections.defaultdict(lambda: {"launches": 0}))
+            batch = mt_batch(gen, frame, MT_TIME_PATCH, dev)
+            noise = {"eps_teacher": torch.randn(MC, MT_BATCH, 6, generator=gen).to(dev),
+                     "eps_post": torch.randn(MT_BATCH, 6, generator=gen).to(dev)}
+            kw = dict(momentum=MT_MOMENTUM, do_consensus_masking=True)
+            step, mstep = make_mean_teacher_step(**kw), make_mean_teacher_step(mesh=mesh, **kw)
+            with matrix_upsample():
+                plain, sharded = bf16_state(model, dev), bf16_state(model, dev)
+                _, aux = step(plain, *batch, **noise)
+                reset_launches(wrappers)
+                _, maux = mstep(sharded, *batch, **noise)
+                torch.cuda.synchronize()
+            counts = counted_launches(wrappers, sink, bf16)
+            modes = mode_launches(wrappers, bf16)
+            good = counts == MT_LAUNCHES and modes == MT_MODE_LAUNCHES
+            routes = ""
+            if bf16:
+                on, got = all_on_wgmma(wrappers)
+                good &= on
+                routes = f", on the wgmma bodies {got}"
+            equal = (all(float(aux[k]) == float(maux[k]) for k in aux)
+                     and same_bits(plain, sharded))
+            log(f"parallel MT step 512^2 batch {MT_BATCH} {dtype} world 1: loss "
+                f"{float(maux['loss']):.6f} (no mesh {float(aux['loss']):.6f}), bit-equal "
+                f"{equal} (max param diff {max_param_diff(plain, sharded):.3e}); launches "
+                f"{counts}, by backward mode {modes}{routes} "
+                f"{'ok' if good and equal else 'FAIL'}")
+            ok &= good and equal
+            del plain, sharded
+            lap(f"{dtype} check")
+            if not bf16:  # the reason for matrix_upsample: F.interpolate's two runs
+                one, two = bf16_state(model, dev), bf16_state(model, dev)
+                step(one, *batch, **noise)
+                step(two, *batch, **noise)
+                log(f"parallel MT step 512^2 f32 without a mesh, twice on F.interpolate's "
+                    f"backward: bit-equal {same_bits(one, two)}, max param diff "
+                    f"{max_param_diff(one, two):.3e}")
+                del one, two
+                lap("f32 F.interpolate twice")
+            label = f"MT step MC-{MC} 512^2 batch {MT_BATCH} {dtype}"
+            legs = {"no mesh": (step, bf16_state(model, dev)),
+                    "mesh data=1": (mstep, bf16_state(model, dev))}
+            good, ms = time_legs(label, legs, batch, wrappers, dev, bf16)
+            sharded = legs["mesh data=1"][1]
+            flat = torch.cat([p.grad.reshape(-1) for p in sharded.model.parameters()
+                              if p.grad is not None])
+            ar_ms = cuda_ms(lambda: mesh.all_reduce_(flat), warmup=1, iters=5)
+            log(f"time parallel {label}: {ms['mesh data=1']:.2f} ms/step on the mesh against "
+                f"{ms['no mesh']:.2f} without ({ms['mesh data=1'] - ms['no mesh']:+.2f} ms); the "
+                f"gradient bucket's all-reduce ({flat.numel()} float32, "
+                f"{flat.numel() * 4 / 2**20:.1f} MiB) {ar_ms:.3f} ms")
+            ok &= good
+            del legs, sharded, flat
+            lap(f"{dtype} timed")
+
+        model = copy.deepcopy(f32_model).to(dev).eval()
+        image = frame.to(dev)
+        eps = torch.randn(MC, 4, 6, generator=gen).to(dev)
+        expect = {"conv_block_fwd": 8, "conv_block_fwd_dual": 3, "mc_consensus": 1}
+        probs = tiled_punet_probs(model, image, eps, MC, BLOCK, HALO)
+        reset_launches(wrappers)
+        mprobs = tiled_punet_probs(model, image, eps, MC, BLOCK, HALO, mesh=mesh)
+        torch.cuda.synchronize()
+        counts = {k: n for k, n in counted_launches(wrappers, results).items() if k in expect}
+        equal = torch.equal(probs, mprobs)
+        good = counts == expect and equal
+        log(f"parallel tiled_punet_probs MC-{MC} 520x704 world 1: bit-equal {equal}, launches "
+            f"{counts} (expected {expect}) {'ok' if good else 'FAIL'}")
+        ok &= good
+        ms = cuda_ms(lambda: tiled_punet_probs(model, image, eps, MC, BLOCK, HALO), warmup=1,
+                     iters=PAR_TIMED)
+        mesh_ms = cuda_ms(lambda: tiled_punet_probs(model, image, eps, MC, BLOCK, HALO,
+                                                    mesh=mesh), warmup=1, iters=PAR_TIMED)
+        log(f"time parallel tiled_punet_probs MC-{MC} 520x704: {mesh_ms:.2f} ms/frame on the "
+            f"mesh against {ms:.2f} without ({mesh_ms - ms:+.2f} ms)")
+        lap("tiles")
+    finally:
+        mesh.destroy()
+    log(f"parallel seconds by part: {seconds}")
+    return ok
+
+
 def unet_conv64(h, conv):
     """A bf16 UNet2d conv (``pda_torch.models.unet._conv_bf16``) with its
     sums in float64: bf16 operands, the sum rounded to bf16, then the bf16
@@ -2534,7 +2769,7 @@ def small_mt_fits(root, dev, wrappers, loader_seed: int = 0):
     def replayed(recorded, dtype):
         """``_mc_pseudo`` giving the card's pseudo-labels, after drawing
         its noise from the generator as the card's call did."""
-        def mc_pseudo(model, x, n_samples, masking, eps=None, generator=None):
+        def mc_pseudo(model, x, n_samples, masking, eps=None, generator=None, mesh=None):
             if eps is None:
                 torch.randn((n_samples, x.shape[0], model.latent_dim), generator=generator)
             return tuple(v.to(dtype) for v in next(recorded))
@@ -3886,8 +4121,8 @@ def phase_lung(dev, results, binding):
     return ok
 
 
-PHASES = ("kernels", "serving", "training", "bf16", "algorithms", "engine", "experiments",
-          "mitoem", "lung")
+PHASES = ("kernels", "serving", "training", "bf16", "parallel", "algorithms", "engine",
+          "experiments", "mitoem", "lung")
 
 
 def main(argv=None) -> int:
@@ -3956,13 +4191,17 @@ def main(argv=None) -> int:
         lib = _build.build()
         _build.library()
         log(f"build: {lib.name} in {time.perf_counter() - t0:.1f} s")
-        t0 = time.perf_counter()
+        t0, cpu0 = time.perf_counter(), time.process_time()
 
         def lap(name):
-            nonlocal t0
+            # the process's CPU seconds (every thread's) against the wall and its
+            # threads: whether a slow phase did more work, or left a thread behind
+            nonlocal t0, cpu0
             torch.cuda.synchronize()
             log(f"phase {name}: {time.perf_counter() - t0:.1f} s")
-            t0 = time.perf_counter()
+            log(f"host during {name}: this process's CPU {time.process_time() - cpu0:.1f} s, "
+                f"{len(os.listdir('/proc/self/task'))} threads at its end")
+            t0, cpu0 = time.perf_counter(), time.process_time()
 
         mt_ms = None
         for name in (n for n in PHASES if n in phases):
@@ -3976,6 +4215,8 @@ def main(argv=None) -> int:
                 ok &= good
             elif name == "bf16":
                 ok &= phase_bf16(dev, results, binding, mt_ms)
+            elif name == "parallel":
+                ok &= phase_parallel(dev, results)
             elif name == "engine":
                 ok &= phase_engine(dev, results, mt_ms)
             else:
@@ -4016,7 +4257,8 @@ def main(argv=None) -> int:
         "bf16 backward launch of the main paths); launches: the main "
         "paths' runs, each counted from 0: both serving entries, the checked MT step, the "
         "checked PDA_PALLAS_CONV_MODE=mixed step (the recompute entries' float32 count), the "
-        "bf16 phase's timed MT steps (default and mixed) and tiled serving, the "
+        "bf16 phase's timed MT steps (default and mixed) and tiled serving, the parallel "
+        "phase's sharded MT steps (float32 and bf16) and sharded tiled frame, the "
         "other PUNet steps and the UNet2d path at the flagship's widths, the flagship's "
         "MeanTeacherTrainer.fit, the experiments phase's LIVECell CLIs, the mitoem phase's "
         "MitoEM CLIs and the lung phase's Lung X-Ray CLIs (the checks' runs are logged on "

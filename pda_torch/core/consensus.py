@@ -58,15 +58,17 @@ def consensus_from_logits(
 
 
 def distribution_alignment(pseudo: torch.Tensor, source_distribution, *,
-                           eps: float = 0.0) -> Tuple[torch.Tensor, torch.Tensor]:
+                           eps: float = 0.0, mesh=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """FixMatch distribution alignment: ``(aligned, ratio)``.
 
     The target's binary class frequency is the foreground share
     ``fg = mean(pseudo >= 0.5)``; ``ratio = source / ([1 - fg, fg] + eps)``
     (``source_distribution`` = [bg, fg]); each pseudo-label is scaled by the
-    ratio of its side of 0.5 and clipped to [0, 1]. Single device: ``pda``'s
-    ``axis_name`` (a global-batch mean) comes with data parallelism."""
+    ratio of its side of 0.5 and clipped to [0, 1]. On a data ``mesh`` the
+    frequency is the global batch's (the ranks' mean of theirs)."""
     fg = (pseudo >= 0.5).to(pseudo.dtype).mean()
+    if mesh is not None:
+        fg = mesh.all_reduce(fg) / mesh.world
     source = torch.as_tensor(source_distribution, dtype=pseudo.dtype, device=pseudo.device)
     ratio = source / (torch.stack([1.0 - fg, fg]) + eps)
     aligned = torch.where(pseudo < 0.5, pseudo * ratio[0], pseudo * ratio[1])

@@ -3,6 +3,12 @@
 torch cannot reproduce ``jax.random`` streams, so every draw takes its noise
 explicitly: a standard-normal ``eps`` tensor, or a ``torch.Generator`` that
 the draw uses to make one.
+
+On a data mesh (:mod:`pda_torch.parallel`) a draw is the rank's slice of the
+global batch's noise (:func:`sharded_normal`, ``pda``'s): ``eps`` is then
+the global batch's, and a generator draws the global batch's, so every rank,
+its generator in the same state as the others', keeps its own rows of one
+draw and a sharded step sees the noise of the single-device step.
 """
 
 from __future__ import annotations
@@ -13,16 +19,35 @@ from typing import NamedTuple, Optional
 import torch
 
 
-def _noise(shape, like: torch.Tensor, eps: Optional[torch.Tensor],
-           generator: Optional[torch.Generator]) -> torch.Tensor:
+def sharded_normal(shape, eps: Optional[torch.Tensor] = None,
+                   generator: Optional[torch.Generator] = None, mesh=None,
+                   batch_axis: int = 0) -> torch.Tensor:
+    """Standard normals of ``shape``, the local shape. Without a mesh: ``eps``
+    (checked against ``shape``) or a draw from ``generator``. On a mesh of N
+    ranks: the global shape (``shape[batch_axis] * N``) is drawn from
+    ``generator`` or taken from ``eps``, and this rank's block of rows on
+    ``batch_axis`` comes back, contiguous (``pda``'s ``sharded_normal``)."""
+    n = 1 if mesh is None else mesh.world
+    gshape = list(shape)
+    gshape[batch_axis] *= n
     if eps is None:
         if generator is None:
             raise ValueError("pass the noise as eps or a torch.Generator")
         # drawn in float32 whatever the model's dtype, so that a float64
         # model on the same generator sees the same noise
-        eps = torch.randn(shape, generator=generator, device=generator.device)
-    if tuple(eps.shape) != tuple(shape):
-        raise ValueError(f"eps has shape {tuple(eps.shape)}, expected {tuple(shape)}")
+        eps = torch.randn(gshape, generator=generator, device=generator.device)
+    if tuple(eps.shape) != tuple(gshape):
+        where = "" if mesh is None else f" (the global batch's, {mesh})"
+        raise ValueError(f"eps has shape {tuple(eps.shape)}, expected {tuple(gshape)}{where}")
+    if mesh is None:
+        return eps
+    rows = mesh.rows(gshape[batch_axis])
+    return eps.narrow(batch_axis, rows.start, rows.stop - rows.start).contiguous()
+
+
+def _noise(shape, like: torch.Tensor, eps: Optional[torch.Tensor],
+           generator: Optional[torch.Generator], mesh=None, batch_axis: int = 0) -> torch.Tensor:
+    eps = sharded_normal(shape, eps, generator, mesh, batch_axis)
     if eps.device.type == "cpu" and like.device.type == "cuda":
         # from pinned memory, so the host does not wait for the card's queue
         return eps.pin_memory().to(device=like.device, dtype=like.dtype, non_blocking=True)
@@ -40,18 +65,20 @@ class DiagGaussian(NamedTuple):
         return torch.exp(self.log_sigma)
 
     def sample(self, eps: Optional[torch.Tensor] = None,
-               generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        """Reparameterized sample mu + sigma * eps, eps of mu's shape."""
-        eps = _noise(self.mu.shape, self.mu, eps, generator)
+               generator: Optional[torch.Generator] = None, mesh=None) -> torch.Tensor:
+        """Reparameterized sample mu + sigma * eps, eps of mu's shape (on a
+        ``mesh``, of the global batch's: :func:`sharded_normal`)."""
+        eps = _noise(self.mu.shape, self.mu, eps, generator, mesh)
         return self.mu + torch.exp(self.log_sigma) * eps
 
     def sample_n(self, n: int, eps: Optional[torch.Tensor] = None,
-                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        """``n`` samples at once -> (n, ..., latent_dim); eps is (n, ..., L).
+                 generator: Optional[torch.Generator] = None, mesh=None) -> torch.Tensor:
+        """``n`` samples at once -> (n, ..., latent_dim); eps is (n, ..., L),
+        on a ``mesh`` the global batch's (sliced on axis 1).
 
         ``pda``'s ``sample_n(key, n)`` draws ``jax.random.normal(key, (n, B,
         L))``; handing that array in as ``eps`` gives the same samples."""
-        eps = _noise((n, *self.mu.shape), self.mu, eps, generator)
+        eps = _noise((n, *self.mu.shape), self.mu, eps, generator, mesh, batch_axis=1)
         return self.mu[None] + torch.exp(self.log_sigma)[None] * eps
 
     def log_prob(self, z: torch.Tensor) -> torch.Tensor:

@@ -28,9 +28,15 @@ def dice_score(segmentation: np.ndarray, groundtruth: np.ndarray,
 
 def dice_score_torch(segmentation: torch.Tensor, groundtruth: torch.Tensor,
                      threshold_seg: Optional[float] = None,
-                     threshold_gt: Optional[float] = None) -> torch.Tensor:
-    """Torch twin of :func:`dice_score`, float32, a 0-d tensor."""
+                     threshold_gt: Optional[float] = None, mesh=None) -> torch.Tensor:
+    """Torch twin of :func:`dice_score`, float32, a 0-d tensor; on a data
+    ``mesh`` the numerator and the denominator are summed over the ranks
+    before the ratio, so the score is the global batch's."""
     seg = segmentation if threshold_seg is None else segmentation > threshold_seg
     gt = groundtruth if threshold_gt is None else groundtruth > threshold_gt
     seg, gt = seg.to(torch.float32), gt.to(torch.float32)
-    return 2.0 * torch.sum(gt * seg) / (torch.sum(gt) + torch.sum(seg) + _EPS)
+    if mesh is None:
+        return 2.0 * torch.sum(gt * seg) / (torch.sum(gt) + torch.sum(seg) + _EPS)
+    nom = mesh.all_reduce(2.0 * torch.sum(gt * seg))
+    denom = mesh.all_reduce(torch.sum(gt) + torch.sum(seg))
+    return nom / (denom + _EPS)

@@ -21,6 +21,11 @@ Determinism: sample ``i`` of epoch ``e`` always uses
 ``default_rng((seed, e, i))``, whatever the worker count or mode; the shuffle
 of epoch ``e`` uses ``default_rng((seed, e))``. ``drop_last=True`` by
 default, so every batch has one shape.
+
+On a data mesh (:mod:`pda_torch.parallel`) ``shard=(rank, world)`` makes the
+loader fetch only the rank's rows of every global batch (the same samples,
+by the seeding above, with 1/world of the host work); a batch that
+``world`` does not divide raises.
 """
 
 from __future__ import annotations
@@ -96,7 +101,7 @@ class Loader:
 
     def __init__(self, dataset, batch_size: int, *, shuffle: bool = True, num_workers: int = 0,
                  drop_last: bool = True, seed: int = 0, prefetch: int = 2,
-                 worker_mode: str = "process", force_workers: bool = False):
+                 worker_mode: str = "process", force_workers: bool = False, shard=None):
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -114,6 +119,20 @@ class Loader:
         self._n_slots = 0
         self._free_slots: list = []
         self._pending_pool = None  # a process pool before its first fetch succeeded
+        #: (rank, world): fetch only that rank's rows of each batch
+        self.shard = None
+        if shard is not None:
+            self.set_shard(*shard)
+
+    def set_shard(self, rank: int, world: int) -> None:
+        """Fetch only rank ``rank``'s rows of each batch on a mesh of
+        ``world`` ranks; raises where ``world`` does not divide the batch."""
+        from ..parallel.mesh import rank_rows  # not at import: the workers import no torch
+
+        if not 0 <= rank < world:
+            raise ValueError(f"shard: rank {rank} is not in a world of {world}")
+        rank_rows(self.batch_size, rank, world)
+        self.shard = (rank, world)
 
     # ------------------------------------------------------------------ pool
 
@@ -241,8 +260,12 @@ class Loader:
         if n_batches == 0:
             return
 
+        if self.shard is not None:
+            from ..parallel.mesh import rank_rows
+
         def batch_slice(b):
-            return indices[b * self.batch_size: (b + 1) * self.batch_size]
+            rows = indices[b * self.batch_size: (b + 1) * self.batch_size]
+            return rows if self.shard is None else rows[rank_rows(len(rows), *self.shard)]
 
         workers = self.num_workers if (_cores() > 1 or self.force_workers) else 0
         if workers <= 0:

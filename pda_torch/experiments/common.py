@@ -7,8 +7,9 @@ The weak views run in the native library under ``PDA_NATIVE_AUGS`` (default
 built on the card unless the caller passes ``device="cpu"``. Checkpoint names are ``pda``'s, which
 are the reference's (they tie the --train, --predict and --evaluate phases
 together); as in ``pda``, masking takes precedence over weighting in a name.
-``--mesh`` is parsed as ``pda`` parses it, and any mesh raises: the port
-trains on one device (ROADMAP §1, M11).
+``--mesh`` is parsed as ``pda`` parses it and gives a data mesh over
+``torch.distributed`` (:mod:`pda_torch.parallel`), one process a rank:
+``torchrun --nproc-per-node N -m pda_torch.experiments.<cli> --mesh data=N``.
 """
 
 from __future__ import annotations
@@ -140,23 +141,66 @@ def standard_parser(description: str, extra_flags=()) -> argparse.ArgumentParser
     parser.add_argument("--save_root", type=str, default=None)
     parser.add_argument("--iterations", type=int, default=None,
                         help="Override the default iteration budget")
-    parser.add_argument("--mesh", type=str, default=None,
-                        help="Device mesh (additive over the reference CLI): "
-                             "'auto' (all devices data-parallel), 'data=N', "
-                             "or 'data=N,space=M' (M-way image-row sharding)")
+    parser.add_argument("--mesh", type=str, default=None, help=MESH_HELP)
     return parser
 
 
-def mesh_from_arg(args):
-    """The device mesh asked for by ``--mesh`` (or the ``PDA_MESH``
-    environment variable): None without one; any mesh raises, since the port
-    trains on one device."""
+#: what ``--mesh`` takes in the port
+MESH_HELP = ("Data mesh over torch.distributed, one process a rank (additive over the "
+             "reference CLI): 'auto' (the launcher's world, or 1 without torchrun) or "
+             "'data=N' (launch with torchrun --nproc-per-node N); 'data=N,space=M' with M > 1 "
+             "(image-row sharding) is not ported yet")
+
+
+def mesh_from_arg(args, device: Device = "cuda"):
+    """The data mesh asked for by ``--mesh`` (or the ``PDA_MESH`` environment
+    variable), on ``device`` (its rank's card, or the CPU): None without
+    one. ``auto`` is the launcher's world (a world of 1 without one);
+    ``data=N`` needs a world of N (launched by ``torchrun --nproc-per-node
+    N``) and raises, saying so, in another; ``data=N,space=M`` parses as in
+    ``pda``, and M > 1 raises (ROADMAP M11 part 2)."""
     spec = getattr(args, "mesh", None) or os.environ.get("PDA_MESH")
     if not spec:
         return None
-    raise NotImplementedError(
-        f"--mesh {spec!r}: data parallelism is not ported yet (ROADMAP §1, M11); the port "
-        "trains on one device")
+    from ..parallel import get_mesh, get_mesh_2d
+
+    if spec == "auto":
+        return get_mesh(device=device)
+    axes = {}
+    for token in spec.split(","):
+        key, eq, value = token.partition("=")
+        if not eq or key in axes or not value.isdigit() or int(value) < 1:
+            raise ValueError(
+                f"bad --mesh spec {spec!r}: expected "
+                "'auto', 'data=N', or 'data=N,space=M' (N, M >= 1)"
+            )
+        axes[key] = int(value)
+    n_data = axes.pop("data", 1)
+    n_space = axes.pop("space", 1)
+    if axes:
+        raise ValueError(f"unknown mesh axes in --mesh: {sorted(axes)}")
+    if n_space > 1:
+        return get_mesh_2d(n_data, n_space)
+    return get_mesh(n_data, device=device)
+
+
+def rank_device(args, device: Device = "cuda"):
+    """``(mesh, device)`` of a CLI run: the mesh asked for by ``--mesh`` (or
+    None) and the device the run's models and trainers take, the rank's on a
+    mesh."""
+    mesh = mesh_from_arg(args, device)
+    return mesh, (device if mesh is None else mesh.device)
+
+
+def on_main_rank(mesh, phase, *args, **kwargs) -> None:
+    """Run one of a CLI's file phases (predictions, pseudo-labels, dice) as
+    ``pda``'s CLIs run them, on one device: on a mesh, on rank 0 alone, the
+    other ranks waiting until it is done (the next phase may read its
+    files)."""
+    if mesh is None or mesh.rank == 0:
+        phase(*args, **kwargs)
+    if mesh is not None:
+        mesh.wait_for_rank0()
 
 
 def lung_data_path(root_input_dir: str, domain: str) -> str:

@@ -53,7 +53,8 @@ from .common import (
     da_name,
     fm_strong_augmentations,
     livecell_punet,
-    mesh_from_arg,
+    on_main_rank,
+    rank_device,
     release,
     weak_augmentations,
 )
@@ -80,7 +81,7 @@ def _dual_loaders(data_path, ctype, patch_shape, aug1, aug2):
     return train, val
 
 
-def _train_pair(args, method, src, trg, device):
+def _train_pair(args, method, src, trg, device, mesh):
     """Build, fit and release one (source, target) pair's trainer."""
     name = da_name(method, "livecell", src, trg, args.consensus, args.masking)
     model = livecell_punet(consensus_masking=args.consensus, device=device)
@@ -90,7 +91,7 @@ def _train_pair(args, method, src, trg, device):
         lr_scheduler=sched,
         save_root=args.save_root,
         log_image_interval=10,
-        mesh=mesh_from_arg(args),
+        mesh=mesh,
         device=device,
     )
 
@@ -163,13 +164,13 @@ def _train_pair(args, method, src, trg, device):
     release(trainer)
 
 
-def train(args, method: str, *, cell_types=CELL_TYPES, device="cuda"):
+def train(args, method: str, *, cell_types=CELL_TYPES, device="cuda", mesh=None):
     for trg in cell_types:
         for src in cell_types:
             if src == trg:
                 continue
             print(f"Transferring {src} network learnings on {trg} using {method}")
-            _train_pair(args, method, src, trg, device)
+            _train_pair(args, method, src, trg, device, mesh)
 
 
 def predict(args, method: str, *, cell_types=CELL_TYPES, device="cuda"):
@@ -217,12 +218,13 @@ def evaluate(args, method: str, *, cell_types=CELL_TYPES):
 
 
 def run(args, method: str, *, cell_types=CELL_TYPES, device="cuda"):
+    mesh, device = rank_device(args, device)
     if args.train:
         print(f"Training PUNet with {method} on LiveCELL dataset")
-        train(args, method, cell_types=cell_types, device=device)
+        train(args, method, cell_types=cell_types, device=device, mesh=mesh)
     if args.predict:
         print(f"Getting {method} predictions on LiveCELL dataset")
-        predict(args, method, cell_types=cell_types, device=device)
+        on_main_rank(mesh, predict, args, method, cell_types=cell_types, device=device)
     if args.evaluate:
         print(f"Evaluating {method} predictions of LiveCELL dataset")
-        evaluate(args, method, cell_types=cell_types)
+        on_main_rank(mesh, evaluate, args, method, cell_types=cell_types)

@@ -26,10 +26,10 @@ from ..data.builders import CELL_TYPES, get_livecell_loader
 from ..eval import run_dice_evaluation
 from ..infer import punet_prediction
 from ..train import PUNetTrainer, ReduceLROnPlateau, checkpoint_dir, checkpoint_exists, load_params
-from .common import livecell_punet, mesh_from_arg, release
+from .common import MESH_HELP, livecell_punet, on_main_rank, rank_device, release
 
 
-def _train_one(args, ctype, patch_shape, device):
+def _train_one(args, ctype, patch_shape, device, mesh):
     train_loader = get_livecell_loader(
         path=args.data, split="train", binary=True, patch_shape=patch_shape,
         batch_size=4, cell_types=[ctype], download=True,
@@ -47,16 +47,17 @@ def _train_one(args, ctype, patch_shape, device):
         lr_scheduler=ReduceLROnPlateau(factor=0.9, patience=10),
         save_root=args.save_root,
         log_image_interval=100,
-        mesh=mesh_from_arg(args),
+        mesh=mesh,
         device=device,
     )
     trainer.fit(args.iterations or 100_000)
     release(trainer)
 
 
-def do_punet_training(args, patch_shape=(512, 512), *, cell_types=CELL_TYPES, device="cuda"):
+def do_punet_training(args, patch_shape=(512, 512), *, cell_types=CELL_TYPES, device="cuda",
+                      mesh=None):
     for ctype in cell_types:
-        _train_one(args, ctype, patch_shape, device)
+        _train_one(args, ctype, patch_shape, device, mesh)
 
 
 def do_punet_predictions(args, *, cell_types=CELL_TYPES, device="cuda"):
@@ -101,22 +102,22 @@ def get_parser() -> argparse.ArgumentParser:
     parser.add_argument("--pred_path", type=str, default="./predictions/livecell/")
     parser.add_argument("--save_root", type=str, default=None)
     parser.add_argument("--iterations", type=int, default=None)
-    parser.add_argument("--mesh", type=str, default=None,
-                        help="Device mesh: auto | data=N | data=N,space=M")
+    parser.add_argument("--mesh", type=str, default=None, help=MESH_HELP)
     return parser
 
 
 def main(argv=None, *, cell_types=CELL_TYPES, device="cuda"):
     args = get_parser().parse_args(argv)
+    mesh, device = rank_device(args, device)
     if args.train:
         print("Training PUNet source models on LiveCELL dataset")
-        do_punet_training(args, cell_types=cell_types, device=device)
+        do_punet_training(args, cell_types=cell_types, device=device, mesh=mesh)
     if args.predict:
         print("Getting PUNet predictions on LiveCELL dataset")
-        do_punet_predictions(args, cell_types=cell_types, device=device)
+        on_main_rank(mesh, do_punet_predictions, args, cell_types=cell_types, device=device)
     if args.evaluate:
         print("Evaluating the PUNet predictions of LiveCELL dataset")
-        do_punet_evaluations(args, cell_types=cell_types)
+        on_main_rank(mesh, do_punet_evaluations, args, cell_types=cell_types)
 
 
 if __name__ == "__main__":

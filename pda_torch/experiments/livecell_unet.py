@@ -25,7 +25,7 @@ from ..eval import run_dice_evaluation
 from ..infer import unet_prediction
 from ..models import UNet2d
 from ..train import UNetTrainer, checkpoint_dir, checkpoint_exists, load_params
-from .common import mesh_from_arg, release
+from .common import MESH_HELP, on_main_rank, rank_device, release
 
 
 def make_model(device="cuda"):
@@ -35,7 +35,7 @@ def make_model(device="cuda"):
     ).to(device)
 
 
-def _train_one(args, ctype, patch_shape, device):
+def _train_one(args, ctype, patch_shape, device, mesh):
     train_loader = get_livecell_loader(
         path=args.data, split="train", binary=True, patch_shape=patch_shape,
         batch_size=4, cell_types=[ctype], download=True,
@@ -52,16 +52,17 @@ def _train_one(args, ctype, patch_shape, device):
         learning_rate=1e-4,
         save_root=args.save_root,
         log_image_interval=1000,
-        mesh=mesh_from_arg(args),
+        mesh=mesh,
         device=device,
     )
     trainer.fit(args.iterations or 100_000)
     release(trainer)
 
 
-def do_unet_training(args, patch_shape=(256, 256), *, cell_types=CELL_TYPES, device="cuda"):
+def do_unet_training(args, patch_shape=(256, 256), *, cell_types=CELL_TYPES, device="cuda",
+                     mesh=None):
     for ctype in cell_types:
-        _train_one(args, ctype, patch_shape, device)
+        _train_one(args, ctype, patch_shape, device, mesh)
 
 
 def do_unet_predictions(args, *, cell_types=CELL_TYPES, device="cuda"):
@@ -105,22 +106,22 @@ def get_parser() -> argparse.ArgumentParser:
     parser.add_argument("--pred_path", type=str, default="./predictions/livecell/")
     parser.add_argument("--save_root", type=str, default=None)
     parser.add_argument("--iterations", type=int, default=None)
-    parser.add_argument("--mesh", type=str, default=None,
-                        help="Device mesh: auto | data=N | data=N,space=M")
+    parser.add_argument("--mesh", type=str, default=None, help=MESH_HELP)
     return parser
 
 
 def main(argv=None, *, cell_types=CELL_TYPES, device="cuda"):
     args = get_parser().parse_args(argv)
+    mesh, device = rank_device(args, device)
     if args.train:
         print("Training a 2D UNet on LiveCELL dataset")
-        do_unet_training(args, cell_types=cell_types, device=device)
+        do_unet_training(args, cell_types=cell_types, device=device, mesh=mesh)
     if args.predict:
         print("Getting predictions on LiveCELL dataset from the trained UNet")
-        do_unet_predictions(args, cell_types=cell_types, device=device)
+        on_main_rank(mesh, do_unet_predictions, args, cell_types=cell_types, device=device)
     if args.evaluate:
         print("Evaluating the UNet predictions of LiveCELL dataset")
-        do_unet_evaluations(args, cell_types=cell_types)
+        on_main_rank(mesh, do_unet_evaluations, args, cell_types=cell_types)
 
 
 if __name__ == "__main__":

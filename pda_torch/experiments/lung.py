@@ -39,7 +39,8 @@ from .common import (
     da_name,
     lung_data_path,
     lung_punet,
-    mesh_from_arg,
+    on_main_rank,
+    rank_device,
     release,
     weak_augmentations,
 )
@@ -76,13 +77,14 @@ def test_gt_dir(root: str, domain: str) -> str:
     }[domain]
 
 
-def _train_pair(args, method: str, src: str, trg: str, device) -> None:
+def _train_pair(args, method: str, src: str, trg: str, device, mesh) -> None:
     """Build, fit and release one (source, target) pair's trainer."""
     name = da_name(method, "lung", src, trg, args.consensus, args.masking)
     model = lung_punet(consensus_masking=args.consensus, device=device)
     common = dict(learning_rate=1e-5, lr_scheduler=ReduceLROnPlateau(factor=0.9, patience=10),
                   save_root=args.save_root, log_image_interval=10,
-                  do_consensus_masking=args.masking, mesh=mesh_from_arg(args), device=device)
+                  do_consensus_masking=args.masking, mesh=mesh,
+                  device=device)
     augs = weak_augmentations()
     if method == "mean-teacher":
         src_dir = checkpoint_dir(f"punet-source-lung-{src}", args.save_root)
@@ -107,7 +109,7 @@ def _train_pair(args, method: str, src: str, trg: str, device) -> None:
     release(trainer)
 
 
-def da_train(args, method: str, *, domains=LUNG_DOMAINS, device="cuda") -> None:
+def da_train(args, method: str, *, domains=LUNG_DOMAINS, device="cuda", mesh=None) -> None:
     """The 4x3 cross-domain self-training (reference lung_mt.py:63-155,
     lung_adamt.py)."""
     for trg in domains:
@@ -115,7 +117,7 @@ def da_train(args, method: str, *, domains=LUNG_DOMAINS, device="cuda") -> None:
             if src == trg:
                 continue
             print(f"Transferring {src} learnings on {trg} using {method}")
-            _train_pair(args, method, src, trg, device)
+            _train_pair(args, method, src, trg, device, mesh)
 
 
 def da_predict(args, method: str, *, domains=LUNG_DOMAINS, device="cuda") -> None:
@@ -153,12 +155,13 @@ def da_evaluate(args, method: str, *, domains=LUNG_DOMAINS) -> None:
 
 
 def da_run(args, method: str, *, domains=LUNG_DOMAINS, device="cuda") -> None:
+    mesh, device = rank_device(args, device)
     if args.train:
         print(f"Training PUNet with {method} on Lung X-Ray datasets")
-        da_train(args, method, domains=domains, device=device)
+        da_train(args, method, domains=domains, device=device, mesh=mesh)
     if args.predict:
         print(f"Getting {method} predictions on Lung X-Ray datasets")
-        da_predict(args, method, domains=domains, device=device)
+        on_main_rank(mesh, da_predict, args, method, domains=domains, device=device)
     if args.evaluate:
         print(f"Evaluating {method} predictions")
-        da_evaluate(args, method, domains=domains)
+        on_main_rank(mesh, da_evaluate, args, method, domains=domains)

@@ -24,11 +24,12 @@ from ..data.builders import LUNG_DOMAINS
 from ..eval import run_lung_dice_evaluation
 from ..infer import punet_prediction
 from ..train import PUNetTrainer, ReduceLROnPlateau, checkpoint_dir, checkpoint_exists, load_params
-from .common import lung_punet, mesh_from_arg, release, standard_parser
+from .common import (lung_punet, on_main_rank, rank_device, release,
+                     standard_parser)
 from .lung import get_lung_loaders, test_gt_dir, test_image_glob
 
 
-def do_punet_training(args, *, domains=LUNG_DOMAINS, device="cuda"):
+def do_punet_training(args, *, domains=LUNG_DOMAINS, device="cuda", mesh=None):
     for domain in domains:
         train_loader, val_loader = get_lung_loaders(domain, args.data)
         trainer = PUNetTrainer(
@@ -40,7 +41,7 @@ def do_punet_training(args, *, domains=LUNG_DOMAINS, device="cuda"):
             lr_scheduler=ReduceLROnPlateau(factor=0.9, patience=10),
             save_root=args.save_root,
             log_image_interval=100,
-            mesh=mesh_from_arg(args),
+            mesh=mesh,
             device=device,
         )
         trainer.fit(args.iterations or 100_000)
@@ -80,15 +81,16 @@ def get_parser():
 
 def main(argv=None, *, domains=LUNG_DOMAINS, device="cuda"):
     args = get_parser().parse_args(argv)
+    mesh, device = rank_device(args, device)
     if args.train:
         print("Training PUNet source models on Lung X-Ray datasets")
-        do_punet_training(args, domains=domains, device=device)
+        do_punet_training(args, domains=domains, device=device, mesh=mesh)
     if args.predict:
         print("Getting PUNet predictions on Lung X-Ray datasets")
-        do_punet_predictions(args, domains=domains, device=device)
+        on_main_rank(mesh, do_punet_predictions, args, domains=domains, device=device)
     if args.evaluate:
         print("Evaluating the PUNet predictions")
-        do_punet_evaluations(args, domains=domains)
+        on_main_rank(mesh, do_punet_evaluations, args, domains=domains)
 
 
 if __name__ == "__main__":

@@ -20,7 +20,7 @@ from ..eval import run_lung_dice_evaluation
 from ..infer import unet_prediction
 from ..models import UNet2d
 from ..train import UNetTrainer, checkpoint_dir, checkpoint_exists, load_params
-from .common import mesh_from_arg, release, standard_parser
+from .common import on_main_rank, rank_device, release, standard_parser
 from .lung import get_lung_loaders, test_gt_dir, test_image_glob
 
 
@@ -29,7 +29,7 @@ def make_model(device="cuda"):
                   initial_features=64).to(device)
 
 
-def do_unet_training(args, *, domains=LUNG_DOMAINS, device="cuda"):
+def do_unet_training(args, *, domains=LUNG_DOMAINS, device="cuda", mesh=None):
     for domain in domains:
         train_loader, val_loader = get_lung_loaders(domain, args.data)
         trainer = UNetTrainer(
@@ -40,7 +40,7 @@ def do_unet_training(args, *, domains=LUNG_DOMAINS, device="cuda"):
             learning_rate=1e-5,
             save_root=args.save_root,
             log_image_interval=100,
-            mesh=mesh_from_arg(args),
+            mesh=mesh,
             device=device,
         )
         trainer.fit(args.iterations or 100_000)
@@ -79,15 +79,16 @@ def get_parser():
 
 def main(argv=None, *, domains=LUNG_DOMAINS, device="cuda"):
     args = get_parser().parse_args(argv)
+    mesh, device = rank_device(args, device)
     if args.train:
         print("Training 2D UNet on Lung X-Ray datasets")
-        do_unet_training(args, domains=domains, device=device)
+        do_unet_training(args, domains=domains, device=device, mesh=mesh)
     if args.predict:
         print("Getting predictions on Lung X-Ray datasets from the trained UNet")
-        do_unet_predictions(args, domains=domains, device=device)
+        on_main_rank(mesh, do_unet_predictions, args, domains=domains, device=device)
     if args.evaluate:
         print("Evaluating the UNet predictions of Lung X-Ray datasets")
-        do_unet_evaluations(args, domains=domains)
+        on_main_rank(mesh, do_unet_evaluations, args, domains=domains)
 
 
 if __name__ == "__main__":

@@ -40,7 +40,8 @@ from ..train import (
 from ..train.checkpoint import checkpoint_path
 from .common import (
     da_name,
-    mesh_from_arg,
+    on_main_rank,
+    rank_device,
     mitoem_punet,
     mitoem_strong_augmentations,
     release,
@@ -65,13 +66,13 @@ def _suffix(args) -> str:
     return ""
 
 
-def _train_target(args, method, em_data, common_mod, device):
+def _train_target(args, method, em_data, common_mod, device, mesh):
     """Build, fit and release one target's trainer."""
     name = da_name(method, "mito", "mitoem", em_data, args.consensus, args.masking)
     model = mitoem_punet(consensus_masking=args.consensus, device=device)
     common_kw = dict(lr_scheduler=ReduceLROnPlateau(factor=0.9, patience=5),
                      save_root=args.save_root, log_image_interval=100,
-                     mesh=mesh_from_arg(args), device=device)
+                     mesh=mesh, device=device)
 
     if method in ("mean-teacher", "fixmatch"):
         src_root = (args.source_checkpoints if os.path.isabs(args.source_checkpoints or "")
@@ -110,11 +111,11 @@ def _train_target(args, method, em_data, common_mod, device):
     release(trainer)
 
 
-def train(args, method: str, common_mod, *, device="cuda"):
+def train(args, method: str, common_mod, *, device="cuda", mesh=None):
     em_types = [args.type] if getattr(args, "type", None) else EM_TYPES
     for em_data in em_types:
         print(f"Training on {em_data} using {method}")
-        _train_target(args, method, em_data, common_mod, device)
+        _train_target(args, method, em_data, common_mod, device, mesh)
 
 
 def predict(args, method: str, common_mod, *, device="cuda"):
@@ -147,12 +148,13 @@ def evaluate(args, method: str, common_mod):
 
 
 def run(args, method: str, common_mod, *, device="cuda"):
+    mesh, device = rank_device(args, device)
     if args.train:
         print(f"Training PUNet with {method} on MitoEM targets")
-        train(args, method, common_mod, device=device)
+        train(args, method, common_mod, device=device, mesh=mesh)
     if args.predict:
         print(f"Getting {method} predictions on MitoEM targets")
-        predict(args, method, common_mod, device=device)
+        on_main_rank(mesh, predict, args, method, common_mod, device=device)
     if args.evaluate:
         print(f"Evaluating {method} predictions")
-        evaluate(args, method, common_mod)
+        on_main_rank(mesh, evaluate, args, method, common_mod)

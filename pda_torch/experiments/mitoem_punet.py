@@ -22,10 +22,11 @@ from ..eval import run_dice_evaluation
 from ..infer import punet_prediction
 from ..train import PUNetTrainer, ReduceLROnPlateau, checkpoint_dir, checkpoint_exists, load_params
 from . import mitoem_common as common
-from .common import mesh_from_arg, mitoem_punet, release, standard_parser
+from .common import (mitoem_punet, on_main_rank, rank_device, release,
+                     standard_parser)
 
 
-def do_punet_training(args, *, device="cuda"):
+def do_punet_training(args, *, device="cuda", mesh=None):
     train_loader, val_loader = common.get_mitoem_loaders(os.path.join(args.data, "mitoem"))
     trainer = PUNetTrainer(
         name="punet-source-mitoem",
@@ -36,7 +37,7 @@ def do_punet_training(args, *, device="cuda"):
         lr_scheduler=ReduceLROnPlateau(factor=0.9, patience=10),
         save_root=args.save_root,
         log_image_interval=1000,
-        mesh=mesh_from_arg(args),
+        mesh=mesh,
         device=device,
     )
     trainer.fit(args.iterations or 100_000)
@@ -65,17 +66,18 @@ def get_parser():
 
 def main(argv=None, *, device="cuda"):
     args = get_parser().parse_args(argv)
+    mesh, device = rank_device(args, device)
     if args.train:
         print("Training a 2D PUNet on MitoEM dataset")
-        do_punet_training(args, device=device)
+        do_punet_training(args, device=device, mesh=mesh)
     if args.predict:
         print("Getting predictions on Lucchi / VNC / UroCell datasets")
         for em_type in common.EM_TYPES:
-            do_punet_predictions(args, em_type, device=device)
+            on_main_rank(mesh, do_punet_predictions, args, em_type, device=device)
     if args.evaluate:
         print("Evaluating the PUNet predictions")
         for em_type in common.EM_TYPES:
-            do_punet_evaluations(args, em_type)
+            on_main_rank(mesh, do_punet_evaluations, args, em_type)
 
 
 if __name__ == "__main__":

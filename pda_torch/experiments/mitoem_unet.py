@@ -20,7 +20,7 @@ from ..infer import unet_prediction
 from ..models import UNet2d
 from ..train import UNetTrainer, checkpoint_dir, checkpoint_exists, load_params
 from . import mitoem_common as common
-from .common import mesh_from_arg, release, standard_parser
+from .common import on_main_rank, rank_device, release, standard_parser
 
 
 def make_model(device="cuda"):
@@ -28,7 +28,7 @@ def make_model(device="cuda"):
                   initial_features=64).to(device)
 
 
-def do_unet_training(args, *, device="cuda"):
+def do_unet_training(args, *, device="cuda", mesh=None):
     train_loader, val_loader = common.get_mitoem_loaders(os.path.join(args.data, "mitoem"))
     trainer = UNetTrainer(
         name="unet-source-mitoem",
@@ -38,7 +38,7 @@ def do_unet_training(args, *, device="cuda"):
         learning_rate=1e-5,
         save_root=args.save_root,
         log_image_interval=1000,
-        mesh=mesh_from_arg(args),
+        mesh=mesh,
         device=device,
     )
     trainer.fit(args.iterations or 100_000)
@@ -62,17 +62,18 @@ def get_parser():
 
 def main(argv=None, *, device="cuda"):
     args = get_parser().parse_args(argv)
+    mesh, device = rank_device(args, device)
     if args.train:
         print("Training a 2D UNet on MitoEM dataset")
-        do_unet_training(args, device=device)
+        do_unet_training(args, device=device, mesh=mesh)
     if args.predict:
         for em_type in common.EM_TYPES:
-            do_unet_predictions(args, em_type, device=device)
+            on_main_rank(mesh, do_unet_predictions, args, em_type, device=device)
     if args.evaluate:
         for em_type in common.EM_TYPES:
             output_path = os.path.join(args.pred_path, "unet_predictions", em_type)
-            run_dice_evaluation(common.em_gt_glob(args.data, em_type), output_path,
-                                subtype=em_type)
+            on_main_rank(mesh, run_dice_evaluation, common.em_gt_glob(args.data, em_type),
+                         output_path, subtype=em_type)
 
 
 if __name__ == "__main__":

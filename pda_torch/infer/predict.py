@@ -18,6 +18,15 @@ draw of the latent samples, or a ``torch.Generator`` to draw it from.
 
 The PUNet entries compute in the model's dtype (a bf16 model runs the bf16
 kernels); probabilities and pseudo-labels leave as float32, as in ``pda``.
+
+Tiled MC serving on a data mesh (``mesh=``, :mod:`pda_torch.parallel`,
+``pda``'s ``shard_map`` path): the tile batch is padded with zero tiles to a
+multiple of the rank count, each rank runs encode -> MC tail (the
+MC-consensus kernel) -> mean on its block of tiles with its slice of the
+padded batch's noise, the means are gathered, the padding cropped and the
+frame stitched on every rank; :func:`punet_prediction` writes from rank 0.
+When the mesh divides the tile count (no padding) the map is the
+single-device one, bit for bit: the noise is the same draw.
 """
 
 from __future__ import annotations
@@ -45,16 +54,31 @@ def _noise(eps: Noise):
     return (None, eps) if isinstance(eps, torch.Generator) else (eps, None)
 
 
+def padded_tiles(n_tiles: int, mesh=None) -> int:
+    """The tile batch on a mesh: ``n_tiles`` padded to a multiple of the
+    rank count (``pda`` pads with zero tiles)."""
+    return n_tiles if mesh is None else n_tiles + (-n_tiles) % mesh.world
+
+
 @torch.inference_mode()
 def tiled_punet_probs(model: ProbabilisticUnet, image: torch.Tensor, eps: Noise,
                       n_samples: int, block: Tuple[int, int] = BLOCK_SHAPE,
-                      halo: Tuple[int, int] = HALO) -> torch.Tensor:
+                      halo: Tuple[int, int] = HALO, mesh=None) -> torch.Tensor:
     """(H, W, C) image -> (H, W, 1) mean MC probability map: gather the
     tiles, standardize each, encode the tile batch, MC-N mean through the
-    MC-consensus kernel, stitch. ``eps``: (n_samples, n_tiles, latent_dim)."""
+    MC-consensus kernel, stitch. ``eps``: (n_samples, n_tiles, latent_dim),
+    on a ``mesh`` (n_samples, :func:`padded_tiles`, latent_dim), of which
+    each rank takes its slice (module docstring)."""
     tiles = tile_standardize(extract_tiles(image, block, halo))
+    n_tiles = tiles.shape[0]
+    if mesh is not None:
+        pad = padded_tiles(n_tiles, mesh) - n_tiles
+        tiles = torch.cat([tiles, tiles.new_zeros((pad, *tiles.shape[1:]))])
+        tiles = tiles[mesh.rows(n_tiles + pad)]
     e, g = _noise(eps)
-    probs, _ = mc_pseudo(model, tiles, n_samples, eps=e, generator=g)
+    probs, _ = mc_pseudo(model, tiles, n_samples, eps=e, generator=g, mesh=mesh)
+    if mesh is not None:
+        probs = mesh.all_gather(probs)[:n_tiles]
     return stitch_tiles(probs, image.shape[:2], block, halo)
 
 
@@ -138,22 +162,35 @@ def punet_prediction(input_image_path: str, output_pred_path: str,
                      model: ProbabilisticUnet, *, prior_samples: int = 8,
                      block_shape: Tuple[int, int] = BLOCK_SHAPE,
                      halo: Tuple[int, int] = HALO, seed: int = 0, verbose: bool = True,
-                     search_subfolders: bool = False):
+                     search_subfolders: bool = False, mesh=None):
     """Glob input images -> per image a tiled MC-mean probability TIFF
-    (``search_subfolders``: see :func:`_glob_images`)."""
-    os.makedirs(output_pred_path, exist_ok=True)
+    (``search_subfolders``: see :func:`_glob_images`). On a data ``mesh``
+    every rank serves its tiles of each frame (the model on the rank's
+    device), rank 0 writes the files, and every rank returns once they are
+    written."""
+    writer = mesh is None or mesh.rank == 0
+    if writer:
+        os.makedirs(output_pred_path, exist_ok=True)
     gen = torch.Generator().manual_seed(seed)
     dev = _device(model)
+    if mesh is not None and dev != mesh.device:
+        raise ValueError(f"punet_prediction: the model is on {dev}, not on this rank's mesh "
+                         f"device ({mesh})")
     for img_path in _glob_images(input_image_path, search_subfolders):
         img = torch.from_numpy(_read_image(img_path)[..., None]).to(dev)
         gy, gx = grid_shape(img.shape[:2], block_shape)
-        eps = torch.randn((prior_samples, gy * gx, model.latent_dim), generator=gen)
-        pred = tiled_punet_probs(model, img, eps.to(dev), prior_samples, block_shape, halo)
+        eps = torch.randn((prior_samples, padded_tiles(gy * gx, mesh), model.latent_dim),
+                          generator=gen)
+        pred = tiled_punet_probs(model, img, eps.to(dev), prior_samples, block_shape, halo,
+                                 mesh=mesh)
         stem = os.path.splitext(os.path.basename(img_path))[0]
         out = os.path.join(output_pred_path, f"{stem}.tif")
-        _write_tiff(out, pred[..., 0].cpu().numpy().astype(np.float32))
-        if verbose:
-            print(f"Saved image at '{out}'")
+        if writer:
+            _write_tiff(out, pred[..., 0].cpu().numpy().astype(np.float32))
+            if verbose:
+                print(f"Saved image at '{out}'")
+    if mesh is not None:
+        mesh.barrier()
 
 
 def punet_pseudo_prediction(input_image_path: str, output_pred_path: str,

@@ -11,7 +11,9 @@ MC sampling: :func:`mc_decode_logits` is the plain path (the whole
 and the consensus in the MC-consensus kernel, which never writes that stack,
 wherever the model's configuration lets it (:func:`uses_mc_kernel`).
 Noise is explicit everywhere: ``eps`` of shape ``(n, B, latent_dim)``, or a
-``torch.Generator``.
+``torch.Generator``; on a data ``mesh`` the global batch's, of which each
+rank keeps its slice (the MC-consensus kernel stays on: the port's noise is
+explicit, so a rank hands the kernel its rows of one global draw).
 
 ``dtype=torch.bfloat16`` is ``pda``'s bf16 configuration: float32
 parameters, bf16 compute. The ConvBlocks and the MC tail round as ``pda``'s
@@ -224,10 +226,10 @@ def tail_weights(model: ProbabilisticUnet):
 
 def mc_decode_logits(model: ProbabilisticUnet, features: torch.Tensor, dist: DiagGaussian,
                      n_samples: int, eps: Optional[torch.Tensor] = None,
-                     generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                     generator: Optional[torch.Generator] = None, mesh=None) -> torch.Tensor:
     """(n_samples, B, H, W, C) logits from one feature map + n latent draws;
     the feature term is computed once and shared (plain path)."""
-    zs = dist.sample_n(n_samples, eps=eps, generator=generator)
+    zs = dist.sample_n(n_samples, eps=eps, generator=generator, mesh=mesh)
     feat_term = model.decode_feature_term(features)
     return mc_logits_plain(feat_term, model.fcomb.z_term(zs), *tail_weights(model))
 
@@ -242,7 +244,7 @@ def uses_mc_kernel(model: ProbabilisticUnet) -> bool:
 
 def mc_pseudo(model: ProbabilisticUnet, x: torch.Tensor, n_samples: int,
               eps: Optional[torch.Tensor] = None, generator: Optional[torch.Generator] = None,
-              masking: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+              masking: bool = False, mesh=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """(pseudo, consensus), each (B, H, W, num_classes): encode, feature
     term, latent terms ``z @ W_z + b_z``, then the Fcomb tail and the
     consensus over the n samples.
@@ -253,10 +255,12 @@ def mc_pseudo(model: ProbabilisticUnet, x: torch.Tensor, n_samples: int,
     on the card takes any such C (zero-padded to a multiple of 8); with more
     classes, or C > 64, where one warp's feature rows no longer fit in its
     registers, it is the plain logit stack + ``consensus_from_logits``, as in
-    ``pda``, which has no kernel for that case either."""
+    ``pda``, which has no kernel for that case either. On a ``mesh`` the
+    latent draws are this rank's slice of the global batch's (``eps`` the
+    global batch's)."""
     enc = model.encode(x)
     feat_term = model.decode_feature_term(enc.features)
-    zs = enc.prior.sample_n(n_samples, eps=eps, generator=generator)
+    zs = enc.prior.sample_n(n_samples, eps=eps, generator=generator, mesh=mesh)
     z_terms = model.fcomb.z_term(zs)
     weights = tail_weights(model)
     if not uses_mc_kernel(model):
@@ -267,9 +271,9 @@ def mc_pseudo(model: ProbabilisticUnet, x: torch.Tensor, n_samples: int,
 
 def mc_predict_probs(model: ProbabilisticUnet, x: torch.Tensor, n_samples: int,
                      eps: Optional[torch.Tensor] = None,
-                     generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                     generator: Optional[torch.Generator] = None, mesh=None) -> torch.Tensor:
     """Mean sigmoid over n prior samples, (B, H, W, num_classes): the PUNet
     inference primitive and validation predictor (reference
     ``_custom_punet_prediction``; ``pda``'s ``mc_predict_probs`` and
     ``_mc_mean_probs``), through :func:`mc_pseudo`'s path."""
-    return mc_pseudo(model, x, n_samples, eps=eps, generator=generator)[0]
+    return mc_pseudo(model, x, n_samples, eps=eps, generator=generator, mesh=mesh)[0]

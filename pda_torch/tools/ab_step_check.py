@@ -82,15 +82,15 @@ def deepest_convs(filters) -> int:
     return 3 * (2 * len(filters) - 1)
 
 
-def synthetic_batch(hw: int, gen: torch.Generator, seed: int, dev):
-    """(x, x1, x2, gt): BATCH synthetic frames of hw^2, standardized, a weak
-    (noise 0.1) and a strong (0.3) view, and their foreground masks."""
+def synthetic_batch(hw: int, gen: torch.Generator, seed: int, dev, batch: int = BATCH):
+    """(x, x1, x2, gt): ``batch`` synthetic frames of hw^2, standardized, a
+    weak (noise 0.1) and a strong (0.3) view, and their foreground masks."""
     import numpy as np
 
     from ..data.synthetic import make_dataset_arrays
     from ..infer.tiling import tile_standardize
 
-    raws, labels = make_dataset_arrays(BATCH, (hw, hw), seed=seed)
+    raws, labels = make_dataset_arrays(batch, (hw, hw), seed=seed)
     x = tile_standardize(torch.from_numpy(np.stack(raws))[..., None])
     x1 = x + 0.1 * torch.randn(x.shape, generator=gen)
     x2 = x + 0.3 * torch.randn(x.shape, generator=gen)

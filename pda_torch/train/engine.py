@@ -24,8 +24,22 @@ The engine keeps ``pda``'s semantics in PyTorch's idiom:
 
 ``mixed_precision=True`` is ``pda``'s: a model with a compute ``dtype``
 (the PUNet) computes in bf16 with float32 parameters, optimizer and
-checkpoints; a model without one (``UNet2d``) stays float32. ``pda``'s device
-mesh (data parallelism) is not ported yet: passing one raises.
+checkpoints; a model without one (``UNet2d``) stays float32.
+
+``mesh=`` (:func:`pda_torch.parallel.get_mesh`) is ``pda``'s data mesh, one
+process a rank (``torchrun``): each rank trains on its rows of every global
+batch, and the step equals the single-device step on the global batch
+(:mod:`.steps`). The rank's device is the mesh's (a ``device`` that
+disagrees raises); the model is broadcast from rank 0 and checked equal on
+every rank at set-up and at every checkpoint; a :class:`~pda_torch.data.loader.Loader`
+fetches only the rank's rows (its ``shard``), any other loader's batches are
+cut to them (``shard_batch``), and a batch the mesh does not divide raises;
+every rank's generator draws the global batch's noise, of which the step
+keeps the rank's rows; validation metrics are the global batch's, so every
+rank takes the plateau controller's and the best checkpoint's decisions
+alike (rank 0's metric, broadcast). Rank 0 alone logs (event file, panels,
+which take the global batch's first element, rank 0's) and writes
+``latest.pt`` / ``best.pt``; the others wait for the file.
 """
 
 from __future__ import annotations
@@ -38,6 +52,7 @@ from typing import Callable, Iterable, Optional, Sequence
 import numpy as np
 import torch
 
+from ..parallel.mesh import assert_replicated, replicated, shard_batch
 from . import steps as steps_lib
 from .checkpoint import (BEST, LATEST, checkpoint_dir, checkpoint_exists, load_checkpoint,
                          load_params, restore_state, save_checkpoint)
@@ -85,10 +100,6 @@ class Trainer:
                  lr_scheduler: Optional[ReduceLROnPlateau] = None, device="cuda", mesh=None,
                  save_root: Optional[str] = None, logger=True, log_image_interval: int = 100,
                  mixed_precision: bool = False, seed: int = 0):
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh=: data parallelism is not ported yet (ROADMAP §1, M11); the port "
-                "trains on one device")
         # mixed_precision=True (the reference's AMP flag) is pda's bf16 compute:
         # the model's dtype (where it has one) becomes bf16, in place, its
         # parameters, the optimizer and the checkpoints stay float32, and the
@@ -99,6 +110,17 @@ class Trainer:
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(f"{type(self).__name__}: no CUDA card (torch.cuda.is_available() "
                                "is False); pass device='cpu' to train on the CPU")
+        self.mesh = mesh
+        if mesh is not None:
+            dev = self.device
+            if dev.type == "cuda" and dev.index is None:
+                dev = torch.device("cuda", torch.cuda.current_device())
+            if dev != mesh.device:
+                raise ValueError(f"{type(self).__name__}: device {device!r} is not this rank's "
+                                 f"mesh device ({mesh})")
+            self.device = dev
+            if mesh.rank != 0:  # rank 0 alone writes the event file and the panels
+                logger = False
         self.name = name
         self.model = model
         self.train_loader = train_loader
@@ -136,6 +158,8 @@ class Trainer:
         #: metrics), panels, validation (its panels and copies included),
         #: checkpoint; each also a ``torch.profiler`` range ``engine/<part>``
         self.timings: collections.Counter = collections.Counter()
+        #: whether the loaders fetch this rank's rows themselves (``Loader.shard``)
+        self._loaders_shard = False
 
     # -- subclass hooks ------------------------------------------------------
 
@@ -180,6 +204,40 @@ class Trainer:
                                "files)") from None
 
     @property
+    def _world(self) -> int:
+        return 1 if self.mesh is None else self.mesh.world
+
+    @property
+    def _is_writer(self) -> bool:
+        """Whether this process writes the checkpoints: rank 0, or the only one."""
+        return self.mesh is None or self.mesh.rank == 0
+
+    def _loaders(self) -> list:
+        return [ld for ld in (getattr(self, name, None) for name in (
+            "train_loader", "val_loader", "source_train_loader", "target_train_loader"))
+            if ld is not None]
+
+    def _shard_loaders(self):
+        """On a mesh: each :class:`~pda_torch.data.loader.Loader` fetches only
+        this rank's rows (sample ``i`` of epoch ``e`` is seeded by ``(seed, e,
+        i)``, so they are the single-device samples); if a loader cannot,
+        every batch is cut to the rank's rows in :meth:`_put` instead."""
+        loaders = list({id(ld): ld for ld in self._loaders()}.values())
+        if self.mesh is None or not all(hasattr(ld, "set_shard") for ld in loaders):
+            return
+        for ld in loaders:
+            ld.set_shard(self.mesh.rank, self.mesh.world)
+        self._loaders_shard = True
+
+    def _replicate(self):
+        """Rank 0's model (and teacher) on every rank, checked equal."""
+        if self.mesh is not None:
+            replicated(self.mesh, *self._modules())
+
+    def _modules(self) -> list:
+        return [self.state.model] + ([self.state.teacher] if self.with_teacher else [])
+
+    @property
     def _noise(self) -> dict:
         return {"generator": self.generator} if self.stochastic else {}
 
@@ -190,6 +248,7 @@ class Trainer:
     def initialize(self):
         if self.state is not None:
             return
+        self._shard_loaders()
         self._example_batch()
         self.model.to(self.device)
         optimizer = (self.optimizer if self.optimizer is not None
@@ -199,11 +258,15 @@ class Trainer:
         self.val_step = self.make_val_step()
         self.panel_fn = self.make_panel_fn() if self.logger is not None else None
         self._post_initialize()
+        self._replicate()
 
     def _put(self, batch) -> tuple:
         """numpy arrays -> tensors on the device in the model's dtype; to the
-        card from pinned memory, without blocking the host."""
+        card from pinned memory, without blocking the host. On a mesh whose
+        loaders do not shard, the rank's rows of each array."""
         dtype = next(self.state.model.parameters()).dtype
+        if self.mesh is not None and not self._loaders_shard:
+            batch = shard_batch(self.mesh, batch)
         out = []
         with self._span("copy"):
             for b in batch:
@@ -281,7 +344,7 @@ class Trainer:
                     with self._span("step"):
                         self.state, metrics = self.train_step(self.state, *batch, **self._noise)
                         handle = _HostCopy(metrics)
-                    throughput.update(int(batch[0].shape[0]))
+                    throughput.update(int(batch[0].shape[0]) * self._world)
                     if pending is not None:
                         self._log_train(*pending)
                     pending = (self._iteration, handle)
@@ -302,6 +365,8 @@ class Trainer:
             val_metrics = self.validate()
             throughput.start()
             current = val_metrics.get("metric", val_metrics.get("loss", 0.0))
+            if self.mesh is not None:  # every rank decides on rank 0's value
+                current = self.mesh.broadcast_float(current)
             if self.lr_scheduler is not None:
                 lr = self.state.learning_rate
                 new_lr = self.lr_scheduler.step(current, lr)
@@ -342,7 +407,7 @@ class Trainer:
                 n += 1
                 last_batch = batch
             avg = {k: float(v) / max(n, 1) for k, v in _HostCopy(sums).result().items()}
-            if "dice" in avg:
+            if "dice" in avg and self._is_writer:
                 print(f"The Average Dice Score for the Current Epoch is {avg['dice']}")
             if self.logger is not None:
                 # the reference loggers write panels at every validation, of the last batch
@@ -357,14 +422,21 @@ class Trainer:
     # -- checkpoints ------------------------------------------------------------
 
     def save_checkpoint(self, which: str, current_metric: float):
+        """Write ``<which>.pt``; on a mesh the ranks' parameters are checked
+        equal first, rank 0 writes, and every rank waits for the file."""
         extra = {"generator_state": self.generator.get_state(),
                  "panel_generator_state": self.panel_generator.get_state()}
         if self.lr_scheduler is not None:
             extra["scheduler_state"] = self.lr_scheduler.state_dict()
         with self._span("checkpoint"):
-            save_checkpoint(self.ckpt_dir, self.state, which=which,
-                            current_metric=current_metric, best_metric=self._best_metric,
-                            train_time=self._train_time, extra=extra)
+            if self.mesh is not None:
+                assert_replicated(self.mesh, *self._modules())
+            if self._is_writer:
+                save_checkpoint(self.ckpt_dir, self.state, which=which,
+                                current_metric=current_metric, best_metric=self._best_metric,
+                                train_time=self._train_time, extra=extra)
+            if self.mesh is not None:
+                self.mesh.barrier()
 
     def load_checkpoint(self, which: str = BEST) -> dict:
         """Restore the state, iteration, best metric, train time, plateau
@@ -384,6 +456,7 @@ class Trainer:
                          (self.panel_generator, "panel_generator_state")):
             if key in blob:
                 gen.set_state(blob[key])
+        self._replicate()
         return blob
 
     def warm_start(self, ckpt_path_or_dir: str, *, into_teacher: bool = False,
@@ -393,6 +466,7 @@ class Trainer:
         self.initialize()
         weights = load_params(ckpt_path_or_dir, which=BEST, key=from_key)
         (self.state.teacher if into_teacher else self.state.model).load_state_dict(weights)
+        self._replicate()
 
 
 # ---------------------------------------------------------------------------
@@ -418,10 +492,10 @@ class UNetTrainer(Trainer):
     image_tags = ("input", "target", "prediction")
 
     def make_train_step(self):
-        return steps_lib.make_supervised_unet_step()
+        return steps_lib.make_supervised_unet_step(mesh=self.mesh)
 
     def make_val_step(self):
-        return steps_lib.make_supervised_unet_val_step()
+        return steps_lib.make_supervised_unet_val_step(mesh=self.mesh)
 
     def make_panel_fn(self):
         return steps_lib.make_supervised_unet_panels()
@@ -434,10 +508,10 @@ class PUNetTrainer(_SampleGridPanelsMixin, Trainer):
     image_tags = ("input", "target", "samples")
 
     def make_train_step(self):
-        return steps_lib.make_supervised_punet_step()
+        return steps_lib.make_supervised_punet_step(mesh=self.mesh)
 
     def make_val_step(self):
-        return steps_lib.make_punet_val_step()
+        return steps_lib.make_punet_val_step(mesh=self.mesh)
 
     def make_panel_fn(self):
         return steps_lib.make_punet_panels()
@@ -451,10 +525,10 @@ class PseudoTrainer(Trainer):
     image_tags = ("input", "target", "prediction")
 
     def make_train_step(self):
-        return steps_lib.make_pseudo_unet_step()
+        return steps_lib.make_pseudo_unet_step(mesh=self.mesh)
 
     def make_val_step(self):
-        return steps_lib.make_pseudo_unet_val_step()
+        return steps_lib.make_pseudo_unet_val_step(mesh=self.mesh)
 
     def make_panel_fn(self):
         return steps_lib.make_pseudo_unet_panels()
@@ -467,10 +541,10 @@ class PseudoTrainerPUNet(_SampleGridPanelsMixin, Trainer):
     image_tags = ("input", "target", "samples")
 
     def make_train_step(self):
-        return steps_lib.make_pseudo_punet_step()
+        return steps_lib.make_pseudo_punet_step(mesh=self.mesh)
 
     def make_val_step(self):
-        return steps_lib.make_pseudo_punet_val_step()
+        return steps_lib.make_pseudo_punet_val_step(mesh=self.mesh)
 
     def make_panel_fn(self):
         return steps_lib.make_pseudo_punet_panels()
@@ -497,11 +571,12 @@ class MeanTeacherTrainer(Trainer):
 
     def make_train_step(self):
         return steps_lib.make_mean_teacher_step(
-            momentum=self.momentum, do_consensus_masking=self.do_consensus_masking)
+            momentum=self.momentum, do_consensus_masking=self.do_consensus_masking,
+            mesh=self.mesh)
 
     def make_val_step(self):
         return steps_lib.make_mean_teacher_val_step(
-            do_consensus_masking=self.do_consensus_masking)
+            do_consensus_masking=self.do_consensus_masking, mesh=self.mesh)
 
     def make_panel_fn(self):
         return steps_lib.make_mean_teacher_panels(do_consensus_masking=self.do_consensus_masking)
@@ -529,10 +604,12 @@ class FixMatchTrainer(Trainer):
 
     def make_train_step(self):
         return steps_lib.make_fixmatch_step(source_distribution=self.source_distribution,
-                                            do_consensus_masking=self.do_consensus_masking)
+                                            do_consensus_masking=self.do_consensus_masking,
+                                            mesh=self.mesh)
 
     def make_val_step(self):
-        return steps_lib.make_fixmatch_val_step(do_consensus_masking=self.do_consensus_masking)
+        return steps_lib.make_fixmatch_val_step(do_consensus_masking=self.do_consensus_masking,
+                                                mesh=self.mesh)
 
     def make_panel_fn(self):
         return steps_lib.make_fixmatch_panels(do_consensus_masking=self.do_consensus_masking)
@@ -597,10 +674,12 @@ class AdaMTTrainer(_JointTrainer):
 
     def make_train_step(self):
         return steps_lib.make_adamt_step(momentum=self.momentum,
-                                         do_consensus_masking=self.do_consensus_masking)
+                                         do_consensus_masking=self.do_consensus_masking,
+                                         mesh=self.mesh)
 
     def make_val_step(self):
-        return steps_lib.make_adamt_val_step(do_consensus_masking=self.do_consensus_masking)
+        return steps_lib.make_adamt_val_step(do_consensus_masking=self.do_consensus_masking,
+                                             mesh=self.mesh)
 
     def make_panel_fn(self):
         return steps_lib.make_adamt_panels(do_consensus_masking=self.do_consensus_masking)
@@ -618,10 +697,12 @@ class AdaMatchTrainer(_JointTrainer):
         self.do_consensus_masking = do_consensus_masking
 
     def make_train_step(self):
-        return steps_lib.make_adamatch_step(do_consensus_masking=self.do_consensus_masking)
+        return steps_lib.make_adamatch_step(do_consensus_masking=self.do_consensus_masking,
+                                            mesh=self.mesh)
 
     def make_val_step(self):
-        return steps_lib.make_adamatch_val_step(do_consensus_masking=self.do_consensus_masking)
+        return steps_lib.make_adamatch_val_step(do_consensus_masking=self.do_consensus_masking,
+                                                mesh=self.mesh)
 
     def make_panel_fn(self):
         return steps_lib.make_adamatch_panels(do_consensus_masking=self.do_consensus_masking)

@@ -19,6 +19,19 @@ validation MC draws ``eps_mc`` (n, B, L) with ``k_mc``. ``pda`` draws each as
 ``jax.random.normal`` of its key, so handing those arrays in reproduces its
 step; each step's docstring gives the split. A ``torch.Generator`` draws
 whichever is not given, in the order the step uses them.
+
+Data parallelism (``mesh=``, ``pda``'s ``axis_name=``): on a data mesh of N
+ranks (:mod:`pda_torch.parallel`) each rank runs the step on its rows of the
+global batch. The losses' and metrics' batch reductions are the global
+batch's (value-global, gradient-local: :mod:`pda_torch.core.losses`); after
+``backward()`` the gradients are summed over the ranks (never averaged),
+then the optimizer steps, so every rank applies the single-device update;
+the parameter-only L2 term enters the differentiated objective as
+``reg / N`` (the sum counts it N times) while ``aux["loss"]`` reports it
+whole. The noise is the global batch's, of which each rank keeps its rows
+(``eps_*`` given are the global batch's; a generator draws them), so a
+sharded step sees the single-device step's noise; the teacher's MC tail
+stays on the MC-consensus kernel.
 """
 
 from __future__ import annotations
@@ -41,38 +54,65 @@ N_MC_VAL = 8  # reference punet_trainer.py:70
 
 def _punet_loss(model: ProbabilisticUnet, x, segm, eps_post=None,
                 generator: Optional[torch.Generator] = None, consm=None,
-                reconstruct_posterior_mean: bool = False):
-    """-ELBO + 1e-5 * l2 over the regularized subset: ``(loss, aux)``.
+                reconstruct_posterior_mean: bool = False, mesh=None):
+    """-ELBO + 1e-5 * l2 over the regularized subset: ``(objective, aux)``,
+    ``aux["loss"]`` the loss's value. Without a mesh the objective is the
+    loss; on a mesh of N it carries ``reg / N`` (module docstring).
 
     ``reconstruct_posterior_mean`` decodes the posterior mean instead of the
     draw for the reconstruction, while the MC-KL option still evaluates at
     the draw (the reference's ``elbo(..., reconstruct_posterior_mean=True)``).
     """
     enc = model.encode(x, segm)
-    z_post = enc.posterior.sample(eps=eps_post, generator=generator)
+    z_post = enc.posterior.sample(eps=eps_post, generator=generator, mesh=mesh)
     z_rec = enc.posterior.mu if reconstruct_posterior_mean else z_post
     recon = model.decode(enc.features, z_rec)
     nelbo, aux = neg_elbo(
         recon, segm, enc.posterior, enc.prior, beta=model.beta, rl_swap=model.rl_swap,
         consensus_mask=consm, consensus_masking=model.consensus_masking,
-        analytic_kl=model.analytic_kl, z_posterior=z_post)
-    loss = nelbo + REG_WEIGHT * punet_l2_reg(model)
-    return loss, {"loss": loss, **aux}
+        analytic_kl=model.analytic_kl, z_posterior=z_post, mesh=mesh)
+    reg = punet_l2_reg(model)
+    loss = nelbo + REG_WEIGHT * reg
+    aux = {"loss": loss, **aux}
+    if mesh is None:
+        return loss, aux
+    return nelbo + (REG_WEIGHT / mesh.world) * reg, aux
 
 
 @torch.no_grad()
 def _mc_pseudo(model: ProbabilisticUnet, x, n_samples: int, masking: bool, eps=None,
-               generator: Optional[torch.Generator] = None):
+               generator: Optional[torch.Generator] = None, mesh=None):
     """Teacher-style MC pseudo-label and consensus, gradient-free: the
     MC-consensus kernel on the card where :func:`mc_pseudo` takes it
     (``pda`` takes its XLA path here by default, ``steps.py``
-    ``USE_PALLAS_MC``; both compute the same)."""
-    return mc_pseudo(model, x, n_samples, eps=eps, generator=generator, masking=masking)
+    ``USE_PALLAS_MC``, and always on a mesh, where its kernel's draw cannot
+    be sliced; both compute the same)."""
+    return mc_pseudo(model, x, n_samples, eps=eps, generator=generator, masking=masking,
+                     mesh=mesh)
 
 
-def _apply_updates(state: TrainState, loss: torch.Tensor) -> None:
+def _sum_gradients(optimizer: torch.optim.Optimizer, mesh) -> None:
+    """Sum every gradient over the mesh's ranks, in place: one all-reduce
+    of a flat bucket a (device, dtype)."""
+    buckets: dict = {}
+    for group in optimizer.param_groups:
+        for p in group["params"]:
+            if p.grad is not None:
+                buckets.setdefault((p.grad.device, p.grad.dtype), []).append(p.grad)
+    for grads in buckets.values():
+        flat = mesh.all_reduce_(torch.cat([g.reshape(-1) for g in grads]))
+        parts = flat.split([g.numel() for g in grads])
+        torch._foreach_copy_(grads, [p.view_as(g) for p, g in zip(parts, grads)])
+
+
+def _apply_updates(state: TrainState, objective: torch.Tensor, mesh=None) -> None:
+    """backward(); on a mesh the gradients summed over the ranks (SUM, as
+    ``pda``'s ``psum``: each rank's is its data's share of the global
+    gradient); then the optimizer's step."""
     state.optimizer.zero_grad(set_to_none=True)
-    loss.backward()
+    objective.backward()
+    if mesh is not None:
+        _sum_gradients(state.optimizer, mesh)
     state.optimizer.step()
     state.step += 1
 
@@ -81,20 +121,21 @@ def _detached(aux: dict) -> dict:
     return {k: v.detach() for k, v in aux.items()}
 
 
-def make_supervised_punet_step():
+def make_supervised_punet_step(*, mesh=None):
     """Supervised PUNet training: -ELBO on (x, y), one Adam step.
-    ``pda``: ``rng, k_post = split(rng)``."""
+    ``pda``: ``rng, k_post = split(rng)``. ``mesh``: every factory's data
+    mesh (module docstring)."""
 
     def step(state: TrainState, x, y, *, eps_post=None,
              generator: Optional[torch.Generator] = None):
-        loss, aux = _punet_loss(state.model, x, y, eps_post, generator)
-        _apply_updates(state, loss)
+        loss, aux = _punet_loss(state.model, x, y, eps_post, generator, mesh=mesh)
+        _apply_updates(state, loss, mesh)
         return state, _detached(aux)
 
     return step
 
 
-def make_punet_val_step(n_samples: int = N_MC_VAL):
+def make_punet_val_step(n_samples: int = N_MC_VAL, *, mesh=None):
     """Train-style loss, and the dice of the MC-n mean probability (``pda``'s
     ``_mc_mean_probs``) against the target; metric = 1 - dice.
     ``pda``: ``rng, k_post, k_mc = split(rng, 3)``."""
@@ -102,23 +143,24 @@ def make_punet_val_step(n_samples: int = N_MC_VAL):
     @torch.no_grad()
     def step(state: TrainState, x, y, *, eps_post=None, eps_mc=None,
              generator: Optional[torch.Generator] = None):
-        return state, _punet_val(state.model, x, y, n_samples, eps_post, eps_mc, generator)
+        return state, _punet_val(state.model, x, y, n_samples, eps_post, eps_mc, generator,
+                                 mesh=mesh)
 
     return step
 
 
 def _punet_val(model: ProbabilisticUnet, x, y, n_samples: int, eps_post, eps_mc, generator,
-               consm=None) -> dict:
+               consm=None, mesh=None) -> dict:
     """Train-style loss on (x, y[, z]) and the MC mean-probability dice
     against y; metric = 1 - dice."""
-    _, aux = _punet_loss(model, x, y, eps_post, generator, consm=consm)
-    pred = mc_predict_probs(model, x, n_samples, eps=eps_mc, generator=generator)
-    dice = dice_score_torch(pred, y)
+    _, aux = _punet_loss(model, x, y, eps_post, generator, consm=consm, mesh=mesh)
+    pred = mc_predict_probs(model, x, n_samples, eps=eps_mc, generator=generator, mesh=mesh)
+    dice = dice_score_torch(pred, y, mesh=mesh)
     return {"loss": aux["loss"], "dice": dice, "metric": 1.0 - dice}
 
 
 def make_mean_teacher_step(*, momentum: float = 0.999, do_consensus_masking: bool = False,
-                           n_samples: int = N_MC_TRAIN):
+                           n_samples: int = N_MC_TRAIN, mesh=None):
     """Mean-Teacher step: the teacher's MC-n pseudo-label y and consensus z
     on the weak view x1; the student's -ELBO on (x2, y, z) and one Adam
     step; then the teacher's EMA toward the UPDATED student. ``x`` and
@@ -128,9 +170,9 @@ def make_mean_teacher_step(*, momentum: float = 0.999, do_consensus_masking: boo
     def step(state: TrainState, x, x1, x2, gt, *, eps_teacher=None, eps_post=None,
              generator: Optional[torch.Generator] = None):
         y, z = _mc_pseudo(state.teacher, x1, n_samples, do_consensus_masking,
-                          eps_teacher, generator)
-        loss, aux = _punet_loss(state.model, x2, y, eps_post, generator, consm=z)
-        _apply_updates(state, loss)
+                          eps_teacher, generator, mesh=mesh)
+        loss, aux = _punet_loss(state.model, x2, y, eps_post, generator, consm=z, mesh=mesh)
+        _apply_updates(state, loss, mesh)
         ema_update(state.teacher, state.model, momentum)
         return state, _detached(aux)
 
@@ -138,7 +180,7 @@ def make_mean_teacher_step(*, momentum: float = 0.999, do_consensus_masking: boo
 
 
 def make_mean_teacher_val_step(*, do_consensus_masking: bool = False,
-                               n_samples: int = N_MC_TRAIN):
+                               n_samples: int = N_MC_TRAIN, mesh=None):
     """Teacher pseudo-label on x1, the student's loss on (x2, y, z), and the
     student's MC mean-probability dice against y (metric) and against the
     true gt (gt_metric). ``pda``: ``rng, k_t, k_post, k_mc = split(rng, 4)``."""
@@ -148,61 +190,62 @@ def make_mean_teacher_val_step(*, do_consensus_masking: bool = False,
              eps_mc=None, generator: Optional[torch.Generator] = None):
         return state, _target_val(state, state.teacher, x1, x2, gt, n_samples,
                                   do_consensus_masking, eps_teacher, eps_post, eps_mc,
-                                  generator)
+                                  generator, mesh)
 
     return step
 
 
 def _target_val(state: TrainState, labeller, x1, x2, gt, n_samples: int, masking: bool,
-                eps_pseudo, eps_post, eps_mc, generator):
+                eps_pseudo, eps_post, eps_mc, generator, mesh=None):
     """The self-training validation: ``labeller``'s MC pseudo-label and
     consensus on x1, the model's loss on (x2, y, z), and its MC
     mean-probability dice against y (metric) and against gt (gt_metric)."""
-    y, z = _mc_pseudo(labeller, x1, n_samples, masking, eps_pseudo, generator)
-    _, aux = _punet_loss(state.model, x2, y, eps_post, generator, consm=z)
-    pred = mc_predict_probs(state.model, x2, n_samples, eps=eps_mc, generator=generator)
-    dice, gt_dice = dice_score_torch(pred, y), dice_score_torch(pred, gt)
+    y, z = _mc_pseudo(labeller, x1, n_samples, masking, eps_pseudo, generator, mesh=mesh)
+    _, aux = _punet_loss(state.model, x2, y, eps_post, generator, consm=z, mesh=mesh)
+    pred = mc_predict_probs(state.model, x2, n_samples, eps=eps_mc, generator=generator,
+                            mesh=mesh)
+    dice, gt_dice = dice_score_torch(pred, y, mesh=mesh), dice_score_torch(pred, gt, mesh=mesh)
     return {"loss": aux["loss"], "dice": dice, "metric": 1.0 - dice,
             "gt_metric": 1.0 - gt_dice}
 
 
-def make_pseudo_unet_step():
+def make_pseudo_unet_step(*, mesh=None):
     """Pseudo-label UNet training on fixed pseudo-labels y and consensus z
     from disk: ``dice_loss(pred * z, y * z)``, one Adam step. No noise
     (``pda`` splits ``rng`` and draws nothing)."""
 
     def step(state: TrainState, x, y, z):
-        loss = dice_loss(state.model(x) * z, y * z)
-        _apply_updates(state, loss)
+        loss = dice_loss(state.model(x) * z, y * z, mesh=mesh)
+        _apply_updates(state, loss, mesh)
         return state, {"loss": loss.detach()}
 
     return step
 
 
-def make_pseudo_unet_val_step():
+def make_pseudo_unet_val_step(*, mesh=None):
     @torch.no_grad()
     def step(state: TrainState, x, y, z):
-        loss = dice_loss(state.model(x) * z, y * z)
+        loss = dice_loss(state.model(x) * z, y * z, mesh=mesh)
         return state, {"loss": loss, "metric": loss}
 
     return step
 
 
-def make_pseudo_punet_step():
+def make_pseudo_punet_step(*, mesh=None):
     """Pseudo-label PUNet training: -ELBO on the precomputed pseudo-labels y
     with the consensus z from disk as the consensus mask, one Adam step.
     ``pda``: ``rng, k_post = split(rng)``."""
 
     def step(state: TrainState, x, y, z, *, eps_post=None,
              generator: Optional[torch.Generator] = None):
-        loss, aux = _punet_loss(state.model, x, y, eps_post, generator, consm=z)
-        _apply_updates(state, loss)
+        loss, aux = _punet_loss(state.model, x, y, eps_post, generator, consm=z, mesh=mesh)
+        _apply_updates(state, loss, mesh)
         return state, _detached(aux)
 
     return step
 
 
-def make_pseudo_punet_val_step(n_samples: int = N_MC_VAL):
+def make_pseudo_punet_val_step(n_samples: int = N_MC_VAL, *, mesh=None):
     """The consensus-weighted loss and the MC-n mean-probability dice against
     y; metric = 1 - dice. ``pda``: ``rng, k_post, k_mc = split(rng, 3)``."""
 
@@ -210,13 +253,13 @@ def make_pseudo_punet_val_step(n_samples: int = N_MC_VAL):
     def step(state: TrainState, x, y, z, *, eps_post=None, eps_mc=None,
              generator: Optional[torch.Generator] = None):
         return state, _punet_val(state.model, x, y, n_samples, eps_post, eps_mc, generator,
-                                 consm=z)
+                                 consm=z, mesh=mesh)
 
     return step
 
 
 def make_fixmatch_step(*, source_distribution=None, do_consensus_masking: bool = False,
-                       n_samples: int = N_MC_TRAIN):
+                       n_samples: int = N_MC_TRAIN, mesh=None):
     """FixMatch: the model itself, gradient-free and before the update, draws
     the MC-n pseudo-label y and consensus z on the weak view x1; with a
     ``source_distribution`` ([bg, fg]) y is distribution-aligned; then the
@@ -227,13 +270,13 @@ def make_fixmatch_step(*, source_distribution=None, do_consensus_masking: bool =
     def step(state: TrainState, x, x1, x2, gt, *, eps_weak=None, eps_post=None,
              generator: Optional[torch.Generator] = None):
         y, z = _mc_pseudo(state.model, x1, n_samples, do_consensus_masking, eps_weak,
-                          generator)
+                          generator, mesh=mesh)
         if source_distribution is not None:
-            y, ratio = distribution_alignment(y, source_distribution)
+            y, ratio = distribution_alignment(y, source_distribution, mesh=mesh)
         else:
             ratio = y.new_zeros(2)
-        loss, aux = _punet_loss(state.model, x2, y, eps_post, generator, consm=z)
-        _apply_updates(state, loss)
+        loss, aux = _punet_loss(state.model, x2, y, eps_post, generator, consm=z, mesh=mesh)
+        _apply_updates(state, loss, mesh)
         return state, {"distr_ratio_bg": ratio[0], "distr_ratio_fg": ratio[1],
                        **_detached(aux)}
 
@@ -241,7 +284,7 @@ def make_fixmatch_step(*, source_distribution=None, do_consensus_masking: bool =
 
 
 def make_fixmatch_val_step(*, do_consensus_masking: bool = False,
-                           n_samples: int = N_MC_TRAIN):
+                           n_samples: int = N_MC_TRAIN, mesh=None):
     """The model's own pseudo-label on x1 (no alignment at validation), its
     loss on (x2, y, z), and its MC mean-probability dice against y (metric)
     and gt (gt_metric). ``pda``: ``rng, k_w, k_post, k_mc = split(rng, 4)``."""
@@ -250,22 +293,25 @@ def make_fixmatch_val_step(*, do_consensus_masking: bool = False,
     def step(state: TrainState, x, x1, x2, gt, *, eps_weak=None, eps_post=None,
              eps_mc=None, generator: Optional[torch.Generator] = None):
         return state, _target_val(state, state.model, x1, x2, gt, n_samples,
-                                  do_consensus_masking, eps_weak, eps_post, eps_mc, generator)
+                                  do_consensus_masking, eps_weak, eps_post, eps_mc, generator,
+                                  mesh)
 
     return step
 
 
-def _joint_loss(model: ProbabilisticUnet, xs, ys, xt2, y, z, eps_source, eps_post, generator):
-    """(source -ELBO on (xs, ys) + target -ELBO on (xt2, y, z)) / 2, with
-    aux ``loss``, ``supervised_loss``, ``target_loss``."""
-    sup, _ = _punet_loss(model, xs, ys, eps_source, generator)
-    tgt, _ = _punet_loss(model, xt2, y, eps_post, generator, consm=z)
-    loss = (sup + tgt) / 2.0
-    return loss, {"loss": loss, "supervised_loss": sup, "target_loss": tgt}
+def _joint_loss(model: ProbabilisticUnet, xs, ys, xt2, y, z, eps_source, eps_post, generator,
+                mesh=None):
+    """(source -ELBO on (xs, ys) + target -ELBO on (xt2, y, z)) / 2:
+    ``(objective, aux)``, aux ``loss``, ``supervised_loss``, ``target_loss``."""
+    sup, sup_aux = _punet_loss(model, xs, ys, eps_source, generator, mesh=mesh)
+    tgt, tgt_aux = _punet_loss(model, xt2, y, eps_post, generator, consm=z, mesh=mesh)
+    sup_loss, tgt_loss = sup_aux["loss"], tgt_aux["loss"]
+    return (sup + tgt) / 2.0, {"loss": (sup_loss + tgt_loss) / 2.0,
+                               "supervised_loss": sup_loss, "target_loss": tgt_loss}
 
 
 def make_adamt_step(*, momentum: float = 0.999, do_consensus_masking: bool = False,
-                    n_samples: int = N_MC_TRAIN):
+                    n_samples: int = N_MC_TRAIN, mesh=None):
     """AdaMT (joint Mean Teacher): the teacher's MC-n pseudo-label y and
     consensus z on the target's weak view xt1; (source -ELBO on (xs, ys) +
     target -ELBO on (xt2, y, z)) / 2 and one Adam step; then the teacher's
@@ -276,18 +322,19 @@ def make_adamt_step(*, momentum: float = 0.999, do_consensus_masking: bool = Fal
     def step(state: TrainState, xs, ys, xt, xt1, xt2, yt, *, eps_source=None,
              eps_teacher=None, eps_post=None, generator: Optional[torch.Generator] = None):
         y, z = _mc_pseudo(state.teacher, xt1, n_samples, do_consensus_masking, eps_teacher,
-                          generator)
+                          generator, mesh=mesh)
         loss, aux = _joint_loss(state.model, xs, ys, xt2, y, z, eps_source, eps_post,
-                                generator)
+                                generator, mesh)
         m = ramped_momentum(float(state.step), momentum)
-        _apply_updates(state, loss)
+        _apply_updates(state, loss, mesh)
         ema_update(state.teacher, state.model, m)
         return state, _detached(aux)
 
     return step
 
 
-def make_adamt_val_step(*, do_consensus_masking: bool = False, n_samples: int = N_MC_TRAIN):
+def make_adamt_val_step(*, do_consensus_masking: bool = False, n_samples: int = N_MC_TRAIN,
+                        mesh=None):
     """Target-only validation: the teacher's pseudo-label on xt1, the
     model's loss on (xt2, y, z), its MC mean-probability dice against y
     (metric) and yt (gt_metric). ``pda``: ``rng, k_t, k_post, k_mc =
@@ -298,12 +345,13 @@ def make_adamt_val_step(*, do_consensus_masking: bool = False, n_samples: int = 
              eps_mc=None, generator: Optional[torch.Generator] = None):
         return state, _target_val(state, state.teacher, xt1, xt2, yt, n_samples,
                                   do_consensus_masking, eps_teacher, eps_post, eps_mc,
-                                  generator)
+                                  generator, mesh)
 
     return step
 
 
-def make_adamatch_step(*, do_consensus_masking: bool = False, n_samples: int = N_MC_TRAIN):
+def make_adamatch_step(*, do_consensus_masking: bool = False, n_samples: int = N_MC_TRAIN,
+                       mesh=None):
     """AdaMatch (joint FixMatch): AdaMT's loss with the pseudo-label drawn by
     the model itself (gradient-free, before the update) and no EMA.
     ``pda``: ``rng, k_s, k_w, k_post = split(rng, 4)``."""
@@ -311,16 +359,17 @@ def make_adamatch_step(*, do_consensus_masking: bool = False, n_samples: int = N
     def step(state: TrainState, xs, ys, xt, xt1, xt2, yt, *, eps_source=None,
              eps_weak=None, eps_post=None, generator: Optional[torch.Generator] = None):
         y, z = _mc_pseudo(state.model, xt1, n_samples, do_consensus_masking, eps_weak,
-                          generator)
+                          generator, mesh=mesh)
         loss, aux = _joint_loss(state.model, xs, ys, xt2, y, z, eps_source, eps_post,
-                                generator)
-        _apply_updates(state, loss)
+                                generator, mesh)
+        _apply_updates(state, loss, mesh)
         return state, _detached(aux)
 
     return step
 
 
-def make_adamatch_val_step(*, do_consensus_masking: bool = False, n_samples: int = N_MC_TRAIN):
+def make_adamatch_val_step(*, do_consensus_masking: bool = False, n_samples: int = N_MC_TRAIN,
+                           mesh=None):
     """The model's own pseudo-label on xt1, its loss on (xt2, y, z), its MC
     mean-probability dice against y and yt. ``pda``: ``rng, k_w, k_post,
     k_mc = split(rng, 4)``."""
@@ -329,27 +378,28 @@ def make_adamatch_val_step(*, do_consensus_masking: bool = False, n_samples: int
     def step(state: TrainState, xt, xt1, xt2, yt, *, eps_weak=None, eps_post=None,
              eps_mc=None, generator: Optional[torch.Generator] = None):
         return state, _target_val(state, state.model, xt1, xt2, yt, n_samples,
-                                  do_consensus_masking, eps_weak, eps_post, eps_mc, generator)
+                                  do_consensus_masking, eps_weak, eps_post, eps_mc, generator,
+                                  mesh)
 
     return step
 
 
-def make_supervised_unet_step():
+def make_supervised_unet_step(*, mesh=None):
     """Supervised UNet2d training (torch_em's default segmentation trainer):
     ``dice_loss(pred, y)`` on the sigmoid output, one Adam step. No noise."""
 
     def step(state: TrainState, x, y):
-        loss = dice_loss(state.model(x), y)
-        _apply_updates(state, loss)
+        loss = dice_loss(state.model(x), y, mesh=mesh)
+        _apply_updates(state, loss, mesh)
         return state, {"loss": loss.detach()}
 
     return step
 
 
-def make_supervised_unet_val_step():
+def make_supervised_unet_val_step(*, mesh=None):
     @torch.no_grad()
     def step(state: TrainState, x, y):
-        loss = dice_loss(state.model(x), y)
+        loss = dice_loss(state.model(x), y, mesh=mesh)
         return state, {"loss": loss, "metric": loss}
 
     return step

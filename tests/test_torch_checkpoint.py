@@ -242,8 +242,12 @@ def test_warm_start_into_student_and_teacher(tmp_path):
 
 def test_trainer_refuses_what_the_port_lacks(tmp_path, monkeypatch):
     args = ("x", _punet(), *_loaders(False))
-    with pytest.raises(NotImplementedError, match="M11"):
-        ttrain.PUNetTrainer(*args, mesh=object(), device="cpu")
+    # a mesh whose rank lives on another device than the trainer's
+    from pda_torch.parallel import Mesh
+
+    card_mesh = Mesh(None, 2, 0, torch.device("cuda", 0), "nccl")
+    with pytest.raises(ValueError, match="not this rank's mesh device"):
+        ttrain.PUNetTrainer(*args, mesh=card_mesh, device="cpu")
     # mixed precision is pda's bf16 compute now: float32 parameters stay
     mixed = ttrain.PUNetTrainer("x", _punet(), *_loaders(False), mixed_precision=True,
                                 device="cpu")

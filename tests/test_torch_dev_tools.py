@@ -15,6 +15,10 @@ measures against ``pda``'s own formulas.
   * ``learning_smoke`` then ``mt_smoke`` from its checkpoint, 2 iterations
     each: the result lines, and the exit codes their bars give; a source
     run that fails its bar fails ``mt_smoke`` too.
+  * ``dp_check`` at 32^2, PUNet (4, 8, 12, 16), float32 and bf16: two and
+    four gloo ranks against one process, within its bounds; its comparison
+    failing a mean of the gradients, N times their sum, a lost gradient, a
+    skipped and a repeated optimizer step.
 """
 
 import json
@@ -26,11 +30,13 @@ import numpy as np
 import pytest
 import torch
 
-from pda_torch.tools import ab, ab_step_check, bench_loader, e2e_drive, learning_smoke, mt_smoke
+from pda_torch.tools import (ab, ab_step_check, bench_loader, dp_check, e2e_drive, learning_smoke,
+                             mt_smoke)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TOOLS = {"ab_step_check": ab_step_check, "learning_smoke": learning_smoke,
-         "mt_smoke": mt_smoke, "bench_loader": bench_loader, "e2e_drive": e2e_drive}
+         "mt_smoke": mt_smoke, "bench_loader": bench_loader, "e2e_drive": e2e_drive,
+         "dp_check": dp_check}
 
 
 def _run(tool: str, *argv: str, timeout: int = 240):
@@ -154,6 +160,55 @@ def test_learning_smoke_then_mt_smoke(tmp_path):
     before, after = res["gt_dice_before"], res["gt_dice_after"]
     assert 0.0 <= before <= 1.0 and 0.0 <= after <= 1.0
     assert rc == (0 if after >= mt_smoke.FLOOR and after >= before - mt_smoke.DROP else 1), out
+
+
+@pytest.mark.parametrize("world,batch", [(2, 2), (4, 4)])
+def test_dp_check_ranks_match_one_process(world, batch):
+    rc, res, out = _run("dp_check", "--hw", "32", "--filters", "4,8,12,16", "--world", str(world),
+                        "--batch", str(batch))
+    assert rc == 0 and res["ok"], out
+    assert (res["world"], res["batch"], res["backend"], res["card"]) == (world, batch, "gloo",
+                                                                         "cpu")
+    for name in ("f32", "bf16"):
+        assert all(res[name]["passed"].values()), res[name]
+        assert set(res[name]["passed"]) == {"ranks equal", "grad leaves", "loss", "norm", "cos",
+                                            "update"}
+        assert 1.0 - res[name]["cos"] <= dp_check.COS_TOL
+        assert res[name]["update"] <= dp_check.UPDATE_TOL
+    assert res["f32"]["aux_rel"] <= dp_check.F32_LOSS_TOL
+    assert res["f32"]["leaf"] <= dp_check.F32_GRAD_TOL
+    assert abs(res["f32"]["norm_ratio"] - 1.0) <= dp_check.F32_NORM_TOL
+
+
+def _dp_case(fault: str):
+    """(ranks, ref, before) of dp_check's comparison on made-up leaves: the
+    reference an Adam-like first step (each element moved by lr against its
+    gradient's sign) and an EMA teacher; the ranks' results with ``fault``."""
+    gen = torch.Generator().manual_seed(0)
+    before = {k: torch.randn(n, generator=gen) for k, n in (("w", 300), ("b", 12))}
+    grads = {k: torch.randn(v.shape, generator=gen) for k, v in before.items()}
+
+    def result(g, steps):
+        params = {k: v - steps * 1e-2 * torch.sign(grads[k]) for k, v in before.items()}
+        teacher = {k: v + 1e-3 * (params[k] - v) for k, v in before.items()}
+        return {"aux": {"loss": 1.0, "recon_loss": 0.6, "kl": 0.4}, "grads": g,
+                "params": params, "teacher": teacher, "launches": {}}
+
+    scale = {"none": 1.0, "mean": 0.5, "times_n": 2.0, "zero": 0.0}.get(fault, 1.0)
+    steps = {"zero": 0, "skipped_step": 0, "second_step": 2}.get(fault, 1)
+    got = result({k: scale * g for k, g in grads.items()}, steps)
+    return [got, got], result(grads, 1), before
+
+
+@pytest.mark.parametrize("name", ["f32", "bf16"])
+@pytest.mark.parametrize("fault", ["none", "mean", "times_n", "zero", "skipped_step",
+                                   "second_step"])
+def test_dp_check_sees_the_gradients_scale_and_the_step(fault, name):
+    """A mean of the ranks' gradients, a sum N times over, a lost gradient,
+    a skipped or a repeated optimizer step each fail a bound; the exact
+    result passes them all."""
+    passed, _ = dp_check.compare(name, *_dp_case(fault), on_card=False)
+    assert all(passed.values()) == (fault == "none"), passed
 
 
 def test_mt_smoke_fails_when_its_source_run_fails(tmp_path, monkeypatch, capsys):

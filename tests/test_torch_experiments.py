@@ -96,18 +96,25 @@ def test_da_name_and_mesh(monkeypatch):
     args = argparse.Namespace(mesh=None)
     monkeypatch.delenv("PDA_MESH", raising=False)
     assert tcommon.mesh_from_arg(args) is None is jcommon.mesh_from_arg(args)
-    for spec in ("auto", "data=2", "data=2,space=2"):
-        with pytest.raises(NotImplementedError, match="M11"):
-            tcommon.mesh_from_arg(argparse.Namespace(mesh=spec))
+    # --mesh gives a data mesh over torch.distributed: without a launcher a
+    # world of 1, data=N > 1 says how to launch, space=M > 1 is M11 part 2
+    mesh = tcommon.mesh_from_arg(argparse.Namespace(mesh="auto"), "cpu")
+    try:
+        assert (mesh.world, mesh.rank, mesh.backend) == (1, 0, "gloo")
+    finally:
+        mesh.destroy()
+    with pytest.raises(ValueError, match="torchrun --nproc-per-node 2"):
+        tcommon.mesh_from_arg(argparse.Namespace(mesh="data=2"), "cpu")
+    with pytest.raises(NotImplementedError, match="M11 part 2"):
+        tcommon.mesh_from_arg(argparse.Namespace(mesh="data=2,space=2"), "cpu")
     # the domain-adaptation CLIs raise before they read anything
     monkeypatch.setattr(tda, "livecell_punet", FakeModel.factory)
     for name in THIN:
-        with pytest.raises(NotImplementedError, match="M11"):
-            port_cli(name).main(["--train", "--mesh", "auto"], cell_types=CELLS, device="cpu")
-    for name in ("livecell_punet", "livecell_unet"):
-        mod = port_cli(name)
-        with pytest.raises(NotImplementedError, match="M11"):
-            mod.mesh_from_arg(mod.get_parser().parse_args(["--mesh", "data=2"]))
+        with pytest.raises(ValueError, match="torchrun --nproc-per-node 2"):
+            port_cli(name).main(["--train", "--mesh", "data=2"], cell_types=CELLS, device="cpu")
+    for name in ("livecell_punet", "livecell_unet"):  # their own --mesh option
+        with pytest.raises(ValueError, match="torchrun --nproc-per-node 2"):
+            port_cli(name).main(["--train", "--mesh", "data=2"], cell_types=CELLS, device="cpu")
 
 
 @pytest.mark.parametrize("recipe", ["weak_augmentations", "fm_strong_augmentations",
