@@ -64,7 +64,16 @@ Phases, each of which fails the run (exit code 1) on any error or miss
                 parameter, gradient and teacher tensor; the frame), every
                 kernel launched on the sharded path (bf16: on the wgmma
                 bodies); both legs timed, and the gradient bucket's
-                all-reduce alone
+                all-reduce alone. Then the (data, space) mesh: a (1, 1)
+                mesh (NCCL, its data and space groups of one rank) whose MT
+                step is bit-equal to no mesh in float32 and bf16; and the
+                row-sharded block's local function on the card
+                (models.blocks.conv_block_rows): 2 and 4 row shards of
+                2 x 512^2, each shard's rows extended by slicing the whole
+                tensor, on every route of the flagship step (single, pooled
+                "with" and "only", dual, mixed) forward and backward, and
+                the mc_consensus tail on row shards, float32 and bf16,
+                held against the whole-image launch (ROW_SHARD_BOUNDS)
   8. algorithms — fault 3.1: K3 at C = 16 and 20 (zero-padded to 24)
                 against its plain version, a PUNet at num_filters (16, 32,
                 48, 64) and a 2-class one through mc_pseudo and the
@@ -2032,6 +2041,7 @@ def phase_parallel(dev, results):
         seconds[part] = round(time.perf_counter() - t0, 2)
         t0 = time.perf_counter()
 
+    refs = {}
     mesh = get_mesh(1, device=dev)
     mesh.barrier()  # NCCL sets its communicator up at the first collective
     ok = mesh.world == 1 and mesh.backend == "nccl" and mesh.device == dev
@@ -2077,7 +2087,8 @@ def phase_parallel(dev, results):
                 f"{counts}, by backward mode {modes}{routes} "
                 f"{'ok' if good and equal else 'FAIL'}")
             ok &= good and equal
-            del plain, sharded
+            refs[dtype] = (model, batch, noise, plain, aux)  # the (1, 1) mesh's reference
+            del sharded
             lap(f"{dtype} check")
             if not bf16:  # the reason for matrix_upsample: F.interpolate's two runs
                 one, two = bf16_state(model, dev), bf16_state(model, dev)
@@ -2125,9 +2136,220 @@ def phase_parallel(dev, results):
         log(f"time parallel tiled_punet_probs MC-{MC} 520x704: {mesh_ms:.2f} ms/frame on the "
             f"mesh against {ms:.2f} without ({mesh_ms - ms:+.2f} ms)")
         lap("tiles")
+        mesh.destroy()  # one mesh a process: the (data, space) mesh's turn
+        ok &= check_mesh_2d(dev, results, wrappers, refs)
+        refs.clear()
+        lap("2-D mesh")
+        ok &= check_row_shards(dev, wrappers)
+        lap("row shards")
     finally:
         mesh.destroy()
     log(f"parallel seconds by part: {seconds}")
+    return ok
+
+
+#: the row-shard check's routes at 2 x 512^2: (name, x (B, H, W, C), the
+#: skip's channels (dual) or 0, C out, pool_out, mixed): the deepest single
+#: block, the backbone's and the posterior's level-0 pooled blocks, the top
+#: decoder block, and the deepest block in the mixed mode
+ROW_SHARD_ROUTES = (("single", (2, 64, 64, 256), 0, 512, None, False),
+                    ("with", (2, 512, 512, 1), 0, 64, "with", False),
+                    ("only", (2, 512, 512, 2), 0, 64, "only", False),
+                    ("dual", (2, 512, 512, 128), 64, 64, None, False),
+                    ("mixed", (2, 64, 64, 256), 0, 512, None, True))
+#: the row shards' outputs against the whole image's launch, as a share of
+#: the whole's largest |value|: forward outputs and K3's maps (each pixel's
+#: sums in one order whatever the rows around it), the input gradients
+#: (two shards' partial sums added at a seam) and the weights' gradients
+#: (their sums split over the shards); bf16: both gradients rounded to bf16
+#: after sums split otherwise, two ulps of the largest; the mixed route's
+#: outputs (cuDNN's forward) take the input gradients' bound, and its
+#: recompute backward runs from the whole image's h3 rows
+ROW_SHARD_BOUNDS = {"float32": {"out": 0.0, "dx": 4e-6, "dw": 1e-5},
+                    "bfloat16": {"out": 0.0, "dx": 2.0 ** -7, "dw": 2.0 ** -7}}
+
+
+def check_row_shards(dev, wrappers):
+    """The row-sharded block's local function (conv_block_rows) on the card:
+    for 2 and 4 row shards of each ROW_SHARD_ROUTES shape, every shard's
+    rows extended by HALO rows on each inner side (sliced from the whole
+    tensor, as the halo exchange delivers them), forward and backward
+    against the whole image's launch of the same route, float32 and bf16;
+    then the mc_consensus tail on row shards of a 2 x 512^2 feature term.
+    Launches counted (a check's: logged only), every route's kernels and
+    modes launched, bf16 on the wgmma bodies. Returns ok."""
+    import torch
+
+    from pda_torch.kernels.conv_block import conv_block_bwd
+    from pda_torch.kernels.mc_consensus import mc_consensus
+    from pda_torch.models.blocks import HALO, conv_block_rows
+    from pda_torch.tools.ab import read_launches, reset_launches
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 19)
+    ok = True
+    for dtype in (torch.float32, torch.bfloat16):
+        bounds = ROW_SHARD_BOUNDS[str(dtype).split(".")[1]]
+        bf16 = dtype == torch.bfloat16
+        reset_launches(wrappers)
+        worst = {"out": 0.0, "dx": 0.0, "dw": 0.0}
+        for name, shape, cb, cout, pool_out, mixed in ROW_SHARD_ROUTES:
+            b, h, w, cin = shape
+            weights = []
+            for ci in (cin + cb, cout, cout):
+                weights += [torch.randn(3, 3, ci, cout, generator=gen, device=dev)
+                            * (2.0 / (9 * ci)) ** 0.5,
+                            1e-3 * torch.randn(cout, generator=gen, device=dev)]
+            x = torch.randn(shape, generator=gen, device=dev).to(dtype)
+            xb = (torch.randn(b, h, w, cb, generator=gen, device=dev).to(dtype) if cb
+                  else None)
+            cots = [torch.randn(b, h, w, cout, generator=gen, device=dev)]
+            if pool_out:
+                cots = ([] if pool_out == "only" else cots) + [
+                    torch.randn(b, h // 2, w // 2, cout, generator=gen, device=dev)]
+
+            # the entry blocks (Cin 1, 2) read the network's input, whose
+            # gradient the main path never asks for (their dx is off the wgmma
+            # route); every other block's input gradient is held
+            need_dx = cin >= 8
+
+            def run(rows, top, bottom):
+                """conv_block_rows on the rows ``rows`` extended by ``top``,
+                ``bottom``: its outputs, and the gradients of the inputs (on
+                the extended rows; none for an entry block) and the weights."""
+                xs = [t[:, rows.start - top:rows.stop + bottom].detach().clone()
+                      .requires_grad_(need_dx) for t in (x, xb) if t is not None]
+                ws = [t.detach().clone().requires_grad_() for t in weights]
+                out = conv_block_rows(xs[0], ws, top, bottom, xb=xs[1] if cb else None,
+                                      pool_out=pool_out, mixed=mixed)
+                outs = list(out) if isinstance(out, tuple) else [out]
+                loss = sum((o.float() * c[:, rows.start // k:rows.stop // k]).sum()
+                           for o, c in zip(outs, cots) for k in [h // c.shape[1]])
+                if not mixed:
+                    loss.backward()
+                    return ([o.detach().float() for o in outs],
+                            [t.grad.float() for t in xs if need_dx], [t.grad for t in ws])
+                # the mixed forward is cuDNN's (pda's XLA convs), whose algorithm, and so
+                # its last bits, may change with the rows: hold the recompute backward on
+                # the extended rows from the whole image's h3 (and its ReLU mask)
+                sl = slice(rows.start - top, rows.stop + bottom)
+                h3 = whole_h3[:, sl].contiguous()
+                g = torch.zeros_like(h3)
+                g[:, top:top + rows.stop - rows.start] = cots[0][:, rows].to(dtype)
+                dx, *dw = conv_block_bwd(g, xs[0].detach(), None, None, h3, *weights[0::2],
+                                         need_dx=True, b1=weights[1], b2=weights[3])
+                return [o.detach().float() for o in outs], [dx.float()], dw
+
+            whole_h3 = (conv_block_rows(x, weights, 0, 0, mixed=True).detach() if mixed
+                        else None)
+            whole_out, whole_dx, whole_dw = run(slice(0, h), 0, 0)
+            for m in (2, 4):
+                rows_m = h // m
+                outs, dws = [[] for _ in whole_out], None
+                dxs = [torch.zeros_like(d) for d in whole_dx]
+                for s in range(m):
+                    top, bottom = (HALO if s > 0 else 0), (HALO if s < m - 1 else 0)
+                    rows = slice(s * rows_m, (s + 1) * rows_m)
+                    out, dx, dw = run(rows, top, bottom)
+                    for i, o in enumerate(out):
+                        outs[i].append(o)
+                    for acc, d in zip(dxs, dx):
+                        acc[:, rows.start - top:rows.stop + bottom] += d
+                    dws = dw if dws is None else [a + c for a, c in zip(dws, dw)]
+                errs = {"out": max(float((torch.cat(o, 1) - r).abs().max())
+                                   / max(float(r.abs().max()), 1e-30)
+                                   for o, r in zip(outs, whole_out)),
+                        "dx": max((float((d - r).abs().max()) / max(float(r.abs().max()), 1e-30)
+                                   for d, r in zip(dxs, whole_dx)), default=0.0),
+                        "dw": max(float((d - r).abs().max()) / max(float(r.abs().max()), 1e-30)
+                                  for d, r in zip(dws, whole_dw))}
+                # the mixed forward, cuDNN's, within an ulp (the gradients' bound)
+                good = all(errs[k] <= bounds["dx" if mixed and k == "out" else k] for k in errs)
+                worst = {k: max(worst[k], errs[k]) for k in worst}
+                log(f"parallel row shards {name} {tuple(shape)} x{m} {str(dtype)[6:]}: out "
+                    f"{errs['out']:.2e}, dx {errs['dx']:.2e}, dW/db {errs['dw']:.2e} of the "
+                    f"largest (bounds {bounds}) {'ok' if good else 'FAIL'}")
+                ok &= good
+        # the MC tail on row shards: a per-pixel op, each shard's rows alone
+        feat = torch.randn(2, 512, 512, 64, generator=gen, device=dev).to(dtype)
+        z = torch.randn(MC, 2, 64, generator=gen, device=dev)
+        tail = (0.2 * torch.randn(1, 64, 64, generator=gen, device=dev),
+                0.1 * torch.randn(1, 64, generator=gen, device=dev),
+                0.5 * torch.randn(64, 1, generator=gen, device=dev),
+                torch.zeros(1, device=dev))
+        with torch.no_grad():
+            whole = mc_consensus(feat, z, *tail, masking=True)
+            for m in (2, 4):
+                parts = [mc_consensus(feat[:, s * 512 // m:(s + 1) * 512 // m].contiguous(), z,
+                                      *tail, masking=True) for s in range(m)]
+                same = all(torch.equal(torch.cat([p[i] for p in parts], 1), whole[i])
+                           for i in range(2))
+                log(f"parallel row shards mc_consensus 2x512^2x64 x{m} {str(dtype)[6:]}: "
+                    f"pseudo and consensus bit-equal {same} {'ok' if same else 'FAIL'}")
+                ok &= same
+        counts = read_launches(wrappers, bf16)
+        modes = mode_launches(wrappers, bf16)
+        good = (all(counts.values()) and modes["conv_block_bwd_pool"] > 0
+                and modes["conv_block_bwd_recompute"] > 0)
+        routes = ""
+        if bf16:
+            on, got = all_on_wgmma(wrappers)
+            good &= on
+            routes = f", on the wgmma bodies {got}"
+        log(f"parallel row shards {str(dtype)[6:]}: worst {worst}; launches {counts}, by "
+            f"backward mode {modes}{routes} {'ok' if good else 'FAIL'}")
+        ok &= good
+    return ok
+
+
+def check_mesh_2d(dev, results, wrappers, refs):
+    """A (1, 1) (data, space) mesh in this process (NCCL, a HashStore; its
+    data and space groups of one rank, each set up by an all-reduce): the
+    flagship MT step at 512^2, batch 2, float32 and bf16, on the mesh from
+    the state, batch and noise of the data mesh's check, whose step without
+    a mesh (``refs``: dtype -> (model, batch, noise, state after, aux)) it is
+    held against, under matrix_upsample as that was: bit-equal (loss, every
+    parameter, gradient and teacher tensor); every kernel launched on the
+    mesh's step (counted in the JSON line: a main path's run), bf16 on the
+    wgmma bodies. Returns ok."""
+    import torch
+
+    from pda_torch.parallel import get_mesh_2d
+    from pda_torch.tools.ab import reset_launches
+    from pda_torch.train import make_mean_teacher_step
+
+    mesh = get_mesh_2d(1, 1, device=dev)
+    ok = (mesh.shape == {"data": 1, "space": 1} and mesh.backend == "nccl"
+          and mesh.space.world == mesh.axis("data").world == 1)
+    log(f"parallel 2-D mesh: {mesh}, space group {mesh.space.ranks}, data group "
+        f"{mesh.axis('data').ranks} {'ok' if ok else 'FAIL'}")
+    try:
+        for dtype, (model, batch, noise, plain, aux) in refs.items():
+            bf16 = dtype == "bf16"
+            sink = (results if not bf16 or bf16_name("conv_block_fwd") in results
+                    else collections.defaultdict(lambda: {"launches": 0}))
+            mstep = make_mean_teacher_step(momentum=MT_MOMENTUM, do_consensus_masking=True,
+                                           mesh=mesh)
+            with matrix_upsample():
+                sharded = bf16_state(model, dev)
+                reset_launches(wrappers)
+                _, maux = mstep(sharded, *batch, **noise)
+                torch.cuda.synchronize()
+            counts = counted_launches(wrappers, sink, bf16)
+            modes = mode_launches(wrappers, bf16)
+            good = counts == MT_LAUNCHES and modes == MT_MODE_LAUNCHES
+            if bf16:
+                good &= all_on_wgmma(wrappers)[0]
+            equal = (all(float(aux[k]) == float(maux[k]) for k in aux)
+                     and same_bits(plain, sharded))
+            log(f"parallel MT step {MT_TIME_PATCH}^2 batch {MT_BATCH} {dtype} on the (1, 1) "
+                f"mesh: loss {float(maux['loss']):.6f} (no mesh {float(aux['loss']):.6f}), "
+                f"bit-equal {equal} (max param diff {max_param_diff(plain, sharded):.3e}); "
+                f"launches {counts}, by backward mode {modes} "
+                f"{'ok' if good and equal else 'FAIL'}")
+            ok &= good and equal
+            del sharded
+    finally:
+        mesh.destroy()
     return ok
 
 

@@ -64,8 +64,9 @@ def distribution_alignment(pseudo: torch.Tensor, source_distribution, *,
     The target's binary class frequency is the foreground share
     ``fg = mean(pseudo >= 0.5)``; ``ratio = source / ([1 - fg, fg] + eps)``
     (``source_distribution`` = [bg, fg]); each pseudo-label is scaled by the
-    ratio of its side of 0.5 and clipped to [0, 1]. On a data ``mesh`` the
-    frequency is the global batch's (the ranks' mean of theirs)."""
+    ratio of its side of 0.5 and clipped to [0, 1]. On a ``mesh`` the
+    frequency is the global batch's (the ranks' mean of theirs; on a 2-D
+    mesh over data x space, whose shards are of one size)."""
     fg = (pseudo >= 0.5).to(pseudo.dtype).mean()
     if mesh is not None:
         fg = mesh.all_reduce(fg) / mesh.world

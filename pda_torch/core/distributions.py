@@ -8,7 +8,9 @@ On a data mesh (:mod:`pda_torch.parallel`) a draw is the rank's slice of the
 global batch's noise (:func:`sharded_normal`, ``pda``'s): ``eps`` is then
 the global batch's, and a generator draws the global batch's, so every rank,
 its generator in the same state as the others', keeps its own rows of one
-draw and a sharded step sees the noise of the single-device step.
+draw and a sharded step sees the noise of the single-device step. On a
+(``data``, ``space``) mesh the rows are those of the rank's ``data`` index:
+the row shards of one image share its noise.
 """
 
 from __future__ import annotations
@@ -17,6 +19,8 @@ import math
 from typing import NamedTuple, Optional
 
 import torch
+
+from ..parallel.mesh import DATA_AXIS
 
 
 def sharded_normal(shape, eps: Optional[torch.Tensor] = None,
@@ -27,6 +31,8 @@ def sharded_normal(shape, eps: Optional[torch.Tensor] = None,
     ranks: the global shape (``shape[batch_axis] * N``) is drawn from
     ``generator`` or taken from ``eps``, and this rank's block of rows on
     ``batch_axis`` comes back, contiguous (``pda``'s ``sharded_normal``)."""
+    if mesh is not None:
+        mesh = mesh.axis(DATA_AXIS)
     n = 1 if mesh is None else mesh.world
     gshape = list(shape)
     gshape[batch_axis] *= n

@@ -12,8 +12,14 @@ is value-global and gradient-local (:func:`_gsum`, :func:`_gmean`): the
 forward value is the global batch's, so the dice ratio sees the operands of
 the single-device program, while autograd sees only the rank's own term, so
 no collective is ever differentiated. Summing the ranks' gradients
-(``steps._apply_updates``) then gives the single-device gradient. ``pda``'s
-``space_axis`` (image rows sharded) is ROADMAP M11 part 2.
+(``steps._apply_updates``) then gives the single-device gradient.
+
+On a (``data``, ``space``) mesh (``pda``'s ``space_axis``) the pixel sums
+(the dice's, the BCE's) cross the world, the KL's batch mean the ``data``
+axis only (each row shard holds its images' whole statistics, the encoders'
+mean being space-global), and the KL, computed alike on every row shard,
+enters the differentiated objective with 1/M of its gradient and its whole
+value, so that the world's gradient sum counts it once.
 """
 
 from __future__ import annotations
@@ -22,6 +28,7 @@ from typing import Optional
 
 import torch
 
+from ..parallel.mesh import DATA_AXIS, SPACE_AXIS
 from .distributions import DiagGaussian, kl_divergence, mc_kl_divergence
 
 
@@ -91,14 +98,15 @@ def neg_elbo(reconstruction_logits: torch.Tensor, segm: torch.Tensor,
     consensus multiplies the LOGITS (and the targets), so a masked pixel's
     logit is 0 and its sigmoid of 0.5 still enters the dice denominators.
     ``aux`` holds ``recon_loss`` and ``kl``. On a ``mesh`` the KL mean, the
-    dice sums and the BCE sum are the global batch's."""
+    dice sums and the BCE sum are the global batch's (module docstring)."""
+    data = None if mesh is None else mesh.axis(DATA_AXIS)
     if analytic_kl:
-        kl = _gmean(kl_divergence(posterior, prior), mesh)
+        kl = _gmean(kl_divergence(posterior, prior), data)
     else:
         if z_posterior is None:
             raise ValueError("analytic_kl=False requires the posterior draw "
                              "z_posterior that produced the reconstruction")
-        kl = _gmean(mc_kl_divergence(posterior, prior, z_posterior), mesh)
+        kl = _gmean(mc_kl_divergence(posterior, prior, z_posterior), data)
     rec_in, seg_in = reconstruction_logits, segm
     if consensus_masking and consensus_mask is not None:
         rec_in, seg_in = rec_in * consensus_mask, seg_in * consensus_mask
@@ -106,4 +114,8 @@ def neg_elbo(reconstruction_logits: torch.Tensor, segm: torch.Tensor,
         recon = dice_loss_with_logits(rec_in, seg_in, mesh=mesh)
     else:
         recon = _gsum(torch.sum(bce_with_logits(rec_in, seg_in)), mesh)
-    return recon + beta * kl, {"recon_loss": recon, "kl": kl}
+    kl_term = kl
+    if mesh is not None and SPACE_AXIS in mesh.shape:
+        local = kl.detach()
+        kl_term = local + (kl - local) / mesh.n_space
+    return recon + beta * kl_term, {"recon_loss": recon, "kl": kl}

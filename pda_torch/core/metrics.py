@@ -31,7 +31,8 @@ def dice_score_torch(segmentation: torch.Tensor, groundtruth: torch.Tensor,
                      threshold_gt: Optional[float] = None, mesh=None) -> torch.Tensor:
     """Torch twin of :func:`dice_score`, float32, a 0-d tensor; on a data
     ``mesh`` the numerator and the denominator are summed over the ranks
-    before the ratio, so the score is the global batch's."""
+    (on a 2-D mesh over data x space, ``pda``'s ``_with_space``) before the
+    ratio, so the score is the global batch's."""
     seg = segmentation if threshold_seg is None else segmentation > threshold_seg
     gt = groundtruth if threshold_gt is None else groundtruth > threshold_gt
     seg, gt = seg.to(torch.float32), gt.to(torch.float32)

@@ -25,7 +25,10 @@ default, so every batch has one shape.
 On a data mesh (:mod:`pda_torch.parallel`) ``shard=(rank, world)`` makes the
 loader fetch only the rank's rows of every global batch (the same samples,
 by the seeding above, with 1/world of the host work); a batch that
-``world`` does not divide raises.
+``world`` does not divide raises. On a (data, space) mesh ``set_shard(...,
+space=(index, M))`` also hands the rank its rows of each image (axis 1 of
+an array of 3 or more axes): the samples are drawn whole, as one process
+draws them, and cut after.
 """
 
 from __future__ import annotations
@@ -121,18 +124,25 @@ class Loader:
         self._pending_pool = None  # a process pool before its first fetch succeeded
         #: (rank, world): fetch only that rank's rows of each batch
         self.shard = None
+        #: (index, n_space): keep only that row shard of each image
+        self.space = None
         if shard is not None:
             self.set_shard(*shard)
 
-    def set_shard(self, rank: int, world: int) -> None:
+    def set_shard(self, rank: int, world: int, space=None) -> None:
         """Fetch only rank ``rank``'s rows of each batch on a mesh of
-        ``world`` ranks; raises where ``world`` does not divide the batch."""
+        ``world`` ranks (on a 2-D mesh: the data index and the data axis);
+        raises where ``world`` does not divide the batch. ``space=(index,
+        M)``: keep row shard ``index`` of M of each image, which raises where
+        M does not divide its height."""
         from ..parallel.mesh import rank_rows  # not at import: the workers import no torch
 
         if not 0 <= rank < world:
             raise ValueError(f"shard: rank {rank} is not in a world of {world}")
         rank_rows(self.batch_size, rank, world)
-        self.shard = (rank, world)
+        if space is not None and not 0 <= space[0] < space[1]:
+            raise ValueError(f"shard: row shard {space[0]} is not one of {space[1]}")
+        self.shard, self.space = (rank, world), space
 
     # ------------------------------------------------------------------ pool
 
@@ -240,9 +250,14 @@ class Loader:
         rng = np.random.default_rng((self.seed, epoch, int(index)))
         return self.dataset.sample(int(index), rng)
 
-    @staticmethod
-    def _stack(samples: Sequence[tuple]) -> tuple:
-        return tuple(np.stack([s[f] for s in samples], axis=0) for f in range(len(samples[0])))
+    def _stack(self, samples: Sequence[tuple]) -> tuple:
+        batch = tuple(np.stack([s[f] for s in samples], axis=0) for f in range(len(samples[0])))
+        if self.space is None:
+            return batch
+        from ..parallel.mesh import space_rows
+
+        return tuple(b[:, space_rows(b.shape[1], *self.space)] if b.ndim >= 3 else b
+                     for b in batch)
 
     def __iter__(self) -> Iterator[tuple]:
         epoch = self._epoch

@@ -7,9 +7,11 @@ The weak views run in the native library under ``PDA_NATIVE_AUGS`` (default
 built on the card unless the caller passes ``device="cpu"``. Checkpoint names are ``pda``'s, which
 are the reference's (they tie the --train, --predict and --evaluate phases
 together); as in ``pda``, masking takes precedence over weighting in a name.
-``--mesh`` is parsed as ``pda`` parses it and gives a data mesh over
-``torch.distributed`` (:mod:`pda_torch.parallel`), one process a rank:
-``torchrun --nproc-per-node N -m pda_torch.experiments.<cli> --mesh data=N``.
+``--mesh`` is parsed as ``pda`` parses it and gives a data mesh, or a
+(data, space) mesh that also shards image rows, over ``torch.distributed``
+(:mod:`pda_torch.parallel`), one process a rank:
+``torchrun --nproc-per-node N -m pda_torch.experiments.<cli> --mesh data=N``,
+``torchrun --nproc-per-node N*M ... --mesh data=N,space=M``.
 """
 
 from __future__ import annotations
@@ -146,19 +148,19 @@ def standard_parser(description: str, extra_flags=()) -> argparse.ArgumentParser
 
 
 #: what ``--mesh`` takes in the port
-MESH_HELP = ("Data mesh over torch.distributed, one process a rank (additive over the "
-             "reference CLI): 'auto' (the launcher's world, or 1 without torchrun) or "
-             "'data=N' (launch with torchrun --nproc-per-node N); 'data=N,space=M' with M > 1 "
-             "(image-row sharding) is not ported yet")
+MESH_HELP = ("Mesh over torch.distributed, one process a rank (additive over the "
+             "reference CLI): 'auto' (the launcher's world, or 1 without torchrun), "
+             "'data=N' (launch with torchrun --nproc-per-node N) or 'data=N,space=M' "
+             "(M-way image-row sharding; torchrun --nproc-per-node N*M)")
 
 
 def mesh_from_arg(args, device: Device = "cuda"):
-    """The data mesh asked for by ``--mesh`` (or the ``PDA_MESH`` environment
+    """The mesh asked for by ``--mesh`` (or the ``PDA_MESH`` environment
     variable), on ``device`` (its rank's card, or the CPU): None without
     one. ``auto`` is the launcher's world (a world of 1 without one);
     ``data=N`` needs a world of N (launched by ``torchrun --nproc-per-node
-    N``) and raises, saying so, in another; ``data=N,space=M`` parses as in
-    ``pda``, and M > 1 raises (ROADMAP M11 part 2)."""
+    N``) and raises, saying so, in another; ``data=N,space=M`` with M > 1
+    is the (data, space) mesh of N * M ranks, as in ``pda``."""
     spec = getattr(args, "mesh", None) or os.environ.get("PDA_MESH")
     if not spec:
         return None
@@ -180,7 +182,7 @@ def mesh_from_arg(args, device: Device = "cuda"):
     if axes:
         raise ValueError(f"unknown mesh axes in --mesh: {sorted(axes)}")
     if n_space > 1:
-        return get_mesh_2d(n_data, n_space)
+        return get_mesh_2d(n_data, n_space, device=device)
     return get_mesh(n_data, device=device)
 
 

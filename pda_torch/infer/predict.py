@@ -26,7 +26,10 @@ MC-consensus kernel) -> mean on its block of tiles with its slice of the
 padded batch's noise, the means are gathered, the padding cropped and the
 frame stitched on every rank; :func:`punet_prediction` writes from rank 0.
 When the mesh divides the tile count (no padding) the map is the
-single-device one, bit for bit: the noise is the same draw.
+single-device one, bit for bit: the noise is the same draw. On a
+(``data``, ``space``) mesh the tiles are sharded over all N x M ranks, as
+``pda``'s 2-D path shards them over every device (:meth:`Mesh.flat
+<pda_torch.parallel.Mesh.flat>`); no tile's rows are split.
 """
 
 from __future__ import annotations
@@ -72,6 +75,7 @@ def tiled_punet_probs(model: ProbabilisticUnet, image: torch.Tensor, eps: Noise,
     tiles = tile_standardize(extract_tiles(image, block, halo))
     n_tiles = tiles.shape[0]
     if mesh is not None:
+        mesh = mesh.flat()
         pad = padded_tiles(n_tiles, mesh) - n_tiles
         tiles = torch.cat([tiles, tiles.new_zeros((pad, *tiles.shape[1:]))])
         tiles = tiles[mesh.rows(n_tiles + pad)]

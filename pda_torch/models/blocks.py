@@ -41,6 +41,19 @@ float32. A bf16 block casts its input to bf16 (``pda``'s
 pool, the upsample and the Dense layers follow ``pda``'s XLA code in bf16
 (:func:`avg_pool_2x2`, :func:`upsample_2x_align_corners`, :func:`dense`).
 
+Row sharding (the (``data``, ``space``) mesh, :mod:`pda_torch.parallel`):
+inside :func:`space_sharding` (the steps enter it on a 2-D mesh, as
+``pda``'s engine enters its trace-time context) the image rows are sharded
+over the space axis. A 3-conv block then extends its row shard by
+:data:`HALO` rows from each neighbour (:func:`~pda_torch.parallel.space.halo_rows`),
+runs the kernel route it runs unsharded on the extended rows
+(:func:`conv_block_rows`) and crops; a shard at the image's edge is
+extended on its inner side only, where the kernel's own SAME padding is the
+unsharded block's (``pda`` extends it by zeros and recomputes its
+``_EDGE_FIX`` rows from a strip). The align-corners upsample takes one row
+from each neighbour (:func:`upsample_2x_align_corners_rows`). A block of
+another depth raises.
+
 Initialization follows ``pda`` (reference my_models/utils.py:17-28), each
 draw from an explicit ``torch.Generator``:
   * conv kernels: He normal (fan_in, ReLU gain), untruncated
@@ -50,6 +63,8 @@ draw from an explicit ``torch.Generator``:
 
 from __future__ import annotations
 
+import contextlib
+import functools
 import math
 import os
 from typing import Optional, Sequence, Tuple
@@ -61,12 +76,40 @@ from torch import nn
 from ..kernels.conv_block import (autodiff_conv_relu, avg_pool_2x2, conv_block_fwd,
                                   conv_block_fwd_dual, conv_block_fwd_dual_mixed,
                                   conv_block_fwd_mixed, conv_block_fwd_pool)
+from ..parallel.space import halo_rows
 
 #: convs per block by default; the fused kernels implement exactly this depth
 N_CONVS = 3
 #: the compute dtypes a model takes: float32, or ``pda``'s bf16 configuration
 COMPUTE_DTYPES = (torch.float32, torch.bfloat16)
 _BF16 = torch.bfloat16
+#: rows a row shard takes from each neighbour before a 3-conv block: its
+#: three convs reach 3 rows; even, so a pooled output crops by HALO / 2
+HALO = 4
+#: the fewest rows of a row shard at any block: ``pda``'s boundary-fix
+#: minimum (``blocks._conv3_space_sharded``), kept so that the port accepts
+#: and refuses the geometries ``pda``'s halo path does
+MIN_SHARD_ROWS = 9
+
+_SPACE = None
+
+
+@contextlib.contextmanager
+def space_sharding(space):
+    """Image rows (H of NHWC) are sharded over ``space`` (a mesh's space
+    axis, :meth:`pda_torch.parallel.Mesh.axis`) while the block runs
+    (``pda``'s ``space_sharding``)."""
+    global _SPACE
+    prev, _SPACE = _SPACE, space
+    try:
+        yield
+    finally:
+        _SPACE = prev
+
+
+def space_axis():
+    """The space axis the rows are sharded over now, or None."""
+    return _SPACE
 
 
 class ComputeDtype:
@@ -134,15 +177,15 @@ def mixed_mode() -> bool:
     return os.environ.get("PDA_PALLAS_CONV_MODE", "full") == "mixed"
 
 
-def _upsample_matrix(n: int) -> torch.Tensor:
+def _upsample_matrix(n: int, dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """(2n, n) align-corners bilinear interpolation matrix (``pda``'s
     ``blocks._upsample_matrix``): row t holds the lerp weights (1 - frac,
-    frac) at columns (lo, hi)."""
+    frac) at columns (lo, hi), in float32 as ``pda``'s (or in ``dtype``)."""
     t = torch.arange(2 * n, dtype=torch.float64) * ((n - 1) / (2 * n - 1))
     lo = t.floor().long()
     hi = (lo + 1).clamp(max=n - 1)
-    frac = (t - lo).float()
-    mat = torch.zeros(2 * n, n)
+    frac = (t - lo).to(dtype)
+    mat = torch.zeros(2 * n, n, dtype=dtype)
     rows = torch.arange(2 * n)
     mat.index_put_((rows, lo), 1.0 - frac, accumulate=True)
     mat.index_put_((rows, hi), frac, accumulate=True)
@@ -163,6 +206,43 @@ def upsample_2x_align_corners(x: torch.Tensor) -> torch.Tensor:
     up = F.interpolate(x.permute(0, 3, 1, 2), scale_factor=2, mode="bilinear",
                        align_corners=True)
     return up.permute(0, 2, 3, 1).contiguous()
+
+
+@functools.lru_cache(maxsize=64)
+def _upsample_rows_matrix(hl: int, n: int, s: int, dtype: torch.dtype) -> torch.Tensor:
+    """Row shard ``s`` of ``n``'s block (2 hl, hl + 2) of the (2H, H)
+    interpolation matrix, H = n hl, zero-padded by a column on each side."""
+    m_full = F.pad(_upsample_matrix(hl * n, dtype), (1, 1))
+    return m_full[2 * hl * s:2 * hl * (s + 1), hl * s:hl * s + hl + 2].contiguous()
+
+
+def upsample_2x_align_corners_rows(x: torch.Tensor, space) -> torch.Tensor:
+    """The align-corners x2 upsample of a row shard (``pda``'s
+    ``upsample_2x_align_corners_sharded``): the shard's 2h output rows
+    interpolate input rows ``[s h - 1, (s + 1) h]``, one row from each
+    neighbour (a zero row at the image's edge, where its weight is 0), by
+    the shard's block of the (2H, H + 2) interpolation matrix zero-padded by
+    a column on each side, then the columns; a contraction in float32 too
+    (``F.interpolate``'s CUDA backward adds with atomics), in bf16 as
+    :func:`upsample_2x_align_corners` rounds. A space axis of 1 is the
+    unsharded upsample."""
+    if space is None or space.world == 1:
+        return upsample_2x_align_corners(x)
+    b, hl, w, c = x.shape
+    s = space.rank
+    (ext,), top, bottom = halo_rows((x,), 1, space)
+    zero = x.new_zeros((b, 1, w, c))
+    ext = torch.cat([*([] if top else [zero]), ext, *([] if bottom else [zero])], dim=1)
+    # float32 weights, as pda's; a float64 reference run's in float64
+    mdt = torch.float64 if x.dtype == torch.float64 else torch.float32
+    m_loc, ww = _upsample_rows_matrix(hl, space.world, s, mdt), _upsample_matrix(w, mdt)
+    if x.dtype == _BF16:
+        m_loc, ww = (m.to(_BF16).float().to(x.device) for m in (m_loc, ww))
+        y = torch.einsum("Hh,bhwc->bHwc", m_loc, ext.float()).to(_BF16)
+        return torch.einsum("Ww,bhwc->bhWc", ww, y.float()).to(_BF16).contiguous()
+    m_loc, ww = (m.to(x.device, x.dtype) for m in (m_loc, ww))
+    y = torch.einsum("Hh,bhwc->bHwc", m_loc, ext)
+    return torch.einsum("Ww,bhwc->bhWc", ww, y).contiguous()
 
 
 class ConvParams(nn.Module):
@@ -247,12 +327,55 @@ def conv_block(x: torch.Tensor, convs: Sequence[ConvParams], pool: bool,
         x = avg_pool_2x2(x)
     x = compute(x, dtype)
     if len(convs) != N_CONVS:
+        if _SPACE is not None:
+            raise ValueError("space sharding supports the 3-conv blocks only")
         return conv_relu_layers(x, convs)
-    if pool_out is not None:
-        return conv_block_fwd_pool(x.contiguous(), *_weights(convs),
-                                   keep_full=pool_out == "with", mixed=mixed_mode())
-    block = conv_block_fwd_mixed if mixed_mode() else conv_block_fwd
-    return block(x.contiguous(), *_weights(convs))
+    (x,), top, bottom = _extend((x,))
+    return conv_block_rows(x, _weights(convs), top, bottom, pool_out=pool_out,
+                           mixed=mixed_mode())
+
+
+def _extend(xs) -> tuple:
+    """``xs`` extended by :data:`HALO` rows from each space neighbour under
+    :func:`space_sharding` (``(extended, top, bottom)``), else as they are;
+    raises, with ``pda``'s reason, on a row shard of fewer than
+    :data:`MIN_SHARD_ROWS` rows."""
+    if _SPACE is None or _SPACE.world == 1:
+        return tuple(xs), 0, 0
+    h = xs[0].shape[1]
+    if h < MIN_SHARD_ROWS:
+        raise ValueError(f"row shards of {h} rows are too small for the boundary fix (need >= "
+                         f"{MIN_SHARD_ROWS}); use fewer 'space' shards or larger images")
+    ext, top, bottom = halo_rows(xs, HALO, _SPACE)
+    return tuple(ext), top, bottom
+
+
+def _crop(t: torch.Tensor, top: int, bottom: int) -> torch.Tensor:
+    return t if top == bottom == 0 else t[:, top:t.shape[1] - bottom]
+
+
+def conv_block_rows(x: torch.Tensor, weights, top: int = 0, bottom: int = 0, *,
+                    xb: Optional[torch.Tensor] = None, pool_out: Optional[str] = None,
+                    mixed: bool = False):
+    """The fused 3-conv block (kernel weights ``[w1, b1, w2, b2, w3, b3]``,
+    HWIO) on rows already extended by ``top`` rows above and ``bottom``
+    below the shard's own, cropped back to the shard's rows: the single
+    block, on ``[x | xb]`` with ``xb`` (the dual kernel), the pooled
+    ``"with"``/``"only"`` block (:func:`conv_block`'s ``pool_out``, the
+    pooled map cropped by half as many rows), each in the mixed mode with
+    ``mixed``. With no extension it is the unsharded block."""
+    if xb is not None:
+        block = conv_block_fwd_dual_mixed if mixed else conv_block_fwd_dual
+        return _crop(block(x.contiguous(), xb.contiguous(), *weights), top, bottom)
+    if pool_out is None:
+        block = conv_block_fwd_mixed if mixed else conv_block_fwd
+        return _crop(block(x.contiguous(), *weights), top, bottom)
+    out = conv_block_fwd_pool(x.contiguous(), *weights, keep_full=pool_out == "with",
+                              mixed=mixed)
+    if pool_out == "with":
+        h3, pooled = out
+        return _crop(h3, top, bottom), _crop(pooled, top // 2, bottom // 2)
+    return _crop(out, top // 2, bottom // 2)
 
 
 def pool_out_plan(depth: int, convs_per_block: int) -> list:
@@ -290,7 +413,8 @@ class ConvBlock(ComputeDtype, nn.Module):
 class UpBlock(ComputeDtype, nn.Module):
     """Bilinear x2 upsample + skip concat + ConvBlock (reference
     ``UpConvBlock``). The concat [upsample | skip] is read by the dual-input
-    kernel and never built on the card."""
+    kernel and never built on the card; row-sharded, the pair is extended
+    in one exchange (``pda`` extends the concat: the same function)."""
 
     def __init__(self, in_channels: int, skip_channels: int, features: int,
                  n_convs: int = N_CONVS, dtype: torch.dtype = torch.float32):
@@ -299,16 +423,18 @@ class UpBlock(ComputeDtype, nn.Module):
         self.dtype = dtype
 
     def forward(self, x: torch.Tensor, bridge: torch.Tensor) -> torch.Tensor:
-        up = upsample_2x_align_corners(x)
+        up = upsample_2x_align_corners_rows(x, _SPACE)
         if up.shape[1:3] != bridge.shape[1:3]:
             raise ValueError(
                 f"skip-connection shape mismatch: {tuple(up.shape)} vs {tuple(bridge.shape)}")
         up, bridge = compute(up, self.dtype).contiguous(), compute(bridge, self.dtype)
         convs = self.conv_block.convs()
         if len(convs) != N_CONVS:
+            if _SPACE is not None:
+                raise ValueError("space sharding supports the 3-conv blocks only")
             return conv_relu_layers(torch.cat([up, bridge], dim=-1), convs)
-        block = conv_block_fwd_dual_mixed if mixed_mode() else conv_block_fwd_dual
-        return block(up, bridge.contiguous(), *_weights(convs))
+        (up, bridge), top, bottom = _extend((up, bridge))
+        return conv_block_rows(up, _weights(convs), top, bottom, xb=bridge, mixed=mixed_mode())
 
 
 class EncoderPyramid(ComputeDtype, nn.Module):

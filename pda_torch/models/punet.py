@@ -35,7 +35,8 @@ from torch import nn
 from ..core.distributions import DiagGaussian
 from ..core.consensus import consensus_from_logits
 from ..kernels.mc_consensus import MAX_WIDTH, mc_consensus, mc_logits_plain
-from .blocks import N_CONVS, ComputeDtype, ConvParams, EncoderPyramid, dense
+from ..parallel.space import space_mean
+from .blocks import N_CONVS, ComputeDtype, ConvParams, EncoderPyramid, dense, space_axis
 from .unet import PUNetBackbone
 
 
@@ -54,7 +55,10 @@ class GaussianEncoder(ComputeDtype, nn.Module):
     """Conv pyramid -> global spatial mean -> 1x1 conv (a Dense) to
     2*latent_dim -> (mu, log_sigma), kept in float32 or wider (reference
     ``AxisAlignedConvGaussian``). In bf16 the mean is taken in float32 and
-    rounded to bf16, and the head is a bf16 Dense, as in ``pda``."""
+    rounded to bf16, and the head is a bf16 Dense, as in ``pda``. Row-sharded
+    (:func:`.blocks.space_sharding`), the shard's mean is completed over
+    the space axis by a differentiated mean (``pda``'s ``pmean``; in bf16
+    in bf16)."""
 
     def __init__(self, input_channels: int, num_filters: Sequence[int], latent_dim: int = 6,
                  n_convs: int = N_CONVS, dtype: torch.dtype = torch.float32):
@@ -70,6 +74,8 @@ class GaussianEncoder(ComputeDtype, nn.Module):
         enc = self.encoder(x)
         enc = (enc.float().mean(dim=(1, 2)).to(enc.dtype) if enc.dtype == torch.bfloat16
                else enc.mean(dim=(1, 2)))
+        if space_axis() is not None:  # row-sharded: the mean of the shards' means
+            enc = space_mean(enc, space_axis())
         stats = _at_least_f32(dense(enc, self.conv_layer.dense(), self.conv_layer.bias,
                                     self.dtype))
         return DiagGaussian(stats[:, : self.latent_dim], stats[:, self.latent_dim:])
@@ -154,6 +160,7 @@ class ProbabilisticUnet(ComputeDtype, nn.Module):
         super().__init__()
         nf = tuple(num_filters)
         n = no_convs_per_block
+        self.num_filters = nf
         self.num_classes = num_classes
         self.latent_dim = latent_dim
         self.beta = beta

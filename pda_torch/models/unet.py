@@ -18,9 +18,15 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .blocks import N_CONVS, ComputeDtype, ConvBlock, ConvParams, UpBlock, dense, pool_out_plan
+from .blocks import (N_CONVS, ComputeDtype, ConvBlock, ConvParams, UpBlock, dense, pool_out_plan,
+                     space_axis)
 
 _BF16 = torch.bfloat16
+#: ``pda``'s reason (``UNet2d.__call__``) for refusing image rows sharded
+#: over a space axis
+UNET_SPACE_REFUSAL = ("UNet2d has no halo-exchange path (its half-pixel bilinear upsample and "
+                      "2-conv blocks are not row-shard aware); pda runs it on a spatial mesh "
+                      "through GSPMD, which the port does not have: use a data mesh")
 
 
 class PUNetBackbone(ComputeDtype, nn.Module):
@@ -231,6 +237,8 @@ class UNet2d(ComputeDtype, nn.Module):
                     m.bias.zero_()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if space_axis() is not None:
+            raise ValueError(UNET_SPACE_REFUSAL)
         h = x.permute(0, 3, 1, 2)
         skips = []
         for block in self.encoder.blocks:

@@ -1,5 +1,5 @@
-"""The 1-D ``data`` mesh over ``torch.distributed`` (port of
-``pda/parallel/mesh.py``).
+"""The ``data`` mesh and the (``data``, ``space``) mesh over
+``torch.distributed`` (port of ``pda/parallel/mesh.py``).
 
 ``pda`` runs one controller over many devices: a 1-D ``data`` mesh axis,
 batches sharded on their leading axis, parameters replicated, the step
@@ -16,15 +16,24 @@ same program on its rows of the global batch, and the reductions that
   * every rank draws the same global-batch noise and keeps its slice
     (:func:`pda_torch.core.distributions.sharded_normal`).
 
+The 2-D (``data``, ``space``) mesh (:func:`get_mesh_2d`) also shards the
+image rows (H of NHWC) over ``space``: ``pda``'s device grid
+``reshape(n_data, n_space)``, so global rank r has data index
+``r // n_space`` and space index ``r % n_space``, and the space neighbours
+are adjacent ranks. Each rank holds three process groups: the world, its
+``data`` group (the ranks of its space index) and its ``space`` group (the
+ranks of its data index); :meth:`Mesh.axis` is the rank's view of one axis.
+Every 3-conv block exchanges boundary rows with its space neighbours
+(:mod:`.space`, :mod:`pda_torch.models.blocks`), the pixel reductions cross
+the world, the per-image ones (the KL's batch mean, the noise's rows) the
+``data`` axis only.
+
 A rank's device is ``cuda:LOCAL_RANK`` with the NCCL backend, or the CPU
 with gloo; the device that is asked for picks the backend. A mesh may be
 asked for gloo on the card (several ranks sharing one card, which NCCL
 refuses): its collectives then copy each CUDA tensor to the host, reduce
 it there and copy it back, explicitly (:meth:`Mesh.all_reduce_`), and the
 tensors stay on the card for everything else.
-
-The (``data``, ``space``) mesh that shards image rows is not ported yet
-(ROADMAP M11 part 2): :func:`get_mesh_2d` raises.
 """
 
 from __future__ import annotations
@@ -43,24 +52,79 @@ SPACE_AXIS = "space"
 
 #: the launch line a CLI needs for a data mesh of N ranks
 LAUNCH_HINT = ("torchrun --nproc-per-node {n} -m pda_torch.experiments.<cli> --mesh data={n}")
+#: the launch line of a (data=N, space=M) mesh: N * M ranks
+LAUNCH_HINT_2D = ("torchrun --nproc-per-node {n} -m pda_torch.experiments.<cli> "
+                  "--mesh data={n_data},space={n_space}")
+
 
 class Mesh:
-    """One rank's view of a 1-D ``data`` mesh: its process group, the world
-    size, its rank, its device and the backend. Every rank holds one."""
+    """One rank's view of a mesh: its process group, the world size, its
+    rank, its device and the backend; ``shape`` maps each axis to its size
+    (``{"data": N}``, or ``{"data": N, "space": M}``, the world N * M).
+    Every rank holds one. :meth:`axis` is the rank's view of one axis of a
+    2-D mesh: a 1-D mesh over that axis's group, whose ``rank`` is the
+    rank's index on the axis and whose ``ranks`` are its members' global
+    ranks."""
 
     def __init__(self, group, world: int, rank: int, device: torch.device, backend: str,
-                 store=None):
+                 store=None, *, shape: Optional[dict] = None, axes: Optional[dict] = None,
+                 ranks: Optional[Sequence[int]] = None, owner: bool = True):
         self.group = group
         self.world = world
         self.rank = rank
         self.device = device
         self.backend = backend
         self.store = store
+        self.shape = dict(shape or {DATA_AXIS: world})
+        #: the global ranks of this group's members, in their order on the axis
+        self.ranks = list(range(world) if ranks is None else ranks)
+        self._axes = axes or {}
+        #: whether :meth:`destroy` ends the process group (an axis's view does not)
+        self._owner = owner
         self._waits = 0
 
     def __repr__(self) -> str:
-        return (f"Mesh(data={self.world}, rank={self.rank}, device={self.device}, "
-                f"backend={self.backend})")
+        axes = ", ".join(f"{k}={v}" for k, v in self.shape.items())
+        return f"Mesh({axes}, rank={self.rank}, device={self.device}, backend={self.backend})"
+
+    @property
+    def n_data(self) -> int:
+        return self.shape[DATA_AXIS]
+
+    @property
+    def n_space(self) -> int:
+        return self.shape.get(SPACE_AXIS, 1)
+
+    @property
+    def data_index(self) -> int:
+        return self.rank // self.n_space
+
+    @property
+    def space_index(self) -> int:
+        return self.rank % self.n_space
+
+    def axis(self, name: str) -> "Mesh":
+        """This rank's 1-D view of the axis ``name``: the mesh itself on a
+        1-D mesh's ``data`` axis; on a 2-D mesh a mesh over the axis's
+        group (it ends no process group: :meth:`destroy` of the mesh does)."""
+        if name not in self.shape:
+            raise ValueError(f"{self} has no '{name}' axis")
+        if len(self.shape) == 1:
+            return self
+        return self._axes[name]
+
+    @property
+    def space(self) -> Optional["Mesh"]:
+        """The ``space`` axis's view, or None on a 1-D mesh."""
+        return self.axis(SPACE_AXIS) if SPACE_AXIS in self.shape else None
+
+    def flat(self) -> "Mesh":
+        """This rank's view of the whole world as one ``data`` axis (the
+        tiled serving's: ``pda`` shards the tiles over every device)."""
+        if len(self.shape) == 1:
+            return self
+        return Mesh(self.group, self.world, self.rank, self.device, self.backend, self.store,
+                    owner=False)
 
     # -- collectives ----------------------------------------------------------
 
@@ -86,25 +150,25 @@ class Mesh:
         touched, and no gradient flows through the result)."""
         return self.all_reduce_(t.detach().clone())
 
-    def all_gather(self, t: torch.Tensor) -> torch.Tensor:
-        """Every rank's ``t``, concatenated on axis 0 in rank order."""
+    def all_gather(self, t: torch.Tensor, dim: int = 0) -> torch.Tensor:
+        """Every rank's ``t``, concatenated on axis ``dim`` in rank order."""
         t = t.detach().contiguous()
         if self._staged(t):
             parts = [torch.empty_like(t, device="cpu") for _ in range(self.world)]
             dist.all_gather(parts, t.to("cpu"), group=self.group)
-            return torch.cat(parts).to(t.device)
+            return torch.cat(parts, dim=dim).to(t.device)
         parts = [torch.empty_like(t) for _ in range(self.world)]
         dist.all_gather(parts, t, group=self.group)
-        return torch.cat(parts)
+        return torch.cat(parts, dim=dim)
 
     def broadcast_(self, t: torch.Tensor, src: int = 0) -> torch.Tensor:
         """Rank ``src``'s ``t`` into every rank's ``t``, in place."""
         if self._staged(t):
             host = t.to("cpu")
-            dist.broadcast(host, src=src, group=self.group)
+            dist.broadcast(host, src=self.ranks[src], group=self.group)
             t.copy_(host)
         else:
-            dist.broadcast(t, src=src, group=self.group)
+            dist.broadcast(t, src=self.ranks[src], group=self.group)
         return t
 
     def broadcast_float(self, value: float, src: int = 0) -> float:
@@ -134,13 +198,19 @@ class Mesh:
     # -- rows -----------------------------------------------------------------
 
     def rows(self, n: int) -> slice:
-        """This rank's rows of a global batch of ``n`` (:func:`rank_rows`)."""
-        return rank_rows(n, self.rank, self.world)
+        """This rank's rows of a global batch of ``n`` (:func:`rank_rows`),
+        by its ``data`` index."""
+        return rank_rows(n, self.data_index, self.n_data)
+
+    def image_rows(self, h: int) -> slice:
+        """This rank's image rows of an image of ``h`` rows
+        (:func:`space_rows`), by its ``space`` index."""
+        return space_rows(h, self.space_index, self.n_space)
 
     def destroy(self) -> None:
         """End the process group (once; a mesh made without one, as the tests
-        make them, has nothing to end)."""
-        if self.group is not None and dist.is_initialized():
+        make them, and an axis's view have nothing to end)."""
+        if self._owner and self.group is not None and dist.is_initialized():
             dist.destroy_process_group()
         self.group = None
 
@@ -154,6 +224,16 @@ def rank_rows(n: int, rank: int, world: int) -> slice:
             "pick a batch size that is a multiple of it (watch out for a short final batch)")
     b = n // world
     return slice(rank * b, (rank + 1) * b)
+
+
+def space_rows(h: int, index: int, n_space: int) -> slice:
+    """Row shard ``index``'s rows ``[s h/M, (s+1) h/M)`` of an image of ``h``
+    rows; raises, with ``pda``'s message, when M does not divide ``h``."""
+    if h % n_space:
+        raise ValueError(f"image height {h} is not divisible by the mesh's '{SPACE_AXIS}' axis "
+                         f"({n_space})")
+    r = h // n_space
+    return slice(index * r, (index + 1) * r)
 
 
 def _device_for(device, local_rank: int) -> torch.device:
@@ -180,6 +260,41 @@ def _launcher() -> Optional[tuple]:
     return rank, world, int(os.environ.get("LOCAL_RANK", rank))
 
 
+def _init_world(n_devices: Optional[int], hint: str, device, rank, world_size, store,
+                backend) -> tuple:
+    """The process group of this rank's world (:func:`get_mesh`'s rules):
+    ``(rank, world, device, backend, store)``."""
+    explicit = (rank, world_size, store)
+    if any(v is not None for v in explicit) and not all(v is not None for v in explicit):
+        raise ValueError("get_mesh: pass rank, world_size and store together, or none of them")
+    if rank is not None:
+        world, local_rank = world_size, rank
+    elif _launcher() is not None:
+        rank, world, local_rank = _launcher()
+    else:
+        rank, world, local_rank, store = 0, 1, 0, dist.HashStore()
+    if n_devices is not None and n_devices != world:
+        raise ValueError(
+            f"get_mesh: the mesh asks for {n_devices} rank(s), but this process runs in a world "
+            f"of {world}; start one process a rank, e.g. " + hint)
+    if dist.is_initialized():
+        raise RuntimeError("get_mesh: this process has a torch.distributed process group "
+                           "already; make one mesh a process and pass it on")
+    dev = _device_for(device, local_rank)
+    if backend is None:
+        backend = "nccl" if dev.type == "cuda" else "gloo"
+    if backend == "nccl" and dev.type != "cuda":
+        raise ValueError("get_mesh: NCCL needs device='cuda'")
+    if backend not in ("nccl", "gloo"):
+        raise ValueError(f"get_mesh: backend {backend!r}: use 'nccl' or 'gloo'")
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    if store is None:  # torchrun: its rendezvous, which also hosts the store
+        store, rank, world = next(dist.rendezvous("env://"))
+    dist.init_process_group(backend, store=store, rank=rank, world_size=world)
+    return rank, world, dev, backend, store
+
+
 def get_mesh(n_devices: Optional[int] = None, *, device="cuda", rank: Optional[int] = None,
              world_size: Optional[int] = None, store=None,
              backend: Optional[str] = None) -> Mesh:
@@ -199,58 +314,66 @@ def get_mesh(n_devices: Optional[int] = None, *, device="cuda", rank: Optional[i
     with NCCL, ``"cpu"`` is gloo. ``backend="gloo"`` on the card lets
     several ranks share one card (NCCL refuses that); its collectives then
     go through host memory (:class:`Mesh`)."""
-    explicit = (rank, world_size, store)
-    if any(v is not None for v in explicit) and not all(v is not None for v in explicit):
-        raise ValueError("get_mesh: pass rank, world_size and store together, or none of them")
-    if rank is not None:
-        world, local_rank = world_size, rank
-    elif _launcher() is not None:
-        rank, world, local_rank = _launcher()
-    else:
-        rank, world, local_rank, store = 0, 1, 0, dist.HashStore()
-    if n_devices is not None and n_devices != world:
-        raise ValueError(
-            f"get_mesh: the mesh asks for {n_devices} rank(s), but this process runs in a world "
-            f"of {world}; start one process a rank, e.g. "
-            + LAUNCH_HINT.format(n=n_devices))
-    if dist.is_initialized():
-        raise RuntimeError("get_mesh: this process has a torch.distributed process group "
-                           "already; make one mesh a process and pass it on")
-    dev = _device_for(device, local_rank)
-    if backend is None:
-        backend = "nccl" if dev.type == "cuda" else "gloo"
-    if backend == "nccl" and dev.type != "cuda":
-        raise ValueError("get_mesh: NCCL needs device='cuda'")
-    if backend not in ("nccl", "gloo"):
-        raise ValueError(f"get_mesh: backend {backend!r}: use 'nccl' or 'gloo'")
-    if dev.type == "cuda":
-        torch.cuda.set_device(dev)
-    if store is None:  # torchrun: its rendezvous, which also hosts the store
-        store, rank, world = next(dist.rendezvous("env://"))
-    dist.init_process_group(backend, store=store, rank=rank, world_size=world)
+    hint = LAUNCH_HINT.format(n=n_devices)
+    rank, world, dev, backend, store = _init_world(n_devices, hint, device, rank, world_size,
+                                                   store, backend)
     mesh = Mesh(dist.group.WORLD, world, rank, dev, backend, store=store)
     atexit.register(mesh.destroy)
     return mesh
 
 
-def get_mesh_2d(n_data: int, n_space: int, **_):
-    """The (``data``, ``space``) mesh of ``pda`` (image rows sharded over
-    ``space``, halo exchange in every ConvBlock) is not ported yet."""
-    raise NotImplementedError(
-        f"a (data={n_data}, space={n_space}) mesh: the image-row sharding over '{SPACE_AXIS}' "
-        "is not ported yet (ROADMAP M11 part 2); use a 1-D mesh, data=N")
+def get_mesh_2d(n_data: int, n_space: int, *, device="cuda", rank: Optional[int] = None,
+                world_size: Optional[int] = None, store=None,
+                backend: Optional[str] = None) -> Mesh:
+    """This rank's (``data``, ``space``) mesh of ``n_data * n_space`` ranks:
+    batches sharded over ``data``, image rows over ``space`` (``pda``'s
+    ``get_mesh_2d``; the world and the device as :func:`get_mesh` finds
+    them). Global rank r is ``(r // n_space, r % n_space)`` on the grid. Every
+    rank makes every ``data`` group (the ranks of one space index) and every
+    ``space`` group (the ranks of one data index), in the same order, and
+    keeps its own (an axis as wide as the world takes the world's group);
+    one all-reduce on each sets up their communicators."""
+    if n_data < 1 or n_space < 1:
+        raise ValueError(f"get_mesh_2d: (data={n_data}, space={n_space}): each axis needs >= 1")
+    n = n_data * n_space
+    hint = LAUNCH_HINT_2D.format(n=n, n_data=n_data, n_space=n_space)
+    rank, world, dev, backend, store = _init_world(n, hint, device, rank, world_size, store,
+                                                   backend)
+    members = {DATA_AXIS: [[d * n_space + s for d in range(n_data)] for s in range(n_space)],
+               SPACE_AXIS: [[d * n_space + s for s in range(n_space)] for d in range(n_data)]}
+    index = {DATA_AXIS: (rank % n_space, rank // n_space),
+             SPACE_AXIS: (rank // n_space, rank % n_space)}
+    axes = {}
+    for name, groups in members.items():
+        # an axis as wide as the world is the world's group (no second communicator)
+        made = [dist.group.WORLD if len(ranks) == world else dist.new_group(ranks)
+                for ranks in groups]
+        which, pos = index[name]
+        axes[name] = Mesh(made[which], len(groups[which]), pos, dev, backend, store,
+                          ranks=groups[which], owner=False)
+    mesh = Mesh(dist.group.WORLD, world, rank, dev, backend, store=store,
+                shape={DATA_AXIS: n_data, SPACE_AXIS: n_space}, axes=axes)
+    atexit.register(mesh.destroy)
+    for view in axes.values():
+        view.barrier()
+    return mesh
 
 
 def shard_batch(mesh: Mesh, batch):
     """This rank's rows of every array of ``batch`` (a tuple of arrays or
-    tensors, leading axis the batch); a 0-d leaf is kept whole. Raises,
-    with ``pda``'s message, when N does not divide the batch."""
+    tensors, leading axis the batch) and, on a 2-D mesh, of an image's
+    rows (axis 1 of an array of 3 or more axes); a 0-d leaf is kept whole.
+    Raises, with ``pda``'s messages, when N does not divide the batch or M
+    the image's height."""
     out = []
     for x in batch:
         if np.ndim(x) == 0:
             out.append(x)
-        else:
-            out.append(x[mesh.rows(int(x.shape[0]))])
+            continue
+        x = x[mesh.rows(int(x.shape[0]))]
+        if SPACE_AXIS in mesh.shape and np.ndim(x) >= 3:
+            x = x[:, mesh.image_rows(int(x.shape[1]))]
+        out.append(x)
     return tuple(out)
 
 

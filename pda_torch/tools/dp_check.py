@@ -1,8 +1,16 @@
-"""The flagship Mean-Teacher step data-parallel against the same step in one
-process.
+"""The flagship Mean-Teacher step data-parallel, or row-sharded, against
+the same step in one process.
 
     python -m pda_torch.tools.dp_check [--hw 512] [--filters 64,128,256,512]
-        [--world 2] [--batch 2] [--backend gloo|nccl] [--device cuda|cpu]
+        [--world 2] [--space M] [--batch 2] [--backend gloo|nccl]
+        [--device cuda|cpu]
+
+``--space M`` makes the ranks a (data, space) mesh of ``--world / M`` x M
+(``pda_torch.parallel.get_mesh_2d``): each rank holds its rows of the batch
+and its row shard of each image, and every 3-conv block exchanges 4
+boundary rows with its space neighbours. Each rank then also reports the
+halo exchanges of one step: their count (forward and backward) and their
+milliseconds (CUDA events around each, in a step of their own).
 
 ``--world`` ranks (default 2) run as processes of one world over a
 ``FileStore`` in a temporary directory. With ``--backend gloo`` (the
@@ -24,14 +32,17 @@ Held, for each dtype, against the single process:
     cosine at most 1e-5, and leaf by leaf, in float32 max|g - ref| within
     1e-4 of the leaf's largest (floored at 1e-3 of the largest leaf's, as
     ``tests/test_torch_parallel.py``), in bf16 the worst leaf's relative L2
-    within 1e-2 (``ab.AB_LEAF_TOL``). A mean of the ranks' gradients, a
+    within 1e-2 (``ab.AB_LEAF_TOL``; on a space mesh float32's leaf within
+    1e-2, ``SPACE_F32_LEAF_TOL``, and bf16 ``SPACE_BF16``'s bounds: the
+    shards round otherwise, the encoders' mean completed in bf16 at
+    ``pda``'s rounding point). A mean of the ranks' gradients, a
     differentiated collective (x N) or a lost gradient fails them;
   * the step taken once: the student's update (after - before) and the
     teacher's, each within 1e-2 of the single process's in relative L2. A
     skipped or repeated optimizer step fails it;
   * the loss, recon and KL within 1e-5 relative in float32 (``pda``'s
     ``tests/test_parallel.py``), the loss within 1e-3 in bf16 (``pda``'s
-    bf16 A/B);
+    bf16 A/B; 1e-2 on a space mesh, ``SPACE_BF16``);
   * every rank holding the same bytes after the step (gradients, student,
     teacher); on the card, every kernel of the MT step launched on each rank.
 
@@ -69,6 +80,27 @@ F32_GRAD_TOL, F32_NORM_TOL = 1e-4, 1e-4
 #: leaf's relative L2 (pda's bf16 A/B); the global norms' ratio
 BF16_LOSS_TOL, COS_TOL, BF16_LEAF_TOL, BF16_NORM_TOL = (ab.AB_LOSS_TOL, ab.AB_COS_TOL,
                                                         ab.AB_LEAF_TOL, 1e-3)
+#: bf16 on a (data, space) mesh: the loss, 1 - the gradients' cosine, the
+#: worst leaf's relative L2, the global norms' ratio and the updates. The
+#: encoders' mean is completed over the row shards in bf16 (``pda``'s
+#: rounding point), which moves the latent statistics by up to a few bf16
+#: ulps against one process's mean, rounded once: the MT step at 144^2 on
+#: the CPU (``tests/test_torch_space.py``'s run of this tool) parts by
+#: 1.4e-5, 1.07e-2, 1.1e-3 and 0.10 (Adam's first step flips the elements
+#: whose small gradients change sign); on the card at 1024^2, batch 1, on
+#: (1, 4), where one image's KL (most of the random flagship's loss) moves
+#: with them, the loss by 4.9e-3. Each still fails the faults it is there
+#: for (a mean of the gradients: a ratio of 1/N; a skipped step: an update
+#: of 1)
+SPACE_BF16 = {"loss": 1e-2, "cos": 1e-4, "leaf": 5e-2, "norm": 1e-2, "update": 0.25}
+#: float32 on a (data, space) mesh: the worst leaf's max|g - ref| over its
+#: largest. The row shards change float32's roundings (the encoders' mean a
+#: mean of the shards' means, the upsample two matrix contractions), so a
+#: ReLU pre-activation within rounding of 0 may take the other side and move
+#: one leaf (a few 1e-3 of its largest card vs CPU, PR 6): 3.2e-4 at 288^2,
+#: batch 1, on (1, 4) on the CPU. The cosine and the norm keep float32's
+#: bounds
+SPACE_F32_LEAF_TOL = 1e-2
 #: the student's and the teacher's update against the single process's,
 #: relative L2 (a sign that Adam's first step takes the other way where a
 #: gradient lies near 0 moves it; a skipped or repeated step moves it by ~1)
@@ -89,11 +121,12 @@ def _step(state, batch, noise, mesh):
 
     step = make_mean_teacher_step(momentum=MOMENTUM, do_consensus_masking=True, mesh=mesh)
     _, aux = step(state, *batch, **noise)
-    grads = {n: p.grad.detach().float().cpu() for n, p in state.model.named_parameters()
+    grads = {n: p.grad.detach().float().cpu().clone() for n, p in state.model.named_parameters()
              if p.grad is not None}
     return {"aux": {k: float(v) for k, v in aux.items()}, "grads": grads,
-            "params": {k: v.detach().cpu() for k, v in state.model.state_dict().items()},
-            "teacher": {k: v.detach().cpu() for k, v in state.teacher.state_dict().items()}}
+            "params": {k: v.detach().cpu().clone() for k, v in state.model.state_dict().items()},
+            "teacher": {k: v.detach().cpu().clone()
+                        for k, v in state.teacher.state_dict().items()}}
 
 
 def _timed_steps(state, batch, noise, mesh) -> float:
@@ -128,16 +161,31 @@ def _allreduce_ms(mesh, state) -> float:
     return statistics.median(times)
 
 
-def _rank(rank: int, world: int, tmp: str, device: str, backend: str) -> None:
+def _halos(state, batch, noise, mesh) -> dict:
+    """The halo exchanges of one MT step: their count, and their
+    milliseconds summed (each timed alone)."""
+    from ..parallel import space
+
+    space.reset_stats()
+    with space.timed_exchanges() as ms:
+        _step(state, batch, noise, mesh)
+    return {"exchanges": space.stats["exchanges"], "ms": sum(ms),
+            "mib": space.stats["elements"] * (2 if state.model.dtype == torch.bfloat16 else 4)
+            / 2**20}
+
+
+def _rank(rank: int, world: int, n_space: int, tmp: str, device: str, backend: str) -> None:
     import torch.distributed as dist
 
-    from ..parallel import get_mesh, shard_batch
+    from ..parallel import get_mesh, get_mesh_2d, shard_batch
 
     torch.set_num_threads(max(1, (os.cpu_count() or 2) // (2 * world)))
     spec = torch.load(os.path.join(tmp, "spec.pt"), weights_only=False)
     dev = tool_device(f"cuda:{rank}" if backend == "nccl" else device, "dp_check")
-    mesh = get_mesh(world, device=dev, rank=rank, world_size=world, backend=backend,
-                    store=dist.FileStore(os.path.join(tmp, "store"), world))
+    kw = dict(device=dev, rank=rank, world_size=world, backend=backend,
+              store=dist.FileStore(os.path.join(tmp, "store"), world))
+    mesh = (get_mesh_2d(world // n_space, n_space, **kw) if n_space > 1
+            else get_mesh(world, **kw))
     out = {}
     try:
         wrappers = ab.kernel_wrappers()
@@ -151,6 +199,8 @@ def _rank(rank: int, world: int, tmp: str, device: str, backend: str) -> None:
             if dev.type == "cuda":
                 res["step_ms"] = _timed_steps(state, batch, noise, mesh)
                 res["allreduce_ms"] = _allreduce_ms(mesh, state)
+            if n_space > 1:
+                res["halo"] = _halos(state, batch, noise, mesh)
             out[name] = res
             del state
     finally:
@@ -191,10 +241,11 @@ def _update_rel(after: dict, ref: dict, before: dict) -> float:
     return (num / max(den, 1e-300)) ** 0.5
 
 
-def compare(name: str, ranks: list, ref: dict, before: dict, on_card: bool) -> tuple:
+def compare(name: str, ranks: list, ref: dict, before: dict, on_card: bool,
+            row_sharded: bool = False) -> tuple:
     """({criterion: passed}, numbers) of one dtype's ranks against the
     single process; ``before`` is the student (and the teacher) before the
-    step."""
+    step; ``row_sharded``: the bf16 bounds of a (data, space) mesh."""
     got = ranks[0]
     rel = {k: abs(got["aux"][k] - v) / max(1.0, abs(v)) for k, v in ref["aux"].items()}
     grads, gref = got["grads"], ref["grads"]
@@ -211,18 +262,26 @@ def compare(name: str, ranks: list, ref: dict, before: dict, on_card: bool) -> t
         "grad leaves": grads.keys() == gref.keys()}
     if name == "f32":
         passed["loss"] = nums["aux_rel"] <= F32_LOSS_TOL
-        passed["grad leaves"] &= nums["leaf"] <= F32_GRAD_TOL
+        passed["grad leaves"] &= nums["leaf"] <= (SPACE_F32_LEAF_TOL if row_sharded
+                                                  else F32_GRAD_TOL)
         passed["norm"] = abs(nums["norm_ratio"] - 1.0) <= F32_NORM_TOL
-    else:
-        passed["loss"] = nums["loss_rel"] <= BF16_LOSS_TOL
-        passed["grad leaves"] &= nums["leaf"] <= BF16_LEAF_TOL
-        passed["norm"] = abs(nums["norm_ratio"] - 1.0) <= BF16_NORM_TOL
-    passed["cos"] = 1.0 - nums["cos"] <= COS_TOL
-    passed["update"] = nums["update"] <= UPDATE_TOL and nums["teacher_update"] <= UPDATE_TOL
+    tol = {"loss": BF16_LOSS_TOL, "cos": COS_TOL, "leaf": BF16_LEAF_TOL, "norm": BF16_NORM_TOL,
+           "update": UPDATE_TOL}
+    if name != "f32" and row_sharded:
+        tol = SPACE_BF16
+    if name != "f32":
+        passed["loss"] = nums["loss_rel"] <= tol["loss"]
+        passed["grad leaves"] &= nums["leaf"] <= tol["leaf"]
+        passed["norm"] = abs(nums["norm_ratio"] - 1.0) <= tol["norm"]
+    passed["cos"] = 1.0 - nums["cos"] <= tol["cos"]
+    passed["update"] = (nums["update"] <= tol["update"]
+                        and nums["teacher_update"] <= tol["update"])
     if on_card:
         passed["launched"] = all(all(r["launches"].values()) for r in ranks)
         nums["step_ms"] = [r["step_ms"] for r in ranks]
         nums["allreduce_ms"] = [r["allreduce_ms"] for r in ranks]
+    if "halo" in got:
+        nums["halo"] = [r["halo"] for r in ranks]
     return passed, nums
 
 
@@ -232,7 +291,9 @@ def main(argv: Optional[list] = None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--hw", type=int, default=512)
     parser.add_argument("--filters", default=",".join(map(str, FILTERS)))
-    parser.add_argument("--world", type=int, default=2)
+    parser.add_argument("--world", type=int, default=2, help="the ranks, N x M with --space")
+    parser.add_argument("--space", type=int, default=1,
+                        help="M > 1: a (data, space) mesh of world / M x M ranks")
     parser.add_argument("--batch", type=int, default=BATCH, help="the global batch")
     parser.add_argument("--backend", choices=("gloo", "nccl"), default="gloo",
                         help="gloo: every rank on one device; nccl: rank r on card r")
@@ -244,6 +305,8 @@ def main(argv: Optional[list] = None) -> int:
     if args.backend == "nccl" and (dev.type != "cuda" or args.world > torch.cuda.device_count()):
         raise RuntimeError(f"dp_check: --backend nccl needs --world ({args.world}) cards, this "
                            f"host has {torch.cuda.device_count()}")
+    if args.space < 1 or args.world % args.space:
+        raise ValueError(f"dp_check: --space {args.space} does not divide --world {args.world}")
     filters = tuple(int(f) for f in args.filters.split(","))
     spec = {}
     for name in DTYPES:
@@ -253,12 +316,13 @@ def main(argv: Optional[list] = None) -> int:
                       "noise": {"eps_teacher": torch.randn(ab.MC, args.batch, 6, generator=gen),
                                 "eps_post": torch.randn(args.batch, 6, generator=gen)}}
     result = {"hw": args.hw, "filters": list(filters), "world": args.world, "batch": args.batch,
+              "mesh": {"data": args.world // args.space, "space": args.space},
               "backend": args.backend, "card": card(dev)}
     ok = True
     with tempfile.TemporaryDirectory(prefix="dp_check_") as tmp:
         torch.save(spec, os.path.join(tmp, "spec.pt"))
         t0 = time.perf_counter()
-        mp.spawn(_rank, args=(args.world, tmp, str(dev), args.backend),
+        mp.spawn(_rank, args=(args.world, args.space, tmp, str(dev), args.backend),
                  nprocs=args.world, join=True)
         result["ranks_s"] = time.perf_counter() - t0
         ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=False)
@@ -269,12 +333,13 @@ def main(argv: Optional[list] = None) -> int:
         noise = {k: v.to(dev) for k, v in case["noise"].items()}
         ref = _step(_state(case["model"], dev), batch, noise, None)
         before = {k: v.detach() for k, v in case["model"].state_dict().items()}
-        passed, nums = compare(name, [r[name] for r in ranks], ref, before, dev.type == "cuda")
+        passed, nums = compare(name, [r[name] for r in ranks], ref, before, dev.type == "cuda",
+                               args.space > 1)
         if dev.type == "cuda":
             nums["single_ms"] = _timed_steps(_state(case["model"], dev), batch, noise, None)
         result[name] = {**nums, "passed": passed}
-        ab.log(f"dp_check {name} MT step {args.hw}^2 batch {args.batch} world {args.world} "
-               f"({args.backend}) vs one process: {nums} "
+        ab.log(f"dp_check {name} MT step {args.hw}^2 batch {args.batch} mesh "
+               f"{result['mesh']} ({args.backend}) vs one process: {nums} "
                f"{'ok' if all(passed.values()) else 'FAIL'}")
         ok &= all(passed.values())
     print("dp_check result " + json.dumps({**result, "ok": ok}), flush=True)

@@ -40,6 +40,18 @@ rank takes the plateau controller's and the best checkpoint's decisions
 alike (rank 0's metric, broadcast). Rank 0 alone logs (event file, panels,
 which take the global batch's first element, rank 0's) and writes
 ``latest.pt`` / ``best.pt``; the others wait for the file.
+
+On a (data, space) mesh (:func:`pda_torch.parallel.get_mesh_2d`) a rank
+also holds only its row shard of each image: the loaders hand it its rows,
+and the steps run the models row-sharded (:mod:`.steps`). At set-up the
+trainer checks, as ``pda``'s ``_check_spatial_support`` does, that the
+model has a halo-exchange path (a PUNet) and that every train and
+validation patch height leaves at least 9 rows, and divides, per row shard
+at the deepest level (the validation batch peeked at without advancing its
+loader's epoch); where ``pda`` falls back to GSPMD it raises with ``pda``'s
+reason, the port having no GSPMD. Before a panel, the first element's rows
+are gathered over the space axis, so rank 0's panel program sees the whole
+image.
 """
 
 from __future__ import annotations
@@ -52,7 +64,7 @@ from typing import Callable, Iterable, Optional, Sequence
 import numpy as np
 import torch
 
-from ..parallel.mesh import assert_replicated, replicated, shard_batch
+from ..parallel.mesh import SPACE_AXIS, assert_replicated, replicated, shard_batch
 from . import steps as steps_lib
 from .checkpoint import (BEST, LATEST, checkpoint_dir, checkpoint_exists, load_checkpoint,
                          load_params, restore_state, save_checkpoint)
@@ -94,6 +106,8 @@ class Trainer:
     image_tags: tuple = ()
     #: logger class made for ``logger=True``
     default_logger_cls = TrainLogger
+    #: whether every rank gathers the panels' rows (set at set-up)
+    _gather_panels = False
 
     def __init__(self, name: str, model: torch.nn.Module, train_loader, val_loader, *,
                  learning_rate: float = 1e-5, optimizer: Optional[torch.optim.Optimizer] = None,
@@ -119,8 +133,12 @@ class Trainer:
                 raise ValueError(f"{type(self).__name__}: device {device!r} is not this rank's "
                                  f"mesh device ({mesh})")
             self.device = dev
-            if mesh.rank != 0:  # rank 0 alone writes the event file and the panels
-                logger = False
+        #: steps between train panels where rank 0 logs them, on every rank
+        #: (the ranks of a 2-D mesh gather the panels' rows alike)
+        self._panel_every = ((logger.log_image_interval if isinstance(logger, TrainLogger)
+                              else log_image_interval) if logger else None)
+        if mesh is not None and mesh.rank != 0:  # rank 0 alone writes the event file, panels
+            logger = False
         self.name = name
         self.model = model
         self.train_loader = train_loader
@@ -204,8 +222,13 @@ class Trainer:
                                "files)") from None
 
     @property
-    def _world(self) -> int:
-        return 1 if self.mesh is None else self.mesh.world
+    def _n_data(self) -> int:
+        """The ranks a global batch is split over (its rows): the data axis."""
+        return 1 if self.mesh is None else self.mesh.n_data
+
+    @property
+    def _row_sharded(self) -> bool:
+        return self.mesh is not None and SPACE_AXIS in self.mesh.shape
 
     @property
     def _is_writer(self) -> bool:
@@ -225,9 +248,47 @@ class Trainer:
         loaders = list({id(ld): ld for ld in self._loaders()}.values())
         if self.mesh is None or not all(hasattr(ld, "set_shard") for ld in loaders):
             return
+        space = ((self.mesh.space_index, self.mesh.n_space) if self._row_sharded else None)
         for ld in loaders:
-            ld.set_shard(self.mesh.rank, self.mesh.world)
+            ld.set_shard(self.mesh.data_index, self.mesh.n_data, space=space)
         self._loaders_shard = True
+
+    def _check_spatial_support(self, example_batch) -> None:
+        """On a (data, space) mesh of more than one rank, ``pda``'s
+        ``_check_spatial_support``: a PUNet-family model whose deepest level
+        keeps >= 9 rows, and a divisible count, per row shard, for the train
+        patches and a validation batch peeked at without advancing the
+        loader's epoch. Where ``pda`` falls back to GSPMD this raises with
+        its reason."""
+        if not self._row_sharded or self.mesh.world == 1:
+            return
+        n_space = self.mesh.n_space
+        # a loader that shards hands out row shards: their height times M
+        scale = n_space if self._loaders_shard else 1
+        filters = getattr(self.model, "num_filters", None)
+        if filters is None:
+            reason = f"{type(self.model).__name__} has no halo-exchange path"
+        else:
+            heights = {("train", int(np.shape(example_batch[0])[1]) * scale)}
+            epoch = getattr(self.val_loader, "_epoch", None)
+            batches = iter(self.val_loader)
+            try:
+                heights.add(("val", int(np.shape(next(batches)[0])[1]) * scale))
+            except (StopIteration, TypeError):
+                pass
+            finally:
+                close = getattr(batches, "close", None)
+                if close is not None:
+                    close()
+                if epoch is not None:
+                    self.val_loader._epoch = epoch
+            down = n_space * 2 ** (len(filters) - 1)
+            reason = next((f"{split} patch rows {h} leave {h // down} rows per row shard at "
+                           f"the deepest level (need >= 9 and divisibility by {down})"
+                           for split, h in sorted(heights) if h % down or h // down < 9), None)
+        if reason is not None:
+            raise ValueError(f"(data, space={n_space}) mesh: {reason}; pda falls back to GSPMD "
+                             "here, which the port does not have")
 
     def _replicate(self):
         """Rank 0's model (and teacher) on every rank, checked equal."""
@@ -249,7 +310,7 @@ class Trainer:
         if self.state is not None:
             return
         self._shard_loaders()
-        self._example_batch()
+        self._check_spatial_support(self._example_batch())
         self.model.to(self.device)
         optimizer = (self.optimizer if self.optimizer is not None
                      else adam(self.model.parameters(), self.learning_rate))
@@ -257,6 +318,10 @@ class Trainer:
         self.train_step = self.make_train_step()
         self.val_step = self.make_val_step()
         self.panel_fn = self.make_panel_fn() if self.logger is not None else None
+        # rank 0 logs panels of row shards: every rank takes part in gathering their rows
+        self._gather_panels = (self._row_sharded and self.mesh.n_space > 1
+                               and self._panel_every is not None
+                               and self.make_panel_fn() is not None)
         self._post_initialize()
         self._replicate()
 
@@ -278,11 +343,21 @@ class Trainer:
 
     # -- panels ---------------------------------------------------------------
 
-    def _start_panels(self, batch) -> _HostCopy:
-        """Launch the panels on the first batch element; their tensors come
-        back to the host without blocking."""
+    def _panel_inputs(self, batch) -> tuple:
+        """The first batch element of the panels' part of ``batch``; on a
+        mesh of row shards its rows gathered over the space axis (a
+        collective of every rank)."""
+        small = tuple(b[:1] for b in self.panel_batch(batch))
+        if not self._gather_panels:
+            return small
         with self._span("panels"):
-            small = tuple(b[:1] for b in self.panel_batch(batch))
+            return tuple(self.mesh.space.all_gather(b, dim=1) if b.ndim >= 3 else b
+                         for b in small)
+
+    def _start_panels(self, small) -> _HostCopy:
+        """Launch the panels on the first batch element (:meth:`_panel_inputs`);
+        their tensors come back to the host without blocking."""
+        with self._span("panels"):
             teacher = self.state.teacher if self.with_teacher else self.state.model
             return _HostCopy(self.panel_fn(self.state.model, teacher, *small, **self._panel_noise))
 
@@ -344,14 +419,18 @@ class Trainer:
                     with self._span("step"):
                         self.state, metrics = self.train_step(self.state, *batch, **self._noise)
                         handle = _HostCopy(metrics)
-                    throughput.update(int(batch[0].shape[0]) * self._world)
+                    throughput.update(int(batch[0].shape[0]) * self._n_data)
                     if pending is not None:
                         self._log_train(*pending)
                     pending = (self._iteration, handle)
                     # the reference loggers' train panels, every log_image_interval steps
-                    if (self.panel_fn is not None
-                            and self._iteration % self.logger.log_image_interval == 0):
-                        self._pending_panels = (self._iteration, self._start_panels(batch))
+                    every = (self.logger.log_image_interval if self.logger is not None
+                             else self._panel_every)
+                    if ((self.panel_fn is not None or self._gather_panels)
+                            and self._iteration % every == 0):
+                        small = self._panel_inputs(batch)
+                        if self.panel_fn is not None:
+                            self._pending_panels = (self._iteration, self._start_panels(small))
                     self._iteration += 1
             finally:
                 close = getattr(batches, "close", None)
@@ -409,12 +488,15 @@ class Trainer:
             avg = {k: float(v) / max(n, 1) for k, v in _HostCopy(sums).result().items()}
             if "dice" in avg and self._is_writer:
                 print(f"The Average Dice Score for the Current Epoch is {avg['dice']}")
+            small = None
+            if last_batch is not None and (self.panel_fn is not None or self._gather_panels):
+                small = self._panel_inputs(last_batch)
             if self.logger is not None:
                 # the reference loggers write panels at every validation, of the last batch
                 images = None
-                if self.panel_fn is not None and last_batch is not None:
+                if self.panel_fn is not None and small is not None:
                     images = self.assemble_panels(
-                        {k: v.numpy() for k, v in self._start_panels(last_batch).result().items()})
+                        {k: v.numpy() for k, v in self._start_panels(small).result().items()})
                 self.logger.log_validation(self._iteration, avg, images)
             self.val_history.append((self._iteration, avg))
         return avg

@@ -32,10 +32,20 @@ whole. The noise is the global batch's, of which each rank keeps its rows
 (``eps_*`` given are the global batch's; a generator draws them), so a
 sharded step sees the single-device step's noise; the teacher's MC tail
 stays on the MC-consensus kernel.
+
+On a (``data``, ``space``) mesh of N x M ranks each rank holds its rows of
+the batch and, of each image, its row shard: the step runs under the
+models' row sharding (:func:`pda_torch.models.blocks.space_sharding`,
+``pda``'s engine context), the pixel reductions cross the world (``pda``'s
+``_with_space``), the KL's batch mean the ``data`` axis
+(:mod:`pda_torch.core.losses`), the L2 term enters as ``reg / (N M)`` and
+the gradients are summed over the world; the row shards of an image share
+its noise.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
@@ -44,6 +54,7 @@ from ..core.consensus import distribution_alignment
 from ..core.ema import ema_update, ramped_momentum
 from ..core.losses import dice_loss, neg_elbo
 from ..core.metrics import dice_score_torch
+from ..models.blocks import space_sharding
 from ..models.punet import ProbabilisticUnet, mc_decode_logits, mc_predict_probs, mc_pseudo
 from .state import TrainState, punet_l2_reg
 
@@ -57,7 +68,8 @@ def _punet_loss(model: ProbabilisticUnet, x, segm, eps_post=None,
                 reconstruct_posterior_mean: bool = False, mesh=None):
     """-ELBO + 1e-5 * l2 over the regularized subset: ``(objective, aux)``,
     ``aux["loss"]`` the loss's value. Without a mesh the objective is the
-    loss; on a mesh of N it carries ``reg / N`` (module docstring).
+    loss; on a mesh of N ranks (N x M) it carries ``reg / N`` (``reg / (N
+    M)``; module docstring).
 
     ``reconstruct_posterior_mean`` decodes the posterior mean instead of the
     draw for the reconstruction, while the MC-KL option still evaluates at
@@ -121,6 +133,21 @@ def _detached(aux: dict) -> dict:
     return {k: v.detach() for k, v in aux.items()}
 
 
+def _on(mesh, step):
+    """``step`` itself, or on a 2-D mesh ``step`` run under the models' row
+    sharding over the mesh's space axis."""
+    space = None if mesh is None else mesh.space
+    if space is None:
+        return step
+
+    @functools.wraps(step)
+    def sharded(*args, **kwargs):
+        with space_sharding(space):
+            return step(*args, **kwargs)
+
+    return sharded
+
+
 def make_supervised_punet_step(*, mesh=None):
     """Supervised PUNet training: -ELBO on (x, y), one Adam step.
     ``pda``: ``rng, k_post = split(rng)``. ``mesh``: every factory's data
@@ -132,7 +159,7 @@ def make_supervised_punet_step(*, mesh=None):
         _apply_updates(state, loss, mesh)
         return state, _detached(aux)
 
-    return step
+    return _on(mesh, step)
 
 
 def make_punet_val_step(n_samples: int = N_MC_VAL, *, mesh=None):
@@ -146,7 +173,7 @@ def make_punet_val_step(n_samples: int = N_MC_VAL, *, mesh=None):
         return state, _punet_val(state.model, x, y, n_samples, eps_post, eps_mc, generator,
                                  mesh=mesh)
 
-    return step
+    return _on(mesh, step)
 
 
 def _punet_val(model: ProbabilisticUnet, x, y, n_samples: int, eps_post, eps_mc, generator,
@@ -176,7 +203,7 @@ def make_mean_teacher_step(*, momentum: float = 0.999, do_consensus_masking: boo
         ema_update(state.teacher, state.model, momentum)
         return state, _detached(aux)
 
-    return step
+    return _on(mesh, step)
 
 
 def make_mean_teacher_val_step(*, do_consensus_masking: bool = False,
@@ -192,7 +219,7 @@ def make_mean_teacher_val_step(*, do_consensus_masking: bool = False,
                                   do_consensus_masking, eps_teacher, eps_post, eps_mc,
                                   generator, mesh)
 
-    return step
+    return _on(mesh, step)
 
 
 def _target_val(state: TrainState, labeller, x1, x2, gt, n_samples: int, masking: bool,
@@ -219,7 +246,7 @@ def make_pseudo_unet_step(*, mesh=None):
         _apply_updates(state, loss, mesh)
         return state, {"loss": loss.detach()}
 
-    return step
+    return _on(mesh, step)
 
 
 def make_pseudo_unet_val_step(*, mesh=None):
@@ -228,7 +255,7 @@ def make_pseudo_unet_val_step(*, mesh=None):
         loss = dice_loss(state.model(x) * z, y * z, mesh=mesh)
         return state, {"loss": loss, "metric": loss}
 
-    return step
+    return _on(mesh, step)
 
 
 def make_pseudo_punet_step(*, mesh=None):
@@ -242,7 +269,7 @@ def make_pseudo_punet_step(*, mesh=None):
         _apply_updates(state, loss, mesh)
         return state, _detached(aux)
 
-    return step
+    return _on(mesh, step)
 
 
 def make_pseudo_punet_val_step(n_samples: int = N_MC_VAL, *, mesh=None):
@@ -255,7 +282,7 @@ def make_pseudo_punet_val_step(n_samples: int = N_MC_VAL, *, mesh=None):
         return state, _punet_val(state.model, x, y, n_samples, eps_post, eps_mc, generator,
                                  consm=z, mesh=mesh)
 
-    return step
+    return _on(mesh, step)
 
 
 def make_fixmatch_step(*, source_distribution=None, do_consensus_masking: bool = False,
@@ -280,7 +307,7 @@ def make_fixmatch_step(*, source_distribution=None, do_consensus_masking: bool =
         return state, {"distr_ratio_bg": ratio[0], "distr_ratio_fg": ratio[1],
                        **_detached(aux)}
 
-    return step
+    return _on(mesh, step)
 
 
 def make_fixmatch_val_step(*, do_consensus_masking: bool = False,
@@ -296,7 +323,7 @@ def make_fixmatch_val_step(*, do_consensus_masking: bool = False,
                                   do_consensus_masking, eps_weak, eps_post, eps_mc, generator,
                                   mesh)
 
-    return step
+    return _on(mesh, step)
 
 
 def _joint_loss(model: ProbabilisticUnet, xs, ys, xt2, y, z, eps_source, eps_post, generator,
@@ -330,7 +357,7 @@ def make_adamt_step(*, momentum: float = 0.999, do_consensus_masking: bool = Fal
         ema_update(state.teacher, state.model, m)
         return state, _detached(aux)
 
-    return step
+    return _on(mesh, step)
 
 
 def make_adamt_val_step(*, do_consensus_masking: bool = False, n_samples: int = N_MC_TRAIN,
@@ -347,7 +374,7 @@ def make_adamt_val_step(*, do_consensus_masking: bool = False, n_samples: int = 
                                   do_consensus_masking, eps_teacher, eps_post, eps_mc,
                                   generator, mesh)
 
-    return step
+    return _on(mesh, step)
 
 
 def make_adamatch_step(*, do_consensus_masking: bool = False, n_samples: int = N_MC_TRAIN,
@@ -365,7 +392,7 @@ def make_adamatch_step(*, do_consensus_masking: bool = False, n_samples: int = N
         _apply_updates(state, loss, mesh)
         return state, _detached(aux)
 
-    return step
+    return _on(mesh, step)
 
 
 def make_adamatch_val_step(*, do_consensus_masking: bool = False, n_samples: int = N_MC_TRAIN,
@@ -381,7 +408,7 @@ def make_adamatch_val_step(*, do_consensus_masking: bool = False, n_samples: int
                                   do_consensus_masking, eps_weak, eps_post, eps_mc, generator,
                                   mesh)
 
-    return step
+    return _on(mesh, step)
 
 
 def make_supervised_unet_step(*, mesh=None):
@@ -393,7 +420,7 @@ def make_supervised_unet_step(*, mesh=None):
         _apply_updates(state, loss, mesh)
         return state, {"loss": loss.detach()}
 
-    return step
+    return _on(mesh, step)
 
 
 def make_supervised_unet_val_step(*, mesh=None):
@@ -402,7 +429,7 @@ def make_supervised_unet_val_step(*, mesh=None):
         loss = dice_loss(state.model(x), y, mesh=mesh)
         return state, {"loss": loss, "metric": loss}
 
-    return step
+    return _on(mesh, step)
 
 
 # TensorBoard image panels: the tensors each reference logger writes

@@ -96,8 +96,8 @@ def test_da_name_and_mesh(monkeypatch):
     args = argparse.Namespace(mesh=None)
     monkeypatch.delenv("PDA_MESH", raising=False)
     assert tcommon.mesh_from_arg(args) is None is jcommon.mesh_from_arg(args)
-    # --mesh gives a data mesh over torch.distributed: without a launcher a
-    # world of 1, data=N > 1 says how to launch, space=M > 1 is M11 part 2
+    # --mesh gives a mesh over torch.distributed: without a launcher a world
+    # of 1; data=N > 1 and data=N,space=M say how to launch N (N x M) ranks
     mesh = tcommon.mesh_from_arg(argparse.Namespace(mesh="auto"), "cpu")
     try:
         assert (mesh.world, mesh.rank, mesh.backend) == (1, 0, "gloo")
@@ -105,7 +105,7 @@ def test_da_name_and_mesh(monkeypatch):
         mesh.destroy()
     with pytest.raises(ValueError, match="torchrun --nproc-per-node 2"):
         tcommon.mesh_from_arg(argparse.Namespace(mesh="data=2"), "cpu")
-    with pytest.raises(NotImplementedError, match="M11 part 2"):
+    with pytest.raises(ValueError, match="torchrun --nproc-per-node 4 .* --mesh data=2,space=2"):
         tcommon.mesh_from_arg(argparse.Namespace(mesh="data=2,space=2"), "cpu")
     # the domain-adaptation CLIs raise before they read anything
     monkeypatch.setattr(tda, "livecell_punet", FakeModel.factory)

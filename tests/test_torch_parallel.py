@@ -23,8 +23,10 @@ and 4 ranks, spawned once each for the whole module
     alone, every rank returning.
   * (d) a world of 1 bit-equal to ``mesh=None``.
   * (e) the refusals (``shard_batch``, a ``Loader`` shard, ``mesh_from_arg``
-    against ``pda``'s, ``space=M``, a world other than the launcher's, a
-    second mesh in one process, a trainer's device off its mesh).
+    against ``pda``'s, a ``space=M`` mesh in a world other than N x M, a
+    world other than the launcher's, a second mesh in one process, a
+    trainer's device off its mesh). The (data, space) mesh itself is
+    ``tests/test_torch_space.py``'s.
   * (f) ``PUNetTrainer(mesh=).fit(4)`` at world 2 against ``fit(4)`` in one
     process: equal parameters on both ranks, within (a)'s bounds of the
     single process's; rank 0 alone wrote the checkpoints and the event file.
@@ -388,9 +390,9 @@ SPECS = ["auto", "data=2", "data=2,space=1", "data=4", "data=2,space=2", "data=0
 def test_mesh_from_arg_parses_as_pda(monkeypatch, spec):
     """Launched as a world of 2: ``auto`` and ``data=2`` ask ``get_mesh``
     for the world (recorded here in place of a process group), ``data=4``
-    raises with the launch line before any group is made, ``space=M > 1``
-    names ROADMAP M11 part 2; every malformed spec is ``pda``'s refusal,
-    word for word."""
+    and ``data=2,space=2`` (a world of 4) raise with the launch line before
+    any group is made; every malformed spec is ``pda``'s refusal, word for
+    word."""
     import torch.distributed as dist
 
     from pda_torch import parallel
@@ -421,15 +423,17 @@ def test_mesh_from_arg_parses_as_pda(monkeypatch, spec):
         assert got[0] == "ValueError" and "torchrun --nproc-per-node 4" in got[1]
         assert ref == ("mesh", (4,))
     elif spec == "data=2,space=2":
-        assert got[0] == "NotImplementedError" and "M11 part 2" in got[1]
+        assert got[0] == "ValueError" and ("torchrun --nproc-per-node 4 -m pda_torch.experiments"
+                                           ".<cli> --mesh data=2,space=2") in got[1]
         assert ref == ("mesh", (2, 2))
     else:
         assert got == ref and got[0] == "ValueError"
 
 
 def test_mesh_from_arg_without_a_launcher():
-    """No torchrun: ``data=N > 1`` raises with the launch line before any
-    process group is made; no ``--mesh`` is no mesh."""
+    """No torchrun: ``data=N > 1`` and ``data=1,space=2`` raise with the
+    launch line before any process group is made; no ``--mesh`` is no
+    mesh."""
     import torch.distributed as dist
 
     from pda_torch.experiments.common import mesh_from_arg, standard_parser
@@ -439,7 +443,8 @@ def test_mesh_from_arg_without_a_launcher():
     assert mesh_from_arg(argparse.Namespace(), "cpu") is None
     with pytest.raises(ValueError, match=r"torchrun --nproc-per-node 2 -m pda_torch"):
         mesh_from_arg(parser.parse_args(["--mesh", "data=2"]), "cpu")
-    with pytest.raises(NotImplementedError, match="M11 part 2"):
+    with pytest.raises(ValueError, match=r"torchrun --nproc-per-node 2 -m pda_torch\.experiments"
+                                         r"\.<cli> --mesh data=1,space=2"):
         mesh_from_arg(parser.parse_args(["--mesh", "data=1,space=2"]), "cpu")
     assert not dist.is_initialized()
 
@@ -482,10 +487,27 @@ def test_trainer_refuses_a_device_off_its_mesh():
 
 
 def test_get_mesh_2d_names_the_next_part():
+    """``get_mesh_2d`` is the (data, space) mesh: in a world other than N x M
+    it raises with the launch line of N x M ranks and makes no group; in
+    this process a (1, 1) mesh has its world, its two axes' groups of one
+    rank, and ends its process group once."""
+    import torch.distributed as dist
+
     from pda_torch.parallel import get_mesh_2d
 
-    with pytest.raises(NotImplementedError, match="ROADMAP M11 part 2"):
-        get_mesh_2d(2, 2)
+    with pytest.raises(ValueError, match=r"torchrun --nproc-per-node 4 -m pda_torch\.experiments"
+                                         r"\.<cli> --mesh data=2,space=2"):
+        get_mesh_2d(2, 2, device="cpu")
+    assert not dist.is_initialized()
+    mesh = get_mesh_2d(1, 1, device="cpu")
+    try:
+        assert mesh.shape == {"data": 1, "space": 1} and mesh.world == 1
+        for axis in ("data", "space"):
+            view = mesh.axis(axis)
+            assert (view.world, view.rank, view.ranks) == (1, 0, [0])
+    finally:
+        mesh.destroy()
+    assert not dist.is_initialized()
 
 
 def test_sharded_normal_is_the_ranks_slice_of_one_draw():

@@ -62,6 +62,8 @@ NOISE_KW = {"eps_mc8": "eps_mc"}
 
 
 def build_model(spec, kind: str):
+    """The spec's model of ``kind``, in float64 where ``spec["float64"]``,
+    computing in bf16 where ``spec["bf16"]``."""
     from pda_torch.models import ProbabilisticUnet, UNet2d
 
     if kind == "punet":
@@ -70,7 +72,9 @@ def build_model(spec, kind: str):
     else:
         model = UNet2d(**spec["unet_cfg"])
         model.load_state_dict(spec["unet_state"])
-    return model
+    if spec.get("bf16"):
+        model.dtype = torch.bfloat16
+    return model.double() if spec.get("float64") else model
 
 
 def _local(batch, mesh):
