@@ -44,8 +44,12 @@ Phases, each of which fails the run (exit code 1) on any error or miss
                 in float64 sums, layer by layer from the kernel's own input
                 (bf16 outputs within one bf16 ulp, or 1e-5 of the largest
                 where the value's ulp is finer, and bit-equal on 99%; dW, db
-                within 1e-4; K3's mean within 2^-8), timed beside cuDNN's bf16
-                convolutions and the bound at 989 TFLOP/s; one 128^2 MT step
+                within 1e-4; K3's mean within 2^-8, at the tiled, MT-teacher
+                and pseudo-export shapes, on the wgmma body), timed beside
+                cuDNN's bf16 convolutions and the bound at 989 TFLOP/s; K3's
+                packed layer entry (relu(feat + z), one fma.rn.relu.bf16x2)
+                bit-equal to the float32 sum rounded to bf16 over every
+                finite bf16 feat value; one 128^2 MT step
                 card vs the plain bf16 step on the CPU; the 512^2 step with
                 the kernels against the step with every plain version on the
                 card (pda's development/ab_step_check.py: loss, gradients'
@@ -278,7 +282,10 @@ FWD_MODE_ENTRIES = {"conv_block_fwd_wgmma": ("conv_block_fwd", "wgmma"),
 # every bf16 backward launch
 BWD_ROUTE_ENTRIES = {"conv_block_bwd_wgmma": ("conv_block_bwd", "wgmma"),
                      "conv_block_bwd_dual_wgmma": ("conv_block_bwd_dual", "wgmma")}
-ROUTE_ENTRIES = {**FWD_MODE_ENTRIES, **BWD_ROUTE_ENTRIES}
+# ... and the bf16 MC tail's (csrc/mc_consensus.cu mc_consensus_wgmma): every
+# bf16 launch of mc_consensus
+MC_ROUTE_ENTRIES = {"mc_consensus_wgmma": ("mc_consensus", "wgmma")}
+ROUTE_ENTRIES = {**FWD_MODE_ENTRIES, **BWD_ROUTE_ENTRIES, **MC_ROUTE_ENTRIES}
 # peak device memory (GiB) of each time_steps label's run
 STEP_PEAKS = {}
 
@@ -1603,44 +1610,93 @@ def check_bf16_bwd(entry, label, args, need_dx, per_step, binding, gp=None, also
     return ok
 
 
-def check_bf16_mc(entry, label, args, masking, binding, weight):
+def check_bf16_mc(entry, label, args, masking, binding, weight, also=None):
     """K3's bf16 instance against its plain version summed in float64: the
     mean within K3_BF16_MEAN_TOL, the consensus only where a logit lies
-    within K3_BF16_WINDOW of a threshold, twice bit-equal; times, bound."""
+    within K3_BF16_WINDOW of a threshold, twice bit-equal, every launch (the
+    timed ones too) on the wgmma body (launches_wgmma_bf16); times, bound,
+    also into ``also`` (the route's entry)."""
     import torch
 
+    from pda_torch.core.consensus import consensus_from_logits
     from pda_torch.kernels import conv_block as kc
     from pda_torch.kernels import mc_consensus as km
     from pda_torch.tools.workload import PEAK_BF16_FLOPS, cuda_ms, mc_bytes, mc_flops
 
-    mean, cons = km.mc_consensus(*args, masking=masking)
-    again = km.mc_consensus(*args, masking=masking)
+    def reference(*a):  # the plain version and the window mask, from one logit stack
+        logits = km.mc_logits_plain(*a)
+        near = ((logits.abs() - math.log(9.0)).abs() < K3_BF16_WINDOW).any(dim=0)
+        return (*consensus_from_logits(logits, masking=masking), near)
+
+    fn = km.mc_consensus
+    before = (fn.launches_bf16, fn.launches_wgmma_bf16)
+    mean, cons = fn(*args, masking=masking)
+    again = fn(*args, masking=masking)
     same = torch.equal(mean, again[0]) and torch.equal(cons, again[1])
     with kc.plain_sums(torch.float64):
-        ref_mean, ref_cons = plain_mc(km.mc_consensus_plain, args, masking)
-        near = plain_mc(lambda *a: ((km.mc_logits_plain(*a).abs()
-                                     - math.log(9.0)).abs() < K3_BF16_WINDOW).any(dim=0), args)
+        ref_mean, ref_cons, near = plain_mc(reference, args)
     err = float((mean.double() - ref_mean.double()).abs().max())
     flips = int((cons != ref_cons).sum())
     stray = int(((cons != ref_cons) & ~near).sum())
     good = bool(torch.isfinite(mean).all()) and err <= K3_BF16_MEAN_TOL and stray == 0 and same
     del mean, cons, again, ref_mean, ref_cons, near
     CHECKED.add(shape_key("mc_consensus", args, masking=masking))
-    entry["max_abs_err"] = max(entry["max_abs_err"], err)
-    ms = cuda_ms(lambda: km.mc_consensus(*args, masking=masking))
+    for e in filter(None, (entry, also)):
+        e["max_abs_err"] = max(e["max_abs_err"], err)
+    ms = cuda_ms(lambda: fn(*args, masking=masking))
+    launched = fn.launches_bf16 - before[0]
+    route = fn.launches_wgmma_bf16 - before[1] == launched > 0
+    good &= route
     plain_ms = cuda_ms(lambda: plain_mc(km.mc_consensus_plain, args, masking), iters=3)
     b, h, w, c = args[0].shape
     s, n_mid = args[1].shape[0], args[2].shape[0]
     flops = mc_flops(b, h, w, c, s, n_mid)
-    bound, term = add_bound(entry, binding, flops, mc_bytes(b, h, w, c, s, n_mid, feat_bytes=2),
-                            weight, PEAK_BF16_FLOPS)
+    nbytes = mc_bytes(b, h, w, c, s, n_mid, feat_bytes=2)
+    bound, term = add_bound(entry, binding, flops, nbytes, weight, PEAK_BF16_FLOPS)
     log(f"bf16 kernel mc_consensus {label} S={s} feat {b}x{h}x{w}x{c} masking={masking}: mean "
         f"max_abs_err {err:.3e} (tol 2^-8), consensus differs at {flips} px, {stray} of them "
-        f"farther than 2^-6 from a threshold, repeat bit-equal {same}; ms {ms:.3f} "
-        f"({flops / ms / 1e9:.1f} TFLOP/s) plain_ms {plain_ms:.3f} bound_ms {bound:.3f} ({term}) "
-        f"{'ok' if good else 'FAIL'}")
-    entry["ms"] += weight * ms
-    entry["plain_ms"] += weight * plain_ms
+        f"farther than 2^-6 from a threshold, repeat bit-equal {same}, on the wgmma body "
+        f"{route} ({launched} launches); ms {ms:.3f} ({flops / ms / 1e9:.1f} TFLOP/s) plain_ms "
+        f"{plain_ms:.3f} bound_ms {bound:.3f} ({term}) {'ok' if good else 'FAIL'}")
+    if also is not None:
+        add_bound(also, binding, flops, nbytes, weight, PEAK_BF16_FLOPS)
+    for e in filter(None, (entry, also)):  # no library call computes K3: library_ms stays None
+        e["ms"] += weight * ms
+        e["plain_ms"] += weight * plain_ms
+    return good
+
+
+def check_bf16_entry(dev, gen):
+    """K3's bf16 layer entry on the card (csrc/mc_consensus.cu
+    pda_mc_bf16_entry: the body's own fma.rn.relu.bf16x2 of feat * 1 + z)
+    against the float32 sum rounded to bf16 and ReLU (pda's), over every
+    finite bf16 feat value against seeded z (opposite signs, wide exponent
+    gaps, subnormals): bit-equal, a zero's sign aside."""
+    import torch
+
+    from pda_torch.kernels import mc_consensus as km
+
+    f = torch.arange(-32768, 32768, dtype=torch.int32).to(torch.int16).view(torch.bfloat16)
+    f = f[torch.isfinite(f.float())]
+    z = torch.cat([torch.randn(32, generator=gen)
+                   * 10.0 ** torch.randint(-30, 30, (32,), generator=gen),
+                   torch.tensor([0.0, -0.0, 1e-40, -1e-40, 3e38, -3e38])]).to(torch.bfloat16)
+    ff = torch.cat([f.repeat(z.numel()), f, f])
+    zz = torch.cat([z.repeat_interleave(f.numel()), -f, f * 2.0 ** -30])
+    n = ff.numel() // 2 * 2
+    ff, zz = ff[:n].to(dev), zz[:n].to(dev)
+    out, ref = km.packed_entry(ff, zz), km.packed_entry_plain(ff, zz)
+    torch.cuda.synchronize()
+
+    def canon(t):
+        return torch.where(t == 0, torch.zeros_like(t), t).view(torch.int16)
+
+    differ = int((canon(out) != canon(ref)).sum())
+    subnormal = int(((ff.float() + zz.float()).abs() < 2.0 ** -126).sum())
+    good = differ == 0
+    log(f"bf16 kernel mc_consensus layer entry: {n} (feat, z) pairs ({f.numel()} finite feat "
+        f"values, {subnormal} subnormal or zero sums), {differ} differ from the float32 sum "
+        f"rounded to bf16 {'ok' if good else 'FAIL'}")
     return good
 
 
@@ -1764,10 +1820,12 @@ def phase_bf16(dev, results, binding, f32_ms):
         results[bf16_name(name)] = dict(
             results[bf16_name(kernel)], name=bf16_name(name),
             source="pda_torch/kernels/csrc/" + ("conv3x3_wgmma.cuh" if name in FWD_MODE_ENTRIES
+                                                else "mc_consensus.cu" if name in MC_ROUTE_ENTRIES
                                                 else "wgrad_wgmma.cuh"))
     k1, k2, k3 = (results[bf16_name(n)] for n in ("conv_block_fwd", "conv_block_fwd_dual",
                                                   "mc_consensus"))
     k1w, k2w = (results[bf16_name(n)] for n in FWD_MODE_ENTRIES)
+    k3w = results[bf16_name("mc_consensus_wgmma")]
     gen = torch.Generator().manual_seed(SEED + 3)
     ok = True
 
@@ -1792,10 +1850,14 @@ def phase_bf16(dev, results, binding, f32_ms):
             ok &= check_bf16_fwd(k2, f"conv_block_fwd_dual {ca}+{cb}->{c} @{b}x{h}x{w}",
                                  (xa, xb, *conv_weights(gen, ca + cb, c, dev)), 1, binding,
                                  also=k2w)
-        for name, (b, h, w, c), masking in wl.K3_SHAPES[:2]:
-            feat, *rest = wl.mc_inputs(gen, b, h, w, c, dev=dev)
+        # the pseudo export's shape and the layer entry from a generator of
+        # their own: every other check keeps its data
+        gen_k3 = torch.Generator().manual_seed(SEED + 20)
+        for name, (b, h, w, c), masking in wl.K3_SHAPES:
+            feat, *rest = wl.mc_inputs(gen_k3 if name == "pseudo" else gen, b, h, w, c, dev=dev)
             ok &= check_bf16_mc(k3, name, (feat.to(bf16), *rest), masking, binding,
-                                int(name == "tiled"))
+                                int(name == "tiled"), also=k3w)
+        ok &= check_bf16_entry(dev, gen_k3)
     for (b, h, w, cin, c), need_dx, per_step, mode in wl.BWD_SHAPES:
         g, x, *rest = saved_block(first_draw(gen, gen_modes, seen, (b, h, w, cin, c)),
                                   b, h, w, cin, c, dev, bf16)
@@ -4476,7 +4538,9 @@ def main(argv=None) -> int:
         "conv_block_bwd[_dual]_wgmma_bf16: the bf16 backward launches whose every dgrad "
         "(csrc/conv3x3_wgmma.cuh) and every wgrad but an entry layer's "
         "(csrc/wgrad_wgmma.cuh) ran on the wgmma bodies, with their kernel's times (every "
-        "bf16 backward launch of the main paths); launches: the main "
+        "bf16 backward launch of the main paths); mc_consensus_wgmma_bf16: the bf16 "
+        "mc_consensus launches on its wgmma body (csrc/mc_consensus.cu mc_consensus_wgmma: "
+        "all of them), with the kernel's times; launches: the main "
         "paths' runs, each counted from 0: both serving entries, the checked MT step, the "
         "checked PDA_PALLAS_CONV_MODE=mixed step (the recompute entries' float32 count), the "
         "bf16 phase's timed MT steps (default and mixed) and tiled serving, the parallel "

@@ -1,6 +1,6 @@
 // Fused Monte-Carlo Fcomb tail + consensus for Hopper (sm_90a), float32
-// accurate, the mid layers on the tensor cores in 3xTF32; and its bf16
-// instance for pda's bf16 configuration (mc_consensus_bf16, at the end).
+// accurate, the mid layers on the tensor cores in 3xTF32; and the bf16 tail
+// for pda's bf16 configuration on wgmma (mc_consensus_wgmma, at the end).
 //
 // Replaces the Pallas TPU kernel pda/kernels/mc_consensus.py
 // mc_consensus_decode (:136, body _kernel :49). Per pixel and sample s:
@@ -60,6 +60,7 @@
 
 #include <cstddef>
 #include <cstdint>
+#include <mutex>
 
 #include "bf16.cuh"
 #include "tf32x3.cuh"
@@ -240,142 +241,518 @@ cudaError_t launch(const float* feat, const float* z, const float* mw,
 
 
 // ---- bf16 -------------------------------------------------------------------
-// pda's bf16 configuration (pda/kernels/mc_consensus.py _kernel :96-110):
-// feat and the mid and last kernels bf16, the latent terms and the biases
-// float32. Per sample: the z row rounded to bf16, h = relu(feat + z) rounded
-// to bf16; each mid layer bf16 x bf16 on mma.sync.m16n8k16 with float32
-// sums, + b (float32), ReLU, one rounding to bf16; the last layer a float32
-// dot product of the bf16 h with the bf16 w_last, + b_last: the logit in
-// float32, then the sigmoid mean and the band test in float32. K = C is one
-// chain of C / 16 k-steps (at most 4). Channel block j (16 channels) of the
-// warp's 16 rows sits in a lane as the m16n8k16 A fragment of k-step j,
-// two bf16 a register (bf16.cuh): r0 = (row grp, 16j + 2q + {0,1}),
-// r1 = (row grp + 8, the same channels), r2 = (row grp, 16j + 8 + 2q + {0,1}),
-// r3 = (row grp + 8, those); the C fragments of n-tiles 2j and 2j + 1 give
-// the next layer's A fragment of k-step j in the same lanes, rounded and
-// packed (no shuffles). Every layer's hidden stays in registers (C / 4 of
-// them). W_m is stored once a block in shared memory in B-fragment order
-// (one 8-byte {b0, b1} a lane, k-step and n-tile).
-template <int C>
+// pda's bf16 configuration (pda/kernels/mc_consensus.py _kernel :96-113) on
+// Hopper's asynchronous tensor-core path: mc_consensus_wgmma<C, NMID>. feat
+// and the mid and last kernels bf16, the latent terms and the biases
+// float32, at pda's rounding points: per sample the z row rounded to bf16;
+// h = relu(feat + z) rounded to bf16; each mid layer bf16 x bf16 with
+// float32 sums, + b (float32), ReLU, one rounding to bf16; the last layer
+// a float32 sum of the bf16 h times the bf16 w_last, + b_last: the logit in
+// float32; the sigmoid mean and the band test in float32.
+//
+// What bounds it: 2 C^2 FLOPs a pixel, sample and mid layer at 989 TFLOP/s
+// (0.14 ms at S = 16, four 512^2 tiles, C = 64, n_mid 1) against 2 C bytes
+// of features a pixel (40 us): operations, but only if the CUDA-core work
+// around each product (the layer entry, the bias, ReLU and rounding of
+// every hidden value, the last layer, the sigmoid) overlaps the products.
+// An mma.sync body (m16n8k16, one warp a 16-pixel tile, the last layer and
+// the reduction on the FMA pipes, each product holding the warp's stream)
+// took 0.80-0.82 ms a call there (launches back to back). Here:
+//   - A warpgroup (the block's 128 threads) owns a 64-pixel tile, 16 pixels
+//     a warp; a mid layer is one wgmma m64nCk16 chain over K = C (C / 16
+//     k-steps), A from registers, B = W_m from shared memory. A warp's part
+//     of A is the m16n8k16 A fragment (bf16.cuh) and its accumulator the
+//     m16n8 C fragments, so a layer's output, rounded and packed, is the
+//     next layer's A in the same registers (no shuffles). W_m is stored once
+//     a block as K-major core matrices without swizzle ([k / 8][n][8 k], 128
+//     contiguous bytes each: no bank conflicts at any C), so no lane loads
+//     B fragments.
+//   - Two samples in flight: the warpgroup runs two sample streams (slots
+//     0 and 1, samples s and s + 1). It issues one slot's next product and
+//     commits it, then waits (wait_group 1) for the other slot's and runs
+//     that slot's epilogue while the first product runs. Each slot has its
+//     own A (C / 4 registers) and sums (C / 2).
+//   - The layer entry is packed: relu(feat + z) is one fma.rn.relu.bf16x2
+//     (f * 1 + z, one rounding of the exact sum) a channel pair. pda adds
+//     the two bf16 values in float32 and rounds to bf16: the float32 sum of
+//     two bf16 values (8-bit significands) is that exact sum rounded to 24
+//     bits, and rounding to 24 bits and then to 8 gives what rounding to 8
+//     once gives (24 >= 2 * 8 + 2: the second rounding cannot land on a tie
+//     that the first one made); the sum of two bf16 values is a multiple of
+//     the least bf16 subnormal, so it never underflows to 0; ReLU commutes
+//     with rounding to nearest. So the two agree bit for bit
+//     (tests/test_torch_mc_bf16_entry.py over every bf16 feat value;
+//     chip_smoke.py on the card).
+//   - The mid epilogue adds the float32 bias to the float32 sums (sums
+//     first, as pda), then one cvt.rn.relu.bf16x2.f32 rounds and packs two
+//     channels.
+//   - The last layer is one more wgmma chain, m64n8k16. Its B_c holds w_last
+//     in column c and zeros elsewhere, and sample s takes B_(s % 8), so the
+//     float32 logits of 8 samples gather in the columns of one 64 x 8
+//     accumulator (lane quad q: samples 2 q, 2 q + 1) and each lane takes 4
+//     sigmoids and band tests every 8 samples, not 2 a sample; a column's
+//     other products are exact zeros. Its sum order differs from pda's XLA
+//     dot; both are held against float64 sums (chip_smoke.py,
+//     tests/test_torch_cuda.py).
+//   - Feature rows are read once from device memory straight into the A
+//     fragment's registers and held across all S samples; the next tile's
+//     are read while a tile runs. The blocks are one wave (as many 64-pixel
+//     tiles a block as the card's resident blocks need), so each sets up its
+//     shared memory once.
+// Sample loop: groups of 8 samples (one accumulator's columns) as four
+// pairs, each wait leaving the newest group in flight; no group is in
+// flight across the loop's back edge, where ptxas would serialize every
+// wgmma (its C7514: the loop's register copies read accumulators in
+// flight). Past S a slot repeats sample S - 1, not counted (S off a
+// multiple of 8 computes up to 7 samples more). The probabilities sum per
+// lane in sample order, then over a row's four lanes in lane order; no
+// atomics, so repeats are bit-equal. NMID (0, 1, 2; -1 any other n_mid) is
+// a template parameter, so that the layer loop unrolls; with -1 ptxas
+// serializes the products (C7514).
+//
+// On an H100 (700 W) at S = 16, C = 64, n_mid 1, launches back to back:
+// four 512^2 tiles 0.376-0.385 ms (38% of the bound), the MT teacher's
+// 2 x 512^2 0.193-0.200, the pseudo export's 1 x 528 x 704 0.144-0.146,
+// against the mma.sync body's 0.795-0.815, 0.413-0.420, 0.293-0.298 in
+// the same run (pda_torch/tools/bench_variants.py --only mc --dtype bf16
+// --burst 10, PERF.md); 162 registers, no spills, ~102 warp instructions a
+// sample (pda_torch/tools/profile.py --what ptxas,sass). Without its mid
+// products (their sums made by the CUDA cores instead) it takes 0.30 ms,
+// and its warps spend under 4% of the loop waiting on wgmma: each warp's
+// own instruction stream around the products binds it, not the tensor
+// cores.
+namespace mcw {
+
+constexpr int THREADS = 128;   // one warpgroup: a 64-pixel tile at a time, 16 a warp
+constexpr int MIN_BLOCKS = 3;  // blocks an SM (caps the registers at 168)
+constexpr int LAST_N = 8;      // the last layer's N: 8 samples' logits, one a column
+
+// 32-bit words of a sample's latent row a quad of lanes reads: its C / 8
+// channel pairs, rounded up to whole 16-byte loads
+__host__ __device__ constexpr int z_words(int c) { return (c / 8 + 3) / 4 * 4; }
+
+// Shared memory (bytes): W_m of every mid layer, the last layer's LAST_N
+// B operands (w_last in column c of the c-th), the S latent rows, the mid
+// biases.
+struct Layout {
+  size_t last, z, bias, bytes;
+  __host__ __device__ Layout(int c, int s, int n_mid)
+      : last(2 * static_cast<size_t>(n_mid) * c * c),
+        z(last + 2 * static_cast<size_t>(LAST_N) * LAST_N * c),
+        bias(z + 16 * static_cast<size_t>(z_words(c)) * s),
+        bytes(bias + 4 * static_cast<size_t>(n_mid) * c) {}
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// A wgmma shared-memory descriptor, K-major without swizzle: the start
+// address, the leading-byte offset (between the core matrices of a k16 step
+// along K) and the stride-byte offset (between 8-row core matrices along N),
+// in 16-byte units.
+__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) | (static_cast<uint64_t>(sbo >> 4) << 32);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// Keep the compiler from moving reads or writes of a wgmma's registers (its
+// A operand, its sums) across the fences, commits and waits around it.
+template <int R>
+__device__ __forceinline__ void fence_regs(float (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+template <int NK>
+__device__ __forceinline__ void fence_regs(uint32_t (&a)[NK][4]) {
+#pragma unroll
+  for (int j = 0; j < NK; ++j)
+#pragma unroll
+    for (int k = 0; k < 4; ++k) asm volatile("" : "+r"(a[j][k])::"memory");
+}
+
+// d (+)= A * B, m64nNk16, A (bf16) from registers, B (bf16) from shared
+// memory by descriptor, float32 sums; scale_d 0 starts a chain (d = A * B).
+__device__ __forceinline__ void mma_n8(float (&d)[4], const uint32_t (&a)[4],
+                                       uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %9, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3"
+      "}, {%4, %5, %6, %7}, %8, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
+__device__ __forceinline__ void mma_n16(float (&d)[8], const uint32_t (&a)[4],
+                                        uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, {%8, %9, %10, %11}, %12, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
+__device__ __forceinline__ void mma_n32(float (&d)[16], const uint32_t (&a)[4],
+                                        uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
+__device__ __forceinline__ void mma_n48(float (&d)[24], const uint32_t (&a)[4],
+                                        uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %29, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n48k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23"
+      "}, {%24, %25, %26, %27}, %28, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
+__device__ __forceinline__ void mma_n64(float (&d)[32], const uint32_t (&a)[4],
+                                        uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
+template <int N>
+__device__ __forceinline__ void mma(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t b,
+                                    int scale_d) {
+  if constexpr (N == 8) {
+    mma_n8(d, a, b, scale_d);
+  } else if constexpr (N == 16) {
+    mma_n16(d, a, b, scale_d);
+  } else if constexpr (N == 32) {
+    mma_n32(d, a, b, scale_d);
+  } else if constexpr (N == 48) {
+    mma_n48(d, a, b, scale_d);
+  } else {
+    mma_n64(d, a, b, scale_d);
+  }
+}
+
+// relu(f + z) for two channels: f * 1 + z rounded once to bf16, then ReLU.
+__device__ __forceinline__ uint32_t entry2(uint32_t f, uint32_t z) {
+  uint32_t d;
+  asm("fma.rn.relu.bf16x2 %0, %1, %2, %3;\n" : "=r"(d) : "r"(f), "r"(0x3F803F80u), "r"(z));
+  return d;
+}
+
+// relu(lo), relu(hi) rounded to bf16 (to nearest even) in one register, lo
+// in the low half.
+__device__ __forceinline__ uint32_t pack_relu(float lo, float hi) {
+  uint32_t d;
+  asm("cvt.rn.relu.bf16x2.f32 %0, %1, %2;\n" : "=r"(d) : "f"(hi), "f"(lo));
+  return d;
+}
+
+// grid = (blocks of an image, B): block x takes the image's 64-pixel tiles
+// [x T, (x + 1) T), T = tiles_per_block, one after the other.
+template <int C, int NMID>
 __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
-mc_consensus_bf16(const bf::bf16* __restrict__ feat, const float* __restrict__ z_terms,
-                  const bf::bf16* __restrict__ mid_w, const float* __restrict__ mid_b,
-                  const bf::bf16* __restrict__ last_w, const float* __restrict__ last_b,
-                  float* __restrict__ mean_out, float* __restrict__ cons_out, int B, int HW,
-                  int S, int n_mid, float logit_hi, float logit_lo, int masking) {
+mc_consensus_wgmma(const bf::bf16* __restrict__ feat, const float* __restrict__ z_terms,
+                   const bf::bf16* __restrict__ mid_w, const float* __restrict__ mid_b,
+                   const bf::bf16* __restrict__ last_w, const float* __restrict__ last_b,
+                   float* __restrict__ mean_out, float* __restrict__ cons_out, int B, int HW,
+                   int S, int n_mid_arg, float logit_hi, float logit_lo, int masking,
+                   int tiles_per_block) {
   static_assert(C % 16 == 0 && C >= 16 && C <= 64, "C: a multiple of 16 up to 64");
   constexpr int NK = C / 16;  // k-steps (channel blocks of 16)
-  constexpr int NB = C / 8;   // n-tiles
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  uint2* s_w = reinterpret_cast<uint2*>(smem_raw);  // [m][j][n][lane]: W_m's B fragments
-  float* s_b = reinterpret_cast<float*>(s_w + n_mid * NK * NB * 32);
-  float* s_wl = s_b + n_mid * C;  // C: w_last as float32
-  float* s_z = s_wl + C;          // S * C: this image's latent terms, rounded to bf16
-
+  constexpr int ZQ = z_words(C);
+  const int n_mid = NMID >= 0 ? NMID : n_mid_arg;
+  extern __shared__ __align__(16) unsigned char mc_smem[];
+  const Layout L(C, S, n_mid);
   const int tid = threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5;
   const int grp = lane >> 2, quad = lane & 3;
   const int b = blockIdx.y;
-  const int row0 = blockIdx.x * PIXELS + warp * 16;  // the warp's first pixel
 
-  uint32_t f[NK][4];  // the feature rows, in fragment order
-  const uint32_t* fb = reinterpret_cast<const uint32_t*>(feat + static_cast<size_t>(b) * HW * C);
+  // W_m[k][n] (in, out) as K-major core matrices: element (k, n) of layer m
+  // at m C^2 + (k / 8) 8 C + 8 n + k % 8; read 8 n at a time
+  auto* s_w = reinterpret_cast<bf::bf16*>(mc_smem);
+  for (int e = tid; e < n_mid * C * C / 8; e += THREADS) {
+    const int n0 = 8 * (e % (C / 8)), k = (e / (C / 8)) % C, m = e / (C * C / 8);
+    const uint4 v = *reinterpret_cast<const uint4*>(mid_w + 8 * static_cast<size_t>(e));
+    const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+    bf::bf16* dst = s_w + m * C * C + (k / 8) * 8 * C + 8 * n0 + k % 8;
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int p = row0 + grp + 8 * r;
-#pragma unroll
-    for (int j = 0; j < NK; ++j)
-#pragma unroll
-      for (int h = 0; h < 2; ++h)
-        f[j][r + 2 * h] =
-            p < HW ? __ldg(fb + (static_cast<size_t>(p) * C + 16 * j + 8 * h + 2 * quad) / 2)
-                   : 0u;
+    for (int i = 0; i < 8; ++i)
+      dst[8 * i] = __ushort_as_bfloat16(static_cast<unsigned short>(w[i / 2] >> (16 * (i % 2))));
   }
-
-  // W_m[k][n] (in, out) as B fragments: b0 = W[16j + 2q + {0,1}][8n + grp],
-  // b1 = W[16j + 8 + 2q + {0,1}][8n + grp]
-  for (int e = tid; e < n_mid * NK * NB * 32; e += THREADS) {
-    const int l = e % 32, n = (e / 32) % NB, j = (e / (32 * NB)) % NK, m = e / (32 * NB * NK);
-    const bf::bf16* w = mid_w + static_cast<size_t>(m) * C * C +
-                        (16 * j + 2 * (l & 3)) * C + 8 * n + (l >> 2);
-    const auto u = [&](int k) { return __bfloat16_as_ushort(w[k * C]); };
-    s_w[e] = make_uint2(u(0) | (static_cast<uint32_t>(u(1)) << 16),
-                        u(8) | (static_cast<uint32_t>(u(9)) << 16));
+  // B_c of the last layer (c < LAST_N): w_last in column c, the other
+  // columns zero; the same layout, row n of k-group g (16 bytes) at
+  // 16 (LAST_N (g + c C / 8) + n)
+  for (int e = tid; e < LAST_N * C; e += THREADS) {
+    const int n = e % LAST_N, g = (e / LAST_N) % (C / 8), c = e / C;
+    uint32_t v[4] = {};
+    if (n == c) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        v[i] = __bfloat16_as_ushort(last_w[8 * g + 2 * i]) |
+               (static_cast<uint32_t>(__bfloat16_as_ushort(last_w[8 * g + 2 * i + 1])) << 16);
+    }
+    reinterpret_cast<uint4*>(mc_smem + L.last)[e] = make_uint4(v[0], v[1], v[2], v[3]);
   }
-  for (int e = tid; e < n_mid * C; e += THREADS) s_b[e] = mid_b[e];
-  for (int e = tid; e < C; e += THREADS) s_wl[e] = __bfloat162float(last_w[e]);
-  for (int e = tid; e < S * C; e += THREADS)
-    s_z[e] = __bfloat162float(
-        __float2bfloat16_rn(z_terms[(static_cast<size_t>(e / C) * B + b) * C + e % C]));
+  // this image's latent rows rounded to bf16, as pairs in the order a lane
+  // reads them: word (s, q, 2 j + h) = channels 16 j + 8 h + 2 q, + 1
+  auto* s_z = reinterpret_cast<uint32_t*>(mc_smem + L.z);
+  for (int e = tid; e < S * 4 * ZQ; e += THREADS) {
+    const int w = e % ZQ, q = (e / ZQ) % 4, s = e / (4 * ZQ);
+    const float* zr = z_terms + (static_cast<size_t>(s) * B + b) * C + 8 * w + 2 * q;
+    s_z[e] = w < C / 8 ? bf::pack(zr[0], zr[1]) : 0u;
+  }
+  // the mid biases as a lane reads them: (m, q, 2 t + e) = channel 8 t + 2 q + e
+  auto* s_b = reinterpret_cast<float*>(mc_smem + L.bias);
+  for (int e = tid; e < n_mid * C; e += THREADS) {
+    const int i = e % (C / 4), q = (e / (C / 4)) % 4, m = e / C;
+    s_b[e] = mid_b[m * C + 8 * (i / 2) + 2 * q + i % 2];
+  }
+  // the B operands' writes made visible to wgmma (the async proxy)
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
   __syncthreads();
 
   const float bl = last_b[0];
-  const int c2 = 2 * quad;  // this lane's first channel of each half block
-  float sum_prob[2] = {}, n_agree[2] = {};  // rows grp, grp + 8
+  // the descriptors of k-step 0 (a k-step adds 2 lbo / 16 to the address)
+  const uint64_t w_desc = desc(smem_u32(mc_smem), 16 * C, 128);
+  const uint64_t last_desc = desc(smem_u32(mc_smem + L.last), 16 * LAST_N, 16 * LAST_N);
+  const uint4* zq = reinterpret_cast<const uint4*>(s_z) + quad * (ZQ / 4);  // + s 4 ZQ / 4
+  const float4* bq = reinterpret_cast<const float4*>(s_b) + quad * (C / 16);  // + m C / 4
+  const uint32_t* fb = reinterpret_cast<const uint32_t*>(feat + static_cast<size_t>(b) * HW * C);
+  const int n_tiles = (HW + 63) / 64;
+  const int t_begin = blockIdx.x * tiles_per_block;
+  const int t_end = min(t_begin + tiles_per_block, n_tiles);
 
-  for (int s = 0; s < S; ++s) {
-    const float* zs = s_z + s * C;
-    uint32_t h[NK][4];  // relu(feat + z_s), rounded: the first layer's input
+  // the feature rows of tile t, in A-fragment order (zero past HW)
+  const auto load_rows = [&](uint32_t(&f)[NK][4], int t) {
 #pragma unroll
-    for (int j = 0; j < NK; ++j)
-#pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        const float2 z = *reinterpret_cast<const float2*>(zs + 16 * j + 8 * (k >> 1) + c2);
-        h[j][k] = bf::pack(fmaxf(bf::lo(f[j][k]) + z.x, 0.f), fmaxf(bf::hi(f[j][k]) + z.y, 0.f));
-      }
-    for (int m = 0; m < n_mid; ++m) {
-      float acc[NB][4] = {};
-      const uint2* wm = s_w + m * NK * NB * 32 + lane;
-#pragma unroll
-      for (int j = 0; j < NK; ++j) {
-#pragma unroll
-        for (int n = 0; n < NB; ++n) {
-          const uint2 w = wm[(j * NB + n) * 32];
-          const uint32_t bw[2] = {w.x, w.y};
-          bf::mma(acc[n], h[j], bw);
-        }
-      }
-      const float* bm = s_b + m * C;
+    for (int r = 0; r < 2; ++r) {
+      const int p = 64 * t + 16 * warp + grp + 8 * r;
 #pragma unroll
       for (int j = 0; j < NK; ++j)
 #pragma unroll
-        for (int t = 0; t < 2; ++t) {  // n-tile 2j + t: channels 16j + 8t + 2q + {0,1}
-          const float2 bb = *reinterpret_cast<const float2*>(bm + 16 * j + 8 * t + c2);
-          const float* a = acc[2 * j + t];
-          h[j][2 * t] = bf::pack(fmaxf(a[0] + bb.x, 0.f), fmaxf(a[1] + bb.y, 0.f));
-          h[j][2 * t + 1] = bf::pack(fmaxf(a[2] + bb.x, 0.f), fmaxf(a[3] + bb.y, 0.f));
-        }
+        for (int h = 0; h < 2; ++h)
+          f[j][r + 2 * h] =
+              p < HW ? fb[(static_cast<size_t>(p) * C + 16 * j + 8 * h + 2 * quad) / 2] : 0u;
     }
-    float part[2] = {};  // rows grp, grp + 8: this lane's C / 4 channels
+  };
+  uint32_t f[NK][4], f_next[NK][4];
+  load_rows(f, t_begin);
+
+  for (int t = t_begin; t < t_end; ++t) {
+    load_rows(f_next, t + 1 < t_end ? t + 1 : t);  // read while this tile runs
+
+    uint32_t a[2][NK][4];       // each slot's A: h of its sample, packed bf16 pairs
+    float acc[2][C / 2] = {};  // ... a mid layer's float32 sums
+    float lg[4] = {};          // the last layer's sums: sample 8 g + c in column c
+    float sum_prob[2] = {}, n_agree[2] = {};  // rows grp, grp + 8
+
+    // slot sl's registers, ordered against its products (a wgmma reads its
+    // A and writes its sums until the wait for it)
+    const auto done = [&](int sl) {
+      fence_regs(a[sl]);
+      if (NMID != 0) fence_regs(acc[sl]);
+    };
+    // relu(feat + z_s) into slot sl's A
+    const auto entry = [&](int sl, int s) {
+      uint32_t z[ZQ];
+#pragma unroll
+      for (int i = 0; i < ZQ / 4; ++i) {
+        const uint4 v = zq[s * ZQ + i];
+        z[4 * i] = v.x;
+        z[4 * i + 1] = v.y;
+        z[4 * i + 2] = v.z;
+        z[4 * i + 3] = v.w;
+      }
+#pragma unroll
+      for (int j = 0; j < NK; ++j)
+#pragma unroll
+        for (int k = 0; k < 4; ++k) a[sl][j][k] = entry2(f[j][k], z[2 * j + (k >> 1)]);
+    };
+    // slot sl's product of layer m, committed; m = n_mid: the last layer,
+    // into column c of lg (c = 0 starts lg anew)
+    const auto issue = [&](int sl, int m, int c) {
+      done(sl);
+      fence_regs(lg);
+      wgmma_fence();
+      if (m < n_mid) {
+        const uint64_t d = w_desc + ((2 * m * C * C) >> 4);
+#pragma unroll
+        for (int j = 0; j < NK; ++j) mma<C>(acc[sl], a[sl][j], d + 2 * j * C, j > 0);
+      } else {
+        const uint64_t d = last_desc + ((2 * LAST_N * C * c) >> 4);
+#pragma unroll
+        for (int j = 0; j < NK; ++j) mma<LAST_N>(lg, a[sl][j], d + 2 * j * LAST_N, j > 0 || c > 0);
+      }
+      wgmma_commit();
+      if (NMID != 0) fence_regs(acc[sl]);
+      fence_regs(lg);
+    };
+    // relu(sums + b_m) rounded into slot sl's A: n-tile 2 j + u (channels
+    // 16 j + 8 u + 2 q + {0, 1}) is k-step j's a[2 u] (row grp), a[2 u + 1]
+    const auto mid_epilogue = [&](int sl, int m) {
+#pragma unroll
+      for (int j = 0; j < NK; ++j) {
+        const float4 bb = bq[m * (C / 4) + j];  // n-tiles 2 j (x, y), 2 j + 1 (z, w)
+        const float* d = acc[sl] + 8 * j;
+        a[sl][j][0] = pack_relu(d[0] + bb.x, d[1] + bb.y);
+        a[sl][j][1] = pack_relu(d[2] + bb.x, d[3] + bb.y);
+        a[sl][j][2] = pack_relu(d[4] + bb.z, d[5] + bb.w);
+        a[sl][j][3] = pack_relu(d[6] + bb.z, d[7] + bb.w);
+      }
+    };
+
+    // Groups of LAST_N samples, their logits in the columns of lg: this
+    // lane's are samples g0 + 2 quad + {0, 1}, rows grp (lg[0], lg[1]) and
+    // grp + 8 (lg[2], lg[3]). A group runs as four pairs: sample g0 + 2 p in
+    // slot 0, g0 + 2 p + 1 in slot 1 (past S, repeats of sample S - 1, not
+    // counted). Each wait leaves the newest group in flight; none is in
+    // flight across the loop's back edge.
+    for (int g0 = 0; g0 < S; g0 += LAST_N) {
+#pragma unroll
+      for (int p = 0; p < LAST_N / 2; ++p) {
+#pragma unroll
+        for (int sl = 0; sl < 2; ++sl) {
+          if (p > 0) wgmma_wait<1>();  // slot sl's last product of the pair before
+          done(sl);
+          entry(sl, min(g0 + 2 * p + sl, S - 1));
+          issue(sl, 0, 2 * p + sl);
+        }
+#pragma unroll
+        for (int m = 0; m < n_mid; ++m) {
+#pragma unroll
+          for (int sl = 0; sl < 2; ++sl) {
+            wgmma_wait<1>();  // slot sl's product (the other slot's may run on)
+            done(sl);
+            mid_epilogue(sl, m);
+            issue(sl, m + 1, 2 * p + sl);
+          }
+        }
+      }
+      wgmma_wait<0>();
+      done(0);
+      done(1);
+      fence_regs(lg);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {  // sample g0 + 2 quad + i % 2, row grp + 8 (i / 2)
+        const float logit = lg[i] + bl;
+        const bool valid = g0 + 2 * quad + i % 2 < S;
+        sum_prob[i / 2] += valid ? __fdividef(1.f, 1.f + __expf(-logit)) : 0.f;
+        n_agree[i / 2] += (valid && (logit >= logit_hi || logit <= logit_lo)) ? 1.f : 0.f;
+      }
+    }
+
+    // the four quads' sums of a row, in quad order
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float v[4], n[4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        v[q] = __shfl_sync(0xffffffffu, sum_prob[r], 4 * grp + q);
+        n[q] = __shfl_sync(0xffffffffu, n_agree[r], 4 * grp + q);
+      }
+      sum_prob[r] = ((v[0] + v[1]) + v[2]) + v[3];
+      n_agree[r] = ((n[0] + n[1]) + n[2]) + n[3];
+    }
+    if (quad == 0) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int p = 64 * t + 16 * warp + grp + 8 * r;
+        if (p >= HW) continue;
+        const size_t o = static_cast<size_t>(b) * HW + p;
+        mean_out[o] = sum_prob[r] / static_cast<float>(S);
+        cons_out[o] = masking ? (n_agree[r] == static_cast<float>(S) ? 1.f : 0.f)
+                              : n_agree[r] / static_cast<float>(S);
+      }
+    }
 #pragma unroll
     for (int j = 0; j < NK; ++j)
 #pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        const float2 wl = *reinterpret_cast<const float2*>(s_wl + 16 * j + 8 * (k >> 1) + c2);
-        part[k & 1] = fmaf(bf::lo(h[j][k]), wl.x, part[k & 1]);
-        part[k & 1] = fmaf(bf::hi(h[j][k]), wl.y, part[k & 1]);
-      }
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      float v = part[r];
-      v += __shfl_xor_sync(0xffffffffu, v, 1);
-      v += __shfl_xor_sync(0xffffffffu, v, 2);
-      const float logit = v + bl;
-      sum_prob[r] += 1.f / (1.f + expf(-logit));
-      n_agree[r] += (logit >= logit_hi || logit <= logit_lo) ? 1.f : 0.f;
-    }
+      for (int k = 0; k < 4; ++k) f[j][k] = f_next[j][k];
   }
+}
 
-  if (quad != 0) return;
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int p = row0 + grp + 8 * r;
-    if (p >= HW) continue;
-    const size_t o = static_cast<size_t>(b) * HW + p;
-    mean_out[o] = sum_prob[r] / static_cast<float>(S);
-    cons_out[o] = masking ? (n_agree[r] == static_cast<float>(S) ? 1.f : 0.f)
-                          : n_agree[r] / static_cast<float>(S);
+// Blocks of mc_consensus_wgmma<C, NMID> the card runs at once with
+// ``bytes`` of shared memory (SMs x blocks an SM), after setting the
+// kernel's shared-memory limit; queried once a device and size (the
+// queries cost the host microseconds a launch).
+template <int C, int NMID>
+int resident_blocks(size_t bytes) {
+  static std::mutex lock;
+  static size_t known_bytes[64] = {};
+  static int known[64] = {};
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess) return 0;
+  const std::lock_guard<std::mutex> guard(lock);
+  if (dev < 64 && known[dev] > 0 && known_bytes[dev] == bytes) return known[dev];
+  const auto kernel = &mc_consensus_wgmma<C, NMID>;
+  int sms = 0, per_sm = 0;
+  if (cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           static_cast<int>(bytes)) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, THREADS, bytes) !=
+          cudaSuccess)
+    return 0;
+  if (dev < 64) {
+    known[dev] = sms * per_sm;
+    known_bytes[dev] = bytes;
   }
+  return sms * per_sm;
+}
+
+template <int C, int NMID>
+cudaError_t launch_wgmma(const bf::bf16* feat, const float* z, const bf::bf16* mw,
+                         const float* mb, const bf::bf16* lw, const float* lb, float* mean,
+                         float* cons, int B, int HW, int S, int n_mid, float hi, float lo,
+                         int masking, cudaStream_t stream) {
+  const size_t bytes = Layout(C, S, n_mid).bytes;
+  if (bytes > MAX_SMEM) return cudaErrorInvalidValue;
+  // One wave: as many tiles a block as spread the batch's tiles over the
+  // blocks the card holds at once (each block then sets up its shared
+  // memory once for all its tiles).
+  const int resident = resident_blocks<C, NMID>(bytes);
+  if (resident <= 0) return cudaErrorInvalidValue;
+  const int tiles = (HW + 63) / 64;
+  const int per_block =
+      static_cast<int>((static_cast<long long>(tiles) * B + resident - 1) / resident);
+  const dim3 grid((tiles + per_block - 1) / per_block, B);
+  mc_consensus_wgmma<C, NMID><<<grid, THREADS, bytes, stream>>>(
+      feat, z, mw, mb, lw, lb, mean, cons, B, HW, S, n_mid, hi, lo, masking, per_block);
+  return cudaGetLastError();
 }
 
 template <int C>
@@ -383,19 +760,34 @@ cudaError_t launch_bf16(const bf::bf16* feat, const float* z, const bf::bf16* mw
                         const float* mb, const bf::bf16* lw, const float* lb, float* mean,
                         float* cons, int B, int HW, int S, int n_mid, float hi, float lo,
                         int masking, cudaStream_t stream) {
-  if (reinterpret_cast<uintptr_t>(feat) % 4 != 0) return cudaErrorMisalignedAddress;
-  const size_t bytes = static_cast<size_t>(n_mid) * C * C * 2 +
-                       4 * (static_cast<size_t>(n_mid) * C + C + static_cast<size_t>(S) * C);
-  if (bytes > MAX_SMEM) return cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      mc_consensus_bf16<C>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(bytes));
-  if (err != cudaSuccess) return err;
-  const dim3 grid((HW + PIXELS - 1) / PIXELS, B);
-  mc_consensus_bf16<C><<<grid, THREADS, bytes, stream>>>(
-      feat, z, mw, mb, lw, lb, mean, cons, B, HW, S, n_mid, hi, lo, masking);
-  return cudaGetLastError();
+  if (reinterpret_cast<uintptr_t>(feat) % 4 != 0 ||
+      (n_mid > 0 && reinterpret_cast<uintptr_t>(mw) % 16 != 0))
+    return cudaErrorMisalignedAddress;
+  switch (n_mid) {
+    case 0:
+      return launch_wgmma<C, 0>(feat, z, mw, mb, lw, lb, mean, cons, B, HW, S, n_mid, hi, lo,
+                                masking, stream);
+    case 1:
+      return launch_wgmma<C, 1>(feat, z, mw, mb, lw, lb, mean, cons, B, HW, S, n_mid, hi, lo,
+                                masking, stream);
+    case 2:
+      return launch_wgmma<C, 2>(feat, z, mw, mb, lw, lb, mean, cons, B, HW, S, n_mid, hi, lo,
+                                masking, stream);
+    default:
+      return launch_wgmma<C, -1>(feat, z, mw, mb, lw, lb, mean, cons, B, HW, S, n_mid, hi, lo,
+                                 masking, stream);
+  }
 }
+
+// The layer entry alone, for the card's check of its rounding: out[i] =
+// entry2(f[i], z[i]), two bf16 a word.
+__global__ void entry_pairs(const uint32_t* __restrict__ f, const uint32_t* __restrict__ z,
+                            uint32_t* __restrict__ out, int n) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n) out[i] = entry2(f[i], z[i]);
+}
+
+}  // namespace mcw
 
 }  // namespace
 
@@ -435,10 +827,11 @@ extern "C" int pda_mc_consensus(const void* feat, const void* z_terms,
   }
 }
 
-// The bf16 tail: feat (B, HW, C) bf16, z_terms (S, B, C) float32, mid_w
-// (n_mid, C, C) bf16, mid_b (n_mid, C) float32, last_w (C,) bf16, last_b (1,)
-// float32; mean and cons (B, HW) float32. C a multiple of 16 up to 64 (the
-// wrapper zero-pads any other C to the next one); feat 4-byte aligned.
+// The bf16 tail (mc_consensus_wgmma): feat (B, HW, C) bf16, z_terms (S, B,
+// C) float32, mid_w (n_mid, C, C) bf16, mid_b (n_mid, C) float32, last_w
+// (C,) bf16, last_b (1,) float32; mean and cons (B, HW) float32. C a
+// multiple of 16 up to 64 (the wrapper zero-pads any other C to the next
+// one); feat 4-byte aligned; S as far as mcw::Layout fits in shared memory.
 extern "C" int pda_mc_consensus_bf16(const void* feat, const void* z_terms,
                                      const void* mid_w, const void* mid_b,
                                      const void* last_w, const void* last_b, void* mean,
@@ -453,9 +846,9 @@ extern "C" int pda_mc_consensus_bf16(const void* feat, const void* z_terms,
   switch (C) {
 #define PDA_MC_WIDTH_BF16(W)                                                        \
   case W:                                                                           \
-    return launch_bf16<W>(h(feat), f(z_terms), h(mid_w), f(mid_b), h(last_w),       \
-                          f(last_b), m, c, B, HW, S, n_mid, logit_hi, logit_lo,     \
-                          masking, s);
+    return mcw::launch_bf16<W>(h(feat), f(z_terms), h(mid_w), f(mid_b), h(last_w),  \
+                               f(last_b), m, c, B, HW, S, n_mid, logit_hi, logit_lo, \
+                               masking, s);
     PDA_MC_WIDTH_BF16(16)
     PDA_MC_WIDTH_BF16(32)
     PDA_MC_WIDTH_BF16(48)
@@ -464,4 +857,15 @@ extern "C" int pda_mc_consensus_bf16(const void* feat, const void* z_terms,
     default:
       return cudaErrorInvalidValue;
   }
+}
+
+// The bf16 tail's layer entry alone: out[i] = relu(f[i] + z[i]) for n
+// words of two bf16 each, as mc_consensus_wgmma forms it (one
+// fma.rn.relu.bf16x2): the card's check of its rounding.
+extern "C" int pda_mc_bf16_entry(const void* f, const void* z, void* out, int n, void* stream) {
+  if (n <= 0) return cudaSuccess;
+  mcw::entry_pairs<<<(n + 255) / 256, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(f), static_cast<const uint32_t*>(z),
+      static_cast<uint32_t*>(out), n);
+  return cudaGetLastError();
 }

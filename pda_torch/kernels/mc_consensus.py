@@ -17,15 +17,20 @@ that is a multiple of 8 up to 64; the wrapper zero-pads any other C up to 64
 to the next of them. One class only.
 
 bf16 (``pda``'s bf16 configuration): a bf16 ``feat_term`` runs the bf16
-instance (``mc_consensus_bf16<C>``, C a multiple of 16), at the rounding
-points of ``pda``'s kernel (``pda/kernels/mc_consensus.py`` ``_kernel``):
-the float32 latent row rounded to bf16, ``h = relu(feat + z)`` rounded to
-bf16, each mid layer on bf16 operands (the float32 kernels cast inside,
-``pda``'s ``mid_kernels.astype(dtype)``) summed in float32 with the float32
-bias, ReLU and one rounding to bf16, the last layer a float32 sum of bf16
-products plus the float32 bias: float32 logits, whose sigmoid mean and
-consensus are taken in float32. :func:`mc_logits_plain` computes the same
-on any device. Outputs are float32 in both dtypes.
+body ``mc_consensus_wgmma<C, NMID>`` (C a multiple of 16; Hopper's
+``wgmma``, two samples in flight a warpgroup, the last layer on the tensor
+cores too), at the rounding points of ``pda``'s kernel
+(``pda/kernels/mc_consensus.py`` ``_kernel``): the float32 latent row
+rounded to bf16, ``h = relu(feat + z)`` rounded to bf16 (one rounding of
+the exact sum, which is what ``pda``'s float32 add and rounding give:
+:func:`packed_entry`), each mid layer on bf16 operands (the float32 kernels
+cast inside, ``pda``'s ``mid_kernels.astype(dtype)``) summed in float32
+with the float32 bias, ReLU and one rounding to bf16, the last layer a
+float32 sum of bf16 products plus the float32 bias: float32 logits, whose
+sigmoid mean and consensus are taken in float32. :func:`mc_logits_plain`
+computes the same on any device. Outputs are float32 in both dtypes. Every
+bf16 launch is on that body and counts in ``launches_wgmma_bf16`` as well
+as in ``launches_bf16``.
 """
 
 from __future__ import annotations
@@ -39,7 +44,7 @@ import torch.nn.functional as F
 
 from ..core.consensus import LOWER_THRESHOLD, UPPER_THRESHOLD, consensus_from_logits
 from . import _build
-from .conv_block import bf16_operand, count_launch, plain_acc, runs_plain
+from .conv_block import FWD_MODES, bf16_operand, count_launch, plain_acc, runs_plain
 
 _VP = ctypes.c_void_p
 _I = ctypes.c_int
@@ -55,6 +60,7 @@ MAX_WIDTH = KERNEL_WIDTHS[-1]
 _BF16 = torch.bfloat16
 _THREADS = 256  # csrc/mc_consensus.cu THREADS: a warp a 16-pixel tile
 _MAX_SMEM = 232448  # bytes of shared memory a block may use on sm_90
+_LAST_N = 8  # csrc/mc_consensus.cu mcw::LAST_N: the bf16 last layer's N (and B operands)
 
 
 def mc_logits_plain(feat_term, z_terms, mid_w, mid_b, last_w, last_b) -> torch.Tensor:
@@ -84,10 +90,15 @@ def mc_consensus_plain(feat_term, z_terms, mid_w, mid_b, last_w, last_b,
 def _smem_bytes(c: int, s: int, n_mid: int, dtype=torch.float32) -> int:
     """The kernel's shared memory: each mid layer's W split into TF32 hi and
     lo, with n_mid >= 2 a hidden layer per thread, the mid biases, the last
-    weights and this image's S latent terms; in bf16 each mid layer's W as
-    bf16 and no hidden layer (it stays in registers)."""
+    weights and this image's S latent terms. In bf16 (``mcw::Layout``) each
+    mid layer's W as bf16, the last layer's 8 B operands (C x 8 bf16 each,
+    w_last in column c of the c-th), each latent row as bf16 pairs padded to
+    whole 16-byte loads for each of a warp's four lane quads, the mid
+    biases."""
     if dtype == _BF16:
-        return 2 * n_mid * c * c + 4 * (n_mid * c + c + s * c)
+        z_words = -(-(c // 8) // 4) * 4  # mcw::z_words
+        return (2 * n_mid * c * c + 2 * _LAST_N * _LAST_N * c + 16 * z_words * s
+                + 4 * n_mid * c)
     hidden = _THREADS * c // 2 if n_mid >= 2 else 0  # 16 rows x C a warp
     return 4 * (2 * n_mid * c * c + hidden + n_mid * c + c + s * c)
 
@@ -171,10 +182,39 @@ def mc_consensus(feat_term, z_terms, mid_w, mid_b, last_w, last_b,
     if runs_plain(feat_term, "mc_consensus"):
         return mc_consensus_plain(feat_term, z_terms, mid_w, mid_b, last_w, last_b, masking)
     out = _launch(feat_term, z_terms, mid_w, mid_b, last_w, last_b, masking)
-    count_launch(mc_consensus, feat_term.dtype)
+    count_launch(mc_consensus, feat_term.dtype, FWD_MODES if feat_term.dtype == _BF16 else ())
     return out
 
 
 #: launches of the CUDA kernel since the count was last set to 0: its
-#: float32 instance (``launches``) and its bf16 instance (``launches_bf16``)
-mc_consensus.launches = mc_consensus.launches_bf16 = 0
+#: float32 instance (``launches``), its bf16 instance (``launches_bf16``)
+#: and of those the launches on the ``wgmma`` body (``launches_wgmma_bf16``:
+#: all of them)
+mc_consensus.launches = mc_consensus.launches_bf16 = mc_consensus.launches_wgmma_bf16 = 0
+
+
+def packed_entry_plain(f: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
+    """``relu(f + z)`` of two bf16 tensors as ``pda`` forms the bf16 tail's
+    layer entry: the float32 sum rounded to bf16, then ReLU."""
+    return F.relu(f.float() + z.float()).to(_BF16)
+
+
+def packed_entry(f: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
+    """The bf16 tail's layer entry as the ``wgmma`` body forms it (one
+    ``fma.rn.relu.bf16x2`` of ``f * 1 + z`` a channel pair), on two bf16
+    tensors of one shape with an even number of elements: the card's check
+    that it rounds as :func:`packed_entry_plain`. On a CPU tensor, the
+    plain version."""
+    if runs_plain(f, "packed_entry"):
+        return packed_entry_plain(f, z)
+    for name, t in (("f", f), ("z", z)):
+        _build.check_tensor(name, t, f.shape, f.device, (_BF16,))
+    if f.numel() % 2:
+        raise ValueError("packed_entry takes an even number of elements (bf16 pairs)")
+    out = torch.empty_like(f)
+    fn = _build.entry("pda_mc_bf16_entry", (_VP, _VP, _VP, _I, _VP))
+    with torch.cuda.device(f.device):
+        code = fn(f.data_ptr(), z.data_ptr(), out.data_ptr(), f.numel() // 2,
+                  torch.cuda.current_stream(f.device).cuda_stream)
+    _build.check(code, "packed_entry")
+    return out

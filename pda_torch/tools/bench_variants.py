@@ -1,7 +1,7 @@
 """Time variants of the kernels against each other on one card.
 
     python -m pda_torch.tools.bench_variants DIR [DIR ...] [--iters 5] [--only fwd|bwd|mc]
-        [--dtype float32|bf16]
+        [--dtype float32|bf16] [--burst 1]
 
 Each DIR is a copy of ``pda_torch/kernels/csrc`` with one change (a tile
 size, a flag); each builds into its own library (``_build.use_sources``).
@@ -9,13 +9,17 @@ For every ConvBlock shape of the serving path (K1, K2, tiled and pseudo),
 the MT step's posterior entry and the MT step's backward
 (:mod:`.workload`), the variants run in turns (DIR1 .. DIRn, then DIRn ..
 DIR1, so A B B A for two) on the same seeded inputs, each timed by CUDA
-events (median of ``--iters`` after 2 warm-ups), and checked against the
+events (median of ``--iters`` after 2 warm-ups; with ``--burst N`` the
+events span N launches back to back and ms is a launch's share, so that a
+short kernel's time holds no wait for the host's launch path), and checked
+against the
 plain version: max |kernel - plain| / max |plain|, and for the forward also
 against the plain version in float64 (ref64). The MC tail (K3, S = 16) runs
 the same way at the tiled, MT-teacher and pseudo shapes, held to its plain
 version and float64 by the MC mean's max abs error, with the consensus
 pixels that differ from the plain version's farther than 1e-4 from a
-threshold counted. Prints one line per shape and variant, with TFLOP/s from
+threshold counted (bf16: float64 sums at the bf16 rounding points, and 2^-6
+from a threshold, ``chip_smoke.py``'s bf16 K3 window). Prints one line per shape and variant, with TFLOP/s from
 the FLOPs the shape needs. Needs a CUDA card; TF32 off for cuDNN and matmul.
 
 ``--dtype bf16`` runs the bf16 instances (pda's bf16 configuration) on bf16
@@ -113,6 +117,9 @@ def main(argv=None) -> int:
                     help="time only the forward, the backward or the MC tail")
     ap.add_argument("--dtype", choices=("float32", "bf16"), default="float32",
                     help="the kernels' instance: float32 (3xTF32) or bf16")
+    ap.add_argument("--burst", type=int, default=1,
+                    help="launches between a timing's two events, back to back (ms is per "
+                         "launch): above 1 the card need not wait for the host's launch path")
     args = ap.parse_args(argv)
     dtype = torch.bfloat16 if args.dtype == "bf16" else torch.float32
     if not torch.cuda.is_available():
@@ -126,6 +133,11 @@ def main(argv=None) -> int:
     print(f"device: {smi.stdout.strip()}; torch {torch.__version__}, CUDA {torch.version.cuda}; "
           f"{args.dtype}")
     order = args.dirs + args.dirs[::-1]  # A B B A
+
+    def timed(fn):
+        return wl.cuda_ms(lambda: [fn() for _ in range(args.burst)],
+                          iters=args.iters) / args.burst
+
     gen = torch.Generator().manual_seed(0)
     for b, h, w, ca, cb, c in FWD_SHAPES if args.only in (None, "fwd") else ():
         xs = [torch.randn(b, h, w, n, generator=gen).to(dev).to(dtype)
@@ -147,7 +159,7 @@ def main(argv=None) -> int:
                     equal, rel = bf16_layers(hs, torch.cat(xs, dim=-1), ws)
                     check = f"ref64 per layer: bit-equal >= {equal:.6f}, |diff|/max <= {rel:.2e}"
                 del hs
-                ms = wl.cuda_ms(kernel, iters=args.iters)
+                ms = timed(kernel)
                 print(f"fwd {ca}{'+' + str(cb) if cb else ''}->{c} @{b}x{h}x{w} {d.name}: "
                       f"ms {ms:.3f} ({flops / ms / 1e9:.1f} TFLOP/s) rel_err {err:.2e} "
                       f"{check}", flush=True)
@@ -178,28 +190,33 @@ def main(argv=None) -> int:
                 grad, equal = bf16_bwd_layers(launch(workspaces), workspaces, g, xs, *hs,
                                               *ws_[::2])
                 check = f" ref64 per layer: dW, db |diff|/max <= {grad:.2e}, da bit-equal >= {equal:.6f}"
-            ms = wl.cuda_ms(launch, iters=args.iters)
+            ms = timed(launch)
             print(f"bwd {ca}{'+' + str(cb) if cb else ''}->{c} @{b}x{h}x{w} {d.name}: "
                   f"ms {ms:.3f} rel_err {err:.2e}{check}", flush=True)
         del x, ws_, hs, g, args_, ref
     for name, (b, h, w, c), masking in wl.K3_SHAPES if args.only in (None, "mc") else ():
         feat, *rest = wl.mc_inputs(gen, b, h, w, c, dev=dev)
         args_ = (feat.to(dtype), *rest)
+        window = 1e-4 if dtype == torch.float32 else 2.0 ** -6  # chip_smoke.py's K3 windows
         with torch.inference_mode():
             ref_mean, ref_cons = km.mc_consensus_plain(*args_, masking)
-            ref64 = km.mc_consensus_plain(*(t.double() for t in args_), masking)[0]
+            if dtype == torch.float32:
+                ref64 = km.mc_consensus_plain(*(t.double() for t in args_), masking)[0]
+            else:  # the bf16 rounding points, summed in float64
+                with kc.plain_sums(torch.float64):
+                    ref64 = km.mc_consensus_plain(*args_, masking)[0]
             logits = km.mc_logits_plain(*args_)
-            near = ((logits.abs() - torch.log(torch.tensor(9.0))).abs() < 1e-4).any(dim=0)
+            near = ((logits.abs() - torch.log(torch.tensor(9.0))).abs() < window).any(dim=0)
             del logits
             flops = wl.mc_flops(b, h, w, c, wl.MC_SAMPLES, 1)
             for d in order:
                 _build.use_sources(d)
                 mean, cons = km.mc_consensus(*args_, masking=masking)
                 err = float((mean - ref_mean).abs().max())
-                err64 = float((mean.double() - ref64).abs().max())
+                err64 = float((mean.double() - ref64.double()).abs().max())
                 stray = int(((cons != ref_cons) & ~near).sum())
                 del mean, cons
-                ms = wl.cuda_ms(lambda: km.mc_consensus(*args_, masking=masking), iters=args.iters)
+                ms = timed(lambda: km.mc_consensus(*args_, masking=masking))
                 print(f"mc {name} S={wl.MC_SAMPLES} @{b}x{h}x{w}x{c} {d.name}: ms {ms:.3f} "
                       f"({flops / ms / 1e9:.1f} TFLOP/s) mean_err {err:.2e} ref64 {err64:.2e} "
                       f"stray {stray}", flush=True)

@@ -1,12 +1,17 @@
 """Where the card's time goes, for ``PERF.md`` section 5.
 
-    python -m pda_torch.tools.profile [--what ptxas,mt,serving,engine] [--steps 3] [--epoch 4]
-        [--dtype float32|bf16]
+    python -m pda_torch.tools.profile [--what ptxas,sass,mt,serving,engine] [--steps 3]
+        [--epoch 4] [--dtype float32|bf16]
 
-Needs one CUDA card (exits 1 without). Four parts, each optional:
+Needs one CUDA card (exits 1 without). Five parts, each optional:
 
 - ``ptxas``: each kernel source compiled as the build compiles it, plus
   ``-Xptxas -v``: registers, spill bytes and shared memory per kernel.
+- ``sass`` (not in the default): the instruction mix of the bf16 MC tail's
+  sample loop (``mc_consensus_wgmma<64, 1>``, the flagship's): ``cuobjdump
+  -sass`` of the object ``ptxas`` compiles, the innermost loop that holds
+  its ``HGMMA``s, instructions by opcode, a loop iteration and a sample
+  (an iteration runs 8).
 - ``mt``: the flagship's Mean-Teacher step (512^2, batch 2, MC-16,
   consensus masking, Adam 1e-5, EMA 0.999, f32, seeded weights and data) under
   ``torch.profiler`` for ``--steps`` steps after 3 warm-ups: device time per
@@ -42,6 +47,7 @@ import contextlib
 import re
 import subprocess
 import sys
+from pathlib import Path
 
 import torch
 
@@ -62,7 +68,7 @@ LABELS = (
     (r"wgrad_entry<", "wgrad entry layer, bf16 FMA (wgrad_entry)"),
     (r"sum_chunks", "wgrad chunk reduce (sum_chunks)"),
     (r"masked_cotangent", "da3 mask and pooled cotangent (masked_cotangent)"),
-    (r"mc_consensus_(tc|bf16)<", "MC tail, tensor cores (mc_consensus_tc)"),
+    (r"mc_consensus_(tc|wgmma)<", "MC tail, tensor cores (mc_consensus_tc)"),
 )
 
 
@@ -82,6 +88,45 @@ def ptxas() -> None:
                 fn = demangle(m.group(1))
             elif fn and ("registers" in line or "spill" in line):
                 print(f"  {fn}: {line.split(':', 1)[-1].strip()}")
+
+
+#: the bf16 MC tail's flagship instance (mangled, and as printed) and the
+#: samples an iteration of its loop runs
+SASS_KERNEL, SASS_NAME = "mc_consensus_wgmmaILi64ELi1E", "mc_consensus_wgmma<64, 1>"
+SASS_SAMPLES = 8
+
+
+def sass() -> None:
+    obj = _build.BUILD_DIR / "ptxas" / "mc_consensus.o"
+    if not obj.exists():
+        ptxas()
+    tool = str(Path(_build._nvcc()).with_name("cuobjdump"))
+    text = subprocess.run([tool, "-sass", str(obj)], capture_output=True, text=True).stdout
+    body, keep = [], False
+    for line in text.splitlines():
+        if "Function : " in line:
+            keep = SASS_KERNEL in line
+        m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(.*?);", line)
+        if keep and m:
+            body.append((int(m.group(1), 16), m.group(2).strip()))
+    # the innermost backward branch whose span holds the products
+    loops = []
+    for addr, ins in body:
+        m = re.search(r"\bBRA\b.*?0x([0-9a-f]+)", ins)
+        if m and int(m.group(1), 16) < addr:
+            span = [i for a, i in body if int(m.group(1), 16) <= a <= addr]
+            if any(i.startswith("HGMMA") for i in span):
+                loops.append(span)
+    if not loops:
+        print(f"== sass {SASS_NAME}: no loop with HGMMA found")
+        return
+    span = min(loops, key=len)
+    ops = collections.Counter(re.sub(r"^@!?U?P\w+\s+", "", i).split()[0].split(".")[0]
+                              for i in span)
+    print(f"== sass {SASS_NAME}: the sample loop, {len(span)} instructions an "
+          f"iteration of {SASS_SAMPLES} samples ({len(span) / SASS_SAMPLES:.1f} a sample)")
+    for op, n in ops.most_common():
+        print(f"  {op}: {n} ({n / SASS_SAMPLES:.2f} a sample)")
 
 
 def demangle(name: str) -> str:
@@ -338,6 +383,8 @@ def main(argv=None) -> int:
     what = args.what.split(",")
     if "ptxas" in what:
         ptxas()
+    if "sass" in what:
+        sass()
     if "mt" in what:
         mt(dev, args.steps, dtype)
     if "serving" in what:

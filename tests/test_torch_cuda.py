@@ -312,6 +312,95 @@ def test_mc_consensus_kernel_refuses_s_beyond_shared_memory(dev):
     assert mc_consensus.launches == before
 
 
+BF16_MEAN_TOL, BF16_WINDOW = 2.0 ** -8, 2.0 ** -6  # chip_smoke.py's bf16 K3 bounds
+
+
+def _bf16_mc_matches_plain64(args, masking):
+    """The bf16 tail's two launches against the plain version summed in
+    float64 at the bf16 rounding points: the mean within 2^-8, the consensus
+    differing only where a logit lies within 2^-6 of a threshold, the two
+    launches bit-equal, both on the wgmma body."""
+    before = (mc_consensus.launches_bf16, mc_consensus.launches_wgmma_bf16)
+    with torch.no_grad():
+        mean, cons = mc_consensus(*args, masking=masking)
+        mean2, cons2 = mc_consensus(*args, masking=masking)
+    torch.cuda.synchronize()
+    assert (mc_consensus.launches_bf16, mc_consensus.launches_wgmma_bf16) == (
+        before[0] + 2, before[1] + 2)
+    assert torch.equal(mean, mean2) and torch.equal(cons, cons2)
+    with kconv.plain_sums(torch.float64):
+        ref_mean, ref_cons = mc_consensus_plain(*args, masking)
+        logits = mc_logits_plain(*args)
+    assert bool(torch.isfinite(mean).all())
+    assert float((mean.double() - ref_mean.double()).abs().max()) <= BF16_MEAN_TOL
+    near = ((logits.abs() - np.log(9.0)).abs() < BF16_WINDOW).any(dim=0)
+    assert not ((cons != ref_cons) & ~near).any()
+    if masking:
+        assert set(torch.unique(cons).tolist()) <= {0.0, 1.0}
+
+
+@pytest.mark.parametrize("c", [16, 32, 48, 64])
+@pytest.mark.parametrize("n_mid", [0, 1, 2])
+@pytest.mark.parametrize("s", [1, 8, 16])
+@pytest.mark.parametrize("masking", [False, True])
+def test_bf16_mc_consensus_wgmma_matches_plain_float64(dev, c, n_mid, s, masking):
+    """The bf16 tail (mc_consensus_wgmma) at every width it is built for,
+    n_mid 0-2, S = 1, 8, 16, masking on and off, at 2 x 37 x 29 pixels
+    (1,073 an image: no multiple of a warpgroup's 64)."""
+    gen = torch.Generator().manual_seed(100 * c + 10 * n_mid + s)
+    feat, *rest = mc_inputs(gen, 2, 37, 29, c, s=s, n_mid=n_mid, dev=dev)
+    _bf16_mc_matches_plain64((feat.to(torch.bfloat16), *rest), masking)
+
+
+@pytest.mark.parametrize("c,n_mid,s", [(64, 3, 16), (20, 1, 5), (44, 4, 9)])
+def test_bf16_mc_consensus_wgmma_other_depths_and_widths(dev, c, n_mid, s):
+    """Deeper tails (n_mid >= 3: the instance with a runtime layer count),
+    widths padded to the next multiple of 16 (20 -> 32, 44 -> 48) and S off
+    the 8-sample group."""
+    gen = torch.Generator().manual_seed(c + n_mid)
+    feat, *rest = mc_inputs(gen, 2, 37, 29, c, s=s, n_mid=n_mid, dev=dev)
+    _bf16_mc_matches_plain64((feat.to(torch.bfloat16), *rest), True)
+
+
+def test_bf16_mc_packed_entry_matches_float32_add_then_round(dev):
+    """The tail's layer entry (one fma.rn.relu.bf16x2 of f * 1 + z) against
+    the float32 sum rounded to bf16 and ReLU, on the card, over every finite
+    bf16 f and seeded z (opposite signs, wide exponent gaps, subnormals):
+    bit-equal (a zero's sign aside)."""
+    bits = torch.arange(-32768, 32768, dtype=torch.int32).to(torch.int16)
+    f = bits.view(torch.bfloat16)
+    f = f[torch.isfinite(f.float())]
+    gen = torch.Generator().manual_seed(7)
+    z = torch.cat([torch.randn(32, generator=gen) * 10.0 ** torch.randint(-30, 30, (32,),
+                                                                          generator=gen),
+                   torch.tensor([0.0, -0.0, 1e-40, -1e-40, 3e38, -3e38])]).to(torch.bfloat16)
+    ff = torch.cat([f.repeat(z.numel()), f, -f])
+    zz = torch.cat([z.repeat_interleave(f.numel()), -f, f * 2.0 ** -30])
+    ff, zz = ff[: ff.numel() // 2 * 2].to(dev), zz[: ff.numel() // 2 * 2].to(dev)
+    out = kmc.packed_entry(ff, zz)
+    ref = kmc.packed_entry_plain(ff, zz)
+    torch.cuda.synchronize()
+    canon = lambda t: torch.where(t == 0, torch.zeros_like(t), t).view(torch.int16)  # noqa: E731
+    assert torch.equal(canon(out), canon(ref))
+
+
+def test_bf16_mc_consensus_refuses_s_beyond_shared_memory(dev):
+    """The largest S the bf16 body's shared memory holds runs (masked: at
+    an S off a power of 2 the plain version's mean over the samples, a sum
+    times 1 / S, may round the confident fraction an ulp from the kernel's
+    count / S); one more raises ValueError before any launch."""
+    c, n_mid, bf16 = 64, 1, torch.bfloat16
+    s_max = max(s for s in range(1, 4000) if kmc._smem_bytes(c, s, n_mid, bf16) <= kmc._MAX_SMEM)
+    gen = torch.Generator().manual_seed(0)
+    feat, *rest = mc_inputs(gen, 1, 5, 7, c, s=s_max, n_mid=n_mid, dev=dev)
+    _bf16_mc_matches_plain64((feat.to(bf16), *rest), True)
+    feat, *rest = mc_inputs(gen, 1, 5, 7, c, s=s_max + 1, n_mid=n_mid, dev=dev)
+    before = mc_consensus.launches_bf16
+    with torch.no_grad(), pytest.raises(ValueError, match="shared memory"):
+        mc_consensus(feat.to(bf16), *rest)
+    assert mc_consensus.launches_bf16 == before
+
+
 def test_wrappers_refuse_mixed_devices_and_autograd(dev):
     """Mixed devices are refused; under autograd the ConvBlock kernels no
     longer refuse but differentiate through the backward kernel, while the
@@ -834,7 +923,7 @@ def test_mean_teacher_fit_on_card_matches_cpu(dev, tmp_path):
         card.fit(2)
         replay = iter(drawn)
 
-        def replayed(model, x, n_samples, masking, eps=None, generator=None):
+        def replayed(model, x, n_samples, masking, eps=None, generator=None, mesh=None):
             # the generator's draw of the card's call, then its pseudo-labels
             torch.randn((n_samples, x.shape[0], model.latent_dim), generator=generator)
             return next(replay)

@@ -81,7 +81,10 @@ def test_shared_memory_reckoning_follows_the_kernel_source():
     """The wrapper refuses an S that the kernel's shared memory cannot hold by
     the kernel's own block shape (``csrc/mc_consensus.cu``): each mid layer's
     W split into hi and lo (8 bytes a weight), with n_mid >= 2 a 16 x C
-    hidden tile a warp, the biases, w_last and S latent terms."""
+    hidden tile a warp, the biases, w_last and S latent terms. The bf16 body
+    (``mcw::Layout``): each mid layer's W in bf16, the last layer's LAST_N B
+    operands of C x LAST_N bf16, each latent row as bf16 pairs padded to a
+    whole 16-byte load for each of four lane quads, the mid biases."""
     src = (Path(kmc.__file__).parent / "csrc" / "mc_consensus.cu").read_text()
     warps = int(re.search(r"constexpr int WARPS = (\d+);", src).group(1))
     assert kmc._THREADS == 32 * warps
@@ -89,3 +92,32 @@ def test_shared_memory_reckoning_follows_the_kernel_source():
     hidden = warps * 16 * 32 * 4
     assert kmc._smem_bytes(32, 5, 2) == 2 * 8 * 32 * 32 + hidden + 4 * (2 * 32 + 32 + 5 * 32)
     assert kmc._smem_bytes(64, 778, 1) <= kmc._MAX_SMEM < kmc._smem_bytes(64, 779, 1)
+
+    last_n = int(re.search(r"constexpr int LAST_N = (\d+);", src).group(1))
+    assert kmc._LAST_N == last_n
+    assert "return (c / 8 + 3) / 4 * 4;" in src  # mcw::z_words: C / 8 pairs, whole uint4s
+    bf16 = torch.bfloat16
+    for c, s, n_mid in ((64, 16, 1), (48, 5, 2), (16, 1, 0), (32, 8, 3)):
+        z_words = (c // 8 + 3) // 4 * 4
+        assert kmc._smem_bytes(c, s, n_mid, bf16) == (
+            2 * n_mid * c * c + 2 * last_n * last_n * c + 16 * z_words * s + 4 * n_mid * c)
+    s_max = (kmc._MAX_SMEM - 2 * 64 * 64 - 2 * last_n * last_n * 64 - 4 * 64) // (16 * 8)
+    assert kmc._smem_bytes(64, s_max, 1, bf16) <= kmc._MAX_SMEM < kmc._smem_bytes(
+        64, s_max + 1, 1, bf16)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_launch_refuses_s_beyond_shared_memory(dtype):
+    """One sample more than the kernel's shared memory holds (C = 64, n_mid
+    1) raises ValueError in the launch's checks, before any CUDA call; on
+    the CPU the wrapper runs the plain version."""
+    c = 64
+    s = next(s for s in range(1, 4000) if kmc._smem_bytes(c, s, 1, dtype) > kmc._MAX_SMEM)
+    feat = torch.zeros(1, 2, 2, c, dtype=dtype)
+    rest = (torch.zeros(s, 1, c), torch.zeros(1, c, c), torch.zeros(1, c), torch.zeros(c, 1),
+            torch.zeros(1))
+    with pytest.raises(ValueError, match="shared memory"):
+        kmc._launch(feat, *rest, False)
+    with torch.no_grad():
+        mean, _ = mc_consensus(feat, *rest)
+    assert mean.shape == (1, 2, 2, 1)
