@@ -22,7 +22,12 @@ Phases, each of which fails the run (exit code 1) on any error or miss
                 synthetic 520x704 frame: tiled MC-16 prediction (block 384,
                 halo 64) and full-frame MC-16 pseudo-labels with consensus
                 masking; shapes, ranges, kernel launch counts, and one 512^2
-                tile against the same port on the CPU
+                tile against the same port on the CPU; then pda's
+                development/plot_livecell.py (pda_torch/tools/
+                plot_livecell.py's functions) on the frame, written as a
+                TIFF, from the seed-0 weights written as best.pt: MC-8
+                through the plain tail (8 + 3 ConvBlock launches) against
+                every plain version on the card, the panels' PNG read back
   5. training — the flagship's Mean-Teacher step (MC-16, consensus masking,
                 Adam 1e-5, EMA 0.999) at full widths: one step at 128^2,
                 batch 2, on the card against the same step of the port on
@@ -111,7 +116,11 @@ Phases, each of which fails the run (exit code 1) on any error or miss
                 TensorBoard event file (records' CRCs, a train/loss scalar a
                 step, every panel image decoded); a
                 fresh trainer reloading latest.pt bit for bit, then resuming
-                to 10; the same fit at 128^2 (2 steps, 1 validation) on the
+                to 10; the trainer's state through pda's orbax_io
+                (pda_torch/train/dcp_io.py: save_dcp, then load_dcp into a
+                fresh card state) bit-equal to it and to the .pt path's,
+                the seconds of each beside the .pt path's; the same fit
+                at 128^2 (2 steps, 1 validation) on the
                 native views, card against the CPU (float32, and float64 for
                 the gradients' reference; the final weights within the
                 interval Adam maps each step's gradient error to); and 300
@@ -218,6 +227,7 @@ K12_REF64_TOL = 1e-5
 K3_MEAN_TOL = 1e-5  # kernel 3: max abs error of the MC mean (vs plain and vs float64)
 K3_WINDOW = 1e-4  # kernel 3: consensus may differ only where a logit is this near a threshold
 TILE_TOL = 1e-4  # one tile, card vs CPU: max abs error of the MC mean
+PLOT_MC = 8  # plot_livecell's --n_samples (pda's default)
 # K3's plain version materializes (S, B, H, W, C): batches beyond this many
 # bytes of it (a 2048^2 frame's 36 tiles) run it in chunks of the batch
 PLAIN_MC_BYTES = 4 * 2**30
@@ -1002,7 +1012,78 @@ def phase_serving(dev, results):
         f"{1000.0 * n_tiles / tiled_ms:.2f} tiles/s, peak {tiled_peak:.2f} GiB")
     log(f"time full_punet_pseudo MC-{MC} 520x704 (padded 528x704): {pseudo_ms:.2f} ms/frame, "
         f"{1000.0 / pseudo_ms:.3f} frames/s, peak {pseudo_peak:.2f} GiB")
+    ok &= check_plot(dev, model_cpu, frame, results)
     return ok
+
+
+def check_plot(dev, model_cpu, frame, results):
+    """pda's development/plot_livecell.py on the card (pda_torch/tools/
+    plot_livecell.py's functions): the frame written as a TIFF and the
+    flagship's seed-0 weights as best.pt, read back through the tool; its
+    MC-8 samples (a main path: 8 conv_block_fwd and 3 conv_block_fwd_dual
+    launches at the pseudo export's shapes, the plain MC tail) against the
+    same run with every plain version on the card: each sample's
+    probability and the mean within TILE_TOL, the consensus off only where a
+    plain logit lies within K3_WINDOW of a threshold; the panels' PNG
+    written and decoded back; the run's ms a frame and the check's seconds."""
+    import numpy as np
+    import torch
+
+    from pda_torch.data import png
+    from pda_torch.data.tiff import imwrite
+    from pda_torch.kernels import conv_block as kc
+    from pda_torch.tools import plot_livecell as pl
+    from pda_torch.tools.ab import kernel_wrappers, read_launches, reset_launches
+    from pda_torch.tools.workload import cuda_ms
+
+    t0 = time.perf_counter()
+    wrappers = kernel_wrappers()
+    expect = {"conv_block_fwd": 8, "conv_block_fwd_dual": 3, "mc_consensus": 0,
+              "conv_block_bwd": 0, "conv_block_bwd_dual": 0}
+    with tempfile.TemporaryDirectory() as root:
+        image, out = os.path.join(root, "frame.tif"), os.path.join(root, "panels.png")
+        imwrite(image, frame[..., 0].cpu().numpy())
+        torch.save({"model_state": model_cpu.state_dict()}, os.path.join(root, "best.pt"))
+        img = pl.read_frame(image)
+        model = pl.load_model(root, dev)
+        norm = pl.standardize(img)
+
+        def run():
+            gen = torch.Generator(device=dev).manual_seed(pl.NOISE_SEED)
+            return pl.sample(model, norm, PLOT_MC, generator=gen)
+
+        reset_launches(wrappers)
+        got = run()
+        counts = read_launches(wrappers)
+        for k in ("conv_block_fwd", "conv_block_fwd_dual"):  # a main path's run
+            results[k]["launches"] += counts[k]
+        with kc.plain_versions():
+            ref = run()
+        err = max(float(np.abs(got.probs - ref.probs).max()),
+                  float(np.abs(got.pseudo - ref.pseudo).max()))
+        near = (np.abs(np.abs(ref.logits) - math.log(9.0)) < K3_WINDOW).any(axis=0)
+        flips = got.consensus != ref.consensus
+        grid, names = pl.figure(img, got, PLOT_MC)
+        png.imwrite(out, grid)
+        back = png.imread(out)
+        png_bytes = os.path.getsize(out)
+        good = (counts == expect and got.probs.shape == (PLOT_MC, *FRAME)
+                and got.pseudo.shape == got.consensus.shape == FRAME
+                and bool(np.isfinite(got.logits).all()) and err <= TILE_TOL
+                and not (flips & ~near).any() and np.array_equal(back, grid)
+                and names[3:] == [f"sample {i}" for i in range(1, 6)])
+        ms = cuda_ms(run, warmup=0, iters=3)
+        del model
+    log(f"serving plot_livecell (pda's development/plot_livecell.py) MC-{PLOT_MC} 520x704 (padded "
+        f"528x704) from best.pt: launches {counts} (expected {expect}); probabilities and mean "
+        f"vs every plain version on the card max_abs_err {err:.3e} (tol {TILE_TOL:.0e}); "
+        f"consensus share {float(got.consensus.mean()):.4f}, differs at {int(flips.sum())} px, "
+        f"{int((flips & ~near).sum())} of them farther than {K3_WINDOW:.0e} from a threshold; "
+        f"panels {names}; PNG {grid.shape} {png_bytes / 2**20:.2f} MiB read back equal "
+        f"{np.array_equal(back, grid)} {'ok' if good else 'FAIL'}")
+    log(f"time plot_livecell sample() 520x704 MC-{PLOT_MC} (encode, the MC tail, each sample's "
+        f"map to the host): {ms:.2f} ms/frame; the plot check {time.perf_counter() - t0:.2f} s")
+    return good
 
 
 def mt_batch(gen, frame, patch, dev):
@@ -2896,6 +2977,78 @@ def same_trainer_state(a, b):
     return ok
 
 
+def state_entries(state):
+    """(tensors by name, param groups, step) of a TrainState: student,
+    teacher, the optimizer's state."""
+    out = {f"model.{k}": v for k, v in state.model.state_dict().items()}
+    out.update({f"teacher.{k}": v for k, v in state.teacher.state_dict().items()})
+    opt = state.optimizer.state_dict()
+    out.update({f"optimizer.{i}.{k}": v for i, e in opt["state"].items() for k, v in e.items()})
+    return out, opt["param_groups"], state.step
+
+
+def check_dcp(trainer, by_pt, root):
+    """pda's orbax_io on the card (pda_torch/train/dcp_io.py): the flagship
+    trainer's state after its fit saved with save_dcp and loaded with
+    load_dcp into a fresh card state (zeroed copies of the modules, a new
+    Adam), bit-equal to the trainer's state and to ``by_pt``'s (the .pt
+    path's reload); the save and load seconds beside the .pt path's, timed
+    on the same state into the same kind of template."""
+    import torch
+
+    from pda_torch.train import LATEST, adam, create_train_state, load_checkpoint, save_checkpoint
+    from pda_torch.train.checkpoint import restore_state
+    from pda_torch.train.dcp_io import load_dcp, save_dcp
+
+    def template():
+        model = copy.deepcopy(trainer.state.model)
+        teacher = copy.deepcopy(trainer.state.teacher)
+        with torch.no_grad():
+            for t in (*model.parameters(), *teacher.parameters()):
+                t.zero_()
+        return create_train_state(model, adam(model.parameters(), MT_LR), with_teacher=True,
+                                  teacher=teacher)
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    t_start = time.perf_counter()
+    extra = {"generator_state": trainer.generator.get_state(),
+             "panel_generator_state": trainer.panel_generator.get_state(),
+             "scheduler_state": trainer.lr_scheduler.state_dict()}
+    pt_dir, dcp_dir = os.path.join(root, "pt_check"), os.path.join(root, "dcp_check")
+    pt_save = timed(lambda: save_checkpoint(pt_dir, trainer.state, which=LATEST, extra=extra))
+    dcp_save = timed(lambda: save_dcp(dcp_dir, trainer.state, extra=extra))
+    by_file, by_dcp, got_extra = template(), template(), {}
+    pt_load = timed(lambda: restore_state(by_file, load_checkpoint(pt_dir, which=LATEST)))
+    dcp_load = timed(lambda: load_dcp(dcp_dir, by_dcp, extra=got_extra))
+    want, groups, step = state_entries(trainer.state)
+    got, got_groups, got_step = state_entries(by_dcp)
+    reloaded = state_entries(by_pt.state)[0]
+    same = (sorted(got) == sorted(want) == sorted(reloaded) and got_groups == groups
+            and got_step == step and all(
+                torch.equal(got[k], v) and got[k].device == v.device
+                and torch.equal(got[k], reloaded[k]) for k, v in want.items())
+            and all(torch.equal(got_extra[k], extra[k]) for k in ("generator_state",
+                                                                  "panel_generator_state"))
+            and got_extra["scheduler_state"] == extra["scheduler_state"])
+    dcp_mib = sum(os.path.getsize(os.path.join(dcp_dir, f)) for f in os.listdir(dcp_dir)) / 2**20
+    pt_mib = os.path.getsize(os.path.join(pt_dir, "latest.pt")) / 2**20
+    log(f"engine dcp_io (pda's orbax_io): the flagship MT trainer's state after fit("
+        f"{ENGINE_FIT}) (student, teacher, Adam, step {step}, generators, plateau state) through "
+        f"save_dcp and load_dcp into a fresh card state bit-equal to the state and to the .pt "
+        f"path's reload {same}; {len(want)} tensors, DCP {dcp_mib:.1f} MiB in "
+        f"{sorted(os.listdir(dcp_dir))}, .pt {pt_mib:.1f} MiB {'ok' if same else 'FAIL'}")
+    log(f"time dcp_io: save_dcp {dcp_save:.3f} s, load_dcp {dcp_load:.3f} s; the .pt path: "
+        f"save_checkpoint {pt_save:.3f} s, load_checkpoint + restore_state {pt_load:.3f} s "
+        f"(warm page cache); the DCP check {time.perf_counter() - t_start:.2f} s")
+    return same
+
+
 def adam_interval(grads, deltas, lr, betas, eps):
     """(low, high) of the total Adam update (the sum of a fit's steps) each
     element can take when step k's gradient may lie anywhere in
@@ -3014,11 +3167,11 @@ def check_fit(label, card, cpu, grads, init, lr):
 def small_mt_fits(root, dev, wrappers, loader_seed: int = 0):
     """The flagship's MT fit at 128^2 (2 steps, 1 validation) on the card, on
     the CPU (float32) and on the CPU in float64, each step's gradients
-    recorded; the CPU fits take the card teacher's pseudo-labels, so that a
-    consensus pixel flipped within the MC kernel's threshold window is no
-    difference. ``loader_seed`` moves the train loader's seed. Returns the
-    fits, the gradients, the pseudo-labels, the initial student, the card
-    fit's launches and the CPU fits' seconds."""
+    recorded, no checkpoint written; the CPU fits take the card teacher's
+    pseudo-labels, so that a consensus pixel flipped within the MC kernel's
+    threshold window is no difference. ``loader_seed`` moves the train
+    loader's seed. Returns the fits, the gradients, the pseudo-labels, the
+    initial student, the card fit's launches and the CPU fits' seconds."""
     import torch
 
     from pda_torch.tools.ab import read_launches, reset_launches
@@ -3032,6 +3185,9 @@ def small_mt_fits(root, dev, wrappers, loader_seed: int = 0):
                                  patch=ENGINE_CHECK_PATCH, steps_per_epoch=ENGINE_CHECK_FIT,
                                  num_workers=0, logger=False, dtype=dtype)
         tr.train_loader.seed += loader_seed
+        # no check reads these fits' best.pt and latest.pt (3.3 GB with the float64
+        # fit's), which the flagship's fit(8) and its reload check
+        tr.save_checkpoint = lambda which, current_metric: None
         tr.initialize()
         grads[name], train = [], tr.train_step
 
@@ -3291,6 +3447,7 @@ def phase_engine(dev, results, bare_ms):
         fresh = flagship(root)
         fresh.load_checkpoint(LATEST)
         same = same_trainer_state(trainer, fresh)
+        ok &= check_dcp(trainer, fresh, root)
         del trainer
         reset()
         fresh.fit(ENGINE_RESUME, overwrite_training=False)

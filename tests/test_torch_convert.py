@@ -69,10 +69,13 @@ def test_port_imports_no_jax():
         "pda_torch.data.blur, pda_torch.data.native, pda_torch.train.events, "
         "pda_torch.data.transforms, pda_torch.experiments.common, pda_torch.tools.ab, "
         "pda_torch.tools.common, pda_torch.tools.ab_step_check, pda_torch.tools.learning_smoke, "
-        "pda_torch.tools.mt_smoke, pda_torch.tools.bench_loader, pda_torch.tools.e2e_drive\n"
+        "pda_torch.tools.mt_smoke, pda_torch.tools.bench_loader, pda_torch.tools.e2e_drive, "
+        "pda_torch.tools.plot_livecell, pda_torch.tools.colormaps, pda_torch.train.dcp_io, "
+        "torch.distributed.checkpoint\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'flax', 'pda', 'h5py', 'imageio', 'cv2',\n"
-        "                                    'tensorboardX', 'tensorboard'))\n"
+        "                                    'tensorboardX', 'tensorboard', 'orbax',\n"
+        "                                    'matplotlib'))\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
     )

@@ -967,6 +967,82 @@ def test_checkpoint_written_on_card_loads_on_cpu(dev, tmp_path):
     assert cpu._iteration == 3
 
 
+def test_dcp_checkpoint_written_on_card_loads_on_cpu_and_card(dev, tmp_path):
+    """``save_dcp`` of a card trainer's state (pda's ``save_orbax``), then
+    ``load_dcp`` into a CPU and a card template: bit-equal to the card state
+    and to the ``.pt`` path's restore, each tensor on its template's device
+    (Adam's steps on the host, as a fresh optimizer keeps them)."""
+    from pda_torch.train.dcp_io import load_dcp, save_dcp
+    from torch_dp_worker import state_tensors
+
+    def extra(t):
+        return {"generator_state": t.generator.get_state(),
+                "panel_generator_state": t.panel_generator.get_state(),
+                "scheduler_state": t.lr_scheduler.state_dict()}
+
+    card = _mt_trainer("cuda", tmp_path / "card")
+    card.fit(2)
+    save_dcp(str(tmp_path / "dcp"), card.state, extra=extra(card))
+    by_pt = _mt_trainer("cpu", tmp_path / "card")
+    by_pt.load_checkpoint("latest")
+    want, pt = state_tensors(card.state, extra(card)), state_tensors(by_pt.state, extra(by_pt))
+    assert want["step"] == 2
+    for device in ("cpu", "cuda"):
+        t = _mt_trainer(device, tmp_path / device)
+        t.initialize()
+        got_extra = {}
+        load_dcp(str(tmp_path / "dcp"), t.state, extra=got_extra)
+        got = state_tensors(t.state, got_extra)
+        assert sorted(got) == sorted(want) == sorted(pt)
+        for k, v in want.items():
+            if not torch.is_tensor(v):
+                assert got[k] == v == pt[k], k
+                continue
+            assert got[k].device == (v.device if device == "cuda" else torch.device("cpu")), k
+            assert torch.equal(got[k].cpu(), v.cpu()) and torch.equal(got[k].cpu(), pt[k].cpu()), k
+
+
+def test_plot_livecell_on_card_matches_plain_versions(dev, tmp_path):
+    """``pda``'s development/plot_livecell.py on the card at full width
+    (pda_torch/tools/plot_livecell.py): a 100 x 136 frame (padded to 112 x
+    144), 8 conv_block_fwd and 3 conv_block_fwd_dual launches, the samples
+    against every plain version on the card and against the CPU (1e-4; the
+    consensus off only within 1e-4 of a threshold), then ``main`` on the
+    card writes the panels."""
+    from pda_torch.data import png
+    from pda_torch.data.synthetic import make_dataset_arrays
+    from pda_torch.data.tiff import imwrite
+    from pda_torch.models.punet import livecell_punet
+    from pda_torch.tools import plot_livecell as pl
+
+    img = make_dataset_arrays(1, (100, 136), seed=5)[0][0].astype(np.float32)
+    imwrite(str(tmp_path / "frame.tif"), img)
+    cpu = livecell_punet(generator=torch.Generator().manual_seed(0), device="cpu")
+    with torch.no_grad():
+        cpu.fcomb.last_layer.weight.mul_(8.0)
+    torch.save({"model_state": cpu.state_dict()}, str(tmp_path / "best.pt"))
+    model = pl.load_model(str(tmp_path), dev)
+    norm = pl.standardize(pl.read_frame(str(tmp_path / "frame.tif")))
+    eps = torch.randn(8, 1, 6, generator=torch.Generator().manual_seed(0))
+    wrappers = (kconv.conv_block_fwd, kconv.conv_block_fwd_dual, mc_consensus)
+    before = [w.launches for w in wrappers]
+    out = pl.sample(model, norm, 8, eps=eps)
+    assert [w.launches - b for w, b in zip(wrappers, before)] == [8, 3, 0]
+    with kconv.plain_versions():
+        plain = pl.sample(model, norm, 8, eps=eps)
+    on_cpu = pl.sample(cpu.eval(), norm, 8, eps=eps)
+    assert 0.0 < float(plain.consensus.mean()) < 1.0
+    for ref in (plain, on_cpu):
+        assert np.abs(out.probs - ref.probs).max() <= 1e-4
+        assert np.abs(out.pseudo - ref.pseudo).max() <= 1e-4
+        near = (np.abs(np.abs(ref.logits) - np.log(9.0)) < 1e-4).any(axis=0)
+        assert not ((out.consensus != ref.consensus) & ~near).any()
+    assert pl.main(["--image", str(tmp_path / "frame.tif"), "--checkpoint",
+                    str(tmp_path / "best.pt"), "--out", str(tmp_path / "p.png")]) == 0
+    grid = png.imread(str(tmp_path / "p.png"))
+    assert grid.shape == (2 * 100 + pl.GAP, 4 * 136 + 3 * pl.GAP, 3)
+
+
 def test_engine_iteration_launches(dev, tmp_path):
     """One engine iteration with its validation and panels (logger on,
     panels every step): the MT step (20, 6, 1, 12, 3), the validation step

@@ -19,6 +19,9 @@ measures against ``pda``'s own formulas.
     four gloo ranks against one process, within its bounds; its comparison
     failing a mean of the gradients, N times their sum, a lost gradient, a
     skipped and a repeated optimizer step.
+  * ``plot_livecell`` on a 48 x 64 synthetic frame (a TIFF) from a
+    flagship ``best.pt``: its panel order, grid and PNG; refusing
+    ``--device cuda`` where there is no card.
 """
 
 import json
@@ -31,7 +34,7 @@ import pytest
 import torch
 
 from pda_torch.tools import (ab, ab_step_check, bench_loader, dp_check, e2e_drive, learning_smoke,
-                             mt_smoke)
+                             mt_smoke, plot_livecell)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TOOLS = {"ab_step_check": ab_step_check, "learning_smoke": learning_smoke,
@@ -224,3 +227,40 @@ def test_tool_refuses_cuda_without_a_card(tool, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA card"):
         TOOLS[tool].main(["--device", "cuda"])
+
+
+def _plot_inputs(root):
+    """A 48 x 64 synthetic frame as a TIFF and a flagship ``best.pt``."""
+    from pda_torch.data.synthetic import make_dataset_arrays
+    from pda_torch.data.tiff import imwrite
+    from pda_torch.models.punet import livecell_punet
+
+    image = os.path.join(root, "frame.tif")
+    imwrite(image, make_dataset_arrays(1, (48, 64), seed=2)[0][0].astype(np.float32))
+    torch.save({"model_state": livecell_punet(device="cpu").state_dict()},
+               os.path.join(root, "best.pt"))
+    return image
+
+
+def test_plot_livecell_writes_the_panels(tmp_path):
+    from pda_torch.data import png
+
+    image, out = _plot_inputs(str(tmp_path)), str(tmp_path / "panels.png")
+    rc, res, stdout = _run("plot_livecell", "--image", image, "--checkpoint", str(tmp_path),
+                           "--out", out, "--n_samples", "8")
+    assert rc == 0, stdout
+    names = ["input (CLAHE)", "mean prediction", "consensus response"] + [
+        f"sample {i}" for i in range(1, 6)]
+    assert res["panels"] == names and res["card"] == "cpu" and res["launches"] is None
+    assert "panels: " + ", ".join(names) in stdout.splitlines()
+    assert stdout.splitlines()[-1] == f"saved panels to {out}"
+    gap = plot_livecell.GAP
+    assert res["grid"] == [2 * 48 + gap, 4 * 64 + 3 * gap, 3]
+    assert list(png.imread(out).shape) == res["grid"]
+
+
+def test_plot_livecell_refuses_cuda_without_a_card(tmp_path, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        plot_livecell.main(["--image", str(tmp_path / "x.tif"), "--checkpoint", str(tmp_path),
+                            "--device", "cuda"])

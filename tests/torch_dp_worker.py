@@ -263,12 +263,71 @@ def run_cases(spec, mesh=None, root=None) -> dict:
             out[case] = prediction_case(spec, root, mesh)
         elif case == "fit":
             out[case] = fit_case(spec, os.path.join(root, "fit"), mesh)
+        elif case == "dcp":
+            out[case] = dcp_case(spec, root, mesh)
         elif case == "val_batch_1":
             out[case] = (None if mesh is None
                          else val_batch_1_case(spec, os.path.join(root, "val1"), mesh))
         else:
             raise KeyError(case)
     return out
+
+
+def dcp_state(spec, fresh: bool = False):
+    """(state, extra) of ``tests/test_torch_dcp_io.py``, the same on every
+    rank: the spec's PUNet with a teacher (half its weights) and Adam after
+    two steps on fixed gradients, step 2, a generator's state and a plateau
+    state as extra; with ``fresh``, a template: zero weights, no Adam state."""
+    from pda_torch.train import adam as port_adam
+    from pda_torch.train import create_train_state
+
+    model = build_model(spec, "punet")
+    state = create_train_state(model, port_adam(model.parameters(), ADAM_LR), with_teacher=True)
+    if fresh:
+        with torch.no_grad():
+            for t in (*model.parameters(), *state.teacher.parameters()):
+                t.zero_()
+        return state, {}
+    for k in range(2):
+        for p in model.parameters():
+            p.grad = torch.sin(p.detach() * (k + 2))
+        state.optimizer.step()
+    state.step = 2
+    with torch.no_grad():
+        for t in state.teacher.parameters():
+            t.mul_(0.5)
+    gen = torch.Generator().manual_seed(11)
+    torch.randn(5, generator=gen)
+    return state, {"generator_state": gen.get_state(),
+                   "scheduler_state": {"best": 0.25, "num_bad_epochs": 3}}
+
+
+def state_tensors(state, extra) -> dict:
+    """Every tensor and value a checkpoint restores, by name."""
+    out = {f"model.{k}": v for k, v in state.model.state_dict().items()}
+    out.update({f"teacher.{k}": v for k, v in state.teacher.state_dict().items()})
+    opt = state.optimizer.state_dict()
+    out.update({f"optimizer.{i}.{k}": v for i, entries in opt["state"].items()
+                for k, v in entries.items()})
+    out["param_groups"] = opt["param_groups"]
+    out["step"] = state.step
+    out.update({f"extra.{k}": v for k, v in extra.items()})
+    return {k: v.detach().clone() if torch.is_tensor(v) else v for k, v in out.items()}
+
+
+def dcp_case(spec, root: str, mesh=None):
+    """On each rank: restore the checkpoint one process wrote at
+    ``<root>/dcp_one``, then write :func:`dcp_state` together at
+    ``<root>/dcp_world``. The test process itself writes and reads."""
+    from pda_torch.train.dcp_io import load_dcp, save_dcp
+
+    if mesh is None:
+        return None
+    fresh, extra = dcp_state(spec, fresh=True)
+    load_dcp(os.path.join(root, "dcp_one"), fresh, extra=extra)
+    state, ref_extra = dcp_state(spec)
+    save_dcp(os.path.join(root, "dcp_world"), state, extra=ref_extra)
+    return {"loaded": state_tensors(fresh, extra)}
 
 
 def rank_main(rank: int, world: int, store_path: str, spec_path: str, out_dir: str) -> None:
