@@ -16,7 +16,12 @@ Phases, each of which fails the run (exit code 1) on any error or miss
                 modes on the MT step: the pooled cotangent ("with": skip +
                 pool, "only": pool; its first pass bit-equal to the plain
                 one) and the recompute of h1, h2 (single and dual entry,
-                bit-equal to the saved-h kernel)
+                bit-equal to the saved-h kernel); every float32 ConvBlock
+                check (here and in the later phases' shape census) also
+                requires the 3xTF32 wgmma body (launches_wgmma_f32) and
+                prints its drift against float64 beside the mma.sync body's;
+                the float32 weight copy (tf32_planes) bit-equal to its plain
+                version
   4. serving  — the flagship PUNet (num_filters 64..512, latent 6,
                 no_convs_fcomb 3, float32, seeded weights) on a seeded
                 synthetic 520x704 frame: tiled MC-16 prediction (block 384,
@@ -296,6 +301,18 @@ BWD_ROUTE_ENTRIES = {"conv_block_bwd_wgmma": ("conv_block_bwd", "wgmma"),
 # bf16 launch of mc_consensus
 MC_ROUTE_ENTRIES = {"mc_consensus_wgmma": ("mc_consensus", "wgmma")}
 ROUTE_ENTRIES = {**FWD_MODE_ENTRIES, **BWD_ROUTE_ENTRIES, **MC_ROUTE_ENTRIES}
+# The float32 ConvBlocks' route, the same JSON names in float32 (their
+# launches each wrapper's launches_wgmma_f32): the launches whose forward
+# layers but a 1- or 2-channel entry layer, or whose dgrads (and the
+# recompute's layers), all ran on the 3xTF32 wgmma body
+# (csrc/conv3x3_wgmma_tf32.cuh); on the flagship's, MitoEM's and Lung's shapes
+# every float32 ConvBlock launch. Every float32 ConvBlock check requires it.
+F32_ROUTE_ENTRIES = {**FWD_MODE_ENTRIES, **BWD_ROUTE_ENTRIES}
+F32_ROUTE_SOURCE = "pda_torch/kernels/csrc/conv3x3_wgmma_tf32.cuh"
+# the mma.sync body's drift against float64 (conv3x3_tc.cuh, PERF.md §6), to
+# print beside the 3xTF32 wgmma body's: the forward at the serving shapes,
+# the backward at the MT step's
+PARENT_DRIFT = {"fwd": "0.7-1.2e-06", "bwd": "2.2-2.8e-06"}
 # peak device memory (GiB) of each time_steps label's run
 STEP_PEAKS = {}
 
@@ -480,10 +497,13 @@ def saved_block(gen, b, h, w, cin, c, dev, dtype=None):
 
 
 def check_bwd(entry, label, kernel, plain, args, names, per_step, binding, need_dx,
-              timed=True, gp=None, also=None):
+              timed=True, gp=None, also=None, route_entry=None):
     """A backward kernel against its plain version: every output within
     BWD_REL_TOL of the plain one's largest and within BWD_REF64_TOL of the
-    plain version's in float64, and two runs bit-equal; then, if ``timed``,
+    plain version's in float64 (the drift printed beside the mma.sync
+    body's), two runs bit-equal and every dgrad on the 3xTF32 wgmma body
+    (launches_wgmma_f32; ``route_entry``, the route's JSON entry, takes the
+    same numbers); then, if ``timed``,
     times (the kernel's, the plain version's, cuDNN's:
     :func:`cudnn_block_bwd`) and the bound. ``gp``: the pooled cotangent,
     handed to both versions (``g``, args[0], may then be None), the
@@ -499,7 +519,12 @@ def check_bwd(entry, label, kernel, plain, args, names, per_step, binding, need_
         return None if a is None else a.double()
 
     kw, kw64 = ({}, {}) if gp is None else ({"gp": gp}, {"gp": gp.double()})
-    out, again, ref = kernel(*args, **kw), kernel(*args, **kw), plain(*args, **kw)
+    wrapper = kc.conv_block_bwd_dual if entry["name"].startswith("conv_block_bwd_dual") \
+        else kc.conv_block_bwd
+    before = (wrapper.launches, wrapper.launches_wgmma_f32)
+    out, again = kernel(*args, **kw), kernel(*args, **kw)
+    route = f32_route(wrapper, before)
+    ref = plain(*args, **kw)
     ref64 = plain(*map(dbl, args), **kw64)
     first = True
     if gp is not None:
@@ -520,14 +545,15 @@ def check_bwd(entry, label, kernel, plain, args, names, per_step, binding, need_
                and err64 <= BWD_REF64_TOL * scale64)
         worst = max(worst, (err / scale if scale else err, name))
         worst64 = max(worst64, (err64 / scale64 if scale64 else err64, name))
-        for e in filter(None, (entry, also)):
+        for e in filter(None, (entry, also, route_entry)):
             e["max_abs_err"] = max(e["max_abs_err"], err)
-    ok &= same
+    ok &= same and route
     del out, again, ref, ref64
     CHECKED.add(shape_key(entry["name"], args, need_dx))
     verdict = (f"kernel {label}: worst max_abs_err/max|plain| {worst[0]:.3e} ({worst[1]}; tol "
                f"{BWD_REL_TOL:.0e}), /max|ref64| {worst64[0]:.3e} ({worst64[1]}; tol "
-               f"{BWD_REF64_TOL:.0e}), repeat bit-equal {same}"
+               f"{BWD_REF64_TOL:.0e}; the mma.sync body's {PARENT_DRIFT['bwd']}), repeat "
+               f"bit-equal {same}, dgrads on the 3xTF32 wgmma body {route}"
                + ("" if gp is None else f", da_3 bit-equal to the plain version's {first}"))
     if not timed:
         log(f"{verdict} {'ok' if ok else 'FAIL'}")
@@ -554,9 +580,9 @@ def check_bwd(entry, label, kernel, plain, args, names, per_step, binding, need_
         f"library_ms {library_ms:.3f}"
         f"{' (cudnn.benchmark on)' if benchmark else ''} bound_ms {bound:.3f} ({term}) "
         f"{'ok' if ok else 'FAIL'}")
-    if also is not None:
-        add_bound(also, binding, flops, nbytes, per_step)
-    add_times((entry, also), per_step, ms, plain_ms, library_ms)
+    for e in filter(None, (also, route_entry)):
+        add_bound(e, binding, flops, nbytes, per_step)
+    add_times((entry, also, route_entry), per_step, ms, plain_ms, library_ms)
     return ok
 
 
@@ -651,10 +677,13 @@ def check_recompute(entry, label, xs, weights, binding, per_step=1):
         a = [t if dtype is None else t.to(dtype) for t in (g, *xs, h3, w1, w2, w3, b1, b2)]
         return bwd_plain(*a[:-6], None, None, *a[-6:-2], b1=a[-2], b2=a[-1])
 
+    before = (bwd.launches, bwd.launches_wgmma_f32)
     out, again, saved = kernel(None, None), kernel(None, None), kernel(h1, h2)
     same = all(torch.equal(a, b) for a, b in zip(out, again))
     equal = all(torch.equal(a, b) for a, b in zip(out, saved))
-    ok, detail = same and equal, ""
+    # in float32 the rebuilt h1, h2 and every dgrad on the 3xTF32 wgmma body
+    route = bf16 or f32_route(bwd, before)
+    ok, detail = same and equal and route, ""
     x = torch.cat(xs, dim=-1)
     if bf16:
         good, worst, _ = bf16_layers_agree((h1, h2), x, weights[:4])
@@ -705,7 +734,8 @@ def check_recompute(entry, label, xs, weights, binding, per_step=1):
     bound, term = add_bound(entry, binding, flops, nbytes, per_step,
                             PEAK_BF16_FLOPS if bf16 else PEAK_FLOPS)
     log(f"{'bf16 ' if bf16 else ''}kernel {label}: bit-equal to the saved-h kernel {equal}, "
-        f"repeat bit-equal {same}{detail}; ms {ms:.3f} ({flops / ms / 1e9:.1f} TFLOP/s) "
+        f"repeat bit-equal {same}{'' if bf16 else f', on the 3xTF32 wgmma body {route}'}"
+        f"{detail}; ms {ms:.3f} ({flops / ms / 1e9:.1f} TFLOP/s) "
         f"saved-h kernel ms {saved_ms:.3f} plain_ms {plain_ms:.3f} library_ms {library_ms:.3f} "
         f"bound_ms {bound:.3f} ({term}) {'ok' if ok else 'FAIL'}")
     add_times((entry,), per_step, ms, plain_ms, library_ms)
@@ -821,16 +851,29 @@ def cudnn_weights(w1, b1, w2, b2, w3, b3):
         memory_format=torch.channels_last) for t in (w1, b1, w2, b2, w3, b3)]
 
 
-def check_conv(entry, label, kernel, plain, args, per_forward, binding, timed=True):
+def f32_route(wrapper, before):
+    """Whether every float32 launch of ``wrapper`` since ``before`` (its
+    (launches, launches_wgmma_f32) then) ran on the 3xTF32 wgmma body, and
+    one did."""
+    n, on = wrapper.launches - before[0], wrapper.launches_wgmma_f32 - before[1]
+    return n > 0 and on == n
+
+
+def check_conv(entry, label, kernel, plain, args, per_forward, binding, timed=True, also=None):
     """A forward kernel against its plain version: within K12_REL_TOL of
     the plain one's largest, within K12_REF64_TOL of the plain version's in
-    float64, and two runs bit-equal; then, if ``timed``, times and the
-    bound."""
+    float64 (the drift printed beside the mma.sync body's), two runs
+    bit-equal and on the 3xTF32 wgmma body (every layer but a 1- or
+    2-channel entry layer: launches_wgmma_f32); then, if ``timed``, times
+    and the bound, also added to ``also`` (the route's entry)."""
     import torch
 
     from pda_torch.tools.workload import block_flops, block_weight_bytes, cuda_ms
 
-    out, again, ref = kernel(*args), kernel(*args), plain(*args)
+    before = (kernel.launches, kernel.launches_wgmma_f32)
+    out, again = kernel(*args), kernel(*args)
+    route = f32_route(kernel, before)
+    ref = plain(*args)
     ref64 = plain(*(a.double() for a in args))
     torch.cuda.synchronize()
     same = torch.equal(out, again)
@@ -838,13 +881,15 @@ def check_conv(entry, label, kernel, plain, args, per_forward, binding, timed=Tr
     err64 = float((out.double() - ref64).abs().max())
     scale64 = float(ref64.abs().max())
     ok = (bool(torch.isfinite(out).all()) and err <= K12_REL_TOL * scale
-          and err64 <= K12_REF64_TOL * scale64 and same)
+          and err64 <= K12_REF64_TOL * scale64 and same and route)
     del out, again, ref, ref64
     CHECKED.add(shape_key(entry["name"], args))
-    entry["max_abs_err"] = max(entry["max_abs_err"], err)
+    for e in filter(None, (entry, also)):
+        e["max_abs_err"] = max(e["max_abs_err"], err)
     verdict = (f"kernel {label}: max_abs_err/max|plain| {err / scale:.3e} (tol "
-               f"{K12_REL_TOL:.0e}), /max|ref64| {err64 / scale64:.3e} (tol {K12_REF64_TOL:.0e}), "
-               f"repeat bit-equal {same}")
+               f"{K12_REL_TOL:.0e}), /max|ref64| {err64 / scale64:.3e} (tol {K12_REF64_TOL:.0e}; "
+               f"the mma.sync body's {PARENT_DRIFT['fwd']}), repeat bit-equal {same}, on the "
+               f"3xTF32 wgmma body {route}")
     if not timed:
         log(f"{verdict} {'ok' if ok else 'FAIL'}")
         return ok
@@ -857,10 +902,12 @@ def check_conv(entry, label, kernel, plain, args, per_forward, binding, timed=Tr
     flops = block_flops(b, h, w, cin, c)
     nbytes = 4 * b * h * w * (cin + 3 * c) + block_weight_bytes(cin, c)
     bound, term = add_bound(entry, binding, flops, nbytes, per_forward)
+    if also is not None:
+        add_bound(also, binding, flops, nbytes, per_forward)
     del x, lib_args
     log(f"{verdict}, ms {ms:.3f} ({flops / ms / 1e9:.1f} TFLOP/s) plain_ms {plain_ms:.3f} "
         f"library_ms {library_ms:.3f} bound_ms {bound:.3f} ({term}) {'ok' if ok else 'FAIL'}")
-    add_times((entry,), per_forward, ms, plain_ms, library_ms)
+    add_times((entry, also), per_forward, ms, plain_ms, library_ms)
     return ok
 
 
@@ -874,18 +921,31 @@ def phase_kernels(dev, results, binding):
 
     gen = torch.Generator().manual_seed(SEED)
     k1, k2, k3 = results["conv_block_fwd"], results["conv_block_fwd_dual"], results["mc_consensus"]
+    k1w, k2w, bw, bdw = (results[n] for n in F32_ROUTE_ENTRIES)
+
+    # the float32 kernels' weight copy (csrc/tf32_planes.cu: the kernel and
+    # its 3xTF32 hi and lo planes) bit-equal to its plain version, in the
+    # forward's HWOI order and the dgrad's HWIO, at the flagship's widths
+    ok = True
+    for cin, c in ((1, 64), (64, 64), (256, 128), (768, 256), (512, 512)):
+        w = torch.randn(3, 3, cin, c, generator=gen).to(dev)
+        for hwoi in (True, False):
+            got, ref = kc.tf32_planes(w, hwoi), kc.tf32_planes_plain(w, hwoi)
+            same = torch.equal(got.view(torch.int32), ref.view(torch.int32))
+            log(f"kernel tf32_planes {cin}x{c} {'HWOI' if hwoi else 'HWIO'}: bit-equal to the "
+                f"plain version {same} {'ok' if same else 'FAIL'}")
+            ok &= same
 
     # every shape of the serving path, the MT step's posterior entry and the
     # learning check's blocks at width 96; the JSON line's times and bounds
     # sum one tiled forward's calls (weight 0: checked and logged only)
-    ok = True
     for shape, per_forward in ([(s, 2) for s in wl.K1_TILED] + [(s, 0) for s in wl.K1_PSEUDO]
                                + [(wl.K1_POSTERIOR, 0), (wl.LEARN_BLOCK, 0)]):
         b, h, w, cin, c = shape
         x = torch.randn(b, h, w, cin, generator=gen).to(dev)
         ok &= check_conv(k1, f"conv_block_fwd {cin}->{c} @{b}x{h}x{w}", kc.conv_block_fwd,
                          kc.conv_block_fwd_plain, (x, *conv_weights(gen, cin, c, dev)),
-                         per_forward, binding)
+                         per_forward, binding, also=k1w)
     for shape, per_forward in ([(s, 1) for s in wl.K2_TILED] + [(s, 0) for s in wl.K2_PSEUDO]
                                + [(wl.LEARN_DUAL_BLOCK, 0)]):
         b, h, w, ca, cb, c = shape
@@ -893,7 +953,8 @@ def phase_kernels(dev, results, binding):
         xb = torch.randn(b, h, w, cb, generator=gen).to(dev)
         ok &= check_conv(k2, f"conv_block_fwd_dual {ca}+{cb}->{c} @{b}x{h}x{w}",
                          kc.conv_block_fwd_dual, kc.conv_block_fwd_dual_plain,
-                         (xa, xb, *conv_weights(gen, ca + cb, c, dev)), per_forward, binding)
+                         (xa, xb, *conv_weights(gen, ca + cb, c, dev)), per_forward, binding,
+                         also=k2w)
 
     # the MT step's single-input backwards, each in its mode: the pooled
     # cotangent ("with": the skip's and the pool's, "only": the pool's) or
@@ -912,7 +973,8 @@ def phase_kernels(dev, results, binding):
                         lambda *a, **k: kc.conv_block_bwd_plain(*a, need_dx=need_dx, **k),
                         (None if mode == "only" else g, *rest),
                         ("dx", "dw1", "db1", "dw2", "db2", "dw3", "db3"), per_step, binding,
-                        need_dx, gp=gp, also=None if gp is None else results["conv_block_bwd_pool"])
+                        need_dx, gp=gp, also=None if gp is None else results["conv_block_bwd_pool"],
+                        route_entry=bw)
         del g, rest, gp
     for (b, h, w, ca, cb, c), per_step in ([(s, 1) for s in wl.BWD_DUAL_SHAPES]
                                            + [(wl.LEARN_DUAL_BLOCK, 0)]):
@@ -922,7 +984,7 @@ def phase_kernels(dev, results, binding):
         ok &= check_bwd(results["conv_block_bwd_dual"], f"conv_block_bwd_dual {ca}+{cb}->{c} "
                         f"@{b}x{h}x{w}", kc.conv_block_bwd_dual, kc.conv_block_bwd_dual_plain,
                         args, ("dxa", "dxb", "dw1", "db1", "dw2", "db2", "dw3", "db3"), per_step,
-                        binding, True)
+                        binding, True, route_entry=bdw)
         del g, rest, args
 
     # the backward with recompute (PDA_PALLAS_CONV_MODE=mixed), each entry
@@ -970,13 +1032,19 @@ def phase_serving(dev, results):
     for name, run in (("tiled_punet_probs", run_tiled), ("full_punet_pseudo", run_pseudo)):
         for w in wrappers.values():
             w.launches = 0
+            if hasattr(w, "launches_wgmma_f32"):
+                w.launches_wgmma_f32 = 0
         out = run()
         torch.cuda.synchronize()
         counts = {k: w.launches for k, w in wrappers.items()}
-        for k, n in counts.items():
+        # every ConvBlock launch on the 3xTF32 wgmma body
+        routes = {n: wrappers[k].launches_wgmma_f32 for n, (k, _) in F32_ROUTE_ENTRIES.items()
+                  if k in wrappers}
+        for k, n in {**counts, **routes}.items():
             results[k]["launches"] += n
         probs = out if name == "tiled_punet_probs" else out[0]
         good = (counts == expect and tuple(probs.shape) == (*FRAME, 1)
+                and all(routes[n] == counts[F32_ROUTE_ENTRIES[n][0]] for n in routes)
                 and bool(torch.isfinite(probs).all())
                 and float(probs.min()) >= 0.0 and float(probs.max()) <= 1.0)
         if name == "full_punet_pseudo":
@@ -985,7 +1053,7 @@ def phase_serving(dev, results):
             log(f"serving {name}: consensus share {float(cons.mean()):.4f}")
         log(f"serving {name}: shape {tuple(probs.shape)} range [{float(probs.min()):.4f}, "
             f"{float(probs.max()):.4f}] mean {float(probs.mean()):.4f} launches {counts} "
-            f"(expected {expect}) {'ok' if good else 'FAIL'}")
+            f"(expected {expect}), on the 3xTF32 wgmma body {routes} {'ok' if good else 'FAIL'}")
         ok &= good
 
     # one 512^2 tile, MC-16: the card against the same port on the CPU
@@ -1055,8 +1123,10 @@ def check_plot(dev, model_cpu, frame, results):
         reset_launches(wrappers)
         got = run()
         counts = read_launches(wrappers)
+        on, routes = all_on_f32_route(wrappers)
         for k in ("conv_block_fwd", "conv_block_fwd_dual"):  # a main path's run
             results[k]["launches"] += counts[k]
+            results[k + "_wgmma"]["launches"] += routes[k + "_wgmma"]
         with kc.plain_versions():
             ref = run()
         err = max(float(np.abs(got.probs - ref.probs).max()),
@@ -1067,7 +1137,7 @@ def check_plot(dev, model_cpu, frame, results):
         png.imwrite(out, grid)
         back = png.imread(out)
         png_bytes = os.path.getsize(out)
-        good = (counts == expect and got.probs.shape == (PLOT_MC, *FRAME)
+        good = (counts == expect and on and got.probs.shape == (PLOT_MC, *FRAME)
                 and got.pseudo.shape == got.consensus.shape == FRAME
                 and bool(np.isfinite(got.logits).all()) and err <= TILE_TOL
                 and not (flips & ~near).any() and np.array_equal(back, grid)
@@ -1075,7 +1145,8 @@ def check_plot(dev, model_cpu, frame, results):
         ms = cuda_ms(run, warmup=0, iters=3)
         del model
     log(f"serving plot_livecell (pda's development/plot_livecell.py) MC-{PLOT_MC} 520x704 (padded "
-        f"528x704) from best.pt: launches {counts} (expected {expect}); probabilities and mean "
+        f"528x704) from best.pt: launches {counts} (expected {expect}), on the 3xTF32 wgmma "
+        f"body {routes}; probabilities and mean "
         f"vs every plain version on the card max_abs_err {err:.3e} (tol {TILE_TOL:.0e}); "
         f"consensus share {float(got.consensus.mean()):.4f}, differs at {int(flips.sum())} px, "
         f"{int((flips & ~near).sum())} of them farther than {K3_WINDOW:.0e} from a threshold; "
@@ -1260,9 +1331,11 @@ def phase_training(dev, results):
     torch.cuda.synchronize()
     counts = counted_launches(wrappers, results)
     modes = mode_launches(wrappers)
-    ok = counts == MT_LAUNCHES and modes == MT_MODE_LAUNCHES
+    on, routes = all_on_f32_route(wrappers)
+    ok = counts == MT_LAUNCHES and modes == MT_MODE_LAUNCHES and on
     log(f"training MT step 128^2: launches {counts} (expected {MT_LAUNCHES}), by backward mode "
-        f"{modes} (expected {MT_MODE_LAUNCHES}) {'ok' if ok else 'FAIL'}")
+        f"{modes} (expected {MT_MODE_LAUNCHES}), on the 3xTF32 wgmma body {routes} "
+        f"{'ok' if ok else 'FAIL'}")
 
     # the teacher's pseudo-labels: K3 on the card against the plain tail on the CPU
     t0 = time.perf_counter()
@@ -1324,10 +1397,12 @@ def phase_training(dev, results):
             steps._mc_pseudo = pseudo
         counts = counted_launches(wrappers, results)
         modes = mode_launches(wrappers)
-        good = counts == MIXED_MT_LAUNCHES and modes == MIXED_MT_MODE_LAUNCHES
+        on, routes = all_on_f32_route(wrappers)
+        good = counts == MIXED_MT_LAUNCHES and modes == MIXED_MT_MODE_LAUNCHES and on
         log(f"training mixed MT step {MIXED_CHECK_PATCH}^2: launches {counts} (expected "
             f"{MIXED_MT_LAUNCHES}), by backward mode {modes} (expected "
-            f"{MIXED_MT_MODE_LAUNCHES}) {'ok' if good else 'FAIL'}")
+            f"{MIXED_MT_MODE_LAUNCHES}), on the 3xTF32 wgmma body {routes} "
+            f"{'ok' if good else 'FAIL'}")
         t0 = time.perf_counter()
         for state, dtype in ((cpu, torch.float32), (cpu64, torch.float64)):
             y, z = (t.to("cpu", dtype) for t in drawn[0])
@@ -1426,6 +1501,10 @@ def time_steps(label, step, state, batch, n_patches, wrappers, launches, warmup,
         on, routes = all_on_wgmma(wrappers)
         good &= on
         by_mode += f", on the wgmma bodies {routes}"
+    elif modes is not None:  # the float32 MT steps: on the 3xTF32 wgmma body
+        on, routes = all_on_f32_route(wrappers)
+        good &= on
+        by_mode += f", on the 3xTF32 wgmma body {routes}"
     STEP_PEAKS[label] = peak
     log(f"training {label}: losses {[round(float(v), 5) for v in losses]} finite {finite}, "
         f"launches {counts}{by_mode} over {n} steps {'ok' if good else 'FAIL'}")
@@ -2929,11 +3008,24 @@ def mode_launches(wrappers, bf16=False):
             for name, (kernel, mode) in MODE_ENTRIES.items()}
 
 
-def route_launches(wrappers):
+def route_launches(wrappers, bf16=True):
     """The bf16 forwards' and backwards' launches on the wgmma bodies since
-    :func:`reset_launches`, by JSON entry (ROUTE_ENTRIES)."""
+    :func:`reset_launches`, by JSON entry (ROUTE_ENTRIES); without ``bf16``
+    the float32 ConvBlocks' on the 3xTF32 wgmma body (F32_ROUTE_ENTRIES)."""
+    if not bf16:
+        return {name: getattr(wrappers[kernel], f"launches_{mode}_f32")
+                for name, (kernel, mode) in F32_ROUTE_ENTRIES.items()}
     return {name: getattr(wrappers[kernel], f"launches_{mode}_bf16")
             for name, (kernel, mode) in ROUTE_ENTRIES.items()}
+
+
+def all_on_f32_route(wrappers):
+    """(ok, counts): every float32 ConvBlock launch since
+    :func:`reset_launches` ran on the 3xTF32 wgmma body, and one did."""
+    routes = route_launches(wrappers, bf16=False)
+    ok = all(routes[name] == wrappers[kernel].launches
+             for name, (kernel, _) in F32_ROUTE_ENTRIES.items()) and any(routes.values())
+    return ok, routes
 
 
 def all_on_wgmma(wrappers):
@@ -2952,7 +3044,7 @@ def counted_launches(wrappers, results, bf16=False):
 
     counts = read_launches(wrappers, bf16)
     for k, n in {**counts, **mode_launches(wrappers, bf16),
-                 **(route_launches(wrappers) if bf16 else {})}.items():
+                 **route_launches(wrappers, bf16)}.items():
         results[bf16_name(k) if bf16 else k]["launches"] += n
     return counts
 
@@ -4625,6 +4717,8 @@ def main(argv=None) -> int:
                     "pda/kernels/conv_block_bwd.py:610"),
                    ("conv_block_bwd_dual_recompute", "pda_torch/kernels/csrc/conv_block_bwd.cu",
                     "pda/kernels/conv_block_bwd.py:610"))}
+    for name, (kernel, _) in F32_ROUTE_ENTRIES.items():
+        results[name] = dict(results[kernel], name=name, source=F32_ROUTE_SOURCE)
     binding = {}  # (kernel, "operations" or "bytes") -> ms of bound that term sets
     ok = True
     try:
@@ -4697,7 +4791,11 @@ def main(argv=None) -> int:
         "(csrc/wgrad_wgmma.cuh) ran on the wgmma bodies, with their kernel's times (every "
         "bf16 backward launch of the main paths); mc_consensus_wgmma_bf16: the bf16 "
         "mc_consensus launches on its wgmma body (csrc/mc_consensus.cu mc_consensus_wgmma: "
-        "all of them), with the kernel's times; launches: the main "
+        "all of them), with the kernel's times; conv_block_fwd[_dual]_wgmma and "
+        "conv_block_bwd[_dual]_wgmma (float32): the float32 launches whose forward layers but "
+        "a 1- or 2-channel entry layer, or whose dgrads (and the recompute's layers), all ran "
+        "on the 3xTF32 wgmma body (csrc/conv3x3_wgmma_tf32.cuh), with their kernel's times "
+        "(every float32 ConvBlock launch of the main paths); launches: the main "
         "paths' runs, each counted from 0: both serving entries, the checked MT step, the "
         "checked PDA_PALLAS_CONV_MODE=mixed step (the recompute entries' float32 count), the "
         "bf16 phase's timed MT steps (default and mixed) and tiled serving, the parallel "

@@ -36,26 +36,30 @@ Two more modes of the same backward, as ``pda``'s kernels have them:
   ``h2`` None, the biases ``b1``, ``b2`` given) with the forward kernel's
   layer bodies, for the memory between the forward and the backward.
 
-The forward's layers run on the tensor cores in 3xTF32 too
-(``csrc/conv3x3_tc.cuh``, the body the dgrad shares), so on the card the
-forward is about 1e-6 of its largest value off a float64 reference, no
-longer bit-equal to cuDNN's float32 FMAs; a single-input first layer with
-1 or 2 channels (the image, or image + mask) runs on the FMA pipes. In bf16
-every other forward layer whose channel counts are multiples of 8 (with
-16-byte-aligned tensors) runs on Hopper's asynchronous path instead
-(``csrc/conv3x3_wgmma.cuh``: TMA, ``wgmma``, float32 sums in registers),
-and so does the bf16 recompute of h1, h2; a forward launch whose every
-tensor-core layer took it also counts in ``launches_wgmma_bf16``. The bf16
-backward's dgrad runs on that body too (its epilogue the ReLU mask and the
-``dxa | dxb`` split), and its wgrad on ``csrc/wgrad_wgmma.cuh`` (``wgmma``
-with both operands transposed, float32 sums in registers), by the same
-shape rule; a single-input entry layer of 1 or 2 channels has its wgrad on
-the FMA pipes. A backward launch whose every dgrad and every other wgrad
-took them also counts in ``launches_wgmma_bf16``.
+The forward's layers run on the tensor cores in 3xTF32 too, so on the card
+the forward is about 1e-6 of its largest value off a float64 reference, no
+longer bit-equal to cuDNN's float32 FMAs. Every forward layer whose channel
+counts are multiples of 8 (with 16-byte-aligned tensors) runs on Hopper's
+asynchronous path (``csrc/conv3x3_wgmma_tf32.cuh`` in float32: TMA,
+``wgmma`` on TF32 hi/lo planes, float32 sums in registers;
+``csrc/conv3x3_wgmma.cuh`` in bf16), and so does the recompute of h1, h2;
+a single-input first layer with 1 or 2 channels (the image, or image +
+mask) runs on the FMA pipes, and any other layer on the ``mma.sync`` body
+(``csrc/conv3x3_tc.cuh``). The backward's dgrad runs on the same bodies
+(their epilogue the ReLU mask and the ``dxa | dxb`` split), by the same
+shape rule. Its wgrad: in bf16 on ``csrc/wgrad_wgmma.cuh`` (``wgmma`` with
+both operands transposed, float32 sums in registers; a single-input entry
+layer of 1 or 2 channels on the FMA pipes), in float32 on ``mma.sync``
+(``wgrad_tc``). A launch whose every such layer took the ``wgmma`` bodies
+also counts in ``launches_wgmma_bf16`` or ``launches_wgmma_f32``
+(:func:`count_name`). In float32 the kernels read the wrapper's per-call
+copy of each weight as three planes (:func:`tf32_planes`): the kernel, then
+its 3xTF32 hi and lo.
 
 Tensors are NHWC float32 or bf16, weights HWIO ``(3, 3, Cin, C)`` float32
 as in ``pda``, biases ``(C,)`` float32; the forward kernel reads an HWOI copy
-(:func:`_hwoi`). On a CPU tensor the wrappers run the plain PyTorch versions
+(:func:`_fwd_kernel`), the dgrad the HWIO kernel (:func:`_dgrad_kernel`).
+On a CPU tensor the wrappers run the plain PyTorch versions
 (``*_plain``); on a CUDA tensor they launch the hand-written kernels on the
 current stream, or raise (float16, float64 and any other dtype too), unless
 the caller asks for the plain versions on the card (:func:`plain_versions`,
@@ -87,6 +91,7 @@ import torch
 import torch.nn.functional as F
 
 from . import _build
+from .tf32x3 import split_tf32x3
 
 _VP = ctypes.c_void_p
 _I = ctypes.c_int
@@ -334,6 +339,48 @@ def _hwoi(w: torch.Tensor) -> torch.Tensor:
     return w.permute(0, 1, 3, 2).contiguous()
 
 
+def tf32_planes_plain(w: torch.Tensor, hwoi: bool) -> torch.Tensor:
+    """Plain version of the float32 kernels' weight copy
+    (``csrc/tf32_planes.cu``): an HWIO kernel ``(3, 3, Cin, C)`` as three
+    planes ``(3, 3, 3, R, K)`` in the order the layer bodies read them, the
+    kernel itself (as HWOI with ``hwoi``, r = C and k = Cin: the forward's;
+    else as it is, r = Cin and k = C: the dgrad's), then its
+    :func:`~.tf32x3.split_tf32x3` ``hi`` and ``lo``."""
+    k = (w.permute(0, 1, 3, 2) if hwoi else w).contiguous()
+    return torch.stack([k, *split_tf32x3(k)])
+
+
+def tf32_planes(w: torch.Tensor, hwoi: bool) -> torch.Tensor:
+    """:func:`tf32_planes_plain` by the CUDA kernel on a CUDA tensor (one
+    read of ``w``, three planes written), the plain version on a CPU one."""
+    if runs_plain(w, "tf32_planes"):
+        return tf32_planes_plain(w, hwoi)
+    _build.check_tensor("w", w, w.shape, w.device)
+    ci, c = w.shape[2:]
+    r, k = (c, ci) if hwoi else (ci, c)
+    out = w.new_empty((3, 3, 3, r, k))
+    fn = _build.entry("pda_tf32_planes", (_VP, _VP, _I, _I, _I, _VP))
+    with torch.cuda.device(w.device):
+        code = fn(w.data_ptr(), out.data_ptr(), r, k, int(hwoi),
+                  torch.cuda.current_stream(w.device).cuda_stream)
+    _build.check(code, "tf32_planes")
+    return out
+
+
+def _fwd_kernel(w: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """The copy of an HWIO kernel that the forward's layers read: in bf16
+    the HWOI copy rounded to bf16; in float32 its three planes
+    (:func:`tf32_planes`, HWOI), the 3xTF32 wgmma body's hi and lo after the
+    kernel."""
+    return _hwoi(w.to(dtype)) if dtype == _BF16 else tf32_planes(w, hwoi=True)
+
+
+def _dgrad_kernel(w: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """... and that the backward's dgrad reads: the HWIO kernel itself (in
+    bf16 rounded), in float32 as three planes (:func:`tf32_planes`)."""
+    return w.to(dtype) if dtype == _BF16 else tf32_planes(w, hwoi=False)
+
+
 def _suffix(dtype: torch.dtype) -> str:
     """The C entries' suffix of a dtype's instance."""
     return "_bf16" if dtype == _BF16 else ""
@@ -348,7 +395,7 @@ def _launch(xa: torch.Tensor, xb: Optional[torch.Tensor], w1, b1, w2, b2, w3, b3
         return h1, h2, h3
     fn = _build.entry("pda_conv_block_fwd" + _suffix(dtype), _FWD_ARGTYPES)
     with torch.cuda.device(dev):
-        w1, w2, w3 = (_hwoi(t.to(dtype)) for t in (w1, w2, w3))
+        w1, w2, w3 = (_fwd_kernel(t, dtype) for t in (w1, w2, w3))
         stream = torch.cuda.current_stream(dev).cuda_stream
         code = fn(xa.data_ptr(), None if xb is None else xb.data_ptr(), ca, cb,
                   w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
@@ -401,9 +448,9 @@ def _launch_bwd(g, xa, xb, h1, h2, h3, w1, w2, w3, need_dx: bool, workspaces=Non
     for name, t in (("da1", da1), ("da2", da2)):
         _build.check_tensor(name, t, (bsz, h, w, c), dev, (dtype,))
     with torch.cuda.device(dev):
-        kernels = [t.to(dtype) for t in (w1, w2, w3)]  # HWIO, as the dgrad reads them
-        if recompute:  # HWOI, as the forward's layers read them; h1, h2 of this call
-            fwd = [_hwoi(kernels[0]), b1, _hwoi(kernels[1]), b2]
+        kernels = [_dgrad_kernel(t, dtype) for t in (w1, w2, w3)]  # as the dgrad reads them
+        if recompute:  # as the forward's layers read them; h1, h2 of this call
+            fwd = [_fwd_kernel(w1, dtype), b1, _fwd_kernel(w2, dtype), b2]
             h1, h2 = torch.empty_like(h3), torch.empty_like(h3)
         else:
             fwd = [None] * 4
@@ -442,14 +489,25 @@ def masked_cotangent_kernel(g, gp, h3) -> torch.Tensor:
     return da
 
 
+def count_name(mode: str, dtype: torch.dtype) -> str:
+    """The count of launches in ``mode`` ("" for all of them) of a wrapper's
+    ``dtype`` instance: ``launches``, ``launches_pool``, ...; in bf16
+    ``launches_bf16``, ``launches_pool_bf16``, ...; a route
+    (:data:`FWD_MODES`) is counted apart for each dtype:
+    ``launches_wgmma_bf16``, ``launches_wgmma_f32``."""
+    name = f"launches_{mode}" if mode else "launches"
+    if dtype == _BF16:
+        return name + "_bf16"
+    return name + "_f32" if mode in FWD_MODES else name
+
+
 def count_launch(wrapper, dtype: torch.dtype, modes=()) -> None:
     """One launch of ``wrapper``'s kernel in ``dtype``: its float32 count
-    (``launches``) or its bf16 count (``launches_bf16``); a backward launch
-    in a mode ("pool", "recompute") also adds one to each of its modes'
-    counts (``launches_pool``, ``launches_recompute_bf16``, ...)."""
-    suffix = "_bf16" if dtype == _BF16 else ""
-    for name in ("launches", *(f"launches_{m}" for m in modes)):
-        setattr(wrapper, name + suffix, getattr(wrapper, name + suffix) + 1)
+    (``launches``) or its bf16 count (``launches_bf16``); a launch in a mode
+    ("pool", "recompute", "wgmma") also adds one to each of its modes'
+    counts (:func:`count_name`)."""
+    for name in (count_name(m, dtype) for m in ("", *modes)):
+        setattr(wrapper, name, getattr(wrapper, name) + 1)
 
 
 def _nhwc(hs) -> tuple:
@@ -621,7 +679,7 @@ def conv_block_bwd(g, x, h1, h2, h3, w1, w2, w3, need_dx: bool = True, *, gp=Non
     dx, _, *grads = _launch_bwd(g, x, None, h1, h2, h3, w1, w2, w3, need_dx, gp=gp, b1=b1,
                                 b2=b2)
     count_launch(conv_block_bwd, h3.dtype,
-                 _modes(gp, h1) + _bwd_modes(x, None, w1.shape[-1], need_dx))
+                 _modes(gp, h1) + _bwd_modes(x, None, w1.shape[-1], need_dx, h1 is None))
     return (dx, *grads)
 
 
@@ -633,34 +691,38 @@ def conv_block_bwd_dual(g, xa, xb, h1, h2, h3, w1, w2, w3, *, gp=None, b1=None, 
         return conv_block_bwd_dual_plain(g, xa, xb, h1, h2, h3, w1, w2, w3, gp=gp, b1=b1, b2=b2)
     out = _launch_bwd(g, xa, xb, h1, h2, h3, w1, w2, w3, True, gp=gp, b1=b1, b2=b2)
     count_launch(conv_block_bwd_dual, h3.dtype,
-                 _modes(gp, h1) + _bwd_modes(xa, xb, w1.shape[-1], True))
+                 _modes(gp, h1) + _bwd_modes(xa, xb, w1.shape[-1], True, h1 is None))
     return out
 
 
 def _fwd_modes(xs, c: int) -> tuple:
     """The forward's route of a launch: "wgmma" when every tensor-core
-    layer of a bf16 block ran on the wgmma body (``csrc/conv3x3_wgmma.cuh``),
+    layer of the block ran on the wgmma body of its dtype
+    (``csrc/conv3x3_wgmma.cuh``, float32 ``csrc/conv3x3_wgmma_tf32.cuh``),
     which the C entry decides by shape and alignment, as the launch did."""
-    if xs[0].dtype != _BF16:
-        return ()
-    fn = _build.entry("pda_conv_block_fwd_wgmma_bf16", (_VP, _VP, _I, _I, _I))
+    fn = _build.entry("pda_conv_block_fwd_wgmma" + _suffix(xs[0].dtype), (_VP, _VP, _I, _I, _I))
     xb = xs[1] if len(xs) > 1 else None
     on = fn(xs[0].data_ptr(), None if xb is None else xb.data_ptr(), xs[0].shape[-1],
             0 if xb is None else xb.shape[-1], c)
     return ("wgmma",) if on else ()
 
 
-def _bwd_modes(xa, xb, c: int, need_dx: bool) -> tuple:
-    """The backward's route of a launch: "wgmma" when every dgrad and every
-    wgrad but a single-input entry layer's (1 or 2 channels) of a bf16 block
-    ran on the wgmma bodies (``csrc/conv3x3_wgmma.cuh``,
-    ``csrc/wgrad_wgmma.cuh``), which the C entry decides by shape and
-    alignment, as the launch did."""
-    if xa.dtype != _BF16:
-        return ()
-    fn = _build.entry("pda_conv_block_bwd_wgmma_bf16", (_VP, _VP, _I, _I, _I, _I))
-    on = fn(xa.data_ptr(), None if xb is None else xb.data_ptr(), xa.shape[-1],
+def _bwd_modes(xa, xb, c: int, need_dx: bool, recompute: bool = False) -> tuple:
+    """The backward's route of a launch, which the C entry decides by shape
+    and alignment, as the launch did: "wgmma" when, in bf16, every dgrad
+    and every wgrad but a single-input entry layer's (1 or 2 channels) ran
+    on the wgmma bodies (``csrc/conv3x3_wgmma.cuh``,
+    ``csrc/wgrad_wgmma.cuh``); in float32, when every dgrad (and, with
+    ``recompute``, every tensor-core layer that rebuilt h1, h2) ran on the
+    3xTF32 wgmma body (``csrc/conv3x3_wgmma_tf32.cuh``; the float32 wgrad
+    has no wgmma body)."""
+    ptrs = (xa.data_ptr(), None if xb is None else xb.data_ptr(), xa.shape[-1],
             0 if xb is None else xb.shape[-1], c, int(need_dx))
+    if xa.dtype == _BF16:
+        on = _build.entry("pda_conv_block_bwd_wgmma_bf16", (_VP, _VP, _I, _I, _I, _I))(*ptrs)
+    else:
+        on = _build.entry("pda_conv_block_bwd_wgmma", (_VP, _VP, _I, _I, _I, _I, _I))(
+            *ptrs, int(recompute))
     return ("wgmma",) if on else ()
 
 
@@ -673,15 +735,18 @@ def _modes(gp, h1) -> tuple:
 #: launches of the CUDA kernel since the count was last set to 0: its
 #: float32 instance (``launches``) and its bf16 instance (``launches_bf16``);
 #: the backwards' launches in a mode also count in ``launches_<mode>[_bf16]``
-#: (:data:`BWD_MODES`), and the bf16 launches whose layers all ran on the
-#: wgmma bodies (every forward layer; every dgrad and every wgrad but an entry
-#: layer's) in ``launches_wgmma_bf16`` (:data:`FWD_MODES`, the route of the
-#: forwards and the backwards alike)
+#: (:data:`BWD_MODES`); the bf16 launches whose layers all ran on the wgmma
+#: bodies (every forward layer; every dgrad and every wgrad but an entry
+#: layer's) in ``launches_wgmma_bf16``, and the float32 launches whose layers
+#: all ran on the 3xTF32 wgmma body (every forward layer but a 1- or
+#: 2-channel entry layer; every dgrad, and the recompute's layers) in
+#: ``launches_wgmma_f32`` (:data:`FWD_MODES`, the route of the forwards and
+#: the backwards alike; :func:`count_name`)
 BWD_MODES = ("pool", "recompute")
 FWD_MODES = ("wgmma",)
 for _fn in (conv_block_fwd, conv_block_fwd_dual, conv_block_bwd, conv_block_bwd_dual):
     _fn.launches = _fn.launches_bf16 = 0
-    _fn.launches_wgmma_bf16 = 0
+    _fn.launches_wgmma_bf16 = _fn.launches_wgmma_f32 = 0
 for _fn in (conv_block_bwd, conv_block_bwd_dual):
     for _m in BWD_MODES:
         setattr(_fn, f"launches_{_m}", 0)

@@ -1,7 +1,13 @@
 // One 3x3 SAME conv layer (zero padding) as an implicit GEMM on Hopper's
-// tensor cores, in 3xTF32 (float32 accurate) or in bf16, NHWC activations:
-// the layer body of the fused ConvBlock forward (conv_block_fwd.cuh) and of
-// the backward's dgrad (conv_block_bwd.cuh). One template serves both:
+// tensor cores with mma.sync, in 3xTF32 (float32 accurate) or in bf16, NHWC
+// activations: the layer body of the fused ConvBlock forward
+// (conv_block_fwd.cuh) and of the backward's dgrad (conv_block_bwd.cuh) for
+// the layers that Hopper's asynchronous bodies (conv3x3_wgmma_tf32.cuh in
+// float32, conv3x3_wgmma.cuh in bf16) cannot describe as tensor maps: an
+// input or output channel count that is not a multiple of 8 (Cin 3-7, a
+// dx of 1-7 channels, the learning checks' odd widths) or a pointer off 16
+// bytes; the wrappers route by shape before launch. On the flagship's,
+// MitoEM's and Lung's shapes no layer takes it. One template serves both:
 //
 //   y[p, n] = epilogue(sum_{tap, k} x[p + tap, k] * w[tap', n, k])
 //
@@ -40,6 +46,10 @@
 // largest value off the CPU port, against 9.7e-4). The dgrad keeps 18
 // (2.2-2.8e-6 at the MT step's shapes): 6 would cost the backward 3-5%.
 //
+// The float32 numbers below are this body's at the flagship's shapes, from
+// when every float32 layer ran on it; those layers now run on
+// conv3x3_wgmma_tf32.cuh (its chains and drift: PERF.md §6).
+//
 // Tiling: a block owns 16x16 pixels x 64 output channels; 8 warps, each 4
 // pixel rows (64 pixels) x 32 channels = 4 x 4 m16n8k8 fragments (204
 // registers in the forward; 255 with under 128 bytes of spills in the
@@ -74,11 +84,7 @@
 // 16-byte cp.async (channel counts multiples of 8) or element by element.
 // What bounds it: the same FLOPs against 989 TFLOP/s dense bf16; the
 // stage layout, the flushes to shared memory and mma.sync (not wgmma)
-// keep it far from that (PERF.md). Which bf16 layers take it: the dgrad
-// (FWD false) always; in the forward only the layers the wgmma body
-// (conv3x3_wgmma.cuh) cannot describe as tensor maps: an input or output
-// channel count that is not a multiple of 8 (Cin 3-7), or a pointer off 16
-// bytes (conv_block_fwd.cuh fwd_layer decides by shape before launch).
+// keep it far from that (PERF.md).
 #pragma once
 
 #include <cstdint>

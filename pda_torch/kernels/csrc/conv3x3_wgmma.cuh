@@ -539,13 +539,15 @@ inline PFN_cuTensorMapEncodeTiled_v12000 encode_tiled() {
   return fn;
 }
 
-// A bf16 tiled map with zero fill outside the tensor.
+// A tiled map with zero fill outside the tensor, of bf16 elements unless
+// ``type`` says otherwise (the float32 body's: conv3x3_wgmma_tf32.cuh).
 inline bool encode(CUtensorMap* map, const void* ptr, int rank, const uint64_t* dims,
-                   const uint64_t* strides, const uint32_t* box, CUtensorMapSwizzle swizzle) {
+                   const uint64_t* strides, const uint32_t* box, CUtensorMapSwizzle swizzle,
+                   CUtensorMapDataType type = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16) {
   const auto fn = encode_tiled();
   if (fn == nullptr) return false;
   const uint32_t ones[4] = {1, 1, 1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(ptr), dims, strides,
+  return fn(map, type, rank, const_cast<void*>(ptr), dims, strides,
             box, ones, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
             CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }

@@ -35,23 +35,30 @@
 // tensor cores reach 495 TFLOP/s in TF32, but one TF32 product keeps ~3
 // decimal digits, which would move the gradients against pda's float32
 // reference (pda's bf16 configuration runs the bf16 instances, below). So
-// both float32 halves run
-// 3xTF32 on mma.sync (tf32x3.cuh): three TF32 products a multiply-add, at a
-// third of the TF32 rate but still above the FMA pipes, with float32
-// accuracy. The tensor cores accumulate with round-toward-zero, so each
-// warp runs short mma chains (8 k-steps in the wgrad, 18 in the dgrad) into
-// zeroed fragments and adds them into float32 sums kept in shared memory
-// (tf32x3.cuh), which also keeps them out of the registers. Per k-step a
-// wgrad warp runs 24 mma and splits 16 values (4 integer/float ops each);
-// on an H100 that runs at about 0.3 mma a cycle an SM. Splitting each value
-// once instead of once a warp made the dgrad's body slower, not faster
-// (conv3x3_tc.cuh), so the splits are not the bound; what is (mma.sync's own
-// rate, latency) is not measured: stall reasons cannot be read on the card.
-// wgmma would take TF32 only
-// K-major from shared memory, which neither operand of the wgrad is in NHWC;
-// mma.sync gathers its fragments from [pixel][channel] tiles, with the
-// fragments' rows, columns or k-slots mapped to channels so that a lane's
-// values are 4 adjacent channels: one 16-byte load, free of bank conflicts.
+// both float32 halves run 3xTF32 (tf32x3.cuh): three TF32 products a
+// multiply-add, at a third of the TF32 rate but still above the FMA pipes,
+// with float32 accuracy. The tensor cores accumulate with round-toward-zero,
+// so each body runs short chains into zeroed accumulators and adds them
+// into float32 sums with round-to-nearest adds.
+//   - The float32 dgrad runs on the forward's Hopper body (conv3x3_wgmma_tf32.cuh,
+//     DgradEpi): TMA, wgmma with both operands K-major from shared memory
+//     (da in NHWC, the HWIO kernel with k = Cout contiguous), the da chunk
+//     split into hi and lo once, chains of 9 taps (the lo products in a
+//     chain of their own), float32 sums in registers; wherever the channel
+//     counts are multiples of 8 and the tensors 16-byte aligned
+//     (wgmma_takes_dgrad), else on the mma.sync body (conv3x3_tc.cuh, 18
+//     k-steps a chain, sums flushed into shared memory).
+//   - The float32 wgrad stays on mma.sync (wgrad_tc below: 8 k-steps a chain,
+//     sums in shared memory). Per k-step a wgrad warp runs 24 mma and splits
+//     16 values (4 integer/float ops each); on an H100 that runs at about 0.3
+//     mma a cycle an SM. TF32 wgmma would take both operands only K-major
+//     from shared memory, which neither wgrad operand is in NHWC (the
+//     reduction runs over pixels, and channels are the contiguous index):
+//     its Hopper body needs a transpose-and-split of the x and da tiles in
+//     shared memory, a design of its own (later work). mma.sync gathers its
+//     fragments from [pixel][channel] tiles, with the fragments' rows,
+//     columns or k-slots mapped to channels so that a lane's values are 4
+//     adjacent channels: one 16-byte load, free of bank conflicts.
 //
 // wgrad: a block owns a 9-tap x 32-input x 64-output-channel tile of dW and
 // one chunk of 8x8-pixel tiles; 18 warps, one a tap and 32 output channels,
@@ -66,10 +73,11 @@
 // second m-fragment, which holds none of its channels (in bf16 it runs on
 // the FMA pipes instead: wgrad_entry below).
 // dgrad: the implicit-GEMM layer body it shares with the forward
-// (conv3x3_tc.cuh, which gives its tiling), with the tap flipped at the
-// fragment load (no flipped copy of W, read in its HWIO layout), the output
-// split into dxa | dxb, and the ReLU mask of the layer below applied as it
-// is stored.
+// (conv3x3_wgmma_tf32.cuh, or conv3x3_tc.cuh off its shapes; each gives its
+// tiling), with the tap flipped at the weight load (no flipped copy of W:
+// its HWIO layout, in float32 as the wrapper's three planes, tf32_planes.cu),
+// the output split into dxa | dxb, and the ReLU mask of the layer below
+// applied as it is stored.
 //
 // bf16 (pda's bf16 configuration, the _bf16 entries): x, h1..h3, g, the
 // saved kernels (copied as bf16 by the wrapper, pda's w.astype(dtype)), the
@@ -89,8 +97,8 @@
 // mma.sync bodies: conv3x3_tc<bf16, V, false> (float32
 // sums flushed every 3 taps, mask, one rounding) and wgrad_tc<bf16, V>
 // (mma.sync.m16n8k16 into float32 chains of 4 k-steps (a tile) flushed as
-// above). pda_conv_block_bwd_wgmma_bf16 tells the wrapper which route a
-// launch took.
+// above). pda_conv_block_bwd_wgmma_bf16 (float32: pda_conv_block_bwd_wgmma,
+// the dgrads' route) tells the wrapper which route a launch took.
 //
 // The pooled cotangent (pda's gpf: conv_block_packed_bwd.py :501 and :648,
 // the in-kernel transpose :158-189). When the block's output feeds a 2x2
@@ -119,9 +127,9 @@
 // It costs two forward layers a block and does not save HBM traffic; keeping
 // the recomputed band on chip, as pda's kernel does, is later speed work.
 //
-// Not done yet (later work): TMA and warp-specialised producers for the
-// float32 bodies, keeping da on chip between the wgrad and the dgrad, the
-// masked cotangent fused into the wgrad's loads.
+// Not done yet (later work): the float32 wgrad on TMA and wgmma (the
+// transpose-and-split above), keeping da on chip between the wgrad and the
+// dgrad, the masked cotangent fused into the wgrad's loads.
 
 #pragma once
 
@@ -654,15 +662,20 @@ cudaError_t wgrad(const T* xa, const T* xb, int Ca, int Cb, const T* da, float* 
 }
 
 // da_{k-1} (or dx, split into ya: Coa channels, yb: Cob) of one layer with
-// kernel w (3, 3, Coa+Cob, C), masked by [m > 0] unless m is null: in bf16
-// on the wgmma body where wgmma_takes_dgrad the shape, else on
+// kernel w (3, 3, Coa+Cob, C), masked by [m > 0] unless m is null: on the
+// wgmma body of its type where wgmma_takes_dgrad the shape (bf16:
+// conv3x3_wgmma.cuh; float32: 3xTF32 on conv3x3_wgmma_tf32.cuh, reading the
+// hi and lo planes that follow the kernel, tf32_planes.cu), else on
 // conv3x3_tc<T, V, false>.
 template <typename T>
 cudaError_t dgrad(const T* da, const T* w, const T* m, T* ya, T* yb, int Coa, int Cob,
                   int B, int H, int W, int C, cudaStream_t s) {
-  if constexpr (std::is_same<T, bf16>::value) {
-    if (wgmma_takes_dgrad(C, Coa, Cob, da, w, m, ya, yb))
+  if (wgmma_takes_dgrad(C, Coa, Cob, da, w, m, ya, yb)) {
+    if constexpr (std::is_same<T, bf16>::value)
       return conv3x3_wgmma_dgrad<T>(da, C, w, m, ya, yb, Coa, Cob, B, H, W, s);
+    else
+      return conv3x3_wgmma_tf32_dgrad<T>(da, C, w + 9LL * (Coa + Cob) * C, m, ya, yb, Coa, Cob,
+                                         B, H, W, s);
   }
   return conv3x3_tc_layer<T, false>(da, nullptr, C, 0, w, nullptr, m, ya, yb, Coa, Cob,
                                     B, H, W, s);
@@ -680,6 +693,18 @@ inline bool bwd_on_wgmma(const void* xa, const void* xb, int Ca, int Cb, int C, 
   return inner && dx && (first || entry_layer(Ca, Cb));
 }
 
+// Whether every dgrad of a float32 block backward on x = [xa | xb] (and,
+// with recompute, every tensor-core layer that rebuilds h1, h2) takes the
+// 3xTF32 wgmma body (the wrapper's count of that route); the float32 wgrad
+// stays on wgrad_tc.
+inline bool bwd_f32_on_wgmma(const void* xa, const void* xb, int Ca, int Cb, int C,
+                             bool need_dx, bool recompute) {
+  const bool inner = wgmma_takes_dgrad(C, C, 0, nullptr, nullptr, nullptr, nullptr, nullptr);
+  const bool dx = !need_dx || wgmma_takes_dgrad(C, Ca, Cb, nullptr, nullptr, nullptr,
+                                                nullptr, nullptr);
+  return inner && dx && (!recompute || block_on_wgmma(xa, xb, Ca, Cb, C));
+}
+
 // The bf16 wgmma wgrad's block slots (0 in float32, which never runs it).
 template <typename T>
 int bwd_wgmma_slots() {
@@ -691,12 +716,14 @@ int bwd_wgmma_slots() {
 }
 
 // da1 and da2 are (B, H, W, C) workspaces: da_3 goes to da1, da_2 to da2,
-// da_1 to da1 again (da_3 is spent by then). T: float, or bf16 for x, the
+// da_1 to da1 again (da_3 is spent by then). T: float (the kernels HWIO,
+// each the first of its three planes, tf32_planes.cu), or bf16 for x, the
 // kernels (HWIO, copied as bf16 by the wrapper), h1..h3, g, gp, dx and the
 // workspaces; dW, db and work are float32 in both. g or gp may be null (not
 // both). With recompute, h1 and h2 are workspaces that the entry first fills
 // from x with the forward's layers: f1, f2 the kernels of layers 1 and 2 as
-// the forward reads them (HWOI, T), b1, b2 their float32 biases.
+// the forward reads them (HWOI, T; float32: three planes), b1, b2 their
+// float32 biases.
 template <typename T>
 cudaError_t block_bwd(const void* xa_, const void* xb_, int Ca, int Cb, const void* w1_,
                       const void* w2_, const void* w3_, const void* f1_, const void* b1_,
@@ -770,7 +797,8 @@ long long bwd_work(int B, int H, int W, int Cin, int C) {
 }  // namespace
 
 // Single-input block. x: (B, H, W, Cin); w1: (3, 3, Cin, C); w2, w3:
-// (3, 3, C, C); h1, h2, h3, g: (B, H, W, C); gp: (B, H/2, W/2, C), the
+// (3, 3, C, C) (in float32 each followed by its hi and lo planes:
+// tf32_planes.cu); h1, h2, h3, g: (B, H, W, C); gp: (B, H/2, W/2, C), the
 // cotangent through a 2x2 average pool of the output (g or gp may be null,
 // not both). Writes dW (HWIO) and db of the three layers and, with need_dx,
 // dx (B, H, W, Cin) (dx may be null without). With recompute, h1 and h2 are

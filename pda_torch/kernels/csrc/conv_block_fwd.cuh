@@ -14,24 +14,30 @@
 // from two tensors, [0, Ca) from xa and [Ca, Ca+Cb) from xb, so the decoder's
 // [upsample | skip] concat is never built in device memory.
 //
-// Each layer is an implicit GEMM on the tensor cores in 3xTF32
-// (conv3x3_tc.cuh, the body the backward's dgrad shares; it says what bounds
-// a layer and how it is tiled): M = pixels, N = Cout, K = 9 * Cin, 16x16
-// pixels x 64 channels a block, a 2-stage cp.async ring in dynamic shared
-// memory, mma chains of 6 k-steps (3 taps; the dgrad's are 18, see
-// conv3x3_tc.cuh for why) flushed into float32 sums, the bias added
-// to the sum and then the ReLU. 3xTF32 rather than TF32 or bf16: one TF32
-// product keeps ~3 decimal digits (1e-3 off float64) and bf16 fewer, while
-// the port is held to pda's float32 reference; three TF32 products keep
-// float32's accuracy (~1e-6 off float64) at a ceiling of 495 / 3 = 165
-// TFLOP/s, above the FMA pipes' 67. A single-input first layer with Cin 1
-// or 2 (the image, or image + mask) would fill 1-2 of a stage's 16 channels;
-// it runs on the FMA pipes (conv3x3.cuh) and is bound by writing its output.
+// Each layer is an implicit GEMM on the tensor cores in 3xTF32: M = pixels,
+// N = Cout, K = 9 * Cin. 3xTF32 rather than TF32 or bf16: one TF32 product
+// keeps ~3 decimal digits (1e-3 off float64) and bf16 fewer, while the port
+// is held to pda's float32 reference; three TF32 products keep float32's
+// accuracy (~1e-6 off float64) at a ceiling of 495 / 3 = 165 TFLOP/s, above
+// the FMA pipes' 67. Routes, chosen by shape before launch (fwd_layer):
+// every layer whose input and output channel counts are multiples of 8
+// with 16-byte-aligned pointers on Hopper's asynchronous body
+// (conv3x3_wgmma_tf32.cuh: TMA, wgmma, the activations split into hi and
+// lo once a 32-channel chunk, float32 sums in registers; it says what bounds
+// a layer and how it is tiled), which is every layer of the flagship but
+// its entry layer; any other layer (Cin 3-7, a count off 8, an unaligned
+// view) on the mma.sync body (conv3x3_tc.cuh: 16x16 pixels x 64 channels a
+// block, a 2-stage cp.async ring, chains flushed into float32 sums in
+// shared memory). A single-input first layer with Cin 1 or 2 (the image, or
+// image + mask) would fill 1-2 of a tensor-core chunk's channels; it runs
+// on the FMA pipes (conv3x3.cuh) and is bound by writing its output.
 //
 // Weights come as HWOI, (3, 3, Cout, Cin): the reduction index (Cin) is the
 // contiguous one, as the tensor-core tiles read it. The wrapper
 // (pda_torch/kernels/conv_block.py) copies them from the HWIO layout pda
-// keeps its kernels in (at most 9.4 MB a layer, for 512 -> 512).
+// keeps its kernels in (at most 9.4 MB a layer, for 512 -> 512); in float32
+// the copy is three planes (tf32_planes.cu: the kernel, then its 3xTF32 hi
+// and lo, which the wgmma body reads; the other bodies read the first).
 //
 // h1 and h2 go to buffers the caller allocates; the caller keeps them (with
 // the output h3) for the backward, as pda's save_intermediates does, or, in
@@ -52,9 +58,8 @@
 // which is every other layer of the flagship; any other layer (Cin 3-7, a
 // count off 8, an unaligned view) on conv3x3_tc<bf16, V, true>.
 //
-// Not done yet (later work): the float32 layers on TMA and wgmma (wgmma
-// takes TF32, not 3xTF32's split, as one product); a persistent bf16 body
-// that overlaps one tile's epilogue with the next tile's loads.
+// Not done yet (later work): persistent bodies that overlap one tile's
+// epilogue with the next tile's loads.
 
 #pragma once
 
@@ -65,20 +70,27 @@
 #include "conv3x3.cuh"
 #include "conv3x3_tc.cuh"
 #include "conv3x3_wgmma.cuh"
+#include "conv3x3_wgmma_tf32.cuh"
 
 namespace {
 
 // One tensor-core layer of the block, y = relu(conv(x) + bias) with x =
-// [xa | xb]: in bf16 the wgmma body (conv3x3_wgmma.cuh) where its tensor
-// maps describe the shape (wgmma_takes), else conv3x3_tc<bf16, V, true>; in
-// float32 always conv3x3_tc<float, V, true> (3xTF32). The route is chosen
-// by shape before launch; a failed launch or encode returns its error.
+// [xa | xb]: where the tensor maps describe the shape (wgmma_takes), the
+// wgmma body of its type (bf16: conv3x3_wgmma.cuh; float32: 3xTF32 on
+// conv3x3_wgmma_tf32.cuh, reading the hi and lo planes that follow the
+// kernel, tf32_planes.cu); else conv3x3_tc<T, V, true> (float32: 3xTF32
+// on mma.sync). The route is chosen by shape before launch; a failed launch
+// or encode returns its error. w: the HWOI kernel (3, 3, N, Ka + Kb), in
+// float32 the first of its three planes.
 template <typename T>
 cudaError_t fwd_layer(const T* xa, const T* xb, int Ka, int Kb, const T* w, const float* bias,
                       T* y, int N, int B, int H, int W, cudaStream_t s) {
-  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-    if (wgmma_takes(Ka, Kb, N, xa, xb, w, y))
+  if (wgmma_takes(Ka, Kb, N, xa, xb, w, y)) {
+    if constexpr (std::is_same<T, __nv_bfloat16>::value)
       return conv3x3_wgmma_layer<T>(xa, xb, Ka, Kb, w, bias, y, N, B, H, W, s);
+    else
+      return conv3x3_wgmma_tf32_layer<T>(xa, xb, Ka, Kb, w + 9LL * N * (Ka + Kb), bias, y, N,
+                                         B, H, W, s);
   }
   return conv3x3_tc_layer<T, true>(xa, xb, Ka, Kb, w, bias, nullptr, y, nullptr, N, 0, B, H,
                                    W, s);
@@ -100,9 +112,9 @@ cudaError_t fwd_layer1(const T* xa, const T* xb, int Ca, int Cb, const T* w1,
                              : fwd_layer<T>(xa, xb, Ca, Cb, w1, b1, h1, C, B, H, W, s);
 }
 
-// Whether every tensor-core layer of a bf16 block on x = [xa | xb] takes
-// the wgmma body (the wrapper's count of that route); the weights and the
-// outputs are the wrapper's own allocations, 16-byte aligned.
+// Whether every tensor-core layer of a block on x = [xa | xb] takes the
+// wgmma body of its type (the wrapper's count of that route); the weights
+// and the outputs are the wrapper's own allocations, 16-byte aligned.
 inline bool block_on_wgmma(const void* xa, const void* xb, int Ca, int Cb, int C) {
   return wgmma_takes(C, 0, C, nullptr, nullptr, nullptr, nullptr) &&
          (entry_layer(Ca, Cb) || wgmma_takes(Ca, Cb, C, xa, xb, nullptr, nullptr));
@@ -110,8 +122,9 @@ inline bool block_on_wgmma(const void* xa, const void* xb, int Ca, int Cb, int C
 
 // The whole ConvBlock: y = relu(conv3(relu(conv2(relu(conv1(x)+b1))+b2))+b3).
 // x = [xa | xb] along channels (xb may be null with Cb = 0); weights are HWOI
-// (3, 3, C, Cin) and (3, 3, C, C) of type T, biases float32; h1, h2 are
-// (B, H, W, C) outputs.
+// (3, 3, C, Cin) and (3, 3, C, C) of type T (float32: each the first of its
+// three planes, tf32_planes.cu), biases float32; h1, h2 are (B, H, W, C)
+// outputs.
 template <typename T>
 cudaError_t block_fwd(const void* xa, const void* xb, int Ca, int Cb, const void* w1,
                       const void* b1, const void* w2, const void* b2, const void* w3,

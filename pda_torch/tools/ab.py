@@ -79,7 +79,8 @@ def reset_launches(wrappers) -> None:
 
     for w in wrappers.values():
         w.launches = w.launches_bf16 = 0
-        for name in (f"launches_{m}{s}" for m in (*BWD_MODES, *FWD_MODES) for s in ("", "_bf16")):
+        for name in (f"launches_{m}{s}" for m in (*BWD_MODES, *FWD_MODES)
+                     for s in ("", "_bf16", "_f32")):
             if hasattr(w, name):
                 setattr(w, name, 0)
 

@@ -1,7 +1,7 @@
 """Time variants of the kernels against each other on one card.
 
     python -m pda_torch.tools.bench_variants DIR [DIR ...] [--iters 5] [--only fwd|bwd|mc]
-        [--dtype float32|bf16] [--burst 1]
+        [--dtype float32|bf16] [--burst 1] [--shapes flagship|lung|all]
 
 Each DIR is a copy of ``pda_torch/kernels/csrc`` with one change (a tile
 size, a flag); each builds into its own library (``_build.use_sources``).
@@ -13,8 +13,11 @@ events (median of ``--iters`` after 2 warm-ups; with ``--burst N`` the
 events span N launches back to back and ms is a launch's share, so that a
 short kernel's time holds no wait for the host's launch path), and checked
 against the
-plain version: max |kernel - plain| / max |plain|, and for the forward also
-against the plain version in float64 (ref64). The MC tail (K3, S = 16) runs
+plain version: max |kernel - plain| / max |plain|, and in float32 also
+against the plain version in float64 (ref64; for the backward the worst of
+its outputs, and dx's alone). ``--shapes lung`` runs the Lung suite's
+shapes instead (:data:`.workload.LUNG_K1` and the rest: batch 2 and the
+single frames), ``all`` both. The MC tail (K3, S = 16) runs
 the same way at the tiled, MT-teacher and pseudo shapes, held to its plain
 version and float64 by the MC mean's max abs error, with the consensus
 pixels that differ from the plain version's farther than 1e-4 from a
@@ -58,6 +61,9 @@ FWD_SHAPES = ([(*s[:4], 0, s[4]) for s in (*wl.K1_TILED, *wl.K1_PSEUDO, wl.K1_PO
 # (B, H, W, Ca, Cb, C, need_dx)
 BWD_SHAPES = (list(dict.fromkeys((*s[:4], 0, s[4], need_dx) for s, need_dx, *_ in wl.BWD_SHAPES))
               + [(*s, True) for s in wl.BWD_DUAL_SHAPES])
+LUNG_FWD_SHAPES = [(*s[:4], 0, s[4]) for s in wl.LUNG_K1] + wl.LUNG_K2
+LUNG_BWD_SHAPES = ([(*s[:4], 0, *s[4:]) for s in wl.LUNG_BWD]
+                   + [(*s, True) for s in wl.LUNG_BWD_DUAL])
 
 
 def rel_err(outs, refs) -> float:
@@ -120,8 +126,14 @@ def main(argv=None) -> int:
     ap.add_argument("--burst", type=int, default=1,
                     help="launches between a timing's two events, back to back (ms is per "
                          "launch): above 1 the card need not wait for the host's launch path")
+    ap.add_argument("--shapes", choices=("flagship", "lung", "all"), default="flagship",
+                    help="the flagship's serving and MT-step shapes, the Lung suite's, or both")
     args = ap.parse_args(argv)
     dtype = torch.bfloat16 if args.dtype == "bf16" else torch.float32
+    fwd_shapes = ((FWD_SHAPES if args.shapes != "lung" else [])
+                  + (LUNG_FWD_SHAPES if args.shapes != "flagship" else []))
+    bwd_shapes = ((BWD_SHAPES if args.shapes != "lung" else [])
+                  + (LUNG_BWD_SHAPES if args.shapes != "flagship" else []))
     if not torch.cuda.is_available():
         print("bench_variants: needs a CUDA card", file=sys.stderr)
         return 1
@@ -139,7 +151,7 @@ def main(argv=None) -> int:
                           iters=args.iters) / args.burst
 
     gen = torch.Generator().manual_seed(0)
-    for b, h, w, ca, cb, c in FWD_SHAPES if args.only in (None, "fwd") else ():
+    for b, h, w, ca, cb, c in fwd_shapes if args.only in (None, "fwd") else ():
         xs = [torch.randn(b, h, w, n, generator=gen).to(dev).to(dtype)
               for n in ((ca, cb) if cb else (ca,))]
         ws = wl.conv_weights(gen, ca + cb, c, dev)
@@ -164,7 +176,7 @@ def main(argv=None) -> int:
                       f"ms {ms:.3f} ({flops / ms / 1e9:.1f} TFLOP/s) rel_err {err:.2e} "
                       f"{check}", flush=True)
         del xs, ws, ref, ref64
-    for b, h, w, ca, cb, c, need_dx in BWD_SHAPES if args.only in (None, "bwd") else ():
+    for b, h, w, ca, cb, c, need_dx in bwd_shapes if args.only in (None, "bwd") else ():
         x = torch.randn(b, h, w, ca + cb, generator=gen).to(dev).to(dtype)
         ws_ = wl.conv_weights(gen, ca + cb, c, dev)
         hs = [t.permute(0, 2, 3, 1).contiguous() for t in kc._plain_layers(x, *ws_)]
@@ -176,15 +188,21 @@ def main(argv=None) -> int:
             args_ = (g, x, *hs, *ws_[::2])
             plain = lambda *a: kc.conv_block_bwd_plain(*a, need_dx=need_dx)  # noqa: E731
         ref = plain(*args_)
+        ref64 = plain(*(t.double() for t in args_)) if dtype == torch.float32 else None
         xs = args_[1:3] if cb else args_[1:2]
         launch = lambda ws=None: kc._launch_bwd(  # noqa: E731
             g, xs[0], xs[1] if cb else None, *hs, *ws_[::2], need_dx, ws)
         for d in order:
             _build.use_sources(d)
             out = launch()
-            err = rel_err(out if cb else (out[0], *out[2:]), ref)
-            del out
+            outs = out if cb else (out[0], *out[2:])
+            err = rel_err(outs, ref)
             check = ""
+            if ref64 is not None:
+                dx = rel_err([torch.cat(outs[:2], -1) if cb else outs[0]],
+                             [torch.cat(ref64[:2], -1) if cb else ref64[0]]) if need_dx else 0.0
+                check = f" ref64 {rel_err(outs, ref64):.2e} (dx {dx:.2e})"
+            del out, outs
             if dtype == torch.bfloat16:
                 workspaces = (torch.empty_like(hs[0]), torch.empty_like(hs[0]))
                 grad, equal = bf16_bwd_layers(launch(workspaces), workspaces, g, xs, *hs,
@@ -193,7 +211,7 @@ def main(argv=None) -> int:
             ms = timed(launch)
             print(f"bwd {ca}{'+' + str(cb) if cb else ''}->{c} @{b}x{h}x{w} {d.name}: "
                   f"ms {ms:.3f} rel_err {err:.2e}{check}", flush=True)
-        del x, ws_, hs, g, args_, ref
+        del x, ws_, hs, g, args_, ref, ref64
     for name, (b, h, w, c), masking in wl.K3_SHAPES if args.only in (None, "mc") else ():
         feat, *rest = wl.mc_inputs(gen, b, h, w, c, dev=dev)
         args_ = (feat.to(dtype), *rest)

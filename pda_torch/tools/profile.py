@@ -59,6 +59,9 @@ from .workload import block_flops, cuda_ms, dgrad_flops, mc_flops, recompute_flo
 # kernel name pattern -> label; the first that matches names a kernel
 LABELS = (
     (r"conv3x3_tc<[^>]*true>", "forward layer, tensor cores (conv3x3_tc fwd)"),
+    (r"conv3x3_wgmma_tf32<[^>]*DgradEpi", "dgrad, 3xTF32 wgmma (conv3x3_wgmma_tf32 DgradEpi)"),
+    (r"conv3x3_wgmma_tf32<", "forward layer, 3xTF32 wgmma (conv3x3_wgmma_tf32)"),
+    (r"tf32_planes", "float32 weight copies, kernel + hi + lo (tf32_planes)"),
     (r"conv3x3_wgmma<[^>]*DgradEpi", "dgrad, bf16 wgmma (conv3x3_wgmma DgradEpi)"),
     (r"conv3x3_wgmma<", "forward layer, bf16 wgmma (conv3x3_wgmma)"),
     (r"conv3x3_entry<", "forward entry layer, FMA (conv3x3_entry)"),
@@ -143,14 +146,14 @@ def count_flops():
     to the yielded counter (forward, wgrad and dgrad, 18 * Cin * Cout a pixel
     and layer), and every MC-tail launch its own (``mc``)."""
     flops = collections.Counter()
-    weights = flops.weights = []  # the forward's HWIO kernels, in launch order
+    weights = flops.weights = []  # the forward's (HWIO kernel, dtype), in launch order
     launch, launch_bwd, launch_mc = kc._launch, kc._launch_bwd, km._launch
 
     def fwd(xa, xb, w1, b1, w2, b2, w3, b3):
         b, h, w, ca = xa.shape
         cin, c = ca + (0 if xb is None else xb.shape[-1]), w1.shape[-1]
         flops["forward"] += block_flops(b, h, w, cin, c)
-        weights.extend((w1, w2, w3))
+        weights.extend((w, xa.dtype) for w in (w1, w2, w3))
         return launch(xa, xb, w1, b1, w2, b2, w3, b3)
 
     def bwd(g, xa, xb, h1, h2, h3, w1, w2, w3, need_dx, workspaces=None, **kw):
@@ -208,6 +211,8 @@ def profiled(run, n: int, flops: collections.Counter, what: str) -> None:
           f"({busy / wall:.3f})")
     rates = {"forward layer, tensor cores (conv3x3_tc fwd)": "forward",
              "forward layer, bf16 wgmma (conv3x3_wgmma)": "forward",
+             "forward layer, 3xTF32 wgmma (conv3x3_wgmma_tf32)": "forward",
+             "dgrad, 3xTF32 wgmma (conv3x3_wgmma_tf32 DgradEpi)": "dgrad",
              "forward entry layer, FMA (conv3x3_entry)": "forward",
              "wgrad entry layer, bf16 FMA (wgrad_entry)": "wgrad",
              "dgrad (conv3x3_tc)": "dgrad", "wgrad (wgrad_tc)": "wgrad",
@@ -229,13 +234,15 @@ def profiled(run, n: int, flops: collections.Counter, what: str) -> None:
         print(f"  {ms:9.3f} ms {100 * ms / wall:5.1f}% {count:6.1f} launches  {key}{rate}")
     if flops.weights:
         copy_ms = hwoi_ms(flops.weights)
-        print(f"  of the copies: the forward's HWOI weight copies, {len(flops.weights)} a call, "
+        print(f"  of the copies: the forward's weight copies, {len(flops.weights)} a call, "
               f"{copy_ms:.3f} ms ({100 * copy_ms / wall:.2f}%; CUDA events, alone)")
 
 
 def hwoi_ms(weights) -> float:
-    """Device ms of the forward wrapper's HWOI copies of ``weights``, one call's."""
-    return cuda_ms(lambda: [kc._hwoi(w) for w in weights], iters=20)
+    """Device ms of the forward wrapper's weight copies of ``weights`` ((HWIO
+    kernel, the activations' dtype) pairs), one call's: the HWOI copy in
+    bf16, the three planes in float32 (``conv_block._fwd_kernel``)."""
+    return cuda_ms(lambda: [kc._fwd_kernel(w, d) for w, d in weights], iters=20)
 
 
 _NAMES = {torch.float32: "f32", torch.bfloat16: "bf16"}

@@ -56,6 +56,26 @@ LEARN_BLOCK = (8, 8, 8, 64, 96)
 LEARN_DUAL_BLOCK = (8, 16, 16, 96, 64, 64)
 
 
+# The Lung suite's ConvBlock shapes (the flagship's widths on 256^2 patches,
+# batch 2, and on single frames: a 256^2 frame, a 512^2 tile, 36 tiles of a
+# 2048^2 JSRT frame; PERF.md §6, rows 1-18): the forward's (B, H, W, Cin, C)
+# and (B, H, W, Ca, Cb, C), the backward's (B, H, W, Cin, C, need_dx) at
+# batch 2 and its dual (B, H, W, Ca, Cb, C)
+LUNG_K1 = [(b, 256 >> k, 256 >> k, cin, c)
+           for k, (cin, c) in enumerate(((1, 64), (64, 128), (128, 256), (256, 512)))
+           for b in (2, 1)] + [(2, 256, 256, 2, 64), (1, 256, 256, 2, 64)] + [
+    (b, 512 >> k, 512 >> k, cin, c)
+    for k, (cin, c) in enumerate(((1, 64), (64, 128), (128, 256), (256, 512))) for b in (1, 36)]
+LUNG_K2 = [(b, s, s, ca, cb, c) for s0, ca, cb, c in ((64, 512, 256, 256), (128, 256, 128, 128),
+                                                       (256, 128, 64, 64))
+           for b, s in ((2, s0), (1, s0), (1, 2 * s0), (36, 2 * s0))]
+LUNG_BWD = [(2, 256, 256, 1, 64, False), (2, 256, 256, 2, 64, False),
+            (2, 128, 128, 64, 128, True), (2, 64, 64, 128, 256, True),
+            (2, 32, 32, 256, 512, True)]
+LUNG_BWD_DUAL = [(2, 64, 64, 512, 256, 256), (2, 128, 128, 256, 128, 128),
+                 (2, 256, 256, 128, 64, 64)]
+
+
 # (name, (B, H, W, C), masking): the MC tail (K3, S = 16, n_mid 1) of a tiled
 # forward, of the MT teacher (batch 2 of 512^2) and of a pseudo forward
 K3_SHAPES = [("tiled", (4, 512, 512, 64), False), ("mt", (2, 512, 512, 64), True),

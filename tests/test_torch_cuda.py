@@ -705,6 +705,242 @@ def test_bf16_backward_on_an_unaligned_input_takes_the_mma_sync_wgrad(dev):
             kconv.conv_block_bwd.launches_wgmma_bf16) == (before[0] + 1, before[1])
 
 
+@pytest.mark.parametrize("hwoi", [True, False])
+@pytest.mark.parametrize("ci,c", [(5, 7), (64, 128), (512, 256)])
+def test_tf32_planes_kernel_matches_plain(dev, hwoi, ci, c):
+    """The float32 kernels' weight copy (csrc/tf32_planes.cu): the kernel,
+    its hi and its lo planes bit-equal to the plain version's, inf and NaN
+    passed through, in the forward's HWOI order and the dgrad's HWIO."""
+    gen = torch.Generator().manual_seed(ci + c)
+    w = torch.randn(3, 3, ci, c, generator=gen) * torch.exp(8 * torch.randn(3, 3, ci, c,
+                                                                         generator=gen))
+    w.view(-1)[:3] = torch.tensor([float("inf"), float("-inf"), float("nan")])
+    w = w.to(dev)
+    out = kconv.tf32_planes(w, hwoi)
+    torch.cuda.synchronize()
+    ref = kconv.tf32_planes_plain(w.cpu(), hwoi)
+    assert out.shape == ref.shape
+    out = out.cpu()
+    finite = torch.isfinite(ref)  # a NaN's payload is the device's own
+    assert torch.equal(torch.isfinite(out), finite) and torch.equal(out.isnan(), ref.isnan())
+    assert torch.equal(torch.where(finite, out, 0.0).view(torch.int32),
+                       torch.where(finite, ref, 0.0).view(torch.int32))
+    assert torch.equal(out[:2].view(torch.int32), ref[:2].view(torch.int32))  # w and hi: all bits
+
+
+def _f32_layer_checks(outs, refs, refs64):
+    """Each float32 layer within 1e-4 of the plain layer's largest value and
+    within 1e-5 of the float64 layer's (chip_smoke.py's K12 tolerances)."""
+    for out, ref, ref64 in zip(outs, refs, refs64):
+        assert bool(torch.isfinite(out).all())
+        _assert_rel(out, ref, 1e-4)
+        _assert_rel(out.double(), ref64, 1e-5)
+
+
+def _f32_block_layers(xa, xb, ws):
+    """h1, h2, h3 of the float32 forward kernel, each layer held against the
+    plain layer in float32 and float64 from the kernel's own input to it;
+    twice bit-equal."""
+    hs = kconv._launch(xa, xb, *ws)
+    again = kconv._launch(xa, xb, *ws)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, r) for a, r in zip(hs, again))
+    h_in = xa if xb is None else torch.cat([xa, xb], dim=-1)
+    for k, h in enumerate(hs):
+        w, b = ws[2 * k], ws[2 * k + 1]
+        ref = kconv.conv_relu_layer(h_in.permute(0, 3, 1, 2), w, b).permute(0, 2, 3, 1)
+        ref64 = kconv.conv_relu_layer(h_in.double().permute(0, 3, 1, 2), w.double(),
+                                      b.double()).permute(0, 2, 3, 1)
+        _f32_layer_checks([h], [ref], [ref64])
+        h_in = h
+    return hs
+
+
+@pytest.mark.parametrize("b,h,w,ca,cb,c,wgmma", [
+    # the flagship's forward shapes, cut in size: every block but the entry
+    # layer's first on the 3xTF32 wgmma body (32-channel chunks, 8 x 16 pixel
+    # tiles at Cout > 64, 16 x 16 at Cout <= 64), odd H and W
+    (2, 33, 45, 64, 0, 128, True), (1, 34, 30, 128, 0, 256, True),
+    (1, 17, 19, 256, 0, 512, True), (1, 32, 32, 256, 0, 512, True),  # Lung's 1 x 32^2
+    (1, 33, 45, 1, 0, 64, True), (2, 20, 24, 2, 0, 64, True),  # the entry layer, then two
+    # ragged chunks: C = 16, 48 (one chunk half or a quarter past the channels)
+    (1, 33, 45, 16, 0, 16, True), (1, 33, 45, 48, 0, 72, True), (1, 21, 23, 8, 0, 8, True),
+    # dual inputs: [upsample | skip], split on and off a chunk boundary
+    (1, 33, 45, 128, 64, 64, True), (2, 21, 30, 512, 256, 256, True),
+    (1, 19, 17, 40, 24, 64, True),
+    # channel counts off 8: the mma.sync body by its count
+    (1, 17, 19, 3, 0, 48, False), (1, 9, 11, 20, 12, 40, False),
+])
+def test_f32_forward_layers_on_the_wgmma_body(dev, b, h, w, ca, cb, c, wgmma):
+    """The float32 forward (K1, K2) layer by layer against the plain layer
+    in float32 and float64, twice bit-equal, and through the wrapper: its
+    launch counts in launches_wgmma_f32 when every layer but a 1- or
+    2-channel entry layer took the 3xTF32 wgmma body."""
+    gen = torch.Generator().manual_seed(ca * 100 + cb + c + 3)
+    xa = torch.randn(b, h, w, ca, generator=gen).to(dev)
+    xb = torch.randn(b, h, w, cb, generator=gen).to(dev) if cb else None
+    ws = _weights(gen, ca + cb, c, dev)
+    wrapper = conv_block_fwd if xb is None else conv_block_fwd_dual
+    before = (wrapper.launches, wrapper.launches_wgmma_f32)
+    with torch.no_grad():
+        hs = _f32_block_layers(xa, xb, ws)
+        out = wrapper(xa, *ws) if xb is None else wrapper(xa, xb, *ws)
+    torch.cuda.synchronize()
+    assert torch.equal(out, hs[2])
+    assert (wrapper.launches, wrapper.launches_wgmma_f32) == (before[0] + 1,
+                                                              before[1] + int(wgmma))
+
+
+def test_f32_forward_on_an_unaligned_input_takes_the_mma_sync_body(dev):
+    """A float32 input 4 bytes off a 16-byte boundary cannot be a tensor
+    map's: its first layer runs on the mma.sync body, the launch counted off
+    the wgmma route, and every layer holds as on an aligned input."""
+    gen = torch.Generator().manual_seed(9)
+    b, h, w, cin, c = 1, 19, 23, 64, 72
+    flat = torch.randn(b * h * w * cin + 1, generator=gen).to(dev)
+    x = flat[1:].view(b, h, w, cin)
+    assert x.data_ptr() % 16 != 0
+    ws = _weights(gen, cin, c, dev)
+    before = (conv_block_fwd.launches, conv_block_fwd.launches_wgmma_f32)
+    with torch.no_grad():
+        _f32_block_layers(x, None, ws)
+        conv_block_fwd(x, *ws)
+    torch.cuda.synchronize()
+    assert (conv_block_fwd.launches, conv_block_fwd.launches_wgmma_f32) == (before[0] + 1,
+                                                                          before[1])
+
+
+def _f32_dgrad64(da, w, mask):
+    """One float32 dgrad layer summed in float64: the kernel flipped, masked
+    by [mask > 0] (none for dx)."""
+    wk = w.double().flip(0, 1).permute(2, 3, 0, 1)
+    r = torch.nn.functional.conv2d(da.double().permute(0, 3, 1, 2), wk, padding=1)
+    r = r.permute(0, 2, 3, 1)
+    return r if mask is None else torch.where(mask > 0, r, 0.0)
+
+
+@pytest.mark.parametrize("b,h,w,ca,cb,c,need_dx,wgmma", [
+    # the flagship's backward shapes, cut in size: every dgrad on the wgmma body
+    (2, 33, 45, 64, 0, 128, True, True), (1, 34, 30, 128, 0, 256, True, True),
+    (1, 17, 19, 256, 0, 512, True, True), (2, 32, 32, 256, 0, 512, True, True),
+    (2, 33, 45, 1, 0, 64, False, True), (1, 33, 45, 2, 0, 64, False, True),  # entry blocks
+    # ragged chunks of da (C = 16, 48) and of dx's channels
+    (1, 33, 45, 16, 0, 16, True, True), (1, 33, 45, 48, 0, 72, True, True),
+    # the dual blocks: dx split into dxa | dxb
+    (1, 33, 45, 128, 64, 64, True, True), (2, 21, 30, 512, 256, 256, True, True),
+    (1, 19, 17, 40, 24, 64, True, True),
+    # a dx of 1 channel, and counts off 8: dx on the mma.sync body
+    (1, 17, 23, 1, 0, 16, True, False), (1, 9, 11, 20, 12, 40, True, False),
+])
+def test_f32_dgrad_layers_on_the_wgmma_body(dev, b, h, w, ca, cb, c, need_dx, wgmma):
+    """The float32 backward's dgrads layer by layer, each from the kernel's
+    own cotangent to it (its da workspaces): da_2 and da_1 (masked by h2,
+    h1) and dx (split at Ca) within 1e-4 of the plain dgrad in float32 and
+    1e-5 of it in float64; twice bit-equal; through the wrapper its launch
+    counts in launches_wgmma_f32 when every dgrad took the wgmma body."""
+    gen = torch.Generator().manual_seed(ca * 100 + cb + c + 4)
+    xa = torch.randn(b, h, w, ca, generator=gen).to(dev)
+    xb = torch.randn(b, h, w, cb, generator=gen).to(dev) if cb else None
+    ws = _weights(gen, ca + cb, c, dev)
+    h1, h2, h3 = kconv._launch(xa, xb, *ws)
+    g = torch.randn(b, h, w, c, generator=gen).to(dev)
+    w1, w2, w3 = ws[::2]
+    workspaces = (torch.empty_like(h3), torch.empty_like(h3))
+    out = kconv._launch_bwd(g, xa, xb, h1, h2, h3, w1, w2, w3, need_dx, workspaces)
+    again = kconv._launch_bwd(g, xa, xb, h1, h2, h3, w1, w2, w3, need_dx)
+    torch.cuda.synchronize()
+    assert all((a is None and r is None) or torch.equal(a, r) for a, r in zip(out, again))
+    da1, da2 = workspaces
+    da3 = kconv.masked_cotangent_plain(g, None, h3)
+    pairs = [(da2, da3, w3, h2), (da1, da2, w2, h1)]
+    if out[0] is not None:
+        dx = out[0] if xb is None else torch.cat([out[0], out[1]], dim=-1)
+        pairs.append((dx, da1, w1, None))
+    for got, da, wk, mask in pairs:
+        ref = torch.nn.functional.conv2d(da.permute(0, 3, 1, 2),
+                                         wk.flip(0, 1).permute(2, 3, 0, 1), padding=1)
+        ref = ref.permute(0, 2, 3, 1)
+        if mask is not None:
+            ref = torch.where(mask > 0, ref, 0.0)
+            assert bool(((got == 0) | (mask > 0)).all())  # masked to +0
+        _f32_layer_checks([got], [ref], [_f32_dgrad64(da, wk, mask)])
+    wrapper = kconv.conv_block_bwd if xb is None else kconv.conv_block_bwd_dual
+    before = (wrapper.launches, wrapper.launches_wgmma_f32)
+    if xb is None:
+        again = wrapper(g, xa, h1, h2, h3, w1, w2, w3, need_dx=need_dx)
+        out = (out[0], *out[2:])
+    else:
+        again = wrapper(g, xa, xb, h1, h2, h3, w1, w2, w3)
+    torch.cuda.synchronize()
+    assert all((a is None and r is None) or torch.equal(a, r) for a, r in zip(out, again))
+    assert (wrapper.launches, wrapper.launches_wgmma_f32) == (before[0] + 1,
+                                                              before[1] + int(wgmma))
+
+
+@pytest.mark.parametrize("b,h,w,ca,cb,c", [(2, 32, 36, 64, 0, 128), (1, 34, 30, 16, 0, 72),
+                                           (1, 33, 45, 128, 64, 64)])
+def test_f32_recompute_on_the_wgmma_body(dev, b, h, w, ca, cb, c):
+    """The mixed mode's float32 backward rebuilds h1 and h2 with the
+    forward's own wgmma layers, so from the forward kernel's h3 it gives the
+    saved-h backward's outputs bit for bit (a bit of h1 or h2 off would move
+    dW2, dW3 and the masks); its launch counts under the recompute mode and
+    the route."""
+    gen = torch.Generator().manual_seed(ca + cb + c + 5)
+    xa = torch.randn(b, h, w, ca, generator=gen).to(dev)
+    xb = torch.randn(b, h, w, cb, generator=gen).to(dev) if cb else None
+    ws = _weights(gen, ca + cb, c, dev)
+    h1, h2, h3 = kconv._launch(xa, xb, *ws)
+    g = torch.randn(b, h, w, c, generator=gen).to(dev)
+    wrapper = kconv.conv_block_bwd if xb is None else kconv.conv_block_bwd_dual
+    names = ("launches", "launches_recompute", "launches_wgmma_f32")
+    before = [getattr(wrapper, n) for n in names]
+    xs = (xa,) if xb is None else (xa, xb)
+    saved = wrapper(g, *xs, h1, h2, h3, *ws[::2])
+    out = wrapper(g, *xs, None, None, h3, *ws[::2], b1=ws[1], b2=ws[3])
+    torch.cuda.synchronize()
+    assert all((a is None and r is None) or torch.equal(a, r) for a, r in zip(out, saved))
+    assert [getattr(wrapper, n) for n in names] == [before[0] + 2, before[1] + 1, before[2] + 2]
+
+
+@pytest.mark.parametrize("m", [2, 4])
+@pytest.mark.parametrize("ca,cb,c", [(64, 0, 128), (256, 0, 512), (128, 64, 64)])
+def test_f32_row_shards_are_the_whole_image(dev, m, ca, cb, c):
+    """m row shards, each extended by the halo's rows on its inner sides
+    (sliced from the whole tensors, as the halo exchange delivers them): on
+    the 3xTF32 wgmma body the forward's h3 and the backward's dx, da_2 and
+    da_1 on the shard's own rows are the whole image's bit for bit (each
+    pixel's sums run in one order wherever its tile lies)."""
+    from pda_torch.models.blocks import HALO
+
+    b, h, w = 2, 48, 40
+    gen = torch.Generator().manual_seed(ca + cb + c + m)
+    xa = torch.randn(b, h, w, ca, generator=gen).to(dev)
+    xb = torch.randn(b, h, w, cb, generator=gen).to(dev) if cb else None
+    ws = _weights(gen, ca + cb, c, dev)
+    g = torch.randn(b, h, w, c, generator=gen).to(dev)
+    whole_h = kconv._launch(xa, xb, *ws)
+    whole_ws = (torch.empty_like(g), torch.empty_like(g))
+    whole = kconv._launch_bwd(g, xa, xb, *whole_h, *ws[::2], True, whole_ws)
+    rows = h // m
+    for s in range(m):
+        top, bottom = (HALO if s > 0 else 0), (HALO if s < m - 1 else 0)
+        lo, hi = s * rows - top, (s + 1) * rows + bottom
+        own = slice(top, top + rows)
+
+        def part(t):
+            return None if t is None else t[:, lo:hi].contiguous()
+
+        hs = kconv._launch(part(xa), part(xb), *ws)
+        assert torch.equal(hs[2][:, own], whole_h[2][:, s * rows:(s + 1) * rows])
+        wsp = (torch.empty_like(hs[2]), torch.empty_like(hs[2]))
+        out = kconv._launch_bwd(part(g), part(xa), part(xb), *map(part, whole_h), *ws[::2],
+                                True, wsp)
+        for got, ref in ((out[0], whole[0]), (out[1], whole[1]), (wsp[0], whole_ws[0]),
+                         (wsp[1], whole_ws[1])):
+            if ref is not None:
+                assert torch.equal(got[:, own], ref[:, s * rows:(s + 1) * rows])
+
+
 def test_mixed_mean_teacher_step_on_card_matches_cpu(dev, monkeypatch):
     """The small MT step of the test below under PDA_PALLAS_CONV_MODE=mixed:
     the forwards on cuDNN (no forward kernel launch), every backward with
