@@ -18,8 +18,10 @@ Phases, each of which fails the run (exit code 1) on any error or miss
                 one) and the recompute of h1, h2 (single and dual entry,
                 bit-equal to the saved-h kernel); every float32 ConvBlock
                 check (here and in the later phases' shape census) also
-                requires the 3xTF32 wgmma body (launches_wgmma_f32) and
-                prints its drift against float64 beside the mma.sync body's;
+                requires the 3xTF32 wgmma bodies (launches_wgmma_f32: the
+                layer body, and the backward's wgrad) and prints its drift
+                against float64 beside the mma.sync bodies' (the backward's
+                dW apart, beside wgrad_tc's);
                 the float32 weight copy (tf32_planes) bit-equal to its plain
                 version
   4. serving  — the flagship PUNet (num_filters 64..512, latent 6,
@@ -303,16 +305,22 @@ MC_ROUTE_ENTRIES = {"mc_consensus_wgmma": ("mc_consensus", "wgmma")}
 ROUTE_ENTRIES = {**FWD_MODE_ENTRIES, **BWD_ROUTE_ENTRIES, **MC_ROUTE_ENTRIES}
 # The float32 ConvBlocks' route, the same JSON names in float32 (their
 # launches each wrapper's launches_wgmma_f32): the launches whose forward
-# layers but a 1- or 2-channel entry layer, or whose dgrads (and the
-# recompute's layers), all ran on the 3xTF32 wgmma body
-# (csrc/conv3x3_wgmma_tf32.cuh); on the flagship's, MitoEM's and Lung's shapes
-# every float32 ConvBlock launch. Every float32 ConvBlock check requires it.
+# layers but a 1- or 2-channel entry layer ran on the 3xTF32 wgmma body
+# (csrc/conv3x3_wgmma_tf32.cuh), or whose dgrads (and the recompute's
+# layers) did and whose wgrads but an entry layer's ran on the 3xTF32 wgmma
+# wgrad (csrc/wgrad_wgmma_tf32.cuh; an entry layer's on wgrad_entry, the FMA
+# pipes); on the flagship's, MitoEM's and Lung's shapes every float32
+# ConvBlock launch. Every float32 ConvBlock check requires it.
 F32_ROUTE_ENTRIES = {**FWD_MODE_ENTRIES, **BWD_ROUTE_ENTRIES}
-F32_ROUTE_SOURCE = "pda_torch/kernels/csrc/conv3x3_wgmma_tf32.cuh"
-# the mma.sync body's drift against float64 (conv3x3_tc.cuh, PERF.md §6), to
-# print beside the 3xTF32 wgmma body's: the forward at the serving shapes,
-# the backward at the MT step's
-PARENT_DRIFT = {"fwd": "0.7-1.2e-06", "bwd": "2.2-2.8e-06"}
+F32_ROUTE_SOURCES = {"conv_block_fwd": "pda_torch/kernels/csrc/conv3x3_wgmma_tf32.cuh",
+                     "conv_block_fwd_dual": "pda_torch/kernels/csrc/conv3x3_wgmma_tf32.cuh",
+                     "conv_block_bwd": "pda_torch/kernels/csrc/wgrad_wgmma_tf32.cuh",
+                     "conv_block_bwd_dual": "pda_torch/kernels/csrc/wgrad_wgmma_tf32.cuh"}
+# the mma.sync bodies' drift against float64 (conv3x3_tc.cuh, wgrad_tc; PERF.md
+# §6), to print beside the 3xTF32 wgmma bodies': the forward at the serving
+# shapes, the backward at the MT step's, and its dW alone (wgrad_tc's, with
+# the dgrads of the layers above: bench_variants --only bwd)
+PARENT_DRIFT = {"fwd": "0.7-1.2e-06", "bwd": "2.2-2.8e-06", "wgrad": "1.5-1.9e-06"}
 # peak device memory (GiB) of each time_steps label's run
 STEP_PEAKS = {}
 
@@ -501,7 +509,8 @@ def check_bwd(entry, label, kernel, plain, args, names, per_step, binding, need_
     """A backward kernel against its plain version: every output within
     BWD_REL_TOL of the plain one's largest and within BWD_REF64_TOL of the
     plain version's in float64 (the drift printed beside the mma.sync
-    body's), two runs bit-equal and every dgrad on the 3xTF32 wgmma body
+    bodies', dW's apart beside wgrad_tc's), two runs bit-equal and every
+    dgrad and every wgrad but an entry layer's on the 3xTF32 wgmma bodies
     (launches_wgmma_f32; ``route_entry``, the route's JSON entry, takes the
     same numbers); then, if ``timed``,
     times (the kernel's, the plain version's, cuDNN's:
@@ -531,7 +540,7 @@ def check_bwd(entry, label, kernel, plain, args, names, per_step, binding, need_
         first = torch.equal(kc.masked_cotangent_kernel(args[0], gp, args[-4]),
                             kc.masked_cotangent_plain(args[0], gp, args[-4]))
     torch.cuda.synchronize()
-    ok, worst, worst64 = first, (0.0, ""), (0.0, "")
+    ok, worst, worst64, worst_dw = first, (0.0, ""), (0.0, ""), (0.0, "")
     same = all((a is None and a2 is None) or torch.equal(a, a2) for a, a2 in zip(out, again))
     for name, a, r, r64 in zip(names, out, ref, ref64):
         if r is None:
@@ -545,6 +554,8 @@ def check_bwd(entry, label, kernel, plain, args, names, per_step, binding, need_
                and err64 <= BWD_REF64_TOL * scale64)
         worst = max(worst, (err / scale if scale else err, name))
         worst64 = max(worst64, (err64 / scale64 if scale64 else err64, name))
+        if name.startswith("dw"):
+            worst_dw = max(worst_dw, (err64 / scale64 if scale64 else err64, name))
         for e in filter(None, (entry, also, route_entry)):
             e["max_abs_err"] = max(e["max_abs_err"], err)
     ok &= same and route
@@ -552,8 +563,10 @@ def check_bwd(entry, label, kernel, plain, args, names, per_step, binding, need_
     CHECKED.add(shape_key(entry["name"], args, need_dx))
     verdict = (f"kernel {label}: worst max_abs_err/max|plain| {worst[0]:.3e} ({worst[1]}; tol "
                f"{BWD_REL_TOL:.0e}), /max|ref64| {worst64[0]:.3e} ({worst64[1]}; tol "
-               f"{BWD_REF64_TOL:.0e}; the mma.sync body's {PARENT_DRIFT['bwd']}), repeat "
-               f"bit-equal {same}, dgrads on the 3xTF32 wgmma body {route}"
+               f"{BWD_REF64_TOL:.0e}; the mma.sync bodies' {PARENT_DRIFT['bwd']}), dW "
+               f"/max|ref64| {worst_dw[0]:.3e} ({worst_dw[1]}; wgrad_tc's "
+               f"{PARENT_DRIFT['wgrad']}), repeat bit-equal {same}, dgrads and wgrads on the "
+               f"3xTF32 wgmma bodies {route}"
                + ("" if gp is None else f", da_3 bit-equal to the plain version's {first}"))
     if not timed:
         log(f"{verdict} {'ok' if ok else 'FAIL'}")
@@ -681,7 +694,8 @@ def check_recompute(entry, label, xs, weights, binding, per_step=1):
     out, again, saved = kernel(None, None), kernel(None, None), kernel(h1, h2)
     same = all(torch.equal(a, b) for a, b in zip(out, again))
     equal = all(torch.equal(a, b) for a, b in zip(out, saved))
-    # in float32 the rebuilt h1, h2 and every dgrad on the 3xTF32 wgmma body
+    # in float32 the rebuilt h1, h2, every dgrad and every wgrad but an entry
+    # layer's on the 3xTF32 wgmma bodies
     route = bf16 or f32_route(bwd, before)
     ok, detail = same and equal and route, ""
     x = torch.cat(xs, dim=-1)
@@ -734,7 +748,7 @@ def check_recompute(entry, label, xs, weights, binding, per_step=1):
     bound, term = add_bound(entry, binding, flops, nbytes, per_step,
                             PEAK_BF16_FLOPS if bf16 else PEAK_FLOPS)
     log(f"{'bf16 ' if bf16 else ''}kernel {label}: bit-equal to the saved-h kernel {equal}, "
-        f"repeat bit-equal {same}{'' if bf16 else f', on the 3xTF32 wgmma body {route}'}"
+        f"repeat bit-equal {same}{'' if bf16 else f', on the 3xTF32 wgmma bodies {route}'}"
         f"{detail}; ms {ms:.3f} ({flops / ms / 1e9:.1f} TFLOP/s) "
         f"saved-h kernel ms {saved_ms:.3f} plain_ms {plain_ms:.3f} library_ms {library_ms:.3f} "
         f"bound_ms {bound:.3f} ({term}) {'ok' if ok else 'FAIL'}")
@@ -853,7 +867,7 @@ def cudnn_weights(w1, b1, w2, b2, w3, b3):
 
 def f32_route(wrapper, before):
     """Whether every float32 launch of ``wrapper`` since ``before`` (its
-    (launches, launches_wgmma_f32) then) ran on the 3xTF32 wgmma body, and
+    (launches, launches_wgmma_f32) then) ran on the 3xTF32 wgmma bodies, and
     one did."""
     n, on = wrapper.launches - before[0], wrapper.launches_wgmma_f32 - before[1]
     return n > 0 and on == n
@@ -1037,7 +1051,7 @@ def phase_serving(dev, results):
         out = run()
         torch.cuda.synchronize()
         counts = {k: w.launches for k, w in wrappers.items()}
-        # every ConvBlock launch on the 3xTF32 wgmma body
+        # every ConvBlock launch on the 3xTF32 wgmma bodies
         routes = {n: wrappers[k].launches_wgmma_f32 for n, (k, _) in F32_ROUTE_ENTRIES.items()
                   if k in wrappers}
         for k, n in {**counts, **routes}.items():
@@ -1053,7 +1067,7 @@ def phase_serving(dev, results):
             log(f"serving {name}: consensus share {float(cons.mean()):.4f}")
         log(f"serving {name}: shape {tuple(probs.shape)} range [{float(probs.min()):.4f}, "
             f"{float(probs.max()):.4f}] mean {float(probs.mean()):.4f} launches {counts} "
-            f"(expected {expect}), on the 3xTF32 wgmma body {routes} {'ok' if good else 'FAIL'}")
+            f"(expected {expect}), on the 3xTF32 wgmma bodies {routes} {'ok' if good else 'FAIL'}")
         ok &= good
 
     # one 512^2 tile, MC-16: the card against the same port on the CPU
@@ -1334,7 +1348,7 @@ def phase_training(dev, results):
     on, routes = all_on_f32_route(wrappers)
     ok = counts == MT_LAUNCHES and modes == MT_MODE_LAUNCHES and on
     log(f"training MT step 128^2: launches {counts} (expected {MT_LAUNCHES}), by backward mode "
-        f"{modes} (expected {MT_MODE_LAUNCHES}), on the 3xTF32 wgmma body {routes} "
+        f"{modes} (expected {MT_MODE_LAUNCHES}), on the 3xTF32 wgmma bodies {routes} "
         f"{'ok' if ok else 'FAIL'}")
 
     # the teacher's pseudo-labels: K3 on the card against the plain tail on the CPU
@@ -1401,7 +1415,7 @@ def phase_training(dev, results):
         good = counts == MIXED_MT_LAUNCHES and modes == MIXED_MT_MODE_LAUNCHES and on
         log(f"training mixed MT step {MIXED_CHECK_PATCH}^2: launches {counts} (expected "
             f"{MIXED_MT_LAUNCHES}), by backward mode {modes} (expected "
-            f"{MIXED_MT_MODE_LAUNCHES}), on the 3xTF32 wgmma body {routes} "
+            f"{MIXED_MT_MODE_LAUNCHES}), on the 3xTF32 wgmma bodies {routes} "
             f"{'ok' if good else 'FAIL'}")
         t0 = time.perf_counter()
         for state, dtype in ((cpu, torch.float32), (cpu64, torch.float64)):
@@ -1501,10 +1515,10 @@ def time_steps(label, step, state, batch, n_patches, wrappers, launches, warmup,
         on, routes = all_on_wgmma(wrappers)
         good &= on
         by_mode += f", on the wgmma bodies {routes}"
-    elif modes is not None:  # the float32 MT steps: on the 3xTF32 wgmma body
+    elif modes is not None:  # the float32 MT steps: on the 3xTF32 wgmma bodies
         on, routes = all_on_f32_route(wrappers)
         good &= on
-        by_mode += f", on the 3xTF32 wgmma body {routes}"
+        by_mode += f", on the 3xTF32 wgmma bodies {routes}"
     STEP_PEAKS[label] = peak
     log(f"training {label}: losses {[round(float(v), 5) for v in losses]} finite {finite}, "
         f"launches {counts}{by_mode} over {n} steps {'ok' if good else 'FAIL'}")
@@ -3011,7 +3025,7 @@ def mode_launches(wrappers, bf16=False):
 def route_launches(wrappers, bf16=True):
     """The bf16 forwards' and backwards' launches on the wgmma bodies since
     :func:`reset_launches`, by JSON entry (ROUTE_ENTRIES); without ``bf16``
-    the float32 ConvBlocks' on the 3xTF32 wgmma body (F32_ROUTE_ENTRIES)."""
+    the float32 ConvBlocks' on the 3xTF32 wgmma bodies (F32_ROUTE_ENTRIES)."""
     if not bf16:
         return {name: getattr(wrappers[kernel], f"launches_{mode}_f32")
                 for name, (kernel, mode) in F32_ROUTE_ENTRIES.items()}
@@ -3021,7 +3035,7 @@ def route_launches(wrappers, bf16=True):
 
 def all_on_f32_route(wrappers):
     """(ok, counts): every float32 ConvBlock launch since
-    :func:`reset_launches` ran on the 3xTF32 wgmma body, and one did."""
+    :func:`reset_launches` ran on the 3xTF32 wgmma bodies, and one did."""
     routes = route_launches(wrappers, bf16=False)
     ok = all(routes[name] == wrappers[kernel].launches
              for name, (kernel, _) in F32_ROUTE_ENTRIES.items()) and any(routes.values())
@@ -4718,7 +4732,7 @@ def main(argv=None) -> int:
                    ("conv_block_bwd_dual_recompute", "pda_torch/kernels/csrc/conv_block_bwd.cu",
                     "pda/kernels/conv_block_bwd.py:610"))}
     for name, (kernel, _) in F32_ROUTE_ENTRIES.items():
-        results[name] = dict(results[kernel], name=name, source=F32_ROUTE_SOURCE)
+        results[name] = dict(results[kernel], name=name, source=F32_ROUTE_SOURCES[kernel])
     binding = {}  # (kernel, "operations" or "bytes") -> ms of bound that term sets
     ok = True
     try:
@@ -4793,9 +4807,11 @@ def main(argv=None) -> int:
         "mc_consensus launches on its wgmma body (csrc/mc_consensus.cu mc_consensus_wgmma: "
         "all of them), with the kernel's times; conv_block_fwd[_dual]_wgmma and "
         "conv_block_bwd[_dual]_wgmma (float32): the float32 launches whose forward layers but "
-        "a 1- or 2-channel entry layer, or whose dgrads (and the recompute's layers), all ran "
-        "on the 3xTF32 wgmma body (csrc/conv3x3_wgmma_tf32.cuh), with their kernel's times "
-        "(every float32 ConvBlock launch of the main paths); launches: the main "
+        "a 1- or 2-channel entry layer ran on the 3xTF32 wgmma body "
+        "(csrc/conv3x3_wgmma_tf32.cuh), or whose dgrads (and the recompute's layers) did and "
+        "whose wgrads but an entry layer's (wgrad_entry, the FMA pipes) ran on the 3xTF32 "
+        "wgmma wgrad (csrc/wgrad_wgmma_tf32.cuh), with their kernel's times (every float32 "
+        "ConvBlock launch of the main paths); launches: the main "
         "paths' runs, each counted from 0: both serving entries, the checked MT step, the "
         "checked PDA_PALLAS_CONV_MODE=mixed step (the recompute entries' float32 count), the "
         "bf16 phase's timed MT steps (default and mixed) and tiled serving, the parallel "

@@ -48,9 +48,13 @@ mask) runs on the FMA pipes, and any other layer on the ``mma.sync`` body
 (``csrc/conv3x3_tc.cuh``). The backward's dgrad runs on the same bodies
 (their epilogue the ReLU mask and the ``dxa | dxb`` split), by the same
 shape rule. Its wgrad: in bf16 on ``csrc/wgrad_wgmma.cuh`` (``wgmma`` with
-both operands transposed, float32 sums in registers; a single-input entry
-layer of 1 or 2 channels on the FMA pipes), in float32 on ``mma.sync``
-(``wgrad_tc``). A launch whose every such layer took the ``wgmma`` bodies
+both operands transposed, float32 sums in registers), in float32 on
+``csrc/wgrad_wgmma_tf32.cuh`` (TMA, the landed tiles transposed and split
+into K-major TF32 hi/lo planes in shared memory, 3xTF32 ``wgmma``), by the
+same shape rule; a single-input entry layer of 1 or 2 channels on the FMA
+pipes; any other layer on ``mma.sync`` (``wgrad_tc``). :func:`wgrad_kernel`
+runs one layer's wgrad alone. A launch whose every such layer took the
+``wgmma`` bodies
 also counts in ``launches_wgmma_bf16`` or ``launches_wgmma_f32``
 (:func:`count_name`). In float32 the kernels read the wrapper's per-call
 copy of each weight as three planes (:func:`tf32_planes`): the kernel, then
@@ -489,6 +493,57 @@ def masked_cotangent_kernel(g, gp, h3) -> torch.Tensor:
     return da
 
 
+#: the wgrad bodies by the code ``pda_wgrad_route`` returns (:func:`wgrad_route`)
+WGRAD_ROUTES = {0: "tc", 1: "wgmma", 2: "entry"}
+
+
+def wgrad_plain(x, da, xb=None) -> tuple:
+    """One layer's weight gradient, ``(dW, db)`` (HWIO, float32) of the
+    input ``x`` (or ``[x | xb]``) and the layer's output cotangent ``da``, as
+    the plain backward forms it (:func:`_wgrad_plain`; sums in
+    :func:`plain_acc` in bf16)."""
+    h_in = x if xb is None else torch.cat([x, xb], dim=-1)
+    acc = plain_acc(da) if da.dtype == _BF16 else da.dtype
+    return (_wgrad_plain(h_in.to(acc), da.to(acc)).float(),
+            da.to(acc).sum(dim=(0, 1, 2)).float())
+
+
+def wgrad_route(x, da, xb=None) -> str:
+    """The body one layer's wgrad takes on the card, as the backward's entries
+    decide it by shape and alignment: "wgmma" (``csrc/wgrad_wgmma_tf32.cuh``,
+    bf16 ``csrc/wgrad_wgmma.cuh``), "entry" (a single input of 1 or 2
+    channels, ``wgrad_entry``) or "tc" (``wgrad_tc``)."""
+    fn = _build.entry("pda_wgrad_route" + _suffix(da.dtype), (_VP, _VP, _I, _I, _VP, _I))
+    return WGRAD_ROUTES[fn(x.data_ptr(), None if xb is None else xb.data_ptr(), x.shape[-1],
+                           0 if xb is None else xb.shape[-1], da.data_ptr(), da.shape[-1])]
+
+
+def wgrad_kernel(x, da, xb=None) -> tuple:
+    """One layer's wgrad alone on CUDA tensors (the C entry ``pda_wgrad``,
+    the body :func:`wgrad_route` names): ``(dW, db)`` of
+    :func:`wgrad_plain`, for a check against it or a benchmark. Counts no
+    launch: the backward's wrappers count theirs."""
+    dev, dtype = da.device, da.dtype
+    bsz, h, w, cout = da.shape
+    _build.check_tensor("da", da, (bsz, h, w, cout), dev, _build.FLOAT32_BF16)
+    _build.check_tensor("x", x, (bsz, h, w, x.shape[-1]), dev, (dtype,))
+    if xb is not None:
+        _build.check_tensor("xb", xb, (bsz, h, w, xb.shape[-1]), dev, (dtype,))
+    ca, cb = x.shape[-1], 0 if xb is None else xb.shape[-1]
+    dw = torch.empty(3, 3, ca + cb, cout, device=dev)
+    db = torch.empty(cout, device=dev)
+    suffix = _suffix(dtype)
+    n_work = _build.entry("pda_wgrad_work" + suffix, (_I,) * 5, ctypes.c_longlong)
+    fn = _build.entry("pda_wgrad" + suffix, (_VP, _VP, _I, _I, *[_VP] * 4, *[_I] * 4, _VP))
+    with torch.cuda.device(dev):
+        work = torch.empty(n_work(bsz, h, w, ca + cb, cout), device=dev)
+        code = fn(x.data_ptr(), None if xb is None else xb.data_ptr(), ca, cb, da.data_ptr(),
+                  dw.data_ptr(), db.data_ptr(), work.data_ptr(), bsz, h, w, cout,
+                  torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(code, "wgrad")
+    return dw, db
+
+
 def count_name(mode: str, dtype: torch.dtype) -> str:
     """The count of launches in ``mode`` ("" for all of them) of a wrapper's
     ``dtype`` instance: ``launches``, ``launches_pool``, ...; in bf16
@@ -709,13 +764,12 @@ def _fwd_modes(xs, c: int) -> tuple:
 
 def _bwd_modes(xa, xb, c: int, need_dx: bool, recompute: bool = False) -> tuple:
     """The backward's route of a launch, which the C entry decides by shape
-    and alignment, as the launch did: "wgmma" when, in bf16, every dgrad
-    and every wgrad but a single-input entry layer's (1 or 2 channels) ran
-    on the wgmma bodies (``csrc/conv3x3_wgmma.cuh``,
-    ``csrc/wgrad_wgmma.cuh``); in float32, when every dgrad (and, with
-    ``recompute``, every tensor-core layer that rebuilt h1, h2) ran on the
-    3xTF32 wgmma body (``csrc/conv3x3_wgmma_tf32.cuh``; the float32 wgrad
-    has no wgmma body)."""
+    and alignment, as the launch did: "wgmma" when every dgrad and every
+    wgrad but a single-input entry layer's (1 or 2 channels, on the FMA
+    pipes) ran on the wgmma bodies of its dtype (bf16:
+    ``csrc/conv3x3_wgmma.cuh``, ``csrc/wgrad_wgmma.cuh``; float32, 3xTF32:
+    ``csrc/conv3x3_wgmma_tf32.cuh``, ``csrc/wgrad_wgmma_tf32.cuh``, and with
+    ``recompute`` every tensor-core layer that rebuilt h1, h2)."""
     ptrs = (xa.data_ptr(), None if xb is None else xb.data_ptr(), xa.shape[-1],
             0 if xb is None else xb.shape[-1], c, int(need_dx))
     if xa.dtype == _BF16:
@@ -738,10 +792,10 @@ def _modes(gp, h1) -> tuple:
 #: (:data:`BWD_MODES`); the bf16 launches whose layers all ran on the wgmma
 #: bodies (every forward layer; every dgrad and every wgrad but an entry
 #: layer's) in ``launches_wgmma_bf16``, and the float32 launches whose layers
-#: all ran on the 3xTF32 wgmma body (every forward layer but a 1- or
-#: 2-channel entry layer; every dgrad, and the recompute's layers) in
-#: ``launches_wgmma_f32`` (:data:`FWD_MODES`, the route of the forwards and
-#: the backwards alike; :func:`count_name`)
+#: all ran on the 3xTF32 wgmma bodies (every forward layer but a 1- or
+#: 2-channel entry layer; every dgrad, every wgrad but an entry layer's, and
+#: the recompute's layers) in ``launches_wgmma_f32`` (:data:`FWD_MODES`, the
+#: route of the forwards and the backwards alike; :func:`count_name`)
 BWD_MODES = ("pool", "recompute")
 FWD_MODES = ("wgmma",)
 for _fn in (conv_block_fwd, conv_block_fwd_dual, conv_block_bwd, conv_block_bwd_dual):

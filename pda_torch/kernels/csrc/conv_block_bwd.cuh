@@ -48,19 +48,26 @@
 //     counts are multiples of 8 and the tensors 16-byte aligned
 //     (wgmma_takes_dgrad), else on the mma.sync body (conv3x3_tc.cuh, 18
 //     k-steps a chain, sums flushed into shared memory).
-//   - The float32 wgrad stays on mma.sync (wgrad_tc below: 8 k-steps a chain,
-//     sums in shared memory). Per k-step a wgrad warp runs 24 mma and splits
-//     16 values (4 integer/float ops each); on an H100 that runs at about 0.3
-//     mma a cycle an SM. TF32 wgmma would take both operands only K-major
-//     from shared memory, which neither wgrad operand is in NHWC (the
-//     reduction runs over pixels, and channels are the contiguous index):
-//     its Hopper body needs a transpose-and-split of the x and da tiles in
-//     shared memory, a design of its own (later work). mma.sync gathers its
-//     fragments from [pixel][channel] tiles, with the fragments' rows,
-//     columns or k-slots mapped to channels so that a lane's values are 4
-//     adjacent channels: one 16-byte load, free of bank conflicts.
+//   - The float32 wgrad runs on its own Hopper body (wgrad_wgmma_tf32.cuh):
+//     TF32 wgmma reads shared-memory operands only K-major, which neither wgrad
+//     operand is in NHWC (the reduction runs over pixels, and channels are
+//     the contiguous index), so TMA lands the x and da tiles as they lie and
+//     a transpose-and-split pass in shared memory writes x (its three kx
+//     shifts side by side) as K-major hi and lo planes; da's fragments are
+//     loaded and split in registers; chains of CHAIN_TILES tiles (the small
+//     products apart), float32 sums in shared memory; wherever the channel
+//     counts are multiples of 8 and the tensors 16-byte aligned
+//     (wgmma_takes). An entry layer (a single input of 1 or 2 channels) runs
+//     on the FMA pipes (wgrad_entry below), any other shape on mma.sync
+//     (wgrad_tc below: 8 k-steps a chain, sums in shared memory; per k-step
+//     a warp runs 24 mma and splits 16 values, about 0.3 mma a cycle an SM
+//     on an H100). mma.sync gathers its fragments from [pixel][channel]
+//     tiles, with the fragments' rows, columns or k-slots mapped to channels
+//     so that a lane's values are 4 adjacent channels: one 16-byte load,
+//     free of bank conflicts.
 //
-// wgrad: a block owns a 9-tap x 32-input x 64-output-channel tile of dW and
+// wgrad_tc (the shapes off the wgmma bodies: a channel count off 8, an
+// unaligned view): a block owns a 9-tap x 32-input x 64-output-channel tile of dW and
 // one chunk of 8x8-pixel tiles; 18 warps, one a tap and 32 output channels,
 // each a 32 x 32 tile of dW (2 x 4 fragments). The halo input tile and the
 // da tile stream through a 3-stage cp.async ring in dynamic shared memory
@@ -69,9 +76,8 @@
 // and db to a workspace and a second pass adds the chunks in order: no float
 // atomics, so repeats are bit-equal. db is a plain float32 sum of da (no
 // split). The number of chunks fills the card's block slots (occupancy
-// query). The entry layer (Cin 1 or 2) runs the same path and skips the
-// second m-fragment, which holds none of its channels (in bf16 it runs on
-// the FMA pipes instead: wgrad_entry below).
+// query). A layer with Cin = 1 or 2 that reaches it (not an entry layer: a
+// dual input) skips the second m-fragment, which holds none of its channels.
 // dgrad: the implicit-GEMM layer body it shares with the forward
 // (conv3x3_wgmma_tf32.cuh, or conv3x3_tc.cuh off its shapes; each gives its
 // tiling), with the tap flipped at the weight load (no flipped copy of W:
@@ -127,8 +133,7 @@
 // It costs two forward layers a block and does not save HBM traffic; keeping
 // the recomputed band on chip, as pda's kernel does, is later speed work.
 //
-// Not done yet (later work): the float32 wgrad on TMA and wgmma (the
-// transpose-and-split above), keeping da on chip between the wgrad and the
+// Not done yet (later work): keeping da on chip between the wgrad and the
 // dgrad, the masked cotangent fused into the wgrad's loads.
 
 #pragma once
@@ -143,6 +148,7 @@
 #include "conv_block_fwd.cuh"
 #include "tf32x3.cuh"
 #include "wgrad_wgmma.cuh"
+#include "wgrad_wgmma_tf32.cuh"
 
 namespace {
 
@@ -378,10 +384,10 @@ wgrad_tc(const T* __restrict__ xa, const T* __restrict__ xb, int Ca,
   }
 }
 
-// The bf16 wgrad of an entry layer (a single input of CIN = 1 or 2 channels:
-// the image, or image + mask), on the FMA pipes: 9 * CIN * Cout outputs
-// summed over every pixel, too few for a tensor-core tile (wgrad_tc filled
-// 1-2 of its 32 input-channel rows, ~0.33 ms a call at 2 x 512^2 on an H100).
+// The wgrad of an entry layer (a single input of CIN = 1 or 2 channels: the
+// image, or image + mask), float32 or bf16, on the FMA pipes: 9 * CIN * Cout outputs summed over every pixel, too few for a
+// tensor-core tile (wgrad_tc filled 1-2 of its 32 input-channel rows, ~0.33
+// ms a call at 2 x 512^2 on an H100 in bf16).
 // What bounds it: reading da once (bytes; 18 * CIN FLOPs a pixel and output
 // channel). grid = (chunks, output-channel slices of 64); a block's 8 warps
 // take every 8th pixel of the chunk's range, lane l output channels 64 y +
@@ -389,9 +395,9 @@ wgrad_tc(const T* __restrict__ xa, const T* __restrict__ xb, int Ca,
 // values one 4-byte row segment of the warp's 128 bytes. Sums in float32,
 // each lane's in pixel order, the warps' added in order in shared memory,
 // each chunk's written to the workspace for sum_chunks.
-template <int CIN>
+template <typename T, int CIN>
 __global__ void __launch_bounds__(256, 4)
-wgrad_entry(const bf16* __restrict__ x, const bf16* __restrict__ da, float* __restrict__ ws_w,
+wgrad_entry(const T* __restrict__ x, const T* __restrict__ da, float* __restrict__ ws_w,
             float* __restrict__ ws_b, int H, int W, int Cout, long long n_pix,
             long long pix_per_chunk) {
   constexpr int OUT = 9 * CIN * 64 + 64;  // a warp's partial dW (tap, ci, channel) and db
@@ -447,14 +453,18 @@ wgrad_entry(const bf16* __restrict__ x, const bf16* __restrict__ da, float* __re
   }
 }
 
-// out[i] = sum over c in [0, chunks) of ws[c * n + i], in that order.
+// out[i] = sum over c in [0, chunks) of ws[c * n + i], in that order, in
+// Acc (float32 for the bf16 layers; float64 for the float32 ones: hundreds
+// of float32 partials added in float32 drift by ~1e-6 of the sum, more than
+// the chunks' own sums, PERF.md §6), rounded once.
+template <typename Acc>
 __global__ void sum_chunks(const float* __restrict__ ws, float* __restrict__ out,
                            int n, int chunks) {
   for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n;
        i += gridDim.x * blockDim.x) {
-    float s = 0.f;
+    Acc s = 0;
     for (int c = 0; c < chunks; ++c) s += ws[static_cast<size_t>(c) * n + i];
-    out[i] = s;
+    out[i] = static_cast<float>(s);
   }
 }
 
@@ -563,28 +573,41 @@ long long wgrad_work(int cin, int cout, int tiles, int slots) {
   return static_cast<long long>(chunks) * (9LL * cin * cout + cout);
 }
 
-// The bf16 wgmma wgrad's chunking of one layer (x = [xa | xb] of Ca + Cb
-// channels, Cout outputs) over its 8 x 8-pixel tiles: (tiles a chunk,
-// chunks). A block's fixed cost (its first loads, its partial sums written
-// and read back by sum_chunks) is about WG_BLOCK_COST tiles' work, so the
-// count minimises waves x (tiles a chunk + that cost), the fewest chunks
-// among the best, within the workspace's bound (4 x slots blocks).
-constexpr int WG_BLOCK_COST = 4;
-void wgrad_wgmma_chunks(int Ca, int Cb, int cout, int B, int H, int W, int slots, int* tpc,
-                        int* chunks) {
-  const int tiles = B * cdiv(H, wg::GT) * cdiv(W, wg::GT);
-  const int slices = wg::wgrad_slices(Ca, Cb, cout);
-  const int most = std::min(tiles, std::max(1, cdiv(4 * slots, slices)));
+// The wgmma wgrads' chunking of one layer over its ``tiles`` pixel tiles
+// for a grid of ``slices`` blocks a chunk: (tiles a chunk, chunks). A
+// block's fixed cost (its first loads, its partial sums written and read
+// back by sum_chunks) is about ``block_cost`` tiles' work (bf16: 4 of its
+// 8 x 8-pixel tiles; float32: 8 of its 4 x 8), so the count minimises waves
+// x (tiles a chunk + that cost), the fewest chunks among the best, within
+// the workspace's bound (4 x slots blocks: wgmma_chunks_most).
+int wgmma_chunks_most(int tiles, int slices, int slots) {
+  return std::min(tiles, std::max(1, cdiv(4 * slots, slices)));
+}
+void wgmma_chunks(int tiles, int slices, int slots, int block_cost, int* tpc, int* chunks) {
+  const int most = wgmma_chunks_most(tiles, slices, slots);
   long long best = -1;
   for (int c = 1; c <= most; ++c) {
     const long long waves = cdiv(slices * c, slots);
-    const long long cost = waves * (cdiv(tiles, c) + WG_BLOCK_COST);
+    const long long cost = waves * (cdiv(tiles, c) + block_cost);
     if (best < 0 || cost < best) {
       best = cost;
       *tpc = cdiv(tiles, c);
     }
   }
   *chunks = cdiv(tiles, *tpc);
+}
+
+// The chunking of a layer's wgrad on its type's wgmma body: tiles a chunk,
+// chunks, and the workspace's partial dW (chunks, or twice as many where the
+// two consumers take alternate tiles).
+template <typename T>
+void wgmma_wgrad_plan(int Ca, int Cb, int Cout, int B, int H, int W, int wg_slots, int* tpc,
+                      int* chunks, int* parts) {
+  constexpr bool F32 = std::is_same<T, float>::value;
+  const int tiles = F32 ? wgt::wgrad_tiles(B, H, W) : B * cdiv(H, wg::GT) * cdiv(W, wg::GT);
+  const int slices = F32 ? wgt::wgrad_slices(Ca, Cb, Cout) : wg::wgrad_slices(Ca, Cb, Cout);
+  wgmma_chunks(tiles, slices, wg_slots, F32 ? 8 : 4, tpc, chunks);
+  *parts = *chunks * (F32 ? wgt::wgrad_parts(Cout) : wg::wgrad_parts(Cout));
 }
 
 // Chunks of wgrad_entry: four blocks an SM (``sms``), so that 32 warps an
@@ -595,53 +618,59 @@ int wgrad_entry_chunks(long long n_pix, int sms) {
 }
 
 // dw, db from the partial sums: ws_w's ``parts`` partial dW (n floats
-// each), ws_b's ``chunks`` partial db (Cout each), each added in order.
+// each), ws_b's ``chunks`` partial db (Cout each), each added in order (in
+// float64 for a float32 layer: sum_chunks).
+template <typename T>
 cudaError_t sum_partials(const float* ws_w, const float* ws_b, float* dw, float* db, int n,
                          int parts, int Cout, int chunks, cudaStream_t s) {
-  sum_chunks<<<grid_1d(n), 256, 0, s>>>(ws_w, dw, n, parts);
+  using Acc = std::conditional_t<std::is_same<T, float>::value, double, float>;
+  sum_chunks<Acc><<<grid_1d(n), 256, 0, s>>>(ws_w, dw, n, parts);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  sum_chunks<<<grid_1d(Cout), 256, 0, s>>>(ws_b, db, Cout, chunks);
+  sum_chunks<Acc><<<grid_1d(Cout), 256, 0, s>>>(ws_b, db, Cout, chunks);
   return cudaGetLastError();
 }
 
 // dW, db of one layer (input [xa | xb], output cotangent da = dh * [h > 0]):
-// in bf16 on wgrad_wgmma where wgmma_takes the shape, an entry layer on
-// wgrad_entry, else on wgrad_tc; then the chunks' partials added in order.
-// slots: wgrad_tc's block slots, wg_slots wgrad_wgmma's (bf16).
+// on its type's wgmma body where wgmma_takes the shape (bf16: wgrad_wgmma,
+// float32: wgrad_wgmma_tf32), an entry layer on wgrad_entry, else on
+// wgrad_tc; then the chunks' partials added in order. slots: wgrad_tc's
+// block slots, wg_slots the wgmma body's.
 template <typename T>
 cudaError_t wgrad(const T* xa, const T* xb, int Ca, int Cb, const T* da, float* dw,
                   float* db, float* work, int B, int H, int W, int Cout, int slots,
                   int wg_slots, cudaStream_t s) {
+  constexpr bool F32 = std::is_same<T, float>::value;
   constexpr int VEC = wg_vec<T>();
   const int cin = Ca + Cb;
   cudaError_t err;
-  if constexpr (std::is_same<T, bf16>::value) {
-    if (wgmma_takes(Ca, Cb, Cout, xa, xb, da, nullptr)) {
-      int tpc, chunks;
-      wgrad_wgmma_chunks(Ca, Cb, Cout, B, H, W, wg_slots, &tpc, &chunks);
-      const int parts = chunks * wg::wgrad_parts(Cout);
-      float* ws_w = work;
-      float* ws_b = work + static_cast<size_t>(parts) * 9 * cin * Cout;
-      if ((err = wgrad_wgmma_partials<T>(xa, xb, Ca, Cb, da, Cout, ws_w, ws_b, B, H, W, tpc,
-                                         chunks, s)) != cudaSuccess)
-        return err;
-      return sum_partials(ws_w, ws_b, dw, db, 9 * cin * Cout, parts, Cout, chunks, s);
-    }
-    if (entry_layer(Ca, Cb)) {
-      const long long n_pix = static_cast<long long>(B) * H * W;
-      const int chunks = wgrad_entry_chunks(n_pix, wg_slots);
-      const long long per = (n_pix + chunks - 1) / chunks;
-      float* ws_w = work;
-      float* ws_b = work + static_cast<size_t>(chunks) * 9 * cin * Cout;
-      const dim3 grid(chunks, cdiv(Cout, 64));
-      if (Ca == 1)
-        wgrad_entry<1><<<grid, 256, 0, s>>>(xa, da, ws_w, ws_b, H, W, Cout, n_pix, per);
-      else
-        wgrad_entry<2><<<grid, 256, 0, s>>>(xa, da, ws_w, ws_b, H, W, Cout, n_pix, per);
-      if ((err = cudaGetLastError()) != cudaSuccess) return err;
-      return sum_partials(ws_w, ws_b, dw, db, 9 * cin * Cout, chunks, Cout, chunks, s);
-    }
+  if (wgmma_takes(Ca, Cb, Cout, xa, xb, da, nullptr)) {
+    int tpc, chunks, parts;
+    wgmma_wgrad_plan<T>(Ca, Cb, Cout, B, H, W, wg_slots, &tpc, &chunks, &parts);
+    float* ws_w = work;
+    float* ws_b = work + static_cast<size_t>(parts) * 9 * cin * Cout;
+    if constexpr (F32)
+      err = wgrad_wgmma_tf32_partials<T>(xa, xb, Ca, Cb, da, Cout, ws_w, ws_b, B, H, W, tpc,
+                                         chunks, s);
+    else
+      err = wgrad_wgmma_partials<T>(xa, xb, Ca, Cb, da, Cout, ws_w, ws_b, B, H, W, tpc, chunks,
+                                    s);
+    if (err != cudaSuccess) return err;
+    return sum_partials<T>(ws_w, ws_b, dw, db, 9 * cin * Cout, parts, Cout, chunks, s);
+  }
+  if (entry_layer(Ca, Cb)) {
+    const long long n_pix = static_cast<long long>(B) * H * W;
+    const int chunks = wgrad_entry_chunks(n_pix, wg_slots);
+    const long long per = (n_pix + chunks - 1) / chunks;
+    float* ws_w = work;
+    float* ws_b = work + static_cast<size_t>(chunks) * 9 * cin * Cout;
+    const dim3 grid(chunks, cdiv(Cout, 64));
+    if (Ca == 1)
+      wgrad_entry<T, 1><<<grid, 256, 0, s>>>(xa, da, ws_w, ws_b, H, W, Cout, n_pix, per);
+    else
+      wgrad_entry<T, 2><<<grid, 256, 0, s>>>(xa, da, ws_w, ws_b, H, W, Cout, n_pix, per);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+    return sum_partials<T>(ws_w, ws_b, dw, db, 9 * cin * Cout, chunks, Cout, chunks, s);
   }
   const int tiles = wgrad_tiles(B, H, W);
   const int tpc = wgrad_tiles_per_chunk(cin, Cout, tiles, slots);
@@ -658,7 +687,7 @@ cudaError_t wgrad(const T* xa, const T* xb, int Ca, int Cb, const T* da, float* 
   kernel<<<grid, WG_THREADS, wg_smem<T>(), s>>>(xa, xb, Ca, Cb, da, ws_w, ws_b, B, H, W,
                                                Cout, tpc);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  return sum_partials(ws_w, ws_b, dw, db, 9 * cin * Cout, chunks, Cout, chunks, s);
+  return sum_partials<T>(ws_w, ws_b, dw, db, 9 * cin * Cout, chunks, Cout, chunks, s);
 }
 
 // da_{k-1} (or dx, split into ya: Coa channels, yb: Cob) of one layer with
@@ -693,25 +722,24 @@ inline bool bwd_on_wgmma(const void* xa, const void* xb, int Ca, int Cb, int C, 
   return inner && dx && (first || entry_layer(Ca, Cb));
 }
 
-// Whether every dgrad of a float32 block backward on x = [xa | xb] (and,
-// with recompute, every tensor-core layer that rebuilds h1, h2) takes the
-// 3xTF32 wgmma body (the wrapper's count of that route); the float32 wgrad
-// stays on wgrad_tc.
+// Whether every dgrad and every wgrad but an entry layer's (a single input
+// of 1 or 2 channels, on wgrad_entry) of a float32 block backward on x = [xa
+// | xb] (and, with recompute, every tensor-core layer that rebuilds h1, h2)
+// takes the 3xTF32 wgmma bodies (conv3x3_wgmma_tf32.cuh,
+// wgrad_wgmma_tf32.cuh): the wrapper's count of that route.
 inline bool bwd_f32_on_wgmma(const void* xa, const void* xb, int Ca, int Cb, int C,
                              bool need_dx, bool recompute) {
-  const bool inner = wgmma_takes_dgrad(C, C, 0, nullptr, nullptr, nullptr, nullptr, nullptr);
-  const bool dx = !need_dx || wgmma_takes_dgrad(C, Ca, Cb, nullptr, nullptr, nullptr,
-                                                nullptr, nullptr);
-  return inner && dx && (!recompute || block_on_wgmma(xa, xb, Ca, Cb, C));
+  return bwd_on_wgmma(xa, xb, Ca, Cb, C, need_dx) &&
+         (!recompute || block_on_wgmma(xa, xb, Ca, Cb, C));
 }
 
-// The bf16 wgmma wgrad's block slots (0 in float32, which never runs it).
+// The wgmma wgrad's block slots of type T (wgrad_wgmma, wgrad_wgmma_tf32).
 template <typename T>
 int bwd_wgmma_slots() {
   if constexpr (std::is_same<T, bf16>::value) {
     return wgrad_wgmma_slots();
   } else {
-    return 0;
+    return wgrad_wgmma_tf32_slots();
   }
 }
 
@@ -772,26 +800,33 @@ cudaError_t block_bwd(const void* xa_, const void* xb_, int Ca, int Cb, const vo
 }
 
 // Floats of the work buffer of a block with Cin (= Ca + Cb) input channels:
-// the most any of its wgrads needs on either route. The wgmma wgrad's chunk
-// count is at most tiles_per_chunk's bound for 3 * cdiv(Cin, 64) input
-// slices (a dual block's split only adds slices, so fewer chunks).
+// the most any of its wgrads needs on any route. A wgmma wgrad's chunk count
+// is at most wgmma_chunks_most for its input slices of the single-input
+// layer (a dual block's split at Ca only adds slices, so fewer chunks).
 template <typename T>
 long long bwd_work(int B, int H, int W, int Cin, int C) {
+  constexpr bool F32 = std::is_same<T, float>::value;
   const int slots = wgrad_slots<T>();
   const int tiles = wgrad_tiles(B, H, W);
   long long most = std::max(wgrad_work(C, C, tiles, slots), wgrad_work(Cin, C, tiles, slots));
-  if constexpr (std::is_same<T, bf16>::value) {
-    const int wg_slots = wgrad_wgmma_slots();
-    const int wg_tiles = B * cdiv(H, wg::GT) * cdiv(W, wg::GT);
-    for (const int cin : {C, Cin}) {
-      const int slices = wg::wgrad_slices(cin, 0, C);
-      const long long chunks = std::min(wg_tiles, std::max(1, cdiv(4 * wg_slots, slices)));
-      most = std::max(most, chunks * (wg::wgrad_parts(C) * 9LL * cin * C + C));
-    }
-    const long long entry = wgrad_entry_chunks(static_cast<long long>(B) * H * W, wg_slots);
-    most = std::max(most, entry * (9LL * Cin * C + C));
+  const int wg_slots = bwd_wgmma_slots<T>();
+  const int wg_tiles = F32 ? wgt::wgrad_tiles(B, H, W) : B * cdiv(H, wg::GT) * cdiv(W, wg::GT);
+  for (const int cin : {C, Cin}) {
+    const int slices = F32 ? wgt::wgrad_slices(cin, 0, C) : wg::wgrad_slices(cin, 0, C);
+    const int parts = F32 ? wgt::wgrad_parts(C) : wg::wgrad_parts(C);
+    const long long chunks = wgmma_chunks_most(wg_tiles, slices, wg_slots);
+    most = std::max(most, chunks * (parts * 9LL * cin * C + C));
   }
-  return most;
+  const long long entry = wgrad_entry_chunks(static_cast<long long>(B) * H * W, wg_slots);
+  return std::max(most, entry * (9LL * Cin * C + C));
+}
+
+// Which body the wgrad of a layer on x = [xa | xb] with Cout outputs and
+// cotangent da takes (wgrad's rule): 1 its type's wgmma body, 2 wgrad_entry,
+// 0 wgrad_tc.
+inline int wgrad_route(const void* xa, const void* xb, int Ca, int Cb, const void* da,
+                       int Cout) {
+  return wgmma_takes(Ca, Cb, Cout, xa, xb, da, nullptr) ? 1 : entry_layer(Ca, Cb) ? 2 : 0;
 }
 
 }  // namespace
@@ -813,6 +848,14 @@ long long bwd_work(int B, int H, int W, int Cin, int C) {
 //
 // pda_masked_cotangent: the backward's first pass alone, da_3 of g, gp and
 // h3 into da (B, H, W, C): what a check holds against its plain version.
+//
+// pda_wgrad: one layer's wgrad alone, as the block's entries run it: dw (3,
+// 3, Ca + Cb, Cout) (HWIO) and db (Cout) of x = [xa | xb] ((B, H, W, Ca),
+// (B, H, W, Cb); xb null with Cb = 0) and the layer's output cotangent da
+// (B, H, W, Cout), float32; work: pda_wgrad_work floats. pda_wgrad_route:
+// the body it takes (wgrad_route); pda_wgrad_wgmma_floats: the floats of
+// work its partials take on the wgmma body (which pda_conv_block_bwd_work
+// must cover). What a check and a benchmark of the wgrad alone call.
 //
 // The entries of one operand type T, named with SUFFIX: the _bf16 entries take
 // x, w1..w3, f1, f2, h1..h3, g, gp, dx, da1, da2 as bf16; dW, db, b1, b2 and
@@ -846,4 +889,28 @@ long long bwd_work(int B, int H, int W, int Cin, int C) {
                                               int W, int C, void* stream) {            \
     return masked_cotangent_pass<T>(g, gp, h3, da, B, H, W, C,                         \
                                     static_cast<cudaStream_t>(stream));                \
+  }                                                                                    \
+  extern "C" long long pda_wgrad_work##SUFFIX(int B, int H, int W, int Cin, int Cout) { \
+    return bwd_work<T>(B, H, W, Cin, Cout);                                            \
+  }                                                                                    \
+  extern "C" int pda_wgrad_route##SUFFIX(const void* xa, const void* xb, int Ca, int Cb, \
+                                         const void* da, int Cout) {                   \
+    return wgrad_route(xa, xb, Ca, Cb, da, Cout);                                      \
+  }                                                                                    \
+  extern "C" long long pda_wgrad_wgmma_floats##SUFFIX(int Ca, int Cb, int Cout, int B,   \
+                                                      int H, int W) {                  \
+    int tpc, chunks, parts;                                                            \
+    wgmma_wgrad_plan<T>(Ca, Cb, Cout, B, H, W, bwd_wgmma_slots<T>(), &tpc, &chunks,    \
+                        &parts);                                                       \
+    return static_cast<long long>(parts) * 9 * (Ca + Cb) * Cout +                      \
+           static_cast<long long>(chunks) * Cout;                                      \
+  }                                                                                    \
+  extern "C" int pda_wgrad##SUFFIX(const void* xa, const void* xb, int Ca, int Cb,     \
+                                   const void* da, void* dw, void* db, void* work,     \
+                                   int B, int H, int W, int Cout, void* stream) {      \
+    return wgrad<T>(static_cast<const T*>(xa), static_cast<const T*>(xb), Ca, Cb,      \
+                    static_cast<const T*>(da), static_cast<float*>(dw),                \
+                    static_cast<float*>(db), static_cast<float*>(work), B, H, W, Cout, \
+                    wgrad_slots<T>(), bwd_wgmma_slots<T>(),                            \
+                    static_cast<cudaStream_t>(stream));                                \
   }

@@ -17,7 +17,8 @@
 // input, never concatenated), da the layer's masked output cotangent. In
 // NHWC both operands are [pixel][channel], channel contiguous: MN-major,
 // which wgmma reads for 16-bit types (its transpose bits; TF32 it reads
-// K-major only, so the float32 wgrad stays on wgrad_tc).
+// K-major only, so the float32 wgrad, wgrad_wgmma_tf32.cuh, transposes its
+// landed tiles in shared memory first).
 //
 // The GEMM: M = 64 output channels (A = da), N = 192 = the three kx taps of
 // one kernel row ky x 64 input channels (B = x shifted by (ky - 1, kx - 1)),

@@ -1,7 +1,8 @@
 """Time variants of the kernels against each other on one card.
 
-    python -m pda_torch.tools.bench_variants DIR [DIR ...] [--iters 5] [--only fwd|bwd|mc]
-        [--dtype float32|bf16] [--burst 1] [--shapes flagship|lung|all]
+    python -m pda_torch.tools.bench_variants DIR [DIR ...] [--iters 5]
+        [--only fwd|bwd|wgrad|mc] [--dtype float32|bf16] [--burst 1]
+        [--shapes flagship|lung|all]
 
 Each DIR is a copy of ``pda_torch/kernels/csrc`` with one change (a tile
 size, a flag); each builds into its own library (``_build.use_sources``).
@@ -15,7 +16,7 @@ short kernel's time holds no wait for the host's launch path), and checked
 against the
 plain version: max |kernel - plain| / max |plain|, and in float32 also
 against the plain version in float64 (ref64; for the backward the worst of
-its outputs, and dx's alone). ``--shapes lung`` runs the Lung suite's
+its outputs, and dx's and the dW's alone). ``--shapes lung`` runs the Lung suite's
 shapes instead (:data:`.workload.LUNG_K1` and the rest: batch 2 and the
 single frames), ``all`` both. The MC tail (K3, S = 16) runs
 the same way at the tiled, MT-teacher and pseudo shapes, held to its plain
@@ -24,6 +25,18 @@ pixels that differ from the plain version's farther than 1e-4 from a
 threshold counted (bf16: float64 sums at the bf16 rounding points, and 2^-6
 from a threshold, ``chip_smoke.py``'s bf16 K3 window). Prints one line per shape and variant, with TFLOP/s from
 the FLOPs the shape needs. Needs a CUDA card; TF32 off for cuDNN and matmul.
+
+``--only wgrad`` (float32) times one layer's weight gradient alone
+(``conv_block.wgrad_kernel``, the C entry ``pda_wgrad``: the body the
+layer's shape routes it to, and the chunks' sum) at every wgrad layer of
+the MT step (:data:`.workload.MT_WGRAD`, with its launches a step) and of
+the Lung suite (:data:`.workload.LUNG_WGRAD`), against its plain version
+and float64 (dW and db apart), beside the one PyTorch call that computes
+the same dW and db (``aten.convolution_backward`` with ``output_mask``
+``[False, True, True]``, cuDNN, TF32 off) and the bound (18 * Cin * Cout
+FLOPs a pixel at 165 TFLOP/s, 3xTF32, against the bytes at 3.35 TB/s).
+A variant of the sources without ``pda_wgrad`` (an older parent's) takes
+the entry appended to its ``conv_block_bwd.cu``.
 
 ``--dtype bf16`` runs the bf16 instances (pda's bf16 configuration) on bf16
 activations, the weights float32 as the wrappers take them. The forward is
@@ -119,8 +132,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("dirs", nargs="+", type=Path)
     ap.add_argument("--iters", type=int, default=5)
-    ap.add_argument("--only", choices=("fwd", "bwd", "mc"),
-                    help="time only the forward, the backward or the MC tail")
+    ap.add_argument("--only", choices=("fwd", "bwd", "wgrad", "mc"),
+                    help="time only the forward, the backward, one wgrad layer or the MC tail")
     ap.add_argument("--dtype", choices=("float32", "bf16"), default="float32",
                     help="the kernels' instance: float32 (3xTF32) or bf16")
     ap.add_argument("--burst", type=int, default=1,
@@ -201,7 +214,9 @@ def main(argv=None) -> int:
             if ref64 is not None:
                 dx = rel_err([torch.cat(outs[:2], -1) if cb else outs[0]],
                              [torch.cat(ref64[:2], -1) if cb else ref64[0]]) if need_dx else 0.0
-                check = f" ref64 {rel_err(outs, ref64):.2e} (dx {dx:.2e})"
+                nd = 2 if cb else 1  # dx (dxa, dxb), then dW, db of each layer
+                dw = rel_err(outs[nd::2], ref64[nd::2])
+                check = f" ref64 {rel_err(outs, ref64):.2e} (dx {dx:.2e}, dW {dw:.2e})"
             del out, outs
             if dtype == torch.bfloat16:
                 workspaces = (torch.empty_like(hs[0]), torch.empty_like(hs[0]))
@@ -212,6 +227,36 @@ def main(argv=None) -> int:
             print(f"bwd {ca}{'+' + str(cb) if cb else ''}->{c} @{b}x{h}x{w} {d.name}: "
                   f"ms {ms:.3f} rel_err {err:.2e}{check}", flush=True)
         del x, ws_, hs, g, args_, ref, ref64
+    wgrad_shapes = ({**(wl.MT_WGRAD if args.shapes != "lung" else {}),
+                     **(wl.LUNG_WGRAD if args.shapes != "flagship" else {})}
+                    if args.only in (None, "wgrad") and dtype == torch.float32 else {})
+    for (b, h, w, ca, cb, c), calls in wgrad_shapes.items():
+        x = torch.relu(torch.randn(b, h, w, ca + cb, generator=gen)).to(dev)
+        xa, xb = (x[..., :ca].contiguous(), x[..., ca:].contiguous()) if cb else (x, None)
+        da = (torch.randn(b, h, w, c, generator=gen)
+              * (torch.rand(b, h, w, c, generator=gen) > 0.5)).to(dev)
+        ref = kc.wgrad_plain(xa, da, xb)
+        ref64 = kc.wgrad_plain(x.double(), da.double())
+        flops = wl.wgrad_flops(b, h, w, ca + cb, c)
+        bound, term = wl.bound_ms(flops, wl.wgrad_bytes(b, h, w, ca + cb, c), 495e12 / 3)
+        xl, dal = x.permute(0, 3, 1, 2), da.permute(0, 3, 1, 2)  # channels_last views
+        wt = torch.empty(c, ca + cb, 3, 3, device=dev).to(memory_format=torch.channels_last)
+        library_ms = timed(lambda: torch.ops.aten.convolution_backward(
+            dal, xl, wt, [c], [1, 1], [1, 1], [1, 1], False, [0, 0], 1, [False, True, True]))
+        label = f"wgrad {ca}{'+' + str(cb) if cb else ''}->{c} @{b}x{h}x{w}"
+        print(f"{label}: {calls} a step; library_ms {library_ms:.3f} "
+              f"({flops / library_ms / 1e9:.1f} TFLOP/s) bound_ms {bound:.3f} ({term})", flush=True)
+        for d in order:
+            _build.use_sources(d)
+            route = kc.wgrad_route(xa, da, xb)
+            out = kc.wgrad_kernel(xa, da, xb)
+            err = rel_err(out, ref)
+            dw64, db64 = rel_err(out[:1], ref64[:1]), rel_err(out[1:], ref64[1:])
+            del out
+            ms = timed(lambda: kc.wgrad_kernel(xa, da, xb))
+            print(f"{label} {d.name}: route {route} ms {ms:.3f} ({flops / ms / 1e9:.1f} TFLOP/s) "
+                  f"rel_err {err:.2e} ref64 dW {dw64:.2e} db {db64:.2e}", flush=True)
+        del x, xa, xb, da, ref, ref64, xl, dal, wt
     for name, (b, h, w, c), masking in wl.K3_SHAPES if args.only in (None, "mc") else ():
         feat, *rest = wl.mc_inputs(gen, b, h, w, c, dev=dev)
         args_ = (feat.to(dtype), *rest)

@@ -67,8 +67,9 @@ LABELS = (
     (r"conv3x3_entry<", "forward entry layer, FMA (conv3x3_entry)"),
     (r"conv3x3_tc<[^>]*false>", "dgrad (conv3x3_tc)"),
     (r"wgrad_tc<", "wgrad (wgrad_tc)"),
+    (r"wgrad_wgmma_tf32<", "wgrad, 3xTF32 wgmma (wgrad_wgmma_tf32)"),
     (r"wgrad_wgmma<", "wgrad, bf16 wgmma (wgrad_wgmma)"),
-    (r"wgrad_entry<", "wgrad entry layer, bf16 FMA (wgrad_entry)"),
+    (r"wgrad_entry<", "wgrad entry layer, FMA (wgrad_entry)"),
     (r"sum_chunks", "wgrad chunk reduce (sum_chunks)"),
     (r"masked_cotangent", "da3 mask and pooled cotangent (masked_cotangent)"),
     (r"mc_consensus_(tc|wgmma)<", "MC tail, tensor cores (mc_consensus_tc)"),
@@ -214,7 +215,8 @@ def profiled(run, n: int, flops: collections.Counter, what: str) -> None:
              "forward layer, 3xTF32 wgmma (conv3x3_wgmma_tf32)": "forward",
              "dgrad, 3xTF32 wgmma (conv3x3_wgmma_tf32 DgradEpi)": "dgrad",
              "forward entry layer, FMA (conv3x3_entry)": "forward",
-             "wgrad entry layer, bf16 FMA (wgrad_entry)": "wgrad",
+             "wgrad entry layer, FMA (wgrad_entry)": "wgrad",
+             "wgrad, 3xTF32 wgmma (wgrad_wgmma_tf32)": "wgrad",
              "dgrad (conv3x3_tc)": "dgrad", "wgrad (wgrad_tc)": "wgrad",
              "dgrad, bf16 wgmma (conv3x3_wgmma DgradEpi)": "dgrad",
              "wgrad, bf16 wgmma (wgrad_wgmma)": "wgrad",

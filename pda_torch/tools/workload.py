@@ -76,6 +76,37 @@ LUNG_BWD_DUAL = [(2, 64, 64, 512, 256, 256), (2, 128, 128, 256, 128, 128),
                  (2, 256, 256, 128, 64, 64)]
 
 
+
+def wgrad_layers(blocks, duals) -> dict:
+    """{(B, H, W, Ca, Cb, C): launches} of the wgrad layers of the
+    single-input blocks ``blocks`` (((B, H, W, Cin, C), calls) pairs) and of
+    the dual blocks ``duals`` ((B, H, W, Ca, Cb, C), once each): a block's
+    first layer on its input, its layers 2 and 3 on C channels."""
+    out = {}
+    for (b, h, w, ca, cb, c), calls in ([((*s[:4], 0, s[4]), n) for s, n in blocks]
+                                        + [(s, 1) for s in duals]):
+        for shape, n in (((b, h, w, ca, cb, c), calls), ((b, h, w, c, 0, c), 2 * calls)):
+            out[shape] = out.get(shape, 0) + n
+    return out
+
+
+# ... of one MT step (45 launches), and of the Lung suite's backward shapes
+# at batch 2 (LUNG_BWD, LUNG_BWD_DUAL: each block once)
+MT_WGRAD = wgrad_layers([(s, n) for s, _, n, _ in BWD_SHAPES], BWD_DUAL_SHAPES)
+LUNG_WGRAD = wgrad_layers([(s[:5], 1) for s in LUNG_BWD], LUNG_BWD_DUAL)
+
+
+def wgrad_flops(b, h, w, cin, c):
+    """FLOPs of one layer's wgrad: 18 * Cin * Cout a pixel."""
+    return 18 * b * h * w * cin * c
+
+
+def wgrad_bytes(b, h, w, cin, c):
+    """Bytes one float32 wgrad layer must move: its input and the cotangent
+    read, dW and db written."""
+    return 4 * (b * h * w * (cin + c) + 9 * cin * c + c)
+
+
 # (name, (B, H, W, C), masking): the MC tail (K3, S = 16, n_mid 1) of a tiled
 # forward, of the MT teacher (batch 2 of 512^2) and of a pseudo forward
 K3_SHAPES = [("tiled", (4, 512, 512, 64), False), ("mt", (2, 512, 512, 64), True),

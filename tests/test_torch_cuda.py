@@ -877,6 +877,103 @@ def test_f32_dgrad_layers_on_the_wgmma_body(dev, b, h, w, ca, cb, c, need_dx, wg
                                                               before[1] + int(wgmma))
 
 
+def _f32_wgrad_inputs(gen, b, h, w, ca, cb, c, dev):
+    """(xa, xb or None, da) of one wgrad layer: post-ReLU inputs and a
+    cotangent masked to about half its pixels, as the backward's are."""
+    xa = torch.relu(torch.randn(b, h, w, ca, generator=gen)).to(dev)
+    xb = torch.relu(torch.randn(b, h, w, cb, generator=gen)).to(dev) if cb else None
+    da = torch.randn(b, h, w, c, generator=gen) * (torch.rand(b, h, w, c, generator=gen) > 0.5)
+    return xa, xb, da.to(dev)
+
+
+def _f32_wgrad_checks(xa, xb, da, route):
+    """One layer's float32 wgrad (``wgrad_kernel``) on ``route``: dW and db
+    within 1e-4 of the plain version's largest value and within 1e-5 of the
+    float64 one's, twice bit-equal."""
+    assert kconv.wgrad_route(xa, da, xb) == route
+    out, again = kconv.wgrad_kernel(xa, da, xb), kconv.wgrad_kernel(xa, da, xb)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, r) for a, r in zip(out, again))
+    refs = kconv.wgrad_plain(xa, da, xb)
+    refs64 = kconv.wgrad_plain(xa.double(), da.double(), None if xb is None else xb.double())
+    _f32_layer_checks(out, refs, refs64)
+
+
+@pytest.mark.parametrize("b,h,w,ca,cb,c,route", [
+    # the flagship's wgrad shapes, cut in size, at the 3xTF32 wgmma body's
+    # edges (4 x 8-pixel tiles, 32-channel input slices, 128 output channels
+    # a block or 64 with the two consumers on alternate tiles)
+    (1, 17, 23, 16, 0, 32, "wgmma"),   # H = 4 x 4 + 1, W = 2 x 8 + 7: ragged tiles
+    (1, 16, 16, 64, 0, 72, "wgmma"),   # C = 64 + 8: a block of 128 output channels, 72 real
+    (2, 17, 23, 72, 0, 64, "wgmma"),   # Cin = 2 x 32 + 8: a ragged input slice
+    (1, 33, 45, 48, 0, 136, "wgmma"), (2, 20, 24, 256, 0, 512, "wgmma"),
+    (2, 8, 8, 512, 0, 512, "wgmma"),   # fewer tiles than chunks would fill
+    # dual inputs: the slices split at Ca, on and off a 32-channel boundary
+    (1, 17, 23, 40, 24, 64, "wgmma"), (2, 21, 30, 512, 256, 256, "wgmma"),
+    (1, 19, 17, 128, 64, 64, "wgmma"),
+    # the entry layers on the FMA pipes
+    (2, 33, 45, 1, 0, 64, "entry"), (1, 33, 45, 2, 0, 64, "entry"),
+    # channel counts off 8: the mma.sync body
+    (2, 8, 16, 33, 0, 48, "tc"), (1, 9, 11, 20, 12, 40, "tc"), (1, 9, 9, 6, 0, 10, "tc"),
+])
+def test_f32_wgrad_layers_on_the_wgmma_body(dev, b, h, w, ca, cb, c, route):
+    """One float32 wgrad layer on the body its shape routes it to
+    (``wgrad_route``), held against the plain version in float32 and
+    float64 (:func:`_f32_wgrad_checks`)."""
+    gen = torch.Generator().manual_seed(ca * 100 + cb + c + 7)
+    _f32_wgrad_checks(*_f32_wgrad_inputs(gen, b, h, w, ca, cb, c, dev), route)
+
+
+def test_f32_wgrad_workspace_covers_every_mt_layer(dev):
+    """The partials of the wgmma wgrad (its chunk count is the card's)
+    fit the work buffer the backward allocates, at every wgrad layer of the
+    MT step; the layer with the most chunks then runs, held as above (an
+    undersized buffer would be written past its end without an error)."""
+    import ctypes
+
+    from pda_torch.kernels import _build
+    from pda_torch.tools import workload as wl
+
+    blocks = ([(*s[:3], s[3], 0, s[4]) for s, *_ in wl.BWD_SHAPES] + list(wl.BWD_DUAL_SHAPES))
+    floats = _build.entry("pda_wgrad_wgmma_floats", (ctypes.c_int,) * 6, ctypes.c_longlong)
+    work = _build.entry("pda_conv_block_bwd_work", (ctypes.c_int,) * 5, ctypes.c_longlong)
+    most = (0, None)
+    for b, h, w, ca, cb, c in blocks:
+        for la, lb in ((ca, cb), (c, 0)):  # the first layer; layers 2 and 3
+            if cb == 0 and la < 3:
+                continue  # an entry layer: wgrad_entry
+            need = floats(la, lb, c, b, h, w)
+            assert need <= work(b, h, w, ca + cb, c), (b, h, w, la, lb, c)
+            # ~ the partial dW it writes: chunks, twice that with the split consumers
+            most = max(most, (need / (9 * (la + lb) * c), (b, h, w, la, lb, c)))
+    b, h, w, la, lb, c = most[1]
+    gen = torch.Generator().manual_seed(23)
+    _f32_wgrad_checks(*_f32_wgrad_inputs(gen, b, h, w, la, lb, c, dev), "wgmma")
+
+
+def test_f32_backward_on_an_unaligned_input_takes_the_mma_sync_wgrad(dev):
+    """A float32 input 4 bytes off a 16-byte boundary cannot be a tensor
+    map's: its wgrad runs on the mma.sync body (and its dx on the mma.sync
+    dgrad), the launch counted off the wgmma route; every output holds as on
+    an aligned input."""
+    gen = torch.Generator().manual_seed(10)
+    b, h, w, cin, c = 1, 19, 23, 64, 72
+    flat = torch.randn(b * h * w * cin + 1, generator=gen).to(dev)
+    x = flat[1:].view(b, h, w, cin)
+    assert x.data_ptr() % 16 != 0
+    ws = _weights(gen, cin, c, dev)
+    h1, h2, h3 = kconv._launch(x, None, *ws)
+    g = torch.randn(b, h, w, c, generator=gen).to(dev)
+    da = kconv.masked_cotangent_plain(g, None, h3)
+    _f32_wgrad_checks(x, None, da, "tc")
+    before = (kconv.conv_block_bwd.launches, kconv.conv_block_bwd.launches_wgmma_f32)
+    out = kconv.conv_block_bwd(g, x, h1, h2, h3, *ws[::2])
+    torch.cuda.synchronize()
+    assert (kconv.conv_block_bwd.launches,
+            kconv.conv_block_bwd.launches_wgmma_f32) == (before[0] + 1, before[1])
+    _assert_all_rel(out, kconv.conv_block_bwd_plain(g, x, h1, h2, h3, *ws[::2]))
+
+
 @pytest.mark.parametrize("b,h,w,ca,cb,c", [(2, 32, 36, 64, 0, 128), (1, 34, 30, 16, 0, 72),
                                            (1, 33, 45, 128, 64, 64)])
 def test_f32_recompute_on_the_wgmma_body(dev, b, h, w, ca, cb, c):

@@ -14,12 +14,21 @@ pixels), the dgrad's (K = 9 * 512) and the forward's (K = 9 * 768 at the
 - the 3-term split with short chains stays within 1e-5 of the largest value;
 - one TF32 product (1xTF32) does not, and neither does one long chain.
 
+The float32 wgmma wgrad (``csrc/wgrad_wgmma_tf32.cuh``) runs the two small
+products in a chain of their own beside hi*hi's, each chain CHAIN_TILES
+tiles of 4 k-steps long (read from its source): held the same way at the MT
+length, and against the mma.sync wgrad's chains of 8 k-steps (it may drift
+no more).
+
 The MC-consensus kernel's mid layer (K = C = 64 or 32, one chain of C / 8
 k-steps) is held closer: within 1e-6 of the largest value, so that a logit
 moves by far less than the 1e-4 window around the consensus thresholds in
 which the kernel and its plain version may disagree; 1xTF32 moves logits by
 more than that window.
 """
+
+import re
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -80,25 +89,33 @@ def _rz32(x: np.ndarray) -> np.ndarray:
     return r
 
 
-def _tc_matmul(a: np.ndarray, b: np.ndarray, terms: str, chain: int) -> np.ndarray:
+def _tc_matmul(a: np.ndarray, b: np.ndarray, terms: str, chain: int,
+               apart: bool = False) -> np.ndarray:
     """a @ b (float32, K a multiple of 8) as the kernels form it: per 8-deep
     k-step the TF32 products of ``terms`` ("3x": lo*hi + hi*lo + hi*hi, in
     that order; "1x": hi*hi), each mma adding its 8 exact products into the
     chain with round-toward-zero; every ``chain`` k-steps (0: never) the chain
-    is added into a float32 sum with round-to-nearest and restarts at 0."""
+    is added into a float32 sum with round-to-nearest and restarts at 0.
+    ``apart``: the wgmma bodies' order, the two small products (lo*hi,
+    hi*lo) in a chain of their own beside hi*hi's, both added into the sum
+    (their sum first) at a chain's end."""
     (a_hi, a_lo), (b_hi, b_lo) = (tuple(t.numpy().astype(np.float64)
                                         for t in split_tf32x3(torch.from_numpy(m)))
                                   for m in (a, b))
     pairs = [(a_lo, b_hi), (a_hi, b_lo), (a_hi, b_hi)] if terms == "3x" else [(a_hi, b_hi)]
     acc = np.zeros((a.shape[0], b.shape[1]), np.float32)
-    run = np.zeros_like(acc)
+    run, small = np.zeros_like(acc), np.zeros_like(acc)
     for step in range(a.shape[1] // 8):
         k = slice(8 * step, 8 * step + 8)
-        for pa, pb in pairs:
-            run = _rz32(run.astype(np.float64) + pa[:, k] @ pb[k])
+        for i, (pa, pb) in enumerate(pairs):
+            if apart and i < len(pairs) - 1:
+                small = _rz32(small.astype(np.float64) + pa[:, k] @ pb[k])
+            else:
+                run = _rz32(run.astype(np.float64) + pa[:, k] @ pb[k])
         if chain and (step + 1) % chain == 0:
-            acc, run = acc + run, np.zeros_like(run)
-    return acc + run
+            acc = acc + (run + small)
+            run, small = np.zeros_like(run), np.zeros_like(small)
+    return acc + (run + small)
 
 
 @pytest.mark.parametrize("what,k,terms,chain,within", [
@@ -129,6 +146,48 @@ def test_tc_product_against_float64(what, k, terms, chain, within):
     ref = a.astype(np.float64) @ b.astype(np.float64)
     err = np.abs(_tc_matmul(a, b, terms, chain) - ref).max() / np.abs(ref).max()
     assert (err <= 1e-5) == within, err
+
+
+def _wgmma_wgrad_chain() -> int:
+    """The float32 wgmma wgrad's chain length in k8 steps, read from its
+    source: CHAIN_TILES tiles of 4 k8 steps (32 pixels) each."""
+    src = Path(__file__).resolve().parents[1] / "pda_torch/kernels/csrc/wgrad_wgmma_tf32.cuh"
+    return 4 * int(re.search(r"constexpr int CHAIN_TILES = (\d+);", src.read_text()).group(1))
+
+
+def _wgrad_operands(k: int, seed: int):
+    """The wgrad's reduction at K = ``k`` pixels: post-ReLU activations times a
+    masked cotangent (as test_tc_product_against_float64's "wgrad")."""
+    rng = np.random.default_rng(seed)
+    a = np.maximum(rng.normal(size=(16, k)), 0.0).astype(np.float32)
+    b = (rng.normal(size=(k, 8)) * (rng.random((k, 8)) > 0.5)).astype(np.float32)
+    return a, b, a.astype(np.float64) @ b.astype(np.float64)
+
+
+@pytest.mark.parametrize("terms,chain,within", [
+    ("3x", None, True),   # the body: the small products apart, chains of CHAIN_TILES tiles
+    ("1x", None, False),  # one TF32 product
+    ("3x", 0, False),     # one long chain of each
+])
+def test_wgmma_wgrad_chains_against_float64(terms, chain, within):
+    """The float32 wgmma wgrad's order (csrc/wgrad_wgmma_tf32.cuh) over the MT
+    step's reduction length (K = 65,536 pixels): within 1e-5 of the largest
+    value of the float64 product; 1xTF32 and one long chain are not."""
+    a, b, ref = _wgrad_operands(65_536, 65_536)
+    chain = _wgmma_wgrad_chain() if chain is None else chain
+    err = np.abs(_tc_matmul(a, b, terms, chain, apart=True) - ref).max() / np.abs(ref).max()
+    assert (err <= 1e-5) == within, err
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_wgmma_wgrad_chains_drift_no_more_than_wgrad_tc(seed):
+    """At its chain length the wgmma wgrad's order drifts from float64 no
+    more than the mma.sync wgrad's (wgrad_tc: the three products in one
+    chain of 8 k-steps), which chose its length the same way (PERF.md §6)."""
+    a, b, ref = _wgrad_operands(65_536, seed)
+    new = np.abs(_tc_matmul(a, b, "3x", _wgmma_wgrad_chain(), apart=True) - ref).max()
+    old = np.abs(_tc_matmul(a, b, "3x", 8) - ref).max()
+    assert new <= old, (new, old)
 
 
 @pytest.mark.parametrize("c", [32, 64])
