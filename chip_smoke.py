@@ -21,7 +21,10 @@ Phases, each of which fails the run (exit code 1) on any error or miss
                 requires the 3xTF32 wgmma bodies (launches_wgmma_f32: the
                 layer body, and the backward's wgrad) and prints its drift
                 against float64 beside the mma.sync bodies' (the backward's
-                dW apart, beside wgrad_tc's);
+                dW apart, beside wgrad_tc's); every float32 K3 check, and
+                every float32 K3 launch of every main path (counted at the
+                end), requires its 3xTF32 wgmma body (mc_consensus's
+                launches_wgmma_f32, JSON entry mc_consensus_wgmma_f32);
                 the float32 weight copy (tf32_planes) bit-equal to its plain
                 version
   4. serving  — the flagship PUNet (num_filters 64..512, latent 6,
@@ -312,10 +315,15 @@ ROUTE_ENTRIES = {**FWD_MODE_ENTRIES, **BWD_ROUTE_ENTRIES, **MC_ROUTE_ENTRIES}
 # pipes); on the flagship's, MitoEM's and Lung's shapes every float32
 # ConvBlock launch. Every float32 ConvBlock check requires it.
 F32_ROUTE_ENTRIES = {**FWD_MODE_ENTRIES, **BWD_ROUTE_ENTRIES}
+# ... and with the float32 MC tail's (csrc/mc_consensus.cu
+# mc_consensus_wgmma_tf32, counted in mc_consensus.launches_wgmma_f32): every
+# float32 launch of mc_consensus, on every path; every K3 check requires it
+F32_ALL_ROUTES = {**F32_ROUTE_ENTRIES, "mc_consensus_wgmma_f32": ("mc_consensus", "wgmma")}
 F32_ROUTE_SOURCES = {"conv_block_fwd": "pda_torch/kernels/csrc/conv3x3_wgmma_tf32.cuh",
                      "conv_block_fwd_dual": "pda_torch/kernels/csrc/conv3x3_wgmma_tf32.cuh",
                      "conv_block_bwd": "pda_torch/kernels/csrc/wgrad_wgmma_tf32.cuh",
-                     "conv_block_bwd_dual": "pda_torch/kernels/csrc/wgrad_wgmma_tf32.cuh"}
+                     "conv_block_bwd_dual": "pda_torch/kernels/csrc/wgrad_wgmma_tf32.cuh",
+                     "mc_consensus": "pda_torch/kernels/csrc/mc_consensus.cu"}
 # the mma.sync bodies' drift against float64 (conv3x3_tc.cuh, wgrad_tc; PERF.md
 # §6), to print beside the 3xTF32 wgmma bodies': the forward at the serving
 # shapes, the backward at the MT step's, and its dW alone (wgrad_tc's, with
@@ -799,18 +807,22 @@ def plain_mc(fn, args, *rest):
     return tuple(torch.cat(p) for p in zip(*parts))
 
 
-def check_mc(entry, label, args, masking, binding, weight, timed=True):
+def check_mc(entry, label, args, masking, binding, weight, timed=True, also=None):
     """K3 against its plain version: the MC mean within K3_MEAN_TOL of the
     plain version's and of the plain version's in float64, the consensus
     only where a logit lies within K3_WINDOW of a threshold, two launches
-    bit-equal; then, if ``timed``, times, TFLOP/s and the bound."""
+    bit-equal and on the 3xTF32 wgmma body (launches_wgmma_f32); then, if
+    ``timed``, times, TFLOP/s and the bound, also added to ``also`` (the
+    route's entry)."""
     import torch
 
     from pda_torch.kernels import mc_consensus as km
     from pda_torch.tools.workload import cuda_ms, mc_bytes, mc_flops
 
+    before = (km.mc_consensus.launches, km.mc_consensus.launches_wgmma_f32)
     mean, cons = km.mc_consensus(*args, masking=masking)
     again = km.mc_consensus(*args, masking=masking)
+    route = f32_route(km.mc_consensus, before)
     ref_mean, ref_cons = plain_mc(km.mc_consensus_plain, args, masking)
     ref64 = plain_mc(km.mc_consensus_plain, [a.double() for a in args], masking)[0]
     near = plain_mc(lambda *a: ((km.mc_logits_plain(*a).abs() - math.log(9.0)).abs()
@@ -822,27 +834,33 @@ def check_mc(entry, label, args, masking, binding, weight, timed=True):
     stray = int(((cons != ref_cons) & ~near).sum())
     same = torch.equal(mean, again[0]) and torch.equal(cons, again[1])
     good = (bool(torch.isfinite(mean).all()) and err <= K3_MEAN_TOL and err64 <= K3_MEAN_TOL
-            and stray == 0 and same)
+            and stray == 0 and same and route)
     del mean, cons, again, ref_mean, ref_cons, ref64, near
     CHECKED.add(shape_key("mc_consensus", args, masking=masking))
-    entry["max_abs_err"] = max(entry["max_abs_err"], err)
+    for e in filter(None, (entry, also)):
+        e["max_abs_err"] = max(e["max_abs_err"], err)
     b, h, w, c = args[0].shape
     s, n_mid = args[1].shape[0], args[2].shape[0]
     verdict = (f"kernel mc_consensus {label} S={s} n_mid={n_mid} feat {b}x{h}x{w}x{c} "
                f"masking={masking}: mean max_abs_err {err:.3e}, vs ref64 {err64:.3e} (tol "
                f"{K3_MEAN_TOL:.0e}), consensus differs at {flips} px, {stray} of them farther "
-               f"than {K3_WINDOW:.0e} from a threshold, repeat bit-equal {same}")
+               f"than {K3_WINDOW:.0e} from a threshold, repeat bit-equal {same}, on the 3xTF32 "
+               f"wgmma body {route}")
     if not timed:
         log(f"{verdict} {'ok' if good else 'FAIL'}")
         return good
     ms = cuda_ms(lambda: km.mc_consensus(*args, masking=masking))
     plain_ms = cuda_ms(lambda: plain_mc(km.mc_consensus_plain, args, masking), iters=3)
     flops = mc_flops(b, h, w, c, s, n_mid)
-    bound, term = add_bound(entry, binding, flops, mc_bytes(b, h, w, c, s, n_mid), weight)
+    nbytes = mc_bytes(b, h, w, c, s, n_mid)
+    bound, term = add_bound(entry, binding, flops, nbytes, weight)
+    if also is not None:
+        add_bound(also, binding, flops, nbytes, weight)
     log(f"{verdict}; ms {ms:.3f} ({flops / ms / 1e9:.1f} TFLOP/s) plain_ms {plain_ms:.3f} "
         f"bound_ms {bound:.3f} ({term}) {'ok' if good else 'FAIL'}")
-    entry["ms"] += weight * ms
-    entry["plain_ms"] += weight * plain_ms
+    for e in filter(None, (entry, also)):
+        e["ms"] += weight * ms
+        e["plain_ms"] += weight * plain_ms
     return good
 
 
@@ -1008,7 +1026,7 @@ def phase_kernels(dev, results, binding):
     # are the tiled forward's call (weight 0: checked and logged only)
     for name, (b, h, w, c), masking in wl.K3_SHAPES:
         ok &= check_mc(k3, name, wl.mc_inputs(gen, b, h, w, c, dev=dev), masking, binding,
-                       int(name == "tiled"))
+                       int(name == "tiled"), also=results["mc_consensus_wgmma_f32"])
     torch.cuda.synchronize()
     return ok
 
@@ -1051,14 +1069,13 @@ def phase_serving(dev, results):
         out = run()
         torch.cuda.synchronize()
         counts = {k: w.launches for k, w in wrappers.items()}
-        # every ConvBlock launch on the 3xTF32 wgmma bodies
-        routes = {n: wrappers[k].launches_wgmma_f32 for n, (k, _) in F32_ROUTE_ENTRIES.items()
-                  if k in wrappers}
+        # every ConvBlock and MC tail launch on the 3xTF32 wgmma bodies
+        routes = route_launches(wrappers, bf16=False)
         for k, n in {**counts, **routes}.items():
             results[k]["launches"] += n
         probs = out if name == "tiled_punet_probs" else out[0]
         good = (counts == expect and tuple(probs.shape) == (*FRAME, 1)
-                and all(routes[n] == counts[F32_ROUTE_ENTRIES[n][0]] for n in routes)
+                and all(routes[n] == counts[F32_ALL_ROUTES[n][0]] for n in routes)
                 and bool(torch.isfinite(probs).all())
                 and float(probs.min()) >= 0.0 and float(probs.max()) <= 1.0)
         if name == "full_punet_pseudo":
@@ -3025,20 +3042,21 @@ def mode_launches(wrappers, bf16=False):
 def route_launches(wrappers, bf16=True):
     """The bf16 forwards' and backwards' launches on the wgmma bodies since
     :func:`reset_launches`, by JSON entry (ROUTE_ENTRIES); without ``bf16``
-    the float32 ConvBlocks' on the 3xTF32 wgmma bodies (F32_ROUTE_ENTRIES)."""
+    the float32 ConvBlocks' and MC tail's on the 3xTF32 wgmma bodies
+    (F32_ALL_ROUTES; of the wrappers given)."""
     if not bf16:
         return {name: getattr(wrappers[kernel], f"launches_{mode}_f32")
-                for name, (kernel, mode) in F32_ROUTE_ENTRIES.items()}
+                for name, (kernel, mode) in F32_ALL_ROUTES.items() if kernel in wrappers}
     return {name: getattr(wrappers[kernel], f"launches_{mode}_bf16")
             for name, (kernel, mode) in ROUTE_ENTRIES.items()}
 
 
 def all_on_f32_route(wrappers):
-    """(ok, counts): every float32 ConvBlock launch since
+    """(ok, counts): every float32 ConvBlock and MC tail launch since
     :func:`reset_launches` ran on the 3xTF32 wgmma bodies, and one did."""
     routes = route_launches(wrappers, bf16=False)
-    ok = all(routes[name] == wrappers[kernel].launches
-             for name, (kernel, _) in F32_ROUTE_ENTRIES.items()) and any(routes.values())
+    ok = all(routes[name] == wrappers[F32_ALL_ROUTES[name][0]].launches
+             for name in routes) and any(routes.values())
     return ok, routes
 
 
@@ -4731,7 +4749,7 @@ def main(argv=None) -> int:
                     "pda/kernels/conv_block_bwd.py:610"),
                    ("conv_block_bwd_dual_recompute", "pda_torch/kernels/csrc/conv_block_bwd.cu",
                     "pda/kernels/conv_block_bwd.py:610"))}
-    for name, (kernel, _) in F32_ROUTE_ENTRIES.items():
+    for name, (kernel, _) in F32_ALL_ROUTES.items():
         results[name] = dict(results[kernel], name=name, source=F32_ROUTE_SOURCES[kernel])
     binding = {}  # (kernel, "operations" or "bytes") -> ms of bound that term sets
     ok = True
@@ -4781,6 +4799,13 @@ def main(argv=None) -> int:
     if len(phases) < len(PHASES):
         log(f"chip_smoke: phases {','.join(phases)} passed (a partial run: no result lines)")
         return 0
+    # every float32 K3 launch of every main path on the 3xTF32 wgmma body
+    mc, mc_route = (results[n]["launches"] for n in ("mc_consensus", "mc_consensus_wgmma_f32"))
+    log(f"mc_consensus float32 launches of the main paths: {mc}, on the 3xTF32 wgmma body "
+        f"{mc_route} {'ok' if mc == mc_route > 0 else 'FAIL'}")
+    if not mc == mc_route > 0:
+        log("chip_smoke: FAILED")
+        return 1
     for entry in results.values():
         entry["bound_by"] = max(("operations", "bytes"),
                                 key=lambda t: binding.get((entry["name"], t), 0.0))
@@ -4811,7 +4836,9 @@ def main(argv=None) -> int:
         "(csrc/conv3x3_wgmma_tf32.cuh), or whose dgrads (and the recompute's layers) did and "
         "whose wgrads but an entry layer's (wgrad_entry, the FMA pipes) ran on the 3xTF32 "
         "wgmma wgrad (csrc/wgrad_wgmma_tf32.cuh), with their kernel's times (every float32 "
-        "ConvBlock launch of the main paths); launches: the main "
+        "ConvBlock launch of the main paths); mc_consensus_wgmma_f32: the float32 "
+        "mc_consensus launches on its 3xTF32 wgmma body (csrc/mc_consensus.cu "
+        "mc_consensus_wgmma_tf32: all of them), with the kernel's times; launches: the main "
         "paths' runs, each counted from 0: both serving entries, the checked MT step, the "
         "checked PDA_PALLAS_CONV_MODE=mixed step (the recompute entries' float32 count), the "
         "bf16 phase's timed MT steps (default and mixed) and tiled serving, the parallel "

@@ -1,6 +1,7 @@
-// Fused Monte-Carlo Fcomb tail + consensus for Hopper (sm_90a), float32
-// accurate, the mid layers on the tensor cores in 3xTF32; and the bf16 tail
-// for pda's bf16 configuration on wgmma (mc_consensus_wgmma, at the end).
+// Fused Monte-Carlo Fcomb tail + consensus for Hopper (sm_90a) on the
+// asynchronous tensor-core path (wgmma): the float32 tail, its mid layers in
+// 3xTF32 (mc_consensus_wgmma_tf32, below the bf16 body), and the bf16 tail
+// for pda's bf16 configuration (mc_consensus_wgmma).
 //
 // Replaces the Pallas TPU kernel pda/kernels/mc_consensus.py
 // mc_consensus_decode (:136, body _kernel :49). Per pixel and sample s:
@@ -10,51 +11,7 @@
 // and over the S samples: mean of sigmoid(logit), and the fraction of logits
 // in the confident band (>= logit_hi or <= logit_lo), or, with masking, 1
 // where all S samples are confident and 0 elsewhere. Outputs are (B, H*W).
-//
-// What bounds it: 2 * C * C FLOPs a pixel, sample and mid layer against
-// 4 * (C + 2) bytes a pixel (the plain version instead writes and reads an
-// S x B x H x W x C hidden stack a layer: 4.3 GB a mid layer at S = 16, four
-// 512^2 tiles, C = 64). Operations bind: 0.87 ms at S = 16, 4 x 512^2 x 64
-// at 165 TFLOP/s (3xTF32), 2.15 ms on the FMA pipes (67 TFLOP/s), so only
-// the tensor cores can bring it near its bound. One TF32 product (~1e-3
-// relative) would move logits by more than the 1e-4 window the consensus
-// tolerates, so each product is 3xTF32 (tf32x3.cuh).
-//
-// Design: one small GEMM a sample, M = pixels, N = K = C. A warp owns 16
-// pixels and all C output channels; its feature rows are loaded once into
-// registers and kept there for all S samples. Channel block j (channels
-// 8j .. 8j + 7) of the warp's 16 rows sits in a lane (grp, quad) as
-//   v[0] = (row grp, ch 8j + 2 quad)      v[1] = (row grp, ch 8j + 2 quad + 1)
-//   v[2] = (row grp + 8, ch 8j + 2 quad)  v[3] = (row grp + 8, ch 8j + 2 quad + 1)
-// which is the m16n8 C fragment of n-tile j and, reading k-slot quad as
-// channel 8j + 2 quad and k-slot quad + 4 as 8j + 2 quad + 1, the m16n8k8 A
-// fragment {v0, v2, v1, v3} of k-step j. So relu(feat + z_s) is formed, and
-// split into hi and lo, once a sample and element, by the one lane that
-// feeds it to the tensor cores, and a layer's output is the next layer's A
-// in the same registers' order. W_m is split once a block and stored in
-// shared memory in B-fragment order (one 16-byte {hi0, hi1, lo0, lo1} a lane,
-// k-step and n-tile: conflict-free). K = C is one chain of C / 8 k-steps
-// (tf32x3.cuh: chains of 8 stay within 1.5e-6 of float64), so no flush. The
-// epilogue stays in registers: bias, ReLU, times w_last, a two-step shuffle
-// over the quad, sigmoid and band test, sums per row; quad 0 writes the two
-// outputs at the end. With n_mid >= 2 a layer's output waits for the next
-// layer in this thread's own shared-memory slots (written and read by the
-// same thread: no barrier). No atomics: repeats are bit-equal. n_mid = 0 has
-// no product (h = relu(feat + z) goes straight to the epilogue).
-//
-// The feature rows go from device memory straight into registers in
-// fragment order (8-byte loads, every 32-byte sector used whole, issued
-// before the block's weight split so that their latency overlaps it): each
-// element is read once, so staging them through shared memory would only
-// add a copy and a barrier.
-//
-// On an H100 (700 W) this runs at 69-71 TFLOP/s (2.02 ms at S = 16, four
-// 512^2 tiles, C = 64, n_mid 1; 42% of the bound): the 3 x 64 mma.sync a
-// warp, 16 pixels and sample bound it. With one TF32 product (a third of
-// the mma; not accurate enough) it takes 1.54 ms, and 32 pixels a warp
-// (half the B-fragment loads, 222 registers) are no faster than 16 (128
-// registers, 4 bytes of spill) (pda_torch/tools/bench_variants.py --only mc,
-// PERF.md).
+// No atomics in either body: repeats are bit-equal.
 
 #include <cuda_runtime.h>
 
@@ -67,178 +24,7 @@
 
 namespace {
 
-constexpr int WARPS = 8;
-constexpr int THREADS = 32 * WARPS;
-constexpr int MIN_BLOCKS = 2;         // blocks an SM (caps the registers at 128)
-constexpr int PIXELS = WARPS * 16;    // a block's pixels
 constexpr size_t MAX_SMEM = 232448;   // bytes a block may opt in to on sm_90
-
-__device__ __forceinline__ float relu(float x) { return fmaxf(x, 0.f); }
-
-// grid = (pixel tiles of an image, B)
-template <int C>
-__global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
-mc_consensus_tc(const float* __restrict__ feat, const float* __restrict__ z_terms,
-                const float* __restrict__ mid_w, const float* __restrict__ mid_b,
-                const float* __restrict__ last_w, const float* __restrict__ last_b,
-                float* __restrict__ mean_out, float* __restrict__ cons_out,
-                int B, int HW, int S, int n_mid, float logit_hi, float logit_lo,
-                int masking) {
-  static_assert(C % 8 == 0 && C >= 8 && C <= 64, "C: a multiple of 8 up to 64");
-  constexpr int NB = C / 8;  // channel blocks: n-tiles and k-steps
-  extern __shared__ __align__(16) float smem[];
-  uint4* s_w = reinterpret_cast<uint4*>(smem);  // [m][j][n][lane]: W_m split
-  float4* s_h = reinterpret_cast<float4*>(s_w + n_mid * NB * NB * 32);  // [j][tid]
-  float* s_b = reinterpret_cast<float*>(s_h + (n_mid >= 2 ? NB * THREADS : 0));
-  float* s_wl = s_b + n_mid * C;  // C
-  float* s_z = s_wl + C;          // S * C, this image's latent terms
-
-  const int tid = threadIdx.x;
-  const int lane = tid & 31, warp = tid >> 5;
-  const int grp = lane >> 2, quad = lane & 3;
-  const int b = blockIdx.y;
-  const int row0 = blockIdx.x * PIXELS + warp * 16;  // the warp's first pixel
-
-  float f[NB][4];  // the feature rows, in fragment order
-  const float* fb = feat + static_cast<size_t>(b) * HW * C + 2 * quad;
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int p = row0 + grp + 8 * r;
-#pragma unroll
-    for (int j = 0; j < NB; ++j) {
-      const float2 v =
-          p < HW ? __ldg(reinterpret_cast<const float2*>(fb + static_cast<size_t>(p) * C + 8 * j))
-                 : make_float2(0.f, 0.f);
-      f[j][2 * r] = v.x;
-      f[j][2 * r + 1] = v.y;
-    }
-  }
-
-  // W_m[k][n] (in, out) as B fragments: b[0] = (k-slot quad, n grp) =
-  // W[8j + 2 quad][8n + grp], b[1] = (k-slot quad + 4) = W[8j + 2 quad + 1][8n + grp]
-  for (int e = tid; e < n_mid * NB * NB * 32; e += THREADS) {
-    const int l = e % 32, n = (e / 32) % NB, j = (e / (32 * NB)) % NB, m = e / (32 * NB * NB);
-    const float* w = mid_w + static_cast<size_t>(m) * C * C +
-                     (8 * j + 2 * (l & 3)) * C + 8 * n + (l >> 2);
-    uint4 v;
-    tc::split(w[0], v.x, v.z);
-    tc::split(w[C], v.y, v.w);
-    s_w[e] = v;
-  }
-  for (int e = tid; e < n_mid * C; e += THREADS) s_b[e] = mid_b[e];
-  for (int e = tid; e < C; e += THREADS) s_wl[e] = last_w[e];
-  for (int e = tid; e < S * C; e += THREADS)
-    s_z[e] = z_terms[(static_cast<size_t>(e / C) * B + b) * C + e % C];
-  __syncthreads();
-
-  const float bl = last_b[0];
-  const int c2 = 2 * quad;  // this lane's first channel of each block
-  float4* h_own = s_h + tid;
-  float sum_prob[2] = {}, n_agree[2] = {};  // rows grp, grp + 8
-
-  for (int s = 0; s < S; ++s) {
-    const float* zs = s_z + s * C;
-    float acc[NB][4];
-    for (int m = 0; m < n_mid; ++m) {
-      const uint4* wm = s_w + m * NB * NB * 32 + lane;
-#pragma unroll
-      for (int n = 0; n < NB; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
-#pragma unroll
-      for (int j = 0; j < NB; ++j) {
-        tc::FragA a;
-        if (m == 0) {  // relu(feat + z_s), formed here once an element
-          const float2 z = *reinterpret_cast<const float2*>(zs + 8 * j + c2);
-          tc::split(relu(f[j][0] + z.x), relu(f[j][2] + z.x), relu(f[j][1] + z.y),
-                    relu(f[j][3] + z.y), a);
-        } else {
-          const float4 h = h_own[j * THREADS];
-          tc::split(h.x, h.z, h.y, h.w, a);
-        }
-#pragma unroll
-        for (int n = 0; n < NB; ++n) {
-          const uint4 w = wm[(j * NB + n) * 32];
-          const tc::FragB bf = {{w.x, w.y}, {w.z, w.w}};
-          tc::mma3(acc[n], a, bf);
-        }
-      }
-      if (m + 1 < n_mid) {  // relu(acc + b_m) waits in this thread's slots
-        const float* bm = s_b + m * C;
-#pragma unroll
-        for (int n = 0; n < NB; ++n) {
-          const float2 bb = *reinterpret_cast<const float2*>(bm + 8 * n + c2);
-          h_own[n * THREADS] = make_float4(relu(acc[n][0] + bb.x), relu(acc[n][1] + bb.y),
-                                           relu(acc[n][2] + bb.x), relu(acc[n][3] + bb.y));
-        }
-      }
-    }
-    // the last mid layer's output is relu(acc + b); without mid layers it
-    // is relu(feat + z_s)
-    const float* bias = zs;
-    if (n_mid == 0) {
-#pragma unroll
-      for (int n = 0; n < NB; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[n][e] = f[n][e];
-    } else {
-      bias = s_b + (n_mid - 1) * C;
-    }
-    float part[2] = {};  // rows grp, grp + 8: this lane's 2 NB channels
-#pragma unroll
-    for (int n = 0; n < NB; ++n) {
-      const float2 bb = *reinterpret_cast<const float2*>(bias + 8 * n + c2);
-      const float2 wl = *reinterpret_cast<const float2*>(s_wl + 8 * n + c2);
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        part[r] = fmaf(relu(acc[n][2 * r] + bb.x), wl.x, part[r]);
-        part[r] = fmaf(relu(acc[n][2 * r + 1] + bb.y), wl.y, part[r]);
-      }
-    }
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      float v = part[r];
-      v += __shfl_xor_sync(0xffffffffu, v, 1);
-      v += __shfl_xor_sync(0xffffffffu, v, 2);
-      const float logit = v + bl;
-      sum_prob[r] += 1.f / (1.f + expf(-logit));
-      n_agree[r] += (logit >= logit_hi || logit <= logit_lo) ? 1.f : 0.f;
-    }
-  }
-
-  if (quad != 0) return;
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int p = row0 + grp + 8 * r;
-    if (p >= HW) continue;
-    const size_t o = static_cast<size_t>(b) * HW + p;
-    mean_out[o] = sum_prob[r] / static_cast<float>(S);
-    cons_out[o] = masking ? (n_agree[r] == static_cast<float>(S) ? 1.f : 0.f)
-                          : n_agree[r] / static_cast<float>(S);
-  }
-}
-
-template <int C>
-cudaError_t launch(const float* feat, const float* z, const float* mw,
-                   const float* mb, const float* lw, const float* lb,
-                   float* mean, float* cons, int B, int HW, int S, int n_mid,
-                   float hi, float lo, int masking, cudaStream_t stream) {
-  if (reinterpret_cast<uintptr_t>(feat) % 8 != 0) return cudaErrorMisalignedAddress;
-  const size_t bytes =
-      static_cast<size_t>(n_mid) * C * C * 8 +
-      (n_mid >= 2 ? static_cast<size_t>(C) * THREADS * 2 : 0) +
-      4 * (static_cast<size_t>(n_mid) * C + C + static_cast<size_t>(S) * C);
-  if (bytes > MAX_SMEM) return cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      mc_consensus_tc<C>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(bytes));
-  if (err != cudaSuccess) return err;
-  const dim3 grid((HW + PIXELS - 1) / PIXELS, B);
-  mc_consensus_tc<C><<<grid, THREADS, bytes, stream>>>(
-      feat, z, mw, mb, lw, lb, mean, cons, B, HW, S, n_mid, hi, lo, masking);
-  return cudaGetLastError();
-}
-
 
 // ---- bf16 -------------------------------------------------------------------
 // pda's bf16 configuration (pda/kernels/mc_consensus.py _kernel :96-113) on
@@ -706,11 +492,11 @@ mc_consensus_wgmma(const bf::bf16* __restrict__ feat, const float* __restrict__ 
   }
 }
 
-// Blocks of mc_consensus_wgmma<C, NMID> the card runs at once with
-// ``bytes`` of shared memory (SMs x blocks an SM), after setting the
+// Blocks of ``KERNEL`` (a THREADS-thread MC tail) the card runs at once
+// with ``bytes`` of shared memory (SMs x blocks an SM), after setting the
 // kernel's shared-memory limit; queried once a device and size (the
 // queries cost the host microseconds a launch).
-template <int C, int NMID>
+template <auto KERNEL>
 int resident_blocks(size_t bytes) {
   static std::mutex lock;
   static size_t known_bytes[64] = {};
@@ -719,12 +505,11 @@ int resident_blocks(size_t bytes) {
   if (cudaGetDevice(&dev) != cudaSuccess) return 0;
   const std::lock_guard<std::mutex> guard(lock);
   if (dev < 64 && known[dev] > 0 && known_bytes[dev] == bytes) return known[dev];
-  const auto kernel = &mc_consensus_wgmma<C, NMID>;
   int sms = 0, per_sm = 0;
-  if (cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+  if (cudaFuncSetAttribute(KERNEL, cudaFuncAttributeMaxDynamicSharedMemorySize,
                            static_cast<int>(bytes)) != cudaSuccess ||
       cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess ||
-      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, THREADS, bytes) !=
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, KERNEL, THREADS, bytes) !=
           cudaSuccess)
     return 0;
   if (dev < 64) {
@@ -734,6 +519,18 @@ int resident_blocks(size_t bytes) {
   return sms * per_sm;
 }
 
+// One wave: as many 64-pixel tiles a block as spread the batch's tiles over
+// the blocks the card holds at once (each block then sets up its shared
+// memory once for all its tiles). Returns the tiles a block; *blocks is the
+// grid's blocks an image.
+inline int one_wave(int HW, int B, int resident, int* blocks) {
+  const int tiles = (HW + 63) / 64;
+  const int per_block =
+      static_cast<int>((static_cast<long long>(tiles) * B + resident - 1) / resident);
+  *blocks = (tiles + per_block - 1) / per_block;
+  return per_block;
+}
+
 template <int C, int NMID>
 cudaError_t launch_wgmma(const bf::bf16* feat, const float* z, const bf::bf16* mw,
                          const float* mb, const bf::bf16* lw, const float* lb, float* mean,
@@ -741,16 +538,11 @@ cudaError_t launch_wgmma(const bf::bf16* feat, const float* z, const bf::bf16* m
                          int masking, cudaStream_t stream) {
   const size_t bytes = Layout(C, S, n_mid).bytes;
   if (bytes > MAX_SMEM) return cudaErrorInvalidValue;
-  // One wave: as many tiles a block as spread the batch's tiles over the
-  // blocks the card holds at once (each block then sets up its shared
-  // memory once for all its tiles).
-  const int resident = resident_blocks<C, NMID>(bytes);
+  const int resident = resident_blocks<&mc_consensus_wgmma<C, NMID>>(bytes);
   if (resident <= 0) return cudaErrorInvalidValue;
-  const int tiles = (HW + 63) / 64;
-  const int per_block =
-      static_cast<int>((static_cast<long long>(tiles) * B + resident - 1) / resident);
-  const dim3 grid((tiles + per_block - 1) / per_block, B);
-  mc_consensus_wgmma<C, NMID><<<grid, THREADS, bytes, stream>>>(
+  int blocks = 0;
+  const int per_block = one_wave(HW, B, resident, &blocks);
+  mc_consensus_wgmma<C, NMID><<<dim3(blocks, B), THREADS, bytes, stream>>>(
       feat, z, mw, mb, lw, lb, mean, cons, B, HW, S, n_mid, hi, lo, masking, per_block);
   return cudaGetLastError();
 }
@@ -787,16 +579,448 @@ __global__ void entry_pairs(const uint32_t* __restrict__ f, const uint32_t* __re
   if (i < n) out[i] = entry2(f[i], z[i]);
 }
 
+// ---- float32 ----------------------------------------------------------------
+// The float32 tail, mc_consensus_wgmma_tf32<C, NMID>: float32 in and out, each
+// mid layer's product in 3xTF32 (tf32x3.cuh: hi = tf32(x), lo = tf32(x - hi),
+// lo_a * hi_b + hi_a * lo_b + hi_a * hi_b), the rest in float32.
+//
+// What bounds it: 2 C^2 FLOPs a pixel, sample and mid layer against 4 (C + 2)
+// bytes a pixel (the plain version instead writes and reads an S x B x H x
+// W x C hidden stack a layer). Operations bind: 0.87 ms at S = 16, four 512^2
+// tiles, C = 64, n_mid 1, at 165 TFLOP/s (3xTF32 on the tensor cores), 2.15
+// ms on the FMA pipes (67 TFLOP/s). One TF32 product (~1e-3 relative) would
+// move logits by more than the 1e-4 window the consensus tolerates. The
+// mma.sync body this replaced (a warp owned 16 pixels, three mma.sync a
+// k-step, each issued in the warp's own stream between its CUDA-core work;
+// every 128-pixel block split W again) ran at 69-71 TFLOP/s (2.01 ms there).
+// Here:
+//   - A warpgroup owns a 64-pixel tile, 16 pixels a warp; a mid layer is one
+//     wgmma m64nCk8 chain over K = C: C / 8 k-steps of three products each,
+//     in tf32x3.cuh's order (lo_a * hi_b, hi_a * lo_b, hi_a * hi_b) into one
+//     float32 accumulator, as the mma.sync body's mma3 ran them (chains of 8
+//     k-steps stay within 1.5e-6 of float64, tf32x3.cuh). The small
+//     products in a chain of their own would take C / 2 more registers a
+//     thread, and at C = 8 drift no less (tests/test_torch_tf32x3.py's
+//     model of this order; PERF.md).
+//   - A comes from registers. A warp's part of a TF32 A is the m16n8k8 A
+//     fragment (a[0], a[1]: rows grp, grp + 8 at k-slot quad; a[2], a[3]
+//     at k-slot quad + 4) and its accumulator the m16n8 C fragments (n-tile
+//     j: rows grp, grp + 8 at channels 8 j + 2 quad, + 1). Reading k-slot
+//     quad of k-step j as channel 8 j + 2 quad and k-slot quad + 4 as 8 j +
+//     2 quad + 1, a lane's C fragment of n-tile j is its A fragment of
+//     k-step j: relu(feat + z_s) is formed and split once a sample and
+//     element by the lane that owns it, and a layer's output is the next
+//     layer's A in the same registers (no shuffles). W_m's K rows are
+//     stored in that order.
+//   - B = W_m from shared memory, split once a block into a hi and a lo
+//     plane, each C x C floats as K-major core matrices without swizzle
+//     (TF32 wgmma reads B only K-major): k-slot k, output channel n at
+//     (k / 4) 4 C + 4 n + k % 4, a core matrix 8 n x 4 k (128 contiguous
+//     bytes), the leading-byte offset 16 C (k / 4 to k / 4 + 1), the stride
+//     128 (8 n).
+//   - Overlap by warpgroups: a block is one warpgroup, and three blocks an
+//     SM (the registers' cap: each thread holds its split A, 2 C / 4, its
+//     sums, C / 2, and its feature rows, C / 2) take turns on the tensor
+//     cores: each issues a sample's chain, commits and waits for it while
+//     the others run their layer entries and epilogues. No group is in
+//     flight across a loop's back edge, where ptxas would serialize every
+//     wgmma (its C7514). NMID (0, 1, 2; -1 any other n_mid) is a template
+//     parameter, so that the layer loop unrolls.
+//   - The last layer, h . w_last, stays on the FMA pipes in float32 (C FMAs
+//     a pixel and sample, in the mma.sync body's order: per lane over its
+//     channel pairs, then a two-step exchange over the quad's four lanes,
+//     after which even lanes hold row grp's logit and odd lanes row grp +
+//     8's: one sigmoid and band test a lane and sample).
+//   - Feature rows are read from device memory straight into registers in
+//     fragment order (8-byte loads, every 32-byte sector used whole) and
+//     held across the S samples. The next tile's rows are read into the
+//     same registers once the tile's last sample has taken its A from them,
+//     while that sample's products run. The blocks are one wave (one_wave),
+//     so each splits W_m and stages the biases, w_last and this image's S
+//     latent rows once for all its tiles.
+// Each pixel's sums run in the same order wherever its tile lies, so a row
+// shard's outputs are the whole image's bit for bit, and the mma.sync body's
+// were this body's bit for bit at every K3 shape measured.
+//
+// On an H100 (700 W) at S = 16, C = 64, n_mid 1, in turns with the mma.sync
+// body (pda_torch/tools/bench_variants.py --only mc, PERF.md): four 512^2
+// tiles 1.26-1.36 ms (65-69% of the bound; that body 1.96-2.09), the MT
+// teacher's 2 x 512^2 0.65-0.70 (1.02-1.13), the pseudo export's 1 x 528 x
+// 704 0.46-0.54 (0.69-0.77); 154 registers, no spills. What bounds it: its
+// products alone (the layer entry once a tile, no last layer) take 0.91 ms
+// at the tiled shape, 96% of the bound, and its CUDA-core work alone (no
+// products) 0.40 ms; the whole body takes about their sum, so warpgroups do
+// not hide one's epilogue behind another's products. Two blocks an SM took
+// 1.16-1.19x as long at the tiled shape, four (the feature rows in shared
+// memory) were no faster overall, A from shared-memory planes 1.38x slower.
+
+// d (+)= A * B, m64nNk8, A (TF32) from registers, B (TF32) from shared memory
+// by descriptor (K-major), float32 sums; scale_d 0 starts a chain (d = A * B).
+__device__ __forceinline__ void tf32_n8(float (&d)[4], const uint32_t (&a)[4],
+                                         uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %9, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3"
+      "}, {%4, %5, %6, %7}, %8, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
+__device__ __forceinline__ void tf32_n16(float (&d)[8], const uint32_t (&a)[4],
+                                         uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, {%8, %9, %10, %11}, %12, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
+__device__ __forceinline__ void tf32_n24(float (&d)[12], const uint32_t (&a)[4],
+                                         uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %17, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n24k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11"
+      "}, {%12, %13, %14, %15}, %16, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
+__device__ __forceinline__ void tf32_n32(float (&d)[16], const uint32_t (&a)[4],
+                                         uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
+__device__ __forceinline__ void tf32_n40(float (&d)[20], const uint32_t (&a)[4],
+                                         uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %25, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n40k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19"
+      "}, {%20, %21, %22, %23}, %24, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
+__device__ __forceinline__ void tf32_n48(float (&d)[24], const uint32_t (&a)[4],
+                                         uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %29, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n48k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23"
+      "}, {%24, %25, %26, %27}, %28, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
+__device__ __forceinline__ void tf32_n56(float (&d)[28], const uint32_t (&a)[4],
+                                         uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %33, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n56k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27"
+      "}, {%28, %29, %30, %31}, %32, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
+__device__ __forceinline__ void tf32_n64(float (&d)[32], const uint32_t (&a)[4],
+                                         uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
+template <int N>
+__device__ __forceinline__ void mma_tf32(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t b,
+                                         int scale_d) {
+  if constexpr (N == 8) {
+    tf32_n8(d, a, b, scale_d);
+  } else if constexpr (N == 16) {
+    tf32_n16(d, a, b, scale_d);
+  } else if constexpr (N == 24) {
+    tf32_n24(d, a, b, scale_d);
+  } else if constexpr (N == 32) {
+    tf32_n32(d, a, b, scale_d);
+  } else if constexpr (N == 40) {
+    tf32_n40(d, a, b, scale_d);
+  } else if constexpr (N == 48) {
+    tf32_n48(d, a, b, scale_d);
+  } else if constexpr (N == 56) {
+    tf32_n56(d, a, b, scale_d);
+  } else {
+    tf32_n64(d, a, b, scale_d);
+  }
+}
+
+// Shared memory (bytes) of mc_consensus_wgmma_tf32: each mid layer's W_m as
+// its TF32 hi plane, then its lo plane (C x C 32-bit words each), the mid
+// biases, w_last, this image's S latent rows.
+struct LayoutF32 {
+  size_t bias, last, z, bytes;
+  __host__ __device__ LayoutF32(int c, int s, int n_mid)
+      : bias(8 * static_cast<size_t>(n_mid) * c * c),
+        last(bias + 4 * static_cast<size_t>(n_mid) * c),
+        z(last + 4 * static_cast<size_t>(c)),
+        bytes(z + 4 * static_cast<size_t>(s) * c) {}
+};
+
+__device__ __forceinline__ float relu(float x) { return fmaxf(x, 0.f); }
+
+// grid = (blocks of an image, B): block x takes the image's 64-pixel tiles
+// [x T, (x + 1) T), T = tiles_per_block, one after the other.
+template <int C, int NMID>
+__global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
+mc_consensus_wgmma_tf32(const float* __restrict__ feat, const float* __restrict__ z_terms,
+                        const float* __restrict__ mid_w, const float* __restrict__ mid_b,
+                        const float* __restrict__ last_w, const float* __restrict__ last_b,
+                        float* __restrict__ mean_out, float* __restrict__ cons_out, int B,
+                        int HW, int S, int n_mid_arg, float logit_hi, float logit_lo,
+                        int masking, int tiles_per_block) {
+  static_assert(C % 8 == 0 && C >= 8 && C <= 64, "C: a multiple of 8 up to 64");
+  constexpr int NK = C / 8;  // k-steps of a mid layer, n-tiles of its sums
+  const int n_mid = NMID >= 0 ? NMID : n_mid_arg;
+  extern __shared__ __align__(16) unsigned char mc_smem[];
+  const LayoutF32 L(C, S, n_mid);
+  const int tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int grp = lane >> 2, quad = lane & 3;
+  const int c2 = 2 * quad;  // this lane's first channel of each block of 8
+  const int b = blockIdx.y;
+
+  // W_m[k][n] (in, out) split into planes: input channel 8 j + c (c < 8) is
+  // k-slot 8 j + r, r = c / 2 for even c, 4 + c / 2 for odd c; word (slot,
+  // n) of a plane at (slot / 4) 4 C + 4 n + slot % 4, the lo plane C^2
+  // words after the hi plane
+  auto* s_w = reinterpret_cast<uint32_t*>(mc_smem);
+  for (int e = tid; e < n_mid * C * C; e += THREADS) {
+    const int n = e % C, k = (e / C) % C, m = e / (C * C);
+    const int slot = (k & ~7) + 4 * (k & 1) + (k & 7) / 2;
+    uint32_t* plane = s_w + 2 * m * C * C + (slot / 4) * 4 * C + 4 * n + slot % 4;
+    tc::split(mid_w[e], plane[0], plane[C * C]);
+  }
+  auto* s_b = reinterpret_cast<float*>(mc_smem + L.bias);
+  for (int e = tid; e < n_mid * C; e += THREADS) s_b[e] = mid_b[e];
+  auto* s_wl = reinterpret_cast<float*>(mc_smem + L.last);
+  for (int e = tid; e < C; e += THREADS) s_wl[e] = last_w[e];
+  auto* s_z = reinterpret_cast<float*>(mc_smem + L.z);
+  for (int e = tid; e < S * C; e += THREADS)
+    s_z[e] = z_terms[(static_cast<size_t>(e / C) * B + b) * C + e % C];
+  // the B operands' writes made visible to wgmma (the async proxy)
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  __syncthreads();
+
+  const float bl = last_b[0];
+  // layer m's hi plane at k-step 0; its lo plane C^2 / 4 descriptor units
+  // on, k-step j 2 j C on, layer m 2 m C^2 / 4 on
+  const uint64_t w_desc = desc(smem_u32(mc_smem), 16 * C, 128);
+  const float* fb = feat + static_cast<size_t>(b) * HW * C + c2;
+  const int n_tiles = (HW + 63) / 64;
+  const int t_begin = blockIdx.x * tiles_per_block;
+  const int t_end = min(t_begin + tiles_per_block, n_tiles);
+
+  // the feature rows of tile t in fragment order (zero past HW): f[j][2 r +
+  // e] = row grp + 8 r, channel 8 j + c2 + e
+  float f[NK][4];
+  const auto load_rows = [&](int t) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int p = 64 * t + 16 * warp + grp + 8 * r;
+#pragma unroll
+      for (int j = 0; j < NK; ++j) {
+        const float2 v =
+            p < HW ? __ldg(reinterpret_cast<const float2*>(fb + static_cast<size_t>(p) * C + 8 * j))
+                   : make_float2(0.f, 0.f);
+        f[j][2 * r] = v.x;
+        f[j][2 * r + 1] = v.y;
+      }
+    }
+  };
+  load_rows(t_begin);
+
+  uint32_t a_hi[NK][4], a_lo[NK][4];  // a mid layer's A, split
+  float acc[C / 2] = {};              // ... its sums
+  // x (row grp, k-slot quad), y (row grp, k-slot quad + 4), z (row grp + 8,
+  // k-slot quad), w (row grp + 8, k-slot quad + 4) into k-step j's A
+  const auto to_a = [&](int j, float x, float y, float z, float w) {
+    tc::split(x, a_hi[j][0], a_lo[j][0]);
+    tc::split(z, a_hi[j][1], a_lo[j][1]);
+    tc::split(y, a_hi[j][2], a_lo[j][2]);
+    tc::split(w, a_hi[j][3], a_lo[j][3]);
+  };
+  // layer m's product, committed and waited for
+  const auto product = [&](int m) {
+    const uint64_t d = w_desc + ((8 * m * C * C) >> 4);
+    fence_regs(a_hi);
+    fence_regs(a_lo);
+    fence_regs(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int j = 0; j < NK; ++j) {  // lo_a * hi_b, hi_a * lo_b, hi_a * hi_b
+      mma_tf32<C>(acc, a_lo[j], d + 2 * j * C, j > 0);
+      mma_tf32<C>(acc, a_hi[j], d + (C * C) / 4 + 2 * j * C, 1);
+      mma_tf32<C>(acc, a_hi[j], d + 2 * j * C, 1);
+    }
+    wgmma_commit();
+    fence_regs(acc);
+    wgmma_wait<0>();
+    fence_regs(acc);
+    fence_regs(a_hi);
+    fence_regs(a_lo);
+  };
+
+  for (int t = t_begin; t < t_end; ++t) {
+    const bool more = t + 1 < t_end;
+    float sum_prob = 0.f, n_agree = 0.f;  // row grp (even quad) or grp + 8 (odd quad)
+    for (int s = 0; s < S; ++s) {
+      const float* zs = s_z + s * C;
+      float part[2] = {};  // rows grp, grp + 8: this lane's 2 NK channels
+      // part += relu(h + bias) . w_last, h(n, i) the last hidden layer's
+      // n-tile n in fragment order
+      const auto last_layer = [&](const float* bias, auto h) {
+#pragma unroll
+        for (int n = 0; n < NK; ++n) {
+          const float2 bb = *reinterpret_cast<const float2*>(bias + 8 * n + c2);
+          const float2 wl = *reinterpret_cast<const float2*>(s_wl + 8 * n + c2);
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            part[r] = fmaf(relu(h(n, 2 * r) + bb.x), wl.x, part[r]);
+            part[r] = fmaf(relu(h(n, 2 * r + 1) + bb.y), wl.y, part[r]);
+          }
+        }
+      };
+      if constexpr (NMID == 0) {  // h = relu(feat + z_s)
+        last_layer(zs, [&](int n, int i) { return f[n][i]; });
+      } else {
+#pragma unroll
+        for (int j = 0; j < NK; ++j) {  // relu(feat + z_s)
+          const float2 z = *reinterpret_cast<const float2*>(zs + 8 * j + c2);
+          to_a(j, relu(f[j][0] + z.x), relu(f[j][1] + z.y), relu(f[j][2] + z.x),
+               relu(f[j][3] + z.y));
+        }
+        if (s == S - 1 && more) load_rows(t + 1);  // read while the products run
+#pragma unroll
+        for (int m = 0; m < n_mid; ++m) {
+          product(m);
+          if (m + 1 < n_mid) {
+            const float* bm = s_b + m * C;
+#pragma unroll
+            for (int j = 0; j < NK; ++j) {
+              const float2 bb = *reinterpret_cast<const float2*>(bm + 8 * j + c2);
+              const float* d = acc + 4 * j;
+              to_a(j, relu(d[0] + bb.x), relu(d[1] + bb.y), relu(d[2] + bb.x),
+                   relu(d[3] + bb.y));
+            }
+          }
+        }
+        last_layer(s_b + (n_mid - 1) * C, [&](int n, int i) { return acc[4 * n + i]; });
+      }
+      // the quad's sums: even lanes keep row grp, odd lanes row grp + 8
+      const bool odd = quad & 1;
+      float v = odd ? part[1] : part[0];
+      v += __shfl_xor_sync(0xffffffffu, odd ? part[0] : part[1], 1);
+      v += __shfl_xor_sync(0xffffffffu, v, 2);
+      const float logit = v + bl;
+      sum_prob += 1.f / (1.f + expf(-logit));
+      n_agree += (logit >= logit_hi || logit <= logit_lo) ? 1.f : 0.f;
+    }
+    if constexpr (NMID == 0) {
+      if (more) load_rows(t + 1);
+    }
+    if (quad < 2) {
+      const int p = 64 * t + 16 * warp + grp + 8 * quad;
+      if (p < HW) {
+        const size_t o = static_cast<size_t>(b) * HW + p;
+        mean_out[o] = sum_prob / static_cast<float>(S);
+        cons_out[o] = masking ? (n_agree == static_cast<float>(S) ? 1.f : 0.f)
+                              : n_agree / static_cast<float>(S);
+      }
+    }
+  }
+}
+
+template <int C, int NMID>
+cudaError_t launch_wgmma_tf32(const float* feat, const float* z, const float* mw,
+                              const float* mb, const float* lw, const float* lb, float* mean,
+                              float* cons, int B, int HW, int S, int n_mid, float hi, float lo,
+                              int masking, cudaStream_t stream) {
+  const size_t bytes = LayoutF32(C, S, n_mid).bytes;
+  if (bytes > MAX_SMEM) return cudaErrorInvalidValue;
+  const int resident = resident_blocks<&mc_consensus_wgmma_tf32<C, NMID>>(bytes);
+  if (resident <= 0) return cudaErrorInvalidValue;
+  int blocks = 0;
+  const int per_block = one_wave(HW, B, resident, &blocks);
+  mc_consensus_wgmma_tf32<C, NMID><<<dim3(blocks, B), THREADS, bytes, stream>>>(
+      feat, z, mw, mb, lw, lb, mean, cons, B, HW, S, n_mid, hi, lo, masking, per_block);
+  return cudaGetLastError();
+}
+
+template <int C>
+cudaError_t launch_f32(const float* feat, const float* z, const float* mw, const float* mb,
+                       const float* lw, const float* lb, float* mean, float* cons, int B,
+                       int HW, int S, int n_mid, float hi, float lo, int masking,
+                       cudaStream_t stream) {
+  if (reinterpret_cast<uintptr_t>(feat) % 8 != 0) return cudaErrorMisalignedAddress;
+  switch (n_mid) {
+    case 0:
+      return launch_wgmma_tf32<C, 0>(feat, z, mw, mb, lw, lb, mean, cons, B, HW, S, n_mid, hi,
+                                     lo, masking, stream);
+    case 1:
+      return launch_wgmma_tf32<C, 1>(feat, z, mw, mb, lw, lb, mean, cons, B, HW, S, n_mid, hi,
+                                     lo, masking, stream);
+    case 2:
+      return launch_wgmma_tf32<C, 2>(feat, z, mw, mb, lw, lb, mean, cons, B, HW, S, n_mid, hi,
+                                     lo, masking, stream);
+    default:
+      return launch_wgmma_tf32<C, -1>(feat, z, mw, mb, lw, lb, mean, cons, B, HW, S, n_mid, hi,
+                                      lo, masking, stream);
+  }
+}
+
 }  // namespace mcw
 
 }  // namespace
 
 // feat (B, HW, C), z_terms (S, B, C), mid_w (n_mid, C, C) as (in, out),
 // mid_b (n_mid, C), last_w (C,), last_b (1,); mean and cons are (B, HW).
-// C must be a multiple of 8 up to 64 (the wrapper zero-pads any other C up to
-// 64: a zero channel stays relu(0 + 0) = 0 through every layer and meets a
-// zero row of last_w); feat 8-byte aligned. Above 64 one warp's 16 x C feature
-// rows no longer fit in its registers (C = 64 already takes 128 a thread).
+// Runs mc_consensus_wgmma_tf32. C must be a multiple of 8 up to 64 (the
+// wrapper zero-pads any other C up to 64: a zero channel stays relu(0 + 0) =
+// 0 through every layer and meets a zero row of last_w); feat 8-byte aligned;
+// S as far as mcw::LayoutF32 fits in shared memory. Above 64 a thread's split
+// A, sums and feature rows no longer fit in its registers.
 extern "C" int pda_mc_consensus(const void* feat, const void* z_terms,
                                 const void* mid_w, const void* mid_b,
                                 const void* last_w, const void* last_b,
@@ -810,9 +1034,9 @@ extern "C" int pda_mc_consensus(const void* feat, const void* z_terms,
   switch (C) {
 #define PDA_MC_WIDTH(W)                                                          \
   case W:                                                                        \
-    return launch<W>(f(feat), f(z_terms), f(mid_w), f(mid_b), f(last_w),         \
-                     f(last_b), m, c, B, HW, S, n_mid, logit_hi, logit_lo,       \
-                     masking, s);
+    return mcw::launch_f32<W>(f(feat), f(z_terms), f(mid_w), f(mid_b), f(last_w), \
+                              f(last_b), m, c, B, HW, S, n_mid, logit_hi, logit_lo, \
+                              masking, s);
     PDA_MC_WIDTH(8)
     PDA_MC_WIDTH(16)
     PDA_MC_WIDTH(24)

@@ -10,11 +10,16 @@ the ``S x B x H x W x C`` hidden stack to device memory.
 On a CPU tensor the wrapper runs the plain PyTorch version (the batched
 Fcomb tail + :func:`pda_torch.core.consensus.consensus_from_logits`); on a
 CUDA tensor it launches ``csrc/mc_consensus.cu`` on the current stream, or
-raises. The kernel runs the mid layers on the tensor cores in 3xTF32 (one
-small GEMM a sample, each warp's 16 feature rows held in registers across
-the S samples), so it keeps float32 accuracy. It is built for every width C
-that is a multiple of 8 up to 64; the wrapper zero-pads any other C up to 64
-to the next of them. One class only.
+raises. A float32 ``feat_term`` runs ``mc_consensus_wgmma_tf32<C, NMID>``:
+Hopper's ``wgmma``, each mid layer one 3xTF32 chain a sample over a
+warpgroup's 64-pixel tile (A split in registers, the feature rows held in
+registers across the S samples, W split once a block into hi and lo planes
+in shared memory), three warpgroups an SM taking turns on the tensor cores,
+one wave of persistent blocks (:func:`one_wave_grid`), the last layer on the
+FMA pipes: float32 accuracy. It is built for every width C that is a
+multiple of 8 up to 64; the wrapper zero-pads any other C up to 64 to the
+next of them. One class only. Every float32 launch is on that body and
+counts in ``launches_wgmma_f32`` as well as in ``launches``.
 
 bf16 (``pda``'s bf16 configuration): a bf16 ``feat_term`` runs the bf16
 body ``mc_consensus_wgmma<C, NMID>`` (C a multiple of 16; Hopper's
@@ -58,7 +63,8 @@ KERNEL_WIDTHS = tuple(range(8, 65, 8))
 KERNEL_WIDTHS_BF16 = tuple(range(16, 65, 16))
 MAX_WIDTH = KERNEL_WIDTHS[-1]
 _BF16 = torch.bfloat16
-_THREADS = 256  # csrc/mc_consensus.cu THREADS: a warp a 16-pixel tile
+_THREADS = 128  # csrc/mc_consensus.cu mcw::THREADS: a warpgroup, a 64-pixel tile
+_TILE = 64  # pixels a warpgroup's tile
 _MAX_SMEM = 232448  # bytes of shared memory a block may use on sm_90
 _LAST_N = 8  # csrc/mc_consensus.cu mcw::LAST_N: the bf16 last layer's N (and B operands)
 
@@ -88,19 +94,29 @@ def mc_consensus_plain(feat_term, z_terms, mid_w, mid_b, last_w, last_b,
 
 
 def _smem_bytes(c: int, s: int, n_mid: int, dtype=torch.float32) -> int:
-    """The kernel's shared memory: each mid layer's W split into TF32 hi and
-    lo, with n_mid >= 2 a hidden layer per thread, the mid biases, the last
-    weights and this image's S latent terms. In bf16 (``mcw::Layout``) each
-    mid layer's W as bf16, the last layer's 8 B operands (C x 8 bf16 each,
-    w_last in column c of the c-th), each latent row as bf16 pairs padded to
-    whole 16-byte loads for each of a warp's four lane quads, the mid
-    biases."""
+    """The kernel's shared memory (``mcw::LayoutF32``): each mid layer's W
+    split into a TF32 hi and a lo plane (8 bytes a weight), the mid biases,
+    the last weights and this image's S latent terms, float32. In bf16
+    (``mcw::Layout``) each mid layer's W as bf16, the last layer's 8 B
+    operands (C x 8 bf16 each, w_last in column c of the c-th), each latent
+    row as bf16 pairs padded to whole 16-byte loads for each of a warp's four
+    lane quads, the mid biases."""
     if dtype == _BF16:
         z_words = -(-(c // 8) // 4) * 4  # mcw::z_words
         return (2 * n_mid * c * c + 2 * _LAST_N * _LAST_N * c + 16 * z_words * s
                 + 4 * n_mid * c)
-    hidden = _THREADS * c // 2 if n_mid >= 2 else 0  # 16 rows x C a warp
-    return 4 * (2 * n_mid * c * c + hidden + n_mid * c + c + s * c)
+    return 8 * n_mid * c * c + 4 * (n_mid * c + c + s * c)
+
+
+def one_wave_grid(hw: int, b: int, resident: int) -> Tuple[int, int]:
+    """The grid both bodies launch (``csrc/mc_consensus.cu`` ``one_wave``):
+    (64-pixel tiles a block, blocks an image), so that the batch's tiles
+    spread over the ``resident`` blocks the card holds at once and each
+    block sets up its shared memory once for all its tiles. Block x of an
+    image takes its tiles [x T, (x + 1) T), the last block the rest."""
+    tiles = -(-hw // _TILE)
+    per_block = -(-(tiles * b) // resident)
+    return per_block, -(-tiles // per_block)
 
 
 def padded_width(c: int, dtype=torch.float32) -> int:
@@ -182,15 +198,16 @@ def mc_consensus(feat_term, z_terms, mid_w, mid_b, last_w, last_b,
     if runs_plain(feat_term, "mc_consensus"):
         return mc_consensus_plain(feat_term, z_terms, mid_w, mid_b, last_w, last_b, masking)
     out = _launch(feat_term, z_terms, mid_w, mid_b, last_w, last_b, masking)
-    count_launch(mc_consensus, feat_term.dtype, FWD_MODES if feat_term.dtype == _BF16 else ())
+    count_launch(mc_consensus, feat_term.dtype, FWD_MODES)
     return out
 
 
 #: launches of the CUDA kernel since the count was last set to 0: its
 #: float32 instance (``launches``), its bf16 instance (``launches_bf16``)
-#: and of those the launches on the ``wgmma`` body (``launches_wgmma_bf16``:
-#: all of them)
-mc_consensus.launches = mc_consensus.launches_bf16 = mc_consensus.launches_wgmma_bf16 = 0
+#: and of those the launches on the ``wgmma`` bodies (``launches_wgmma_f32``,
+#: ``launches_wgmma_bf16``: all of them)
+mc_consensus.launches = mc_consensus.launches_bf16 = 0
+mc_consensus.launches_wgmma_f32 = mc_consensus.launches_wgmma_bf16 = 0
 
 
 def packed_entry_plain(f: torch.Tensor, z: torch.Tensor) -> torch.Tensor:

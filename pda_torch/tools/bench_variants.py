@@ -18,13 +18,19 @@ plain version: max |kernel - plain| / max |plain|, and in float32 also
 against the plain version in float64 (ref64; for the backward the worst of
 its outputs, and dx's and the dW's alone). ``--shapes lung`` runs the Lung suite's
 shapes instead (:data:`.workload.LUNG_K1` and the rest: batch 2 and the
-single frames), ``all`` both. The MC tail (K3, S = 16) runs
-the same way at the tiled, MT-teacher and pseudo shapes, held to its plain
-version and float64 by the MC mean's max abs error, with the consensus
-pixels that differ from the plain version's farther than 1e-4 from a
-threshold counted (bf16: float64 sums at the bf16 rounding points, and 2^-6
-from a threshold, ``chip_smoke.py``'s bf16 K3 window). Prints one line per shape and variant, with TFLOP/s from
-the FLOPs the shape needs. Needs a CUDA card; TF32 off for cuDNN and matmul.
+single frames), ``all`` both. The MC tail (K3, n_mid 1) runs
+the same way at the tiled, MT-teacher and pseudo shapes (S = 16) and at
+:data:`MC_OTHER_SHAPES` (the algorithms' narrow tails, MitoEM's MC-8
+prediction batch, the Lung MT teacher), held to its plain version and
+float64 by the MC mean's max abs error, with the consensus pixels that
+differ from the plain version's farther than 1e-4 from a threshold counted
+(bf16: float64 sums at the bf16 rounding points, and 2^-6 from a
+threshold, ``chip_smoke.py``'s bf16 K3 window), each line with its bound
+(165 TFLOP/s in 3xTF32, 989 in bf16, against 3.35 TB/s), the share of it
+the variant reaches and whether its outputs are the first variant's bit
+for bit. Prints one line per shape and variant, with
+TFLOP/s from the FLOPs the shape needs. Needs a CUDA card; TF32 off for
+cuDNN and matmul.
 
 ``--only wgrad`` (float32) times one layer's weight gradient alone
 (``conv_block.wgrad_kernel``, the C entry ``pda_wgrad``: the body the
@@ -77,6 +83,11 @@ BWD_SHAPES = (list(dict.fromkeys((*s[:4], 0, s[4], need_dx) for s, need_dx, *_ i
 LUNG_FWD_SHAPES = [(*s[:4], 0, s[4]) for s in wl.LUNG_K1] + wl.LUNG_K2
 LUNG_BWD_SHAPES = ([(*s[:4], 0, *s[4:]) for s in wl.LUNG_BWD]
                    + [(*s, True) for s in wl.LUNG_BWD_DUAL])
+# (name, (B, H, W, C), S, masking): K3 on the other paths (n_mid 1): the
+# algorithms phase's narrow tails (C = 16; 20, zero-padded to 24), a MitoEM
+# prediction batch (MC-8 over 9 tiles of 512^2), the Lung MT teacher
+MC_OTHER_SHAPES = [("C=16", (2, 128, 128, 16), 16, False), ("C=20", (2, 128, 128, 20), 16, False),
+                   ("mitoem", (9, 512, 512, 64), 8, False), ("lung", (2, 256, 256, 64), 16, True)]
 
 
 def rel_err(outs, refs) -> float:
@@ -238,7 +249,8 @@ def main(argv=None) -> int:
         ref = kc.wgrad_plain(xa, da, xb)
         ref64 = kc.wgrad_plain(x.double(), da.double())
         flops = wl.wgrad_flops(b, h, w, ca + cb, c)
-        bound, term = wl.bound_ms(flops, wl.wgrad_bytes(b, h, w, ca + cb, c), 495e12 / 3)
+        bound, term = wl.bound_ms(flops, wl.wgrad_bytes(b, h, w, ca + cb, c),
+                                  wl.PEAK_TF32X3_FLOPS)
         xl, dal = x.permute(0, 3, 1, 2), da.permute(0, 3, 1, 2)  # channels_last views
         wt = torch.empty(c, ca + cb, 3, 3, device=dev).to(memory_format=torch.channels_last)
         library_ms = timed(lambda: torch.ops.aten.convolution_backward(
@@ -257,8 +269,11 @@ def main(argv=None) -> int:
             print(f"{label} {d.name}: route {route} ms {ms:.3f} ({flops / ms / 1e9:.1f} TFLOP/s) "
                   f"rel_err {err:.2e} ref64 dW {dw64:.2e} db {db64:.2e}", flush=True)
         del x, xa, xb, da, ref, ref64, xl, dal, wt
-    for name, (b, h, w, c), masking in wl.K3_SHAPES if args.only in (None, "mc") else ():
-        feat, *rest = wl.mc_inputs(gen, b, h, w, c, dev=dev)
+    mc_shapes = ([(name, shape, wl.MC_SAMPLES, masking) for name, shape, masking in wl.K3_SHAPES]
+                 + MC_OTHER_SHAPES)
+    peak = wl.PEAK_BF16_FLOPS if dtype == torch.bfloat16 else wl.PEAK_TF32X3_FLOPS
+    for name, (b, h, w, c), s, masking in mc_shapes if args.only in (None, "mc") else ():
+        feat, *rest = wl.mc_inputs(gen, b, h, w, c, s=s, dev=dev)
         args_ = (feat.to(dtype), *rest)
         window = 1e-4 if dtype == torch.float32 else 2.0 ** -6  # chip_smoke.py's K3 windows
         with torch.inference_mode():
@@ -271,19 +286,25 @@ def main(argv=None) -> int:
             logits = km.mc_logits_plain(*args_)
             near = ((logits.abs() - torch.log(torch.tensor(9.0))).abs() < window).any(dim=0)
             del logits
-            flops = wl.mc_flops(b, h, w, c, wl.MC_SAMPLES, 1)
+            flops = wl.mc_flops(b, h, w, c, s, 1)
+            nbytes = wl.mc_bytes(b, h, w, c, s, 1, args_[0].element_size())
+            bound, term = wl.bound_ms(flops, nbytes, peak)
+            first = None  # the first variant's outputs
             for d in order:
                 _build.use_sources(d)
                 mean, cons = km.mc_consensus(*args_, masking=masking)
                 err = float((mean - ref_mean).abs().max())
                 err64 = float((mean.double() - ref64.double()).abs().max())
                 stray = int(((cons != ref_cons) & ~near).sum())
+                first = first or (mean, cons)
+                same = torch.equal(mean, first[0]) and torch.equal(cons, first[1])
                 del mean, cons
                 ms = timed(lambda: km.mc_consensus(*args_, masking=masking))
-                print(f"mc {name} S={wl.MC_SAMPLES} @{b}x{h}x{w}x{c} {d.name}: ms {ms:.3f} "
-                      f"({flops / ms / 1e9:.1f} TFLOP/s) mean_err {err:.2e} ref64 {err64:.2e} "
-                      f"stray {stray}", flush=True)
-        del args_, ref_mean, ref_cons, ref64, near
+                print(f"mc {name} S={s} @{b}x{h}x{w}x{c} masking={masking} {d.name}: ms "
+                      f"{ms:.3f} ({flops / ms / 1e9:.1f} TFLOP/s) bound {bound:.3f} ({term}; "
+                      f"{bound / ms:.0%} of it) mean_err {err:.2e} ref64 {err64:.2e} "
+                      f"stray {stray}, bit-equal to {order[0].name}'s {same}", flush=True)
+        del args_, ref_mean, ref_cons, ref64, near, first
     return 0
 
 

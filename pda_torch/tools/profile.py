@@ -7,11 +7,12 @@ Needs one CUDA card (exits 1 without). Five parts, each optional:
 
 - ``ptxas``: each kernel source compiled as the build compiles it, plus
   ``-Xptxas -v``: registers, spill bytes and shared memory per kernel.
-- ``sass`` (not in the default): the instruction mix of the bf16 MC tail's
-  sample loop (``mc_consensus_wgmma<64, 1>``, the flagship's): ``cuobjdump
-  -sass`` of the object ``ptxas`` compiles, the innermost loop that holds
-  its ``HGMMA``s, instructions by opcode, a loop iteration and a sample
-  (an iteration runs 8).
+- ``sass`` (not in the default): the instruction mix of the MC tail's
+  sample loop at the flagship's width (``mc_consensus_wgmma_tf32<64, 1>``;
+  with ``--dtype bf16`` ``mc_consensus_wgmma<64, 1>``): ``cuobjdump -sass``
+  of the object ``ptxas`` compiles, the innermost loop that holds its
+  ``HGMMA``s, instructions by opcode, a loop iteration and a sample (an
+  iteration runs 1 sample in float32, 8 in bf16).
 - ``mt``: the flagship's Mean-Teacher step (512^2, batch 2, MC-16,
   consensus masking, Adam 1e-5, EMA 0.999, f32, seeded weights and data) under
   ``torch.profiler`` for ``--steps`` steps after 3 warm-ups: device time per
@@ -72,7 +73,7 @@ LABELS = (
     (r"wgrad_entry<", "wgrad entry layer, FMA (wgrad_entry)"),
     (r"sum_chunks", "wgrad chunk reduce (sum_chunks)"),
     (r"masked_cotangent", "da3 mask and pooled cotangent (masked_cotangent)"),
-    (r"mc_consensus_(tc|wgmma)<", "MC tail, tensor cores (mc_consensus_tc)"),
+    (r"mc_consensus_wgmma(_tf32)?<", "MC tail, tensor cores (mc_consensus_wgmma[_tf32])"),
 )
 
 
@@ -94,13 +95,16 @@ def ptxas() -> None:
                 print(f"  {fn}: {line.split(':', 1)[-1].strip()}")
 
 
-#: the bf16 MC tail's flagship instance (mangled, and as printed) and the
-#: samples an iteration of its loop runs
-SASS_KERNEL, SASS_NAME = "mc_consensus_wgmmaILi64ELi1E", "mc_consensus_wgmma<64, 1>"
-SASS_SAMPLES = 8
+#: the MC tail's flagship instance by dtype: (mangled, as printed, the
+#: samples an iteration of its sample loop runs)
+SASS_KERNELS = {
+    torch.float32: ("mc_consensus_wgmma_tf32ILi64ELi1E", "mc_consensus_wgmma_tf32<64, 1>", 1),
+    torch.bfloat16: ("mc_consensus_wgmmaILi64ELi1E", "mc_consensus_wgmma<64, 1>", 8),
+}
 
 
-def sass() -> None:
+def sass(dtype=torch.float32) -> None:
+    kernel, name, samples = SASS_KERNELS[dtype]
     obj = _build.BUILD_DIR / "ptxas" / "mc_consensus.o"
     if not obj.exists():
         ptxas()
@@ -109,7 +113,7 @@ def sass() -> None:
     body, keep = [], False
     for line in text.splitlines():
         if "Function : " in line:
-            keep = SASS_KERNEL in line
+            keep = kernel in line
         m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(.*?);", line)
         if keep and m:
             body.append((int(m.group(1), 16), m.group(2).strip()))
@@ -122,15 +126,15 @@ def sass() -> None:
             if any(i.startswith("HGMMA") for i in span):
                 loops.append(span)
     if not loops:
-        print(f"== sass {SASS_NAME}: no loop with HGMMA found")
+        print(f"== sass {name}: no loop with HGMMA found")
         return
     span = min(loops, key=len)
     ops = collections.Counter(re.sub(r"^@!?U?P\w+\s+", "", i).split()[0].split(".")[0]
                               for i in span)
-    print(f"== sass {SASS_NAME}: the sample loop, {len(span)} instructions an "
-          f"iteration of {SASS_SAMPLES} samples ({len(span) / SASS_SAMPLES:.1f} a sample)")
+    print(f"== sass {name}: the sample loop, {len(span)} instructions an "
+          f"iteration of {samples} samples ({len(span) / samples:.1f} a sample)")
     for op, n in ops.most_common():
-        print(f"  {op}: {n} ({n / SASS_SAMPLES:.2f} a sample)")
+        print(f"  {op}: {n} ({n / samples:.2f} a sample)")
 
 
 def demangle(name: str) -> str:
@@ -220,7 +224,7 @@ def profiled(run, n: int, flops: collections.Counter, what: str) -> None:
              "dgrad (conv3x3_tc)": "dgrad", "wgrad (wgrad_tc)": "wgrad",
              "dgrad, bf16 wgmma (conv3x3_wgmma DgradEpi)": "dgrad",
              "wgrad, bf16 wgmma (wgrad_wgmma)": "wgrad",
-             "MC tail, tensor cores (mc_consensus_tc)": "mc"}
+             "MC tail, tensor cores (mc_consensus_wgmma[_tf32])": "mc"}
     # a part's rate over all its rows (the entry layers, and in bf16 the
     # layers that stay on the mma.sync bodies, run beside the main body)
     part_ms = collections.Counter()
@@ -377,7 +381,8 @@ def main(argv=None) -> int:
     ap.add_argument("--steps", type=int, default=3)
     ap.add_argument("--epoch", type=int, default=4, help="engine: iterations an epoch")
     ap.add_argument("--dtype", choices=("float32", "bf16"), default="float32",
-                    help="mt, serving: the flagship in float32 or in pda's bf16 configuration")
+                    help="mt, serving, sass: the flagship in float32 or in pda's bf16 "
+                         "configuration")
     args = ap.parse_args(argv)
     dtype = torch.bfloat16 if args.dtype == "bf16" else torch.float32
     if not torch.cuda.is_available():
@@ -393,7 +398,7 @@ def main(argv=None) -> int:
     if "ptxas" in what:
         ptxas()
     if "sass" in what:
-        sass()
+        sass(dtype)
     if "mt" in what:
         mt(dev, args.steps, dtype)
     if "serving" in what:

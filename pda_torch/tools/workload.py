@@ -163,6 +163,9 @@ def block_weight_bytes(cin, c):
 # SXM data sheet's 989 TFLOP/s dense bf16 on the tensor cores and 3.35 TB/s
 PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
+# ... and the float32-accurate peak: 495 TFLOP/s TF32, three products a
+# multiply-add in 3xTF32
+PEAK_TF32X3_FLOPS = 495e12 / 3
 
 
 def block_bytes(b, h, w, cin, c, act_bytes=2):

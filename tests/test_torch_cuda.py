@@ -312,6 +312,89 @@ def test_mc_consensus_kernel_refuses_s_beyond_shared_memory(dev):
     assert mc_consensus.launches == before
 
 
+def _f32_mc_matches_plain64(args, masking):
+    """The float32 tail's two launches (mc_consensus_wgmma_tf32) against the
+    plain version and the plain version in float64: the mean within 1e-5 of
+    both (chip_smoke.py's K3_MEAN_TOL), the consensus differing only where a
+    logit lies within 1e-4 of a threshold (K3_WINDOW), the two launches
+    bit-equal, both counted on the wgmma body. Returns the mean. The
+    unmasked consensus is a count over S: the plain version's mean on the
+    card is the sum times 1 / S, which at an S off a power of 2 may round an
+    ulp from the kernel's count / S, so it differs where it differs by more
+    than 1e-6 (one sample moves it by 1 / S)."""
+    before = (mc_consensus.launches, mc_consensus.launches_wgmma_f32)
+    with torch.no_grad():
+        mean, cons = mc_consensus(*args, masking=masking)
+        mean2, cons2 = mc_consensus(*args, masking=masking)
+    torch.cuda.synchronize()
+    assert (mc_consensus.launches, mc_consensus.launches_wgmma_f32) == (
+        before[0] + 2, before[1] + 2)
+    assert torch.equal(mean, mean2) and torch.equal(cons, cons2)
+    ref_mean, ref_cons = mc_consensus_plain(*args, masking)
+    ref64 = mc_consensus_plain(*(a.double() for a in args), masking)[0]
+    assert bool(torch.isfinite(mean).all())
+    assert float((mean - ref_mean).abs().max()) <= 1e-5
+    assert float((mean.double() - ref64).abs().max()) <= 1e-5
+    near = ((mc_logits_plain(*args).abs() - np.log(9.0)).abs() < 1e-4).any(dim=0)
+    assert not (((cons - ref_cons).abs() > 1e-6) & ~near).any()
+    if masking:
+        assert set(torch.unique(cons).tolist()) <= {0.0, 1.0}
+    return mean
+
+
+@pytest.mark.parametrize("c", [8, 24, 40, 64])
+@pytest.mark.parametrize("n_mid", [0, 1, 2, 3])
+@pytest.mark.parametrize("s", [1, 7, 8, 16, 17])
+@pytest.mark.parametrize("masking", [False, True])
+def test_f32_mc_consensus_wgmma_matches_plain_float64(dev, c, n_mid, s, masking):
+    """The float32 tail (mc_consensus_wgmma_tf32) at widths from one k-step
+    (C = 8) to eight, n_mid 0-2 (unrolled) and 3 (the runtime layer count),
+    S = 1, 7, 8, 16, 17, masking on and off, at 2 x 37 x 29 pixels (1,073
+    an image: no multiple of a warpgroup's 64)."""
+    gen = torch.Generator().manual_seed(1000 * c + 10 * n_mid + s)
+    _f32_mc_matches_plain64(mc_inputs(gen, 2, 37, 29, c, s=s, n_mid=n_mid, dev=dev), masking)
+
+
+@pytest.mark.parametrize("c,b", [(20, 1), (20, 9), (44, 9), (64, 9)])
+@pytest.mark.parametrize("masking", [False, True])
+def test_f32_mc_consensus_wgmma_padded_widths_and_batches(dev, c, b, masking):
+    """Widths the wrapper zero-pads (20 -> 24, 44 -> 48) and batches of 1
+    and 9 (MitoEM's prediction batch) at 13 x 11 pixels (143 an image: two
+    full tiles and a ragged third), S = 16."""
+    gen = torch.Generator().manual_seed(c + b)
+    _f32_mc_matches_plain64(mc_inputs(gen, b, 13, 11, c, s=16, n_mid=1, dev=dev), masking)
+
+
+@pytest.mark.parametrize("shards", [2, 4])
+def test_f32_mc_consensus_wgmma_row_shards_bit_equal(dev, shards):
+    """Row shards of a 2 x 512^2 feature term (the (data, space) mesh's
+    cut, chip_smoke.py's parallel phase): each shard's launch bit-equal to
+    the whole image's rows, on the wgmma body (each pixel's sums run in the
+    same order wherever its tile lies)."""
+    args = mc_inputs(torch.Generator().manual_seed(shards), 2, 512, 512, 64, dev=dev)
+    feat, rest = args[0], args[1:]
+    whole = _f32_mc_matches_plain64(args, True)
+    rows = 512 // shards
+    with torch.no_grad():
+        parts = [mc_consensus(feat[:, i * rows:(i + 1) * rows].contiguous(), *rest,
+                              masking=True)[0] for i in range(shards)]
+    torch.cuda.synchronize()
+    assert torch.equal(torch.cat(parts, dim=1), whole)
+
+
+def test_f32_mc_consensus_wgmma_refuses_autograd_and_misalignment(dev):
+    """The float32 launch under autograd raises (forward-only), and a
+    feature term off 8-byte alignment is refused before any launch."""
+    args = mc_inputs(torch.Generator().manual_seed(3), 1, 4, 4, 32, s=2, dev=dev)
+    before = mc_consensus.launches_wgmma_f32
+    with pytest.raises(RuntimeError, match="forward-only"):
+        mc_consensus(args[0].clone().requires_grad_(), *args[1:])
+    odd = torch.zeros(1 * 4 * 4 * 32 + 1, device=dev)[1:].view(1, 4, 4, 32)
+    with torch.no_grad(), pytest.raises(ValueError, match="aligned"):
+        mc_consensus(odd, *args[1:])
+    assert mc_consensus.launches_wgmma_f32 == before
+
+
 BF16_MEAN_TOL, BF16_WINDOW = 2.0 ** -8, 2.0 ** -6  # chip_smoke.py's bf16 K3 bounds
 
 

@@ -77,20 +77,31 @@ def test_consensus_functions_match_pda(masking):
         assert_consensus_matches(c.numpy(), jc, logits)
 
 
+def _kernel_source() -> str:
+    return (Path(kmc.__file__).parent / "csrc" / "mc_consensus.cu").read_text()
+
+
 def test_shared_memory_reckoning_follows_the_kernel_source():
     """The wrapper refuses an S that the kernel's shared memory cannot hold by
-    the kernel's own block shape (``csrc/mc_consensus.cu``): each mid layer's
-    W split into hi and lo (8 bytes a weight), with n_mid >= 2 a 16 x C
-    hidden tile a warp, the biases, w_last and S latent terms. The bf16 body
-    (``mcw::Layout``): each mid layer's W in bf16, the last layer's LAST_N B
-    operands of C x LAST_N bf16, each latent row as bf16 pairs padded to a
-    whole 16-byte load for each of four lane quads, the mid biases."""
-    src = (Path(kmc.__file__).parent / "csrc" / "mc_consensus.cu").read_text()
-    warps = int(re.search(r"constexpr int WARPS = (\d+);", src).group(1))
-    assert kmc._THREADS == 32 * warps
+    the kernel's own block shape and layout (``csrc/mc_consensus.cu``): a
+    block is one warpgroup (``mcw::THREADS``). The float32 body
+    (``mcw::LayoutF32``): each mid layer's W split into a TF32 hi and a lo
+    plane (8 bytes a weight), the mid biases, w_last and S latent rows, all
+    float32. The bf16 body (``mcw::Layout``): each mid layer's W in bf16,
+    the last layer's LAST_N B operands of C x LAST_N bf16, each latent row
+    as bf16 pairs padded to a whole 16-byte load for each of four lane
+    quads, the mid biases."""
+    src = _kernel_source()
+    threads = int(re.search(r"constexpr int THREADS = (\d+);", src).group(1))
+    assert kmc._THREADS == threads == 128  # a warpgroup: 64 pixels, 16 a warp
+    for term in ("bias(8 * static_cast<size_t>(n_mid) * c * c)",
+                 "last(bias + 4 * static_cast<size_t>(n_mid) * c)",
+                 "z(last + 4 * static_cast<size_t>(c))",
+                 "bytes(z + 4 * static_cast<size_t>(s) * c)"):
+        assert term in src  # mcw::LayoutF32's members, in order
     assert kmc._smem_bytes(64, 16, 1) == 8 * 64 * 64 + 4 * (64 + 64 + 16 * 64)  # the flagship
-    hidden = warps * 16 * 32 * 4
-    assert kmc._smem_bytes(32, 5, 2) == 2 * 8 * 32 * 32 + hidden + 4 * (2 * 32 + 32 + 5 * 32)
+    assert kmc._smem_bytes(32, 5, 2) == 2 * 8 * 32 * 32 + 4 * (2 * 32 + 32 + 5 * 32)
+    assert kmc._smem_bytes(8, 3, 0) == 4 * (8 + 3 * 8)
     assert kmc._smem_bytes(64, 778, 1) <= kmc._MAX_SMEM < kmc._smem_bytes(64, 779, 1)
 
     last_n = int(re.search(r"constexpr int LAST_N = (\d+);", src).group(1))
@@ -104,6 +115,36 @@ def test_shared_memory_reckoning_follows_the_kernel_source():
     s_max = (kmc._MAX_SMEM - 2 * 64 * 64 - 2 * last_n * last_n * 64 - 4 * 64) // (16 * 8)
     assert kmc._smem_bytes(64, s_max, 1, bf16) <= kmc._MAX_SMEM < kmc._smem_bytes(
         64, s_max + 1, 1, bf16)
+
+
+@pytest.mark.parametrize("hw,b,resident", [
+    (512 * 512, 4, 396),   # a tiled frame's four tiles on 132 SMs x 3 blocks
+    (512 * 512, 2, 396),   # the MT teacher
+    (528 * 704, 1, 396),   # a pseudo frame
+    (512 * 512, 9, 264),   # a MitoEM prediction batch at two blocks an SM
+    (2048 * 2048, 36, 396),
+    (37 * 29, 2, 396),     # 1,073 pixels an image: 17 tiles, the last one ragged
+    (1, 1, 396), (64, 1, 396), (65, 1, 396),
+    (4 * 64, 3, 5),        # 12 tiles over 5 resident blocks: 3 a block, 2 blocks an image
+])
+def test_one_wave_grid_covers_every_tile_once(hw, b, resident):
+    """The persistent grid (``one_wave``, mirrored by ``one_wave_grid``):
+    blocks of T consecutive 64-pixel tiles cover each image's tiles once,
+    the last block of an image holding at least one; T is the least that
+    spreads the batch's tiles over the resident blocks, so the grid fills
+    at most one wave and part of a second (fewer than B blocks past it)."""
+    src = _kernel_source()
+    assert "(static_cast<long long>(tiles) * B + resident - 1) / resident" in src
+    assert "*blocks = (tiles + per_block - 1) / per_block;" in src
+    assert "const int tiles = (HW + 63) / 64;" in src
+    per_block, blocks = kmc.one_wave_grid(hw, b, resident)
+    tiles = -(-hw // 64)
+    assert (blocks - 1) * per_block < tiles <= blocks * per_block
+    assert (per_block - 1) * resident < tiles * b <= per_block * resident
+    assert blocks * b < resident + b
+    covered = sorted(t for x in range(blocks) for t in range(x * per_block,
+                                                              min((x + 1) * per_block, tiles)))
+    assert covered == list(range(tiles))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

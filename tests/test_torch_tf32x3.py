@@ -24,7 +24,11 @@ The MC-consensus kernel's mid layer (K = C = 64 or 32, one chain of C / 8
 k-steps) is held closer: within 1e-6 of the largest value, so that a logit
 moves by far less than the 1e-4 window around the consensus thresholds in
 which the kernel and its plain version may disagree; 1xTF32 moves logits by
-more than that window.
+more than that window. The float32 wgmma MC tail
+(``mc_consensus_wgmma_tf32``) keeps that order, all three products of a
+k-step in one chain (read from its source); at K = C for C = 8 ... 64, at
+the MT-teacher check's scale of features, its logits drift from float64 no
+more than the mma.sync body's.
 """
 
 import re
@@ -212,3 +216,49 @@ def test_mc_mid_layer_product_against_float64(c, terms):
         assert err <= 1e-6 and logit_err < 1e-4, (err, logit_err)
     else:
         assert err > 1e-6 and logit_err > 1e-4, (err, logit_err)
+
+
+def _mc_small_apart() -> bool:
+    """The float32 MC tail's chain arrangement, read from its source
+    (csrc/mc_consensus.cu mc_consensus_wgmma_tf32): whether a mid layer's
+    two small products run into a chain of their own. The products it
+    issues a k-step must be tf32x3.cuh's, in its order (lo_a * hi_b, hi_a *
+    lo_b, hi_a * hi_b), hi_a * hi_b into ``acc``."""
+    src = (Path(__file__).resolve().parents[1]
+           / "pda_torch/kernels/csrc/mc_consensus.cu").read_text()
+    calls = re.findall(r"mma_tf32<C>\((\w+), a_(hi|lo)\[j\], d \+ ((?:\(C \* C\) / 4 \+ )?)2 \* j",
+                       src)
+    assert [(half, "lo" if plane else "hi") for _, half, plane in calls] == [
+        ("lo", "hi"), ("hi", "lo"), ("hi", "hi")]
+    (small, _, _), (small2, _, _), (big, _, _) = calls
+    assert small == small2 and big == "acc"
+    return small != big
+
+
+@pytest.mark.parametrize("c", range(8, 65, 8))
+def test_mc_wgmma_chain_drift_at_most_the_mma_sync_bodys(c):
+    """K3's mid layer at K = C as the float32 wgmma body forms it (one chain
+    of C / 8 k-steps; its arrangement read from the source), then the logit
+    relu(h + b) . w_last in float32, against the same in float64, at the
+    scale of the MT-teacher check's features (workload.mc_inputs: feat x 2,
+    z, W / sqrt(C), b x 0.1, w_last x 3 / sqrt(C)), 512 pixels, three draws:
+    the logits' drift at or under the mma.sync body's (the three products
+    in one chain, mma3) and more than ten times inside the 1e-4 window
+    about the consensus thresholds."""
+    apart = _mc_small_apart()
+    for seed in range(3):
+        rng = np.random.default_rng(1000 * c + seed)
+        a = np.maximum((rng.normal(size=(512, c)) * 2).astype(np.float32)
+                       + rng.normal(size=c).astype(np.float32), np.float32(0))
+        w = (rng.normal(size=(c, c)) / np.sqrt(c)).astype(np.float32)
+        bias = (rng.normal(size=c) * 0.1).astype(np.float32)
+        w_last = (rng.normal(size=c) * 3 / np.sqrt(c)).astype(np.float32)
+        ref = np.maximum(a.astype(np.float64) @ w.astype(np.float64) + bias, 0.0) @ w_last
+
+        def drift(order_apart):
+            h = np.maximum(_tc_matmul(a, w, "3x", c // 8, apart=order_apart) + bias,
+                           np.float32(0))
+            return np.abs(h @ w_last - ref).max()
+
+        new, old = drift(apart), drift(False)
+        assert new <= old and new < 1e-5, (seed, new, old)
